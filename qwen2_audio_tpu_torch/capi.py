@@ -1,7 +1,8 @@
-"""Function-style API mirroring include/qwen2-whisper.h, encode-path subset:
-init (file, buffer, loader; with and without state), mel, encode, full,
-the embedding fingerprint, timings and free. The rest of the header
-(tokenization, segments, decoding) follows the decoder slice.
+"""Function-style API mirroring include/qwen2-whisper.h: init (file, buffer,
+loader; with and without state), mel, encode, full, the segment and token
+accessors and logits of a decode, the embedding fingerprint, timings and
+free. Tokenization and the rest of the header are not ported yet
+(ROADMAP.md, section 1, item 12).
 """
 
 from __future__ import annotations
@@ -99,6 +100,10 @@ def whisper_full_with_state(ctx, state, params, samples, n_samples=None) -> int:
 
 # ---- accessors, timings, debug (header :296-357, :517-527) ----
 
+def whisper_get_logits(ctx): return ctx.get_logits()
+def whisper_get_logits_from_state(state): return state.logits
+
+
 def whisper_n_len(ctx) -> int: return ctx.n_len()
 def whisper_n_vocab(ctx) -> int: return ctx.n_vocab()
 def whisper_n_audio_ctx(ctx) -> int: return ctx.n_audio_ctx()
@@ -112,3 +117,46 @@ def whisper_reset_timings(ctx) -> None: ctx.reset_timings()
 
 def whisper_print_emb_enc(ctx) -> None:
     ctx.print_emb_enc()
+
+
+# ---- segment accessors (header :472-515) ----
+
+def whisper_full_n_segments(ctx) -> int: return ctx.full_n_segments()
+def whisper_full_n_segments_from_state(state) -> int:
+    return len(state.segments)
+def whisper_full_lang_id(ctx) -> int: return ctx.full_lang_id()
+def whisper_full_lang_id_from_state(state) -> int: return state.lang_id
+def whisper_full_get_segment_t0(ctx, i) -> int:
+    return ctx.full_get_segment_t0(i)
+def whisper_full_get_segment_t1(ctx, i) -> int:
+    return ctx.full_get_segment_t1(i)
+def whisper_full_get_segment_speaker_turn_next(ctx, i) -> bool:
+    return ctx.state.segments[i]["speaker_turn_next"]
+def whisper_full_get_segment_text(ctx, i) -> str:
+    return ctx.full_get_segment_text(i)
+def whisper_full_n_tokens(ctx, i) -> int: return ctx.full_n_tokens(i)
+def whisper_full_get_token_text(ctx, i, j) -> str:
+    return ctx.full_get_token_text(i, j)
+def whisper_full_get_token_id(ctx, i, j) -> int:
+    return ctx.full_get_token_id(i, j)
+def whisper_full_get_token_p(ctx, i, j) -> float:
+    return ctx.full_get_token_p(i, j)
+
+
+# from-state segment accessors (header :484-515)
+def whisper_full_get_segment_t0_from_state(state, i) -> int:
+    return state.segments[i]["t0"]
+def whisper_full_get_segment_t1_from_state(state, i) -> int:
+    return state.segments[i]["t1"]
+def whisper_full_get_segment_speaker_turn_next_from_state(state, i) -> bool:
+    return state.segments[i]["speaker_turn_next"]
+def whisper_full_get_segment_text_from_state(state, i) -> str:
+    return state.segments[i]["text"]
+def whisper_full_n_tokens_from_state(state, i) -> int:
+    return len(state.segments[i]["tokens"])
+def whisper_full_get_token_id_from_state(state, i, j) -> int:
+    return state.segments[i]["tokens"][j]
+def whisper_full_get_token_text_from_state(ctx, state, i, j) -> str:
+    return ctx.token_to_str(state.segments[i]["tokens"][j])
+def whisper_full_get_token_p_from_state(state, i, j) -> float:
+    return state.segments[i]["probs"][j]

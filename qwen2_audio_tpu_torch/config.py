@@ -135,3 +135,36 @@ WHISPER_PRESETS = {
                                   n_audio_layer=32, n_text_state=1280, n_text_head=20,
                                   n_text_layer=32, n_mels=128),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2DecoderConfig:
+    """Qwen2 LM decoder config. Defaults are Qwen2-Audio-7B's text tower;
+    tests use tiny overrides."""
+
+    vocab_size: int = 156032
+    hidden_size: int = 3584
+    intermediate_size: int = 18944
+    num_hidden_layers: int = 28
+    num_attention_heads: int = 28
+    num_key_value_heads: int = 4
+    head_dim: int = 128
+    max_position_embeddings: int = 8192
+    rope_theta: float = 1_000_000.0
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = False
+    # id of the token whose embeddings get replaced by audio encoder output
+    audio_token_id: int = 151646
+
+    @property
+    def num_kv_groups(self) -> int:
+        return self.num_attention_heads // self.num_key_value_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen2AudioConfig:
+    """Full multimodal model: encoder tower + projector + Qwen2 LM."""
+
+    audio: WhisperHParams = dataclasses.field(
+        default_factory=lambda: WHISPER_PRESETS["qwen2-audio"])
+    text: Qwen2DecoderConfig = dataclasses.field(default_factory=Qwen2DecoderConfig)

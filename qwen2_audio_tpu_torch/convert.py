@@ -1,15 +1,29 @@
-"""Parameter conversion from the JAX package's encoder pytree.
+"""Parameter conversion from the JAX package's pytrees.
 
-``encoder_params_from_jax`` takes that pytree with its leaves as numpy
-arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns the
-port's tree of torch tensors with the same layout, so both packages compute
-the same function on the same weights. It imports nothing of JAX.
+``encoder_params_from_jax`` and ``decoder_params_from_jax`` take a pytree of
+the JAX package (dicts, lists and arrays; ``jax.tree.map(np.asarray, ...)``
+on the JAX side, or the arrays themselves, which numpy reads) and return
+the port's tree of CPU tensors with the same layout, values and types, so
+both packages compute the same function on the same weights.
+``bundle_from_jax`` does the same for a JAX DecoderBundle, field by field.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def encoder_params_from_jax(tree):
@@ -19,4 +33,41 @@ def encoder_params_from_jax(tree):
         return {k: encoder_params_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [encoder_params_from_jax(v) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True))
+    return _tensor(tree)
+
+
+# the decoder's pytree is dicts of stacked arrays: the same map
+decoder_params_from_jax = encoder_params_from_jax
+
+
+def _dtype(d):
+    """A JAX cache dtype (jnp.float32, jnp.bfloat16, "q8", jnp.int8) as the
+    port's."""
+    if isinstance(d, str):
+        return d
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "int8": torch.int8}[np.dtype(d).name]
+
+
+def bundle_from_jax(jb):
+    """A JAX DecoderBundle as the port's: config, decoder weights and
+    projector converted, token ids, limits and callables carried over."""
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder
+    from qwen2_audio_tpu_torch.runtime.decoding import DecoderBundle
+
+    cfg = Qwen2DecoderConfig(**dataclasses.asdict(jb.cfg))
+    return DecoderBundle(
+        cfg=cfg,
+        decoder=Decoder(decoder_params_from_jax(jb.params), cfg),
+        proj_w=_tensor(jb.proj_w),
+        proj_b=_tensor(jb.proj_b),
+        eos_token_id=int(jb.eos_token_id),
+        bos_tokens=list(jb.bos_tokens),
+        post_audio_tokens=list(jb.post_audio_tokens),
+        detokenize=jb.detokenize,
+        max_ctx=jb.max_ctx,
+        cache_dtype=_dtype(jb.cache_dtype),
+        token_strings=jb.token_strings,
+        tokenize=jb.tokenize,
+        token_bytes=jb.token_bytes,
+    )

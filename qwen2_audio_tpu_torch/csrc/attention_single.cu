@@ -1,16 +1,25 @@
-// One-shot non-causal softmax attention for Hopper (sm_90a), plain C
-// interface for ctypes.
+// Softmax attention for Hopper (sm_90a), plain C interface for ctypes: the
+// one-shot encoder attention (qa_attention_single) and the causal decoder
+// prefill (qa_attention_causal).
 //
 // Replaces the TPU kernel
 // qwen2_audio_tpu/ops/flash_attention.py::_attn_kernel_single:
 // O = softmax(Q K^T) V over keys [0, kv_valid), Q already scaled by the
 // caller, query head h reads KV head h / (H / Hkv), float32 softmax and
 // accumulation, the l == 0 -> 1 guard, output in the input type.
+// qa_attention_causal replaces the TPU kernel
+// qwen2_audio_tpu/ops/flash_attention.py::_attn_kernel with causal=True (the
+// decoder prefill): the same, with sm_scale applied to the float32 scores,
+// key j visible to query i iff j <= i and j < kv_valid, and each query
+// block's key loop stopped at its diagonal chunk (the TPU kernel's tile
+// skip).
 //
 // What bounds it: arithmetic. The encoder shape (T = 1500, d = 64, 20 heads)
 // does 4*T^2*d*H = 11.5 GFLOP per layer on 15.4 MB of bf16 Q/K/V/O: about
 // 12 us at the 989 TFLOP/s bf16 tensor-core peak against about 5 us for the
-// bytes.
+// bytes. The decoder prefill (T = 752, d = 128, 28 query heads on 4 KV
+// heads, causal) does about 4.1 GFLOP per layer: about 4 us at the bf16
+// peak, 61 us at the 67 TFLOP/s float32 peak.
 //
 // Design: the TPU kernel held a whole (128 x 1536) float32 score tile in
 // VMEM (768 KB); a Hopper block has at most 227 KB of shared memory, so the
@@ -27,6 +36,13 @@
 //   fragment load touches fall on distinct banks.
 // - float32: FMA only (no TF32), one thread per query row, 128 rows per
 //   block, keys in chunks of 32 that every thread reads by broadcast.
+// - causal bf16: the bf16 kernel above with the mask and the loop bound
+//   of the causal template flag.
+// - causal float32 (d = 128): one query row would need 2*d float
+//   registers for q and the accumulator, so two threads share a row, each
+//   holding every other float4 of d (the two halves then read neighbouring
+//   16-byte words of a shared key row, no bank conflict), and the partial
+//   dot products meet with one shuffle; 64 rows per block of 128 threads.
 // Heads are read by stride, so Q/K/V may be views into the fused QKV
 // projection output; the output is written in the layout the strides give.
 // wgmma, TMA and warp specialisation are left for later work.
@@ -71,13 +87,14 @@ constexpr int bf16_smem_bytes() {
   return (kBQ * (D + kPad) + kBK * (D + kPad) + D * (kBK + kPad)) * 2;
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
-                 Strides sv, Strides so, int group, int Tq, int kv_valid) {
+                 Strides sv, Strides so, int group, int Tq, int kv_valid,
+                 float sm_scale) {
   constexpr int LD = D + kPad;      // row stride of Qs and Ks
   constexpr int LDV = kBK + kPad;   // row stride of Vt
   constexpr int V8 = D / 8;         // 16-byte vectors per row
@@ -120,7 +137,10 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const int n_chunks = (kv_valid + kBK - 1) / kBK;
+  int n_chunks = (kv_valid + kBK - 1) / kBK;
+  if (CAUSAL)   // tile skip: no key past the block's last query row
+    n_chunks = min(n_chunks, (q0 + kBQ - 1) / kBK + 1);
+  const int qa = q0 + r0, qc = qa + 8;   // this thread's two query rows
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int k0 = ch * kBK;
     __syncthreads();   // every warp is done with the previous chunk
@@ -159,7 +179,13 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < kBK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (k0 + nt * 8 + 2 * t4 + e >= kv_valid) s[nt][e] = s[nt][2 + e] = -INFINITY;
+        const int col = k0 + nt * 8 + 2 * t4 + e;
+        if (CAUSAL) {
+          s[nt][e] = col < kv_valid && col <= qa ? s[nt][e] * sm_scale : -INFINITY;
+          s[nt][2 + e] = col < kv_valid && col <= qc ? s[nt][2 + e] * sm_scale : -INFINITY;
+        } else if (col >= kv_valid) {
+          s[nt][e] = s[nt][2 + e] = -INFINITY;
+        }
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -167,7 +193,8 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every chunk holds key k0 < kv_valid, so the new maxima are finite
+    // every chunk holds key k0 < kv_valid (and, causal, k0 <= q0 <= both
+    // rows), so the new maxima are finite
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
     const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
     m0 = mn0;
@@ -212,7 +239,6 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
   const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-  const int qa = q0 + r0, qc = qa + 8;
   __nv_bfloat16* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
@@ -320,18 +346,134 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
 }
 
+constexpr int kRowsC = 64;    // causal float32: query rows per block
+
 template <int D>
+__global__ void __launch_bounds__(2 * kRowsC)
+attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int group, int Tq, int kv_valid, float sm_scale) {
+  constexpr int D4 = D / 4;       // float4s per row
+  constexpr int H4 = D4 / 2;      // float4s this thread owns: 2 * j + half
+  // keys per chunk: the scores of a chunk stay in registers beside q and
+  // the accumulator (2 * H4 float4s), so wider heads take shorter chunks
+  constexpr int kKeysC = 2048 / D;
+  __shared__ float4 Ks[kKeysC][D4];
+  __shared__ float4 Vs[kKeysC][D4];
+  const int tid = threadIdx.x, half = tid & 1;
+  const int b = blockIdx.z, h = blockIdx.y, hk = h / group;
+  const int q0 = blockIdx.x * kRowsC, qi = q0 + (tid >> 1);
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+
+  float4 qr[H4], acc[H4];
+#pragma unroll
+  for (int j = 0; j < H4; ++j) {
+    qr[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < Tq)
+      qr[j] = *reinterpret_cast<const float4*>(
+          q + b * sq.b + h * sq.h + qi * sq.t + 4 * (2 * j + half));
+    acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = -INFINITY, l = 0.f;
+
+  // tile skip: keys past the block's last query row are never visible
+  const int k_end = min(kv_valid, q0 + kRowsC);
+  for (int k0 = 0; k0 < k_end; k0 += kKeysC) {
+    __syncthreads();
+    for (int i = tid; i < kKeysC * D4; i += 2 * kRowsC) {
+      const int r = i / D4, c = i % D4;
+      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+      if (k0 + r < k_end) {
+        kk = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.t + 4 * c);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * sv.t + 4 * c);
+      }
+      Ks[r][c] = kk;
+      Vs[r][c] = vv;
+    }
+    __syncthreads();
+
+    float s[kKeysC];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kKeysC; ++j) {
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < H4; ++c) {
+        const float4 kk = Ks[j][2 * c + half];
+        d = fmaf(qr[c].x, kk.x, d);
+        d = fmaf(qr[c].y, kk.y, d);
+        d = fmaf(qr[c].z, kk.z, d);
+        d = fmaf(qr[c].w, kk.w, d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      const int col = k0 + j;
+      s[j] = col < kv_valid && col <= qi ? d * sm_scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    // key 0 is visible to every row and comes first, so m is finite from
+    // the first chunk on and a chunk with no visible key leaves it alone
+    const float mn = fmaxf(m, mx);
+    const float alpha = expf(m - mn);
+    m = mn;
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < H4; ++c) {
+      acc[c].x *= alpha;
+      acc[c].y *= alpha;
+      acc[c].z *= alpha;
+      acc[c].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysC; ++j) {
+      const float p = expf(s[j] - mn);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < H4; ++c) {
+        const float4 vv = Vs[j][2 * c + half];
+        acc[c].x = fmaf(p, vv.x, acc[c].x);
+        acc[c].y = fmaf(p, vv.y, acc[c].y);
+        acc[c].z = fmaf(p, vv.z, acc[c].z);
+        acc[c].w = fmaf(p, vv.w, acc[c].w);
+      }
+    }
+  }
+
+  if (qi >= Tq) return;
+  const float inv = l == 0.f ? 1.f : 1.f / l;
+  float* orow = o + b * so.b + h * so.h + qi * so.t;
+#pragma unroll
+  for (int c = 0; c < H4; ++c)
+    *reinterpret_cast<float4*>(orow + 4 * (2 * c + half)) =
+        make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
+}
+
+template <int D, bool CAUSAL>
 void launch_bf16(const void* q, const void* k, const void* v, void* o,
                  Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                 int group, int Tq, int kv_valid, cudaStream_t stream) {
+                 int group, int Tq, int kv_valid, float sm_scale,
+                 cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<D>();
-  cudaFuncSetAttribute(attn_bf16_kernel<D>,
+  cudaFuncSetAttribute(attn_bf16_kernel<D, CAUSAL>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  attn_bf16_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
+  attn_bf16_kernel<D, CAUSAL><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, sv, so, group, Tq, kv_valid);
+      sk, sv, so, group, Tq, kv_valid, sm_scale);
+}
+
+template <int D>
+void launch_f32_causal(const void* q, const void* k, const void* v, void* o,
+                       Strides sq, Strides sk, Strides sv, Strides so, int B,
+                       int H, int group, int Tq, int kv_valid, float sm_scale,
+                       cudaStream_t stream) {
+  const dim3 grid((Tq + kRowsC - 1) / kRowsC, H, B);
+  attn_f32_causal_kernel<D><<<grid, 2 * kRowsC, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
+      group, Tq, kv_valid, sm_scale);
 }
 
 }  // namespace
@@ -355,9 +497,9 @@ extern "C" int qa_attention_single(
   const int group = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16 && d == 64) {
-    launch_bf16<64>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, st);
+    launch_bf16<64, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, 1.f, st);
   } else if (is_bf16 && d == 128) {
-    launch_bf16<128>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, st);
+    launch_bf16<128, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, 1.f, st);
   } else if (!is_bf16 && d == 64) {
     const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
     attn_f32_kernel<64><<<grid, kRowsF32, 0, st>>>(
@@ -366,6 +508,34 @@ extern "C" int qa_attention_single(
         group, Tq, kv_valid);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// Causal prefill. q: (B, H, T, d), k/v: (B, Hkv, T, d), o: (B, H, T, d), each
+// addressed by its (batch, head, token) strides in elements with a unit
+// stride along d; key j is visible to query i iff j <= i and j < kv_valid.
+// bf16 and float32 take d = 128 (the decoder's head dim). 1 <= kv_valid <= T.
+// Returns cudaGetLastError() after the launch.
+extern "C" int qa_attention_causal(
+    const void* q, const void* k, const void* v, void* o,
+    long long qsb, long long qsh, long long qst,
+    long long ksb, long long ksh, long long kst,
+    long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long ost,
+    int B, int H, int Hkv, int T, int kv_valid, int d, int is_bf16,
+    float sm_scale, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || T < 1 || kv_valid < 1 || kv_valid > T ||
+      d != 128)
+    return (int)cudaErrorInvalidValue;
+  const Strides sq{qsb, qsh, qst}, sk{ksb, ksh, kst}, sv{vsb, vsh, vst},
+      so{osb, osh, ost};
+  const int group = H / Hkv;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16) {
+    launch_bf16<128, true>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale, st);
+  } else {
+    launch_f32_causal<128>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale, st);
   }
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # C signature of every entry point, by source
 SIGNATURES = {
@@ -38,6 +38,14 @@ SIGNATURES = {
         # q, k, v, o, strides (b, h, t) of q, k, v, o, B, H, Hkv, Tq,
         # kv_valid, d, is_bf16, stream
         "qa_attention_single": [P, P, P, P] + [L] * 12 + [I] * 7 + [P],
+        # the same arguments, then sm_scale, stream (B, H, Hkv, T, kv_valid,
+        # d, is_bf16)
+        "qa_attention_causal": [P, P, P, P] + [L] * 12 + [I] * 7 + [F, P],
+    },
+    "flash_decode": {
+        # q, k, v, k_scale, v_scale, pos, o, B, S, Hkv, G, d, q_type,
+        # kv_type, sm_scale, stream
+        "qa_flash_decode": [P] * 7 + [I] * 7 + [F, P],
     },
 }
 

@@ -1,21 +1,24 @@
 """Public runtime API mirroring the reference's C surface
-(include/qwen2-whisper.h:141-527), encode path, in PyTorch.
+(include/qwen2-whisper.h:141-527), in PyTorch.
 
 Semantics carried over:
 - context (weights) / state (per-run buffers) split with the *_no_state /
   init_state lifecycle (header :147-177)
 - whisper_full = pcm -> mel -> offset/duration windowing -> <1 s guard ->
-  encode (src/qwen2-whisper.cpp:2341-2383)
+  encode (src/qwen2-whisper.cpp:2341-2383), then, with a Qwen2 decoder
+  attached (``ctx.decoder = bundle``), project -> prefill -> greedy decode
+  (runtime/decoding.py::run)
 - encode works on a 2*n_ctx mel window starting at mel_offset, zero-padded
   past the mel end (:2261-2285)
-- accessors, special tokens, per-phase timings + print/reset (:3435-3551)
+- accessors, special tokens, segment and token accessors, logits,
+  per-phase timings + print/reset (:3435-3551)
 
 Device: ``ContextParams.use_gpu`` (default) runs on ``cuda:{gpu_device}``
 and raises if there is no CUDA device; ``use_gpu=False`` runs on the CPU.
-On the card the mel frames go through the CUDA mel kernel and encoder
-attention through the CUDA attention kernel (ops/); on the CPU the same
-wrappers run their plain versions. Each phase ends in a device
-synchronisation so its timing is the device's.
+On the card the mel frames, the encoder attention, the decoder prefill
+attention and the decode-step cache attention go through the CUDA kernels
+(ops/); on the CPU the same wrappers run their plain versions. Each phase
+ends in a device synchronisation so its timing is the device's.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from qwen2_audio_tpu_torch.models.encoder import (
     fuse_encoder_qkv,
 )
 from qwen2_audio_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused, mel_tables
+from qwen2_audio_tpu_torch.runtime import decoding
+from qwen2_audio_tpu_torch.runtime.decoding import DecoderBundle
 from qwen2_audio_tpu_torch.tokenizer import WhisperVocab
 from qwen2_audio_tpu_torch.utils.logging import log_error, log_warn
 from qwen2_audio_tpu_torch.utils.timings import Timings, time_us
@@ -70,8 +75,9 @@ class ContextParams:
 class FullParams:
     """≙ whisper_full_params (header :359-437), defaults from
     whisper_full_default_params (src/qwen2-whisper.cpp:4231-4294). The
-    encode path reads n_threads, offset_ms, duration_ms, audio_ctx and the
-    callbacks; the decoding fields wait for the decoder slice."""
+    decoding fields are read when a decoder is attached; beam search,
+    token_timestamps and speculative_k > 0 are refused there
+    (runtime/decoding.py::_check_unsupported)."""
 
     n_threads: int = 4
     n_max_text_ctx: int = 16384
@@ -97,13 +103,38 @@ class FullParams:
     debug_mode: bool = False
     audio_ctx: int = 0
 
+    tdrz_enable: bool = False
+    suppress_regex: str | None = None
+    initial_prompt: str | None = None
+    prompt_tokens: list[int] | None = None
+
     language: str | None = "en"
     detect_language: bool = False
 
+    suppress_blank: bool = True
+    suppress_non_speech_tokens: bool = False
+
     temperature: float = 0.0
-    strategy: str = "greedy"     # "greedy" | "beam"
+    max_initial_ts: float = 1.0
+    length_penalty: float = -1.0
+
+    temperature_inc: float = 0.2
+    entropy_thold: float = 2.4
+    # zlib compression ratio of the decoded text above which the decode is
+    # degenerate and the temperature fallback fires (OpenAI whisper's
+    # compression_ratio_threshold)
+    compression_ratio_thold: float = 2.4
+    logprob_thold: float = -1.0
+    no_speech_thold: float = 0.6
+
+    strategy: str = "greedy"     # "greedy" ("beam" is refused)
     beam_size: int = 5
     best_of: int = 5
+    max_new_tokens: int = 128
+    repetition_penalty: float = 1.0
+    # n-gram speculative decoding: -1 (auto) and 0 are plain greedy here;
+    # > 0 is refused (not ported yet)
+    speculative_k: int = -1
 
     new_segment_callback: Callable | None = None
     progress_callback: Callable | None = None
@@ -135,12 +166,20 @@ def context_device(cparams: ContextParams) -> torch.device:
 
 class WhisperState:
     """≙ whisper_state (src/qwen2-whisper.cpp:795-881): per-run mel, encoder
-    output, timings."""
+    output, logits, segments, timings."""
 
     def __init__(self) -> None:
         self.mel: LogMelSpectrogram | None = None
         self.embd_enc: torch.Tensor | None = None   # (n_ctx//2, n_state) on the device
+        self.logits: np.ndarray | None = None       # (B, V) of the last decoded position
         self.timings = Timings()
+        self.exp_n_audio_ctx = 0
+        self.lang_id = 0
+        self.no_speech_prob = 0.0
+        self.segments: list[dict] = []
+        self.result_tokens: list[int] = []
+        # single-position decoder forwards run by the decode loops, summed
+        self.n_decode_forwards = 0
 
 
 class WhisperContext:
@@ -166,6 +205,7 @@ class WhisperContext:
             gelu_approximate=cparams.gelu_approximate,
             compute_dtype=cparams.compute_dtype)
         self.mel_tables = mel_tables(self.filters, self.device)
+        self._decoder: DecoderBundle | None = None
         self.state: WhisperState | None = None
         self._sync()
         self.t_load_us = time_us() - t0
@@ -229,18 +269,22 @@ class WhisperContext:
         return st
 
     @property
-    def decoder(self):
-        """The attached Qwen2 decoder; none until the decoder slice."""
-        return None
+    def decoder(self) -> DecoderBundle | None:
+        """The attached Qwen2 decoder (runtime/decoding.py::DecoderBundle);
+        with one, ``full`` goes on from encode to text."""
+        return self._decoder
 
     @decoder.setter
-    def decoder(self, bundle) -> None:
-        raise NotImplementedError(
-            "attaching a Qwen2 decoder is ported with the decoder slice "
-            "(ROADMAP.md, section 1, item 5)")
+    def decoder(self, bundle: DecoderBundle | None) -> None:
+        """Attach (or, with None, detach) a decoder; its weights move to the
+        context's device."""
+        if bundle is not None and not isinstance(bundle, DecoderBundle):
+            raise TypeError(f"decoder must be a DecoderBundle, got {type(bundle).__name__}")
+        self._decoder = None if bundle is None else bundle.to(self.device)
 
     def free(self) -> None:
         self.encoder = None
+        self._decoder = None
         self.state = None
 
     # ---- mel (header :208-240) ----
@@ -308,7 +352,7 @@ class WhisperContext:
                         samples: np.ndarray | None) -> int:
         """≙ whisper_full_with_state -> whisper_encoder_output_with_state
         (src/qwen2-whisper.cpp:2341-2383): mel, seek window, <1 s guard,
-        encode."""
+        encode; then decode when a Qwen2 decoder is attached."""
         if samples is not None and len(samples) > 0:
             if self.pcm_to_mel_with_state(state, samples,
                                           params.n_threads) != 0:
@@ -335,6 +379,9 @@ class WhisperContext:
         if rc != 0:
             log_error("full: failed to encode\n")
             return -1
+
+        if self._decoder is not None:
+            return decoding.run(self, state, params)
         return 0
 
     def full(self, params: FullParams, samples: np.ndarray | None) -> int:
@@ -366,6 +413,9 @@ class WhisperContext:
     def model_type_readable(self) -> str:
         return self.hparams.model_type
 
+    def get_logits(self) -> np.ndarray | None:
+        return self.state.logits if self.state else None
+
     def token_to_str(self, token_id: int) -> str:
         return self.vocab.token_to_str(token_id)
 
@@ -396,3 +446,32 @@ class WhisperContext:
         fp = fingerprint(self.state.embd_enc)
         print(fp, flush=True)
         return fp
+
+    # ---- segment accessors (header :472-515); populated by decoding ----
+
+    def full_n_segments(self) -> int:
+        return len(self.state.segments)
+
+    def full_lang_id(self) -> int:
+        return self.state.lang_id
+
+    def full_get_segment_text(self, i: int) -> str:
+        return self.state.segments[i]["text"]
+
+    def full_get_segment_t0(self, i: int) -> int:
+        return self.state.segments[i]["t0"]
+
+    def full_get_segment_t1(self, i: int) -> int:
+        return self.state.segments[i]["t1"]
+
+    def full_n_tokens(self, i: int) -> int:
+        return len(self.state.segments[i]["tokens"])
+
+    def full_get_token_id(self, i: int, j: int) -> int:
+        return self.state.segments[i]["tokens"][j]
+
+    def full_get_token_text(self, i: int, j: int) -> str:
+        return self.token_to_str(self.state.segments[i]["tokens"][j])
+
+    def full_get_token_p(self, i: int, j: int) -> float:
+        return self.state.segments[i]["probs"][j]

@@ -8,7 +8,7 @@ Mirrors the reference vocab semantics:
 The ggml file stores raw token *bytes* (the converter already applied the
 GPT-2 byte-decoder, models/convert-pt-to-ggml.py:242-255), so all matching
 operates on bytes. Text tokenization (the GPT-2 word split, which needs the
-``regex`` package) comes with the decoder slice.
+``regex`` package) is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,6 +16,14 @@ from __future__ import annotations
 import dataclasses
 
 from qwen2_audio_tpu_torch.lang import lang_str
+
+# openai/whisper tokenizer.py non_speech_tokens symbol set
+_NON_SPEECH = set(
+    '"#()*+/:;<=>@[\\]^_`{|}~「」『』<<>><<<>>><><<>>--***++=='.split() +
+    list('"#()*+/:;<=>@[\\]^_`{|}~「」『』') +
+    ["<<", ">>", "<<<", ">>>", "--", "---", "-(", "-[", "('", '("', '((', '))',
+     '(((', ')))', '[[', ']]', '{{', '}}', '♪♪', '♪♪♪', '♩', '♪', '♫', '♬',
+     '♭', '♮', '♯'])
 
 
 @dataclasses.dataclass
@@ -107,5 +115,4 @@ class WhisperVocab:
 
     def tokenize(self, text: str) -> list[int]:
         raise NotImplementedError(
-            "text tokenization is ported with the decoder slice "
-            "(ROADMAP.md, section 1, item 5)")
+            "text tokenization is not ported yet (ROADMAP.md, section 1, item 5)")

@@ -212,7 +212,8 @@ def test_init_forms_and_lifecycle(tmp_path):
     assert c2.model_type_readable() == "unknown" and tcapi.whisper_model_n_mels(c2) == 16
     assert c2.encoder.compute_dtype == torch.float32 and c2.params.gelu_approximate
     assert "qkv" in c2.encoder.params["layers"][0]
-    with pytest.raises(NotImplementedError):
+    assert c2.decoder is None
+    with pytest.raises(TypeError):
         c2.decoder = object()
     with pytest.raises(NotImplementedError):
         c2.vocab.tokenize("ab")
