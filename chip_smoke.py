@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (qwen2_audio_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers 32] [--calls 12] [--dec-layers 28]
-                          [--new-tokens 32]
+                          [--new-tokens 32] [--q4-layers 32]
 
-(``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8`` is a quick
-rehearsal.) Phases, each of which must pass (any failure exits non-zero
+(``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8 --q4-layers 4`` is a
+quick rehearsal.) Phases, each of which must pass (any failure exits non-zero
 before the result lines are printed):
 1. build every CUDA kernel from qwen2_audio_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, and print the card's name and power limit;
@@ -13,9 +13,14 @@ before the result lines are printed):
    main path's shapes, with stated tolerances (the decode kernels over a
    cache filled with NaN past each stream's position), and time kernel,
    plain version and (where one exists) the one-call library equivalent;
+   the four dequantizing-matmul entries at M = 1, 7, 752 and 1500 over the
+   decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
+   and float32 x, q8_0, symmetric q4_0, q4_1 (mins) and q6_K (group 16);
 3. parity at full width and depth 2, card against CPU in float32: the
-   encoder (embedding), and the Qwen2 decoder (a 160-position prefill and
-   8 greedy steps: the same tokens, logits within tolerance);
+   encoder (embedding, dense and from a q8_0 checkpoint), and the Qwen2
+   decoder (a 160-position prefill and 8 greedy steps: the same tokens,
+   logits within tolerance), dense and with q8_0 and q4_0 weights from the
+   ggml quantizers (a 16-position prefill and 4 steps, exact mode);
 4. the main path at full width, two paths, each with the launch counters
    set to 0 just before it and read just after:
    a. encode: write a random-weight (seed 0) F16 qwen2-audio checkpoint
@@ -24,13 +29,23 @@ before the result lines are printed):
       a 30 s clip ``--calls`` times; check the launch counts, the output
       shape, finiteness, and agreement with the plain attention path;
    b. audio -> text: attach a random bf16 Qwen2 decoder (seed 0, made on
-      the card, ``--dec-layers`` deep) and answer 3 requests on
-      different 30 s clips through capi.whisper_full with
-      ``--new-tokens`` new tokens each, plus one request over the int8 KV
-      cache; check the launch counts of the prefill and decode kernels
+      the card, ``--dec-layers`` deep) and answer 1 request on a 30 s clip
+      through capi.whisper_full with ``--new-tokens`` new tokens, plus one
+      request over the int8 KV cache; check the launch counts of the prefill and decode kernels
       against the prefills and decoder forwards the runs report, the
       segments, tokens and logits, and, teacher-forced over the same
-      tokens, the plain-attention path (cosine per step).
+      tokens, the plain-attention path (cosine per step);
+   c. quantized encode: the checkpoint of (a) through
+      io.export.quantize_checkpoint to q8_0 and to q4_0 (the q4_0 one
+      ``--q4-layers`` deep), each loaded with keep_quantized=True and run
+      through whisper_full: 4 launches of the flat entry per layer and
+      clip, the embedding held against the same file loaded dense;
+   d. quantized audio -> text: behind each quantized encoder a decoder
+      with q8_0 (2 requests) or packed symmetric q4_0 (1 request) stacked
+      weights and a quantized lm_head, random block contents made on the
+      card; 4 launches of the stacked entry per layer and decoder forward,
+      one of the flat entry per forward for the lm_head, the logits held
+      teacher-forced against the same weights dequantized to dense bf16.
 The last two lines of standard output are the kernels JSON line and the
 {"ok": true, ...} line. Without a CUDA device the script exits 1.
 
@@ -45,9 +60,14 @@ plain attention of |V|): each p is rounded to bf16 (2**-9 relative)
 against another running maximum in the kernel than in the plain version,
 which moves the output by up to that much where few keys carry the row,
 as in a causal prefill's first rows;
+dequantizing matmul |kernel - plain| <= atol + rtol * |plain| with atol
+1e-4 * max|plain| (both sides make the same roundings, so only the order
+of the float32 sums differs, and the tensor cores add in their own order)
+and, for bf16 outputs, rtol 2**-7 and atol 2**-8 * max|plain| (the last
+rounding may fall either way);
 2-layer float32 card vs CPU 2e-3 (embedding and decoder logits); the
 bf16 kernel paths against the plain-attention paths on the card cosine
-0.99.
+0.99, the quantized paths against their dense counterparts the same.
 """
 
 from __future__ import annotations
@@ -74,7 +94,11 @@ P_ROUND = 2.0 ** -8
 PARITY_ATOL = 2e-3
 MAIN_COS_MIN = 0.99
 DEC_PARITY_PREFILL, DEC_PARITY_STEPS = 160, 8
-TEXT_REQUESTS = 3     # audio -> text requests over the bf16 cache (+1 over int8)
+TEXT_REQUESTS = 1     # audio -> text requests over the bf16 cache (+1 over int8)
+QMM_ATOL_F32 = 1e-4   # of max|plain|
+QMM_TOL_BF16 = (2.0 ** -8, 2.0 ** -7)   # (atol of max|plain|, rtol)
+QUANT_CALLS = 6       # whisper_full calls of each quantized encode path
+QDEC_PARITY_PREFILL, QDEC_PARITY_STEPS = 16, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -425,6 +449,133 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
     return main["flash_decode"], main["flash_decode_quant"]
 
 
+
+def _rand_blocks(device, K: int, N: int, fmt: str, seed: int, layers: int = 0) -> dict:
+    """Random block contents made on the card: every byte value, -128
+    included."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    g = torch.Generator(device=device).manual_seed(seed)
+    return random_quant_linear(g, ((layers,) if layers else ()) + (K, N), fmt)
+
+
+def _quantized(device, K: int, N: int, ttype, seed: int) -> dict:
+    """A random dense (K, N) weight through the ggml quantizer."""
+    import numpy as np
+    from qwen2_audio_tpu_torch.quant.qparams import quantize_array_for_device
+    w = np.random.default_rng(seed).standard_normal((K, N)).astype(np.float32) * 0.02
+    return quantize_array_for_device(w, ttype, device=device)
+
+
+def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
+    """The four entries against their plain versions; returns the kernels
+    line's entries by name, each at one shape of the main path. ``dims``:
+    the decoder's hidden and intermediate sizes, its vocabulary and the
+    encoder's width."""
+    import torch
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+
+    bf, f32 = torch.bfloat16, torch.float32
+    D, I, V, E = dims
+    weights = {   # name: (K, N, dict, stacked)
+        "qkv q8_0": (D, D + D // 7 * 2, _rand_blocks(device, D, D + D // 7 * 2, "q8_0", 70,
+                                                    layers=2), True),
+        "gate_up q8_0": (D, 2 * I, _rand_blocks(device, D, 2 * I, "q8_0", 71, layers=2), True),
+        "down q4_0": (I, D, _rand_blocks(device, I, D, "q4_0", 72, layers=2), True),
+        "gate_up q4_0": (D, 2 * I, _rand_blocks(device, D, 2 * I, "q4_0", 73, layers=2), True),
+        "lm_head q8_0": (D, V, _rand_blocks(device, D, V, "q8_0", 74), False),
+        "lm_head q4_0": (D, V, _rand_blocks(device, D, V, "q4_0", 75), False),
+        "fc1 q8_0": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q8_0, 76), False),
+        "fc1 q4_0": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_0, 77), False),
+        "fc1 q4_1": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_1, 78), False),
+        "fc2 q6_K": (4 * E, E, _quantized(device, 4 * E, E, GGMLType.Q6_K, 79), False),
+    }
+    cases = [   # (weight, M, x dtype, fast, kernels-line name or None)
+        ("qkv q8_0", 1, bf, True, None), ("qkv q8_0", 1, f32, False, None),
+        ("qkv q8_0", 7, bf, True, None), ("qkv q8_0", 752, bf, True, None),
+        ("qkv q8_0", 752, f32, False, None), ("qkv q8_0", 752, f32, True, None),
+        ("gate_up q8_0", 1, bf, True, "quant_matmul_stacked"),
+        ("gate_up q8_0", 752, bf, True, None),
+        ("down q4_0", 1, bf, True, None), ("down q4_0", 1, f32, False, None),
+        ("down q4_0", 7, f32, True, None), ("down q4_0", 752, bf, True, None),
+        ("down q4_0", 752, f32, False, None),
+        ("gate_up q4_0", 1, bf, True, "quant_matmul4_stacked"),
+        ("gate_up q4_0", 752, bf, True, None),
+        ("lm_head q8_0", 1, bf, True, None), ("lm_head q8_0", 1, f32, False, None),
+        ("lm_head q4_0", 1, bf, True, None), ("lm_head q4_0", 7, bf, False, None),
+        ("fc1 q8_0", 1500, bf, True, "quant_matmul"), ("fc1 q8_0", 1500, f32, False, None),
+        ("fc1 q8_0", 7, f32, True, None),
+        ("fc1 q4_0", 1500, bf, True, "quant_matmul4"), ("fc1 q4_0", 1500, f32, False, None),
+        ("fc1 q4_0", 1, bf, False, None),
+        ("fc1 q4_1", 1500, bf, True, None), ("fc1 q4_1", 7, f32, False, None),
+        ("fc2 q6_K", 1500, bf, True, None), ("fc2 q6_K", 1500, f32, False, None),
+        ("fc2 q6_K", 1, bf, True, None), ("fc2 q6_K", 7, f32, False, None),
+    ]
+    rows = {"quant_matmul": 207, "quant_matmul_stacked": 474,
+            "quant_matmul4": 1010, "quant_matmul4_stacked": 819}
+    main = {}
+    for i, (wname, M, dtype, fast, line) in enumerate(cases):
+        K, N, qw, stacked = weights[wname]
+        packed = "qs4" in qw
+        off = 8 if packed and "mins" not in qw else 0
+        g = torch.Generator(device=device).manual_seed(90 + i)
+        x = torch.randn(M, K, generator=g, device=device).to(dtype)
+        q, sc = qw["qs4" if packed else "qs"], qw["scales"]
+        li = (1,) if stacked else ()
+        kw = {"fast": fast, **({"off": off} if packed else {})}
+        entry = getattr(qm, "quant_matmul" + ("4" if packed else "")
+                        + ("_stacked" if stacked else ""))
+        plain = qm.quant_matmul4_plain if packed else qm.quant_matmul_plain
+        ql, scl = (q[1], sc[1]) if stacked else (q, sc)
+        got = entry(x, q, sc, *li, **kw)
+        want = plain(x, ql, scl, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().max().item()
+        atol, rtol = (QMM_ATOL_F32 * top, 0.0) if dtype == f32 else \
+            (QMM_TOL_BF16[0] * top, QMM_TOL_BF16[1])
+        used = (diff / (atol + rtol * want.float().abs())).max().item()
+        tname = str(dtype).removeprefix("torch.")
+        what = (f"{entry.__name__} {wname} K={K} N={N} M={M} x {tname} "
+                f"{'fast' if fast else 'exact'} group {K // scl.shape[0]} scales "
+                f"{str(sc.dtype).removeprefix('torch.')}")
+        log(f"{what}: max_abs_err={diff.max().item():.3e} (max|plain| {top:.3f}), "
+            f"{used:.3f} of the tolerance (atol {atol:.3e} + rtol {rtol:.3g} * |plain|)")
+        require(got.shape == (M, N) and got.dtype == dtype, f"{what}: shape or type")
+        require(bool(torch.isfinite(got).all()), f"{what}: kernel output not finite")
+        require(used <= 1.0, f"{what}: kernel disagrees with its plain version "
+                f"({used:.3f} of the tolerance)")
+        if "mins" in qw and not fast:   # the min term, added outside the kernel
+            ref = x.float() @ qm.dequantize_weight(qw)
+            rel = ((qm.quant_linear(x, qw).float() - ref).abs().max() / ref.abs().max()).item()
+            log(f"{what}: quant_linear with mins vs dense product: {rel:.3e} of max|ref|")
+            require(rel <= QMM_ATOL_F32, f"{what}: the min term is off ({rel})")
+        # the entry's time beside its bound, its plain version and one
+        # torch.matmul on the dequantized weight in x's type
+        nbytes = (ql.numel() + scl.numel() * scl.element_size()
+                  + (x.numel() + M * N) * x.element_size())
+        b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_BF16 if fast else PEAK_F32)
+        dense = qm.block_weight(ql, scl, packed=packed, off=off).to(dtype)
+        big = K * N > 1e8
+        t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50),
+             "plain_ms": time_ms(lambda: plain(x, ql, scl, **kw), iters=3 if big else 10,
+                                 warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(lambda: x @ dense, iters=10)}
+        del dense
+        log(f"{what}: " + json.dumps(t))
+        if line is not None:
+            main[line] = {"name": line, "route": "cuda",
+                          "source": "qwen2_audio_tpu_torch/csrc/quant_matmul.cu",
+                          "replaces": f"qwen2_audio_tpu/ops/quant_matmul.py:{rows[line]}",
+                          "shape": what, "max_abs_err": diff.max().item(), **t}
+    require(set(main) == set(rows), "quant matmul: a kernels-line entry is missing")
+    del weights
+    torch.cuda.empty_cache()
+    return main
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: full width, depth 2, card vs CPU in float32
 # --------------------------------------------------------------------------- #
@@ -506,6 +657,95 @@ def check_decoder_parity(device, cfg, T0: int = DEC_PARITY_PREFILL,
     return err
 
 
+
+def check_quant_encoder_parity(device, hp) -> float:
+    """The encoder with q8_0 layer weights from the ggml quantizer, exact
+    mode, float32: the card's kernels against the CPU's plain versions."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.models.encoder import (encoder_forward, fuse_encoder_qkv,
+                                                      random_encoder_params)
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.quant.qparams import quantize_encoder_params
+
+    params = fuse_encoder_qkv(quantize_encoder_params(
+        random_encoder_params(np.random.default_rng(5), hp), GGMLType.Q8_0))
+    mel = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, hp.n_mels, 2 * hp.n_audio_ctx)).astype(np.float32))
+    opts = dict(gelu_approximate=True, use_flash=True, compute_dtype=torch.float32)
+    set_group_matmul_mode("dequant")
+    try:
+        want = encoder_forward(params, mel, hp, **opts)[0]
+        got = encoder_forward(_tree_to(params, device), mel.to(device), hp, **opts)[0].cpu()
+    finally:
+        set_group_matmul_mode(None)
+    err = (got - want).abs().max().item()
+    log(f"quantized encoder parity (q8_0, exact mode) depth {hp.n_audio_layer} width "
+        f"{hp.n_audio_state}: embedding max_abs_err={err:.3e} (tol {PARITY_ATOL})")
+    require(err <= PARITY_ATOL, f"quantized encoder parity: card and CPU differ by {err}")
+    return err
+
+
+def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
+                               steps: int = QDEC_PARITY_STEPS) -> dict:
+    """The decoder at full width with q8_0 and with packed symmetric q4_0
+    weights from the ggml quantizers (the q4_0 lm_head stays dense to hold
+    the run's length), exact mode, float32: a T0-position prefill and
+    ``steps`` greedy steps on the card (kernels) and on the CPU (plain
+    versions); the same tokens, logits within PARITY_ATOL."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import (fuse_decoder_params,
+                                                            random_decoder_params)
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.quant.qparams import payload_form, quantize_decoder_params
+    from qwen2_audio_tpu_torch.runtime.generate import generate_on_device
+
+    dense = _tree_to(random_decoder_params(
+        torch.Generator(device=device).manual_seed(2), cfg, dtype=torch.float32), "cpu")
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, T0, cfg.hidden_size)).astype(np.float32))
+    errs = {}
+    set_group_matmul_mode("dequant")
+    try:
+        for fmt, ttype, head in (("q8_0", GGMLType.Q8_0, True), ("q4_0", GGMLType.Q4_0, False)):
+            t0 = time.perf_counter()
+            cpu_params = fuse_decoder_params(quantize_decoder_params(
+                dense, ttype, quantize_lm_head=head))
+            log(f"quantized decoder parity {fmt}: {cfg.num_hidden_layers} layers"
+                f"{' + lm_head' if head else ''} quantized on the host in "
+                f"{time.perf_counter() - t0:.1f} s, form "
+                f"{payload_form(cpu_params['layers']['qkv'])}")
+            out = {}
+            for where, params, dev in (("card", _tree_to(cpu_params, device), device),
+                                       ("cpu", cpu_params, "cpu")):
+                t0 = time.perf_counter()
+                res = generate_on_device(params, cfg, x.to(dev), max_new_tokens=steps,
+                                         eos_token_id=cfg.vocab_size - 1,
+                                         cache_max_ctx=T0 + steps, cache_dtype=torch.float32)
+                out[where] = [r.cpu() if isinstance(r, torch.Tensor) else r for r in res]
+                log(f"quantized decoder parity {fmt}: {where} prefill {T0} + {res[2]} "
+                    f"steps in {time.perf_counter() - t0:.1f} s")
+            (ct, _, cn, cf, c0), (ht, _, hn, hf, h0) = out["card"], out["cpu"]
+            err = max((cf - hf).abs().max().item(), (c0 - h0).abs().max().item())
+            log(f"quantized decoder parity {fmt} depth {cfg.num_hidden_layers} width "
+                f"{cfg.hidden_size} f32 exact mode: tokens card {ct[0, :cn].tolist()} cpu "
+                f"{ht[0, :hn].tolist()}; first and final logits max_abs_err={err:.3e} "
+                f"(tol {PARITY_ATOL})")
+            require(cn == hn == steps and torch.equal(ct, ht),
+                    f"quantized decoder parity {fmt}: tokens differ")
+            require(err <= PARITY_ATOL,
+                    f"quantized decoder parity {fmt}: card and CPU logits differ by {err}")
+            errs[fmt] = err
+            del cpu_params, params, out
+            torch.cuda.empty_cache()
+    finally:
+        set_group_matmul_mode(None)
+    return errs
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: the main path
 # --------------------------------------------------------------------------- #
@@ -578,7 +818,7 @@ def run_main_path(hp, calls: int, workdir: str) -> dict:
     require(cos >= MAIN_COS_MIN, "main: kernel path disagrees with the plain path")
     profile_call(lambda: capi.whisper_full(ctx, params, x), "whisper_full (encode)")
     steady = per_call[1:] or per_call
-    return ctx, {"launches": launches, "per_call_ms": per_call,
+    return ctx, {"launches": launches, "per_call_ms": per_call, "path": path,
                  "steady_ms": statistics.median(steady)}
 
 
@@ -586,9 +826,11 @@ def _launch_counters():
     from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal, attention_single
     from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
     from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
+    from qwen2_audio_tpu_torch.ops.quant_matmul import ENTRIES
     return {"mel_log_frames": mel_frames, "attention_single": attention_single,
             "attention_causal": attention_causal, "flash_decode": flash_decode,
-            "flash_decode_quant": flash_decode_quant}
+            "flash_decode_quant": flash_decode_quant,
+            **{e.__name__: e for e in ENTRIES}}
 
 
 def _cosine(a, b) -> float:
@@ -596,9 +838,11 @@ def _cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm())).item()
 
 
-def teacher_forced_cosines(bundle, st) -> list[float]:
-    """The request's prefill and tokens through the kernel path and the
-    plain-attention path on the card; cosine of the logits per step."""
+def teacher_forced_cosines(bundle, st, other=None) -> list[float]:
+    """The request's prefill and tokens through the kernel path and through
+    another path on the card; cosine of the logits per step. The other path
+    is the plain attention over the same weights or, with ``other`` (a
+    parameter tree), the kernel attention over those weights."""
     import torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
     from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
@@ -606,16 +850,17 @@ def teacher_forced_cosines(bundle, st) -> list[float]:
     prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
     T0, toks = prefill.shape[1], st.result_tokens
     per_path = []
-    for flash in (True, False):
+    for params, flash in ((bundle.params, True),
+                          (bundle.params, False) if other is None else (other, True)):
         cache = create_cache(bundle.cfg, 1, T0 + len(toks), dtype=torch.bfloat16,
                              device=prefill.device)
-        lg, cache = decoder_forward(bundle.params, bundle.cfg, prefill, cache, 0,
+        lg, cache = decoder_forward(params, bundle.cfg, prefill, cache, 0,
                                     block_only=True, logits_last_only=True,
                                     use_flash=flash)
         steps = [lg[0, -1]]
         for j, tok in enumerate(toks[:-1]):
             x = bundle.decoder.embed(torch.tensor([[tok]], device=prefill.device))
-            lg, cache = decoder_forward(bundle.params, bundle.cfg, x, cache, T0 + j,
+            lg, cache = decoder_forward(params, bundle.cfg, x, cache, T0 + j,
                                         use_flash=flash)
             steps.append(lg[0, -1])
         per_path.append(steps)
@@ -709,6 +954,213 @@ def run_audio_to_text(ctx, cfg, requests: int, new_tokens: int) -> dict:
             "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in bf)}
 
 
+def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
+    """Quantize the F16 checkpoint with the port's quantize_checkpoint, load
+    it with the block weights kept, and run whisper_full ``calls`` times
+    with the launch counters set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+    from qwen2_audio_tpu_torch.config import GGMLFType
+    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint, write_encoder_checkpoint
+    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+    from qwen2_audio_tpu_torch.quant.qparams import payload_form
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+
+    if src_path is None:   # a shallower source of its own
+        src_path = os.path.join(workdir, f"qwen2-audio-random-f16-{hp.n_audio_layer}.bin")
+        write_encoder_checkpoint(src_path, random_encoder_params(np.random.default_rng(0), hp),
+                                 hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, f"qwen2-audio-random-{fmt}.bin")
+    types = quantize_checkpoint(src_path, path, GGMLFType[f"MOSTLY_{fmt.upper()}"])
+    n_q = sum(1 for t in types.values() if t not in (0, 1))
+    log(f"quant encode {fmt}: quantize_checkpoint wrote {os.path.getsize(path) / 1e9:.3f} GB "
+        f"({n_q} quantized tensors, {hp.n_audio_layer} layers) in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    require(n_q == 6 * hp.n_audio_layer, f"quant encode {fmt}: {n_q} quantized tensors")
+
+    t0 = time.perf_counter()
+    ctx = capi.whisper_init_from_file_with_params(
+        path, ContextParams(compute_dtype=torch.bfloat16, keep_quantized=True))
+    qkv = ctx.encoder.params["layers"][0]["qkv"]
+    log(f"quant encode {fmt}: loaded on {ctx.device} in {time.perf_counter() - t0:.1f} s, "
+        f"layer weights {payload_form(qkv)}")
+    require("w" not in qkv, f"quant encode {fmt}: the weights were expanded to dense")
+    x = noisy_tone(30.0, seed=3)
+    params = capi.whisper_full_default_params()
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    per_call = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        rc = capi.whisper_full(ctx, params, x)
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+        require(rc == 0, f"quant encode {fmt}: whisper_full returned {rc}")
+    launches = {k: c.launches for k, c in counters.items()}
+    flat = "quant_matmul4" if "qs4" in qkv else "quant_matmul"
+    tm = ctx.state.timings
+    log(f"quant encode {fmt}: per-call ms {json.dumps([round(v, 3) for v in per_call])} "
+        f"(mel {tm.t_mel_us / 1e3 / calls:.3f}, encode {tm.t_encode_us / 1e3 / calls:.3f} "
+        f"ms/call, host clock, synchronised); launches {json.dumps(launches)}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(launches[flat] == 4 * hp.n_audio_layer * calls,
+            f"quant encode {fmt}: {flat} launched {launches[flat]} times, want 4 x "
+            f"{hp.n_audio_layer} layers x {calls} calls")
+    require(sum(launches[e] for e in ("quant_matmul", "quant_matmul4",
+                                      "quant_matmul_stacked", "quant_matmul4_stacked"))
+            == launches[flat], f"quant encode {fmt}: another entry was launched")
+    require(launches["mel_log_frames"] == calls
+            and launches["attention_single"] == calls * hp.n_audio_layer,
+            f"quant encode {fmt}: mel or attention launches")
+    emb = ctx.state.embd_enc
+    require(tuple(emb.shape) == (hp.n_audio_ctx // 2, hp.n_audio_state)
+            and bool(torch.isfinite(emb).all()), f"quant encode {fmt}: bad output")
+
+    # the same file expanded to dense weights at load: cuBLAS products
+    dense = capi.whisper_init_from_file_with_params(
+        path, ContextParams(compute_dtype=torch.bfloat16, keep_quantized=False))
+    require(capi.whisper_full(dense, params, x) == 0, "quant encode: dense run failed")
+    cos = _cosine(emb, dense.state.embd_enc)
+    log(f"quant encode {fmt}: block weights through the kernel vs the same file loaded "
+        f"dense: cos={cos:.6f} (min {MAIN_COS_MIN}), max_abs_diff="
+        f"{(emb.float() - dense.state.embd_enc.float()).abs().max().item():.3e}")
+    require(cos >= MAIN_COS_MIN, f"quant encode {fmt}: kernel path disagrees with dense")
+    capi.whisper_free(dense)
+    profile_call(lambda: capi.whisper_full(ctx, params, x), f"whisper_full (encode, {fmt})")
+    steady = per_call[1:] or per_call
+    return ctx, {"launches": launches, "per_call_ms": per_call,
+                 "steady_ms": statistics.median(steady)}
+
+
+def dense_decoder_params(params: dict, dtype) -> dict:
+    """A decoder tree with every block dict dequantized to a dense ``dtype``
+    weight, layer by layer: the comparison's other side, never the port's."""
+    import torch
+    from qwen2_audio_tpu_torch.ops.quant_matmul import dequantize_weight
+
+    def dense(entry: dict, stacked: bool) -> dict:
+        if "w" in entry or not ({"qs", "qs4"} & set(entry)):
+            return entry
+        blocks = {k: v for k, v in entry.items() if k != "b"}
+        if stacked:
+            n = next(iter(blocks.values())).shape[0]
+            w = torch.stack([dequantize_weight({k: v[i] for k, v in blocks.items()}, dtype)
+                             for i in range(n)])
+        else:
+            w = dequantize_weight(blocks, dtype)
+        return {"w": w, **({"b": entry["b"]} if "b" in entry else {})}
+
+    out = dict(params)
+    out["layers"] = {k: dense(v, True) for k, v in params["layers"].items()}
+    if "lm_head" in params:
+        out["lm_head"] = dense(params["lm_head"], False)
+    return out
+
+
+def run_quant_text(ctx, cfg, fmt: str, requests: int, new_tokens: int) -> dict:
+    """Behind the quantized encoder of ``ctx``, attach a decoder whose
+    linears and lm_head are random ``fmt`` blocks made on the card (seed 0)
+    and answer ``requests`` requests through capi.whisper_full, with the
+    launch counters set to 0 just before and read just after."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    from qwen2_audio_tpu_torch.quant.qparams import payload_form
+
+    t0 = time.perf_counter()
+    bundle = random_bundle(torch.Generator(device=ctx.device).manual_seed(0), cfg,
+                           ctx.hparams.n_audio_state, dtype=torch.bfloat16,
+                           max_ctx=2048, cache_dtype=torch.bfloat16, quant=fmt)
+    ctx.decoder = bundle
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in bundle.decoder.buffers())
+    q_bytes = sum(t.numel() * t.element_size() for n, t in bundle.decoder.named_buffers()
+                  if n.rsplit(".", 1)[-1] in ("qs", "qs4", "scales"))
+    form = payload_form(bundle.params["layers"]["qkv"])
+    log(f"quant text {fmt}: {cfg.num_hidden_layers}-layer decoder, {n_bytes / 1e9:.2f} GB on "
+        f"the card ({q_bytes / 1e9:.2f} GB of blocks and scales read per decode step, "
+        f"{q_bytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s), layers {form}, lm_head "
+        f"{payload_form(bundle.params['lm_head'])}, made in {time.perf_counter() - t0:.1f} s")
+    params = capi.whisper_full_default_params()
+    params.max_new_tokens = new_tokens
+    params.temperature_inc = 0.0
+    params.print_progress = False
+    clips = [noisy_tone(30.0, seed=40 + i, freq=280.0 + 90.0 * i) for i in range(requests)]
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs, states = [], []
+    for clip in clips:
+        st = ctx.init_state()
+        t1 = time.perf_counter()
+        rc = capi.whisper_full_with_state(ctx, st, params, clip)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        require(rc == 0, f"quant text {fmt}: whisper_full returned {rc}")
+        tm = st.timings
+        n_tok = len(st.result_tokens)
+        runs.append({"wall_ms": wall, "encode_ms": tm.t_encode_us / 1e3,
+                     "prefill_ms": tm.t_prompt_us / 1e3, "prefill_positions": tm.n_prompt,
+                     "tokens": n_tok, "forwards": st.n_decode_forwards,
+                     "decode_ms_per_token": tm.t_decode_us / 1e3 / max(n_tok, 1)})
+        states.append(st)
+        require(n_tok > 0 and len(st.segments) == 1, f"quant text {fmt}: no tokens")
+        require(bool(np.isfinite(st.logits).all()), f"quant text {fmt}: logits not finite")
+        log(f"quant text {fmt}: request {len(runs)} {json.dumps(runs[-1])}; text "
+            f"{capi.whisper_full_get_segment_text_from_state(st, 0)[:80]!r}")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    L, La = cfg.num_hidden_layers, ctx.hparams.n_audio_layer
+    packed = "qs4" in bundle.params["layers"]["qkv"]
+    stacked, flat = (("quant_matmul4_stacked", "quant_matmul4") if packed
+                     else ("quant_matmul_stacked", "quant_matmul"))
+    forwards = sum(1 + r["forwards"] for r in runs)      # prefill + decode steps
+    log(f"quant text {fmt}: launches {json.dumps(launches)}; decoder forwards {forwards} "
+        f"(prefills included); peak device memory {peak:.2f} GiB")
+    require(launches[stacked] == 4 * L * forwards,
+            f"quant text {fmt}: {stacked} launched {launches[stacked]} times, want 4 x "
+            f"{L} layers x {forwards} forwards")
+    require(launches[flat] == forwards + 4 * La * len(runs),
+            f"quant text {fmt}: {flat} launched {launches[flat]} times, want {forwards} "
+            f"(lm_head) + 4 x {La} encoder layers x {len(runs)} requests")
+    require(sum(launches[e] for e in ("quant_matmul", "quant_matmul4",
+                                      "quant_matmul_stacked", "quant_matmul4_stacked"))
+            == launches[stacked] + launches[flat],
+            f"quant text {fmt}: another entry was launched")
+    require(launches["attention_causal"] == L * len(runs)
+            and launches["flash_decode"] == L * (forwards - len(runs)),
+            f"quant text {fmt}: prefill or decode kernel launches")
+    if new_tokens == 32 and all(r["tokens"] == 32 for r in runs):
+        require(launches[stacked] == 3584 * len(runs) and
+                launches[flat] == (32 + 4 * La) * len(runs),
+                f"quant text {fmt}: launches per 32-token request")
+
+    dense = dense_decoder_params(bundle.params, torch.bfloat16)
+    cos = teacher_forced_cosines(bundle, states[-1], other=dense)
+    del dense
+    log(f"quant text {fmt}: kernel path vs the same weights dequantized to dense bf16, "
+        f"teacher-forced over {len(cos)} steps: min cos {min(cos):.6f} (min "
+        f"{MAIN_COS_MIN}), per step {json.dumps([round(c, 6) for c in cos])}")
+    require(min(cos) >= MAIN_COS_MIN, f"quant text {fmt}: kernel path disagrees with dense")
+    profile_call(lambda: capi.whisper_full(ctx, params, clips[0]),
+                 f"whisper_full (audio -> text, {fmt})")
+    ctx.decoder = None
+    del bundle
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, "peak_gib": peak, "block_gb": q_bytes / 1e9,
+            "prefill_ms": statistics.median(r["prefill_ms"] for r in runs),
+            "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in runs)}
+
+
 def profile_call(fn, what: str) -> None:
     """One call under torch.profiler: device time by kernel group and the
     device's busy share of the call's wall time."""
@@ -733,6 +1185,7 @@ def profile_call(fn, what: str) -> None:
                  else "attention_single" if "attn_" in name
                  else "flash_decode" if "decode_kernel" in name
                  else "mel_log_frames" if "mel_log_frames" in name
+                 else "quant_matmul" if "qmm_" in name
                  else "matmul" if any(w in name for w in ("gemm", "nvjet", "cutlass", "sm90"))
                  else "memcpy" if "memcpy" in name
                  else "other (norm, gelu, add, copy, reduce)")
@@ -758,6 +1211,9 @@ def main(argv=None) -> int:
                     help="decoder depth of the audio -> text path (full: 28)")
     ap.add_argument("--new-tokens", type=int, default=32,
                     help="new tokens per audio -> text request")
+    ap.add_argument("--q4-layers", type=int, default=32,
+                    help="encoder depth of the q4_0 checkpoint (full: 32; the q8_0 "
+                         "one has --layers)")
     args = ap.parse_args(argv)
 
     import torch
@@ -767,6 +1223,7 @@ def main(argv=None) -> int:
         return 1
     import dataclasses
 
+    from qwen2_audio_tpu_torch import capi
     from qwen2_audio_tpu_torch.config import WHISPER_PRESETS, Qwen2DecoderConfig
 
     device = torch.device("cuda", 0)
@@ -779,16 +1236,31 @@ def main(argv=None) -> int:
         attn_bf16, attn_f32 = check_attention(device)
         causal_bf16, causal_f32 = check_causal(device)
         decode, decode_q8 = check_decode(device)
+        qmm = check_quant_matmul(device)
         full = WHISPER_PRESETS["qwen2-audio"]
+        two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
         check_parity(device, dataclasses.replace(full, n_audio_layer=2))
-        check_decoder_parity(device, dataclasses.replace(Qwen2DecoderConfig(),
-                                                         num_hidden_layers=2))
+        check_quant_encoder_parity(device, dataclasses.replace(full, n_audio_layer=2))
+        check_decoder_parity(device, two)
+        check_quant_decoder_parity(device, two)
+        dec_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=args.dec_layers)
         with tempfile.TemporaryDirectory() as workdir:
             ctx, res = run_main_path(dataclasses.replace(full, n_audio_layer=args.layers),
                                      args.calls, workdir)
-        text = run_audio_to_text(ctx, dataclasses.replace(
-            Qwen2DecoderConfig(), num_hidden_layers=args.dec_layers),
-            TEXT_REQUESTS, args.new_tokens)
+            text = run_audio_to_text(ctx, dec_cfg, TEXT_REQUESTS, args.new_tokens)
+            capi.whisper_free(ctx)
+            torch.cuda.empty_cache()
+            ctx8, enc8 = run_quant_encode(
+                res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
+                QUANT_CALLS, workdir)
+            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", 2, args.new_tokens)
+            capi.whisper_free(ctx8)
+            ctx4, enc4 = run_quant_encode(
+                res["path"] if args.q4_layers == args.layers else None,
+                dataclasses.replace(full, n_audio_layer=args.q4_layers), "q4_0",
+                QUANT_CALLS, workdir)
+            text4 = run_quant_text(ctx4, dec_cfg, "q4_0", 1, args.new_tokens)
+            capi.whisper_free(ctx4)
     except Exception as e:  # every phase failure ends the run with no result
         import traceback
         traceback.print_exc()
@@ -799,6 +1271,9 @@ def main(argv=None) -> int:
         k["launches"] = res["launches"][k["name"]]
     for k in (causal_bf16, decode, decode_q8):
         k["launches"] = text["launches"][k["name"]]
+    for name, run in (("quant_matmul", text8), ("quant_matmul_stacked", text8),
+                      ("quant_matmul4_stacked", text4), ("quant_matmul4", text4)):
+        qmm[name]["launches"] = run["launches"][name]
     log(f"summary: whisper_full steady {res['steady_ms']:.3f} ms per 30 s clip, "
         f"{args.layers} layers, bf16; attention f32 at the encoder shape "
         f"{attn_f32['ms']:.4f} ms (plain {attn_f32['plain_ms']:.4f}, sdpa "
@@ -808,9 +1283,17 @@ def main(argv=None) -> int:
         f"{causal_f32['bound_ms']:.4f}); audio -> text ({args.dec_layers}-layer "
         f"decoder, bf16): prefill {text['prefill_ms']:.3f} ms, decode "
         f"{text['decode_ms_per_token']:.3f} ms per token (medians), peak "
-        f"{text['peak_gib']:.2f} GiB; total {time.perf_counter() - t_start:.1f} s")
+        f"{text['peak_gib']:.2f} GiB")
+    for fmt, enc, txt in (("q8_0", enc8, text8), ("q4_0", enc4, text4)):
+        log(f"summary {fmt}: quantized whisper_full steady {enc['steady_ms']:.3f} ms per "
+            f"30 s clip; quantized audio -> text: prefill {txt['prefill_ms']:.3f} ms, "
+            f"decode {txt['decode_ms_per_token']:.3f} ms per token (medians; "
+            f"{txt['block_gb']:.2f} GB of blocks per step), peak {txt['peak_gib']:.2f} GiB")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
-    print(json.dumps({"kernels": [mel, attn_bf16, causal_bf16, decode, decode_q8]}))
+    print(json.dumps({"kernels": [mel, attn_bf16, causal_bf16, decode, decode_q8,
+                                  qmm["quant_matmul"], qmm["quant_matmul_stacked"],
+                                  qmm["quant_matmul4_stacked"], qmm["quant_matmul4"]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,8 +5,10 @@ the JAX package (dicts, lists and arrays; ``jax.tree.map(np.asarray, ...)``
 on the JAX side, or the arrays themselves, which numpy reads) and return
 the port's tree of CPU tensors with the same layout, values and types, so
 both packages compute the same function on the same weights.
-``bundle_from_jax`` does the same for a JAX DecoderBundle, field by field.
-Nothing here imports JAX.
+``quant_params_from_jax`` does the same for trees that hold ggml block dicts
+and turns the storage forms the JAX package keeps for its TPU compiler into
+the port's (quant/qparams.py). ``bundle_from_jax`` converts a JAX
+DecoderBundle, field by field. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +41,39 @@ def encoder_params_from_jax(tree):
 # the decoder's pytree is dicts of stacked arrays: the same map
 decoder_params_from_jax = encoder_params_from_jax
 
+_NOT_PORTED_LEAVES = ("qs_p", "qs4_p", "scales_p", "qs4b", "qs8", "scale_n")
+
+
+def _quant_leaf(key: str, a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if key == "qs":                       # int8, or int4 where JAX holds it
+        return torch.from_numpy(a.astype(np.int8))
+    if key == "qs4":                      # nibble bytes, stored int8 or uint8
+        return torch.from_numpy(a.view(np.uint8))
+    if key == "scales" and a.dtype == np.uint16:   # f16 bit patterns
+        return torch.from_numpy(a.view(np.float16))
+    return _tensor(a)
+
+
+def quant_params_from_jax(tree):
+    """``encoder_params_from_jax`` for trees with ggml block dicts (numpy or
+    JAX leaves): "qs" becomes int8 (from int4 too), the nibble stream "qs4"
+    uint8 (the JAX package may hold the same bytes as int8), uint16 scale
+    bit patterns float16; values are unchanged. Dense leaves pass through.
+    The panel, word-packed and per-channel forms have no counterpart in the
+    port and raise."""
+    if isinstance(tree, dict):
+        bad = [k for k in _NOT_PORTED_LEAVES if k in tree]
+        if bad:
+            raise NotImplementedError(
+                f"weight form {sorted(tree)} is not ported yet (ROADMAP.md, section 2)")
+        if "qs" in tree or "qs4" in tree:
+            return {k: _quant_leaf(k, v) for k, v in tree.items()}
+        return {k: quant_params_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [quant_params_from_jax(v) for v in tree]
+    return _tensor(tree)
+
 
 def _dtype(d):
     """A JAX cache dtype (jnp.float32, jnp.bfloat16, "q8", jnp.int8) as the
@@ -50,15 +85,16 @@ def _dtype(d):
 
 
 def bundle_from_jax(jb):
-    """A JAX DecoderBundle as the port's: config, decoder weights and
-    projector converted, token ids, limits and callables carried over."""
+    """A JAX DecoderBundle as the port's: config, decoder weights (dense or
+    ggml block dicts) and projector converted, token ids, limits and
+    callables carried over."""
     from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder
     from qwen2_audio_tpu_torch.runtime.decoding import DecoderBundle
 
     cfg = Qwen2DecoderConfig(**dataclasses.asdict(jb.cfg))
     return DecoderBundle(
         cfg=cfg,
-        decoder=Decoder(decoder_params_from_jax(jb.params), cfg),
+        decoder=Decoder(quant_params_from_jax(jb.params), cfg),
         proj_w=_tensor(jb.proj_w),
         proj_b=_tensor(jb.proj_b),
         eos_token_id=int(jb.eos_token_id),

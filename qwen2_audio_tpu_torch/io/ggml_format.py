@@ -19,8 +19,8 @@ Quantized files store ftype + GGML_QNT_VERSION*1000 (qntvr split at
 src/qwen2-whisper.cpp:1413-1415).
 
 Tensors are exposed in natural numpy shape (reverse of the stored ne order).
-Files of every tensor type parse; only F32/F16/BF16 tensors convert to
-float (``GGMLTensor.to_f32``) until the quantized-weights slice lands.
+Quantized payloads stay packed uint8 blocks; ``GGMLTensor.to_f32``
+dequantizes them with quant/codecs.py.
 """
 
 from __future__ import annotations
@@ -38,44 +38,8 @@ from qwen2_audio_tpu_torch.config import (
     GGMLType,
     WhisperHParams,
 )
-
-QK = 32      # elements per block of the 32-group formats
-QK_K = 256   # elements per super-block of the k-quants
-
-# bytes per block, matching sizeof(block_*) with packed f16 scales
-BLOCK_BYTES = {
-    GGMLType.Q4_0: 2 + 16,          # f16 d + 16 nibble bytes
-    GGMLType.Q4_1: 2 + 2 + 16,      # f16 d + f16 m + 16 nibble bytes
-    GGMLType.Q5_0: 2 + 4 + 16,      # f16 d + u32 qh + 16 nibble bytes
-    GGMLType.Q5_1: 2 + 2 + 4 + 16,  # f16 d + f16 m + u32 qh + 16 nibble bytes
-    GGMLType.Q8_0: 2 + 32,          # f16 d + 32 int8
-}
-KBLOCK_BYTES = {
-    GGMLType.Q2_K: 16 + 64 + 2 + 2,    # 4-bit scale|min bytes, 2-bit quants, d, dmin
-    GGMLType.Q3_K: 32 + 64 + 12 + 2,   # hmask, 2-bit quants, 6-bit scales, d
-    GGMLType.Q4_K: 2 + 2 + 12 + 128,   # d, dmin, 6-bit scales/mins, nibbles
-    GGMLType.Q5_K: 2 + 2 + 12 + 32 + 128,  # d, dmin, scales, qh, nibbles
-    GGMLType.Q6_K: 128 + 64 + 16 + 2,  # ql, qh, int8 scales, d
-}
-
-
-def type_size_bytes(ttype: GGMLType, n_elements: int) -> int:
-    """Total storage bytes for n_elements in the given format."""
-    ttype = GGMLType(ttype)
-    if ttype == GGMLType.F32:
-        return 4 * n_elements
-    if ttype in (GGMLType.F16, GGMLType.BF16):
-        return 2 * n_elements
-    if ttype in BLOCK_BYTES:
-        if n_elements % QK:
-            raise ValueError(f"{n_elements} not a multiple of {QK}")
-        return n_elements // QK * BLOCK_BYTES[ttype]
-    if ttype in KBLOCK_BYTES:
-        if n_elements % QK_K:
-            raise ValueError(f"{n_elements} not a multiple of {QK_K}")
-        return n_elements // QK_K * KBLOCK_BYTES[ttype]
-    raise ValueError(f"unsupported ggml type {ttype}")
-
+from qwen2_audio_tpu_torch.quant import codecs
+from qwen2_audio_tpu_torch.quant.codecs import type_size_bytes  # noqa: F401
 
 @dataclasses.dataclass
 class GGMLTensor:
@@ -92,12 +56,11 @@ class GGMLTensor:
         return n
 
     def to_f32(self) -> np.ndarray:
-        """Float32 view in natural numpy shape (F32, F16 and BF16 only)."""
+        """Float32 array in natural numpy shape, dequantizing block formats."""
         if self.ttype in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
             return self.raw.astype(np.float32).reshape(self.shape)
-        raise NotImplementedError(
-            f"tensor '{self.name}' is {self.ttype.name}: quantized weights are "
-            "not ported yet (ROADMAP.md, section 1, item 7: quantized weights)")
+        return codecs.dequantize(self.raw, self.ttype,
+                                 self.n_elements).reshape(self.shape)
 
 
 @dataclasses.dataclass

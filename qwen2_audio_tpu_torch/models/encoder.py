@@ -24,8 +24,11 @@ The parameter tree has the JAX package's layout, with torch tensors:
       "ln_post": {"w","b"},
     }
 
-Linear weights are [in, out]; ``x @ w + b``. ``Encoder`` holds such a tree
-as module buffers, so ``.to(device)`` moves it.
+Linear weights are [in, out]; ``x @ w + b``. A layer's linear may instead be
+a ggml block dict ({"qs" | "qs4", "scales"[, "mins"], "b"}, see
+quant/qparams.py), which ops.linear multiplies through the dequantizing
+kernels. ``Encoder`` holds such a tree as module buffers, so ``.to(device)``
+moves it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ from qwen2_audio_tpu_torch.config import WhisperHParams
 from qwen2_audio_tpu_torch.ops.flash_attention import (attention_encoder_plain,
                                                        flash_attention_encoder)
 from qwen2_audio_tpu_torch.ops.linear import linear
+from qwen2_audio_tpu_torch.quant.qparams import (QUANT_TYPES,
+                                                 device_weight_from_ggml_tensor)
 
 Params = dict[str, Any]
 
@@ -163,16 +168,19 @@ def encoder_forward(
 
 def fuse_encoder_qkv(params: Params) -> Params:
     """Concatenate each layer's q/k/v projections into one "qkv" leaf dict
-    along the output axis (a runtime layout; checkpoints keep q/k/v). K's
-    missing bias (reference :632) becomes zeros in the fused bias. Dense
-    weights only."""
+    along the output axis (a runtime layout; checkpoints keep q/k/v). Works
+    for every weight form, dense "w" or block "qs" / "qs4" / "scales" /
+    "mins": the quantization groups run along the input axis. K's missing
+    bias (reference :632) becomes zeros in the fused bias."""
 
     def fuse_layer(lyr: dict) -> dict:
         q, k, v = lyr["q"], lyr["k"], lyr["v"]
-        for p in (q, k, v):
-            if "w" not in p:
-                raise NotImplementedError("fuse_encoder_qkv: dense weights only")
-        fused = {"w": torch.cat([q["w"], k["w"], v["w"]], dim=-1)}
+        leaves = set(q) - {"b"}
+        if leaves != set(k) - {"b"} or leaves != set(v) - {"b"}:
+            raise ValueError("fuse_encoder_qkv: q/k/v differ in weight form: "
+                             f"{sorted(q)}, {sorted(k)}, {sorted(v)}")
+        fused = {leaf: torch.cat([q[leaf], k[leaf], v[leaf]], dim=-1)
+                 for leaf in sorted(leaves)}
         if "b" in q or "b" in v:
             ref = q.get("b", v.get("b"))
             zeros = torch.zeros_like(ref)
@@ -235,10 +243,16 @@ def random_encoder_params(rng: np.random.Generator, hp: WhisperHParams,
 
 
 def encoder_params_from_ggml(model_file, dtype: torch.dtype = torch.float32,
-                             device: torch.device | str = "cpu") -> Params:
+                             device: torch.device | str = "cpu",
+                             keep_quantized: bool = False) -> Params:
     """Build the param tree from a parsed GGMLModelFile, pre-transposing
-    linear weights from torch [out, in] to [in, out]. Dense (F32/F16/BF16)
-    tensors only. Tensor names follow src/qwen2-whisper.cpp:1603-1662."""
+    linear weights from torch [out, in] to [in, out]. Tensor names follow
+    src/qwen2-whisper.cpp:1603-1662.
+
+    ``keep_quantized``: a layer weight stored in one of the ten ggml block
+    formats stays in block form as a {"qs" | "qs4", "scales"[, "mins"]} dict
+    on ``device`` (bit-exact with the file's payload) and multiplies through
+    the dequantizing kernels; otherwise it is expanded to a dense weight."""
     hp = model_file.hparams
     ts = model_file.tensors
 
@@ -249,7 +263,11 @@ def encoder_params_from_ggml(model_file, dtype: torch.dtype = torch.float32,
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device, dtype)
 
     def lin(prefix, bias=True):
-        out = {"w": get(prefix + ".weight", transpose=True)}
+        t = ts[prefix + ".weight"]
+        if keep_quantized and t.ttype in QUANT_TYPES:
+            out = device_weight_from_ggml_tensor(t, device=device)
+        else:
+            out = {"w": get(prefix + ".weight", transpose=True)}
         if bias:
             out["b"] = get(prefix + ".bias")
         return out

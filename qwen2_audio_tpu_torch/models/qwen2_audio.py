@@ -19,6 +19,7 @@ from qwen2_audio_tpu_torch.models.qwen2_decoder import (
     Decoder,
     decoder_params_from_hf_state_dict,
     random_decoder_params,
+    random_quant_decoder_params,
 )
 from qwen2_audio_tpu_torch.runtime.decoding import DecoderBundle
 
@@ -64,11 +65,17 @@ def random_bundle(rng, cfg: Qwen2DecoderConfig, enc_state: int, *,
                   eos_token_id: int | None = None,
                   dtype: torch.dtype = torch.float32, max_ctx: int = 256,
                   cache_dtype=torch.float32,
-                  device: torch.device | str = "cpu") -> DecoderBundle:
+                  device: torch.device | str = "cpu",
+                  quant: str | None = None) -> DecoderBundle:
     """Random weights. A numpy Generator draws what the JAX package's
     random_bundle draws from the same seed; a torch.Generator draws on its
-    own device (random_decoder_params)."""
-    dec = random_decoder_params(rng, cfg, dtype=dtype, device=device)
+    own device (random_decoder_params). ``quant`` ("q8_0" or "q4_0", with a
+    torch.Generator) makes the linears and the lm_head random ggml blocks
+    instead (random_quant_decoder_params)."""
+    if quant is not None:
+        dec = random_quant_decoder_params(rng, cfg, quant, dtype=dtype)
+    else:
+        dec = random_decoder_params(rng, cfg, dtype=dtype, device=device)
     if isinstance(rng, np.random.Generator):
         proj_w = torch.as_tensor(
             rng.standard_normal((enc_state, cfg.hidden_size)) * 0.02).to(device, dtype)

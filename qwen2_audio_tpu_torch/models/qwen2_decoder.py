@@ -17,7 +17,12 @@ layer leaf STACKED on a leading (n_layers, ...) axis:
       "lm_head": {"w": (D, V)},   # absent when the embeddings are tied
     }
 
-Linear weights are [in, out]; layer i reads ``w[i]``, a view. The KV cache
+Linear weights are [in, out]; layer i reads ``w[i]``, a view. A linear may
+instead be a ggml block dict with stacked leaves ({"qs": (L, K, N) int8 or
+"qs4": (L, K // 2, N) uint8, "scales": (L, K // group, N)[, "mins"], "b"},
+see quant/qparams.py); ``ops.linear.linear_at`` multiplies either form, the
+block forms through the dequantizing kernels. The MLP is two such products
+around SiLU(gate) * up. The KV cache
 is a preallocated (L, B, max_ctx, Hkv, d) buffer updated in place
 (PyTorch has no buffer donation to copy). Attention goes through the kernel
 wrappers of ops/: the causal prefill kernel for a fresh block
@@ -28,8 +33,8 @@ package: RMSNorm's ``.to(x.dtype) * w``, RoPE in float32 cast back to
 ``x.dtype``, attention scores and softmax in float32.
 
 Per-stream positions (continuous batching), the tensor-parallel psums, the
-DTW attention tap, beam tiling and the quantized-weight forms are not
-ported yet (ROADMAP.md).
+DTW attention tap, beam tiling, the panel weight forms and the one-launch
+SwiGLU kernel are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
 from qwen2_audio_tpu_torch.models.encoder import _Tree
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal
 from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
+from qwen2_audio_tpu_torch.ops.linear import linear, linear_at
+from qwen2_audio_tpu_torch.utils.logging import log_warn
 
 Params = dict[str, Any]
 
@@ -117,28 +124,46 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf * inv[..., None]).to(torch.int8), s
 
 
+class _MixedForms(Exception):
+    pass
+
+
 def fuse_decoder_params(params: Params) -> Params:
     """Concatenate q/k/v -> "qkv" and gate/up -> "gate_up" along the output
-    axis of the stacked dense leaves (a runtime layout: at decode every
-    projection is a weight-bound matrix-vector product, and 7 of them per
-    layer become 4). Dense weights only; biases concatenate with zeros for a
-    missing one."""
+    axis of the stacked leaves (a runtime layout: at decode every projection
+    is a weight-bound matrix-vector product, and 7 of them per layer become
+    4). Works for every weight form, dense "w" or block "qs" / "qs4" /
+    "scales" / "mins", because the quantization groups run along the input
+    axis; biases concatenate with zeros for a missing one. Projections whose
+    forms differ (a k-quant checkpoint may keep v at another type than q)
+    cannot concatenate: the tree is then returned as it is, with separate
+    projections."""
     layers = dict(params["layers"])
     if "qkv" in layers:
         return params
 
     def fuse(entries: list[dict]) -> dict:
-        if any("w" not in e for e in entries):
-            raise NotImplementedError("fuse_decoder_params: dense weights only")
-        fused = {"w": torch.cat([e["w"] for e in entries], dim=-1)}
+        forms = [set(e) - {"b"} for e in entries]
+        if any(f != forms[0] for f in forms):
+            raise _MixedForms()
+        fused = {leaf: torch.cat([e[leaf] for e in entries], dim=-1)
+                 for leaf in sorted(forms[0])}
         if any("b" in e for e in entries):
+            some = next(e["b"] for e in entries if "b" in e)
+            width = [next(e[k] for k in ("w", "qs", "qs4") if k in e).shape[-1]
+                     for e in entries]
             fused["b"] = torch.cat(
-                [e["b"] if "b" in e else e["w"].new_zeros(e["w"].shape[0], e["w"].shape[-1])
-                 for e in entries], dim=-1)
+                [e["b"] if "b" in e else some.new_zeros(some.shape[0], n)
+                 for e, n in zip(entries, width)], dim=-1)
         return fused
 
-    layers["qkv"] = fuse([layers.pop("q"), layers.pop("k"), layers.pop("v")])
-    layers["gate_up"] = fuse([layers.pop("gate"), layers.pop("up")])
+    try:
+        layers["qkv"] = fuse([layers.pop("q"), layers.pop("k"), layers.pop("v")])
+        layers["gate_up"] = fuse([layers.pop("gate"), layers.pop("up")])
+    except _MixedForms:
+        log_warn("fuse_decoder_params: mixed weight forms across q/k/v or "
+                 "gate/up - keeping separate projections\n")
+        return params
     out = dict(params)
     out["layers"] = layers
     return out
@@ -215,18 +240,6 @@ def _gqa_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     return out.reshape(B, T, Hq * d)
 
 
-def _linear_at(x: torch.Tensor, p: dict, li: int) -> torch.Tensor:
-    """x @ w[li] + b[li] for the stacked dense form, in x's type."""
-    if "w" not in p:
-        raise NotImplementedError(
-            f"quantized weight form {sorted(p)} is not ported yet "
-            "(ROADMAP.md, section 1, item 7: quantized weights)")
-    y = x @ p["w"][li].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"][li].to(y.dtype)
-    return y
-
-
 def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
            cache, cos: torch.Tensor, sin: torch.Tensor, pos0: int,
            pos_dev: torch.Tensor | None, block_only: bool,
@@ -239,12 +252,12 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
 
     if "qkv" in layers:
         nq, nkv = Hq * dh, Hkv * dh
-        qkv = _linear_at(h, layers["qkv"], li)
+        qkv = linear_at(h, layers["qkv"], li)
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
     else:
-        q = _linear_at(h, layers["q"], li)
-        k = _linear_at(h, layers["k"], li)
-        v = _linear_at(h, layers["v"], li)
+        q = linear_at(h, layers["q"], li)
+        k = linear_at(h, layers["k"], li)
+        v = linear_at(h, layers["v"], li)
     q = apply_rope(q.unflatten(-1, (Hq, dh)), cos, sin)
     k = apply_rope(k.unflatten(-1, (Hkv, dh)), cos, sin)
     v = v.unflatten(-1, (Hkv, dh))
@@ -286,16 +299,16 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
                                     cache.v_q[li], cache.v_s[li], pos0)
     else:
         attn = _gqa_attention(q, cache.k[li], cache.v[li], pos0)
-    x = x + _linear_at(attn, layers["o"], li)
+    x = x + linear_at(attn, layers["o"], li)
 
     h = rms_norm(x, layers["ln2"]["w"][li], cfg.rms_norm_eps)
     if "gate_up" in layers:
-        gu = _linear_at(h, layers["gate_up"], li)
+        gu = linear_at(h, layers["gate_up"], li)
         inter = cfg.intermediate_size
         gated = F.silu(gu[..., :inter]) * gu[..., inter:]
     else:
-        gated = F.silu(_linear_at(h, layers["gate"], li)) * _linear_at(h, layers["up"], li)
-    return x + _linear_at(gated, layers["down"], li)
+        gated = F.silu(linear_at(h, layers["gate"], li)) * linear_at(h, layers["up"], li)
+    return x + linear_at(gated, layers["down"], li)
 
 
 @torch.no_grad()
@@ -334,9 +347,7 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     if cfg.tie_word_embeddings:
         logits = x @ params["embed"].T.to(x.dtype)
     else:
-        logits = x @ params["lm_head"]["w"].to(x.dtype)
-        if "b" in params["lm_head"]:
-            logits = logits + params["lm_head"]["b"].to(logits.dtype)
+        logits = linear(x, params["lm_head"])
     cache.pos = pos0 + T
     return logits.float(), cache
 
@@ -426,6 +437,66 @@ def random_decoder_params(rng, cfg: Qwen2DecoderConfig,
     p = {"embed": t(cfg.vocab_size, D), "layers": layers, "ln_f": {"w": ones(D)}}
     if not cfg.tie_word_embeddings:
         p["lm_head"] = {"w": t(D, cfg.vocab_size)}
+    return p
+
+
+def random_quant_linear(rng: torch.Generator, shape: tuple[int, ...], fmt: str = "q8_0",
+                        scale: float = 0.02) -> dict:
+    """A (..., K, N) linear as random ggml blocks on the generator's device:
+    "q8_0" int8 values {"qs"}, or "q4_0" packed symmetric nibbles {"qs4"},
+    with float16 scales sized so that the dequantized weight has about
+    ``scale`` standard deviation. Every byte value is a valid block content
+    (int8 -128..127, or two nibbles), filled in place without a wider
+    temporary; valid blocks, but no quantizer's output."""
+    if fmt not in ("q8_0", "q4_0"):
+        raise ValueError(f"random_quant_linear: fmt {fmt!r}, want q8_0 or q4_0")
+    *lead, K, N = shape
+    q = torch.empty(*lead, K if fmt == "q8_0" else K // 2, N, dtype=torch.uint8,
+                    device=rng.device)
+    q.random_(0, 256, generator=rng)
+    # a uniform int8 has std 73.9, a uniform nibble - 8 std 4.61
+    s_mean = scale / (73.9 if fmt == "q8_0" else 4.61)
+    sc = torch.rand((*lead, K // 32, N), generator=rng, device=rng.device)
+    scales = ((0.5 + sc) * s_mean).to(torch.float16)
+    if fmt == "q8_0":
+        return {"qs": q.view(torch.int8), "scales": scales}
+    return {"qs4": q, "scales": scales}
+
+
+def random_quant_decoder_params(rng: torch.Generator, cfg: Qwen2DecoderConfig,
+                                fmt: str = "q8_0",
+                                dtype: torch.dtype = torch.bfloat16,
+                                scale: float = 0.02) -> Params:
+    """A decoder whose linears and lm_head are ``random_quant_linear`` blocks
+    drawn on the generator's device: for full-size models, where quantizing
+    dense weights with the host codecs would take minutes. Norms, biases and
+    the embedding are dense ``dtype`` as in ``random_decoder_params``."""
+    device = rng.device
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    Hq, Hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    L = cfg.num_hidden_layers
+
+    def qlinear(*shape):
+        return random_quant_linear(rng, shape, fmt, scale)
+
+    def t(*shape):
+        return _normal(rng, shape, dtype, scale, device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    layers = {"ln1": {"w": ones(L, D)}}
+    layers["q"] = {**qlinear(L, D, Hq * dh), "b": t(L, Hq * dh)}
+    layers["k"] = {**qlinear(L, D, Hkv * dh), "b": t(L, Hkv * dh)}
+    layers["v"] = {**qlinear(L, D, Hkv * dh), "b": t(L, Hkv * dh)}
+    layers["o"] = qlinear(L, Hq * dh, D)
+    layers["ln2"] = {"w": ones(L, D)}
+    layers["gate"] = qlinear(L, D, I)
+    layers["up"] = qlinear(L, D, I)
+    layers["down"] = qlinear(L, I, D)
+    p = {"embed": t(cfg.vocab_size, D), "layers": layers, "ln_f": {"w": ones(D)}}
+    if not cfg.tie_word_embeddings:
+        p["lm_head"] = qlinear(D, cfg.vocab_size)
     return p
 
 

@@ -47,6 +47,11 @@ SIGNATURES = {
         # kv_type, sm_scale, stream
         "qa_flash_decode": [P] * 7 + [I] * 7 + [F, P],
     },
+    "quant_matmul": {
+        # x, q, scales, out, scratch, M, K, N, group, x_bf16, s_f16, packed,
+        # off, fast, ksplit, stream
+        "qa_quant_matmul": [P] * 5 + [I] * 10 + [P],
+    },
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,293 @@
+"""Dequantizing matrix products over ggml block weights: the CUDA kernel
+csrc/quant_matmul.cu and its plain versions.
+
+Replaces four TPU kernels of qwen2_audio_tpu/ops/quant_matmul.py, each at
+its own entry point:
+
+    quant_matmul           _qmm_kernel            flat int8 values (K, N)
+    quant_matmul_stacked   _qmm_stacked_kernel    the same over (L, K, N)
+    quant_matmul4          _qmm4_kernel           flat packed nibbles (K/2, N)
+    quant_matmul4_stacked  _qmm4_stacked_kernel   the same over (L, K/2, N)
+
+Weight forms (quant/qparams.py builds them from ggml blocks, bit-exact):
+
+    qs      (K, N) int8, [in, out] like a dense weight
+    qs4     (K // 2, N) uint8: byte row g * 16 + j holds value g * 32 + j in
+            its low and g * 32 + j + 16 in its high nibble (ggml's pairing)
+    scales  (K // group, N) float16 or float32; group is 32, or 16 for
+            q2_K / q3_K / q6_K, derived from the shapes
+    mins    (K // group, N) float32, added outside the kernel as a small
+            float32 product (group_min_term)
+
+Every entry computes ``x @ (float32(v) * scales)`` with float32 sums and
+the result in x's type; ``fast`` rounds x and the dequantized weight each
+once to bf16 first (the tensor-core mode), otherwise the product is exact
+float32. A stacked entry reads layer ``li`` in place: ``qs_all[li]`` is a
+view, so on the card both entries run one device function with a base
+pointer.
+
+On the card the kernel is bound by the weight bytes at M <= 8 (a decode
+step) and by operations above (prefill, the encoder); the design notes are
+in the CUDA source. With a K split the partial sums are added in a fixed
+order by a second small kernel, so results do not vary from run to run.
+
+Each wrapper launches the kernel for CUDA tensors, runs its plain version
+for CPU tensors, raises for anything else, and counts its launches. No
+path on the card dequantizes a weight to a dense tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from qwen2_audio_tpu_torch.ops import _build
+
+GROUP = 32
+_X_TYPES = (torch.float32, torch.bfloat16)
+_S_TYPES = (torch.float32, torch.float16)
+_SMALL_M = 8          # rows the weight-streaming kernel takes
+_SMALL_COLS = 128     # its columns per block
+_sm_count: dict[int, int] = {}
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+
+def unpack4(qs4: torch.Tensor) -> torch.Tensor:
+    """(K // 2, N) nibble bytes -> (K, N) int32 values 0..15 in ggml's
+    in-group order."""
+    p = qs4.to(torch.int32)
+    K2, N = p.shape
+    n_g = K2 * 2 // GROUP
+    lo = (p & 0xF).reshape(n_g, 16, N)
+    hi = (p >> 4).reshape(n_g, 16, N)
+    return torch.cat([lo, hi], dim=1).reshape(K2 * 2, N)
+
+
+def block_weight(q: torch.Tensor, scales: torch.Tensor, *, packed: bool = False,
+                 off: int = 0) -> torch.Tensor:
+    """The float32 (K, N) weight a kernel multiplies by, without mins:
+    float32(v) * scales, v the int8 value or, packed, the nibble - off."""
+    v = (unpack4(q) - off) if packed else q
+    group = v.shape[0] // scales.shape[0]
+    return v.float() * scales.float().repeat_interleave(group, dim=0)
+
+
+def dequantize_weight(qw: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense (K, N) weight of a block dict: float32(v) * scales (+ mins),
+    cast to ``dtype``. A packed dict without "mins" is symmetric q4_0,
+    (q - 8) * d."""
+    packed = "qs4" in qw
+    w = block_weight(qw["qs4" if packed else "qs"], qw["scales"], packed=packed,
+                     off=8 if packed and "mins" not in qw else 0)
+    if "mins" in qw:
+        w = w + qw["mins"].float().repeat_interleave(w.shape[0] // qw["mins"].shape[0], dim=0)
+    return w.to(dtype)
+
+
+def dequantize_weight4(qw: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``dequantize_weight`` of a packed-nibble dict."""
+    return dequantize_weight(qw, dtype)
+
+
+def _product_plain(x: torch.Tensor, w: torch.Tensor, fast: bool) -> torch.Tensor:
+    """x (M, K) @ w (K, N) float32, with the kernel's roundings."""
+    if fast:
+        y = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    else:
+        y = x.float() @ w
+    return y.to(x.dtype)
+
+
+def quant_matmul_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
+                       *, fast: bool = False) -> torch.Tensor:
+    return _product_plain(x, block_weight(qs, scales), fast)
+
+
+def quant_matmul4_plain(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor,
+                        *, fast: bool = False, off: int = 0) -> torch.Tensor:
+    return _product_plain(x, block_weight(qs4, scales, packed=True, off=off), fast)
+
+
+def group_min_term(x2d: torch.Tensor, mins: torch.Tensor,
+                   group: int = GROUP) -> torch.Tensor:
+    """The per-group-min correction: with w = q * d + m (m constant over a
+    group), x @ W = x @ (q * d) + gsum(x) @ m, gsum the per-group sum of x:
+    a small (M, K / group) @ (K / group, N) float32 product."""
+    M, K = x2d.shape
+    gsum = x2d.float().reshape(M, K // group, group).sum(-1)
+    return gsum @ mins.float()
+
+
+# --------------------------------------------------------------------------- #
+# the kernel's wrapper
+# --------------------------------------------------------------------------- #
+
+def split_k(M: int, K: int, N: int, sm_count: int) -> int:
+    """Blocks along K for the M <= 8 kernel: about four blocks per SM in
+    flight, at least two 32-row blocks of K for each of a block's 4 warps."""
+    if M > _SMALL_M:
+        return 1
+    tiles = -(-N // _SMALL_COLS)
+    want = -(-4 * sm_count // tiles)
+    return max(1, min(want, K // 32 // 8))
+
+
+def _check(name: str, x, q, sc, packed: bool) -> int:
+    """Shapes and types every device takes; returns the group size."""
+    if x.dim() != 2 or q.dim() != 2 or sc.dim() != 2:
+        raise ValueError(f"{name}: x, weight and scales must be 2-D, got "
+                         f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(sc.shape)}")
+    M, K = x.shape
+    Kq, N = q.shape
+    if Kq * (2 if packed else 1) != K or sc.shape[1] != N or sc.shape[0] == 0 \
+            or K % sc.shape[0]:
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, weight "
+                         f"{tuple(q.shape)}, scales {tuple(sc.shape)}")
+    group = K // sc.shape[0]
+    if group not in (16, 32) or (packed and group != GROUP):
+        raise ValueError(f"{name}: scale group {group} (want 32, or 16 for "
+                         "int8 values)")
+    want = torch.uint8 if packed else torch.int8
+    if q.dtype != want:
+        raise ValueError(f"{name}: weight dtype {q.dtype}, want {want}")
+    return group
+
+
+def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
+            fast: bool) -> torch.Tensor:
+    M, K = x.shape
+    N = q.shape[1]
+    if x.dtype not in _X_TYPES or sc.dtype not in _S_TYPES:
+        raise ValueError(f"{name}: the kernel takes x in {_X_TYPES} and scales "
+                         f"in {_S_TYPES}, got {x.dtype}, {sc.dtype}")
+    if M < 1 or K % 32 or N % 16:
+        raise ValueError(f"{name}: the kernel takes M >= 1, K a multiple of 32 "
+                         f"and N a multiple of 16, got M={M}, K={K}, N={N}")
+    if off not in (0, 8):
+        raise ValueError(f"{name}: off must be 0 or 8, got {off}")
+    x = x.contiguous()
+    for t in (x, q, sc):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: every input must be contiguous, 16-byte "
+                             f"aligned and on {x.device}")
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    ksplit = split_k(M, K, N, _sm_count[dev])
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    scratch = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
+               if ksplit > 1 else None)
+    lib = _build.library("quant_matmul")
+    with torch.cuda.device(x.device):
+        rc = lib.qa_quant_matmul(
+            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            M, K, N, group, int(x.dtype == torch.bfloat16),
+            int(sc.dtype == torch.float16), int(packed), off, int(fast), ksplit,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, name)
+    return out
+
+
+def _run(entry, plain, x, q, sc, packed: bool, off: int, fast: bool) -> torch.Tensor:
+    name = entry.__name__
+    group = _check(name, x, q, sc, packed)
+    if x.device.type == "cpu":
+        return plain(x, q, sc, fast=fast, off=off) if packed else plain(x, q, sc, fast=fast)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    out = _launch(name, x, q, sc, group, packed, off, fast)
+    entry.launches += 1
+    return out
+
+
+def _layer(name: str, a: torch.Tensor, li: int) -> torch.Tensor:
+    if a.dim() != 3:
+        raise ValueError(f"{name}: stacked leaves are 3-D, got {tuple(a.shape)}")
+    return a[int(li)]
+
+
+def quant_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
+                 fast: bool = False) -> torch.Tensor:
+    """x (M, K) @ (qs (K, N) int8 * scales (K // group, N)) -> (M, N) in x's
+    type. Runs the CUDA kernel for CUDA tensors and the plain version for
+    CPU tensors."""
+    return _run(quant_matmul, quant_matmul_plain, x, qs, scales, False, 0, fast)
+
+
+def quant_matmul_stacked(x: torch.Tensor, qs_all: torch.Tensor, sc_all: torch.Tensor,
+                         li: int, *, fast: bool = False) -> torch.Tensor:
+    """``quant_matmul`` over layer ``li`` of qs_all (L, K, N) and sc_all
+    (L, K // group, N), read in place."""
+    return _run(quant_matmul_stacked, quant_matmul_plain, x,
+                _layer("quant_matmul_stacked", qs_all, li),
+                _layer("quant_matmul_stacked", sc_all, li), False, 0, fast)
+
+
+def quant_matmul4(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor, *,
+                  fast: bool = False, off: int = 0) -> torch.Tensor:
+    """x (M, K) @ ((unpack4(qs4 (K // 2, N)) - off) * scales (K // 32, N)):
+    off 8 is symmetric q4_0; with off 0 the caller adds the min term."""
+    return _run(quant_matmul4, quant_matmul4_plain, x, qs4, scales, True, off, fast)
+
+
+def quant_matmul4_stacked(x: torch.Tensor, qs4_all: torch.Tensor, sc_all: torch.Tensor,
+                          li: int, *, fast: bool = False, off: int = 0) -> torch.Tensor:
+    """``quant_matmul4`` over layer ``li`` of qs4_all (L, K // 2, N) and
+    sc_all (L, K // 32, N), read in place."""
+    return _run(quant_matmul4_stacked, quant_matmul4_plain, x,
+                _layer("quant_matmul4_stacked", qs4_all, li),
+                _layer("quant_matmul4_stacked", sc_all, li), True, off, fast)
+
+
+ENTRIES = (quant_matmul, quant_matmul_stacked, quant_matmul4, quant_matmul4_stacked)
+for _entry in ENTRIES:
+    _entry.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# linear layers over the block dicts
+# --------------------------------------------------------------------------- #
+
+def _with_mins(y: torch.Tensor, x2d: torch.Tensor, mins: torch.Tensor) -> torch.Tensor:
+    return y + group_min_term(x2d, mins, group=x2d.shape[1] // mins.shape[0]).to(y.dtype)
+
+
+def quant_linear4(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+    """x (..., K) @ {"qs4", "scales"[, "mins"]} -> (..., N); a dict without
+    "mins" is symmetric q4_0, dequantized (q - 8) * d inside the kernel."""
+    x2d = x.reshape(-1, x.shape[-1])
+    sym = "mins" not in qw
+    y = quant_matmul4(x2d, qw["qs4"], qw["scales"], fast=fast, off=8 if sym else 0)
+    if not sym:
+        y = _with_mins(y, x2d, qw["mins"])
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def quant_linear(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+    """x (..., K) @ {"qs", "scales"[, "mins"]} -> (..., N); packed-nibble
+    dicts go to quant_linear4."""
+    if "qs4" in qw:
+        return quant_linear4(x, qw, fast=fast)
+    x2d = x.reshape(-1, x.shape[-1])
+    y = quant_matmul(x2d, qw["qs"], qw["scales"], fast=fast)
+    if "mins" in qw:
+        y = _with_mins(y, x2d, qw["mins"])
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def quant_linear_stacked(x: torch.Tensor, qw: dict, li: int,
+                         fast: bool = False) -> torch.Tensor:
+    """``quant_linear`` over layer ``li`` of a dict whose every leaf has a
+    leading (L,) axis."""
+    x2d = x.reshape(-1, x.shape[-1])
+    if "qs4" in qw:
+        y = quant_matmul4_stacked(x2d, qw["qs4"], qw["scales"], li, fast=fast,
+                                  off=0 if "mins" in qw else 8)
+    else:
+        y = quant_matmul_stacked(x2d, qw["qs"], qw["scales"], li, fast=fast)
+    if "mins" in qw:
+        y = _with_mins(y, x2d, qw["mins"][int(li)])
+    return y.reshape(*x.shape[:-1], -1)

@@ -16,8 +16,9 @@ Semantics carried over:
 Device: ``ContextParams.use_gpu`` (default) runs on ``cuda:{gpu_device}``
 and raises if there is no CUDA device; ``use_gpu=False`` runs on the CPU.
 On the card the mel frames, the encoder attention, the decoder prefill
-attention and the decode-step cache attention go through the CUDA kernels
-(ops/); on the CPU the same wrappers run their plain versions. Each phase
+attention, the decode-step cache attention and every product with a
+quantized weight go through the CUDA kernels (ops/); on the CPU the same
+wrappers run their plain versions. Each phase
 ends in a device synchronisation so its timing is the device's.
 """
 
@@ -60,6 +61,10 @@ class ContextParams:
 
     gelu_approximate: None = the tanh form, which is what the ggml runtime
     computes (ggml_vec_gelu_f32); set True/False to pin either flavour.
+
+    keep_quantized: layer weights stored in a ggml block format stay in
+    block form on the device and multiply through the dequantizing kernels
+    (ops/quant_matmul.py); False expands them to dense weights at load.
     """
 
     use_gpu: bool = True
@@ -69,6 +74,7 @@ class ContextParams:
     dtw_n_top: int = -1
     compute_dtype: torch.dtype = torch.float32
     gelu_approximate: bool | None = None
+    keep_quantized: bool = True
 
 
 @dataclasses.dataclass
@@ -197,7 +203,8 @@ class WhisperContext:
         self.vocab = WhisperVocab.from_token_list(
             model_file.vocab, model_file.hparams.n_vocab)
         params = encoder_params_from_ggml(
-            model_file, dtype=cparams.compute_dtype, device=self.device)
+            model_file, dtype=cparams.compute_dtype, device=self.device,
+            keep_quantized=cparams.keep_quantized)
         # fused QKV is a runtime layout: one (d, 3d) matmul, and the
         # attention kernel reads its heads from that output by stride
         self.encoder = Encoder(

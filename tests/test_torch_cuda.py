@@ -21,6 +21,7 @@ from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
 from qwen2_audio_tpu_torch.ops import flash_attention as tfa
 from qwen2_audio_tpu_torch.ops import flash_decode as tfd
 from qwen2_audio_tpu_torch.ops import mel_kernel as tmk
+from qwen2_audio_tpu_torch.ops import quant_matmul as tqm
 from qwen2_audio_tpu_torch.runtime.context import ContextParams
 
 pytestmark = pytest.mark.cuda
@@ -146,5 +147,116 @@ def test_decoder_context_on_card_matches_cpu(device):
         p.temperature_inc = 0.0
         assert capi.whisper_full(ctx, p, x) == 0
         out.append((ctx.state.result_tokens, capi.whisper_get_logits(ctx)))
+    assert out[0][0] == out[1][0] and len(out[0][0]) > 0
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=2e-3)
+
+
+def _qmm_tol(want, dtype):
+    """chip_smoke's tolerance of the dequantizing matmul (sum order only;
+    bf16 outputs may round either way at the end)."""
+    top = want.float().abs().max().item()
+    if dtype == torch.float32:
+        return chip_smoke.QMM_ATOL_F32 * top
+    return chip_smoke.QMM_TOL_BF16[0] * top + chip_smoke.QMM_TOL_BF16[1] * want.float().abs()
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("M,dtype,fast", [
+    (1, torch.bfloat16, True), (1, torch.float32, False), (7, torch.float32, True),
+    (752, torch.bfloat16, True), (300, torch.float32, False), (130, torch.float32, True),
+])
+def test_quant_matmul_entries_match_plain(device, fmt, M, dtype, fast):
+    """Flat and stacked entries over random blocks (every byte value, -128
+    included) at the decoder's qkv shape."""
+    K, N = 3584, 4608
+    qw = chip_smoke._rand_blocks(device, K, N, fmt, seed=11, layers=3)
+    packed = fmt == "q4_0"
+    q, sc = qw["qs4" if packed else "qs"], qw["scales"]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(12),
+                    device=device).to(dtype)
+    kw = {"fast": fast, **({"off": 8} if packed else {})}
+    flat, stacked, plain = ((tqm.quant_matmul4, tqm.quant_matmul4_stacked,
+                             tqm.quant_matmul4_plain) if packed else
+                            (tqm.quant_matmul, tqm.quant_matmul_stacked,
+                             tqm.quant_matmul_plain))
+    before = flat.launches, stacked.launches
+    got_s = stacked(x, q, sc, 2, **kw)
+    got_f = flat(x, q[2], sc[2], **kw)
+    assert (flat.launches, stacked.launches) == (before[0] + 1, before[1] + 1)
+    want = plain(x, q[2], sc[2], **kw)
+    assert got_s.dtype == dtype and bool(torch.isfinite(got_s).all())
+    assert torch.equal(got_s, got_f)         # one device function, and no run-to-run spread
+    assert torch.equal(got_s, stacked(x, q, sc, 2, **kw))
+    assert bool(((got_s.float() - want.float()).abs() <= _qmm_tol(want, dtype)).all())
+
+
+@pytest.mark.parametrize("ttype,M,dtype,fast", [
+    ("Q4_1", 5, torch.float32, False), ("Q4_1", 200, torch.bfloat16, True),
+    ("Q6_K", 1, torch.float32, False), ("Q6_K", 200, torch.bfloat16, True),
+    ("Q5_1", 3, torch.float32, False), ("Q2_K", 64, torch.float32, False),
+    ("Q4_K", 1, torch.bfloat16, True), ("Q3_K", 9, torch.float32, True),
+])
+def test_quant_linear_formats_match_plain(device, ttype, M, dtype, fast):
+    """Real quantizer output with mins, group 16 and float32 scales through
+    quant_linear: the card's kernel + min term against the CPU's plain path."""
+    from qwen2_audio_tpu_torch.config import GGMLType
+    qw_dev = chip_smoke._quantized(device, 1280, 512, GGMLType[ttype], seed=13)
+    qw_cpu = {k: v.cpu() for k, v in qw_dev.items()}
+    x = torch.randn(M, 1280, generator=torch.Generator().manual_seed(14)).to(dtype)
+    got = tqm.quant_linear(x.to(device), qw_dev, fast=fast).cpu()
+    want = tqm.quant_linear(x, qw_cpu, fast=fast)
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, dtype)).all())
+
+
+def test_quant_matmul_refuses_what_the_kernel_does_not_take(device):
+    qw = chip_smoke._rand_blocks(device, 256, 128, "q8_0", seed=15)
+    x = torch.zeros(2, 256, device=device)
+    with pytest.raises(ValueError):      # float16 activations
+        tqm.quant_matmul(x.half(), qw["qs"], qw["scales"])
+    with pytest.raises(ValueError):      # N not a multiple of 16
+        tqm.quant_matmul(x, qw["qs"][:, :120].contiguous(), qw["scales"][:, :120].contiguous())
+    with pytest.raises(ValueError):      # a view that is not contiguous
+        tqm.quant_matmul(x, qw["qs"][:, ::2], qw["scales"][:, ::2])
+
+
+def test_quantized_context_on_card_matches_cpu(device):
+    """A q8_0 checkpoint with a q4_0 decoder attached, exact mode, float32:
+    the same tokens on the card (kernels) as on the CPU (plain versions)."""
+    from qwen2_audio_tpu_torch.config import GGMLFType, GGMLType
+    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder, random_decoder_params
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.quant.qparams import quantize_decoder_params
+    hp = WhisperHParams(n_vocab=64, n_audio_state=128, n_audio_head=2,
+                        n_audio_layer=2, n_mels=80)
+    cfg = Qwen2DecoderConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                             num_hidden_layers=2, num_attention_heads=14,
+                             num_key_value_heads=2, head_dim=128, tie_word_embeddings=False)
+    src, dst = io.BytesIO(), io.BytesIO()
+    write_encoder_checkpoint(src, random_encoder_params(np.random.default_rng(0), hp),
+                             hp, mel_filterbank(80), [b"a"])
+    quantize_checkpoint(io.BytesIO(src.getvalue()), dst, GGMLFType.MOSTLY_Q8_0)
+    x = chip_smoke.noisy_tone(2.0, seed=6)
+    out = []
+    set_group_matmul_mode("dequant")
+    try:
+        for cp in (ContextParams(), ContextParams(use_gpu=False)):
+            ctx = capi.whisper_init_from_buffer_with_params(dst.getvalue(), cp)
+            assert "qs" in ctx.encoder.params["layers"][0]["qkv"]
+            bundle = random_bundle(np.random.default_rng(1), cfg, hp.n_audio_state,
+                                   max_ctx=1024)
+            bundle.decoder = Decoder(quantize_decoder_params(
+                random_decoder_params(np.random.default_rng(2), cfg), GGMLType.Q4_0), cfg)
+            ctx.decoder = bundle
+            p = capi.whisper_full_default_params()
+            p.max_new_tokens = 6
+            p.temperature_inc = 0.0
+            before = tqm.quant_matmul4_stacked.launches
+            assert capi.whisper_full(ctx, p, x) == 0
+            if cp.use_gpu:
+                assert tqm.quant_matmul4_stacked.launches > before
+            out.append((ctx.state.result_tokens, capi.whisper_get_logits(ctx)))
+    finally:
+        set_group_matmul_mode(None)
     assert out[0][0] == out[1][0] and len(out[0][0]) > 0
     np.testing.assert_allclose(out[0][1], out[1][1], atol=2e-3)

@@ -29,6 +29,12 @@ def _port_modules():
     return mods
 
 
+def test_quantized_weight_modules_are_scanned():
+    mods = set(_port_modules())
+    for m in ("quant", "quant.codecs", "quant.qparams", "ops.quant_matmul", "ops.linear"):
+        assert f"qwen2_audio_tpu_torch.{m}" in mods
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
