@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (qwen2_audio_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers 32] [--calls 12] [--dec-layers 28]
-                          [--new-tokens 32] [--q4-layers 32]
+                          [--new-tokens 32] [--q4-layers 32] [--kernels-only]
 
 (``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8 --q4-layers 4`` is a
 quick rehearsal.) Phases, each of which must pass (any failure exits non-zero
@@ -15,12 +15,20 @@ before the result lines are printed):
    plain version and (where one exists) the one-call library equivalent;
    the four dequantizing-matmul entries at M = 1, 7, 752 and 1500 over the
    decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
-   and float32 x, q8_0, symmetric q4_0, q4_1 (mins) and q6_K (group 16);
+   and float32 x, q8_0, symmetric q4_0, q4_1 (mins) and q6_K (group 16),
+   and at every one of those cases the panel entry of the same weight in
+   contiguous column panels, bit-equal to the strided entry; the five
+   one-launch SwiGLU entries at the decoder's width (K = D = 3584,
+   I = 18944) at M = 1, 7, 64, both modes, bf16 and float32 x, over q8_0,
+   q6_K, q5_1 (mins), symmetric q4_0 and q4_1 blocks, the split schema
+   bit-equal to the fused one, two runs bit-equal, M = 65 refused;
 3. parity at full width and depth 2, card against CPU in float32: the
    encoder (embedding, dense and from a q8_0 checkpoint), and the Qwen2
    decoder (a 160-position prefill and 8 greedy steps: the same tokens,
    logits within tolerance), dense and with q8_0 and q4_0 weights from the
-   ggml quantizers (a 16-position prefill and 4 steps, exact mode);
+   ggml quantizers (a 16-position prefill and 4 steps, exact mode), each
+   with the one-launch SwiGLU off, and once more with it on (q8_0) and
+   with the decoder panelized (q4_0);
 4. the main path at full width, two paths, each with the launch counters
    set to 0 just before it and read just after:
    a. encode: write a random-weight (seed 0) F16 qwen2-audio checkpoint
@@ -41,11 +49,21 @@ before the result lines are printed):
       through whisper_full: 4 launches of the flat entry per layer and
       clip, the embedding held against the same file loaded dense;
    d. quantized audio -> text: behind each quantized encoder a decoder
-      with q8_0 (2 requests) or packed symmetric q4_0 (1 request) stacked
-      weights and a quantized lm_head, random block contents made on the
-      card; 4 launches of the stacked entry per layer and decoder forward,
-      one of the flat entry per forward for the lm_head, the logits held
-      teacher-forced against the same weights dequantized to dense bf16.
+      with q8_0 or packed symmetric q4_0 stacked weights and a quantized
+      lm_head, random block contents made on the card, in the storage the
+      decode step is tuned for, one request per configuration on one clip:
+      q8_0 with the one-launch SwiGLU off (4 launches of the stacked entry
+      per layer and decoder forward, one of the flat entry per forward for
+      the lm_head, the logits held teacher-forced against the same weights
+      dequantized to dense bf16), with it on (one fused launch per layer
+      and decode step, the two-launch MLP at the 752-position prefill;
+      logits teacher-forced against the switch off), and panelized (fewer
+      tokens; the tokens of the first request); q4_0 strided with the
+      SwiGLU on, panelized as the JAX loader panelizes (qkv, o, gate_up and
+      lm_head in panels, down strided, no fused launch) and panelized with
+      gate_up left strided (panels and the one-launch SwiGLU together: the
+      strided request's tokens and logits, bit for bit). Every launch count
+      is derived from the prefills and decoder forwards the run reports.
 The last two lines of standard output are the kernels JSON line and the
 {"ok": true, ...} line. Without a CUDA device the script exits 1.
 
@@ -64,7 +82,10 @@ dequantizing matmul |kernel - plain| <= atol + rtol * |plain| with atol
 1e-4 * max|plain| (both sides make the same roundings, so only the order
 of the float32 sums differs, and the tensor cores add in their own order)
 and, for bf16 outputs, rtol 2**-7 and atol 2**-8 * max|plain| (the last
-rounding may fall either way);
+rounding may fall either way); the one-launch SwiGLU the same, and in fast
+mode also 2 * gated_rounding_bound (the order of g's and u's sums moves a
+gated value across a bf16 rounding boundary now and then: 2**-8 * the row's
+max|gated| * max|Wd| for each of two such flips per output);
 2-layer float32 card vs CPU 2e-3 (embedding and decoder logits); the
 bf16 kernel paths against the plain-attention paths on the card cosine
 0.99, the quantized paths against their dense counterparts the same.
@@ -99,6 +120,8 @@ QMM_ATOL_F32 = 1e-4   # of max|plain|
 QMM_TOL_BF16 = (2.0 ** -8, 2.0 ** -7)   # (atol of max|plain|, rtol)
 QUANT_CALLS = 6       # whisper_full calls of each quantized encode path
 QDEC_PARITY_PREFILL, QDEC_PARITY_STEPS = 16, 4
+FUSED_FLIPS = 2       # bf16 roundings of gated that may fall the other way, per output
+PANEL_TOKENS = 8      # new tokens of the q8_0 panelized request
 
 
 class SmokeFailure(RuntimeError):
@@ -468,10 +491,11 @@ def _quantized(device, K: int, N: int, ttype, seed: int) -> dict:
 
 
 def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
-    """The four entries against their plain versions; returns the kernels
-    line's entries by name, each at one shape of the main path. ``dims``:
-    the decoder's hidden and intermediate sizes, its vocabulary and the
-    encoder's width."""
+    """The four strided entries against their plain versions and, at every
+    case, the panel entry over the same weight in contiguous column panels,
+    bit-equal to the strided one; returns the kernels line's entries by
+    name, each at one shape of the main path. ``dims``: the decoder's hidden
+    and intermediate sizes, its vocabulary and the encoder's width."""
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
     from qwen2_audio_tpu_torch.ops import quant_matmul as qm
@@ -491,6 +515,7 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         "fc1 q4_1": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_1, 78), False),
         "fc2 q6_K": (4 * E, E, _quantized(device, 4 * E, E, GGMLType.Q6_K, 79), False),
     }
+    panels = {}   # name: the weight in column panels, made at its first case
     cases = [   # (weight, M, x dtype, fast, kernels-line name or None)
         ("qkv q8_0", 1, bf, True, None), ("qkv q8_0", 1, f32, False, None),
         ("qkv q8_0", 7, bf, True, None), ("qkv q8_0", 752, bf, True, None),
@@ -502,8 +527,8 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("down q4_0", 752, f32, False, None),
         ("gate_up q4_0", 1, bf, True, "quant_matmul4_stacked"),
         ("gate_up q4_0", 752, bf, True, None),
-        ("lm_head q8_0", 1, bf, True, None), ("lm_head q8_0", 1, f32, False, None),
-        ("lm_head q4_0", 1, bf, True, None), ("lm_head q4_0", 7, bf, False, None),
+        ("lm_head q8_0", 1, bf, True, "lm_head"), ("lm_head q8_0", 1, f32, False, None),
+        ("lm_head q4_0", 1, bf, True, "lm_head"), ("lm_head q4_0", 7, bf, False, None),
         ("fc1 q8_0", 1500, bf, True, "quant_matmul"), ("fc1 q8_0", 1500, f32, False, None),
         ("fc1 q8_0", 7, f32, True, None),
         ("fc1 q4_0", 1500, bf, True, "quant_matmul4"), ("fc1 q4_0", 1500, f32, False, None),
@@ -513,7 +538,11 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("fc2 q6_K", 1, bf, True, None), ("fc2 q6_K", 7, f32, False, None),
     ]
     rows = {"quant_matmul": 207, "quant_matmul_stacked": 474,
-            "quant_matmul4": 1010, "quant_matmul4_stacked": 819}
+            "quant_matmul4": 1010, "quant_matmul4_stacked": 819,
+            "quant_matmul_panel": 334, "quant_matmul_panel_stacked": 555,
+            "quant_matmul_panel4": 657, "quant_matmul_panel4_stacked": 735}
+    # the panel entries' kernels-line shapes: gate_up (stacked) and the lm_head
+    panel_lines = {"quant_matmul_stacked", "quant_matmul4_stacked", "lm_head"}
     main = {}
     for i, (wname, M, dtype, fast, line) in enumerate(cases):
         K, N, qw, stacked = weights[wname]
@@ -551,6 +580,21 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             rel = ((qm.quant_linear(x, qw).float() - ref).abs().max() / ref.abs().max()).item()
             log(f"{what}: quant_linear with mins vs dense product: {rel:.3e} of max|ref|")
             require(rel <= QMM_ATOL_F32, f"{what}: the min term is off ({rel})")
+        # the same values in column panels: the same bits
+        if wname not in panels:
+            panels[wname] = qm.panelize_weight(qw)
+        pw = panels[wname]
+        pq, psc = pw["qs4_p" if packed else "qs_p"], pw["scales_p"]
+        pentry = getattr(qm, "quant_matmul_panel" + ("4" if packed else "")
+                         + ("_stacked" if stacked else ""))
+        pgot = pentry(x, pq, psc, *li, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(pgot, got), f"{what}: {pentry.__name__} over {pq.shape[-3]} "
+                f"panels of width {pq.shape[-1]} differs from the strided entry")
+        if "mins" in qw:
+            require(torch.equal(qm.quant_linear_panel(x, pw, fast=fast),
+                                qm.quant_linear(x, qw, fast=fast)),
+                    f"{what}: quant_linear_panel differs from quant_linear")
         # the entry's time beside its bound, its plain version and one
         # torch.matmul on the dequantized weight in x's type
         nbytes = (ql.numel() + scl.numel() * scl.element_size()
@@ -565,15 +609,167 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
              "library_ms": time_ms(lambda: x @ dense, iters=10)}
         del dense
         log(f"{what}: " + json.dumps(t))
-        if line is not None:
+        if line in rows:
             main[line] = {"name": line, "route": "cuda",
                           "source": "qwen2_audio_tpu_torch/csrc/quant_matmul.cu",
                           "replaces": f"qwen2_audio_tpu/ops/quant_matmul.py:{rows[line]}",
                           "shape": what, "max_abs_err": diff.max().item(), **t}
+        if line in panel_lines:
+            # the panel entry at the same inputs: the strided case's bound and
+            # library time hold for it, its own time and its plain version's
+            pplain = qm.quant_matmul_panel4_plain if packed else qm.quant_matmul_panel_plain
+            pl_, psl = (pq[1], psc[1]) if stacked else (pq, psc)
+            require(torch.equal(pplain(x, pl_, psl, **kw), want),
+                    f"{what}: the panel entry's plain version differs from the strided one's")
+            pt = {**t, "ms": time_ms(lambda: pentry(x, pq, psc, *li, **kw), iters=50),
+                  "plain_ms": time_ms(lambda: pplain(x, pl_, psl, **kw), iters=3, warmup=1)}
+            pwhat = what.replace(entry.__name__, pentry.__name__) + \
+                f" panels {pq.shape[-3]} x {pq.shape[-1]}"
+            log(f"{pwhat}: " + json.dumps(pt) + f"; strided entry {t['ms']:.4f} ms")
+            main[pentry.__name__] = {
+                "name": pentry.__name__, "route": "cuda",
+                "source": "qwen2_audio_tpu_torch/csrc/quant_matmul.cu",
+                "replaces": f"qwen2_audio_tpu/ops/quant_matmul.py:{rows[pentry.__name__]}",
+                "shape": pwhat, "max_abs_err": diff.max().item(), "strided_ms": t["ms"], **pt}
     require(set(main) == set(rows), "quant matmul: a kernels-line entry is missing")
-    del weights
+    del weights, panels
     torch.cuda.empty_cache()
     return main
+
+
+def _rand_mlp(device, K: int, I: int, D: int, fmt: str, seed: int, layers: int = 2):
+    """Random stacked gate_up (layers, K, 2 I) and down (layers, I, D) block
+    dicts of one of the fused kernel's flavours, made on the card: q8_0 and
+    packed symmetric q4_0 as ``random_quant_linear`` makes them; "q6_K" int8
+    values -32..31 with float32 scales per 16; "q5_1" values 0..31 and "q4_1"
+    nibbles, each with float32 mins near minus the group's middle. Valid
+    block contents, but no quantizer's output."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for shape in ((layers, K, 2 * I), (layers, I, D)):
+        w = random_quant_linear(g, shape, "q4_0" if fmt in ("q4_0", "q4_1") else "q8_0")
+        if fmt == "q6_K":
+            rows, cols = shape[1] // 16, shape[2]
+            w = {"qs": w["qs"] >> 2,
+                 "scales": (0.5 + torch.rand((layers, rows, cols), generator=g,
+                                             device=device)) * (0.02 / 18.5)}
+        elif fmt == "q5_1":
+            w = {"qs": (w["qs"] >> 3) + 16, "scales": (w["scales"].float() * 8).half()}
+        if fmt in ("q5_1", "q4_1"):
+            d = w["scales"].float()
+            mid = 16.0 if fmt == "q5_1" else 8.0
+            w["mins"] = -d * (mid + torch.rand(d.shape, generator=g, device=device) - 0.5)
+        out.append(w)
+    return out
+
+
+def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
+    """The five one-launch SwiGLU entries against the plain version at the
+    decoder's width; returns the kernels line's entry (q8_0, M = 1)."""
+    import torch
+    import torch.nn.functional as F
+    from qwen2_audio_tpu_torch.ops import fused_mlp as fm
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+
+    bf, f32 = torch.bfloat16, torch.float32
+    D, I = dims
+    flavours = {   # format: (entry, leaf order)
+        "q8_0": (fm.fused_mlp_stacked, ("qs", "scales")),
+        "q6_K": (fm.fused_mlp_stacked, ("qs", "scales")),
+        "q5_1": (fm.fused_mlp_m_stacked, ("qs", "scales", "mins")),
+        "q4_0": (fm.fused_mlp4_sym_stacked, ("qs4", "scales")),
+        "q4_1": (fm.fused_mlp4_stacked, ("qs4", "scales", "mins")),
+    }
+    line = {}
+    for fi, (fmt, (entry, order)) in enumerate(flavours.items()):
+        gu, dn = _rand_mlp(device, D, I, D, fmt, seed=120 + fi)
+        packed = "qs4" in gu
+        args = [w[k] for w in (gu, dn) for k in order]
+        li = 1
+        g_l = tuple(gu[k][li][:, :I] for k in order)
+        u_l = tuple(gu[k][li][:, I:] for k in order)
+        d_l = tuple(dn[k][li] for k in order)
+        group = D // gu["scales"].shape[1]
+        worst = 0.0
+        for ci, (M, dtype, fast) in enumerate(
+                (M, dtype, fast) for M in (1, 7, 64) for dtype in (bf, f32)
+                for fast in (True, False)):
+            gen = torch.Generator(device=device).manual_seed(140 + 10 * fi + ci)
+            x = torch.randn(M, D, generator=gen, device=device).to(dtype)
+            got = entry(x, *args, li, fast=fast)
+            want = fm.fused_mlp_plain(x, g_l, u_l, d_l, packed=packed, fast=fast)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            top = want.float().abs().max().item()
+            atol, rtol = (QMM_ATOL_F32 * top, 0.0) if dtype == f32 else \
+                (QMM_TOL_BF16[0] * top, QMM_TOL_BF16[1])
+            tol = atol + rtol * want.float().abs()
+            if fast:
+                tol = tol + FUSED_FLIPS * fm.gated_rounding_bound(x, g_l, u_l, d_l,
+                                                                   packed=packed)
+            used = (diff / tol).max().item()
+            worst = max(worst, used)
+            tname = str(dtype).removeprefix("torch.")
+            what = (f"{entry.__name__} {fmt} K={D} I={I} M={M} x {tname} "
+                    f"{'fast' if fast else 'exact'} group {group}")
+            log(f"{what}: max_abs_err={diff.max().item():.3e} (max|plain| {top:.3f}), "
+                f"{used:.3f} of the tolerance")
+            require(got.shape == (M, D) and got.dtype == dtype, f"{what}: shape or type")
+            require(bool(torch.isfinite(got).all()), f"{what}: kernel output not finite")
+            require(used <= 1.0, f"{what}: kernel disagrees with its plain version "
+                    f"({used:.3f} of the tolerance)")
+            require(torch.equal(got, entry(x, *args, li, fast=fast)),
+                    f"{what}: two runs differ")
+            if M == 7 and fmt in ("q8_0", "q4_0", "q4_1"):
+                # gate and up as two arrays: the same values, the same bits
+                split = fm.fused_mlp_split_stacked(
+                    x, tuple(gu[k][..., :I].contiguous() for k in order),
+                    tuple(gu[k][..., I:].contiguous() for k in order),
+                    tuple(dn[k] for k in order), li, packed=packed, fast=fast)
+                require(torch.equal(split, got), f"{what}: the split schema differs")
+            if not (M == 1 and dtype == bf and fast and fmt in ("q8_0", "q4_0")):
+                continue
+            # M = 1 times: the kernel, its bound (every leaf once, x in, y
+            # out), the plain version, three matmuls on the dequantized bf16
+            # weights around SiLU * up (never called by the port), and the
+            # two-launch path the kernel replaces
+            nbytes = sum(t.numel() * t.element_size() for t in g_l + u_l + d_l) \
+                + (x.numel() + got.numel()) * x.element_size()
+            b_ms, b_by = bound(2.0 * M * 3 * D * I, nbytes, PEAK_BF16)
+            wg, wu, wd = (fm._dequant(w, packed).to(bf) for w in (g_l, u_l, d_l))
+
+            def unfused():
+                y = qm.quant_linear_stacked(x, gu, li, fast=True)
+                return qm.quant_linear_stacked(F.silu(y[..., :I]) * y[..., I:], dn, li,
+                                               fast=True)
+
+            t = {"ms": time_ms(lambda: entry(x, *args, li, fast=True), iters=50),
+                 "plain_ms": time_ms(lambda: fm.fused_mlp_plain(
+                     x, g_l, u_l, d_l, packed=packed, fast=True), iters=3, warmup=1),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": time_ms(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, iters=20),
+                 "two_launch_ms": time_ms(unfused, iters=50)}
+            del wg, wu, wd
+            log(f"{what}: " + json.dumps(t) + f" ({nbytes / 1e6:.1f} MB)")
+            if fmt == "q8_0":
+                line = {"name": "fused_mlp", "route": "cuda",
+                        "source": "qwen2_audio_tpu_torch/csrc/fused_mlp.cu",
+                        "replaces": "qwen2_audio_tpu/ops/fused_mlp.py:105",
+                        "shape": what, "max_abs_err": diff.max().item(), **t}
+        if fmt == "q8_0":
+            try:
+                entry(torch.zeros(65, D, device=device, dtype=bf), *args, li)
+            except ValueError:
+                pass
+            else:
+                raise SmokeFailure("fused MLP: 65 rows were not refused")
+        log(f"fused MLP {fmt}: 12 cases, worst {worst:.3f} of the tolerance")
+        del gu, dn, args, g_l, u_l, d_l
+        torch.cuda.empty_cache()
+    require(bool(line), "fused MLP: the kernels-line entry is missing")
+    return line
 
 
 # --------------------------------------------------------------------------- #
@@ -692,14 +888,20 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
     """The decoder at full width with q8_0 and with packed symmetric q4_0
     weights from the ggml quantizers (the q4_0 lm_head stays dense to hold
     the run's length), exact mode, float32: a T0-position prefill and
-    ``steps`` greedy steps on the card (kernels) and on the CPU (plain
-    versions); the same tokens, logits within PARITY_ATOL."""
+    ``steps`` greedy steps on the CPU (plain versions, the per-projection
+    MLP) and on the card (kernels), there twice: with the one-launch SwiGLU
+    off, and in the decode-tuned storage (q8_0: the SwiGLU on; q4_0:
+    panelized). Without mins the exact mode's results differ between those
+    storages by the order of float32 sums only, so one CPU run holds both:
+    the same tokens, logits within PARITY_ATOL."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
     from qwen2_audio_tpu_torch.models.qwen2_decoder import (fuse_decoder_params,
+                                                            panelize_decoder_params,
                                                             random_decoder_params)
-    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
+    from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp, set_group_matmul_mode
     from qwen2_audio_tpu_torch.quant.qparams import payload_form, quantize_decoder_params
     from qwen2_audio_tpu_torch.runtime.generate import generate_on_device
 
@@ -707,6 +909,13 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
         torch.Generator(device=device).manual_seed(2), cfg, dtype=torch.float32), "cpu")
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (1, T0, cfg.hidden_size)).astype(np.float32))
+
+    def run(params, dev):
+        res = generate_on_device(params, cfg, x.to(dev), max_new_tokens=steps,
+                                 eos_token_id=cfg.vocab_size - 1,
+                                 cache_max_ctx=T0 + steps, cache_dtype=torch.float32)
+        return [r.cpu() if isinstance(r, torch.Tensor) else r for r in res]
+
     errs = {}
     set_group_matmul_mode("dequant")
     try:
@@ -718,31 +927,44 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                 f"{' + lm_head' if head else ''} quantized on the host in "
                 f"{time.perf_counter() - t0:.1f} s, form "
                 f"{payload_form(cpu_params['layers']['qkv'])}")
-            out = {}
-            for where, params, dev in (("card", _tree_to(cpu_params, device), device),
-                                       ("cpu", cpu_params, "cpu")):
+            set_fused_mlp(False)
+            t0 = time.perf_counter()
+            ht, _, hn, hf, h0 = run(cpu_params, "cpu")
+            log(f"quantized decoder parity {fmt}: cpu prefill {T0} + {hn} steps in "
+                f"{time.perf_counter() - t0:.1f} s")
+            card = _tree_to(cpu_params, device)
+            tuned = "one-launch SwiGLU" if fmt == "q8_0" else "panelized"
+            for which in ("per-projection MLP", tuned):
+                set_fused_mlp(which == "one-launch SwiGLU")
+                params = panelize_decoder_params(card) if which == "panelized" else card
+                before = sum(e.launches for e in FUSED_ENTRIES)
                 t0 = time.perf_counter()
-                res = generate_on_device(params, cfg, x.to(dev), max_new_tokens=steps,
-                                         eos_token_id=cfg.vocab_size - 1,
-                                         cache_max_ctx=T0 + steps, cache_dtype=torch.float32)
-                out[where] = [r.cpu() if isinstance(r, torch.Tensor) else r for r in res]
-                log(f"quantized decoder parity {fmt}: {where} prefill {T0} + {res[2]} "
-                    f"steps in {time.perf_counter() - t0:.1f} s")
-            (ct, _, cn, cf, c0), (ht, _, hn, hf, h0) = out["card"], out["cpu"]
-            err = max((cf - hf).abs().max().item(), (c0 - h0).abs().max().item())
-            log(f"quantized decoder parity {fmt} depth {cfg.num_hidden_layers} width "
-                f"{cfg.hidden_size} f32 exact mode: tokens card {ct[0, :cn].tolist()} cpu "
-                f"{ht[0, :hn].tolist()}; first and final logits max_abs_err={err:.3e} "
-                f"(tol {PARITY_ATOL})")
-            require(cn == hn == steps and torch.equal(ct, ht),
-                    f"quantized decoder parity {fmt}: tokens differ")
-            require(err <= PARITY_ATOL,
-                    f"quantized decoder parity {fmt}: card and CPU logits differ by {err}")
-            errs[fmt] = err
-            del cpu_params, params, out
+                ct, _, cn, cf, c0 = run(params, device)
+                n_fused = sum(e.launches for e in FUSED_ENTRIES) - before
+                err = max((cf - hf).abs().max().item(), (c0 - h0).abs().max().item())
+                log(f"quantized decoder parity {fmt} ({which}, layers "
+                    f"{payload_form(params['layers']['qkv'])}, gate_up "
+                    f"{payload_form(params['layers']['gate_up'])}) depth "
+                    f"{cfg.num_hidden_layers} width {cfg.hidden_size} f32 exact mode: card "
+                    f"prefill {T0} + {cn} steps in {time.perf_counter() - t0:.1f} s, "
+                    f"{n_fused} fused launches; tokens card {ct[0, :cn].tolist()} cpu "
+                    f"{ht[0, :hn].tolist()}; first and final logits max_abs_err={err:.3e} "
+                    f"(tol {PARITY_ATOL})")
+                require(cn == hn == steps and torch.equal(ct, ht),
+                        f"quantized decoder parity {fmt} ({which}): tokens differ")
+                require(err <= PARITY_ATOL, f"quantized decoder parity {fmt} ({which}): "
+                        f"card and CPU logits differ by {err}")
+                # one per layer and decode forward, and at a prefill of <= 64 rows
+                want_fused = cfg.num_hidden_layers * (steps - 1 + (T0 <= 64)) \
+                    if which == "one-launch SwiGLU" else 0
+                require(n_fused == want_fused, f"quantized decoder parity {fmt} ({which}): "
+                        f"{n_fused} fused launches, want {want_fused}")
+                errs[f"{fmt} {which}"] = err
+            del cpu_params, card, params
             torch.cuda.empty_cache()
     finally:
         set_group_matmul_mode(None)
+        set_fused_mlp(None)
     return errs
 
 
@@ -825,12 +1047,13 @@ def run_main_path(hp, calls: int, workdir: str) -> dict:
 def _launch_counters():
     from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal, attention_single
     from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
+    from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
     from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
     from qwen2_audio_tpu_torch.ops.quant_matmul import ENTRIES
     return {"mel_log_frames": mel_frames, "attention_single": attention_single,
             "attention_causal": attention_causal, "flash_decode": flash_decode,
             "flash_decode_quant": flash_decode_quant,
-            **{e.__name__: e for e in ENTRIES}}
+            **{e.__name__: e for e in ENTRIES + FUSED_ENTRIES}}
 
 
 def _cosine(a, b) -> float:
@@ -838,20 +1061,24 @@ def _cosine(a, b) -> float:
     return (a @ b / (a.norm() * b.norm())).item()
 
 
-def teacher_forced_cosines(bundle, st, other=None) -> list[float]:
-    """The request's prefill and tokens through the kernel path and through
-    another path on the card; cosine of the logits per step. The other path
-    is the plain attention over the same weights or, with ``other`` (a
-    parameter tree), the kernel attention over those weights."""
+def teacher_forced_logits(bundle, st, params=None, flash: bool = True,
+                          fused: bool | None = None) -> list:
+    """The request's prefill and tokens through the decoder on the card, one
+    (V,) logits row per step: over ``params`` (default: the bundle's), the
+    kernel or the plain attention, the one-launch SwiGLU as it is set or as
+    ``fused`` says."""
     import torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.ops.linear import fused_mlp_enabled, set_fused_mlp
     from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
 
+    params = bundle.params if params is None else params
     prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
     T0, toks = prefill.shape[1], st.result_tokens
-    per_path = []
-    for params, flash in ((bundle.params, True),
-                          (bundle.params, False) if other is None else (other, True)):
+    was = fused_mlp_enabled()
+    if fused is not None:
+        set_fused_mlp(fused)
+    try:
         cache = create_cache(bundle.cfg, 1, T0 + len(toks), dtype=torch.bfloat16,
                              device=prefill.device)
         lg, cache = decoder_forward(params, bundle.cfg, prefill, cache, 0,
@@ -863,10 +1090,44 @@ def teacher_forced_cosines(bundle, st, other=None) -> list[float]:
             lg, cache = decoder_forward(params, bundle.cfg, x, cache, T0 + j,
                                         use_flash=flash)
             steps.append(lg[0, -1])
-        per_path.append(steps)
-    again = [int(s.argmax()) for s in per_path[0]]
-    log(f"teacher-forced kernel path reproduces the request's tokens: {again == toks}")
-    return [_cosine(a, b) for a, b in zip(*per_path)]
+    finally:
+        set_fused_mlp(was)
+    return steps
+
+
+def teacher_forced_cosines(bundle, st, other=None) -> list[float]:
+    """The request's prefill and tokens through the kernel path and through
+    another path on the card; cosine of the logits per step. The other path
+    is the plain attention over the same weights or, with ``other`` (a
+    parameter tree), the kernel attention over those weights."""
+    mine = teacher_forced_logits(bundle, st)
+    theirs = (teacher_forced_logits(bundle, st, flash=False) if other is None
+              else teacher_forced_logits(bundle, st, params=other))
+    again = [int(s.argmax()) for s in mine]
+    log(f"teacher-forced kernel path reproduces the request's tokens: "
+        f"{again == st.result_tokens}")
+    return [_cosine(a, b) for a, b in zip(mine, theirs)]
+
+
+def first_real_disagreement(ref: list, other: list) -> tuple[int | None, int]:
+    """Two paths' teacher-forced logits over one request's tokens: the first
+    step where they pick different tokens (None: nowhere), after checking
+    that every such step is a near-tie: the reference's margin between the
+    two picks is within twice the largest logit difference of that step.
+    Also returns the count of such steps."""
+    first, n = None, 0
+    for j, (a, b) in enumerate(zip(ref, other)):
+        ta, tb = int(a.argmax()), int(b.argmax())
+        if ta == tb:
+            continue
+        margin = (a[ta] - a[tb]).item()
+        spread = (a - b).abs().max().item()
+        require(margin <= 2 * spread, f"step {j}: the paths pick tokens {ta} and {tb} "
+                f"though the margin {margin:.3e} exceeds twice their logit "
+                f"difference {spread:.3e}")
+        n += 1
+        first = j if first is None else first
+    return first, n
 
 
 def run_audio_to_text(ctx, cfg, requests: int, new_tokens: int) -> dict:
@@ -1063,15 +1324,63 @@ def dense_decoder_params(params: dict, dtype) -> dict:
     return out
 
 
-def run_quant_text(ctx, cfg, fmt: str, requests: int, new_tokens: int) -> dict:
+def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes: int,
+                            prefill_rows: int) -> dict:
+    """Launches of every dequantizing-matmul and fused-MLP entry that
+    ``prefills`` requests with ``decodes`` decode forwards in all must make,
+    from the weight forms of the encoder and the decoder: one stacked launch
+    per projection, layer and forward; one fused launch per layer and decode
+    forward in place of gate_up's and down's where both are strided, the
+    switch is on and the forward has at most 64 rows; one flat launch per
+    forward for the lm_head (last position only) and four per encoder layer
+    and request."""
+    from qwen2_audio_tpu_torch.ops.fused_mlp import MAX_M
+
+    def entry(e: dict, stacked: bool) -> str:
+        name = "quant_matmul" + ("_panel" if "qs_p" in e or "qs4_p" in e else "")
+        name += "4" if "qs4" in e or "qs4_p" in e else ""
+        return name + ("_stacked" if stacked else "")
+
+    layers, L = bundle.params["layers"], bundle.cfg.num_hidden_layers
+    forwards = prefills + decodes
+    want: dict[str, int] = {}
+
+    def add(name: str, n: int) -> None:
+        want[name] = want.get(name, 0) + n
+
+    for key in ("qkv", "o"):
+        add(entry(layers[key], True), L * forwards)
+    gu, dn = layers["gate_up"], layers["down"]
+    strided = all(("qs" in e or "qs4" in e) for e in (gu, dn))
+    one_launch = fused_on and strided and set(gu) == set(dn)
+    fused_forwards = (decodes + (prefills if prefill_rows <= MAX_M else 0)) if one_launch else 0
+    for e in (gu, dn):
+        add(entry(e, True), L * (forwards - fused_forwards))
+    if one_launch:
+        add({(False, False): "fused_mlp_stacked", (False, True): "fused_mlp_m_stacked",
+             (True, True): "fused_mlp4_stacked", (True, False): "fused_mlp4_sym_stacked"}[
+                 "qs4" in gu, "mins" in gu], L * fused_forwards)
+    add(entry(bundle.params["lm_head"], False), forwards)
+    add(entry(ctx.encoder.params["layers"][0]["qkv"], False),
+        4 * ctx.hparams.n_audio_layer * prefills)
+    return {k: v for k, v in want.items() if v}
+
+
+def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
     """Behind the quantized encoder of ``ctx``, attach a decoder whose
     linears and lm_head are random ``fmt`` blocks made on the card (seed 0)
-    and answer ``requests`` requests through capi.whisper_full, with the
-    launch counters set to 0 just before and read just after."""
+    and answer one request per storage configuration on one clip through
+    capi.whisper_full, each with the launch counters set to 0 just before
+    and read just after, then one more timed request each in the reverse
+    order. Returns the configurations' results by name."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch import capi
     from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder, panelize_decoder_params
+    from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
+    from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp
+    from qwen2_audio_tpu_torch.ops.quant_matmul import ENTRIES as QMM_ENTRIES
     from qwen2_audio_tpu_torch.quant.qparams import payload_form
 
     t0 = time.perf_counter()
@@ -1080,85 +1389,153 @@ def run_quant_text(ctx, cfg, fmt: str, requests: int, new_tokens: int) -> dict:
                            max_ctx=2048, cache_dtype=torch.bfloat16, quant=fmt)
     ctx.decoder = bundle
     torch.cuda.synchronize()
-    n_bytes = sum(t.numel() * t.element_size() for t in bundle.decoder.buffers())
-    q_bytes = sum(t.numel() * t.element_size() for n, t in bundle.decoder.named_buffers()
+    strided = bundle.decoder
+    n_bytes = sum(t.numel() * t.element_size() for t in strided.buffers())
+    q_bytes = sum(t.numel() * t.element_size() for n, t in strided.named_buffers()
                   if n.rsplit(".", 1)[-1] in ("qs", "qs4", "scales"))
-    form = payload_form(bundle.params["layers"]["qkv"])
     log(f"quant text {fmt}: {cfg.num_hidden_layers}-layer decoder, {n_bytes / 1e9:.2f} GB on "
         f"the card ({q_bytes / 1e9:.2f} GB of blocks and scales read per decode step, "
-        f"{q_bytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s), layers {form}, lm_head "
+        f"{q_bytes / PEAK_BYTES * 1e3:.3f} ms at 3.35 TB/s), layers "
+        f"{payload_form(bundle.params['layers']['qkv'])}, lm_head "
         f"{payload_form(bundle.params['lm_head'])}, made in {time.perf_counter() - t0:.1f} s")
-    params = capi.whisper_full_default_params()
-    params.max_new_tokens = new_tokens
-    params.temperature_inc = 0.0
-    params.print_progress = False
-    clips = [noisy_tone(30.0, seed=40 + i, freq=280.0 + 90.0 * i) for i in range(requests)]
-
+    clip = noisy_tone(30.0, seed=40, freq=280.0)
     counters = _launch_counters()
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    runs, states = [], []
-    for clip in clips:
-        st = ctx.init_state()
-        t1 = time.perf_counter()
-        rc = capi.whisper_full_with_state(ctx, st, params, clip)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t1) * 1e3
-        require(rc == 0, f"quant text {fmt}: whisper_full returned {rc}")
-        tm = st.timings
-        n_tok = len(st.result_tokens)
-        runs.append({"wall_ms": wall, "encode_ms": tm.t_encode_us / 1e3,
-                     "prefill_ms": tm.t_prompt_us / 1e3, "prefill_positions": tm.n_prompt,
-                     "tokens": n_tok, "forwards": st.n_decode_forwards,
-                     "decode_ms_per_token": tm.t_decode_us / 1e3 / max(n_tok, 1)})
-        states.append(st)
-        require(n_tok > 0 and len(st.segments) == 1, f"quant text {fmt}: no tokens")
-        require(bool(np.isfinite(st.logits).all()), f"quant text {fmt}: logits not finite")
-        log(f"quant text {fmt}: request {len(runs)} {json.dumps(runs[-1])}; text "
-            f"{capi.whisper_full_get_segment_text_from_state(st, 0)[:80]!r}")
-    launches = {k: c.launches for k, c in counters.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    L, La = cfg.num_hidden_layers, ctx.hparams.n_audio_layer
-    packed = "qs4" in bundle.params["layers"]["qkv"]
-    stacked, flat = (("quant_matmul4_stacked", "quant_matmul4") if packed
-                     else ("quant_matmul_stacked", "quant_matmul"))
-    forwards = sum(1 + r["forwards"] for r in runs)      # prefill + decode steps
-    log(f"quant text {fmt}: launches {json.dumps(launches)}; decoder forwards {forwards} "
-        f"(prefills included); peak device memory {peak:.2f} GiB")
-    require(launches[stacked] == 4 * L * forwards,
-            f"quant text {fmt}: {stacked} launched {launches[stacked]} times, want 4 x "
-            f"{L} layers x {forwards} forwards")
-    require(launches[flat] == forwards + 4 * La * len(runs),
-            f"quant text {fmt}: {flat} launched {launches[flat]} times, want {forwards} "
-            f"(lm_head) + 4 x {La} encoder layers x {len(runs)} requests")
-    require(sum(launches[e] for e in ("quant_matmul", "quant_matmul4",
-                                      "quant_matmul_stacked", "quant_matmul4_stacked"))
-            == launches[stacked] + launches[flat],
-            f"quant text {fmt}: another entry was launched")
-    require(launches["attention_causal"] == L * len(runs)
-            and launches["flash_decode"] == L * (forwards - len(runs)),
-            f"quant text {fmt}: prefill or decode kernel launches")
-    if new_tokens == 32 and all(r["tokens"] == 32 for r in runs):
-        require(launches[stacked] == 3584 * len(runs) and
-                launches[flat] == (32 + 4 * La) * len(runs),
-                f"quant text {fmt}: launches per 32-token request")
+    L = cfg.num_hidden_layers
+    # (name, panelize arguments or None, the one-launch SwiGLU's switch, new tokens)
+    configs = {
+        "q8_0": [("per-projection MLP", None, False, new_tokens),
+                 ("one-launch SwiGLU", None, True, new_tokens),
+                 ("panelized", {}, True, min(PANEL_TOKENS, new_tokens))],
+        "q4_0": [("one-launch SwiGLU", None, True, new_tokens),
+                 ("panelized", {}, True, new_tokens),
+                 ("panelized, gate_up strided", {"skip_gate_up": True}, True, new_tokens)],
+    }[fmt]
+    out, first, first_logits, again = {}, None, None, []
+    try:
+        for name, panel, fused_on, n_new in configs:
+            what = f"quant text {fmt} ({name})"
+            set_fused_mlp(fused_on)
+            t0 = time.perf_counter()
+            bundle.decoder = strided if panel is None else Decoder(
+                panelize_decoder_params(strided.params, **panel), cfg)
+            torch.cuda.synchronize()
+            forms = {k: payload_form(bundle.params["layers"][k])
+                     for k in ("qkv", "o", "gate_up", "down")}
+            forms["lm_head"] = payload_form(bundle.params["lm_head"])
+            if panel is not None:
+                log(f"{what}: panelized on the card in {time.perf_counter() - t0:.2f} s")
+            params = capi.whisper_full_default_params()
+            params.max_new_tokens = n_new
+            params.temperature_inc = 0.0
+            params.print_progress = False
 
-    dense = dense_decoder_params(bundle.params, torch.bfloat16)
-    cos = teacher_forced_cosines(bundle, states[-1], other=dense)
-    del dense
-    log(f"quant text {fmt}: kernel path vs the same weights dequantized to dense bf16, "
-        f"teacher-forced over {len(cos)} steps: min cos {min(cos):.6f} (min "
-        f"{MAIN_COS_MIN}), per step {json.dumps([round(c, 6) for c in cos])}")
-    require(min(cos) >= MAIN_COS_MIN, f"quant text {fmt}: kernel path disagrees with dense")
-    profile_call(lambda: capi.whisper_full(ctx, params, clips[0]),
-                 f"whisper_full (audio -> text, {fmt})")
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            st = ctx.init_state()
+            t1 = time.perf_counter()
+            rc = capi.whisper_full_with_state(ctx, st, params, clip)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            launches = {k: c.launches for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            require(rc == 0, f"{what}: whisper_full returned {rc}")
+            tm, n_tok = st.timings, len(st.result_tokens)
+            run = {"wall_ms": wall, "encode_ms": tm.t_encode_us / 1e3,
+                   "prefill_ms": tm.t_prompt_us / 1e3, "prefill_positions": tm.n_prompt,
+                   "tokens": n_tok, "forwards": st.n_decode_forwards,
+                   "decode_ms_per_token": tm.t_decode_us / 1e3 / max(n_tok, 1),
+                   "peak_gib": peak}
+            require(n_tok > 0 and len(st.segments) == 1, f"{what}: no tokens")
+            require(bool(np.isfinite(st.logits).all()), f"{what}: logits not finite")
+            log(f"{what}: forms {json.dumps(forms)}; request {json.dumps(run)}; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}; text "
+                f"{capi.whisper_full_get_segment_text_from_state(st, 0)[:60]!r}")
+
+            want = expected_quant_launches(ctx, bundle, fused_on, 1, st.n_decode_forwards,
+                                           tm.n_prompt)
+            for e in QMM_ENTRIES + FUSED_ENTRIES:
+                require(launches[e.__name__] == want.get(e.__name__, 0),
+                        f"{what}: {e.__name__} launched {launches[e.__name__]} times, want "
+                        f"{want.get(e.__name__, 0)} for 1 prefill of {tm.n_prompt} rows and "
+                        f"{st.n_decode_forwards} decode forwards")
+            require(launches["attention_causal"] == L
+                    and launches["flash_decode"] == L * st.n_decode_forwards,
+                    f"{what}: prefill or decode kernel launches")
+            n_fused = sum(launches[e.__name__] for e in FUSED_ENTRIES)
+            require((n_fused > 0) == (name in ("one-launch SwiGLU",
+                                               "panelized, gate_up strided")),
+                    f"{what}: {n_fused} fused launches")
+
+            if first is None:
+                # against the same weights dequantized to dense bf16 (cuBLAS)
+                first = st
+                dense = dense_decoder_params(bundle.params, torch.bfloat16)
+                cos = teacher_forced_cosines(bundle, st, other=dense)
+                del dense
+                log(f"{what}: kernel path vs the same weights dequantized to dense bf16, "
+                    f"teacher-forced over {len(cos)} steps: min cos {min(cos):.6f} (min "
+                    f"{MAIN_COS_MIN}), per step {json.dumps([round(c, 6) for c in cos])}")
+                require(min(cos) >= MAIN_COS_MIN, f"{what}: kernel path disagrees with dense")
+                first_logits = teacher_forced_logits(bundle, first)
+            elif (fmt, name) in (("q8_0", "panelized"),
+                                 ("q4_0", "panelized, gate_up strided")):
+                # every kernel gives the first configuration's bits
+                require(st.result_tokens == first.result_tokens[:n_tok],
+                        f"{what}: tokens differ from the first configuration's")
+                same = n_tok != len(first.result_tokens) or np.array_equal(st.logits,
+                                                                           first.logits)
+                log(f"{what}: the first configuration's tokens; final logits bit-equal: "
+                    f"{same}")
+                require(same, f"{what}: final logits differ from the first configuration's")
+            else:
+                # another order of sums and roundings in the MLP: the first
+                # configuration's tokens teacher-forced through this one
+                mine = teacher_forced_logits(bundle, first)
+                cos = [_cosine(a, b) for a, b in zip(first_logits, mine)]
+                split, n_ties = first_real_disagreement(first_logits, mine)
+                upto = n_tok if split is None else split
+                log(f"{what}: against the first configuration, teacher-forced over "
+                    f"{len(cos)} steps: min cos {min(cos):.6f} (min {MAIN_COS_MIN}); "
+                    f"{n_ties} near-tie steps pick another token; this request's tokens "
+                    f"equal the first's up to step {upto}: "
+                    f"{st.result_tokens[:upto] == first.result_tokens[:upto]}")
+                require(min(cos) >= MAIN_COS_MIN, f"{what}: disagrees with the first "
+                        "configuration")
+                require(st.result_tokens[:upto] == first.result_tokens[:upto],
+                        f"{what}: tokens differ before the first near-tie")
+            profile_call(lambda: capi.whisper_full(ctx, params, clip),
+                         f"whisper_full (audio -> text, {fmt}, {name})")
+            out[name] = {"launches": launches, "run": run, "forms": forms}
+            again.append((name, bundle.decoder, fused_on, params, st.result_tokens))
+        # the host sets the step time and drifts within a run: one more
+        # request per configuration, in the reverse order, to read the
+        # configurations against each other
+        for name, decoder, fused_on, params, tokens in reversed(again):
+            set_fused_mlp(fused_on)
+            bundle.decoder = decoder
+            st = ctx.init_state()
+            t1 = time.perf_counter()
+            rc = capi.whisper_full_with_state(ctx, st, params, clip)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            require(rc == 0 and len(st.result_tokens) == len(tokens),
+                    f"quant text {fmt} ({name}): the second request returned {rc} with "
+                    f"{len(st.result_tokens)} tokens")
+            tm = st.timings
+            out[name]["run2"] = {
+                "wall_ms": wall, "prefill_ms": tm.t_prompt_us / 1e3,
+                "decode_ms_per_token": tm.t_decode_us / 1e3 / len(tokens),
+                "same_tokens": st.result_tokens == tokens}
+            log(f"quant text {fmt} ({name}): second request, reverse order "
+                f"{json.dumps(out[name]['run2'])}")
+    finally:
+        set_fused_mlp(None)
     ctx.decoder = None
-    del bundle
+    del bundle, strided, again, decoder
     torch.cuda.empty_cache()
-    return {"launches": launches, "runs": runs, "peak_gib": peak, "block_gb": q_bytes / 1e9,
-            "prefill_ms": statistics.median(r["prefill_ms"] for r in runs),
-            "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in runs)}
+    out["block_gb"] = q_bytes / 1e9
+    return out
 
 
 def profile_call(fn, what: str) -> None:
@@ -1186,6 +1563,8 @@ def profile_call(fn, what: str) -> None:
                  else "flash_decode" if "decode_kernel" in name
                  else "mel_log_frames" if "mel_log_frames" in name
                  else "quant_matmul" if "qmm_" in name
+                 else "fused_mlp" if "swiglu_kernel" in name
+                 else "split sums (quant_matmul, fused_mlp)" if "reduce_partials" in name
                  else "matmul" if any(w in name for w in ("gemm", "nvjet", "cutlass", "sm90"))
                  else "memcpy" if "memcpy" in name
                  else "other (norm, gelu, add, copy, reduce)")
@@ -1214,6 +1593,9 @@ def main(argv=None) -> int:
     ap.add_argument("--q4-layers", type=int, default=32,
                     help="encoder depth of the q4_0 checkpoint (full: 32; the q8_0 "
                          "one has --layers)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phases 1 and 2 (build, kernels against their plain "
+                         "versions) and print no result lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -1237,6 +1619,10 @@ def main(argv=None) -> int:
         causal_bf16, causal_f32 = check_causal(device)
         decode, decode_q8 = check_decode(device)
         qmm = check_quant_matmul(device)
+        fused = check_fused_mlp(device)
+        if args.kernels_only:
+            log(f"kernels only: phases 1 and 2 passed in {time.perf_counter() - t_start:.1f} s")
+            return 0
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
         check_parity(device, dataclasses.replace(full, n_audio_layer=2))
@@ -1253,13 +1639,13 @@ def main(argv=None) -> int:
             ctx8, enc8 = run_quant_encode(
                 res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
                 QUANT_CALLS, workdir)
-            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", 2, args.new_tokens)
+            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens)
             capi.whisper_free(ctx8)
             ctx4, enc4 = run_quant_encode(
                 res["path"] if args.q4_layers == args.layers else None,
                 dataclasses.replace(full, n_audio_layer=args.q4_layers), "q4_0",
                 QUANT_CALLS, workdir)
-            text4 = run_quant_text(ctx4, dec_cfg, "q4_0", 1, args.new_tokens)
+            text4 = run_quant_text(ctx4, dec_cfg, "q4_0", args.new_tokens)
             capi.whisper_free(ctx4)
     except Exception as e:  # every phase failure ends the run with no result
         import traceback
@@ -1271,9 +1657,28 @@ def main(argv=None) -> int:
         k["launches"] = res["launches"][k["name"]]
     for k in (causal_bf16, decode, decode_q8):
         k["launches"] = text["launches"][k["name"]]
-    for name, run in (("quant_matmul", text8), ("quant_matmul_stacked", text8),
-                      ("quant_matmul4_stacked", text4), ("quant_matmul4", text4)):
-        qmm[name]["launches"] = run["launches"][name]
+    # each kernel's launches on the configuration of the main path that runs it
+    on_path = {
+        "quant_matmul": text8["per-projection MLP"],
+        "quant_matmul_stacked": text8["per-projection MLP"],
+        "quant_matmul4_stacked": text4["one-launch SwiGLU"],
+        "quant_matmul4": text4["one-launch SwiGLU"],
+        "quant_matmul_panel": text8["panelized"],
+        "quant_matmul_panel_stacked": text8["panelized"],
+        "quant_matmul_panel4": text4["panelized"],
+        "quant_matmul_panel4_stacked": text4["panelized"],
+    }
+    for name, cfg_run in on_path.items():
+        qmm[name]["launches"] = cfg_run["launches"][name]
+    fused["launches"] = sum(n for k, n in text8["one-launch SwiGLU"]["launches"].items()
+                            if k.startswith("fused_mlp"))
+    kernels = [mel, attn_bf16, causal_bf16, decode, decode_q8,
+               qmm["quant_matmul"], qmm["quant_matmul_stacked"],
+               qmm["quant_matmul4_stacked"], qmm["quant_matmul4"],
+               qmm["quant_matmul_panel"], qmm["quant_matmul_panel_stacked"],
+               qmm["quant_matmul_panel4"], qmm["quant_matmul_panel4_stacked"], fused]
+    for k in kernels:
+        require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
     log(f"summary: whisper_full steady {res['steady_ms']:.3f} ms per 30 s clip, "
         f"{args.layers} layers, bf16; attention f32 at the encoder shape "
         f"{attn_f32['ms']:.4f} ms (plain {attn_f32['plain_ms']:.4f}, sdpa "
@@ -1286,14 +1691,17 @@ def main(argv=None) -> int:
         f"{text['peak_gib']:.2f} GiB")
     for fmt, enc, txt in (("q8_0", enc8, text8), ("q4_0", enc4, text4)):
         log(f"summary {fmt}: quantized whisper_full steady {enc['steady_ms']:.3f} ms per "
-            f"30 s clip; quantized audio -> text: prefill {txt['prefill_ms']:.3f} ms, "
-            f"decode {txt['decode_ms_per_token']:.3f} ms per token (medians; "
-            f"{txt['block_gb']:.2f} GB of blocks per step), peak {txt['peak_gib']:.2f} GiB")
+            f"30 s clip; {txt['block_gb']:.2f} GB of blocks per decode step")
+        for name, c in txt.items():
+            if isinstance(c, dict):
+                r = c["run"]
+                log(f"summary {fmt} ({name}): prefill {r['prefill_ms']:.3f} ms, decode "
+                    f"{r['decode_ms_per_token']:.3f} ms per token over {r['tokens']} tokens "
+                    f"(second request {c['run2']['decode_ms_per_token']:.3f}), "
+                    f"wall {r['wall_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
-    print(json.dumps({"kernels": [mel, attn_bf16, causal_bf16, decode, decode_q8,
-                                  qmm["quant_matmul"], qmm["quant_matmul_stacked"],
-                                  qmm["quant_matmul4_stacked"], qmm["quant_matmul4"]]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

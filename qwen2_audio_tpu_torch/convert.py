@@ -41,16 +41,17 @@ def encoder_params_from_jax(tree):
 # the decoder's pytree is dicts of stacked arrays: the same map
 decoder_params_from_jax = encoder_params_from_jax
 
-_NOT_PORTED_LEAVES = ("qs_p", "qs4_p", "scales_p", "qs4b", "qs8", "scale_n")
+_NOT_PORTED_LEAVES = ("qs4b", "qs8", "scale_n")
+_VALUE_KEYS = ("qs", "qs4", "qs_p", "qs4_p")
 
 
 def _quant_leaf(key: str, a) -> torch.Tensor:
     a = np.array(a, copy=True)
-    if key == "qs":                       # int8, or int4 where JAX holds it
+    if key in ("qs", "qs_p"):             # int8, or int4 where JAX holds it
         return torch.from_numpy(a.astype(np.int8))
-    if key == "qs4":                      # nibble bytes, stored int8 or uint8
+    if key in ("qs4", "qs4_p"):           # nibble bytes, stored int8 or uint8
         return torch.from_numpy(a.view(np.uint8))
-    if key == "scales" and a.dtype == np.uint16:   # f16 bit patterns
+    if key in ("scales", "scales_p") and a.dtype == np.uint16:   # f16 bit patterns
         return torch.from_numpy(a.view(np.float16))
     return _tensor(a)
 
@@ -59,15 +60,16 @@ def quant_params_from_jax(tree):
     """``encoder_params_from_jax`` for trees with ggml block dicts (numpy or
     JAX leaves): "qs" becomes int8 (from int4 too), the nibble stream "qs4"
     uint8 (the JAX package may hold the same bytes as int8), uint16 scale
-    bit patterns float16; values are unchanged. Dense leaves pass through.
-    The panel, word-packed and per-channel forms have no counterpart in the
-    port and raise."""
+    bit patterns float16; values are unchanged, and the panel leaves "qs_p",
+    "qs4_p" and "scales_p" convert like their strided namesakes. Dense leaves
+    pass through. The word-packed and per-channel forms have no counterpart
+    in the port and raise."""
     if isinstance(tree, dict):
         bad = [k for k in _NOT_PORTED_LEAVES if k in tree]
         if bad:
             raise NotImplementedError(
                 f"weight form {sorted(tree)} is not ported yet (ROADMAP.md, section 2)")
-        if "qs" in tree or "qs4" in tree:
+        if any(k in tree for k in _VALUE_KEYS):
             return {k: _quant_leaf(k, v) for k, v in tree.items()}
         return {k: quant_params_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -3,10 +3,18 @@
 //
 // Replaces the TPU kernels _qmm_kernel (flat int8 values),
 // _qmm_stacked_kernel (the same over (L, K, N), the layer picked inside),
-// _qmm4_kernel (flat packed nibbles) and _qmm4_stacked_kernel of
+// _qmm4_kernel (flat packed nibbles), _qmm4_stacked_kernel and the four
+// contiguous-panel kernels _qmm_panel_kernel, _qmm_panel_stacked_kernel,
+// _qmm4_panel_kernel and _qmm4_panel_stacked_kernel of
 // qwen2_audio_tpu/ops/quant_matmul.py. The stacked kernels existed because a
 // Pallas operand sliced from (L, K, N) is materialised; here a layer is a
-// base pointer into the stacked tensor, so one entry serves all four.
+// base pointer into the stacked tensor. The panel kernels existed because a
+// TPU grid step wants its weight block as one contiguous DMA; here a panel
+// is an address map: with column panels of width bn, element (k, n) of the
+// weight lies at (n / bn) * rows * bn + k * bn + n % bn (rows = K, or K / 2
+// for nibble bytes) and its scale at (n / bn) * (K / group) * bn + (k / group)
+// * bn + n % bn. A row-major weight is the one panel of width bn = N, so one
+// entry serves all eight, and the output is written (M, N) directly.
 //
 // What it computes: out[m, n] = sum_k xr[m, k] * wr[k, n] with
 //   w[k, n] = float(v[k, n]) * s[k / group, n]        (one float32 multiply)
@@ -29,7 +37,7 @@
 //   over the 4 warps of a block and over gridDim.y blocks so that about four
 //   blocks per SM are in flight even where N / 128 is 28. The 4 warps meet
 //   in shared memory in a fixed order; with more than one split the blocks
-//   write float32 partial sums (S, M, N) and qmm_reduce_kernel adds them in
+//   write float32 partial sums (S, M, N) and reduce_partials_kernel adds them in
 //   split order, so the result does not vary from run to run (no atomics).
 //   Bytes become floats by the 2^23 trick (byte_perm into the mantissa of
 //   0x4B000000, one subtract), which is exact and needs no int8 negation.
@@ -47,44 +55,16 @@
 //   (blockIdx.x walks M), so the panel is read from device memory about
 //   once. cp.async/TMA pipelines and wgmma are left for later work.
 // The kernel masks its own ragged M edge; nothing is padded in device
-// memory. N must be a multiple of 16 and K of 32 (the wrapper checks).
+// memory. N and bn must be multiples of 16 and K of 32 (the wrapper checks),
+// so a thread's 4 or 8 neighbouring columns never straddle a panel. The
+// split over K depends on M, K and N only: the same values give the same
+// bits whether they are stored row-major or in panels.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_common.cuh"
 
 namespace {
 
-constexpr float kTwo23 = 8388608.f;
-
-// 2^23 + byte i of word, as a float (exact)
-__device__ __forceinline__ float byte_as_float(uint32_t word, int i) {
-  return __uint_as_float(__byte_perm(word, 0x4B000000u, 0x7650 + i));
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void load_scales4(const void* sc, int s_f16, long long idx,
-                                             float (&s)[4]) {
-  if (s_f16) {
-    const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const __half*>(sc) + idx);
-    const __half2* h = reinterpret_cast<const __half2*>(&r);
-    const float2 a = __half22float2(h[0]), b = __half22float2(h[1]);
-    s[0] = a.x; s[1] = a.y; s[2] = b.x; s[3] = b.y;
-  } else {
-    const float4 r = *reinterpret_cast<const float4*>(static_cast<const float*>(sc) + idx);
-    s[0] = r.x; s[1] = r.y; s[2] = r.z; s[3] = r.w;
-  }
-}
+using namespace qa;
 
 __device__ __forceinline__ void load_scales8(const void* sc, int s_f16, long long idx,
                                              float (&s)[8]) {
@@ -105,24 +85,6 @@ __device__ __forceinline__ void load_scales8(const void* sc, int s_f16, long lon
   }
 }
 
-__device__ __forceinline__ void load_x8(const float* p, float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = __bfloat1622float2(h[i]);
-    v[2 * i] = a.x;
-    v[2 * i + 1] = a.y;
-  }
-}
-
 // ------------------------------------------------------------------------- //
 // M <= 8: stream the weight once
 // ------------------------------------------------------------------------- //
@@ -130,66 +92,40 @@ __device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
 constexpr int kSmallCols = 128;    // columns per block: 32 lanes x 4
 constexpr int kSmallWarps = 4;
 
+// the lane's weight and scale bases: the panel of its columns, then the
+// column inside the panel (one panel of width N when the weight is row-major)
+struct PanelAt {
+  long long q, s;   // offsets of (row 0, col) in bytes / in scale elements
+};
+__device__ __forceinline__ PanelAt panel_at(int col, int bn, long long q_rows,
+                                            long long s_rows) {
+  const int p = col / bn, c = col - p * bn;
+  return {(long long)p * q_rows * bn + c, (long long)p * s_rows * bn + c};
+}
+
 template <typename XT, bool PACKED, int MT>
 __global__ void __launch_bounds__(kSmallWarps * 32)
 qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                  const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
-                 XT* __restrict__ out, int M, int K, int N, int group, float zero,
+                 XT* __restrict__ out, int M, int K, int N, int bn, int group, float zero,
                  int fast) {
   __shared__ __align__(16) float red[kSmallWarps][MT][kSmallCols];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * kSmallCols + lane * 4;
   const int n_warps = gridDim.y * kSmallWarps;
-  constexpr int ROWS = PACKED ? 16 : 32;   // byte rows per 32 values of K
 
   float acc[MT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
 
   if (col < N) {
+    const PanelAt at = panel_at(col, bn, PACKED ? K / 2 : K, K / group);
     for (int b32 = blockIdx.y * kSmallWarps + warp; b32 < K / 32; b32 += n_warps) {
       const int k0 = b32 * 32;
-      uint32_t wq[ROWS];
-      const uint8_t* qp = q + (long long)(PACKED ? k0 / 2 : k0) * N + col;
-#pragma unroll
-      for (int j = 0; j < ROWS; ++j)
-        wq[j] = *reinterpret_cast<const uint32_t*>(qp + (long long)j * N);
-      float s[2][4];
-      const int sr0 = k0 / group, sr1 = (k0 + 16) / group;
-      load_scales4(sc, s_f16, (long long)sr0 * N + col, s[0]);
-      if (sr1 != sr0) {
-        load_scales4(sc, s_f16, (long long)sr1 * N + col, s[1]);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[1][c] = s[0][c];
-      }
-#pragma unroll
-      for (int c8 = 0; c8 < 4; ++c8) {
-        float w[8][4];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          const int k = c8 * 8 + jj;
-          const uint32_t word = PACKED ? ((wq[k & 15] >> ((k >> 4) * 4)) & 0x0F0F0F0Fu)
-                                       : (wq[k & (ROWS - 1)] ^ 0x80808080u);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float v = (byte_as_float(word, c) - zero) * s[k >> 4][c];
-            w[jj][c] = fast ? round_bf16(v) : v;
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const int mr = m < M ? m : M - 1;
-          float xv[8];
-          load_x8(x + (long long)mr * K + k0 + c8 * 8, xv);
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) {
-            const float xf = fast ? round_bf16(xv[jj]) : xv[jj];
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xf, w[jj][c], acc[m][c]);
-          }
-        }
-      }
+      block32_fma<XT, PACKED, false, MT>(
+          acc, q + at.q + (long long)(PACKED ? k0 / 2 : k0) * bn, bn, sc, s_f16, nullptr,
+          at.s + (long long)(k0 / group) * bn, at.s + (long long)((k0 + 16) / group) * bn,
+          zero, fast, x + k0, K, M);
     }
   }
 
@@ -215,18 +151,6 @@ qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
   }
 }
 
-template <typename XT>
-__global__ void __launch_bounds__(256)
-qmm_reduce_kernel(const float* __restrict__ partial, XT* __restrict__ out, int S,
-                  long long MN) {
-  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i < MN) {
-    float v = partial[i];
-    for (int s = 1; s < S; ++s) v += partial[(long long)s * MN + i];
-    out[i] = from_float<XT>(v);
-  }
-}
-
 // ------------------------------------------------------------------------- //
 // M > 8: 128 x 128 output tiles, K in steps of 32
 // ------------------------------------------------------------------------- //
@@ -247,19 +171,20 @@ struct TileRegs {
 template <typename XT, bool PACKED>
 __device__ __forceinline__ void tile_load(TileRegs<XT, PACKED>& r, const XT* x,
                                           const uint8_t* q, const void* sc, int s_f16,
-                                          int M, int K, int N, int group, int k0,
-                                          int row, int xh, int wr, int col) {
+                                          int M, int K, int N, int bn, int group,
+                                          int k0, int row, int xh, int wr, int col) {
   if (col < N) {
+    const PanelAt at = panel_at(col, bn, PACKED ? K / 2 : K, K / group);
     if (PACKED) {
-      r.q0 = *reinterpret_cast<const uint2*>(q + (long long)(k0 / 2 + wr) * N + col);
+      r.q0 = *reinterpret_cast<const uint2*>(q + at.q + (long long)(k0 / 2 + wr) * bn);
     } else {
-      r.q0 = *reinterpret_cast<const uint2*>(q + (long long)(k0 + wr) * N + col);
-      r.q1 = *reinterpret_cast<const uint2*>(q + (long long)(k0 + wr + 16) * N + col);
+      r.q0 = *reinterpret_cast<const uint2*>(q + at.q + (long long)(k0 + wr) * bn);
+      r.q1 = *reinterpret_cast<const uint2*>(q + at.q + (long long)(k0 + wr + 16) * bn);
     }
     const int sr0 = (k0 + wr) / group, sr1 = (k0 + wr + 16) / group;
-    load_scales8(sc, s_f16, (long long)sr0 * N + col, r.s0);
+    load_scales8(sc, s_f16, at.s + (long long)sr0 * bn, r.s0);
     if (sr1 != sr0) {
-      load_scales8(sc, s_f16, (long long)sr1 * N + col, r.s1);
+      load_scales8(sc, s_f16, at.s + (long long)sr1 * bn, r.s1);
     } else {
 #pragma unroll
       for (int c = 0; c < 8; ++c) r.s1[c] = r.s0[c];
@@ -349,7 +274,7 @@ template <typename XT, bool PACKED>
 __global__ void __launch_bounds__(kTileThreads)
 qmm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                const void* __restrict__ sc, int s_f16, XT* __restrict__ out, int M,
-               int K, int N, int group, float zero) {
+               int K, int N, int bn, int group, float zero) {
   constexpr int XLD = kBK + 8, WLD = kBN + 8;
   __shared__ __align__(16) __nv_bfloat16 Xs[kBM * XLD];   // [m][k]
   __shared__ __align__(16) __nv_bfloat16 Ws[kBK * WLD];   // [k][n]
@@ -368,7 +293,7 @@ qmm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
       acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
 
   TileRegs<XT, PACKED> regs;
-  tile_load(regs, x, q, sc, s_f16, M, K, N, group, 0, m0 + xr, xh, wr, n0 + wc);
+  tile_load(regs, x, q, sc, s_f16, M, K, N, bn, group, 0, m0 + xr, xh, wr, n0 + wc);
   const int steps = K / kBK;
   for (int kt = 0; kt < steps; ++kt) {
     __syncthreads();   // every warp is done with the previous step's tiles
@@ -391,8 +316,8 @@ qmm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     }
     __syncthreads();
     if (kt + 1 < steps)
-      tile_load(regs, x, q, sc, s_f16, M, K, N, group, (kt + 1) * kBK, m0 + xr, xh, wr,
-                n0 + wc);
+      tile_load(regs, x, q, sc, s_f16, M, K, N, bn, group, (kt + 1) * kBK, m0 + xr, xh,
+                wr, n0 + wc);
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
       uint32_t a[2][4];
@@ -433,7 +358,7 @@ template <typename XT, bool PACKED>
 __global__ void __launch_bounds__(kTileThreads)
 qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                const void* __restrict__ sc, int s_f16, XT* __restrict__ out, int M,
-               int K, int N, int group, float zero) {
+               int K, int N, int bn, int group, float zero) {
   constexpr int XLD = kBM + 4, WLD = kBN + 4;
   __shared__ __align__(16) float Xs[kBK * XLD];   // [k][m]
   __shared__ __align__(16) float Ws[kBK * WLD];   // [k][n]
@@ -451,7 +376,7 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   TileRegs<XT, PACKED> regs;
-  tile_load(regs, x, q, sc, s_f16, M, K, N, group, 0, m0 + xr, xh, wr, n0 + wc);
+  tile_load(regs, x, q, sc, s_f16, M, K, N, bn, group, 0, m0 + xr, xh, wr, n0 + wc);
   const int steps = K / kBK;
   for (int kt = 0; kt < steps; ++kt) {
     __syncthreads();
@@ -469,8 +394,8 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     }
     __syncthreads();
     if (kt + 1 < steps)
-      tile_load(regs, x, q, sc, s_f16, M, K, N, group, (kt + 1) * kBK, m0 + xr, xh, wr,
-                n0 + wc);
+      tile_load(regs, x, q, sc, s_f16, M, K, N, bn, group, (kt + 1) * kBK, m0 + xr, xh,
+                wr, n0 + wc);
 #pragma unroll 4
     for (int k = 0; k < kBK; ++k) {
       const float4 a0 = *reinterpret_cast<const float4*>(Xs + k * XLD + ty * 4);
@@ -503,19 +428,18 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 
 template <typename XT, bool PACKED>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
-                   float* scratch, int M, int K, int N, int group, int s_f16, int off,
-                   int fast, int ksplit, cudaStream_t st) {
+                   float* scratch, int M, int K, int N, int bn, int group, int s_f16,
+                   int off, int fast, int ksplit, cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
-  // packed: nibble - off; int8: the byte was xored with 0x80, so - 128
-  const float zero = kTwo23 + (PACKED ? (float)off : 128.f);
+  const float zero = zero_point(PACKED, off);
   if (M <= 8) {
     const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
     float* partial = ksplit > 1 ? scratch : nullptr;
 #define QMM_SMALL(MT)                                                              \
   qmm_small_kernel<XT, PACKED, MT><<<grid, kSmallWarps * 32, 0, st>>>(             \
-      xp, qp, sc, s_f16, partial, op, M, K, N, group, zero, fast)
+      xp, qp, sc, s_f16, partial, op, M, K, N, bn, group, zero, fast)
     if (M == 1) QMM_SMALL(1);
     else if (M == 2) QMM_SMALL(2);
     else if (M <= 4) QMM_SMALL(4);
@@ -523,46 +447,47 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 #undef QMM_SMALL
     if (ksplit > 1) {
       const long long mn = (long long)M * N;
-      qmm_reduce_kernel<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+      reduce_partials_kernel<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
           partial, op, ksplit, mn);
     }
   } else {
     const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
     if (fast)
       qmm_mma_kernel<XT, PACKED><<<grid, kTileThreads, 0, st>>>(
-          xp, qp, sc, s_f16, op, M, K, N, group, zero);
+          xp, qp, sc, s_f16, op, M, K, N, bn, group, zero);
     else
       qmm_fma_kernel<XT, PACKED><<<grid, kTileThreads, 0, st>>>(
-          xp, qp, sc, s_f16, op, M, K, N, group, zero);
+          xp, qp, sc, s_f16, op, M, K, N, bn, group, zero);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) float32 or bf16; q (K, N) int8 or, packed, (K / 2, N) nibble
-// bytes; sc (K / group, N) float16 or float32; out (M, N) in x's type.
+// x (M, K) float32 or bf16; q int8 values or, packed, nibble bytes, as
+// N / bn column panels of (K or K / 2, bn), bn = N for a row-major weight;
+// sc (N / bn, K / group, bn) float16 or float32; out (M, N) in x's type.
 // scratch: float32 (ksplit, M, N), read only when M <= 8 and ksplit > 1.
 extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, void* out,
-                               void* scratch, int M, int K, int N, int group,
+                               void* scratch, int M, int K, int N, int bn, int group,
                                int x_bf16, int s_f16, int packed, int off, int fast,
                                int ksplit, void* stream) {
-  if (M < 1 || K % 32 || N % 16 || (group != 16 && group != 32) ||
-      (packed && group != 32) || ksplit < 1 || (N + kBN - 1) / kBN > 65535 ||
-      ksplit > 65535)
+  if (M < 1 || K % 32 || N % 16 || bn < 16 || bn % 16 || N % bn ||
+      (group != 16 && group != 32) || (packed && group != 32) || ksplit < 1 ||
+      (N + kBN - 1) / kBN > 65535 || ksplit > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* scr = static_cast<float*>(scratch);
   cudaError_t rc;
   if (x_bf16) {
-    rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, M, K, N, group, s_f16,
-                                              off, fast, ksplit, st)
-                : launch<__nv_bfloat16, false>(x, q, sc, out, scr, M, K, N, group, s_f16,
-                                               off, fast, ksplit, st);
+    rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, M, K, N, bn, group,
+                                              s_f16, off, fast, ksplit, st)
+                : launch<__nv_bfloat16, false>(x, q, sc, out, scr, M, K, N, bn, group,
+                                               s_f16, off, fast, ksplit, st);
   } else {
-    rc = packed ? launch<float, true>(x, q, sc, out, scr, M, K, N, group, s_f16, off,
+    rc = packed ? launch<float, true>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
                                       fast, ksplit, st)
-                : launch<float, false>(x, q, sc, out, scr, M, K, N, group, s_f16, off,
+                : launch<float, false>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
                                        fast, ksplit, st);
   }
   return (int)rc;

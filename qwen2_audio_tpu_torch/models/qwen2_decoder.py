@@ -20,9 +20,12 @@ layer leaf STACKED on a leading (n_layers, ...) axis:
 Linear weights are [in, out]; layer i reads ``w[i]``, a view. A linear may
 instead be a ggml block dict with stacked leaves ({"qs": (L, K, N) int8 or
 "qs4": (L, K // 2, N) uint8, "scales": (L, K // group, N)[, "mins"], "b"},
-see quant/qparams.py); ``ops.linear.linear_at`` multiplies either form, the
-block forms through the dequantizing kernels. The MLP is two such products
-around SiLU(gate) * up. The KV cache
+see quant/qparams.py), or the same in contiguous column panels ({"qs_p":
+(L, P, K, bn) or "qs4_p", "scales_p"}, ``panelize_decoder_params``);
+``ops.linear.linear_at`` multiplies every form, the block forms through
+the dequantizing kernels. The MLP of strided block dicts is one launch of
+the fused SwiGLU kernel at decode M (``ops.linear.fused_mlp_at``), else two
+or three such products around SiLU(gate) * up. The KV cache
 is a preallocated (L, B, max_ctx, Hkv, d) buffer updated in place
 (PyTorch has no buffer donation to copy). Attention goes through the kernel
 wrappers of ops/: the causal prefill kernel for a fresh block
@@ -33,8 +36,7 @@ package: RMSNorm's ``.to(x.dtype) * w``, RoPE in float32 cast back to
 ``x.dtype``, attention scores and softmax in float32.
 
 Per-stream positions (continuous batching), the tensor-parallel psums, the
-DTW attention tap, beam tiling, the panel weight forms and the one-launch
-SwiGLU kernel are not ported yet (ROADMAP.md).
+DTW attention tap and beam tiling are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -51,7 +53,9 @@ from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
 from qwen2_audio_tpu_torch.models.encoder import _Tree
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal
 from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
-from qwen2_audio_tpu_torch.ops.linear import linear, linear_at
+from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_at, fused_mlp_split_at, linear,
+                                               linear_at)
+from qwen2_audio_tpu_torch.ops.quant_matmul import panelize_weight
 from qwen2_audio_tpu_torch.utils.logging import log_warn
 
 Params = dict[str, Any]
@@ -166,6 +170,35 @@ def fuse_decoder_params(params: Params) -> Params:
         return params
     out = dict(params)
     out["layers"] = layers
+    return out
+
+
+MAX_PANEL_K = 8192
+
+
+def panelize_decoder_params(params: Params, *, deep_k: bool = False,
+                            skip_gate_up: bool = False) -> Params:
+    """Re-store the decoder's ggml block dicts in contiguous column panels
+    ({"qs": (L, K, N)} -> {"qs_p": (L, P, K, bn)}, {"qs4": (L, K // 2, N)} ->
+    {"qs4_p": (L, P, K // 2, bn)}, "scales" -> "scales_p"; the lm_head
+    without the (L,) axis), the JAX package's decode-tuned storage. A pure
+    layout transform of torch or numpy leaves: values, "mins" and "b" are
+    untouched, dense entries pass through. Entries with K > 8192 (the 7B
+    "down") stay strided unless ``deep_k``. ``skip_gate_up`` leaves the
+    fused "gate_up" strided, so that ``fused_mlp_at``, which takes strided
+    forms only, stays engaged beside panels on qkv, o and the lm_head.
+    Compose after ``fuse_decoder_params``."""
+    def wanted(e) -> bool:
+        if not isinstance(e, dict) or "scales" not in e or not ("qs" in e or "qs4" in e):
+            return False
+        K = e["qs4"].shape[-2] * 2 if "qs4" in e else e["qs"].shape[-2]
+        return deep_k or K <= MAX_PANEL_K
+
+    layers = {key: panelize_weight(e) if wanted(e) and not (skip_gate_up and key == "gate_up")
+              else e for key, e in params["layers"].items()}
+    out = dict(params, layers=layers)
+    if wanted(out.get("lm_head")):
+        out["lm_head"] = panelize_weight(out["lm_head"])
     return out
 
 
@@ -303,12 +336,20 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
 
     h = rms_norm(x, layers["ln2"]["w"][li], cfg.rms_norm_eps)
     if "gate_up" in layers:
-        gu = linear_at(h, layers["gate_up"], li)
-        inter = cfg.intermediate_size
-        gated = F.silu(gu[..., :inter]) * gu[..., inter:]
+        # the one-launch SwiGLU where the weight form and M allow it
+        y = fused_mlp_at(h, layers["gate_up"], layers["down"], li)
+        if y is None:
+            gu = linear_at(h, layers["gate_up"], li)
+            inter = cfg.intermediate_size
+            gated = F.silu(gu[..., :inter]) * gu[..., inter:]
     else:
-        gated = F.silu(linear_at(h, layers["gate"], li)) * linear_at(h, layers["up"], li)
-    return x + linear_at(gated, layers["down"], li)
+        y = fused_mlp_split_at(h, layers["gate"], layers["up"], layers["down"], li)
+        if y is None:
+            gated = F.silu(linear_at(h, layers["gate"], li)) \
+                * linear_at(h, layers["up"], li)
+    if y is None:
+        y = linear_at(gated, layers["down"], li)
+    return x + y
 
 
 @torch.no_grad()

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, which ``ctypes`` loads (no PyTorch headers, so
-a build takes seconds). Libraries are named by a hash of their source and
-land in ``qwen2_audio_tpu_torch/_build/`` (listed in .gitignore, override
-with ``QA_TORCH_BUILD_DIR``); a library already there is reused. Nothing is
+a build takes seconds). Libraries are named by a hash of their source (and
+of the ``csrc/*.cuh`` headers the sources share) and land in
+``qwen2_audio_tpu_torch/_build/`` (listed in .gitignore, override with
+``QA_TORCH_BUILD_DIR``); a library already there is reused. Nothing is
 built at import: the first call that needs a kernel builds it, and
 ``build_all`` builds every source at once, one ``nvcc`` process per source.
 
@@ -48,9 +49,15 @@ SIGNATURES = {
         "qa_flash_decode": [P] * 7 + [I] * 7 + [F, P],
     },
     "quant_matmul": {
-        # x, q, scales, out, scratch, M, K, N, group, x_bf16, s_f16, packed,
-        # off, fast, ksplit, stream
-        "qa_quant_matmul": [P] * 5 + [I] * 10 + [P],
+        # x, q, scales, out, scratch, M, K, N, bn, group, x_bf16, s_f16,
+        # packed, off, fast, ksplit, stream
+        "qa_quant_matmul": [P] * 5 + [I] * 11 + [P],
+    },
+    "fused_mlp": {
+        # x, gate (q, scales, mins), up (q, scales, mins), down (q, scales,
+        # mins), out, scratch, M, K, I, D, ld_gu, bi, group, x_bf16, gu_s_f16,
+        # dn_s_f16, packed, off, fast, stream
+        "qa_fused_mlp": [P] * 12 + [I] * 4 + [L] + [I] * 8 + [P],
     },
 }
 
@@ -73,7 +80,8 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 

@@ -5,6 +5,9 @@
                                         package left it to XLA outside Pallas
     {"qs", "scales"[, "mins", "b"]}     ggml blocks as int8 values
     {"qs4", "scales"[, "mins", "b"]}    ggml blocks as packed nibbles
+    {"qs_p" | "qs4_p", "scales_p"[, "mins", "b"]}
+                                        the same in contiguous column panels
+                                        (ops.quant_matmul.panelize_weight)
 
 The block forms go through the dequantizing kernels of ops/quant_matmul.py.
 How they multiply is a process-wide mode:
@@ -17,22 +20,28 @@ How they multiply is a process-wide mode:
 
 ``linear_at`` is ``linear`` over layer ``li`` (a host integer) of a dict
 whose leaves carry a leading (n_layers,) axis; the layer is a view, never a
-copy. The panel forms ("qs_p", "qs4_p"), the word-packed nibbles ("qs4b")
-and the per-channel int8 form ("qs8") are not ported and raise.
+copy. ``fused_mlp_at`` and ``fused_mlp_split_at`` run a whole SwiGLU MLP
+(gate, up, SiLU, down) of strided block dicts in one launch at decode M
+(ops/fused_mlp.py) or return None, and the caller then takes ``linear_at``
+per projection; ``set_fused_mlp(False)`` switches them off for the process.
+The word-packed nibbles ("qs4b") and the per-channel int8 form ("qs8") are
+not ported and raise.
 """
 
 from __future__ import annotations
 
 import torch
 
-from qwen2_audio_tpu_torch.ops.quant_matmul import quant_linear, quant_linear_stacked
+from qwen2_audio_tpu_torch.ops import fused_mlp as fm
+from qwen2_audio_tpu_torch.ops.quant_matmul import (quant_linear, quant_linear_panel,
+                                                    quant_linear_stacked)
 
 _MODES = ("bf16", "dequant", "int8")
 _GROUP_MATMUL_MODE: str | None = None
+_FUSED_MLP: bool | None = None
+_BLOCK_KEYS = ("qs", "qs4", "qs_p", "qs4_p")
 
 _NOT_PORTED = {
-    "qs_p": "the int8 panel kernels (ROADMAP.md, section 2, rows 7 and 9)",
-    "qs4_p": "the packed-nibble panel kernels (ROADMAP.md, section 2, rows 10 and 11)",
     "qs4b": "the word-packed nibble kernel (ROADMAP.md, section 2, row 16)",
     "qs8": "the per-channel w8a8 form (ROADMAP.md, section 1, item 7)",
 }
@@ -48,6 +57,17 @@ def set_group_matmul_mode(mode: str | None) -> None:
 def group_matmul_mode() -> str:
     """The mode in force; None resolves to "bf16" on every device."""
     return _GROUP_MATMUL_MODE or "bf16"
+
+
+def set_fused_mlp(on: bool | None) -> None:
+    """Switch the one-launch SwiGLU MLP on or off for the process; None is
+    the default, on."""
+    global _FUSED_MLP
+    _FUSED_MLP = None if on is None else bool(on)
+
+
+def fused_mlp_enabled() -> bool:
+    return True if _FUSED_MLP is None else _FUSED_MLP
 
 
 def _fast() -> bool:
@@ -70,6 +90,8 @@ def _refuse(p: dict):
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif "qs_p" in p or "qs4_p" in p:
+        y = quant_linear_panel(x, p, fast=_fast())
     elif "qs4" in p or "qs" in p:
         y = quant_linear(x, p, fast=_fast())
     else:
@@ -83,10 +105,75 @@ def linear_at(x: torch.Tensor, p: dict, li: int) -> torch.Tensor:
     """``linear`` with layer ``li`` of the stacked leaves."""
     if "w" in p:
         y = x @ p["w"][li].to(x.dtype)
-    elif "qs4" in p or "qs" in p:
+    elif any(k in p for k in _BLOCK_KEYS):
         y = quant_linear_stacked(x, p, li, fast=_fast())
     else:
         _refuse(p)
     if "b" in p:
         y = y + p["b"][li].to(y.dtype)
     return y
+
+
+def _fused_form(x: torch.Tensor, ws: tuple[dict, ...]) -> tuple[bool, tuple] | None:
+    """Whether the one-launch SwiGLU takes these block dicts (gate_up and
+    down, or gate, up and down) at this x: (packed, leaf order), else None.
+    A dispatch on the weight form and on M alone."""
+    if not fused_mlp_enabled() or any("b" in w for w in ws):
+        return None
+    K = x.shape[-1]
+    dn = ws[-1]
+    packed = all("qs4" in w for w in ws)
+    if not packed and not all("qs" in w for w in ws):
+        return None
+    mins = ["mins" in w for w in ws]
+    if any(mins) != all(mins):
+        return None
+    qkey = "qs4" if packed else "qs"
+    I = dn[qkey].shape[1] * (2 if packed else 1)
+    g_group, d_group = K // ws[0]["scales"].shape[1], I // dn["scales"].shape[1]
+    if g_group != d_group or (packed and g_group != 32):
+        return None
+    if any(w.keys() != ws[0].keys() for w in ws[1:-1]):
+        return None
+    if x.numel() // K > fm.MAX_M:      # prefill: bound by operations
+        return None
+    if group_matmul_mode() == "int8":
+        return None
+    return packed, (qkey, "scales", "mins") if mins[0] else (qkey, "scales")
+
+
+def fused_mlp_at(x: torch.Tensor, gu: dict, dn: dict, li: int) -> torch.Tensor | None:
+    """silu(x @ gate) * (x @ up) @ down in one launch for layer ``li`` of
+    stacked block dicts, ``gu`` holding the gate columns, then the up
+    columns: strided int8 values ("qs") or packed nibbles ("qs4"), both with
+    or both without "mins". Returns None where the one-launch kernel does
+    not apply (the switch is off, a bias, a panel or dense form, forms or
+    groups that differ between gate_up and down, more than 64 rows, mode
+    "int8"); the caller then takes two ``linear_at`` calls."""
+    form = _fused_form(x, (gu, dn))
+    if form is None:
+        return None
+    packed, order = form
+    fast = _fast()
+    x2 = x.reshape(-1, x.shape[-1])
+    leaves = [w[k] for w in (gu, dn) for k in order]
+    entry = {(False, 2): fm.fused_mlp_stacked, (False, 3): fm.fused_mlp_m_stacked,
+             (True, 3): fm.fused_mlp4_stacked, (True, 2): fm.fused_mlp4_sym_stacked
+             }[packed, len(order)]
+    return entry(x2, *leaves, li, fast=fast).reshape(*x.shape[:-1], -1)
+
+
+def fused_mlp_split_at(x: torch.Tensor, g: dict, u: dict, dn: dict,
+                       li: int) -> torch.Tensor | None:
+    """``fused_mlp_at`` for unfused layers, gate and up in two dicts with
+    equal key sets; None where it does not apply (then three ``linear_at``
+    calls)."""
+    form = _fused_form(x, (g, u, dn))
+    if form is None:
+        return None
+    packed, order = form
+    fast = _fast()
+    x2 = x.reshape(-1, x.shape[-1])
+    leaves = (tuple(w[k] for k in order) for w in (g, u, dn))
+    y = fm.fused_mlp_split_stacked(x2, *leaves, li, packed=packed, fast=fast)
+    return y.reshape(*x.shape[:-1], -1)

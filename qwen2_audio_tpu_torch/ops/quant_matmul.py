@@ -1,13 +1,17 @@
 """Dequantizing matrix products over ggml block weights: the CUDA kernel
 csrc/quant_matmul.cu and its plain versions.
 
-Replaces four TPU kernels of qwen2_audio_tpu/ops/quant_matmul.py, each at
+Replaces eight TPU kernels of qwen2_audio_tpu/ops/quant_matmul.py, each at
 its own entry point:
 
-    quant_matmul           _qmm_kernel            flat int8 values (K, N)
-    quant_matmul_stacked   _qmm_stacked_kernel    the same over (L, K, N)
-    quant_matmul4          _qmm4_kernel           flat packed nibbles (K/2, N)
-    quant_matmul4_stacked  _qmm4_stacked_kernel   the same over (L, K/2, N)
+    quant_matmul                 _qmm_kernel                 flat int8 values (K, N)
+    quant_matmul_stacked         _qmm_stacked_kernel         the same over (L, K, N)
+    quant_matmul4                _qmm4_kernel                flat packed nibbles (K/2, N)
+    quant_matmul4_stacked        _qmm4_stacked_kernel        the same over (L, K/2, N)
+    quant_matmul_panel           _qmm_panel_kernel           int8 panels (P, K, bn)
+    quant_matmul_panel_stacked   _qmm_panel_stacked_kernel   the same over (L, P, K, bn)
+    quant_matmul_panel4          _qmm4_panel_kernel          nibble panels (P, K/2, bn)
+    quant_matmul_panel4_stacked  _qmm4_panel_stacked_kernel  the same over (L, P, K/2, bn)
 
 Weight forms (quant/qparams.py builds them from ggml blocks, bit-exact):
 
@@ -18,6 +22,12 @@ Weight forms (quant/qparams.py builds them from ggml blocks, bit-exact):
             q2_K / q3_K / q6_K, derived from the shapes
     mins    (K // group, N) float32, added outside the kernel as a small
             float32 product (group_min_term)
+    qs_p, qs4_p, scales_p
+            the same values in P = N // bn contiguous column panels,
+            (P, rows, bn): panel p holds columns p * bn .. (p + 1) * bn - 1
+            (panelize_weight). The JAX package's decode-tuned storage; "mins"
+            stay (K // group, N). A panel entry gives the bits of the strided
+            entry on the same values: the kernel only maps addresses otherwise.
 
 Every entry computes ``x @ (float32(v) * scales)`` with float32 sums and
 the result in x's type; ``fast`` rounds x and the dequantized weight each
@@ -110,6 +120,41 @@ def quant_matmul4_plain(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor
     return _product_plain(x, block_weight(qs4, scales, packed=True, off=off), fast)
 
 
+def from_panels(a):
+    """(..., P, rows, bn) column panels -> (..., rows, P * bn), a view where
+    the layout allows; torch or numpy."""
+    *lead, P, rows, bn = a.shape
+    n = len(lead)
+    perm = (*range(n), n + 1, n, n + 2)
+    a = a.permute(perm) if isinstance(a, torch.Tensor) else a.transpose(perm)
+    return a.reshape(*lead, rows, P * bn)
+
+
+def to_panels(a, bn: int):
+    """(..., rows, N) -> (..., N // bn, rows, bn) contiguous column panels;
+    torch or numpy, values untouched."""
+    *lead, rows, N = a.shape
+    if bn < 1 or N % bn:
+        raise ValueError(f"panel width {bn} does not divide N={N}")
+    n = len(lead)
+    perm = (*range(n), n + 1, n, n + 2)
+    a = a.reshape(*lead, rows, N // bn, bn)
+    if isinstance(a, torch.Tensor):
+        return a.permute(perm).contiguous()
+    return a.transpose(perm).copy()
+
+
+def quant_matmul_panel_plain(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor,
+                             *, fast: bool = False) -> torch.Tensor:
+    return quant_matmul_plain(x, from_panels(qs_p), from_panels(scales_p), fast=fast)
+
+
+def quant_matmul_panel4_plain(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor,
+                              *, fast: bool = False, off: int = 0) -> torch.Tensor:
+    return quant_matmul4_plain(x, from_panels(qs4_p), from_panels(scales_p), fast=fast,
+                               off=off)
+
+
 def group_min_term(x2d: torch.Tensor, mins: torch.Tensor,
                    group: int = GROUP) -> torch.Tensor:
     """The per-group-min correction: with w = q * d + m (m constant over a
@@ -135,17 +180,18 @@ def split_k(M: int, K: int, N: int, sm_count: int) -> int:
 
 
 def _check(name: str, x, q, sc, packed: bool) -> int:
-    """Shapes and types every device takes; returns the group size."""
-    if x.dim() != 2 or q.dim() != 2 or sc.dim() != 2:
-        raise ValueError(f"{name}: x, weight and scales must be 2-D, got "
+    """Shapes and types every device takes, for a row-major weight (2-D) or
+    column panels (3-D); returns the group size."""
+    if x.dim() != 2 or q.dim() not in (2, 3) or sc.dim() != q.dim():
+        raise ValueError(f"{name}: x is 2-D, weight and scales 2-D or (panels) 3-D, got "
                          f"{tuple(x.shape)}, {tuple(q.shape)}, {tuple(sc.shape)}")
     M, K = x.shape
-    Kq, N = q.shape
-    if Kq * (2 if packed else 1) != K or sc.shape[1] != N or sc.shape[0] == 0 \
-            or K % sc.shape[0]:
+    *P, Kq, bn = q.shape
+    if Kq * (2 if packed else 1) != K or sc.shape[-1] != bn or sc.shape[-2] == 0 \
+            or K % sc.shape[-2] or list(sc.shape[:-2]) != P:
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, weight "
                          f"{tuple(q.shape)}, scales {tuple(sc.shape)}")
-    group = K // sc.shape[0]
+    group = K // sc.shape[-2]
     if group not in (16, 32) or (packed and group != GROUP):
         raise ValueError(f"{name}: scale group {group} (want 32, or 16 for "
                          "int8 values)")
@@ -158,13 +204,15 @@ def _check(name: str, x, q, sc, packed: bool) -> int:
 def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
             fast: bool) -> torch.Tensor:
     M, K = x.shape
-    N = q.shape[1]
+    bn = q.shape[-1]                       # the panel width, or N
+    N = bn * (q.shape[0] if q.dim() == 3 else 1)
     if x.dtype not in _X_TYPES or sc.dtype not in _S_TYPES:
         raise ValueError(f"{name}: the kernel takes x in {_X_TYPES} and scales "
                          f"in {_S_TYPES}, got {x.dtype}, {sc.dtype}")
-    if M < 1 or K % 32 or N % 16:
-        raise ValueError(f"{name}: the kernel takes M >= 1, K a multiple of 32 "
-                         f"and N a multiple of 16, got M={M}, K={K}, N={N}")
+    if M < 1 or K % 32 or bn % 16:
+        raise ValueError(f"{name}: the kernel takes M >= 1, K a multiple of 32 and N "
+                         f"(and a panel's width) a multiple of 16, got M={M}, K={K}, "
+                         f"N={N}, width {bn}")
     if off not in (0, 8):
         raise ValueError(f"{name}: off must be 0 or 8, got {off}")
     x = x.contiguous()
@@ -184,18 +232,22 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
         rc = lib.qa_quant_matmul(
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            M, K, N, group, int(x.dtype == torch.bfloat16),
+            M, K, N, bn, group, int(x.dtype == torch.bfloat16),
             int(sc.dtype == torch.float16), int(packed), off, int(fast), ksplit,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return out
 
 
-def _run(entry, plain, x, q, sc, packed: bool, off: int, fast: bool) -> torch.Tensor:
+def _run(entry, x, q, sc, packed: bool, off: int, fast: bool) -> torch.Tensor:
     name = entry.__name__
     group = _check(name, x, q, sc, packed)
     if x.device.type == "cpu":
-        return plain(x, q, sc, fast=fast, off=off) if packed else plain(x, q, sc, fast=fast)
+        if q.dim() == 3:
+            q, sc = from_panels(q), from_panels(sc)
+        if packed:
+            return quant_matmul4_plain(x, q, sc, fast=fast, off=off)
+        return quant_matmul_plain(x, q, sc, fast=fast)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     out = _launch(name, x, q, sc, group, packed, off, fast)
@@ -203,10 +255,14 @@ def _run(entry, plain, x, q, sc, packed: bool, off: int, fast: bool) -> torch.Te
     return out
 
 
-def _layer(name: str, a: torch.Tensor, li: int) -> torch.Tensor:
-    if a.dim() != 3:
-        raise ValueError(f"{name}: stacked leaves are 3-D, got {tuple(a.shape)}")
-    return a[int(li)]
+def _nd(name: str, a: torch.Tensor, dims: int) -> torch.Tensor:
+    if a.dim() != dims:
+        raise ValueError(f"{name}: a {dims}-D leaf is wanted, got {tuple(a.shape)}")
+    return a
+
+
+def _layer(name: str, a: torch.Tensor, li: int, dims: int = 3) -> torch.Tensor:
+    return _nd(name, a, dims)[int(li)]
 
 
 def quant_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
@@ -214,14 +270,14 @@ def quant_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
     """x (M, K) @ (qs (K, N) int8 * scales (K // group, N)) -> (M, N) in x's
     type. Runs the CUDA kernel for CUDA tensors and the plain version for
     CPU tensors."""
-    return _run(quant_matmul, quant_matmul_plain, x, qs, scales, False, 0, fast)
+    return _run(quant_matmul, x, _nd("quant_matmul", qs, 2), scales, False, 0, fast)
 
 
 def quant_matmul_stacked(x: torch.Tensor, qs_all: torch.Tensor, sc_all: torch.Tensor,
                          li: int, *, fast: bool = False) -> torch.Tensor:
     """``quant_matmul`` over layer ``li`` of qs_all (L, K, N) and sc_all
     (L, K // group, N), read in place."""
-    return _run(quant_matmul_stacked, quant_matmul_plain, x,
+    return _run(quant_matmul_stacked, x,
                 _layer("quant_matmul_stacked", qs_all, li),
                 _layer("quant_matmul_stacked", sc_all, li), False, 0, fast)
 
@@ -230,19 +286,55 @@ def quant_matmul4(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor, *,
                   fast: bool = False, off: int = 0) -> torch.Tensor:
     """x (M, K) @ ((unpack4(qs4 (K // 2, N)) - off) * scales (K // 32, N)):
     off 8 is symmetric q4_0; with off 0 the caller adds the min term."""
-    return _run(quant_matmul4, quant_matmul4_plain, x, qs4, scales, True, off, fast)
+    return _run(quant_matmul4, x, _nd("quant_matmul4", qs4, 2), scales, True, off, fast)
 
 
 def quant_matmul4_stacked(x: torch.Tensor, qs4_all: torch.Tensor, sc_all: torch.Tensor,
                           li: int, *, fast: bool = False, off: int = 0) -> torch.Tensor:
     """``quant_matmul4`` over layer ``li`` of qs4_all (L, K // 2, N) and
     sc_all (L, K // 32, N), read in place."""
-    return _run(quant_matmul4_stacked, quant_matmul4_plain, x,
+    return _run(quant_matmul4_stacked, x,
                 _layer("quant_matmul4_stacked", qs4_all, li),
                 _layer("quant_matmul4_stacked", sc_all, li), True, off, fast)
 
 
-ENTRIES = (quant_matmul, quant_matmul_stacked, quant_matmul4, quant_matmul4_stacked)
+def quant_matmul_panel(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor, *,
+                       fast: bool = False) -> torch.Tensor:
+    """``quant_matmul`` over column panels qs_p (P, K, bn) and scales_p
+    (P, K // group, bn) -> (M, P * bn), written row-major."""
+    return _run(quant_matmul_panel, x, _nd("quant_matmul_panel", qs_p, 3),
+                _nd("quant_matmul_panel", scales_p, 3), False, 0, fast)
+
+
+def quant_matmul_panel_stacked(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor,
+                               li: int, *, fast: bool = False) -> torch.Tensor:
+    """``quant_matmul_panel`` over layer ``li`` of qs_p (L, P, K, bn) and
+    scales_p (L, P, K // group, bn), read in place."""
+    return _run(quant_matmul_panel_stacked, x,
+                _layer("quant_matmul_panel_stacked", qs_p, li, 4),
+                _layer("quant_matmul_panel_stacked", scales_p, li, 4), False, 0, fast)
+
+
+def quant_matmul_panel4(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor, *,
+                        fast: bool = False, off: int = 0) -> torch.Tensor:
+    """``quant_matmul4`` over column panels qs4_p (P, K // 2, bn) and
+    scales_p (P, K // 32, bn)."""
+    return _run(quant_matmul_panel4, x, _nd("quant_matmul_panel4", qs4_p, 3),
+                _nd("quant_matmul_panel4", scales_p, 3), True, off, fast)
+
+
+def quant_matmul_panel4_stacked(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor,
+                                li: int, *, fast: bool = False, off: int = 0) -> torch.Tensor:
+    """``quant_matmul_panel4`` over layer ``li`` of qs4_p (L, P, K // 2, bn)
+    and scales_p (L, P, K // 32, bn), read in place."""
+    return _run(quant_matmul_panel4_stacked, x,
+                _layer("quant_matmul_panel4_stacked", qs4_p, li, 4),
+                _layer("quant_matmul_panel4_stacked", scales_p, li, 4), True, off, fast)
+
+
+ENTRIES = (quant_matmul, quant_matmul_stacked, quant_matmul4, quant_matmul4_stacked,
+           quant_matmul_panel, quant_matmul_panel_stacked, quant_matmul_panel4,
+           quant_matmul_panel4_stacked)
 for _entry in ENTRIES:
     _entry.launches = 0
 
@@ -281,13 +373,64 @@ def quant_linear(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
 def quant_linear_stacked(x: torch.Tensor, qw: dict, li: int,
                          fast: bool = False) -> torch.Tensor:
     """``quant_linear`` over layer ``li`` of a dict whose every leaf has a
-    leading (L,) axis."""
+    leading (L,) axis, in any of the four storage forms ("qs", "qs4", or
+    their panels "qs_p", "qs4_p" with "scales_p")."""
     x2d = x.reshape(-1, x.shape[-1])
-    if "qs4" in qw:
-        y = quant_matmul4_stacked(x2d, qw["qs4"], qw["scales"], li, fast=fast,
-                                  off=0 if "mins" in qw else 8)
+    off = 8 if "mins" not in qw else 0
+    if "qs4_p" in qw:
+        y = quant_matmul_panel4_stacked(x2d, qw["qs4_p"], qw["scales_p"], li, fast=fast,
+                                        off=off)
+    elif "qs_p" in qw:
+        y = quant_matmul_panel_stacked(x2d, qw["qs_p"], qw["scales_p"], li, fast=fast)
+    elif "qs4" in qw:
+        y = quant_matmul4_stacked(x2d, qw["qs4"], qw["scales"], li, fast=fast, off=off)
     else:
         y = quant_matmul_stacked(x2d, qw["qs"], qw["scales"], li, fast=fast)
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"][int(li)])
     return y.reshape(*x.shape[:-1], -1)
+
+
+def quant_linear_panel(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+    """x (..., K) @ a panelized dict {"qs_p" or "qs4_p", "scales_p"[, "mins"]}
+    -> (..., N); "mins" are (K // group, N) as in the strided forms."""
+    x2d = x.reshape(-1, x.shape[-1])
+    if "qs4_p" in qw:
+        y = quant_matmul_panel4(x2d, qw["qs4_p"], qw["scales_p"], fast=fast,
+                                off=8 if "mins" not in qw else 0)
+    else:
+        y = quant_matmul_panel(x2d, qw["qs_p"], qw["scales_p"], fast=fast)
+    if "mins" in qw:
+        y = _with_mins(y, x2d, qw["mins"])
+    return y.reshape(*x.shape[:-1], -1)
+
+
+# --------------------------------------------------------------------------- #
+# contiguous-panel storage
+# --------------------------------------------------------------------------- #
+
+def pick_panel_width(N: int, pref: int = 0) -> int:
+    """The panel width for N columns: the largest multiple of 128 that
+    divides N and is at most ``pref`` (0: 1024), or the whole N where no
+    multiple of 128 divides it."""
+    pref = pref or 1024
+    for cand in range(min(pref, N) // 128 * 128, 0, -128):
+        if N % cand == 0:
+            return cand
+    return N
+
+
+def panelize_weight(qw: dict, block_n: int = 0) -> dict:
+    """{"qs": (K, N), "scales": (K // g, N)[, "mins", "b"]} -> {"qs_p":
+    (P, K, bn), "scales_p": (P, K // g, bn)[, "mins", "b"]}, and "qs4" ->
+    "qs4_p" likewise; ``block_n`` 0 takes ``pick_panel_width``. Values are
+    untouched; "mins" and "b" stay as they are. Leading (L,) axes are kept."""
+    packed = "qs4" in qw
+    q = qw["qs4" if packed else "qs"]
+    bn = block_n or pick_panel_width(q.shape[-1])
+    out = {"qs4_p" if packed else "qs_p": to_panels(q, bn),
+           "scales_p": to_panels(qw["scales"], bn)}
+    for extra in ("mins", "b"):
+        if extra in qw:
+            out[extra] = qw[extra]
+    return out

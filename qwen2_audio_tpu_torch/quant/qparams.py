@@ -16,6 +16,9 @@ One explicit form with one default:
             q5_0, q5_1, q8_0: lossless), float32 for the k-quants' products
     mins    float32; q4_0 is symmetric by default (no "mins" leaf, the
             kernel subtracts 8), ``Q4Form(sym=False)`` folds -8 * d into one
+    qs_p, qs4_p, scales_p
+            the same values in contiguous column panels (P, rows, bn), made
+            from the forms above by ops.quant_matmul.panelize_weight
 
 All ten formats reduce to ``w = q * d (+ m)``: q4_K / q5_K at 32-group
 granularity (super-block scale times 6-bit sub-scale), q2_K / q3_K / q6_K at
@@ -68,12 +71,14 @@ def payload_form(qw: dict) -> str:
         return {torch.float32: "f32sc", torch.float16: "f16sc"}[a.dtype]
     if "qs8" in qw:
         return "w8a8"
-    if "qs4" in qw:
-        return "+".join(("packed4", "sym" if "mins" not in qw else "mins",
-                         "u8", sc(qw["scales"])))
-    if "qs" in qw:
-        return "+".join(("strided", "sym" if "mins" not in qw else "mins",
-                         sc(qw["scales"])))
+    for qkey, panel in (("qs4", ""), ("qs4_p", "-panel")):
+        if qkey in qw:
+            return "+".join(("packed4" + panel, "sym" if "mins" not in qw else "mins",
+                             "u8", sc(qw["scales_p" if panel else "scales"])))
+    for qkey, panel in (("qs", ""), ("qs_p", "-panel")):
+        if qkey in qw:
+            return "+".join(("strided" + panel, "sym" if "mins" not in qw else "mins",
+                             sc(qw["scales_p" if panel else "scales"])))
     raise ValueError(f"not a quantized payload: keys={sorted(qw)}")
 
 

@@ -260,3 +260,151 @@ def test_quantized_context_on_card_matches_cpu(device):
         set_group_matmul_mode(None)
     assert out[0][0] == out[1][0] and len(out[0][0]) > 0
     np.testing.assert_allclose(out[0][1], out[1][1], atol=2e-3)
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("M,dtype,fast", [
+    (1, torch.bfloat16, True), (5, torch.float32, False), (752, torch.bfloat16, True),
+    (130, torch.float32, False),
+])
+def test_panel_entries_give_the_strided_bits(device, fmt, M, dtype, fast):
+    """Flat and stacked panel entries at the decoder's qkv shape (6 panels
+    of 768) and at a width no multiple of 128 divides (one panel)."""
+    for K, N in ((3584, 4608), (256, 208)):
+        qw = chip_smoke._rand_blocks(device, K, N, fmt, seed=21, layers=2)
+        pw = tqm.panelize_weight(qw)
+        packed = fmt == "q4_0"
+        qk, pk = ("qs4", "qs4_p") if packed else ("qs", "qs_p")
+        assert pw[pk].shape[1:] == ((6, K // (2 if packed else 1), 768) if N == 4608
+                                    else (1, K // (2 if packed else 1), 208))
+        x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(22),
+                        device=device).to(dtype)
+        kw = {"fast": fast, **({"off": 8} if packed else {})}
+        stacked, flat, pstacked, pflat = (
+            (tqm.quant_matmul4_stacked, tqm.quant_matmul4, tqm.quant_matmul_panel4_stacked,
+             tqm.quant_matmul_panel4) if packed else
+            (tqm.quant_matmul_stacked, tqm.quant_matmul, tqm.quant_matmul_panel_stacked,
+             tqm.quant_matmul_panel))
+        before = pstacked.launches, pflat.launches
+        got = pstacked(x, pw[pk], pw["scales_p"], 1, **kw)
+        assert torch.equal(got, pflat(x, pw[pk][1], pw["scales_p"][1], **kw))
+        assert (pstacked.launches, pflat.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(got, stacked(x, qw[qk], qw["scales"], 1, **kw))
+        assert torch.equal(got, flat(x, qw[qk][1], qw["scales"][1], **kw))
+
+
+def test_panel_entry_refuses_a_width_the_kernel_does_not_take(device):
+    qw = chip_smoke._rand_blocks(device, 256, 192, "q8_0", seed=23)
+    x = torch.zeros(2, 256, device=device)
+    pw = tqm.panelize_weight(qw, 24)             # 24 is no multiple of 16
+    with pytest.raises(ValueError):
+        tqm.quant_matmul_panel(x, pw["qs_p"], pw["scales_p"])
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q6_K", "q5_1", "q4_0", "q4_1"])
+@pytest.mark.parametrize("M,dtype,fast", [
+    (1, torch.bfloat16, True), (1, torch.float32, False), (5, torch.float32, True),
+    (33, torch.bfloat16, False), (64, torch.float32, False),
+])
+def test_fused_mlp_matches_plain(device, fmt, M, dtype, fast):
+    """The one-launch SwiGLU over every dequant flavour at a width whose last
+    tile of I is ragged (I = 1056 = 16 * 64 + 32), both schemas."""
+    from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
+    K, I = 512, 1056
+    gu, dn = chip_smoke._rand_mlp(device, K, I, K, fmt, seed=31)
+    packed = "qs4" in gu
+    order = (("qs4" if packed else "qs"), "scales") + (("mins",) if "mins" in gu else ())
+    entry = {(False, 2): tfm.fused_mlp_stacked, (False, 3): tfm.fused_mlp_m_stacked,
+             (True, 3): tfm.fused_mlp4_stacked, (True, 2): tfm.fused_mlp4_sym_stacked
+             }[packed, len(order)]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(32),
+                    device=device).to(dtype)
+    leaves = [tuple(w[k][1] for k in order) for w in
+              ({k: gu[k][..., :I] for k in order}, {k: gu[k][..., I:] for k in order}, dn)]
+    before = entry.launches
+    got = entry(x, *(w[k] for w in (gu, dn) for k in order), 1, fast=fast)
+    assert entry.launches == before + 1
+    want = tfm.fused_mlp_plain(x, *leaves, packed=packed, fast=fast)
+    tol = _qmm_tol(want, dtype)
+    if fast:
+        tol = tol + chip_smoke.FUSED_FLIPS * tfm.gated_rounding_bound(x, *leaves, packed=packed)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got, entry(x, *(w[k] for w in (gu, dn) for k in order), 1, fast=fast))
+    split = tfm.fused_mlp_split_stacked(
+        x, tuple(gu[k][..., :I].contiguous() for k in order),
+        tuple(gu[k][..., I:].contiguous() for k in order), tuple(dn[k] for k in order), 1,
+        packed=packed, fast=fast)
+    assert torch.equal(split, got)
+
+
+def test_fused_mlp_refuses_what_the_kernel_does_not_take(device):
+    from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
+    gu, dn = chip_smoke._rand_mlp(device, 256, 128, 256, "q8_0", seed=33)
+    args = (gu["qs"], gu["scales"], dn["qs"], dn["scales"])
+    x = torch.zeros(2, 256, device=device)
+    with pytest.raises(ValueError):      # float16 activations
+        tfm.fused_mlp_stacked(x.half(), *args, 0)
+    with pytest.raises(ValueError):      # 65 rows
+        tfm.fused_mlp_stacked(torch.zeros(65, 256, device=device), *args, 0)
+    with pytest.raises(ValueError):      # down's rows not contiguous
+        tfm.fused_mlp_stacked(x, gu["qs"], gu["scales"],
+                              dn["qs"].transpose(1, 2).contiguous().transpose(1, 2),
+                              dn["scales"], 0)
+    with pytest.raises(ValueError):      # float64 scales
+        tfm.fused_mlp_stacked(x, gu["qs"], gu["scales"].double(), dn["qs"],
+                              dn["scales"].double(), 0)
+
+
+@pytest.mark.parametrize("skip_gate_up", [False, True])
+def test_decode_tuned_context_on_card_matches_cpu(device, skip_gate_up):
+    """A q4_1 decoder (packed nibbles with mins), fused and panelized, behind
+    a dense encoder, exact mode, float32: the same tokens on the card
+    (panel kernels, the one-launch SwiGLU) as on the CPU (plain versions)."""
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import (
+        Decoder, fuse_decoder_params, panelize_decoder_params, random_decoder_params)
+    from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.quant.qparams import quantize_decoder_params
+    hp = WhisperHParams(n_vocab=64, n_audio_state=128, n_audio_head=2,
+                        n_audio_layer=2, n_mels=80)
+    cfg = Qwen2DecoderConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                             num_hidden_layers=2, num_attention_heads=14,
+                             num_key_value_heads=2, head_dim=128, tie_word_embeddings=False)
+    buf = io.BytesIO()
+    write_encoder_checkpoint(buf, random_encoder_params(np.random.default_rng(0), hp),
+                             hp, mel_filterbank(80), [b"a"])
+    x = chip_smoke.noisy_tone(2.0, seed=6)
+    tree = fuse_decoder_params(quantize_decoder_params(
+        random_decoder_params(np.random.default_rng(2), cfg), GGMLType.Q4_1))
+    if skip_gate_up:     # the MLP strided (one launch at decode M), the rest in panels
+        tree = dict(tree, layers={k: (tqm.panelize_weight(e) if k in ("qkv", "o") else e)
+                                  for k, e in tree["layers"].items()},
+                    lm_head=tqm.panelize_weight(tree["lm_head"]))
+    else:
+        tree = panelize_decoder_params(tree)
+    out = []
+    set_group_matmul_mode("dequant")
+    try:
+        for cp in (ContextParams(), ContextParams(use_gpu=False)):
+            ctx = capi.whisper_init_from_buffer_with_params(buf.getvalue(), cp)
+            bundle = random_bundle(np.random.default_rng(1), cfg, hp.n_audio_state,
+                                   max_ctx=1024)
+            bundle.decoder = Decoder(tree, cfg)
+            ctx.decoder = bundle
+            p = capi.whisper_full_default_params()
+            p.max_new_tokens = 6
+            p.temperature_inc = 0.0
+            before = (tqm.quant_matmul_panel4_stacked.launches, tqm.quant_matmul_panel4.launches,
+                      tfm.fused_mlp4_stacked.launches)
+            assert capi.whisper_full(ctx, p, x) == 0
+            if cp.use_gpu:
+                assert tqm.quant_matmul_panel4_stacked.launches > before[0]
+                assert tqm.quant_matmul_panel4.launches > before[1]
+                assert (tfm.fused_mlp4_stacked.launches > before[2]) == skip_gate_up
+            out.append((ctx.state.result_tokens, capi.whisper_get_logits(ctx)))
+    finally:
+        set_group_matmul_mode(None)
+    assert out[0][0] == out[1][0] and len(out[0][0]) > 0
+    np.testing.assert_allclose(out[0][1], out[1][1], atol=2e-3)

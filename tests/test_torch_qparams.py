@@ -104,12 +104,25 @@ def test_quant_params_from_jax_maps_trees_and_refuses_panels():
     assert out["layers"][0]["q"]["scales"].dtype == torch.float16
     assert float(out["layers"][0]["q"]["scales"][0, 0]) == 1.0
     assert out["layers"][0]["ln1"]["w"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        quant_params_from_jax({"q": {"qs_p": np.zeros((1, 32, 16), np.int8),
-                                     "scales_p": np.ones((1, 1, 16), np.float32)}})
+    # panel leaves, refused until their kernels were ported, convert like
+    # their strided namesakes
+    panels = quant_params_from_jax(
+        {"q": {"qs_p": np.zeros((1, 32, 16), np.int8),
+               "scales_p": np.ones((1, 1, 16), np.float16).view(np.uint16)},
+         "k": {"qs4_p": np.full((2, 16, 16), -1, np.int8),
+               "scales_p": np.ones((2, 1, 16), np.float32),
+               "mins": np.zeros((1, 32), np.float32)}})
+    assert panels["q"]["qs_p"].dtype == torch.int8
+    assert panels["q"]["scales_p"].dtype == torch.float16
+    assert float(panels["q"]["scales_p"][0, 0, 0]) == 1.0
+    assert panels["k"]["qs4_p"].dtype == torch.uint8 and int(panels["k"]["qs4_p"][0, 0, 0]) == 255
+    assert panels["k"]["scales_p"].dtype == torch.float32
     with pytest.raises(NotImplementedError):
         quant_params_from_jax({"q": {"qs8": np.zeros((32, 16), np.int8),
                                      "scale_n": np.ones(16, np.float32)}})
+    with pytest.raises(NotImplementedError):
+        quant_params_from_jax({"q": {"qs4b": np.zeros((4, 16), np.int32),
+                                     "scales": np.ones((1, 16), np.float32)}})
 
 
 @pytest.mark.parametrize("fmt", ["Q8_0", "Q4_0", "Q4_1", "Q6_K"])
@@ -136,6 +149,10 @@ def test_payload_form_and_q4form():
     t6 = GGMLTensor("w", (N, K), GGMLType.Q6_K, _raw("Q6_K"))
     assert tq.payload_form(tq.device_weight_from_ggml_tensor(t6)) == "strided+sym+f32sc"
     assert tq.payload_form({"qs8": 0, "scale_n": 0}) == "w8a8"
+    panel = tqm.panelize_weight(tq.device_weight_from_ggml_tensor(t), 8)
+    assert tq.payload_form(panel) == "packed4-panel+sym+u8+f16sc"
+    assert tq.payload_form(tqm.panelize_weight(
+        tq.device_weight_from_ggml_tensor(t6), 8)) == "strided-panel+sym+f32sc"
     with pytest.raises(ValueError):
         tq.payload_form({"w": 0})
     with pytest.raises(NotImplementedError):

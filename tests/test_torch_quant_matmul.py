@@ -256,11 +256,24 @@ def test_linear_dense_and_default_mode(rng):
 
 @pytest.mark.parametrize("key", ["qs_p", "qs4_p", "qs4b", "qs8"])
 def test_unported_forms_raise(key):
-    p = {key: torch.zeros(1, 32, 16, dtype=torch.int8), "scales_p": torch.ones(1, 1, 16)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.linear(torch.zeros(1, 32), p)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.linear_at(torch.zeros(1, 32), p, 0)
+    """The word-packed and per-channel forms raise; the panel forms, refused
+    until their kernels were ported, are now taken by ``linear`` and
+    ``linear_at`` and give the strided result."""
+    if key in ("qs4b", "qs8"):
+        p = {key: torch.zeros(1, 32, 16, dtype=torch.int8), "scales_p": torch.ones(1, 1, 16)}
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tl.linear(torch.zeros(1, 32), p)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tl.linear_at(torch.zeros(1, 32), p, 0)
+        return
+    tl.set_group_matmul_mode("dequant")
+    _, tw = _stacked("Q8_0" if key == "qs_p" else "Q4_0")
+    tp = tqm.panelize_weight(tw, 64)
+    assert key in tp and tp[key].shape[:2] == (L, N // 64)
+    _, tx = _x(3, "f32")
+    assert torch.equal(tl.linear_at(tx, tp, 1), tl.linear_at(tx, tw, 1))
+    flat_p, flat = ({k_: v[1] for k_, v in t.items()} for t in (tp, tw))
+    assert torch.equal(tl.linear(tx, flat_p), tl.linear(tx, flat))
 
 
 def test_int8_mode_raises_and_bad_mode():

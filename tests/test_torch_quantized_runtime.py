@@ -2,7 +2,8 @@
 against the JAX package's (CPU; Pallas in interpret mode on the JAX side).
 Both packages are set to the exact ("dequant") group-matmul mode unless a
 test says otherwise: the JAX package's default depends on its device, the
-port's is "bf16"."""
+port's is "bf16". Both run their one-launch SwiGLU MLP at decode M (the
+default of each off the TPU)."""
 
 import io
 
@@ -49,14 +50,14 @@ EMB_TOL = dict(atol=2e-3, rtol=1e-3)
 
 @pytest.fixture(autouse=True)
 def _exact_mode(monkeypatch):
-    # the JAX decoder's one-launch SwiGLU kernel is not ported: take its own
-    # unfused path, which is the port's
-    monkeypatch.setenv("QA_FUSED_MLP", "0")
+    for var in ("QA_FUSED_MLP", "QA_PANEL_BN", "QA_PANEL_DEEP_K", "QA_PANEL_SKIP_GU"):
+        monkeypatch.delenv(var, raising=False)
     jl.set_group_matmul_mode("dequant")
     tl.set_group_matmul_mode("dequant")
     yield
     jl.set_group_matmul_mode(None)
     tl.set_group_matmul_mode(None)
+    tl.set_fused_mlp(None)
 
 
 def _source(seed=0) -> bytes:
@@ -153,9 +154,9 @@ def test_quantize_encoder_params_matches_jax(rng):
                 assert torch.equal(a[key][leaf].float(), b[key][leaf].float()), (key, leaf)
 
 
-def _decoders(fmt, form=None, seed=0):
+def _decoders(fmt, form=None, seed=0, **over):
     """A JAX and a port decoder with the same ggml-quantized weights."""
-    jcfg, tcfg = JCfg(**DEC), TCfg(**DEC)
+    jcfg, tcfg = JCfg(**{**DEC, **over}), TCfg(**{**DEC, **over})
     jp = jd.random_decoder_params(np.random.default_rng(seed), jcfg)
     jqp = jq.quantize_decoder_params(jp, JType[fmt], form=form)
     tp = decoder_params_from_jax(jax.tree.map(np.asarray, jp))
@@ -284,3 +285,130 @@ def test_bundle_from_jax_takes_quantized_trees(rng):
     want = td.fuse_decoder_params(tqp)["layers"]["qkv"]
     assert torch.equal(qkv["qs4"], want["qs4"])
     assert torch.equal(qkv["scales"].float(), want["scales"].float())
+
+
+# the decode-tuned storage: fused gate_up with the one-launch SwiGLU, and the
+# contiguous-panel forms, alone or beside it
+TUNED = {   # name: (format, panelize, skip_gate_up, intermediate size)
+    "q8_0-fused": ("Q8_0", False, False, 128),
+    "q4_1-fused": ("Q4_1", False, False, 128),
+    "q4_0-panel": ("Q4_0", True, False, 128),
+    # down's K past 8192 stays strided, as in the 7B tower, so that with
+    # gate_up left strided too the one-launch kernel runs beside the panels
+    "q4_0-panel-skip-gate-up": ("Q4_0", True, True, 8192 + 256),
+    "q8_0-panel-deep-down": ("Q8_0", True, False, 8192 + 256),
+}
+T0, STEPS = 70, 4      # a prefill past the one-launch kernel's 64 rows
+
+
+@pytest.mark.parametrize("name", list(TUNED))
+def test_decode_tuned_decoder_matches_jax(name, rng, monkeypatch):
+    """A 2-layer quantized decoder in the JAX package's decode-tuned storage,
+    carried across by ``bundle_from_jax``: a 70-position prefill (two-launch
+    MLP) and four greedy steps (one-launch SwiGLU where gate_up is strided)
+    through ``decoder_forward``; logits against the JAX decoder, and the
+    port's switch on against off."""
+    from qwen2_audio_tpu.runtime.decoding import DecoderBundle as JBundle
+    from qwen2_audio_tpu_torch.convert import bundle_from_jax
+    fmt, panel, skip_gu, inter = TUNED[name]
+    if skip_gu:
+        monkeypatch.setenv("QA_PANEL_SKIP_GU", "1")
+    jcfg, tcfg, jp, jqp, _ = _decoders(fmt, seed=5, intermediate_size=inter)
+    jqp = jd.fuse_decoder_params(jqp)
+    if panel:
+        jqp = jd.panelize_decoder_params(jqp)
+    tb = bundle_from_jax(JBundle(cfg=jcfg, params=jqp, proj_w=jnp.eye(64),
+                                 proj_b=jnp.zeros(64), eos_token_id=127, bos_tokens=[],
+                                 post_audio_tokens=[], max_ctx=T0 + STEPS,
+                                 cache_dtype=jnp.float32))
+    tqp = tb.params
+    layers = tqp["layers"]
+    assert ("qs_p" in layers["qkv"] or "qs4_p" in layers["qkv"]) == panel
+    assert ("qs" in layers["gate_up"] or "qs4" in layers["gate_up"]) == (not panel or skip_gu)
+    assert bool({"qs_p", "qs4_p"} & set(layers["down"])) == (panel and inter <= 8192)
+    assert tq.payload_form(layers["qkv"]) == {
+        "q8_0-fused": "strided+sym+f16sc", "q4_1-fused": "packed4+mins+u8+f16sc",
+        "q8_0-panel-deep-down": "strided-panel+sym+f16sc",
+    }.get(name, "packed4-panel+sym+u8+f16sc")
+
+    fused_calls = []
+    real = td.fused_mlp_at
+    monkeypatch.setattr(td, "fused_mlp_at", lambda x, gu, dn, li: (
+        lambda y: (fused_calls.append((x.shape[1], y is not None)), y)[1])(real(x, gu, dn, li)))
+
+    toks = rng.integers(0, 128, (1, T0))
+    jx = jd.embed_tokens(jp, jnp.asarray(toks))
+    tx = td.embed_tokens(tqp, torch.from_numpy(toks))
+
+    def run_port():
+        lg, cache = td.decoder_forward(tqp, tcfg, tx, td.create_cache(
+            tcfg, 1, T0 + STEPS, torch.float32), 0, block_only=True, logits_last_only=True)
+        out, picked = [lg[:, -1]], []
+        for step in range(STEPS):
+            picked.append(int(out[-1][0].argmax()))
+            lg, cache = td.decoder_forward(tqp, tcfg, td.embed_tokens(
+                tqp, torch.tensor([[picked[-1]]])), cache, T0 + step)
+            out.append(lg[:, -1])
+        return torch.stack(out).numpy(), picked
+
+    got, ttoks = run_port()
+    one_launch = not panel or skip_gu
+    assert fused_calls == [(T0, False)] * 2 + [(1, one_launch)] * (2 * STEPS)
+
+    want, jcache = jd.decoder_forward(jqp, jcfg, jx, jd.KVCache.create(
+        jcfg, 1, T0 + STEPS, dtype=jnp.float32), 0, logits_last_only=True)
+    jout, jtoks = [want[:, -1]], []
+    for step in range(STEPS):
+        jtoks.append(int(jnp.argmax(jout[-1][0])))
+        lg, jcache = jd.decoder_forward(jqp, jcfg, jd.embed_tokens(
+            jp, jnp.asarray([[jtoks[-1]]])), jcache, T0 + step)
+        jout.append(lg[:, -1])
+    np.testing.assert_allclose(got, np.asarray(jnp.stack(jout)), atol=2e-3, rtol=1e-3)
+    assert ttoks == jtoks
+
+    # the switch off: the per-projection path at every M, the same tokens
+    tl.set_fused_mlp(False)
+    fused_calls.clear()
+    off, off_toks = run_port()
+    assert all(not taken for _, taken in fused_calls)
+    np.testing.assert_allclose(off, got, atol=2e-3, rtol=1e-3)
+    assert off_toks == ttoks
+    if not one_launch:
+        assert np.array_equal(off, got)      # nothing to switch off
+
+
+def test_unfused_layers_take_the_split_entry(rng, monkeypatch):
+    """Separate gate and up (no ``fuse_decoder_params``): the decoder's MLP
+    goes through ``fused_mlp_split_at`` at decode M, as the JAX one does."""
+    monkeypatch.setenv("QA_FUSED_MLP", "1")
+    jcfg, tcfg, jp, jqp, tqp = _decoders("Q8_0", seed=6)
+    taken = []
+    real = td.fused_mlp_split_at
+    monkeypatch.setattr(td, "fused_mlp_split_at", lambda x, g, u, dn, li: (
+        lambda y: (taken.append(y is not None), y)[1])(real(x, g, u, dn, li)))
+    toks = rng.integers(0, 128, (1, 3))
+    want, _ = jd.decoder_forward(jqp, jcfg, jd.embed_tokens(jp, jnp.asarray(toks)),
+                                 jd.KVCache.create(jcfg, 1, 8, dtype=jnp.float32), 0)
+    got, _ = td.decoder_forward(tqp, tcfg, td.embed_tokens(tqp, torch.from_numpy(toks)),
+                                td.create_cache(tcfg, 1, 8, torch.float32), 0,
+                                block_only=True)
+    assert taken == [True, True] and "gate" in tqp["layers"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3, rtol=1e-3)
+
+
+def test_panelized_decoder_through_generate_and_decoder_module(rng):
+    """``panelize_decoder_params`` composed after ``fuse_decoder_params`` in
+    the port: the Decoder module holds the panel tree as it is, and greedy
+    generation picks the strided tree's tokens."""
+    _, tcfg, _, _, tqp = _decoders("Q4_0", seed=7)
+    fused = td.fuse_decoder_params(tqp)
+    tx = td.embed_tokens(tqp, torch.from_numpy(rng.integers(0, 128, (1, 5))))
+    kw = dict(max_new_tokens=4, eos_token_id=127, cache_max_ctx=16, cache_dtype=torch.float32)
+    want = generate_on_device(fused, tcfg, tx, **kw)
+    for skip in (False, True):
+        dec = td.Decoder(td.panelize_decoder_params(fused, skip_gate_up=skip), tcfg)
+        assert "qs4_p" in dec.params["layers"]["qkv"] and "qs4_p" in dec.params["lm_head"]
+        assert ("qs4" in dec.params["layers"]["gate_up"]) == skip
+        got = generate_on_device(dec.params, tcfg, tx, **kw)
+        assert torch.equal(got[0], want[0])
+        np.testing.assert_allclose(got[3].numpy(), want[3].numpy(), atol=1e-4)
