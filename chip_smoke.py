@@ -21,16 +21,28 @@ before the result lines are printed):
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
    I = 18944) at M = 1, 7, 64, both modes, bf16 and float32 x, over q8_0,
    q6_K, q5_1 (mins), symmetric q4_0 and q4_1 blocks, the split schema
-   bit-equal to the fused one, two runs bit-equal, M = 65 refused;
+   bit-equal to the fused one, two runs bit-equal, M = 65 refused; the
+   exact-integer group matmul: the q8_1 quantizing kernel bit-equal to its
+   plain version (M = 1, 7, 752, 1500, bf16 and float32 x, ties and all-zero
+   groups), then its three entries (flat int8 values, stacked int8 values
+   or nibble bytes, stacked int32 words) at M = 1, 7, 752, 1500 over the
+   decoder's, the lm_head's and the encoder's K x N, q8_0, symmetric q4_0 as
+   bytes and as words, q4_1 and q5_1 with mins, the flat entry bit-equal to
+   the stacked one and the words to the bytes with off 8, two runs
+   bit-equal;
 3. parity at full width and depth 2, card against CPU in float32: the
    encoder (embedding, dense and from a q8_0 checkpoint), and the Qwen2
    decoder (a 160-position prefill and 8 greedy steps: the same tokens,
-   logits within tolerance), dense and with q8_0 and q4_0 weights from the
-   ggml quantizers (a 16-position prefill and 4 steps, exact mode), each
-   with the one-launch SwiGLU off, and once more with it on (q8_0) and
-   with the decoder panelized (q4_0);
-4. the main path at full width, two paths, each with the launch counters
-   set to 0 just before it and read just after:
+   logits within tolerance), dense and with q8_0 (layers and lm_head) and
+   q4_0 (layers) weights from the ggml quantizers (a 16-position prefill
+   and 4 steps, exact mode), each with the one-launch SwiGLU off, and once
+   more with it on (q8_0) and with the decoder panelized (q4_0); in mode
+   "int8" the q8_0 encoder and both decoders, and in the default mode a
+   decoder of random q4_0 blocks as int32 words (the CPU's greedy tokens
+   over a prefill and one step teacher-forced on the card), each card run
+   launching the integer entry for every quantized linear and no other;
+4. the main path at full width, each path with the launch counters set
+   to 0 just before it and read just after:
    a. encode: write a random-weight (seed 0) F16 qwen2-audio checkpoint
       with the port's ggml writer, load it through
       capi.whisper_init_from_file_with_params in bf16, run whisper_full on
@@ -63,7 +75,18 @@ before the result lines are printed):
       lm_head in panels, down strided, no fused launch) and panelized with
       gate_up left strided (panels and the one-launch SwiGLU together: the
       strided request's tokens and logits, bit for bit). Every launch count
-      is derived from the prefills and decoder forwards the run reports.
+      is derived from the prefills and decoder forwards the run reports;
+   e. mode "int8" and the word-packed q4_0 form, behind the q8_0 encoder,
+      one request each on the same clip: the encoder alone in mode "int8"
+      (4 launches of the flat integer entry per layer, none of a
+      dequantizing entry; the embedding against the bf16 mode's), audio ->
+      text in mode "int8" with the q8_0 and the q4_0 decoder of (d) (4
+      launches of the stacked integer entry per layer and forward; the
+      lm_head through the flat integer entry, or for q4_0's flat nibbles the
+      exact dequantizing one; no fused launch; logits teacher-forced against
+      the bf16 mode), and the same q4_0 bytes as int32 words in the default
+      mode (the word entry for every linear and the lm_head; teacher-forced
+      against the q4_0 request in mode "int8").
 The last two lines of standard output are the kernels JSON line and the
 {"ok": true, ...} line. Without a CUDA device the script exits 1.
 
@@ -86,9 +109,25 @@ rounding may fall either way); the one-launch SwiGLU the same, and in fast
 mode also 2 * gated_rounding_bound (the order of g's and u's sums moves a
 gated value across a bf16 rounding boundary now and then: 2**-8 * the row's
 max|gated| * max|Wd| for each of two such flips per output);
-2-layer float32 card vs CPU 2e-3 (embedding and decoder logits); the
-bf16 kernel paths against the plain-attention paths on the card cosine
-0.99, the quantized paths against their dense counterparts the same.
+the exact-integer group matmul the dequantizing matmul's tolerance (xq is
+bit-equal, so only the order of the float32 sums differs) and, with mins,
+2% of max|dense| against the dense product (q8_1 rounding of x, the JAX
+suite's bound, INT8_REL); 2-layer float32 card vs CPU 2e-3 (embedding and decoder
+logits), in mode "int8" and for int32 words 1.5% of the largest CPU value
+(INT8_PARITY_REL): the two differ where an upstream ulp rounds an xq the
+other way, and one such flip of x[m, k] moves every output of row m, by
+sx * sw * |q[k, n]|, so that many of the next layers' inputs flip in
+turn. On the H100 the decoders stood 0.65-0.89% of the largest value off
+the CPU, and the exact mode on the card 2.2-2.4% off the same CPU values
+(both distances are logged), so the bound sits between them; the encoder
+stood 0.73% off, its exact mode only 0.91%, and no bound separates the
+two there. The launch counts do, everywhere: each card run must launch
+the integer entries for every quantized linear and nothing else, and
+phase 2 holds each entry to 1e-4 of its plain version. A wrong group, scale or
+nibble order moves values by O(max); a token may differ only at a
+near-tie; the bf16 kernel paths against the
+plain-attention paths on the card cosine 0.99, the quantized paths against
+their dense counterparts, and mode "int8" against the bf16 mode, the same.
 """
 
 from __future__ import annotations
@@ -105,6 +144,7 @@ import time
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 MEL_ATOL = 3e-4
@@ -120,8 +160,11 @@ QMM_ATOL_F32 = 1e-4   # of max|plain|
 QMM_TOL_BF16 = (2.0 ** -8, 2.0 ** -7)   # (atol of max|plain|, rtol)
 QUANT_CALLS = 6       # whisper_full calls of each quantized encode path
 QDEC_PARITY_PREFILL, QDEC_PARITY_STEPS = 16, 4
+INT8_PARITY_STEPS = 2  # mode "int8" parity: the prefill and one cached step
 FUSED_FLIPS = 2       # bf16 roundings of gated that may fall the other way, per output
 PANEL_TOKENS = 8      # new tokens of the q8_0 panelized request
+INT8_REL = 0.02       # of max|ref|: q8_1 rounding of x (the JAX suite's bound)
+INT8_PARITY_REL = 0.015  # of max|cpu|: phase 3 in mode "int8" and for int32 words
 
 
 class SmokeFailure(RuntimeError):
@@ -637,6 +680,191 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
     return main
 
 
+def _ties_and_zeros(device, M: int, K: int, dtype, seed: int):
+    """Random x with an all-zero group in row 0 and, in the last row, a
+    group whose max is 127 (sx = 1) holding values on .5 rounding ties."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device=device)
+    x[0, :32] = 0.0
+    ties = [127.0] + [0.5, 1.5, 2.5, -3.5, -0.5, 126.5] * 5 + [4.5]
+    x[-1, 32:64] = torch.tensor(ties, device=device)
+    return x.to(dtype)
+
+
+def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
+    """The q8_1 quantizing kernel against its plain version on the card:
+    xq and sx bit-equal, bf16 and float32 x, M = 1, 7, 752, 1500."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (1, 7, 752, 1500):
+            for K in Ks:
+                x = _ties_and_zeros(device, M, K, dtype, seed=150 + n)
+                xq, sx = q8.quantize_activations(x)
+                pq, ps = q8.quantize_activations_plain(x)
+                torch.cuda.synchronize()
+                what = f"quantize_activations M={M} K={K} x {str(dtype).removeprefix('torch.')}"
+                require(torch.equal(xq, pq) and torch.equal(sx, ps),
+                        f"{what}: xq or sx differs from the plain version "
+                        f"({int((xq != pq).sum())} xq, {int((sx != ps).sum())} sx)")
+                require(float(sx[0, 0]) == 0.0 and xq[-1, 32:39].tolist()
+                        == [127, 0, 2, 2, -4, 0, 126], f"{what}: zero group or ties")
+                n += 1
+    log(f"quantize_activations: {n} cases bit-equal to the plain version (ties, zero groups)")
+    return n
+
+
+def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
+    """Rows 14, 15 and 16, the exact-integer group matmul, against their
+    plain versions at M = 1, 7, 752, 1500 over the decoder's, the lm_head's
+    and the encoder's K x N; the equalities the design promises (row 14 =
+    row 15 on the same values, row 16 = row 15 over nibble bytes with off 8
+    on the same bytes, two runs) bit for bit; times beside bound, plain and
+    library. Returns the kernels line's three entries."""
+    import torch
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as q4b
+
+    bf, f32 = torch.bfloat16, torch.float32
+    D, I, V, E = dims
+    check_quantize_activations(device, (D, I, E))
+
+    def b32(qw):
+        return {"qs4b": q4b.pack_b32(qw["qs4"]), "scales": qw["scales"]}
+
+    def flat_q4(ttype, seed):   # a real quantizer's q4 blocks, with a leading axis of 1
+        return {k: v[None] for k, v in _quantized(device, E, 4 * E, ttype, seed).items()}
+
+    gu4 = _rand_blocks(device, D, 2 * I, "q4_0", 161, layers=2)
+    dn4 = _rand_blocks(device, I, D, "q4_0", 162, layers=2)
+    fc1_4 = flat_q4(GGMLType.Q4_0, 165)
+    weights = {   # name: dict of stacked (L, ...) leaves, or flat leaves
+        "qkv q8_0": _rand_blocks(device, D, D + D // 7 * 2, "q8_0", 160, layers=2),
+        "gate_up q8_0": _rand_blocks(device, D, 2 * I, "q8_0", 163, layers=2),
+        "gate_up q4_0": gu4, "gate_up q4_0 b32": b32(gu4),
+        "down q4_0": dn4, "down q4_0 b32": b32(dn4),
+        "lm_head q8_0": _rand_blocks(device, D, V, "q8_0", 164),
+        "lm_head q4_0 b32": _rand_blocks(device, D, V, "q4_0", 166),
+        "fc1 q8_0": _quantized(device, E, 4 * E, GGMLType.Q8_0, 167),
+        "fc1 q4_0": fc1_4, "fc1 q4_0 b32": b32(fc1_4),
+        "fc1 q4_1": flat_q4(GGMLType.Q4_1, 168),
+        "fc2 q5_1": _quantized(device, 4 * E, E, GGMLType.Q5_1, 169),
+    }
+    weights["lm_head q4_0 b32"] = b32(weights["lm_head q4_0 b32"])
+    rows = {"quant_matmul_int8": ("quant_matmul_int8.py", 53),
+            "quant_matmul_int8_stacked": ("quant_matmul_int8.py", 178),
+            "quant_matmul_q4b_stacked": ("quant_matmul_q4b.py", 105)}
+    cases = [   # (weight, M, x dtype, kernels-line entry or None)
+        ("lm_head q8_0", 1, bf, None), ("lm_head q8_0", 7, f32, None),
+        ("fc1 q8_0", 1500, bf, "quant_matmul_int8"), ("fc1 q8_0", 1500, f32, None),
+        ("fc1 q8_0", 752, bf, None), ("fc1 q8_0", 1, f32, None),
+        ("fc2 q5_1", 1500, bf, None), ("fc2 q5_1", 7, f32, None),
+        ("qkv q8_0", 1, bf, None), ("qkv q8_0", 752, f32, None),
+        ("gate_up q8_0", 1, bf, "quant_matmul_int8_stacked"), ("gate_up q8_0", 752, bf, None),
+        ("gate_up q8_0", 7, f32, None),
+        ("down q4_0", 1, bf, None), ("down q4_0", 752, bf, None),
+        ("down q4_0 b32", 1, bf, None), ("down q4_0 b32", 752, bf, None),
+        ("down q4_0 b32", 7, f32, None),
+        ("gate_up q4_0", 1, bf, None), ("gate_up q4_0 b32", 1, bf, "quant_matmul_q4b_stacked"),
+        ("gate_up q4_0 b32", 752, bf, None),
+        ("lm_head q4_0 b32", 1, bf, None), ("lm_head q4_0 b32", 7, f32, None),
+        ("fc1 q4_0", 1500, bf, None), ("fc1 q4_0 b32", 1500, f32, None),
+        ("fc1 q4_0 b32", 1500, bf, None),
+        ("fc1 q4_1", 1500, bf, None), ("fc1 q4_1", 7, f32, None),
+    ]
+    main, worst = {}, 0.0
+    for i, (wname, M, dtype, line) in enumerate(cases):
+        qw = weights[wname]
+        form = "qs4b" if "qs4b" in qw else "qs4" if "qs4" in qw else "qs"
+        q, sc = qw[form], qw["scales"]
+        if form == "qs4b" and q.dim() == 2:   # the flat use: a one-layer view
+            q, sc = q[None], sc[None]
+        stacked = q.dim() == 3
+        K = sc.shape[-2] * 32
+        N = q.shape[-1]
+        off = 8 if form == "qs4" and "mins" not in qw else 0
+        li = (q.shape[0] - 1,) if stacked else ()
+        if form == "qs4b":
+            entry, kw = q4b.quant_matmul_q4b_stacked, {}
+            plain = q4b.quant_matmul_q4b_plain
+        elif stacked:
+            entry, kw = q8.quant_matmul_int8_stacked, {"off": off}
+            plain = (lambda x_, q_, s_: q8.quant_matmul_int8_packed_plain(x_, q_, s_, off=off)) \
+                if form == "qs4" else q8.quant_matmul_int8_plain
+        else:
+            entry, kw, plain = q8.quant_matmul_int8, {}, q8.quant_matmul_int8_plain
+        ql, scl = (q[li[0]], sc[li[0]]) if stacked else (q, sc)
+        g = torch.Generator(device=device).manual_seed(170 + i)
+        x = torch.randn(M, K, generator=g, device=device).to(dtype)
+        got = entry(x, q, sc, *li, **kw)
+        want = plain(x, ql, scl)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().max().item()
+        atol, rtol = (QMM_ATOL_F32 * top, 0.0) if dtype == f32 else \
+            (QMM_TOL_BF16[0] * top, QMM_TOL_BF16[1])
+        used = (diff / (atol + rtol * want.float().abs())).max().item()
+        worst = max(worst, used)
+        tname = str(dtype).removeprefix("torch.")
+        what = (f"{entry.__name__} {wname} K={K} N={N} M={M} x {tname}"
+                f"{f' off {off}' if form == 'qs4' else ''} scales "
+                f"{str(sc.dtype).removeprefix('torch.')}")
+        log(f"{what}: max_abs_err={diff.max().item():.3e} (max|plain| {top:.3f}), "
+            f"{used:.3f} of the tolerance (atol {atol:.3e} + rtol {rtol:.3g} * |plain|)")
+        require(got.shape == (M, N) and got.dtype == dtype, f"{what}: shape or type")
+        require(bool(torch.isfinite(got).all()), f"{what}: kernel output not finite")
+        require(used <= 1.0, f"{what}: kernel disagrees with its plain version "
+                f"({used:.3f} of the tolerance)")
+        require(torch.equal(got, entry(x, q, sc, *li, **kw)), f"{what}: two runs differ")
+        if form == "qs4b":   # the words are the nibble bytes of row 15 with off 8
+            twin = q8.quant_matmul_int8_stacked(x, q4b.unpack_b32(q), sc, li[0], off=8)
+            require(torch.equal(got, twin), f"{what}: differs from row 15 over the same bytes")
+        elif form == "qs" and not stacked:   # flat = stacked on the same values
+            twin = q8.quant_matmul_int8_stacked(x, q[None], sc[None], 0)
+            require(torch.equal(got, twin), f"{what}: differs from row 15 on the same values")
+        if "mins" in qw:     # the min term, added outside on the raw x
+            lin = q8.quant_linear_int8_stacked(x, qw, li[0]) if stacked else \
+                q8.quant_linear_int8(x, qw)
+            ref = x.float() @ qm.dequantize_weight({k: v[li[0]] if stacked else v
+                                                   for k, v in qw.items()})
+            rel = ((lin.float() - ref).abs().max() / ref.abs().max()).item()
+            log(f"{what}: with mins against the dense product: {rel:.3e} of max|ref| "
+                "(q8_1 rounding of x)")
+            require(rel <= INT8_REL, f"{what}: the min term is off ({rel})")
+        if line is None and M not in (1, 752, 1500):
+            continue
+        # time beside the bound (weight + scales + x + out once; 2 M K N int8
+        # operations), the plain version and one torch.matmul on the
+        # dequantized weight in x's type
+        nbytes = (ql.numel() * ql.element_size() + scl.numel() * scl.element_size()
+                  + (x.numel() + M * N) * x.element_size())
+        b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8)
+        vals = q4b.unpack_b32(ql) if form == "qs4b" else ql
+        dense = qm.block_weight(vals, scl, packed=form != "qs", off=8 if form == "qs4b" else off
+                                ).to(dtype)
+        t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50),
+             "plain_ms": time_ms(lambda: plain(x, ql, scl), iters=2, warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": time_ms(lambda: x @ dense, iters=10)}
+        del dense
+        log(f"{what}: " + json.dumps(t))
+        if line is not None:
+            src, row = rows[line]
+            main[line] = {"name": line, "route": "cuda",
+                          "source": "qwen2_audio_tpu_torch/csrc/quant_matmul_int8.cu",
+                          "replaces": f"qwen2_audio_tpu/ops/{src}:{row}",
+                          "shape": what, "max_abs_err": diff.max().item(), **t}
+    log(f"int8 group matmul: {len(cases)} cases, worst {worst:.3f} of the tolerance")
+    require(set(main) == set(rows), "int8 group matmul: a kernels-line entry is missing")
+    del weights
+    torch.cuda.empty_cache()
+    return main
+
+
 def _rand_mlp(device, K: int, I: int, D: int, fmt: str, seed: int, layers: int = 2):
     """Random stacked gate_up (layers, K, 2 I) and down (layers, I, D) block
     dicts of one of the fused kernel's flavours, made on the card: q8_0 and
@@ -854,9 +1082,21 @@ def check_decoder_parity(device, cfg, T0: int = DEC_PARITY_PREFILL,
 
 
 
-def check_quant_encoder_parity(device, hp) -> float:
-    """The encoder with q8_0 layer weights from the ggml quantizer, exact
-    mode, float32: the card's kernels against the CPU's plain versions."""
+def _quant_launches(fn):
+    """fn()'s result and the launches of every quantized-weight entry it
+    made, the counters set to 0 just before and read just after."""
+    entries = _quant_entries()
+    for e in entries:
+        e.launches = 0
+    out = fn()
+    return out, {e.__name__: e.launches for e in entries}
+
+
+def check_quant_encoder_parity(device, hp) -> dict:
+    """The encoder with q8_0 layer weights from the ggml quantizer, float32,
+    in the exact mode and in mode "int8": the card's kernels against the
+    CPU's plain versions; in mode "int8" the card launches the flat integer
+    entry for each of the four linears of a layer and no other."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
@@ -867,39 +1107,62 @@ def check_quant_encoder_parity(device, hp) -> float:
 
     params = fuse_encoder_qkv(quantize_encoder_params(
         random_encoder_params(np.random.default_rng(5), hp), GGMLType.Q8_0))
+    card = _tree_to(params, device)
     mel = torch.from_numpy(np.random.default_rng(6).standard_normal(
         (1, hp.n_mels, 2 * hp.n_audio_ctx)).astype(np.float32))
     opts = dict(gelu_approximate=True, use_flash=True, compute_dtype=torch.float32)
-    set_group_matmul_mode("dequant")
+    errs, card_out = {}, {}
     try:
-        want = encoder_forward(params, mel, hp, **opts)[0]
-        got = encoder_forward(_tree_to(params, device), mel.to(device), hp, **opts)[0].cpu()
+        for mode in ("dequant", "int8"):
+            set_group_matmul_mode(mode)
+            want = encoder_forward(params, mel, hp, **opts)[0]
+            got, launches = _quant_launches(
+                lambda: encoder_forward(card, mel.to(device), hp, **opts)[0].cpu())
+            card_out[mode] = got
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            tol = PARITY_ATOL if mode == "dequant" else INT8_PARITY_REL * top
+            gap = "" if mode == "dequant" else (
+                f"; the exact mode on the card "
+                f"{(card_out['dequant'] - want).abs().max().item() / top:.4f} of max|cpu| off")
+            log(f"quantized encoder parity (q8_0, mode {mode}) depth {hp.n_audio_layer} width "
+                f"{hp.n_audio_state}: embedding max_abs_err={err:.3e} (tol {tol:.3e}, max|cpu| "
+                f"{top:.3f}), cos={_cosine(got, want):.8f}{gap}; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            require(err <= tol, f"quantized encoder parity ({mode}): card and CPU differ by "
+                    f"{err}")
+            flat = "quant_matmul_int8" if mode == "int8" else "quant_matmul"
+            _check_quant_launches(f"quantized encoder parity ({mode})", launches,
+                                  {flat: 4 * hp.n_audio_layer}, "one forward")
+            errs[mode] = err
     finally:
         set_group_matmul_mode(None)
-    err = (got - want).abs().max().item()
-    log(f"quantized encoder parity (q8_0, exact mode) depth {hp.n_audio_layer} width "
-        f"{hp.n_audio_state}: embedding max_abs_err={err:.3e} (tol {PARITY_ATOL})")
-    require(err <= PARITY_ATOL, f"quantized encoder parity: card and CPU differ by {err}")
-    return err
+    return errs
 
 
 def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                                steps: int = QDEC_PARITY_STEPS) -> dict:
-    """The decoder at full width with q8_0 and with packed symmetric q4_0
-    weights from the ggml quantizers (the q4_0 lm_head stays dense to hold
-    the run's length), exact mode, float32: a T0-position prefill and
-    ``steps`` greedy steps on the CPU (plain versions, the per-projection
+    """The decoder at full width, float32, with q8_0 weights (layers and
+    lm_head) and with packed symmetric q4_0 layer weights (the lm_head
+    dense), all from the ggml quantizers. Exact mode: a T0-position prefill
+    and ``steps`` greedy steps on the CPU (plain versions, the per-projection
     MLP) and on the card (kernels), there twice: with the one-launch SwiGLU
     off, and in the decode-tuned storage (q8_0: the SwiGLU on; q4_0:
     panelized). Without mins the exact mode's results differ between those
     storages by the order of float32 sums only, so one CPU run holds both:
-    the same tokens, logits within PARITY_ATOL."""
+    the same tokens, logits within PARITY_ATOL. Then mode "int8": the CPU's
+    greedy tokens over INT8_PARITY_STEPS teacher-forced on the card, which
+    launches the integer entries for every quantized linear and nothing
+    else; logits within INT8_PARITY_REL of the largest (the exact mode's
+    distance from the same CPU logits is logged beside it). Last, a decoder of random
+    q4_0 blocks as int32 words ("qs4b") in the default mode, the same way:
+    the word entry for every linear and the lm_head."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
     from qwen2_audio_tpu_torch.models.qwen2_decoder import (fuse_decoder_params,
                                                             panelize_decoder_params,
-                                                            random_decoder_params)
+                                                            random_decoder_params,
+                                                            random_quant_decoder_params)
     from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
     from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp, set_group_matmul_mode
     from qwen2_audio_tpu_torch.quant.qparams import payload_form, quantize_decoder_params
@@ -909,12 +1172,43 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
         torch.Generator(device=device).manual_seed(2), cfg, dtype=torch.float32), "cpu")
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (1, T0, cfg.hidden_size)).astype(np.float32))
+    L, n = cfg.num_hidden_layers, INT8_PARITY_STEPS
 
     def run(params, dev):
         res = generate_on_device(params, cfg, x.to(dev), max_new_tokens=steps,
                                  eos_token_id=cfg.vocab_size - 1,
                                  cache_max_ctx=T0 + steps, cache_dtype=torch.float32)
         return [r.cpu() if isinstance(r, torch.Tensor) else r for r in res]
+
+    def forced(what, cpu_params, card, want_launches, mode):
+        """The CPU's greedy tokens teacher-forced on the card in ``mode``."""
+        set_group_matmul_mode(mode)
+        t0 = time.perf_counter()
+        toks, want = _decode_steps(cpu_params, cfg, x, n, "cpu")
+        t1 = time.perf_counter()
+        (_, got), launches = _quant_launches(
+            lambda: _decode_steps(card, cfg, x, len(toks), device, toks))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        top = max(w.abs().max().item() for w in want)
+        _, n_ties = first_real_disagreement(want, got)
+        t2 = time.perf_counter()
+        gap = ""
+        if mode == "int8":
+            set_group_matmul_mode("dequant")
+            _, exact = _decode_steps(card, cfg, x, len(toks), device, toks)
+            gap = (f"; the exact mode on the card "
+                   f"{max((a - b).abs().max().item() for a, b in zip(exact, want)) / top:.4f}"
+                   f" of it off")
+        log(f"quantized decoder parity {what} depth {L} width {cfg.hidden_size} f32: cpu "
+            f"{t1 - t0:.1f} s, card {t2 - t1:.1f} s; cpu tokens {toks}, {n_ties} near-tie "
+            f"steps where the card picks another; logits max_abs_err={err:.3e} = "
+            f"{err / top:.4f} of the largest (tol {INT8_PARITY_REL}){gap}; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        require(err <= INT8_PARITY_REL * top, f"quantized decoder parity {what}: card and "
+                f"CPU logits differ by {err}")
+        _check_quant_launches(f"quantized decoder parity {what}", launches, want_launches,
+                              f"{n} forwards")
+        return err
 
     errs = {}
     set_group_matmul_mode("dequant")
@@ -923,9 +1217,8 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
             t0 = time.perf_counter()
             cpu_params = fuse_decoder_params(quantize_decoder_params(
                 dense, ttype, quantize_lm_head=head))
-            log(f"quantized decoder parity {fmt}: {cfg.num_hidden_layers} layers"
-                f"{' + lm_head' if head else ''} quantized on the host in "
-                f"{time.perf_counter() - t0:.1f} s, form "
+            log(f"quantized decoder parity {fmt}: {L} layers{' + lm_head' if head else ''} "
+                f"quantized on the host in {time.perf_counter() - t0:.1f} s, form "
                 f"{payload_form(cpu_params['layers']['qkv'])}")
             set_fused_mlp(False)
             t0 = time.perf_counter()
@@ -945,7 +1238,7 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                 log(f"quantized decoder parity {fmt} ({which}, layers "
                     f"{payload_form(params['layers']['qkv'])}, gate_up "
                     f"{payload_form(params['layers']['gate_up'])}) depth "
-                    f"{cfg.num_hidden_layers} width {cfg.hidden_size} f32 exact mode: card "
+                    f"{L} width {cfg.hidden_size} f32 exact mode: card "
                     f"prefill {T0} + {cn} steps in {time.perf_counter() - t0:.1f} s, "
                     f"{n_fused} fused launches; tokens card {ct[0, :cn].tolist()} cpu "
                     f"{ht[0, :hn].tolist()}; first and final logits max_abs_err={err:.3e} "
@@ -955,17 +1248,52 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                 require(err <= PARITY_ATOL, f"quantized decoder parity {fmt} ({which}): "
                         f"card and CPU logits differ by {err}")
                 # one per layer and decode forward, and at a prefill of <= 64 rows
-                want_fused = cfg.num_hidden_layers * (steps - 1 + (T0 <= 64)) \
+                want_fused = L * (steps - 1 + (T0 <= 64)) \
                     if which == "one-launch SwiGLU" else 0
                 require(n_fused == want_fused, f"quantized decoder parity {fmt} ({which}): "
                         f"{n_fused} fused launches, want {want_fused}")
                 errs[f"{fmt} {which}"] = err
+            set_fused_mlp(None)
+            errs[f"{fmt} int8 mode"] = forced(
+                f"{fmt} (mode int8)", cpu_params, card,
+                {"quant_matmul_int8_stacked": 4 * L * n, "quant_matmul_int8": n * head}, "int8")
             del cpu_params, card, params
             torch.cuda.empty_cache()
+        set_group_matmul_mode(None)
+        card = fuse_decoder_params(random_quant_decoder_params(
+            torch.Generator(device=device).manual_seed(3), cfg, "q4_0", dtype=torch.float32,
+            b32=True))
+        errs["q4_0 b32"] = forced(f"q4_0 b32 ({payload_form(card['layers']['qkv'])}, "
+                                  "default mode)", _tree_to(card, "cpu"), card,
+                                  {"quant_matmul_q4b_stacked": (4 * L + 1) * n}, None)
+        del card
+        torch.cuda.empty_cache()
     finally:
         set_group_matmul_mode(None)
         set_fused_mlp(None)
     return errs
+
+
+def _decode_steps(params, cfg, x, steps: int, dev, toks=None) -> tuple[list, list]:
+    """A prefill of x (1, T0, D) and ``steps`` - 1 decode forwards through
+    decoder_forward in float32 on ``dev``, each next token greedy or, given
+    ``toks``, forced; returns (the tokens, each step's (V,) logits on the
+    CPU)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import (create_cache, decoder_forward,
+                                                            embed_tokens)
+    T0 = x.shape[1]
+    cache = create_cache(cfg, 1, T0 + steps, dtype=torch.float32, device=dev)
+    lg, cache = decoder_forward(params, cfg, x.to(dev), cache, 0, block_only=True,
+                                logits_last_only=True)
+    rows, chosen = [lg[0, -1].cpu()], []
+    for j in range(steps):
+        chosen.append(int(rows[-1].argmax()) if toks is None else toks[j])
+        if j + 1 < steps:
+            e = embed_tokens(params, torch.tensor([[chosen[-1]]], device=dev))
+            lg, cache = decoder_forward(params, cfg, e, cache, T0 + j)
+            rows.append(lg[0, -1].cpu())
+    return chosen, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -1044,16 +1372,23 @@ def run_main_path(hp, calls: int, workdir: str) -> dict:
                  "steady_ms": statistics.median(steady)}
 
 
+def _quant_entries() -> tuple:
+    """Every entry of the quantized-weight kernels: dequantizing (strided
+    and panel), one-launch SwiGLU, exact-integer group matmul."""
+    from qwen2_audio_tpu_torch.ops import fused_mlp, quant_matmul, quant_matmul_int8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b
+    return (quant_matmul.ENTRIES + fused_mlp.ENTRIES + quant_matmul_int8.ENTRIES
+            + quant_matmul_q4b.ENTRIES)
+
+
 def _launch_counters():
     from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal, attention_single
     from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
-    from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
     from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
-    from qwen2_audio_tpu_torch.ops.quant_matmul import ENTRIES
     return {"mel_log_frames": mel_frames, "attention_single": attention_single,
             "attention_causal": attention_causal, "flash_decode": flash_decode,
             "flash_decode_quant": flash_decode_quant,
-            **{e.__name__: e for e in ENTRIES + FUSED_ENTRIES}}
+            **{e.__name__: e for e in _quant_entries()}}
 
 
 def _cosine(a, b) -> float:
@@ -1062,22 +1397,25 @@ def _cosine(a, b) -> float:
 
 
 def teacher_forced_logits(bundle, st, params=None, flash: bool = True,
-                          fused: bool | None = None) -> list:
+                          fused: bool | None = None, mode: str | None = None) -> list:
     """The request's prefill and tokens through the decoder on the card, one
     (V,) logits row per step: over ``params`` (default: the bundle's), the
     kernel or the plain attention, the one-launch SwiGLU as it is set or as
-    ``fused`` says."""
+    ``fused`` says, in the group-matmul mode that is set or ``mode``."""
     import torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
-    from qwen2_audio_tpu_torch.ops.linear import fused_mlp_enabled, set_fused_mlp
+    from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_enabled, group_matmul_mode,
+                                                  set_fused_mlp, set_group_matmul_mode)
     from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
 
     params = bundle.params if params is None else params
     prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
     T0, toks = prefill.shape[1], st.result_tokens
-    was = fused_mlp_enabled()
+    was, was_mode = fused_mlp_enabled(), group_matmul_mode()
     if fused is not None:
         set_fused_mlp(fused)
+    if mode is not None:
+        set_group_matmul_mode(mode)
     try:
         cache = create_cache(bundle.cfg, 1, T0 + len(toks), dtype=torch.bfloat16,
                              device=prefill.device)
@@ -1092,6 +1430,7 @@ def teacher_forced_logits(bundle, st, params=None, flash: bool = True,
             steps.append(lg[0, -1])
     finally:
         set_fused_mlp(was)
+        set_group_matmul_mode(was_mode)
     return steps
 
 
@@ -1270,12 +1609,9 @@ def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
         f"(mel {tm.t_mel_us / 1e3 / calls:.3f}, encode {tm.t_encode_us / 1e3 / calls:.3f} "
         f"ms/call, host clock, synchronised); launches {json.dumps(launches)}; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    require(launches[flat] == 4 * hp.n_audio_layer * calls,
-            f"quant encode {fmt}: {flat} launched {launches[flat]} times, want 4 x "
-            f"{hp.n_audio_layer} layers x {calls} calls")
-    require(sum(launches[e] for e in ("quant_matmul", "quant_matmul4",
-                                      "quant_matmul_stacked", "quant_matmul4_stacked"))
-            == launches[flat], f"quant encode {fmt}: another entry was launched")
+    _check_quant_launches(f"quant encode {fmt}", launches,
+                          {flat: 4 * hp.n_audio_layer * calls},
+                          f"{calls} calls of {hp.n_audio_layer} layers")
     require(launches["mel_log_frames"] == calls
             and launches["attention_single"] == calls * hp.n_audio_layer,
             f"quant encode {fmt}: mel or attention launches")
@@ -1325,19 +1661,28 @@ def dense_decoder_params(params: dict, dtype) -> dict:
 
 
 def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes: int,
-                            prefill_rows: int) -> dict:
-    """Launches of every dequantizing-matmul and fused-MLP entry that
-    ``prefills`` requests with ``decodes`` decode forwards in all must make,
-    from the weight forms of the encoder and the decoder: one stacked launch
-    per projection, layer and forward; one fused launch per layer and decode
-    forward in place of gate_up's and down's where both are strided, the
-    switch is on and the forward has at most 64 rows; one flat launch per
-    forward for the lm_head (last position only) and four per encoder layer
-    and request."""
+                            prefill_rows: int, mode: str = "bf16") -> dict:
+    """Launches of every quantized-weight entry that ``prefills`` requests
+    with ``decodes`` decode forwards in all must make in group-matmul
+    ``mode``, from the weight forms of the encoder and the decoder: one
+    stacked launch per projection, layer and forward; one fused launch per
+    layer and decode forward in place of gate_up's and down's where both are
+    strided, the switch is on, the mode is not "int8" and the forward has at
+    most 64 rows; one flat launch per forward for the lm_head (last position
+    only) and four per encoder layer and request. In mode "int8" the
+    32-group "qs" and "qs4" take the integer kernels (a flat "qs4" the exact
+    dequantizing one, as in JAX); "qs4b" takes its kernel in every mode."""
     from qwen2_audio_tpu_torch.ops.fused_mlp import MAX_M
 
     def entry(e: dict, stacked: bool) -> str:
-        name = "quant_matmul" + ("_panel" if "qs_p" in e or "qs4_p" in e else "")
+        if "qs4b" in e:
+            return "quant_matmul_q4b_stacked"
+        panel = "qs_p" in e or "qs4_p" in e
+        if mode == "int8" and not panel and (stacked or "qs" in e):
+            k = e["qs4"].shape[-2] * 2 if "qs4" in e else e["qs"].shape[-2]
+            if k // e["scales"].shape[-2] == 32:
+                return "quant_matmul_int8" + ("_stacked" if stacked else "")
+        name = "quant_matmul" + ("_panel" if panel else "")
         name += "4" if "qs4" in e or "qs4_p" in e else ""
         return name + ("_stacked" if stacked else "")
 
@@ -1352,7 +1697,7 @@ def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes:
         add(entry(layers[key], True), L * forwards)
     gu, dn = layers["gate_up"], layers["down"]
     strided = all(("qs" in e or "qs4" in e) for e in (gu, dn))
-    one_launch = fused_on and strided and set(gu) == set(dn)
+    one_launch = fused_on and mode != "int8" and strided and set(gu) == set(dn)
     fused_forwards = (decodes + (prefills if prefill_rows <= MAX_M else 0)) if one_launch else 0
     for e in (gu, dn):
         add(entry(e, True), L * (forwards - fused_forwards))
@@ -1366,13 +1711,54 @@ def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes:
     return {k: v for k, v in want.items() if v}
 
 
+def _check_quant_launches(what: str, launches: dict, want: dict, detail: str) -> None:
+    for e in _quant_entries():
+        n = e.__name__
+        require(launches[n] == want.get(n, 0), f"{what}: {n} launched {launches[n]} times, "
+                f"want {want.get(n, 0)} for {detail}")
+
+
+def _request(ctx, clip, params) -> tuple:
+    """One whisper_full request on a fresh state with every launch counter
+    set to 0 just before and read just after: (state, run figures,
+    launches)."""
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    st = ctx.init_state()
+    t1 = time.perf_counter()
+    rc = capi.whisper_full_with_state(ctx, st, params, clip)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t1) * 1e3
+    launches = {k: c.launches for k, c in counters.items()}
+    require(rc == 0, f"whisper_full returned {rc}")
+    tm, n_tok = st.timings, len(st.result_tokens)
+    run = {"wall_ms": wall, "encode_ms": tm.t_encode_us / 1e3,
+           "prefill_ms": tm.t_prompt_us / 1e3, "prefill_positions": tm.n_prompt,
+           "tokens": n_tok, "forwards": st.n_decode_forwards,
+           "decode_ms_per_token": tm.t_decode_us / 1e3 / max(n_tok, 1),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return st, run, launches
+
+
+def _text_params(n_new: int):
+    from qwen2_audio_tpu_torch import capi
+    params = capi.whisper_full_default_params()
+    params.max_new_tokens = n_new
+    params.temperature_inc = 0.0        # random weights: no fallback decodes
+    params.print_progress = False
+    return params
+
+
 def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
     """Behind the quantized encoder of ``ctx``, attach a decoder whose
     linears and lm_head are random ``fmt`` blocks made on the card (seed 0)
     and answer one request per storage configuration on one clip through
     capi.whisper_full, each with the launch counters set to 0 just before
-    and read just after, then one more timed request each in the reverse
-    order. Returns the configurations' results by name."""
+    and read just after. Returns the configurations' results by name."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch import capi
@@ -1380,7 +1766,6 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
     from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder, panelize_decoder_params
     from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
     from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp
-    from qwen2_audio_tpu_torch.ops.quant_matmul import ENTRIES as QMM_ENTRIES
     from qwen2_audio_tpu_torch.quant.qparams import payload_form
 
     t0 = time.perf_counter()
@@ -1399,7 +1784,6 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
         f"{payload_form(bundle.params['layers']['qkv'])}, lm_head "
         f"{payload_form(bundle.params['lm_head'])}, made in {time.perf_counter() - t0:.1f} s")
     clip = noisy_tone(30.0, seed=40, freq=280.0)
-    counters = _launch_counters()
     L = cfg.num_hidden_layers
     # (name, panelize arguments or None, the one-launch SwiGLU's switch, new tokens)
     configs = {
@@ -1410,7 +1794,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
                  ("panelized", {}, True, new_tokens),
                  ("panelized, gate_up strided", {"skip_gate_up": True}, True, new_tokens)],
     }[fmt]
-    out, first, first_logits, again = {}, None, None, []
+    out, first, first_logits = {}, None, None
     try:
         for name, panel, fused_on, n_new in configs:
             what = f"quant text {fmt} ({name})"
@@ -1424,41 +1808,18 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
             forms["lm_head"] = payload_form(bundle.params["lm_head"])
             if panel is not None:
                 log(f"{what}: panelized on the card in {time.perf_counter() - t0:.2f} s")
-            params = capi.whisper_full_default_params()
-            params.max_new_tokens = n_new
-            params.temperature_inc = 0.0
-            params.print_progress = False
-
-            for c in counters.values():
-                c.launches = 0
-            torch.cuda.reset_peak_memory_stats()
-            st = ctx.init_state()
-            t1 = time.perf_counter()
-            rc = capi.whisper_full_with_state(ctx, st, params, clip)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3
-            launches = {k: c.launches for k, c in counters.items()}
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            require(rc == 0, f"{what}: whisper_full returned {rc}")
-            tm, n_tok = st.timings, len(st.result_tokens)
-            run = {"wall_ms": wall, "encode_ms": tm.t_encode_us / 1e3,
-                   "prefill_ms": tm.t_prompt_us / 1e3, "prefill_positions": tm.n_prompt,
-                   "tokens": n_tok, "forwards": st.n_decode_forwards,
-                   "decode_ms_per_token": tm.t_decode_us / 1e3 / max(n_tok, 1),
-                   "peak_gib": peak}
+            params = _text_params(n_new)
+            st, run, launches = _request(ctx, clip, params)
+            n_tok = run["tokens"]
             require(n_tok > 0 and len(st.segments) == 1, f"{what}: no tokens")
             require(bool(np.isfinite(st.logits).all()), f"{what}: logits not finite")
             log(f"{what}: forms {json.dumps(forms)}; request {json.dumps(run)}; launches "
                 f"{json.dumps({k: v for k, v in launches.items() if v})}; text "
                 f"{capi.whisper_full_get_segment_text_from_state(st, 0)[:60]!r}")
-
-            want = expected_quant_launches(ctx, bundle, fused_on, 1, st.n_decode_forwards,
-                                           tm.n_prompt)
-            for e in QMM_ENTRIES + FUSED_ENTRIES:
-                require(launches[e.__name__] == want.get(e.__name__, 0),
-                        f"{what}: {e.__name__} launched {launches[e.__name__]} times, want "
-                        f"{want.get(e.__name__, 0)} for 1 prefill of {tm.n_prompt} rows and "
-                        f"{st.n_decode_forwards} decode forwards")
+            _check_quant_launches(what, launches, expected_quant_launches(
+                ctx, bundle, fused_on, 1, st.n_decode_forwards, run["prefill_positions"]),
+                f"1 prefill of {run['prefill_positions']} rows and {st.n_decode_forwards} "
+                "decode forwards")
             require(launches["attention_causal"] == L
                     and launches["flash_decode"] == L * st.n_decode_forwards,
                     f"{what}: prefill or decode kernel launches")
@@ -1504,43 +1865,128 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
                         "configuration")
                 require(st.result_tokens[:upto] == first.result_tokens[:upto],
                         f"{what}: tokens differ before the first near-tie")
-            profile_call(lambda: capi.whisper_full(ctx, params, clip),
-                         f"whisper_full (audio -> text, {fmt}, {name})")
+            run["profile"] = profile_call(lambda: capi.whisper_full(ctx, params, clip),
+                                          f"whisper_full (audio -> text, {fmt}, {name})")
             out[name] = {"launches": launches, "run": run, "forms": forms}
-            again.append((name, bundle.decoder, fused_on, params, st.result_tokens))
-        # the host sets the step time and drifts within a run: one more
-        # request per configuration, in the reverse order, to read the
-        # configurations against each other
-        for name, decoder, fused_on, params, tokens in reversed(again):
-            set_fused_mlp(fused_on)
-            bundle.decoder = decoder
-            st = ctx.init_state()
-            t1 = time.perf_counter()
-            rc = capi.whisper_full_with_state(ctx, st, params, clip)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3
-            require(rc == 0 and len(st.result_tokens) == len(tokens),
-                    f"quant text {fmt} ({name}): the second request returned {rc} with "
-                    f"{len(st.result_tokens)} tokens")
-            tm = st.timings
-            out[name]["run2"] = {
-                "wall_ms": wall, "prefill_ms": tm.t_prompt_us / 1e3,
-                "decode_ms_per_token": tm.t_decode_us / 1e3 / len(tokens),
-                "same_tokens": st.result_tokens == tokens}
-            log(f"quant text {fmt} ({name}): second request, reverse order "
-                f"{json.dumps(out[name]['run2'])}")
     finally:
         set_fused_mlp(None)
     ctx.decoder = None
-    del bundle, strided, again, decoder
+    del bundle, strided
     torch.cuda.empty_cache()
     out["block_gb"] = q_bytes / 1e9
     return out
 
 
-def profile_call(fn, what: str) -> None:
+def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
+    """Phase 4e, behind the q8_0 encoder of ``ctx`` (blocks kept): mode
+    "int8" and the word-packed q4_0 form at full width, one request each on
+    one clip, every launch counter set to 0 just before and read just after:
+    the encoder alone in mode "int8" (4 launches of the flat integer entry
+    per layer, none of a dequantizing one; the embedding against the bf16
+    mode's); audio -> text in mode "int8" with a q8_0 and with a symmetric
+    q4_0 decoder of random blocks made on the card (seed 0, the decoders of
+    phase 4d), the logits teacher-forced against the bf16 mode over the same
+    weights; audio -> text with the same q4_0 bytes as int32 words in the
+    default mode, teacher-forced against the q4_0 request in mode "int8"
+    (the four linears give the same bits, the lm_head differs: the exact
+    dequantizing kernel there against the integer one here). Every count is
+    derived from the prefills and forwards the run reports."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.quant.qparams import payload_form
+
+    clip = noisy_tone(30.0, seed=40, freq=280.0)
+    n_enc, L = ctx.hparams.n_audio_layer, cfg.num_hidden_layers
+    out = {}
+    ctx.decoder = None
+    try:
+        # the encoder alone: the bf16 mode's embedding, then mode "int8"
+        set_group_matmul_mode(None)
+        require(capi.whisper_full(ctx, capi.whisper_full_default_params(), clip) == 0,
+                "int8 encode: the bf16-mode call failed")
+        ref = ctx.state.embd_enc.clone()
+        set_group_matmul_mode("int8")
+        enc_params = capi.whisper_full_default_params()
+        st, run, launches = _request(ctx, clip, enc_params)
+        _check_quant_launches("int8 encode", launches, {"quant_matmul_int8": 4 * n_enc},
+                              f"1 call of {n_enc} layers")
+        require(launches["mel_log_frames"] == 1 and launches["attention_single"] == n_enc,
+                "int8 encode: mel or attention launches")
+        emb = st.embd_enc
+        require(tuple(emb.shape) == tuple(ref.shape) and bool(torch.isfinite(emb).all()),
+                "int8 encode: bad output")
+        cos = _cosine(emb, ref)
+        log(f"int8 encode: {json.dumps(run)}; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}; embedding against the "
+            f"bf16 mode's: cos={cos:.6f} (min {MAIN_COS_MIN})")
+        require(cos >= MAIN_COS_MIN, "int8 encode: the embedding disagrees with the bf16 mode")
+        run["profile"] = profile_call(lambda: capi.whisper_full(ctx, enc_params, clip),
+                                      "whisper_full (encode, q8_0, mode int8)")
+        out["encode"] = {"launches": launches, "run": run, "cos": cos}
+
+        params = _text_params(new_tokens)
+        q4 = None
+        # (name, random block format, b32 words, group-matmul mode)
+        for name, fmt, b32, mode in (("q8_0 int8 mode", "q8_0", False, "int8"),
+                                     ("q4_0 int8 mode", "q4_0", False, "int8"),
+                                     ("q4_0 b32", "q4_0", True, None)):
+            what = f"int8 text ({name})"
+            set_group_matmul_mode(mode)
+            bundle = random_bundle(torch.Generator(device=ctx.device).manual_seed(0), cfg,
+                                   ctx.hparams.n_audio_state, dtype=torch.bfloat16,
+                                   max_ctx=2048, cache_dtype=torch.bfloat16, quant=fmt,
+                                   b32=b32)
+            ctx.decoder = bundle
+            forms = {k: payload_form(bundle.params["layers"][k]) for k in ("qkv", "gate_up")}
+            forms["lm_head"] = payload_form(bundle.params["lm_head"])
+            st, run, launches = _request(ctx, clip, params)
+            require(run["tokens"] > 0 and bool(np.isfinite(st.logits).all()),
+                    f"{what}: no tokens or logits not finite")
+            log(f"{what}: forms {json.dumps(forms)}; request {json.dumps(run)}; launches "
+                f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            _check_quant_launches(what, launches, expected_quant_launches(
+                ctx, bundle, True, 1, st.n_decode_forwards, run["prefill_positions"],
+                mode=mode or "bf16"),
+                f"1 prefill and {st.n_decode_forwards} decode forwards")
+            require(launches["attention_causal"] == L
+                    and launches["flash_decode"] == L * st.n_decode_forwards,
+                    f"{what}: prefill or decode kernel launches")
+            mine = teacher_forced_logits(bundle, st)
+            if b32:     # the same bytes as nibble bytes, in mode "int8"
+                other = teacher_forced_logits(q4[0], st, mode="int8")
+                against = "the q4_0 nibble bytes in mode int8"
+            else:
+                other = teacher_forced_logits(bundle, st, mode="bf16")
+                against = "the bf16 mode"
+            cos = [_cosine(a, b) for a, b in zip(mine, other)]
+            split, n_ties = first_real_disagreement(mine, other)
+            log(f"{what}: against {against}, teacher-forced over {len(cos)} steps: min cos "
+                f"{min(cos):.6f} (min {MAIN_COS_MIN}); {n_ties} near-tie steps pick another "
+                f"token, the first at {split}")
+            require(min(cos) >= MAIN_COS_MIN, f"{what}: disagrees with {against}")
+            run["profile"] = profile_call(lambda: capi.whisper_full(ctx, params, clip),
+                                          f"whisper_full (audio -> text, {name})")
+            out[name] = {"launches": launches, "run": run, "forms": forms, "min_cos": min(cos)}
+            if name == "q4_0 int8 mode":
+                q4 = (bundle, st)
+            del bundle
+            ctx.decoder = None
+            torch.cuda.empty_cache()
+    finally:
+        set_group_matmul_mode(None)
+        ctx.decoder = None
+    del q4
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_call(fn, what: str) -> dict | None:
     """One call under torch.profiler: device time by kernel group and the
-    device's busy share of the call's wall time."""
+    device's busy share of the call's wall time (None where the profiler
+    reports no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1557,7 +2003,8 @@ def profile_call(fn, what: str) -> None:
         if us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key.lower()
-        group = ("attention_causal" if "attn_f32_causal" in name
+        group = ("quant_matmul_int8" if "qmm8_" in name or "quantize_q8_1" in name
+                 else "attention_causal" if "attn_f32_causal" in name
                  or ("attn_bf16_kernel" in name and "true" in name)
                  else "attention_single" if "attn_" in name
                  else "flash_decode" if "decode_kernel" in name
@@ -1572,11 +2019,12 @@ def profile_call(fn, what: str) -> None:
     busy = sum(groups.values())
     if busy == 0:
         log("profile: the profiler reported no device time (not measured)")
-        return
+        return None
     log(f"profile: one {what} call, wall {wall_ms:.3f} ms (profiler on), "
         f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), by group "
         + json.dumps({k: round(v, 4) for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1])}))
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms}
 
 
 def main(argv=None) -> int:
@@ -1620,15 +2068,18 @@ def main(argv=None) -> int:
         decode, decode_q8 = check_decode(device)
         qmm = check_quant_matmul(device)
         fused = check_fused_mlp(device)
+        int8 = check_int8_matmul(device)
         if args.kernels_only:
             log(f"kernels only: phases 1 and 2 passed in {time.perf_counter() - t_start:.1f} s")
             return 0
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
+        log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
         check_parity(device, dataclasses.replace(full, n_audio_layer=2))
         check_quant_encoder_parity(device, dataclasses.replace(full, n_audio_layer=2))
         check_decoder_parity(device, two)
         check_quant_decoder_parity(device, two)
+        log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
         dec_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=args.dec_layers)
         with tempfile.TemporaryDirectory() as workdir:
             ctx, res = run_main_path(dataclasses.replace(full, n_audio_layer=args.layers),
@@ -1640,6 +2091,9 @@ def main(argv=None) -> int:
                 res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
                 QUANT_CALLS, workdir)
             text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens)
+            log(f"phase 4d (q8_0) done at {time.perf_counter() - t_start:.1f} s")
+            int8_runs = run_int8_paths(ctx8, dec_cfg, args.new_tokens)
+            log(f"phase 4e done at {time.perf_counter() - t_start:.1f} s")
             capi.whisper_free(ctx8)
             ctx4, enc4 = run_quant_encode(
                 res["path"] if args.q4_layers == args.layers else None,
@@ -1672,11 +2126,17 @@ def main(argv=None) -> int:
         qmm[name]["launches"] = cfg_run["launches"][name]
     fused["launches"] = sum(n for k, n in text8["one-launch SwiGLU"]["launches"].items()
                             if k.startswith("fused_mlp"))
+    for name, run_name in (("quant_matmul_int8", "q8_0 int8 mode"),
+                           ("quant_matmul_int8_stacked", "q8_0 int8 mode"),
+                           ("quant_matmul_q4b_stacked", "q4_0 b32")):
+        int8[name]["launches"] = int8_runs[run_name]["launches"][name]
     kernels = [mel, attn_bf16, causal_bf16, decode, decode_q8,
                qmm["quant_matmul"], qmm["quant_matmul_stacked"],
                qmm["quant_matmul4_stacked"], qmm["quant_matmul4"],
                qmm["quant_matmul_panel"], qmm["quant_matmul_panel_stacked"],
-               qmm["quant_matmul_panel4"], qmm["quant_matmul_panel4_stacked"], fused]
+               qmm["quant_matmul_panel4"], qmm["quant_matmul_panel4_stacked"], fused,
+               int8["quant_matmul_int8"], int8["quant_matmul_int8_stacked"],
+               int8["quant_matmul_q4b_stacked"]]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
     log(f"summary: whisper_full steady {res['steady_ms']:.3f} ms per 30 s clip, "
@@ -1695,10 +2155,20 @@ def main(argv=None) -> int:
         for name, c in txt.items():
             if isinstance(c, dict):
                 r = c["run"]
+                prof = r["profile"] or {}
                 log(f"summary {fmt} ({name}): prefill {r['prefill_ms']:.3f} ms, decode "
-                    f"{r['decode_ms_per_token']:.3f} ms per token over {r['tokens']} tokens "
-                    f"(second request {c['run2']['decode_ms_per_token']:.3f}), "
-                    f"wall {r['wall_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB")
+                    f"{r['decode_ms_per_token']:.3f} ms per token over {r['tokens']} tokens, "
+                    f"wall {r['wall_ms']:.1f} ms, device busy "
+                    f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, "
+                    f"peak {r['peak_gib']:.2f} GiB")
+    for name, c in int8_runs.items():
+        r, prof = c["run"], c["run"]["profile"] or {}
+        log(f"summary int8 paths ({name}): " + (
+            f"prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_token']:.3f} ms per "
+            f"token over {r['tokens']} tokens, " if name != "encode" else
+            f"encode {r['encode_ms']:.3f} ms, ") + f"wall {r['wall_ms']:.1f} ms, device busy "
+            f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, peak "
+            f"{r['peak_gib']:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

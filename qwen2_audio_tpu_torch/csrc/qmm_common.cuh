@@ -1,6 +1,7 @@
-// Shared by quant_matmul.cu and fused_mlp.cu: how a thread turns the bytes
-// of a ggml block weight into floats, and the weight-streaming step both
-// kernels are built from.
+// Shared by quant_matmul.cu, fused_mlp.cu and quant_matmul_int8.cu: how a
+// thread turns the bytes of a ggml block weight into floats, the
+// weight-streaming step the first two are built from, and the deterministic
+// sum of split partials all three use.
 //
 // A weight is stored [in, out]: byte row r of a column holds int8 value r,
 // or (packed) the nibbles of values g * 32 + j (low) and g * 32 + j + 16
@@ -31,6 +32,19 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// two neighbouring outputs, cast to the output's type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
 // what byte_as_float's result is reduced by: packed, nibble - off; int8,

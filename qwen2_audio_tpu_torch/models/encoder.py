@@ -25,10 +25,11 @@ The parameter tree has the JAX package's layout, with torch tensors:
     }
 
 Linear weights are [in, out]; ``x @ w + b``. A layer's linear may instead be
-a ggml block dict ({"qs" | "qs4", "scales"[, "mins"], "b"}, see
+a ggml block dict ({"qs" | "qs4" | "qs4b", "scales"[, "mins"], "b"}, see
 quant/qparams.py), which ops.linear multiplies through the dequantizing
-kernels. ``Encoder`` holds such a tree as module buffers, so ``.to(device)``
-moves it.
+kernels or the exact-integer group matmul (mode "int8", and "qs4b").
+``Encoder`` holds such a tree as module buffers, so ``.to(device)`` moves
+it.
 """
 
 from __future__ import annotations
@@ -169,9 +170,9 @@ def encoder_forward(
 def fuse_encoder_qkv(params: Params) -> Params:
     """Concatenate each layer's q/k/v projections into one "qkv" leaf dict
     along the output axis (a runtime layout; checkpoints keep q/k/v). Works
-    for every weight form, dense "w" or block "qs" / "qs4" / "scales" /
-    "mins": the quantization groups run along the input axis. K's missing
-    bias (reference :632) becomes zeros in the fused bias."""
+    for every weight form, dense "w" or block "qs" / "qs4" / "qs4b" /
+    "scales" / "mins": the quantization groups run along the input axis.
+    K's missing bias (reference :632) becomes zeros in the fused bias."""
 
     def fuse_layer(lyr: dict) -> dict:
         q, k, v = lyr["q"], lyr["k"], lyr["v"]
@@ -252,7 +253,7 @@ def encoder_params_from_ggml(model_file, dtype: torch.dtype = torch.float32,
     ``keep_quantized``: a layer weight stored in one of the ten ggml block
     formats stays in block form as a {"qs" | "qs4", "scales"[, "mins"]} dict
     on ``device`` (bit-exact with the file's payload) and multiplies through
-    the dequantizing kernels; otherwise it is expanded to a dense weight."""
+    the quantized kernels; otherwise it is expanded to a dense weight."""
     hp = model_file.hparams
     ts = model_file.tensors
 

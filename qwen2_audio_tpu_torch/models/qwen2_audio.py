@@ -66,14 +66,14 @@ def random_bundle(rng, cfg: Qwen2DecoderConfig, enc_state: int, *,
                   dtype: torch.dtype = torch.float32, max_ctx: int = 256,
                   cache_dtype=torch.float32,
                   device: torch.device | str = "cpu",
-                  quant: str | None = None) -> DecoderBundle:
+                  quant: str | None = None, b32: bool = False) -> DecoderBundle:
     """Random weights. A numpy Generator draws what the JAX package's
     random_bundle draws from the same seed; a torch.Generator draws on its
     own device (random_decoder_params). ``quant`` ("q8_0" or "q4_0", with a
     torch.Generator) makes the linears and the lm_head random ggml blocks
-    instead (random_quant_decoder_params)."""
+    instead, q4_0 in int32 words with ``b32`` (random_quant_decoder_params)."""
     if quant is not None:
-        dec = random_quant_decoder_params(rng, cfg, quant, dtype=dtype)
+        dec = random_quant_decoder_params(rng, cfg, quant, dtype=dtype, b32=b32)
     else:
         dec = random_decoder_params(rng, cfg, dtype=dtype, device=device)
     if isinstance(rng, np.random.Generator):

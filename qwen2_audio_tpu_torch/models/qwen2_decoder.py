@@ -18,13 +18,14 @@ layer leaf STACKED on a leading (n_layers, ...) axis:
     }
 
 Linear weights are [in, out]; layer i reads ``w[i]``, a view. A linear may
-instead be a ggml block dict with stacked leaves ({"qs": (L, K, N) int8 or
-"qs4": (L, K // 2, N) uint8, "scales": (L, K // group, N)[, "mins"], "b"},
-see quant/qparams.py), or the same in contiguous column panels ({"qs_p":
-(L, P, K, bn) or "qs4_p", "scales_p"}, ``panelize_decoder_params``);
-``ops.linear.linear_at`` multiplies every form, the block forms through
-the dequantizing kernels. The MLP of strided block dicts is one launch of
-the fused SwiGLU kernel at decode M (``ops.linear.fused_mlp_at``), else two
+instead be a ggml block dict with stacked leaves ({"qs": (L, K, N) int8,
+"qs4": (L, K // 2, N) uint8 or "qs4b": (L, K // 8, N) int32, "scales": (L,
+K // group, N)[, "mins"], "b"}, see quant/qparams.py), or the same in
+contiguous column panels ({"qs_p": (L, P, K, bn) or "qs4_p", "scales_p"},
+``panelize_decoder_params``); ``ops.linear.linear_at`` multiplies every
+form, through the dequantizing kernels or, in mode "int8" and for "qs4b",
+the exact-integer group matmul. The MLP of strided block dicts is one
+launch of the fused SwiGLU kernel at decode M (``ops.linear.fused_mlp_at``), else two
 or three such products around SiLU(gate) * up. The KV cache
 is a preallocated (L, B, max_ctx, Hkv, d) buffer updated in place
 (PyTorch has no buffer donation to copy). Attention goes through the kernel
@@ -56,6 +57,7 @@ from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_qu
 from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_at, fused_mlp_split_at, linear,
                                                linear_at)
 from qwen2_audio_tpu_torch.ops.quant_matmul import panelize_weight
+from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import pack_b32
 from qwen2_audio_tpu_torch.utils.logging import log_warn
 
 Params = dict[str, Any]
@@ -137,8 +139,8 @@ def fuse_decoder_params(params: Params) -> Params:
     axis of the stacked leaves (a runtime layout: at decode every projection
     is a weight-bound matrix-vector product, and 7 of them per layer become
     4). Works for every weight form, dense "w" or block "qs" / "qs4" /
-    "scales" / "mins", because the quantization groups run along the input
-    axis; biases concatenate with zeros for a missing one. Projections whose
+    "qs4b" / "scales" / "mins", because the quantization groups run along
+    the input axis; biases concatenate with zeros for a missing one. Projections whose
     forms differ (a k-quant checkpoint may keep v at another type than q)
     cannot concatenate: the tree is then returned as it is, with separate
     projections."""
@@ -154,7 +156,7 @@ def fuse_decoder_params(params: Params) -> Params:
                  for leaf in sorted(forms[0])}
         if any("b" in e for e in entries):
             some = next(e["b"] for e in entries if "b" in e)
-            width = [next(e[k] for k in ("w", "qs", "qs4") if k in e).shape[-1]
+            width = [next(e[k] for k in ("w", "qs", "qs4", "qs4b") if k in e).shape[-1]
                      for e in entries]
             fused["b"] = torch.cat(
                 [e["b"] if "b" in e else some.new_zeros(some.shape[0], n)
@@ -183,8 +185,8 @@ def panelize_decoder_params(params: Params, *, deep_k: bool = False,
     {"qs4_p": (L, P, K // 2, bn)}, "scales" -> "scales_p"; the lm_head
     without the (L,) axis), the JAX package's decode-tuned storage. A pure
     layout transform of torch or numpy leaves: values, "mins" and "b" are
-    untouched, dense entries pass through. Entries with K > 8192 (the 7B
-    "down") stay strided unless ``deep_k``. ``skip_gate_up`` leaves the
+    untouched, dense and "qs4b" entries pass through. Entries with K > 8192
+    (the 7B "down") stay strided unless ``deep_k``. ``skip_gate_up`` leaves the
     fused "gate_up" strided, so that ``fused_mlp_at``, which takes strided
     forms only, stays engaged beside panels on qkv, o and the lm_head.
     Compose after ``fuse_decoder_params``."""
@@ -482,15 +484,17 @@ def random_decoder_params(rng, cfg: Qwen2DecoderConfig,
 
 
 def random_quant_linear(rng: torch.Generator, shape: tuple[int, ...], fmt: str = "q8_0",
-                        scale: float = 0.02) -> dict:
+                        scale: float = 0.02, b32: bool = False) -> dict:
     """A (..., K, N) linear as random ggml blocks on the generator's device:
-    "q8_0" int8 values {"qs"}, or "q4_0" packed symmetric nibbles {"qs4"},
-    with float16 scales sized so that the dequantized weight has about
-    ``scale`` standard deviation. Every byte value is a valid block content
-    (int8 -128..127, or two nibbles), filled in place without a wider
-    temporary; valid blocks, but no quantizer's output."""
-    if fmt not in ("q8_0", "q4_0"):
-        raise ValueError(f"random_quant_linear: fmt {fmt!r}, want q8_0 or q4_0")
+    "q8_0" int8 values {"qs"}, or "q4_0" packed symmetric nibbles {"qs4"}
+    (``b32``: the same bytes as int32 words {"qs4b"}, ``Q4Form(b32=True)``'s
+    form), with float16 scales sized so that the dequantized weight has
+    about ``scale`` standard deviation. Every byte value is a valid block
+    content (int8 -128..127, or two nibbles), filled in place without a
+    wider temporary; valid blocks, but no quantizer's output."""
+    if fmt not in ("q8_0", "q4_0") or (b32 and fmt != "q4_0"):
+        raise ValueError(f"random_quant_linear: fmt {fmt!r}{' b32' if b32 else ''}, want "
+                         "q8_0 or q4_0 (b32: q4_0)")
     *lead, K, N = shape
     q = torch.empty(*lead, K if fmt == "q8_0" else K // 2, N, dtype=torch.uint8,
                     device=rng.device)
@@ -501,24 +505,28 @@ def random_quant_linear(rng: torch.Generator, shape: tuple[int, ...], fmt: str =
     scales = ((0.5 + sc) * s_mean).to(torch.float16)
     if fmt == "q8_0":
         return {"qs": q.view(torch.int8), "scales": scales}
+    if b32:
+        return {"qs4b": pack_b32(q), "scales": scales}
     return {"qs4": q, "scales": scales}
 
 
 def random_quant_decoder_params(rng: torch.Generator, cfg: Qwen2DecoderConfig,
                                 fmt: str = "q8_0",
                                 dtype: torch.dtype = torch.bfloat16,
-                                scale: float = 0.02) -> Params:
+                                scale: float = 0.02, b32: bool = False) -> Params:
     """A decoder whose linears and lm_head are ``random_quant_linear`` blocks
     drawn on the generator's device: for full-size models, where quantizing
     dense weights with the host codecs would take minutes. Norms, biases and
-    the embedding are dense ``dtype`` as in ``random_decoder_params``."""
+    the embedding are dense ``dtype`` as in ``random_decoder_params``.
+    ``b32`` packs q4_0's nibbles in int32 words: the same seed gives the
+    same bytes as without it."""
     device = rng.device
     D, I = cfg.hidden_size, cfg.intermediate_size
     Hq, Hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     L = cfg.num_hidden_layers
 
     def qlinear(*shape):
-        return random_quant_linear(rng, shape, fmt, scale)
+        return random_quant_linear(rng, shape, fmt, scale, b32)
 
     def t(*shape):
         return _normal(rng, shape, dtype, scale, device)

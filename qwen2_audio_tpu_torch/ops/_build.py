@@ -59,6 +59,13 @@ SIGNATURES = {
         # dn_s_f16, packed, off, fast, stream
         "qa_fused_mlp": [P] * 12 + [I] * 4 + [L] + [I] * 8 + [P],
     },
+    "quant_matmul_int8": {
+        # x, xq, sx, M, K, x_bf16, transposed, stream
+        "qa_quantize_q8_1": [P] * 3 + [I] * 4 + [P],
+        # x, q, scales, out, scratch, xq, sx_t, M, K, N, x_bf16, s_f16, form,
+        # off, ksplit, stream
+        "qa_quant_matmul_int8": [P] * 7 + [I] * 8 + [P],
+    },
 }
 
 _lock = threading.Lock()

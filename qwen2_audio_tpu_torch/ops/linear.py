@@ -8,24 +8,33 @@
     {"qs_p" | "qs4_p", "scales_p"[, "mins", "b"]}
                                         the same in contiguous column panels
                                         (ops.quant_matmul.panelize_weight)
+    {"qs4b", "scales"[, "b"]}           symmetric q4_0 nibbles in int32 words
+                                        (``Q4Form(b32=True)``)
 
-The block forms go through the dequantizing kernels of ops/quant_matmul.py.
-How they multiply is a process-wide mode:
+How the block forms multiply is a process-wide mode:
 
-    "bf16"     x and the dequantized weight each rounded once to bf16, one
-               tensor-core pass, float32 sums (the default)
-    "dequant"  the exact float32 product of x and the float32 dequantized
-               weight (slow at large M)
-    "int8"     int8 activations x int8 weights: not ported
+    "bf16"     the dequantizing kernels of ops/quant_matmul.py: x and the
+               dequantized weight each rounded once to bf16, one tensor-core
+               pass, float32 sums (the default)
+    "dequant"  the same kernels, the exact float32 product of x and the
+               float32 dequantized weight (slow at large M)
+    "int8"     ggml's mmq numerics (ops/quant_matmul_int8.py): x quantized
+               to int8 per 32-group, exact integer group dots. ``linear_at``
+               takes it for "qs" and "qs4" with 32-groups ("qs4" without
+               "mins" is symmetric q4_0), ``linear`` for a flat "qs" with
+               32-groups only; everything else (the 16-group k-quants, the
+               panels, a flat "qs4", as in JAX) takes the exact dequantizing
+               kernels
 
-``linear_at`` is ``linear`` over layer ``li`` (a host integer) of a dict
-whose leaves carry a leading (n_layers,) axis; the layer is a view, never a
-copy. ``fused_mlp_at`` and ``fused_mlp_split_at`` run a whole SwiGLU MLP
-(gate, up, SiLU, down) of strided block dicts in one launch at decode M
-(ops/fused_mlp.py) or return None, and the caller then takes ``linear_at``
-per projection; ``set_fused_mlp(False)`` switches them off for the process.
-The word-packed nibbles ("qs4b") and the per-channel int8 form ("qs8") are
-not ported and raise.
+"qs4b" goes through the integer kernel's word form (ops/quant_matmul_q4b.py)
+in every mode. ``linear_at`` is ``linear`` over layer ``li`` (a host integer)
+of a dict whose leaves carry a leading (n_layers,) axis; the layer is a
+view, never a copy. ``fused_mlp_at`` and ``fused_mlp_split_at`` run a whole
+SwiGLU MLP (gate, up, SiLU, down) of strided block dicts in one launch at
+decode M (ops/fused_mlp.py) or return None, and the caller then takes
+``linear_at`` per projection; ``set_fused_mlp(False)`` switches them off for
+the process, and mode "int8" has no one-launch kernel. The per-channel int8
+form ("qs8") is not ported and raises.
 """
 
 from __future__ import annotations
@@ -35,6 +44,9 @@ import torch
 from qwen2_audio_tpu_torch.ops import fused_mlp as fm
 from qwen2_audio_tpu_torch.ops.quant_matmul import (quant_linear, quant_linear_panel,
                                                     quant_linear_stacked)
+from qwen2_audio_tpu_torch.ops.quant_matmul_int8 import (GROUP, quant_linear_int8,
+                                                         quant_linear_int8_stacked)
+from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import quant_linear_q4b, quant_linear_q4b_stacked
 
 _MODES = ("bf16", "dequant", "int8")
 _GROUP_MATMUL_MODE: str | None = None
@@ -42,7 +54,6 @@ _FUSED_MLP: bool | None = None
 _BLOCK_KEYS = ("qs", "qs4", "qs_p", "qs4_p")
 
 _NOT_PORTED = {
-    "qs4b": "the word-packed nibble kernel (ROADMAP.md, section 2, row 16)",
     "qs8": "the per-channel w8a8 form (ROADMAP.md, section 1, item 7)",
 }
 
@@ -71,13 +82,13 @@ def fused_mlp_enabled() -> bool:
 
 
 def _fast() -> bool:
-    """True for the bf16 mode, False for the exact one."""
-    mode = group_matmul_mode()
-    if mode == "int8":
-        raise NotImplementedError(
-            "group matmul mode 'int8': the int8-activation kernels are not "
-            "ported yet (ROADMAP.md, section 2, rows 14 and 15)")
-    return mode == "bf16"
+    """True for the bf16 mode; the exact dequantizing kernels otherwise."""
+    return group_matmul_mode() == "bf16"
+
+
+def _int8(x: torch.Tensor, scales: torch.Tensor) -> bool:
+    """Mode "int8" and 32-groups along K (scales (..., K // group, N))."""
+    return group_matmul_mode() == "int8" and x.shape[-1] // scales.shape[-2] == GROUP
 
 
 def _refuse(p: dict):
@@ -90,8 +101,12 @@ def _refuse(p: dict):
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif "qs4b" in p:
+        y = quant_linear_q4b(x, p)
     elif "qs_p" in p or "qs4_p" in p:
         y = quant_linear_panel(x, p, fast=_fast())
+    elif "qs" in p and _int8(x, p["scales"]):
+        y = quant_linear_int8(x, p)
     elif "qs4" in p or "qs" in p:
         y = quant_linear(x, p, fast=_fast())
     else:
@@ -105,6 +120,10 @@ def linear_at(x: torch.Tensor, p: dict, li: int) -> torch.Tensor:
     """``linear`` with layer ``li`` of the stacked leaves."""
     if "w" in p:
         y = x @ p["w"][li].to(x.dtype)
+    elif "qs4b" in p:
+        y = quant_linear_q4b_stacked(x, p, li)
+    elif ("qs" in p or "qs4" in p) and _int8(x, p["scales"]):
+        y = quant_linear_int8_stacked(x, p, li)
     elif any(k in p for k in _BLOCK_KEYS):
         y = quant_linear_stacked(x, p, li, fast=_fast())
     else:

@@ -201,6 +201,14 @@ def _check(name: str, x, q, sc, packed: bool) -> int:
     return group
 
 
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device, read once."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count[dev]
+
+
 def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
             fast: bool) -> torch.Tensor:
     M, K = x.shape
@@ -220,10 +228,7 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte "
                              f"aligned and on {x.device}")
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    ksplit = split_k(M, K, N, _sm_count[dev])
+    ksplit = split_k(M, K, N, sm_count(x.device))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     scratch = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
                if ksplit > 1 else None)

@@ -16,6 +16,10 @@ One explicit form with one default:
             q5_0, q5_1, q8_0: lossless), float32 for the k-quants' products
     mins    float32; q4_0 is symmetric by default (no "mins" leaf, the
             kernel subtracts 8), ``Q4Form(sym=False)`` folds -8 * d into one
+    qs4b    int32 words of symmetric q4_0 nibbles (K // 8, N) with
+            ``Q4Form(b32=True)``: word r packs byte rows 4r .. 4r + 3 of
+            "qs4" (ops.quant_matmul_q4b.pack_b32); the other 4-bit formats
+            keep "qs4", their mins having no place in that kernel
     qs_p, qs4_p, scales_p
             the same values in contiguous column panels (P, rows, bn), made
             from the forms above by ops.quant_matmul.panelize_weight
@@ -34,6 +38,7 @@ import torch
 
 from qwen2_audio_tpu_torch.config import GGMLType
 from qwen2_audio_tpu_torch.io.ggml_format import GGMLTensor
+from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import pack_b32
 from qwen2_audio_tpu_torch.quant import codecs
 from qwen2_audio_tpu_torch.quant.codecs import QK
 
@@ -51,17 +56,17 @@ class Q4Form:
 
     ``packed``: two nibbles per byte ("qs4") or one int8 value each ("qs");
     ``sym``: q4_0 without a "mins" leaf, (q - 8) * d inside the kernel;
-    ``b32``: int32 words of nibbles ("qs4b"), whose kernel is not ported.
+    ``b32``: q4_0's nibbles as int32 words ("qs4b"), which needs ``packed``
+    and ``sym`` (the word kernel has no mins).
     """
     packed: bool = True
     sym: bool = True
     b32: bool = False
 
     def __post_init__(self):
-        if self.b32:
-            raise NotImplementedError(
-                "Q4Form.b32: the word-packed nibble kernel is not ported yet "
-                "(ROADMAP.md, section 2, row 16)")
+        if self.b32 and not (self.packed and self.sym):
+            raise ValueError("Q4Form.b32 requires packed symmetric q4_0 (the word-packed "
+                             "kernel has no mins path)")
 
 
 def payload_form(qw: dict) -> str:
@@ -71,6 +76,8 @@ def payload_form(qw: dict) -> str:
         return {torch.float32: "f32sc", torch.float16: "f16sc"}[a.dtype]
     if "qs8" in qw:
         return "w8a8"
+    if "qs4b" in qw:
+        return "packed4-b32+sym+" + sc(qw["scales"])
     for qkey, panel in (("qs4", ""), ("qs4_p", "-panel")):
         if qkey in qw:
             return "+".join(("packed4" + panel, "sym" if "mins" not in qw else "mins",
@@ -89,15 +96,20 @@ def _scales(s: np.ndarray, f16_exact: bool) -> torch.Tensor:
 
 
 def pack4_device_weight(vals_unsigned: np.ndarray, scales: np.ndarray,
-                        mins: np.ndarray | None, f16_exact: bool = False) -> dict:
+                        mins: np.ndarray | None, f16_exact: bool = False,
+                        form: Q4Form | None = None) -> dict:
     """Unsigned nibbles (N, K) 0..15 with scales and mins (N, K // 32) in
     torch layout -> {"qs4": (K // 2, N) uint8, "scales"[, "mins"]}. Byte
     g * 16 + j pairs values g * 32 + j (low) and g * 32 + j + 16 (high) along
-    the input axis, ggml's own in-group pairing (block_q4_0)."""
+    the input axis, ggml's own in-group pairing (block_q4_0). With
+    ``form.b32`` and no mins: {"qs4b": (K // 8, N) int32, "scales"}, the same
+    bytes 4 rows to a word."""
     vT = np.ascontiguousarray(vals_unsigned.T).astype(np.uint8)   # (K, N)
     K, N = vT.shape
     g = vT.reshape(K // QK, QK, N)
     packed = (g[:, :16] | (g[:, 16:] << 4)).reshape(K // 2, N)
+    if form is not None and form.b32 and mins is None:
+        return {"qs4b": torch.from_numpy(pack_b32(packed)), "scales": _scales(scales, f16_exact)}
     out = {"qs4": torch.from_numpy(np.ascontiguousarray(packed)),
            "scales": _scales(scales, f16_exact)}
     if mins is not None:
@@ -307,7 +319,7 @@ def device_weight_from_ggml_tensor(t: GGMLTensor, form: Q4Form | None = None,
             # symmetric: no mins leaf; else w = n * d + (-8 * d), the offset
             # folded into the min term as for q4_1 / q4_K
             out = pack4_device_weight(vals + 8, d, None if form.sym else -8.0 * d,
-                                      f16_exact=True)
+                                      f16_exact=True, form=form)
         else:
             out = device_weight_from_arrays(vals, d, f16_exact=True)
     elif tt in (GGMLType.Q8_0, GGMLType.Q5_0):
@@ -320,7 +332,7 @@ def device_weight_from_ggml_tensor(t: GGMLTensor, form: Q4Form | None = None,
                   GGMLType.Q2_K: _unpack_q2_K}[tt]
         vals, d, m = unpack(raw, n_rows, n_cols)     # m already in +m form
         if tt in (GGMLType.Q4_1, GGMLType.Q4_K) and form.packed:
-            out = pack4_device_weight(vals, d, m, f16_exact=f16)
+            out = pack4_device_weight(vals, d, m, f16_exact=f16, form=form)
         else:
             out = device_weight_from_arrays(vals, d, f16_exact=f16)
             out["mins"] = torch.from_numpy(np.ascontiguousarray(m.T, dtype=np.float32))

@@ -408,3 +408,41 @@ def test_decode_tuned_context_on_card_matches_cpu(device, skip_gate_up):
         set_group_matmul_mode(None)
     assert out[0][0] == out[1][0] and len(out[0][0]) > 0
     np.testing.assert_allclose(out[0][1], out[1][1], atol=2e-3)
+
+
+def test_quantize_activations_kernel_is_bit_equal_to_plain(device):
+    """chip_smoke's phase-2 check of the q8_1 quantizing kernel at the
+    decoder's widths: xq and sx bit-equal, ties and all-zero groups."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    before = t8.quantize_activations.launches
+    n = chip_smoke.check_quantize_activations(device, Ks=(3584, 448))
+    assert t8.quantize_activations.launches == before + n
+
+
+def test_int8_group_matmul_matches_plain(device):
+    """chip_smoke's phase-2 check of rows 14, 15 and 16 at narrow widths
+    (M = 1, 7, 752, 1500; q8_0, symmetric q4_0 as bytes and as words, q4_1
+    and q5_1 with mins): within tolerance of the plain versions, the flat and
+    stacked entries and the byte and word forms bit-equal, two runs equal."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    before = [e.launches for e in t8.ENTRIES + tb.ENTRIES]
+    out = chip_smoke.check_int8_matmul(device, dims=(448, 768, 1024, 256))
+    assert set(out) == {"quant_matmul_int8", "quant_matmul_int8_stacked",
+                        "quant_matmul_q4b_stacked"}
+    assert all(e.launches > b for e, b in zip(t8.ENTRIES + tb.ENTRIES, before))
+
+
+def test_int8_group_matmul_refuses_what_the_kernel_does_not_take(device):
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    qw = chip_smoke._rand_blocks(device, 256, 128, "q8_0", seed=41)
+    x = torch.zeros(2, 256, device=device)
+    with pytest.raises(ValueError):      # float16 activations
+        t8.quant_matmul_int8(x.half(), qw["qs"], qw["scales"])
+    with pytest.raises(ValueError):      # N not a multiple of 16
+        t8.quant_matmul_int8(x, qw["qs"][:, :120].contiguous(),
+                             qw["scales"][:, :120].contiguous())
+    with pytest.raises(ValueError):      # a view that is not contiguous
+        t8.quant_matmul_int8(x, qw["qs"][:, ::2], qw["scales"][:, ::2])
+    with pytest.raises(ValueError):      # float16 activations at the quantizer
+        t8.quantize_activations(x.half())

@@ -270,14 +270,17 @@ def test_switch_mode_and_row_limit(monkeypatch):
     monkeypatch.delenv("QA_FUSED_MLP")
     tl.set_fused_mlp(None)
     assert tl.fused_mlp_at(tx, tgu, tdn, 0) is not None
-    # mode "int8": no one-launch kernel in either package; the port's
-    # per-projection path then refuses the mode
+    # mode "int8": no one-launch kernel in either package; the per-projection
+    # path takes the integer group matmul in both (1e-6 of max|ref|, the
+    # bound of tests/test_torch_quant_matmul_int8.py)
     jl.set_group_matmul_mode("int8")
     tl.set_group_matmul_mode("int8")
     assert jl.fused_mlp_at(jx, jgu, jdn, jnp.int32(0)) is None
     assert tl.fused_mlp_at(tx, tgu, tdn, 0) is None
-    with pytest.raises(NotImplementedError, match="rows 14 and 15"):
-        tl.linear_at(tx, tgu, 0)
+    for w_j, w_t, x_j, x_t in ((jgu, tgu, jx, tx), (jdn, tdn, *_x(2, "f32", k=I, seed=8))):
+        want = np.asarray(jl.linear_at(x_j, w_j, jnp.int32(1)))
+        np.testing.assert_allclose(tl.linear_at(x_t, w_t, 1).numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
     tl.set_group_matmul_mode(None)
     # the direct entries raise past 64 rows, as the JAX ones do
     with pytest.raises(ValueError, match="decode-shaped"):

@@ -32,7 +32,7 @@ def _port_modules():
 def test_quantized_weight_modules_are_scanned():
     mods = set(_port_modules())
     for m in ("quant", "quant.codecs", "quant.qparams", "ops.quant_matmul", "ops.linear",
-              "ops.fused_mlp"):
+              "ops.fused_mlp", "ops.quant_matmul_int8", "ops.quant_matmul_q4b"):
         assert f"qwen2_audio_tpu_torch.{m}" in mods
 
 
@@ -68,7 +68,7 @@ def test_no_forbidden_import_in_source(path):
 def test_every_kernel_source_is_declared():
     from qwen2_audio_tpu_torch.ops import _build
     sources = {p.stem for p in (PORT / "csrc").glob("*.cu")}
-    assert sources == set(_build.SIGNATURES) and "fused_mlp" in sources
+    assert sources == set(_build.SIGNATURES) and {"fused_mlp", "quant_matmul_int8"} <= sources
     # a header the sources share is part of every library's name
     assert (PORT / "csrc" / "qmm_common.cuh").exists()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

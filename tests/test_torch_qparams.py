@@ -120,9 +120,11 @@ def test_quant_params_from_jax_maps_trees_and_refuses_panels():
     with pytest.raises(NotImplementedError):
         quant_params_from_jax({"q": {"qs8": np.zeros((32, 16), np.int8),
                                      "scale_n": np.ones(16, np.float32)}})
-    with pytest.raises(NotImplementedError):
-        quant_params_from_jax({"q": {"qs4b": np.zeros((4, 16), np.int32),
-                                     "scales": np.ones((1, 16), np.float32)}})
+    # the word-packed nibbles, refused until their kernel was ported: int32,
+    # the same bits
+    words = quant_params_from_jax({"q": {"qs4b": np.full((4, 16), -2, np.int32),
+                                         "scales": np.ones((1, 16), np.float32)}})["q"]
+    assert words["qs4b"].dtype == torch.int32 and int(words["qs4b"][0, 0]) == -2
 
 
 @pytest.mark.parametrize("fmt", ["Q8_0", "Q4_0", "Q4_1", "Q6_K"])
@@ -155,8 +157,21 @@ def test_payload_form_and_q4form():
         tq.device_weight_from_ggml_tensor(t6), 8)) == "strided-panel+sym+f32sc"
     with pytest.raises(ValueError):
         tq.payload_form({"w": 0})
-    with pytest.raises(NotImplementedError):
-        tq.Q4Form(b32=True)
+    # Q4Form(b32=True), refused until its kernel was ported: q4_0's bytes as
+    # int32 words, the JAX package's payload; only packed symmetric q4_0
+    b32 = tq.device_weight_from_ggml_tensor(t, form=tq.Q4Form(b32=True))
+    assert tq.payload_form(b32) == "packed4-b32+sym+f16sc"
+    assert b32["qs4b"].dtype == torch.int32 and b32["qs4b"].shape == (K // 8, N)
+    jw = jq.device_weight_from_ggml_tensor(JTensor("w", (N, K), JType.Q4_0, raw),
+                                           to_device=False,
+                                           form=jq.Q4Form(b32=True, scale="f16"))
+    assert np.array_equal(b32["qs4b"].numpy(), jw["qs4b"])
+    assert np.array_equal(b32["scales"].numpy(), jw["scales"])
+    for bad in (dict(packed=False), dict(sym=False)):
+        with pytest.raises(ValueError):
+            tq.Q4Form(b32=True, **bad)
+    q41 = GGMLTensor("w", (N, K), GGMLType.Q4_1, _raw("Q4_1"))
+    assert "qs4" in tq.device_weight_from_ggml_tensor(q41, form=tq.Q4Form(b32=True))
     with pytest.raises(ValueError):
         tq.device_weight_from_ggml_tensor(GGMLTensor("w", (N, K), GGMLType.F16,
                                                      np.zeros((N, K), np.float16)))

@@ -256,10 +256,11 @@ def test_linear_dense_and_default_mode(rng):
 
 @pytest.mark.parametrize("key", ["qs_p", "qs4_p", "qs4b", "qs8"])
 def test_unported_forms_raise(key):
-    """The word-packed and per-channel forms raise; the panel forms, refused
-    until their kernels were ported, are now taken by ``linear`` and
-    ``linear_at`` and give the strided result."""
-    if key in ("qs4b", "qs8"):
+    """The per-channel form raises; the panel forms and the word-packed
+    nibbles, refused until their kernels were ported, are now taken by
+    ``linear`` and ``linear_at``: the panels give the strided result, the
+    words the integer kernel's result on the same bytes (in every mode)."""
+    if key == "qs8":
         p = {key: torch.zeros(1, 32, 16, dtype=torch.int8), "scales_p": torch.ones(1, 1, 16)}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tl.linear(torch.zeros(1, 32), p)
@@ -268,21 +269,40 @@ def test_unported_forms_raise(key):
         return
     tl.set_group_matmul_mode("dequant")
     _, tw = _stacked("Q8_0" if key == "qs_p" else "Q4_0")
+    _, tx = _x(3, "f32")
+    if key == "qs4b":
+        from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+        from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import pack_b32
+        tb = {"qs4b": pack_b32(tw["qs4"]), "scales": tw["scales"]}
+        want = t8.quant_matmul_int8_stacked(tx, tw["qs4"], tw["scales"], 1, off=8)
+        assert torch.equal(tl.linear_at(tx, tb, 1), want)
+        assert torch.equal(tl.linear(tx, {k_: v[1] for k_, v in tb.items()}), want)
+        # and close to the exact product: only x is rounded, to 8 bits a group
+        dense = tl.linear_at(tx, tw, 1)
+        assert float((want - dense).abs().max()) <= 0.02 * float(dense.abs().max())
+        return
     tp = tqm.panelize_weight(tw, 64)
     assert key in tp and tp[key].shape[:2] == (L, N // 64)
-    _, tx = _x(3, "f32")
     assert torch.equal(tl.linear_at(tx, tp, 1), tl.linear_at(tx, tw, 1))
     flat_p, flat = ({k_: v[1] for k_, v in t.items()} for t in (tp, tw))
     assert torch.equal(tl.linear(tx, flat_p), tl.linear(tx, flat))
 
 
 def test_int8_mode_raises_and_bad_mode():
-    _, tw = _weight("Q8_0")
+    """Mode "int8", refused until its kernels were ported, now takes the
+    integer group matmul, as the JAX package does; unknown modes and
+    non-linear dicts still raise."""
+    jw, tw = _weight("Q8_0")
+    jl.set_group_matmul_mode("int8")
     tl.set_group_matmul_mode("int8")
-    with pytest.raises(NotImplementedError, match="rows 14 and 15"):
-        tl.linear(torch.zeros(1, K), tw)
-    with pytest.raises(NotImplementedError, match="rows 14 and 15"):
-        tl.linear_at(torch.zeros(1, K), {k_: v[None] for k_, v in tw.items()}, 0)
+    jx, tx = _x(3, "f32", seed=8)
+    want = np.asarray(jl.linear(jx, jw))
+    np.testing.assert_allclose(tl.linear(tx, tw).numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    st_j, st_t = {k_: v[None] for k_, v in jw.items()}, {k_: v[None] for k_, v in tw.items()}
+    want = np.asarray(jl.linear_at(jx, st_j, jnp.int32(0)))
+    np.testing.assert_allclose(tl.linear_at(tx, st_t, 0).numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
     with pytest.raises(ValueError):
         tl.set_group_matmul_mode("w8a8")
     with pytest.raises(ValueError):
