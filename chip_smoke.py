@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (qwen2_audio_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--layers 32] [--calls 12] [--dec-layers 28]
+    python3 chip_smoke.py [--layers 32] [--calls 8] [--dec-layers 28]
                           [--new-tokens 32] [--q4-layers 32] [--kernels-only]
 
 (``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8 --q4-layers 4`` is a
@@ -29,7 +29,19 @@ before the result lines are printed):
    decoder's, the lm_head's and the encoder's K x N, q8_0, symmetric q4_0 as
    bytes and as words, q4_1 and q5_1 with mins, the flat entry bit-equal to
    the stacked one and the words to the bytes with off 8, two runs
-   bit-equal;
+   bit-equal; the lite and unpadded one-shot entries (TPU rows 18, 19), the
+   blockwise entry (row 3 without the mask) at d = 64 and 128, exp2 on the
+   one-shot, blockwise and causal kernels and pexp16 on the one-shot kernel,
+   at the encoder shape (fused-QKV views, bf16 and float32) and on ragged
+   keys with NaN past kv_valid, timed against the plain version, the
+   default one-shot kernel and bf16 SDPA, and pexp16 and lite on inputs
+   where each moves every output by a known step (the kernel must land on
+   its own plain version, away from the one without the option, and the
+   kernel without the option the other way round); the int8 KV cache's quantizer
+   bit-equal to the CPU's over scales that a reciprocal multiply would round
+   otherwise; dq16 (scales rounded to bf16 first) on the dequantizing
+   entries at M = 1 and 752 over q8_0, symmetric q4_0 and q4_1, the panel
+   entry bit-equal, the output moved against dq16 off;
 3. parity at full width and depth 2, card against CPU in float32: the
    encoder (embedding, dense and from a q8_0 checkpoint), and the Qwen2
    decoder (a 160-position prefill and 8 greedy steps: the same tokens,
@@ -86,7 +98,17 @@ before the result lines are printed):
       exact dequantizing one; no fused launch; logits teacher-forced against
       the bf16 mode), and the same q4_0 bytes as int32 words in the default
       mode (the word entry for every linear and the lm_head; teacher-forced
-      against the q4_0 request in mode "int8").
+      against the q4_0 request in mode "int8");
+   f. behind the bf16 context of (a), before (b): whisper_full on one clip
+      under each encoder attention variant (set_attention_variants: lite,
+      nopad, exp2, pexp16, single off), the variant's entry launched once
+      per layer and call and no other attention entry, the median ms per
+      call, one profiled call, the embedding against the default path's.
+   The quantized paths (c, d) also run with dq16 switched on
+   (set_dequant16): three encodes behind each quantized encoder (the
+   embedding against the switch off) and one 8-token request per format
+   (q8_0 per-projection MLP, q4_0 one-launch SwiGLU), teacher-forced
+   against the same configuration with the switch off.
 The last two lines of standard output are the kernels JSON line and the
 {"ok": true, ...} line. Without a CUDA device the script exits 1.
 
@@ -100,7 +122,14 @@ kernels in bf16 also + 2**-8 * (P |V|), the p-weighted mean of |V| (the
 plain attention of |V|): each p is rounded to bf16 (2**-9 relative)
 against another running maximum in the kernel than in the plain version,
 which moves the output by up to that much where few keys carry the row,
-as in a causal prefill's first rows;
+as in a causal prefill's first rows; the attention variants the encoder
+attention's, and under pexp16 also + 2**-8 * (P |V|), in float32 too: s - m
+and p are rounded to bf16 against a running maximum (a dropped chunk or a missing
+rescale still reads 10x or more, tests/test_torch_fa_variants.py), and
+on the option case rms(kernel - its plain version) at most a quarter of
+rms(kernel - the plain version without the option), as these tolerances
+exceed what pexp16 and lite move; the int8 KV cache's quantizer bit-equal
+to the CPU's;
 dequantizing matmul |kernel - plain| <= atol + rtol * |plain| with atol
 1e-4 * max|plain| (both sides make the same roundings, so only the order
 of the float32 sums differs, and the tensor cores add in their own order)
@@ -133,6 +162,7 @@ their dense counterparts, and mode "int8" against the bf16 mode, the same.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -159,6 +189,7 @@ TEXT_REQUESTS = 1     # audio -> text requests over the bf16 cache (+1 over int8
 QMM_ATOL_F32 = 1e-4   # of max|plain|
 QMM_TOL_BF16 = (2.0 ** -8, 2.0 ** -7)   # (atol of max|plain|, rtol)
 QUANT_CALLS = 6       # whisper_full calls of each quantized encode path
+VARIANT_CALLS = 4     # whisper_full calls under each encoder attention variant (4f)
 QDEC_PARITY_PREFILL, QDEC_PARITY_STEPS = 16, 4
 INT8_PARITY_STEPS = 2  # mode "int8" parity: the prefill and one cached step
 FUSED_FLIPS = 2       # bf16 roundings of gated that may fall the other way, per output
@@ -350,17 +381,18 @@ def check_attention(device) -> tuple[dict, dict]:
     return main["bfloat16"], main["float32"]
 
 
-def _held(got, want, tname: str, what: str, p_abs_v=None) -> tuple[float, float]:
+def _held(got, want, tname: str, what: str, p_abs_v=None,
+          any_type: bool = False) -> tuple[float, float]:
     """Max abs error and the share of the elementwise tolerance it uses;
     fails unless the kernel's output is finite and within tolerance.
-    ``p_abs_v``: the plain attention of |V|, for the causal kernel's bf16
-    p-rounding term."""
+    ``p_abs_v``: the plain attention of |V|, for the bf16 p-rounding term
+    (``any_type``: in float32 too, as pexp16 rounds p to bf16 there)."""
     import torch
     diff = (got.float() - want.float()).abs()
     atol, rtol = ATTN_TOL[tname]
     tol = atol + rtol * want.float().abs()
     extra = ""
-    if tname == "bfloat16" and p_abs_v is not None:
+    if (tname == "bfloat16" or any_type) and p_abs_v is not None:
         tol = tol + P_ROUND * p_abs_v.float()
         extra = f" + {P_ROUND:.3g} * P|V|"
     used = (diff / tol).max().item()
@@ -433,6 +465,260 @@ def check_causal(device, cases=None) -> tuple[dict, dict]:
         log(f"causal {tname} at the prefill shape: " + json.dumps(
             {k_: main[tname][k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")}))
     return main["bfloat16"], main["float32"]
+
+
+def _variant_cases():
+    import torch
+    bf, f32 = torch.bfloat16, torch.float32
+    enc = (1, 20, 20, 1500, 64, 1500, True)     # the encoder's fused-QKV views
+    return [  # (entry, options, dtype, (B, H, Hkv, T, d, kv_valid, fused)); the
+        # first case of each entry and option: the encoder shape, in bf16
+        ("attention_lite", {}, bf, enc), ("attention_lite", {}, f32, enc),
+        ("attention_lite", {"exp2": True}, bf, enc),
+        ("attention_lite", {"sm_scale": 0.125}, bf, (2, 4, 4, 300, 64, 237, False)),
+        ("attention_lite", {}, bf, (1, 8, 2, 333, 64, 301, False)),
+        ("flash_attention_nopad", {}, bf, enc), ("flash_attention_nopad", {}, f32, enc),
+        ("flash_attention_nopad", {"exp2": True}, bf, enc),
+        ("flash_attention_nopad", {"sm_scale": 0.125}, bf, (1, 8, 2, 333, 64, 333, False)),
+        ("attention_blockwise", {}, bf, enc), ("attention_blockwise", {}, f32, enc),
+        ("attention_blockwise", {"exp2": True}, bf, enc),
+        ("attention_blockwise", {"sm_scale": 0.125}, bf, (1, 8, 2, 200, 128, 150, False)),
+        ("attention_blockwise", {"sm_scale": 0.125}, f32, (1, 8, 2, 200, 128, 150, False)),
+        ("attention_single", {"exp2": True}, bf, enc),
+        ("attention_single", {"exp2": True}, f32, enc),
+        ("attention_single", {"pexp16": True}, bf, enc),
+        ("attention_single", {"pexp16": True}, f32, enc),
+        ("attention_single", {"pexp16": True, "exp2": True}, bf, (2, 4, 4, 300, 64, 237, False)),
+        ("attention_single", {"sm_scale": 0.125}, f32, (1, 8, 2, 200, 128, 150, False)),
+    ]
+
+
+def _variant_fns(entry: str, opts: dict, kv_valid: int):
+    """The kernel's entry and its plain version for one variant case, each
+    taking (q, k, v)."""
+    from qwen2_audio_tpu_torch.ops import fa_variants as fv
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    sc, e2, p16 = opts.get("sm_scale", 1.0), opts.get("exp2", False), opts.get("pexp16", False)
+    if entry == "attention_lite":
+        return (lambda q, k, v: fv.attention_lite(q, k, v, sm_scale=sc, kv_valid=kv_valid,
+                                                  exp2=e2),
+                lambda q, k, v: fv.attention_lite_plain(q, k, v, sm_scale=sc,
+                                                        kv_valid=kv_valid, exp2=e2))
+    if entry == "flash_attention_nopad":
+        return (lambda q, k, v: fv.flash_attention_nopad(q, k, v, sm_scale=sc, exp2=e2),
+                lambda q, k, v: fa.attention_single_plain(q, k, v, sm_scale=sc, exp2=e2))
+    if entry == "attention_blockwise":
+        return (lambda q, k, v: fa.attention_blockwise(q, k, v, sc, kv_valid, exp2=e2),
+                lambda q, k, v: fa.attention_blockwise_plain(q, k, v, sc, kv_valid, exp2=e2,
+                                                             block_k=1536))
+    return (lambda q, k, v: fa.attention_single(q, k, v, kv_valid, sm_scale=sc, exp2=e2,
+                                                pexp16=p16),
+            lambda q, k, v: fa.attention_single_plain(q, k, v, kv_valid, sm_scale=sc,
+                                                      exp2=e2, pexp16=p16))
+
+
+def check_attention_variants(device) -> tuple[dict, dict]:
+    """The lite and unpadded entries (TPU rows 18, 19), the blockwise entry
+    (row 3 non-causal) and the exp2 / pexp16 options of the one-shot and
+    causal kernels against their plain versions, with the tolerances of
+    ``check_attention`` (+ P_ROUND * P|V| under pexp16, in float32 too: s - m
+    and p are rounded to bf16 against another running maximum); the encoder-shape
+    cases timed against the plain version, the default one-shot kernel and
+    bf16 SDPA. Q is pre-scaled by d^-0.5 (and LOG2E under exp2) in its own
+    type; where ``sm_scale`` is set, Q is unscaled and the kernel scales.
+    Returns the kernels line's entries for rows 18 and 19."""
+    import torch
+    import torch.nn.functional as F
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+
+    main, lines, timed = {}, {}, set()
+    sdpa = default = None
+    for i, (entry, opts, dtype, shape) in enumerate(_variant_cases()):
+        B, H, Hkv, T, d, kv_valid, fused = shape
+        q, k, v = _attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed=200 + i)
+        if not fused and kv_valid < T:      # NaN past kv_valid: never read
+            k[:, :, kv_valid:] = float("nan")
+            v[:, :, kv_valid:] = float("nan")
+        if "sm_scale" in opts:
+            q = q * (1.0 / opts["sm_scale"])
+        if opts.get("exp2"):
+            q = q * torch.tensor(fa.LOG2E, dtype=dtype).item()
+        kern, plain = _variant_fns(entry, opts, kv_valid)
+        counter = _attention_entries()[entry]
+        before = counter.launches
+        got, want = kern(q, k, v), plain(q, k, v)
+        torch.cuda.synchronize()
+        require(counter.launches == before + 1, f"{entry}: not one launch")
+        tname = str(dtype).removeprefix("torch.")
+        what = (f"{entry} {json.dumps(opts)} {tname} B={B} H={H} Hkv={Hkv} T={T} d={d} "
+                f"kv_valid={kv_valid}{' fused-qkv views' if fused else ''}")
+        pv = plain(q, k, v.abs()) if opts.get("pexp16") else None
+        err, _ = _held(got, want, tname, what, pv, any_type=True)
+        key = (entry, json.dumps(opts))
+        if not fused or dtype != torch.bfloat16 or key in timed:
+            continue
+        timed.add(key)
+        if sdpa is None:
+            qc, kc, vc = (x.contiguous() for x in (q, k, v))
+            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, scale=1.0))
+            default = time_ms(lambda: fa.attention_single(q, k, v))
+        flops = 4 * B * T * T * d * H
+        b_ms, b_by = bound(flops, 4 * B * T * H * d * q.element_size(), PEAK_BF16)
+        t = {"ms": time_ms(lambda: kern(q, k, v)),
+             "plain_ms": time_ms(lambda: plain(q, k, v), iters=5),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa,
+             "default_single_ms": default}
+        log(f"{what} at the encoder shape: " + json.dumps(t))
+        main[key] = t
+        if entry in ("attention_lite", "flash_attention_nopad") and not opts:
+            name = entry.removeprefix("flash_")
+            lines[name] = {"name": name, "route": "cuda",
+                           "source": "qwen2_audio_tpu_torch/csrc/attention_single.cu",
+                           "replaces": "qwen2_audio_tpu/ops/fa_variants.py:"
+                                       + ("105" if name == "attention_lite" else "179"),
+                           "max_abs_err": err,
+                           **{k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")}}
+    c = _causal_case(device, torch.bfloat16, 1, 28, 4, 752, 128, seed=260)
+    q = c[0] * torch.tensor(fa.LOG2E, dtype=torch.bfloat16).item()
+    scale = 128 ** -0.5
+    got = fa.attention_causal(q, c[1], c[2], scale, exp2=True)
+    want = fa.attention_causal_plain(q, c[1], c[2], scale, exp2=True)
+    _held(got, want, "bfloat16", "attention_causal exp2 bf16 B=1 Hq=28 Hkv=4 T=752 d=128",
+          fa.attention_causal_plain(q, c[1], c[2].abs(), scale, exp2=True))
+    t2 = time_ms(lambda: fa.attention_causal(q, c[1], c[2], scale, exp2=True))
+    t1 = time_ms(lambda: fa.attention_causal(c[0], c[1], c[2], scale))
+    log(f"attention_causal exp2 at the prefill shape: {t2:.4f} ms against {t1:.4f} "
+        "without exp2")
+    require(set(lines) == {"attention_lite", "attention_nopad"},
+            "attention variants: a kernels-line entry is missing")
+    return lines["attention_lite"], lines["attention_nopad"]
+
+
+def _option_case(device, dtype, B=1, H=20, T=1500, d=64):
+    """q, k, v on which pexp16 and lite move every output by a known step:
+    key 0 scores 0, every other key -0.69000244 (p = 0.501576, which rounds
+    to bf16 0.5, 3.1e-3 low), so the running max is the row's max from the
+    first chunk on and the kernel rounds p as the plain version does. bf16:
+    V = 1, the default path 0.99609375 (l sums the unrounded p), pexp16 and
+    lite 1.0; float32: V = 1 at key 0 only, the default 1.32826e-3, pexp16
+    1.33245e-3 (lite computes the default there: p's cast to V's type is no
+    cast)."""
+    import torch
+    q = torch.zeros(B, H, T, d)
+    q[..., :2] = 1.0
+    k = torch.zeros(B, H, T, d)
+    k[..., 1:, 0] = -0.6875
+    k[..., 1:, 1] = -0.0025
+    v = torch.ones(B, H, T, d) if dtype == torch.bfloat16 else torch.zeros(B, H, T, d)
+    v[..., 0, :] = 1.0
+    return tuple(x.to(device, dtype) for x in (q, k, v))
+
+
+def check_option_effects(device) -> None:
+    """The tolerances of ``check_attention_variants`` cannot tell a kernel
+    that ignores its pexp16 or lite flag from one that applies it: the
+    option moves an output by less than they allow. On ``_option_case``'s
+    inputs it moves every output by a known step, so the kernel under the
+    option must sit on its own plain version and away from the plain
+    version without it (rms distance at most a quarter of the other), and
+    the kernel with the option off the other way round."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import fa_variants as fv
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+
+    default = (fa.attention_single, fa.attention_single_plain)
+    cases = [  # (option, dtype, (kernel, plain) with it, (kernel, plain) without it)
+        ("pexp16", torch.bfloat16, (functools.partial(fa.attention_single, pexp16=True),
+                                    functools.partial(fa.attention_single_plain,
+                                                      pexp16=True)), default),
+        ("pexp16", torch.float32, (functools.partial(fa.attention_single, pexp16=True),
+                                   functools.partial(fa.attention_single_plain,
+                                                     pexp16=True)), default),
+        ("lite", torch.bfloat16, (functools.partial(fv.attention_lite, sm_scale=1.0),
+                                  functools.partial(fv.attention_lite_plain, sm_scale=1.0)),
+         default),
+    ]
+    for option, dtype, (kern, plain), (kern_off, plain_off) in cases:
+        q, k, v = _option_case(device, dtype)
+        on, off, want, want_off = (f(q, k, v) for f in (kern, kern_off, plain, plain_off))
+        torch.cuda.synchronize()
+        what = f"{option} {str(dtype).removeprefix('torch.')} on the option case"
+        ok, detail = option_followed(on, off, want, want_off)
+        log(f"{what}: {detail}")
+        require(ok, f"{what}: the kernel does not follow its {option} flag")
+
+
+def option_followed(on, off, want, want_off) -> tuple[bool, str]:
+    """Whether ``on`` (the kernel with an option) sits on ``want`` (its plain
+    version) and away from ``want_off`` (the plain version without it), and
+    ``off`` (the kernel without it) the other way round: rms distance at
+    most a quarter of the other, which must not be 0."""
+    def rms(a, b):
+        return (a.float() - b.float()).square().mean().sqrt().item()
+
+    near, far = rms(on, want), rms(on, want_off)
+    near_off, far_off = rms(off, want_off), rms(off, want)
+    detail = (f"kernel with it {near:.3e} from its plain version, {far:.3e} from the "
+              f"plain version without it; kernel without it {near_off:.3e} / "
+              f"{far_off:.3e}; the flag moves the kernel's output by {rms(on, off):.3e}")
+    return far > 0 and near <= 0.25 * far and near_off <= 0.25 * far_off, detail
+
+
+def _attention_entries() -> dict:
+    """The encoder attention's entries by name, each with its launch count."""
+    from qwen2_audio_tpu_torch.ops import fa_variants as fv
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    return {e.__name__: e for e in (fa.attention_single, fa.attention_blockwise,
+                                    fv.attention_lite, fv.flash_attention_nopad)}
+
+
+def reciprocal_misses(n: int, seed: int):
+    """n float32 values a for which a * float32(1 / 127) differs from the
+    IEEE quotient a / 127: what a division by a Python number on the card
+    would round otherwise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = (rng.random(40 * n) * 10.0 ** rng.uniform(-3, 3, 40 * n)).astype(np.float32)
+    miss = a[a * (np.float32(1) / np.float32(127)) != a / np.float32(127)]
+    if len(miss) < n:
+        raise ValueError(f"only {len(miss)} of {n} values found")
+    return miss[:n]
+
+
+def kv_with_scales(amax, seed: int, shape=(2, 64, 4, 128)):
+    """A (B, T, H, d) float32 K or V whose vectors have the given amax
+    values (cycled), signs and positions random."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    B, T, H, d = shape
+    a = np.resize(np.asarray(amax, np.float32), (B, T, H))
+    x = (rng.uniform(-1, 1, shape) * a[..., None]).astype(np.float32)
+    pos = rng.integers(0, d, (B, T, H))
+    sign = rng.choice(np.float32([-1, 1]), (B, T, H))
+    np.put_along_axis(x, pos[..., None], (sign * a)[..., None], axis=-1)
+    return torch.from_numpy(x)
+
+
+def check_quantize_kv(device) -> None:
+    """The int8 KV cache's scales and values on the card bit-equal to the
+    CPU's, over amax values where a reciprocal multiply rounds otherwise
+    than IEEE division (ROADMAP.md section 3 item 1)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import _quantize_kv
+    amax = reciprocal_misses(512, seed=7)
+    x = kv_with_scales(amax, seed=8)
+    (q_c, s_c), (q_g, s_g) = _quantize_kv(x), _quantize_kv(x.to(device))
+    a = torch.from_numpy(amax).to(device)
+    old = int(((a / 127.0) != (a / torch.full_like(a, 127.0))).sum())
+    log(f"quantize_kv: {x.numel() // x.shape[-1]} vectors over {len(amax)} amax values; "
+        f"on the card amax / 127.0 (a Python number, the old code) differs from the IEEE "
+        f"quotient on {old} of them; "
+        f"scales bit-equal {torch.equal(s_g.cpu(), s_c)}, values bit-equal "
+        f"{torch.equal(q_g.cpu(), q_c)}")
+    require(torch.equal(s_g.cpu(), s_c) and torch.equal(q_g.cpu(), q_c),
+            "quantize_kv: the card's int8 cache differs from the CPU's")
 
 
 def _decode_case(device, qdt, kvdt, B, S, pos, seed, Hq=28, Hkv=4, d=128):
@@ -678,6 +964,73 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
     del weights, panels
     torch.cuda.empty_cache()
     return main
+
+
+def check_dequant16(device, dims=(3584, 18944, 1280)) -> None:
+    """The dequantizing entries with ``dq16`` (each scale rounded to bf16
+    before the multiply, fast mode) against their plain versions with the
+    tolerances of ``check_quant_matmul``, at M = 1 and 752, bf16 and float32
+    x, over q8_0, symmetric q4_0 and q4_1; each case also through the panel
+    entry (bit-equal) and against dq16 off (float32 x: the outputs must
+    differ, or the flag was not taken). gate_up timed with and without it."""
+    import torch
+    from qwen2_audio_tpu_torch.config import GGMLType
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+
+    bf, f32 = torch.bfloat16, torch.float32
+    D, I, E = dims
+    weights = {   # name: (K, N, dict, stacked)
+        "gate_up q8_0": (D, 2 * I, _rand_blocks(device, D, 2 * I, "q8_0", 171, layers=2), True),
+        "gate_up q4_0": (D, 2 * I, _rand_blocks(device, D, 2 * I, "q4_0", 172, layers=2), True),
+        "fc1 q8_0": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q8_0, 173), False),
+        "fc1 q4_0": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_0, 174), False),
+        "fc1 q4_1": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_1, 175), False),
+    }
+    for i, (wname, M, dtype) in enumerate(
+            (w, M, t) for w in weights for M in (1, 752) for t in (bf, f32)):
+        K, N, qw, stacked = weights[wname]
+        packed = "qs4" in qw
+        kw = {"fast": True, **({"off": 8 if "mins" not in qw else 0} if packed else {})}
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        x = torch.randn(M, K, generator=g, device=device).to(dtype)
+        q, sc = qw["qs4" if packed else "qs"], qw["scales"]
+        li = (1,) if stacked else ()
+        ql, scl = (q[1], sc[1]) if stacked else (q, sc)
+        entry = getattr(qm, "quant_matmul" + ("4" if packed else "")
+                        + ("_stacked" if stacked else ""))
+        plain = qm.quant_matmul4_plain if packed else qm.quant_matmul_plain
+        got = entry(x, q, sc, *li, dq16=True, **kw)
+        want = plain(x, ql, scl, dq16=True, **kw)
+        off16 = entry(x, q, sc, *li, **kw)
+        pw = qm.panelize_weight({k_: v for k_, v in qw.items() if k_ != "mins"})
+        pentry = getattr(qm, "quant_matmul_panel" + ("4" if packed else "")
+                         + ("_stacked" if stacked else ""))
+        pgot = pentry(x, pw["qs4_p" if packed else "qs_p"], pw["scales_p"], *li, dq16=True,
+                      **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().max().item()
+        atol, rtol = (QMM_ATOL_F32 * top, 0.0) if dtype == f32 else \
+            (QMM_TOL_BF16[0] * top, QMM_TOL_BF16[1])
+        used = (diff / (atol + rtol * want.float().abs())).max().item()
+        moved = (got.float() - off16.float()).abs().max().item()
+        what = (f"{entry.__name__} dq16 {wname} K={K} N={N} M={M} x "
+                f"{str(dtype).removeprefix('torch.')} scales "
+                f"{str(sc.dtype).removeprefix('torch.')}")
+        log(f"{what}: max_abs_err={diff.max().item():.3e} (max|plain| {top:.3f}), "
+            f"{used:.3f} of the tolerance; dq16 moves the output by {moved:.3e}")
+        require(bool(torch.isfinite(got).all()) and used <= 1.0,
+                f"{what}: kernel disagrees with its plain version ({used:.3f})")
+        require(torch.equal(pgot, got), f"{what}: {pentry.__name__} differs")
+        if dtype == f32:
+            require(moved > atol, f"{what}: dq16 did not change the output")
+        if dtype == bf and wname.startswith("gate_up"):
+            t_on = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw),
+                           iters=10 if M > 8 else 50)
+            t_off = time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50)
+            log(f"{what}: {t_on:.4f} ms with dq16, {t_off:.4f} ms without")
+    del weights
+    torch.cuda.empty_cache()
 
 
 def _ties_and_zeros(device, M: int, K: int, dtype, seed: int):
@@ -1141,9 +1494,11 @@ def check_quant_encoder_parity(device, hp) -> dict:
 
 def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                                steps: int = QDEC_PARITY_STEPS) -> dict:
-    """The decoder at full width, float32, with q8_0 weights (layers and
-    lm_head) and with packed symmetric q4_0 layer weights (the lm_head
-    dense), all from the ggml quantizers. Exact mode: a T0-position prefill
+    """The decoder at full width, float32, with q8_0 weights (layers from the
+    ggml quantizer, the lm_head random q8_0 blocks made on the card: the
+    quantizer took about 36 s of host time over the 156032 x 3584 head) and
+    with packed symmetric q4_0 layer weights from the quantizer (the lm_head
+    dense). Exact mode: a T0-position prefill
     and ``steps`` greedy steps on the CPU (plain versions, the per-projection
     MLP) and on the card (kernels), there twice: with the one-launch SwiGLU
     off, and in the decode-tuned storage (q8_0: the SwiGLU on; q4_0:
@@ -1216,10 +1571,13 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
         for fmt, ttype, head in (("q8_0", GGMLType.Q8_0, True), ("q4_0", GGMLType.Q4_0, False)):
             t0 = time.perf_counter()
             cpu_params = fuse_decoder_params(quantize_decoder_params(
-                dense, ttype, quantize_lm_head=head))
-            log(f"quantized decoder parity {fmt}: {L} layers{' + lm_head' if head else ''} "
-                f"quantized on the host in {time.perf_counter() - t0:.1f} s, form "
-                f"{payload_form(cpu_params['layers']['qkv'])}")
+                dense, ttype, quantize_lm_head=False))
+            if head:    # random q8_0 blocks made on the card: no host quantizing
+                cpu_params["lm_head"] = _tree_to(_rand_blocks(
+                    device, cfg.hidden_size, cfg.vocab_size, "q8_0", 8), "cpu")
+            log(f"quantized decoder parity {fmt}: {L} layers quantized on the host in "
+                f"{time.perf_counter() - t0:.1f} s{', lm_head random q8_0 blocks' if head else ''}"
+                f", form {payload_form(cpu_params['layers']['qkv'])}")
             set_fused_mlp(False)
             t0 = time.perf_counter()
             ht, _, hn, hf, h0 = run(cpu_params, "cpu")
@@ -1370,6 +1728,69 @@ def run_main_path(hp, calls: int, workdir: str) -> dict:
     steady = per_call[1:] or per_call
     return ctx, {"launches": launches, "per_call_ms": per_call, "path": path,
                  "steady_ms": statistics.median(steady)}
+
+
+ATTN_VARIANTS = (   # phase 4f: (name, set_attention_variants arguments, entry)
+    ("lite", {"lite": True}, "attention_lite"),
+    ("nopad", {"nopad": True}, "flash_attention_nopad"),
+    ("exp2", {"exp2": True}, "attention_single"),
+    ("pexp16", {"pexp16": True}, "attention_single"),
+    ("blockwise", {"single": False}, "attention_blockwise"),
+)
+
+
+def run_attention_variants(ctx, calls: int) -> dict:
+    """Phase 4f, behind the bf16 encoder of phase 4a: whisper_full on one
+    clip under each encoder attention variant of ops/fa_variants.py (the
+    JAX package's QA_FA_* gates), every launch counter set to 0 just before
+    and read just after: the variant's entry launched once per layer and
+    call and no other attention entry; the median ms per call; the device
+    time of one profiled call; the embedding's cosine to the default path's
+    on the same clip. Returns the results by variant name."""
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.ops import fa_variants as fv
+
+    entries = _attention_entries()
+    n_layer = ctx.hparams.n_audio_layer
+    clip = noisy_tone(30.0, seed=3)
+    params = capi.whisper_full_default_params()
+    out = {}
+    try:
+        for name, switch, entry in (("default", {}, "attention_single"),) + ATTN_VARIANTS:
+            fv.set_attention_variants(**switch)
+            for e in entries.values():
+                e.launches = 0
+            per_call = []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                rc = capi.whisper_full(ctx, params, clip)
+                torch.cuda.synchronize()
+                per_call.append((time.perf_counter() - t0) * 1e3)
+                require(rc == 0, f"variant {name}: whisper_full returned {rc}")
+            launches = {k: e.launches for k, e in entries.items()}
+            want = {k: (calls * n_layer if k == entry else 0) for k in entries}
+            emb = ctx.state.embd_enc.clone()
+            require(bool(torch.isfinite(emb).all()), f"variant {name}: output not finite")
+            if name == "default":
+                ref = emb
+            cos = _cosine(emb, ref)
+            ms = statistics.median(per_call[1:] or per_call)
+            log(f"variant {name}: {json.dumps(switch)}; per-call ms "
+                f"{json.dumps([round(v, 3) for v in per_call])}, median {ms:.3f}; "
+                f"launches {json.dumps(launches)}; embedding against the default "
+                f"path's: cos={cos:.6f} (min {MAIN_COS_MIN}), max_abs_diff="
+                f"{(emb.float() - ref.float()).abs().max().item():.3e}")
+            require(launches == want, f"variant {name}: launches {launches}, want {want}")
+            require(cos >= MAIN_COS_MIN, f"variant {name}: the embedding disagrees with "
+                    "the default path's")
+            prof = profile_call(lambda: capi.whisper_full(ctx, params, clip),
+                                f"whisper_full (encode, attention {name})")
+            out[name] = {"launches": launches, "ms": ms, "cos": cos,
+                         "busy_ms": (prof or {}).get("busy_ms")}
+    finally:
+        fv.set_attention_variants()
+    return out
 
 
 def _quant_entries() -> tuple:
@@ -1631,8 +2052,50 @@ def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
     capi.whisper_free(dense)
     profile_call(lambda: capi.whisper_full(ctx, params, x), f"whisper_full (encode, {fmt})")
     steady = per_call[1:] or per_call
+    dq16 = run_dequant16_encode(ctx, hp, fmt, x, emb, flat)
     return ctx, {"launches": launches, "per_call_ms": per_call,
-                 "steady_ms": statistics.median(steady)}
+                 "steady_ms": statistics.median(steady), "dq16": dq16}
+
+
+def run_dequant16_encode(ctx, hp, fmt: str, x, ref, flat: str, calls: int = 3) -> dict:
+    """The quantized encoder of ``ctx`` with the bf16-domain dequant of its
+    format switched on (set_dequant16), ``calls`` calls on the clip of
+    ``ref``, the launch counters set to 0 just before and read just after:
+    4 launches of the flat entry per layer and call, the embedding against
+    ``ref`` (the switch off)."""
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.ops.linear import set_dequant16
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    params = capi.whisper_full_default_params()
+    set_dequant16(q4=fmt == "q4_0", q8=fmt == "q8_0")
+    try:
+        per_call = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            rc = capi.whisper_full(ctx, params, x)
+            torch.cuda.synchronize()
+            per_call.append((time.perf_counter() - t0) * 1e3)
+            require(rc == 0, f"quant encode {fmt} dq16: whisper_full returned {rc}")
+        launches = {k: c.launches for k, c in counters.items()}
+        emb = ctx.state.embd_enc.clone()
+        prof = profile_call(lambda: capi.whisper_full(ctx, params, x),
+                            f"whisper_full (encode, {fmt}, dq16)")
+    finally:
+        set_dequant16()
+    _check_quant_launches(f"quant encode {fmt} dq16", launches,
+                          {flat: 4 * hp.n_audio_layer * calls},
+                          f"{calls} calls of {hp.n_audio_layer} layers")
+    cos = _cosine(emb, ref)
+    log(f"quant encode {fmt} dq16: per-call ms {json.dumps([round(v, 3) for v in per_call])}; "
+        f"embedding against the switch off: cos={cos:.6f} (min {MAIN_COS_MIN}), "
+        f"max_abs_diff={(emb.float() - ref.float()).abs().max().item():.3e}")
+    require(bool(torch.isfinite(emb).all()) and cos >= MAIN_COS_MIN,
+            f"quant encode {fmt} dq16: the embedding disagrees with the switch off")
+    return {"per_call_ms": per_call, "cos": cos, "busy_ms": (prof or {}).get("busy_ms")}
 
 
 def dense_decoder_params(params: dict, dtype) -> dict:
@@ -1765,7 +2228,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
     from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
     from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder, panelize_decoder_params
     from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
-    from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp
+    from qwen2_audio_tpu_torch.ops.linear import set_dequant16, set_fused_mlp
     from qwen2_audio_tpu_torch.quant.qparams import payload_form
 
     t0 = time.perf_counter()
@@ -1785,20 +2248,26 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
         f"{payload_form(bundle.params['lm_head'])}, made in {time.perf_counter() - t0:.1f} s")
     clip = noisy_tone(30.0, seed=40, freq=280.0)
     L = cfg.num_hidden_layers
-    # (name, panelize arguments or None, the one-launch SwiGLU's switch, new tokens)
+    # (name, panelize arguments or None, the one-launch SwiGLU's switch, new
+    # tokens, set_dequant16 arguments); the dq16 request is the first
+    # configuration with the bf16-domain dequant on, teacher-forced against it
+    few = min(PANEL_TOKENS, new_tokens)
     configs = {
-        "q8_0": [("per-projection MLP", None, False, new_tokens),
-                 ("one-launch SwiGLU", None, True, new_tokens),
-                 ("panelized", {}, True, min(PANEL_TOKENS, new_tokens))],
-        "q4_0": [("one-launch SwiGLU", None, True, new_tokens),
-                 ("panelized", {}, True, new_tokens),
-                 ("panelized, gate_up strided", {"skip_gate_up": True}, True, new_tokens)],
+        "q8_0": [("per-projection MLP", None, False, new_tokens, {}),
+                 ("per-projection MLP, dq16", None, False, few, {"q8": True}),
+                 ("one-launch SwiGLU", None, True, new_tokens, {}),
+                 ("panelized", {}, True, few, {})],
+        "q4_0": [("one-launch SwiGLU", None, True, new_tokens, {}),
+                 ("one-launch SwiGLU, dq16", None, True, few, {"q4": True}),
+                 ("panelized", {}, True, new_tokens, {}),
+                 ("panelized, gate_up strided", {"skip_gate_up": True}, True, new_tokens, {})],
     }[fmt]
     out, first, first_logits = {}, None, None
     try:
-        for name, panel, fused_on, n_new in configs:
+        for name, panel, fused_on, n_new, dq16 in configs:
             what = f"quant text {fmt} ({name})"
             set_fused_mlp(fused_on)
+            set_dequant16(**dq16)
             t0 = time.perf_counter()
             bundle.decoder = strided if panel is None else Decoder(
                 panelize_decoder_params(strided.params, **panel), cfg)
@@ -1824,8 +2293,8 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
                     and launches["flash_decode"] == L * st.n_decode_forwards,
                     f"{what}: prefill or decode kernel launches")
             n_fused = sum(launches[e.__name__] for e in FUSED_ENTRIES)
-            require((n_fused > 0) == (name in ("one-launch SwiGLU",
-                                               "panelized, gate_up strided")),
+            require((n_fused > 0) == (fused_on and (panel is None
+                                                    or bool(panel.get("skip_gate_up")))),
                     f"{what}: {n_fused} fused launches")
 
             if first is None:
@@ -1870,6 +2339,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
             out[name] = {"launches": launches, "run": run, "forms": forms}
     finally:
         set_fused_mlp(None)
+        set_dequant16()
     ctx.decoder = None
     del bundle, strided
     torch.cuda.empty_cache()
@@ -1983,14 +2453,22 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
     return out
 
 
+def _causal_bf16(kernel_name: str) -> bool:
+    """Whether a profiled kernel is attn_bf16_kernel<D, CAUSAL, OPTS> with
+    CAUSAL true."""
+    _, found, rest = kernel_name.partition("attn_bf16_kernel<")
+    args = rest.split(">", 1)[0].split(",")
+    return bool(found) and len(args) > 1 and args[1].strip() == "true"
+
+
 def profile_call(fn, what: str) -> dict | None:
     """One call under torch.profiler: device time by kernel group and the
     device's busy share of the call's wall time (None where the profiler
-    reports no device time)."""
+    reports no device time). Every caller has run the same path just
+    before, so the call finds its kernels built and its memory warm."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2005,7 +2483,7 @@ def profile_call(fn, what: str) -> dict | None:
         name = ev.key.lower()
         group = ("quant_matmul_int8" if "qmm8_" in name or "quantize_q8_1" in name
                  else "attention_causal" if "attn_f32_causal" in name
-                 or ("attn_bf16_kernel" in name and "true" in name)
+                 or _causal_bf16(name)
                  else "attention_single" if "attn_" in name
                  else "flash_decode" if "decode_kernel" in name
                  else "mel_log_frames" if "mel_log_frames" in name
@@ -2031,7 +2509,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
                     help="encoder depth of the main-path checkpoint (full: 32)")
-    ap.add_argument("--calls", type=int, default=12,
+    ap.add_argument("--calls", type=int, default=8,
                     help="encode-path whisper_full calls; the first is warm-up, "
                          "the median of the rest is reported")
     ap.add_argument("--dec-layers", type=int, default=28,
@@ -2062,11 +2540,20 @@ def main(argv=None) -> int:
         gpu = gpu_line()
         log(f"gpu: {gpu}")
         log(f"build: {build():.1f} s (nvcc, sm_90a, one process per source)")
+        def stamp(what: str) -> None:
+            log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+
         mel = check_mel(device)
         attn_bf16, attn_f32 = check_attention(device)
         causal_bf16, causal_f32 = check_causal(device)
+        lite, nopad = check_attention_variants(device)
+        check_option_effects(device)
+        check_quantize_kv(device)
+        stamp("phase 2 attention")
         decode, decode_q8 = check_decode(device)
         qmm = check_quant_matmul(device)
+        check_dequant16(device)
+        stamp("phase 2 dequantizing matmul")
         fused = check_fused_mlp(device)
         int8 = check_int8_matmul(device)
         if args.kernels_only:
@@ -2074,32 +2561,41 @@ def main(argv=None) -> int:
             return 0
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
-        log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
+        stamp("phase 2")
         check_parity(device, dataclasses.replace(full, n_audio_layer=2))
         check_quant_encoder_parity(device, dataclasses.replace(full, n_audio_layer=2))
+        stamp("phase 3 encoders")
         check_decoder_parity(device, two)
+        stamp("phase 3 dense decoder")
         check_quant_decoder_parity(device, two)
-        log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+        stamp("phase 3")
         dec_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=args.dec_layers)
         with tempfile.TemporaryDirectory() as workdir:
             ctx, res = run_main_path(dataclasses.replace(full, n_audio_layer=args.layers),
                                      args.calls, workdir)
+            stamp("phase 4a")
+            variants = run_attention_variants(ctx, VARIANT_CALLS)
+            stamp("phase 4f")
             text = run_audio_to_text(ctx, dec_cfg, TEXT_REQUESTS, args.new_tokens)
+            stamp("phase 4b")
             capi.whisper_free(ctx)
             torch.cuda.empty_cache()
             ctx8, enc8 = run_quant_encode(
                 res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
                 QUANT_CALLS, workdir)
+            stamp("phase 4c (q8_0)")
             text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens)
-            log(f"phase 4d (q8_0) done at {time.perf_counter() - t_start:.1f} s")
+            stamp("phase 4d (q8_0)")
             int8_runs = run_int8_paths(ctx8, dec_cfg, args.new_tokens)
-            log(f"phase 4e done at {time.perf_counter() - t_start:.1f} s")
+            stamp("phase 4e")
             capi.whisper_free(ctx8)
             ctx4, enc4 = run_quant_encode(
                 res["path"] if args.q4_layers == args.layers else None,
                 dataclasses.replace(full, n_audio_layer=args.q4_layers), "q4_0",
                 QUANT_CALLS, workdir)
+            stamp("phase 4c (q4_0)")
             text4 = run_quant_text(ctx4, dec_cfg, "q4_0", args.new_tokens)
+            stamp("phase 4d (q4_0)")
             capi.whisper_free(ctx4)
     except Exception as e:  # every phase failure ends the run with no result
         import traceback
@@ -2109,6 +2605,8 @@ def main(argv=None) -> int:
 
     for k in (mel, attn_bf16):
         k["launches"] = res["launches"][k["name"]]
+    lite["launches"] = variants["lite"]["launches"]["attention_lite"]
+    nopad["launches"] = variants["nopad"]["launches"]["flash_attention_nopad"]
     for k in (causal_bf16, decode, decode_q8):
         k["launches"] = text["launches"][k["name"]]
     # each kernel's launches on the configuration of the main path that runs it
@@ -2136,7 +2634,7 @@ def main(argv=None) -> int:
                qmm["quant_matmul_panel"], qmm["quant_matmul_panel_stacked"],
                qmm["quant_matmul_panel4"], qmm["quant_matmul_panel4_stacked"], fused,
                int8["quant_matmul_int8"], int8["quant_matmul_int8_stacked"],
-               int8["quant_matmul_q4b_stacked"]]
+               int8["quant_matmul_q4b_stacked"], lite, nopad]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
     log(f"summary: whisper_full steady {res['steady_ms']:.3f} ms per 30 s clip, "
@@ -2149,9 +2647,14 @@ def main(argv=None) -> int:
         f"decoder, bf16): prefill {text['prefill_ms']:.3f} ms, decode "
         f"{text['decode_ms_per_token']:.3f} ms per token (medians), peak "
         f"{text['peak_gib']:.2f} GiB")
+    for name, v in variants.items():
+        log(f"summary attention variant {name}: {v['ms']:.3f} ms per encode (median), "
+            f"device busy {v['busy_ms']} ms of a profiled call, embedding cos {v['cos']:.6f}")
     for fmt, enc, txt in (("q8_0", enc8, text8), ("q4_0", enc4, text4)):
         log(f"summary {fmt}: quantized whisper_full steady {enc['steady_ms']:.3f} ms per "
-            f"30 s clip; {txt['block_gb']:.2f} GB of blocks per decode step")
+            f"30 s clip (dq16: per-call {json.dumps([round(v, 3) for v in enc['dq16']['per_call_ms']])}, "
+            f"device busy {enc['dq16']['busy_ms']} ms); {txt['block_gb']:.2f} GB of blocks "
+            "per decode step")
         for name, c in txt.items():
             if isinstance(c, dict):
                 r = c["run"]

@@ -4,15 +4,15 @@
 //
 // Replaces the TPU kernel
 // qwen2_audio_tpu/ops/flash_attention.py::_attn_kernel_single:
-// O = softmax(Q K^T) V over keys [0, kv_valid), Q already scaled by the
-// caller, query head h reads KV head h / (H / Hkv), float32 softmax and
-// accumulation, the l == 0 -> 1 guard, output in the input type.
+// O = softmax(sm_scale * Q K^T) V over keys [0, kv_valid), sm_scale applied
+// to the float32 scores (1 where the caller pre-scaled Q), query head h
+// reads KV head h / (H / Hkv), float32 softmax and accumulation, the
+// l == 0 -> 1 guard, output in the input type.
 // qa_attention_causal replaces the TPU kernel
 // qwen2_audio_tpu/ops/flash_attention.py::_attn_kernel with causal=True (the
-// decoder prefill): the same, with sm_scale applied to the float32 scores,
-// key j visible to query i iff j <= i and j < kv_valid, and each query
-// block's key loop stopped at its diagonal chunk (the TPU kernel's tile
-// skip).
+// decoder prefill): the same, with key j visible to query i iff j <= i and
+// j < kv_valid, and each query block's key loop stopped at its diagonal
+// chunk (the TPU kernel's tile skip).
 //
 // What bounds it: arithmetic. The encoder shape (T = 1500, d = 64, 20 heads)
 // does 4*T^2*d*H = 11.5 GFLOP per layer on 15.4 MB of bf16 Q/K/V/O: about
@@ -20,6 +20,34 @@
 // bytes. The decoder prefill (T = 752, d = 128, 28 query heads on 4 KV
 // heads, causal) does about 4.1 GFLOP per layer: about 4 us at the bf16
 // peak, 61 us at the 67 TFLOP/s float32 peak.
+//
+// The same entries serve the TPU kernels' options and variants, chosen by
+// the runtime `flags`. Each kernel has two instantiations: OPTS = false is
+// the default path (no flag, sm_scale 1 for the one-shot kernel, causal for
+// the float32 causal kernel) compiled as it was before the options came, so
+// that they cost it no registers or branches; OPTS = true reads the flags,
+// sm_scale and the causal switch at run time. The build stays about as long
+// (fused_mlp.cu, built beside it, takes the longest):
+// - kExp2: the scores are log2-domain logits (the caller folded LOG2E into
+//   its Q pre-scale) and both the running-max rescale and p take exp2f
+//   (flash_attention.py:56, :136-143, fa_variants.py:136);
+// - kPexp16 (one-shot kernels): p = bf16(exp(bf16(s - m))), the row sum adds
+//   those bf16 values in float32 and P V takes them as rounded
+//   (flash_attention.py:132-140);
+// - kLite (fa_variants.py:105 _attn_kernel_single_lite, the caller pre-scales
+//   Q in Q's type): the row sum adds p after its cast to V's type, as the TPU
+//   kernel's ones column of V makes it; with float32 V nothing changes.
+//   The TPU kernel masked keys by a -1e30 bias in K's pad column, which gives
+//   them p = 0 exactly; here keys at or past kv_valid are never read, so a
+//   NaN there cannot reach P V.
+// The non-causal use of _attn_kernel (blockwise online softmax over block_k
+// tiles, flash_attention.py:242 with causal=False) computes the same function
+// as _attn_kernel_single, sm_scale on the float32 scores in both: this
+// kernel already streams the keys with an online softmax, so that use is
+// qa_attention_single too, not a third loop. In every case m is a running
+// maximum, so p (and, under kPexp16, s - m) is rounded against another
+// maximum than in the TPU kernels' whole-row tile: the bits differ, within
+// the stated tolerance.
 //
 // Design: the TPU kernel held a whole (128 x 1536) float32 score tile in
 // VMEM (768 KB); a Hopper block has at most 227 KB of shared memory, so the
@@ -30,12 +58,14 @@
 //   16 query rows and runs mma.sync m16n8k16 (bf16 in, float32 accumulate)
 //   for Q K^T and for P V. P goes from the score accumulators straight into
 //   the A fragments of the second product, cast to bf16 as the TPU kernel
-//   casts p to V's type; the row sum is taken over the float32 p. V is
-//   stored transposed in shared memory so both products read their B
-//   fragments as 32-bit words; rows are padded by 8 elements so the 8 rows a
-//   fragment load touches fall on distinct banks.
+//   casts p to V's type; the row sum is taken over the float32 p (over the
+//   bf16 p under kPexp16 or kLite). V is stored transposed in shared memory
+//   so both products read their B fragments as 32-bit words; rows are
+//   padded by 8 elements so the 8 rows a fragment load touches fall on
+//   distinct banks.
 // - float32: FMA only (no TF32), one thread per query row, 128 rows per
-//   block, keys in chunks of 32 that every thread reads by broadcast.
+//   block, keys in chunks of 32 that every thread reads by broadcast (d = 64;
+//   d = 128 takes the causal float32 kernel below with the mask off).
 // - causal bf16: the bf16 kernel above with the mask and the loop bound
 //   of the causal template flag.
 // - causal float32 (d = 128): one query row would need 2*d float
@@ -63,6 +93,26 @@ constexpr int kBK = 64;      // bf16: keys per chunk
 constexpr int kWarps = 4;
 constexpr int kPad = 8;      // bf16 elements of padding per shared row
 
+// option bits of `flags`
+constexpr int kExp2 = 1;     // exp2f in place of expf
+constexpr int kPexp16 = 2;   // p = bf16(exp(bf16(s - m))), the row sum of those
+constexpr int kLite = 4;     // the row sum of p as cast to V's type
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// the softmax's exponential, e^x or (kExp2) 2^x
+__device__ __forceinline__ float expo(float x, int flags) {
+  return (flags & kExp2) ? exp2f(x) : expf(x);
+}
+
+// p for shifted score x = s - m
+__device__ __forceinline__ float prob(float x, int flags) {
+  if (flags & kPexp16) return round_bf16(expo(round_bf16(x), flags));
+  return expo(x, flags);
+}
+
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -87,14 +137,16 @@ constexpr int bf16_smem_bytes() {
   return (kBQ * (D + kPad) + kBK * (D + kPad) + D * (kBK + kPad)) * 2;
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool OPTS>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
                  Strides sv, Strides so, int group, int Tq, int kv_valid,
-                 float sm_scale) {
+                 float sm_scale, int opt_flags) {
+  const int flags = OPTS ? opt_flags : 0;
+  constexpr bool SCALE = CAUSAL || OPTS;   // the one-shot default: Q pre-scaled
   constexpr int LD = D + kPad;      // row stride of Qs and Ks
   constexpr int LDV = kBK + kPad;   // row stride of Vt
   constexpr int V8 = D / 8;         // 16-byte vectors per row
@@ -111,6 +163,8 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
   const uint4 zero = make_uint4(0, 0, 0, 0);
+  // the row sum adds p as P V takes it, rounded to bf16
+  const bool sum16 = flags & (kPexp16 | kLite);
 
   for (int i = tid; i < kBQ * V8; i += kWarps * 32) {
     const int r = i / V8, c = (i % V8) * 8;
@@ -180,12 +234,10 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + nt * 8 + 2 * t4 + e;
-        if (CAUSAL) {
-          s[nt][e] = col < kv_valid && col <= qa ? s[nt][e] * sm_scale : -INFINITY;
-          s[nt][2 + e] = col < kv_valid && col <= qc ? s[nt][2 + e] * sm_scale : -INFINITY;
-        } else if (col >= kv_valid) {
-          s[nt][e] = s[nt][2 + e] = -INFINITY;
-        }
+        const float x0 = SCALE ? s[nt][e] * sm_scale : s[nt][e];
+        const float x1 = SCALE ? s[nt][2 + e] * sm_scale : s[nt][2 + e];
+        s[nt][e] = col < kv_valid && (!CAUSAL || col <= qa) ? x0 : -INFINITY;
+        s[nt][2 + e] = col < kv_valid && (!CAUSAL || col <= qc) ? x1 : -INFINITY;
         mx0 = fmaxf(mx0, s[nt][e]);
         mx1 = fmaxf(mx1, s[nt][2 + e]);
       }
@@ -196,18 +248,23 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     // every chunk holds key k0 < kv_valid (and, causal, k0 <= q0 <= both
     // rows), so the new maxima are finite
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+    const float a0 = expo(m0 - mn0, flags), a1 = expo(m1 - mn1, flags);
     m0 = mn0;
     m1 = mn1;
     float ls0 = 0.f, ls1 = 0.f;
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ls0 += s[nt][0] + s[nt][1];
-      ls1 += s[nt][2] + s[nt][3];
+      s[nt][0] = prob(s[nt][0] - mn0, flags);
+      s[nt][1] = prob(s[nt][1] - mn0, flags);
+      s[nt][2] = prob(s[nt][2] - mn1, flags);
+      s[nt][3] = prob(s[nt][3] - mn1, flags);
+      if (sum16) {
+        ls0 += round_bf16(s[nt][0]) + round_bf16(s[nt][1]);
+        ls1 += round_bf16(s[nt][2]) + round_bf16(s[nt][3]);
+      } else {
+        ls0 += s[nt][0] + s[nt][1];
+        ls1 += s[nt][2] + s[nt][3];
+      }
     }
     l0 = l0 * a0 + ls0;
     l1 = l1 * a1 + ls1;
@@ -255,12 +312,13 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 constexpr int kRowsF32 = 128;   // float32: query rows (threads) per block
 constexpr int kKeysF32 = 32;    // float32: keys per chunk
 
-template <int D>
+template <int D, bool OPTS>
 __global__ void __launch_bounds__(kRowsF32)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o, Strides sq,
                 Strides sk, Strides sv, Strides so, int group, int Tq,
-                int kv_valid) {
+                int kv_valid, float sm_scale, int opt_flags) {
+  const int flags = OPTS ? opt_flags : 0;
   constexpr int D4 = D / 4;
   __shared__ float4 Ks[kKeysF32][D4];
   __shared__ float4 Vs[kKeysF32][D4];
@@ -312,18 +370,18 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         d = fmaf(qr[4 * c + 2], kk.z, d);
         d = fmaf(qr[4 * c + 3], kk.w, d);
       }
-      s[j] = k0 + j < kv_valid ? d : -INFINITY;
+      s[j] = k0 + j < kv_valid ? (OPTS ? d * sm_scale : d) : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     const float mn = fmaxf(m, mx);   // finite: key k0 is valid
-    const float alpha = expf(m - mn);
+    const float alpha = expo(m - mn, flags);
     m = mn;
     l *= alpha;
 #pragma unroll
     for (int c = 0; c < D; ++c) acc[c] *= alpha;
 #pragma unroll
     for (int j = 0; j < kKeysF32; ++j) {
-      const float p = expf(s[j] - mn);
+      const float p = prob(s[j] - mn, flags);
       l += p;
 #pragma unroll
       for (int c = 0; c < D4; ++c) {
@@ -348,12 +406,17 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int kRowsC = 64;    // causal float32: query rows per block
 
-template <int D>
+// With causal = 0 the mask and the tile skip are off: the non-causal float32
+// kernel for d = 128, whose q and accumulator would not fit one thread.
+
+template <int D, bool OPTS>
 __global__ void __launch_bounds__(2 * kRowsC)
 attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so,
-                       int group, int Tq, int kv_valid, float sm_scale) {
+                       int group, int Tq, int kv_valid, float sm_scale, int opt_causal,
+                       int opt_flags) {
+  const int causal = OPTS ? opt_causal : 1, flags = OPTS ? opt_flags : 0;
   constexpr int D4 = D / 4;       // float4s per row
   constexpr int H4 = D4 / 2;      // float4s this thread owns: 2 * j + half
   // keys per chunk: the scores of a chunk stay in registers beside q and
@@ -379,7 +442,7 @@ attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m = -INFINITY, l = 0.f;
 
   // tile skip: keys past the block's last query row are never visible
-  const int k_end = min(kv_valid, q0 + kRowsC);
+  const int k_end = causal ? min(kv_valid, q0 + kRowsC) : kv_valid;
   for (int k0 = 0; k0 < k_end; k0 += kKeysC) {
     __syncthreads();
     for (int i = tid; i < kKeysC * D4; i += 2 * kRowsC) {
@@ -409,13 +472,13 @@ attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       d += __shfl_xor_sync(0xffffffffu, d, 1);
       const int col = k0 + j;
-      s[j] = col < kv_valid && col <= qi ? d * sm_scale : -INFINITY;
+      s[j] = col < kv_valid && (!causal || col <= qi) ? d * sm_scale : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
     // key 0 is visible to every row and comes first, so m is finite from
     // the first chunk on and a chunk with no visible key leaves it alone
     const float mn = fmaxf(m, mx);
-    const float alpha = expf(m - mn);
+    const float alpha = expo(m - mn, flags);
     m = mn;
     l *= alpha;
 #pragma unroll
@@ -427,7 +490,7 @@ attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < kKeysC; ++j) {
-      const float p = expf(s[j] - mn);
+      const float p = prob(s[j] - mn, flags);
       l += p;
 #pragma unroll
       for (int c = 0; c < H4; ++c) {
@@ -452,35 +515,39 @@ attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, bool CAUSAL>
 void launch_bf16(const void* q, const void* k, const void* v, void* o,
                  Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                 int group, int Tq, int kv_valid, float sm_scale,
+                 int group, int Tq, int kv_valid, float sm_scale, int flags,
                  cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<D>();
-  cudaFuncSetAttribute(attn_bf16_kernel<D, CAUSAL>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool opts = flags != 0 || (!CAUSAL && sm_scale != 1.f);
+  auto kernel = opts ? attn_bf16_kernel<D, CAUSAL, true> : attn_bf16_kernel<D, CAUSAL, false>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  attn_bf16_kernel<D, CAUSAL><<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, sv, so, group, Tq, kv_valid, sm_scale);
+      sk, sv, so, group, Tq, kv_valid, sm_scale, flags);
 }
 
 template <int D>
 void launch_f32_causal(const void* q, const void* k, const void* v, void* o,
                        Strides sq, Strides sk, Strides sv, Strides so, int B,
                        int H, int group, int Tq, int kv_valid, float sm_scale,
-                       cudaStream_t stream) {
+                       int causal, int flags, cudaStream_t stream) {
   const dim3 grid((Tq + kRowsC - 1) / kRowsC, H, B);
-  attn_f32_causal_kernel<D><<<grid, 2 * kRowsC, 0, stream>>>(
+  auto kernel = flags != 0 || !causal ? attn_f32_causal_kernel<D, true>
+                                      : attn_f32_causal_kernel<D, false>;
+  kernel<<<grid, 2 * kRowsC, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-      group, Tq, kv_valid, sm_scale);
+      group, Tq, kv_valid, sm_scale, causal, flags);
 }
 
 }  // namespace
 
 // q: (B, H, Tq, d), k/v: (B, Hkv, Tk, d), o: (B, H, Tq, d), each addressed by
 // its (batch, head, token) strides in elements with a unit stride along d.
-// bf16 takes d = 64 or 128, float32 takes d = 64. 1 <= kv_valid <= Tk.
+// bf16 and float32 take d = 64 or 128. 1 <= kv_valid <= Tk. sm_scale
+// multiplies the float32 scores; flags: kExp2 | kPexp16 | kLite.
 // Returns cudaGetLastError() after the launch.
 extern "C" int qa_attention_single(
     const void* q, const void* k, const void* v, void* o,
@@ -489,23 +556,31 @@ extern "C" int qa_attention_single(
     long long vsb, long long vsh, long long vst,
     long long osb, long long osh, long long ost,
     int B, int H, int Hkv, int Tq, int kv_valid, int d, int is_bf16,
-    void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Tq < 1 || kv_valid < 1)
+    float sm_scale, int flags, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || Tq < 1 || kv_valid < 1 ||
+      (flags & ~(kExp2 | kPexp16 | kLite)))
     return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsh, qst}, sk{ksb, ksh, kst}, sv{vsb, vsh, vst},
       so{osb, osh, ost};
   const int group = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16 && d == 64) {
-    launch_bf16<64, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, 1.f, st);
+    launch_bf16<64, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid,
+                           sm_scale, flags, st);
   } else if (is_bf16 && d == 128) {
-    launch_bf16<128, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid, 1.f, st);
+    launch_bf16<128, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid,
+                            sm_scale, flags, st);
   } else if (!is_bf16 && d == 64) {
     const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
-    attn_f32_kernel<64><<<grid, kRowsF32, 0, st>>>(
+    auto kernel = flags != 0 || sm_scale != 1.f ? attn_f32_kernel<64, true>
+                                                : attn_f32_kernel<64, false>;
+    kernel<<<grid, kRowsF32, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-        group, Tq, kv_valid);
+        group, Tq, kv_valid, sm_scale, flags);
+  } else if (!is_bf16 && d == 128) {
+    launch_f32_causal<128>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid,
+                           sm_scale, 0, flags, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -516,7 +591,7 @@ extern "C" int qa_attention_single(
 // addressed by its (batch, head, token) strides in elements with a unit
 // stride along d; key j is visible to query i iff j <= i and j < kv_valid.
 // bf16 and float32 take d = 128 (the decoder's head dim). 1 <= kv_valid <= T.
-// Returns cudaGetLastError() after the launch.
+// flags: kExp2. Returns cudaGetLastError() after the launch.
 extern "C" int qa_attention_causal(
     const void* q, const void* k, const void* v, void* o,
     long long qsb, long long qsh, long long qst,
@@ -524,18 +599,20 @@ extern "C" int qa_attention_causal(
     long long vsb, long long vsh, long long vst,
     long long osb, long long osh, long long ost,
     int B, int H, int Hkv, int T, int kv_valid, int d, int is_bf16,
-    float sm_scale, void* stream) {
+    float sm_scale, int flags, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || T < 1 || kv_valid < 1 || kv_valid > T ||
-      d != 128)
+      d != 128 || (flags & ~kExp2))
     return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsh, qst}, sk{ksb, ksh, kst}, sv{vsb, vsh, vst},
       so{osb, osh, ost};
   const int group = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    launch_bf16<128, true>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale, st);
+    launch_bf16<128, true>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale,
+                           flags, st);
   } else {
-    launch_f32_causal<128>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale, st);
+    launch_f32_causal<128>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale,
+                           1, flags, st);
   }
   return (int)cudaGetLastError();
 }

@@ -94,10 +94,14 @@ __device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
 //   x       value k0 of the first row of x; ldx elements from row to row;
 //           rows >= 1 rows are valid, a row past them repeats the last one
 //   fast    x and each w rounded once to bf16 (q * s + m as a whole)
+//   DQ16    (with fast) s rounded to bf16 before the multiply: q * bf16(s)
+//           is exact in float32, so w is the bf16 product of the TPU's
+//           bf16-domain dequant (quant_matmul.py:86-92, :135-140); a template
+//           parameter, so that the default instantiation is unchanged
 // The weight bytes are read once, 4 bytes per lane and row, so a warp reads
 // 128 contiguous bytes of each row. q * s + m is a multiply and an add, each
 // rounded, as the plain version does it.
-template <typename XT, bool PACKED, bool MINS, int MT>
+template <typename XT, bool PACKED, bool MINS, int MT, bool DQ16 = false>
 __device__ __forceinline__ void block32_fma(
     float (&acc)[MT][4], const uint8_t* __restrict__ qp, long long ldq,
     const void* __restrict__ sc, int s_f16, const float* __restrict__ mn, long long s0,
@@ -118,6 +122,13 @@ __device__ __forceinline__ void block32_fma(
     for (int c = 0; c < 4; ++c) {
       s[1][c] = s[0][c];
       if (MINS) mv[1][c] = mv[0][c];
+    }
+  }
+  if (DQ16) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[0][c] = round_bf16(s[0][c]);
+      s[1][c] = round_bf16(s[1][c]);
     }
   }
 #pragma unroll

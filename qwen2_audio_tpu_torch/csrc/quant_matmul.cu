@@ -103,7 +103,7 @@ __device__ __forceinline__ PanelAt panel_at(int col, int bn, long long q_rows,
   return {(long long)p * q_rows * bn + c, (long long)p * s_rows * bn + c};
 }
 
-template <typename XT, bool PACKED, int MT>
+template <typename XT, bool PACKED, int MT, bool DQ16>
 __global__ void __launch_bounds__(kSmallWarps * 32)
 qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                  const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
@@ -122,7 +122,7 @@ qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     const PanelAt at = panel_at(col, bn, PACKED ? K / 2 : K, K / group);
     for (int b32 = blockIdx.y * kSmallWarps + warp; b32 < K / 32; b32 += n_warps) {
       const int k0 = b32 * 32;
-      block32_fma<XT, PACKED, false, MT>(
+      block32_fma<XT, PACKED, false, MT, DQ16>(
           acc, q + at.q + (long long)(PACKED ? k0 / 2 : k0) * bn, bn, sc, s_f16, nullptr,
           at.s + (long long)(k0 / group) * bn, at.s + (long long)((k0 + 16) / group) * bn,
           zero, fast, x + k0, K, M);
@@ -210,8 +210,9 @@ __device__ __forceinline__ void tile_load(TileRegs<XT, PACKED>& r, const XT* x,
   }
 }
 
-// the 2 x 8 dequantized float32 weights of a thread: rows wr and wr + 16
-template <typename XT, bool PACKED>
+// the 2 x 8 dequantized float32 weights of a thread: rows wr and wr + 16;
+// DQ16 rounds each scale to bf16 first
+template <bool DQ16, typename XT, bool PACKED>
 __device__ __forceinline__ void tile_dequant(const TileRegs<XT, PACKED>& r, float zero,
                                              float (&lo)[8], float (&hi)[8]) {
   uint32_t wl[2], wh[2];
@@ -228,8 +229,10 @@ __device__ __forceinline__ void tile_dequant(const TileRegs<XT, PACKED>& r, floa
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    lo[c] = (byte_as_float(wl[c >> 2], c & 3) - zero) * r.s0[c];
-    hi[c] = (byte_as_float(wh[c >> 2], c & 3) - zero) * r.s1[c];
+    const float s0 = DQ16 ? round_bf16(r.s0[c]) : r.s0[c];
+    const float s1 = DQ16 ? round_bf16(r.s1[c]) : r.s1[c];
+    lo[c] = (byte_as_float(wl[c >> 2], c & 3) - zero) * s0;
+    hi[c] = (byte_as_float(wh[c >> 2], c & 3) - zero) * s1;
   }
 }
 
@@ -258,7 +261,7 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // fast mode: bf16 tensor cores
-template <typename XT, bool PACKED>
+template <typename XT, bool PACKED, bool DQ16>
 __global__ void __launch_bounds__(kTileThreads)
 qmm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                const void* __restrict__ sc, int s_f16, XT* __restrict__ out, int M,
@@ -287,7 +290,7 @@ qmm_mma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     __syncthreads();   // every warp is done with the previous step's tiles
     {
       float lo[8], hi[8];
-      tile_dequant(regs, zero, lo, hi);
+      tile_dequant<DQ16>(regs, zero, lo, hi);
       *reinterpret_cast<uint4*>(Ws + wr * WLD + wc) =
           make_uint4(pack_bf16(lo[0], lo[1]), pack_bf16(lo[2], lo[3]),
                      pack_bf16(lo[4], lo[5]), pack_bf16(lo[6], lo[7]));
@@ -370,7 +373,7 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     __syncthreads();
     {
       float lo[8], hi[8];
-      tile_dequant(regs, zero, lo, hi);
+      tile_dequant<false>(regs, zero, lo, hi);
       float4* wl = reinterpret_cast<float4*>(Ws + wr * WLD + wc);
       wl[0] = make_float4(lo[0], lo[1], lo[2], lo[3]);
       wl[1] = make_float4(lo[4], lo[5], lo[6], lo[7]);
@@ -417,7 +420,7 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 template <typename XT, bool PACKED>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
                    float* scratch, int M, int K, int N, int bn, int group, int s_f16,
-                   int off, int fast, int ksplit, cudaStream_t st) {
+                   int off, int fast, int dq16, int ksplit, cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
@@ -425,13 +428,20 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
   if (M <= 8) {
     const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
     float* partial = ksplit > 1 ? scratch : nullptr;
-#define QMM_SMALL(MT)                                                              \
-  qmm_small_kernel<XT, PACKED, MT><<<grid, kSmallWarps * 32, 0, st>>>(             \
+#define QMM_SMALL(MT, DQ16)                                                        \
+  qmm_small_kernel<XT, PACKED, MT, DQ16><<<grid, kSmallWarps * 32, 0, st>>>(       \
       xp, qp, sc, s_f16, partial, op, M, K, N, bn, group, zero, fast)
-    if (M == 1) QMM_SMALL(1);
-    else if (M == 2) QMM_SMALL(2);
-    else if (M <= 4) QMM_SMALL(4);
-    else QMM_SMALL(8);
+#define QMM_SMALL_M(DQ16)                                                          \
+  if (M == 1) QMM_SMALL(1, DQ16);                                                  \
+  else if (M == 2) QMM_SMALL(2, DQ16);                                             \
+  else if (M <= 4) QMM_SMALL(4, DQ16);                                             \
+  else QMM_SMALL(8, DQ16)
+    if (dq16) {
+      QMM_SMALL_M(true);
+    } else {
+      QMM_SMALL_M(false);
+    }
+#undef QMM_SMALL_M
 #undef QMM_SMALL
     if (ksplit > 1) {
       const long long mn = (long long)M * N;
@@ -440,8 +450,11 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
     }
   } else {
     const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-    if (fast)
-      qmm_mma_kernel<XT, PACKED><<<grid, kTileThreads, 0, st>>>(
+    if (dq16)
+      qmm_mma_kernel<XT, PACKED, true><<<grid, kTileThreads, 0, st>>>(
+          xp, qp, sc, s_f16, op, M, K, N, bn, group, zero);
+    else if (fast)
+      qmm_mma_kernel<XT, PACKED, false><<<grid, kTileThreads, 0, st>>>(
           xp, qp, sc, s_f16, op, M, K, N, bn, group, zero);
     else
       qmm_fma_kernel<XT, PACKED><<<grid, kTileThreads, 0, st>>>(
@@ -456,11 +469,14 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 // N / bn column panels of (K or K / 2, bn), bn = N for a row-major weight;
 // sc (N / bn, K / group, bn) float16 or float32; out (M, N) in x's type.
 // scratch: float32 (ksplit, M, N), read only when M <= 8 and ksplit > 1.
+// dq16 (fast mode only) rounds each scale to bf16 before the multiply, so
+// that wr = bf16(v * bf16(s)), the TPU kernels' bf16-domain dequant; it runs
+// its own instantiations, and the default ones compile as without it.
 extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, void* out,
                                void* scratch, int M, int K, int N, int bn, int group,
                                int x_bf16, int s_f16, int packed, int off, int fast,
-                               int ksplit, void* stream) {
-  if (M < 1 || K % 32 || N % 16 || bn < 16 || bn % 16 || N % bn ||
+                               int dq16, int ksplit, void* stream) {
+  if (M < 1 || K % 32 || N % 16 || bn < 16 || bn % 16 || N % bn || (dq16 && !fast) ||
       (group != 16 && group != 32) || (packed && group != 32) || ksplit < 1 ||
       (N + kBN - 1) / kBN > 65535 || ksplit > 65535)
     return (int)cudaErrorInvalidValue;
@@ -469,14 +485,14 @@ extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, voi
   cudaError_t rc;
   if (x_bf16) {
     rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, M, K, N, bn, group,
-                                              s_f16, off, fast, ksplit, st)
+                                              s_f16, off, fast, dq16, ksplit, st)
                 : launch<__nv_bfloat16, false>(x, q, sc, out, scr, M, K, N, bn, group,
-                                               s_f16, off, fast, ksplit, st);
+                                               s_f16, off, fast, dq16, ksplit, st);
   } else {
     rc = packed ? launch<float, true>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
-                                      fast, ksplit, st)
+                                      fast, dq16, ksplit, st)
                 : launch<float, false>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
-                                       fast, ksplit, st);
+                                       fast, dq16, ksplit, st);
   }
   return (int)rc;
 }

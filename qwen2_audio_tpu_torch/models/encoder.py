@@ -42,8 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from qwen2_audio_tpu_torch.config import WhisperHParams
-from qwen2_audio_tpu_torch.ops.flash_attention import (attention_encoder_plain,
-                                                       flash_attention_encoder)
+from qwen2_audio_tpu_torch.ops.fa_variants import flash_attention_encoder
+from qwen2_audio_tpu_torch.ops.flash_attention import attention_encoder_plain
 from qwen2_audio_tpu_torch.ops.linear import linear
 from qwen2_audio_tpu_torch.quant.qparams import (QUANT_TYPES,
                                                  device_weight_from_ggml_tensor)

@@ -123,10 +123,15 @@ def create_cache(cfg: Qwen2DecoderConfig, batch: int, max_ctx: int,
 
 
 def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, H, d) -> int8 values + per-vector float32 scale."""
+    """(B, T, H, d) -> int8 values + per-vector float32 scale.
+
+    Both divisions are tensor by tensor: on the card PyTorch divides by a
+    Python number through its reciprocal, which can round ``amax / 127``
+    otherwise than IEEE division does (and than the JAX package does)."""
     xf = x.float()
-    s = xf.abs().amax(dim=-1) / 127.0
-    inv = torch.where(s > 0, 1.0 / s, torch.zeros_like(s))
+    amax = xf.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, 127.0)
+    inv = torch.where(s > 0, torch.ones_like(s) / s, torch.zeros_like(s))
     return torch.round(xf * inv[..., None]).to(torch.int8), s
 
 

@@ -37,11 +37,11 @@ SIGNATURES = {
     },
     "attention_single": {
         # q, k, v, o, strides (b, h, t) of q, k, v, o, B, H, Hkv, Tq,
-        # kv_valid, d, is_bf16, stream
-        "qa_attention_single": [P, P, P, P] + [L] * 12 + [I] * 7 + [P],
-        # the same arguments, then sm_scale, stream (B, H, Hkv, T, kv_valid,
-        # d, is_bf16)
-        "qa_attention_causal": [P, P, P, P] + [L] * 12 + [I] * 7 + [F, P],
+        # kv_valid, d, is_bf16, sm_scale, flags, stream
+        "qa_attention_single": [P, P, P, P] + [L] * 12 + [I] * 7 + [F, I, P],
+        # the same arguments (B, H, Hkv, T, kv_valid, d, is_bf16, sm_scale,
+        # flags)
+        "qa_attention_causal": [P, P, P, P] + [L] * 12 + [I] * 7 + [F, I, P],
     },
     "flash_decode": {
         # q, k, v, k_scale, v_scale, pos, o, B, S, Hkv, G, d, q_type,
@@ -50,8 +50,8 @@ SIGNATURES = {
     },
     "quant_matmul": {
         # x, q, scales, out, scratch, M, K, N, bn, group, x_bf16, s_f16,
-        # packed, off, fast, ksplit, stream
-        "qa_quant_matmul": [P] * 5 + [I] * 11 + [P],
+        # packed, off, fast, dq16, ksplit, stream
+        "qa_quant_matmul": [P] * 5 + [I] * 12 + [P],
     },
     "fused_mlp": {
         # x, gate (q, scales, mins), up (q, scales, mins), down (q, scales,

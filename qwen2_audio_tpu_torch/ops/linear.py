@@ -26,6 +26,12 @@ How the block forms multiply is a process-wide mode:
                panels, a flat "qs4", as in JAX) takes the exact dequantizing
                kernels
 
+In the bf16 mode ``set_dequant16`` (the JAX package's QA_Q4_DQ16 and
+QA_Q8_DQ16) rounds the block scales to bf16 before the dequantizing
+multiply: ``q4`` for the packed forms ("qs4", "qs4_p"), ``q8`` for the int8
+forms ("qs", "qs_p"), through ``linear`` and ``linear_at``; the one-launch
+SwiGLU and the integer kernels take no such option.
+
 "qs4b" goes through the integer kernel's word form (ops/quant_matmul_q4b.py)
 in every mode. ``linear_at`` is ``linear`` over layer ``li`` (a host integer)
 of a dict whose leaves carry a leading (n_layers,) axis; the layer is a
@@ -51,6 +57,7 @@ from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import quant_linear_q4b, quant_l
 _MODES = ("bf16", "dequant", "int8")
 _GROUP_MATMUL_MODE: str | None = None
 _FUSED_MLP: bool | None = None
+_DEQUANT16 = (False, False)      # (q4, q8)
 _BLOCK_KEYS = ("qs", "qs4", "qs_p", "qs4_p")
 
 _NOT_PORTED = {
@@ -81,6 +88,24 @@ def fused_mlp_enabled() -> bool:
     return True if _FUSED_MLP is None else _FUSED_MLP
 
 
+def set_dequant16(q4: bool = False, q8: bool = False) -> None:
+    """Switch the bf16-domain dequant of the bf16 mode on or off for the
+    process: ``q4`` for packed nibbles, ``q8`` for int8 values."""
+    global _DEQUANT16
+    _DEQUANT16 = (bool(q4), bool(q8))
+
+
+def dequant16() -> tuple[bool, bool]:
+    """(q4, q8): the switches of ``set_dequant16``."""
+    return _DEQUANT16
+
+
+def _dq16(p: dict) -> bool:
+    """The dequant16 switch of this block dict's form."""
+    q4, q8 = _DEQUANT16
+    return q4 if ("qs4" in p or "qs4_p" in p) else q8
+
+
 def _fast() -> bool:
     """True for the bf16 mode; the exact dequantizing kernels otherwise."""
     return group_matmul_mode() == "bf16"
@@ -104,11 +129,11 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     elif "qs4b" in p:
         y = quant_linear_q4b(x, p)
     elif "qs_p" in p or "qs4_p" in p:
-        y = quant_linear_panel(x, p, fast=_fast())
+        y = quant_linear_panel(x, p, fast=_fast(), dq16=_dq16(p))
     elif "qs" in p and _int8(x, p["scales"]):
         y = quant_linear_int8(x, p)
     elif "qs4" in p or "qs" in p:
-        y = quant_linear(x, p, fast=_fast())
+        y = quant_linear(x, p, fast=_fast(), dq16=_dq16(p))
     else:
         _refuse(p)
     if "b" in p:
@@ -125,7 +150,7 @@ def linear_at(x: torch.Tensor, p: dict, li: int) -> torch.Tensor:
     elif ("qs" in p or "qs4" in p) and _int8(x, p["scales"]):
         y = quant_linear_int8_stacked(x, p, li)
     elif any(k in p for k in _BLOCK_KEYS):
-        y = quant_linear_stacked(x, p, li, fast=_fast())
+        y = quant_linear_stacked(x, p, li, fast=_fast(), dq16=_dq16(p))
     else:
         _refuse(p)
     if "b" in p:

@@ -32,7 +32,10 @@ Weight forms (quant/qparams.py builds them from ggml blocks, bit-exact):
 Every entry computes ``x @ (float32(v) * scales)`` with float32 sums and
 the result in x's type; ``fast`` rounds x and the dequantized weight each
 once to bf16 first (the tensor-core mode), otherwise the product is exact
-float32. A stacked entry reads layer ``li`` in place: ``qs_all[li]`` is a
+float32. ``dq16`` (fast mode only; the JAX package's QA_Q4_DQ16 and
+QA_Q8_DQ16 dequant in bf16) rounds each scale to bf16 before the multiply:
+v * bf16(s) is exact in float32 and is rounded once to bf16, as the TPU's
+bf16 multiply gives it. A stacked entry reads layer ``li`` in place: ``qs_all[li]`` is a
 view, so on the card both entries run one device function with a base
 pointer.
 
@@ -76,12 +79,16 @@ def unpack4(qs4: torch.Tensor) -> torch.Tensor:
 
 
 def block_weight(q: torch.Tensor, scales: torch.Tensor, *, packed: bool = False,
-                 off: int = 0) -> torch.Tensor:
+                 off: int = 0, dq16: bool = False) -> torch.Tensor:
     """The float32 (K, N) weight a kernel multiplies by, without mins:
-    float32(v) * scales, v the int8 value or, packed, the nibble - off."""
+    float32(v) * scales, v the int8 value or, packed, the nibble - off;
+    ``dq16`` rounds the scales to bf16 first."""
     v = (unpack4(q) - off) if packed else q
     group = v.shape[0] // scales.shape[0]
-    return v.float() * scales.float().repeat_interleave(group, dim=0)
+    s = scales.float()
+    if dq16:
+        s = s.to(torch.bfloat16).float()
+    return v.float() * s.repeat_interleave(group, dim=0)
 
 
 def dequantize_weight(qw: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -111,13 +118,15 @@ def _product_plain(x: torch.Tensor, w: torch.Tensor, fast: bool) -> torch.Tensor
 
 
 def quant_matmul_plain(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor,
-                       *, fast: bool = False) -> torch.Tensor:
-    return _product_plain(x, block_weight(qs, scales), fast)
+                       *, fast: bool = False, dq16: bool = False) -> torch.Tensor:
+    return _product_plain(x, block_weight(qs, scales, dq16=dq16 and fast), fast)
 
 
 def quant_matmul4_plain(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor,
-                        *, fast: bool = False, off: int = 0) -> torch.Tensor:
-    return _product_plain(x, block_weight(qs4, scales, packed=True, off=off), fast)
+                        *, fast: bool = False, off: int = 0, dq16: bool = False
+                        ) -> torch.Tensor:
+    return _product_plain(x, block_weight(qs4, scales, packed=True, off=off,
+                                          dq16=dq16 and fast), fast)
 
 
 def from_panels(a):
@@ -145,14 +154,16 @@ def to_panels(a, bn: int):
 
 
 def quant_matmul_panel_plain(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor,
-                             *, fast: bool = False) -> torch.Tensor:
-    return quant_matmul_plain(x, from_panels(qs_p), from_panels(scales_p), fast=fast)
+                             *, fast: bool = False, dq16: bool = False) -> torch.Tensor:
+    return quant_matmul_plain(x, from_panels(qs_p), from_panels(scales_p), fast=fast,
+                              dq16=dq16)
 
 
 def quant_matmul_panel4_plain(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor,
-                              *, fast: bool = False, off: int = 0) -> torch.Tensor:
+                              *, fast: bool = False, off: int = 0, dq16: bool = False
+                              ) -> torch.Tensor:
     return quant_matmul4_plain(x, from_panels(qs4_p), from_panels(scales_p), fast=fast,
-                               off=off)
+                               off=off, dq16=dq16)
 
 
 def group_min_term(x2d: torch.Tensor, mins: torch.Tensor,
@@ -210,7 +221,7 @@ def sm_count(device: torch.device) -> int:
 
 
 def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
-            fast: bool) -> torch.Tensor:
+            fast: bool, dq16: bool = False) -> torch.Tensor:
     M, K = x.shape
     bn = q.shape[-1]                       # the panel width, or N
     N = bn * (q.shape[0] if q.dim() == 3 else 1)
@@ -238,24 +249,25 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             M, K, N, bn, group, int(x.dtype == torch.bfloat16),
-            int(sc.dtype == torch.float16), int(packed), off, int(fast), ksplit,
-            torch.cuda.current_stream().cuda_stream)
+            int(sc.dtype == torch.float16), int(packed), off, int(fast),
+            int(dq16 and fast), ksplit, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return out
 
 
-def _run(entry, x, q, sc, packed: bool, off: int, fast: bool) -> torch.Tensor:
+def _run(entry, x, q, sc, packed: bool, off: int, fast: bool,
+         dq16: bool = False) -> torch.Tensor:
     name = entry.__name__
     group = _check(name, x, q, sc, packed)
     if x.device.type == "cpu":
         if q.dim() == 3:
             q, sc = from_panels(q), from_panels(sc)
         if packed:
-            return quant_matmul4_plain(x, q, sc, fast=fast, off=off)
-        return quant_matmul_plain(x, q, sc, fast=fast)
+            return quant_matmul4_plain(x, q, sc, fast=fast, off=off, dq16=dq16)
+        return quant_matmul_plain(x, q, sc, fast=fast, dq16=dq16)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    out = _launch(name, x, q, sc, group, packed, off, fast)
+    out = _launch(name, x, q, sc, group, packed, off, fast, dq16)
     entry.launches += 1
     return out
 
@@ -271,70 +283,75 @@ def _layer(name: str, a: torch.Tensor, li: int, dims: int = 3) -> torch.Tensor:
 
 
 def quant_matmul(x: torch.Tensor, qs: torch.Tensor, scales: torch.Tensor, *,
-                 fast: bool = False) -> torch.Tensor:
+                 fast: bool = False, dq16: bool = False) -> torch.Tensor:
     """x (M, K) @ (qs (K, N) int8 * scales (K // group, N)) -> (M, N) in x's
     type. Runs the CUDA kernel for CUDA tensors and the plain version for
     CPU tensors."""
-    return _run(quant_matmul, x, _nd("quant_matmul", qs, 2), scales, False, 0, fast)
+    return _run(quant_matmul, x, _nd("quant_matmul", qs, 2), scales, False, 0, fast, dq16)
 
 
 def quant_matmul_stacked(x: torch.Tensor, qs_all: torch.Tensor, sc_all: torch.Tensor,
-                         li: int, *, fast: bool = False) -> torch.Tensor:
+                         li: int, *, fast: bool = False, dq16: bool = False) -> torch.Tensor:
     """``quant_matmul`` over layer ``li`` of qs_all (L, K, N) and sc_all
     (L, K // group, N), read in place."""
     return _run(quant_matmul_stacked, x,
                 _layer("quant_matmul_stacked", qs_all, li),
-                _layer("quant_matmul_stacked", sc_all, li), False, 0, fast)
+                _layer("quant_matmul_stacked", sc_all, li), False, 0, fast, dq16)
 
 
 def quant_matmul4(x: torch.Tensor, qs4: torch.Tensor, scales: torch.Tensor, *,
-                  fast: bool = False, off: int = 0) -> torch.Tensor:
+                  fast: bool = False, off: int = 0, dq16: bool = False) -> torch.Tensor:
     """x (M, K) @ ((unpack4(qs4 (K // 2, N)) - off) * scales (K // 32, N)):
     off 8 is symmetric q4_0; with off 0 the caller adds the min term."""
-    return _run(quant_matmul4, x, _nd("quant_matmul4", qs4, 2), scales, True, off, fast)
+    return _run(quant_matmul4, x, _nd("quant_matmul4", qs4, 2), scales, True, off, fast,
+                dq16)
 
 
 def quant_matmul4_stacked(x: torch.Tensor, qs4_all: torch.Tensor, sc_all: torch.Tensor,
-                          li: int, *, fast: bool = False, off: int = 0) -> torch.Tensor:
+                          li: int, *, fast: bool = False, off: int = 0,
+                          dq16: bool = False) -> torch.Tensor:
     """``quant_matmul4`` over layer ``li`` of qs4_all (L, K // 2, N) and
     sc_all (L, K // 32, N), read in place."""
     return _run(quant_matmul4_stacked, x,
                 _layer("quant_matmul4_stacked", qs4_all, li),
-                _layer("quant_matmul4_stacked", sc_all, li), True, off, fast)
+                _layer("quant_matmul4_stacked", sc_all, li), True, off, fast, dq16)
 
 
 def quant_matmul_panel(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor, *,
-                       fast: bool = False) -> torch.Tensor:
+                       fast: bool = False, dq16: bool = False) -> torch.Tensor:
     """``quant_matmul`` over column panels qs_p (P, K, bn) and scales_p
     (P, K // group, bn) -> (M, P * bn), written row-major."""
     return _run(quant_matmul_panel, x, _nd("quant_matmul_panel", qs_p, 3),
-                _nd("quant_matmul_panel", scales_p, 3), False, 0, fast)
+                _nd("quant_matmul_panel", scales_p, 3), False, 0, fast, dq16)
 
 
 def quant_matmul_panel_stacked(x: torch.Tensor, qs_p: torch.Tensor, scales_p: torch.Tensor,
-                               li: int, *, fast: bool = False) -> torch.Tensor:
+                               li: int, *, fast: bool = False, dq16: bool = False
+                               ) -> torch.Tensor:
     """``quant_matmul_panel`` over layer ``li`` of qs_p (L, P, K, bn) and
     scales_p (L, P, K // group, bn), read in place."""
     return _run(quant_matmul_panel_stacked, x,
                 _layer("quant_matmul_panel_stacked", qs_p, li, 4),
-                _layer("quant_matmul_panel_stacked", scales_p, li, 4), False, 0, fast)
+                _layer("quant_matmul_panel_stacked", scales_p, li, 4), False, 0, fast, dq16)
 
 
 def quant_matmul_panel4(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor, *,
-                        fast: bool = False, off: int = 0) -> torch.Tensor:
+                        fast: bool = False, off: int = 0, dq16: bool = False) -> torch.Tensor:
     """``quant_matmul4`` over column panels qs4_p (P, K // 2, bn) and
     scales_p (P, K // 32, bn)."""
     return _run(quant_matmul_panel4, x, _nd("quant_matmul_panel4", qs4_p, 3),
-                _nd("quant_matmul_panel4", scales_p, 3), True, off, fast)
+                _nd("quant_matmul_panel4", scales_p, 3), True, off, fast, dq16)
 
 
 def quant_matmul_panel4_stacked(x: torch.Tensor, qs4_p: torch.Tensor, scales_p: torch.Tensor,
-                                li: int, *, fast: bool = False, off: int = 0) -> torch.Tensor:
+                                li: int, *, fast: bool = False, off: int = 0,
+                                dq16: bool = False) -> torch.Tensor:
     """``quant_matmul_panel4`` over layer ``li`` of qs4_p (L, P, K // 2, bn)
     and scales_p (L, P, K // 32, bn), read in place."""
     return _run(quant_matmul_panel4_stacked, x,
                 _layer("quant_matmul_panel4_stacked", qs4_p, li, 4),
-                _layer("quant_matmul_panel4_stacked", scales_p, li, 4), True, off, fast)
+                _layer("quant_matmul_panel4_stacked", scales_p, li, 4), True, off, fast,
+                dq16)
 
 
 ENTRIES = (quant_matmul, quant_matmul_stacked, quant_matmul4, quant_matmul4_stacked,
@@ -352,31 +369,35 @@ def _with_mins(y: torch.Tensor, x2d: torch.Tensor, mins: torch.Tensor) -> torch.
     return y + group_min_term(x2d, mins, group=x2d.shape[1] // mins.shape[0]).to(y.dtype)
 
 
-def quant_linear4(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+def quant_linear4(x: torch.Tensor, qw: dict, fast: bool = False,
+                  dq16: bool = False) -> torch.Tensor:
     """x (..., K) @ {"qs4", "scales"[, "mins"]} -> (..., N); a dict without
     "mins" is symmetric q4_0, dequantized (q - 8) * d inside the kernel."""
     x2d = x.reshape(-1, x.shape[-1])
     sym = "mins" not in qw
-    y = quant_matmul4(x2d, qw["qs4"], qw["scales"], fast=fast, off=8 if sym else 0)
+    y = quant_matmul4(x2d, qw["qs4"], qw["scales"], fast=fast, off=8 if sym else 0,
+                      dq16=dq16)
     if not sym:
         y = _with_mins(y, x2d, qw["mins"])
     return y.reshape(*x.shape[:-1], -1)
 
 
-def quant_linear(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+def quant_linear(x: torch.Tensor, qw: dict, fast: bool = False,
+                 dq16: bool = False) -> torch.Tensor:
     """x (..., K) @ {"qs", "scales"[, "mins"]} -> (..., N); packed-nibble
-    dicts go to quant_linear4."""
+    dicts go to quant_linear4. ``dq16`` applies to this dict's form (the
+    caller picks the q4 or the q8 switch)."""
     if "qs4" in qw:
-        return quant_linear4(x, qw, fast=fast)
+        return quant_linear4(x, qw, fast=fast, dq16=dq16)
     x2d = x.reshape(-1, x.shape[-1])
-    y = quant_matmul(x2d, qw["qs"], qw["scales"], fast=fast)
+    y = quant_matmul(x2d, qw["qs"], qw["scales"], fast=fast, dq16=dq16)
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"])
     return y.reshape(*x.shape[:-1], -1)
 
 
 def quant_linear_stacked(x: torch.Tensor, qw: dict, li: int,
-                         fast: bool = False) -> torch.Tensor:
+                         fast: bool = False, dq16: bool = False) -> torch.Tensor:
     """``quant_linear`` over layer ``li`` of a dict whose every leaf has a
     leading (L,) axis, in any of the four storage forms ("qs", "qs4", or
     their panels "qs_p", "qs4_p" with "scales_p")."""
@@ -384,27 +405,30 @@ def quant_linear_stacked(x: torch.Tensor, qw: dict, li: int,
     off = 8 if "mins" not in qw else 0
     if "qs4_p" in qw:
         y = quant_matmul_panel4_stacked(x2d, qw["qs4_p"], qw["scales_p"], li, fast=fast,
-                                        off=off)
+                                        off=off, dq16=dq16)
     elif "qs_p" in qw:
-        y = quant_matmul_panel_stacked(x2d, qw["qs_p"], qw["scales_p"], li, fast=fast)
+        y = quant_matmul_panel_stacked(x2d, qw["qs_p"], qw["scales_p"], li, fast=fast,
+                                       dq16=dq16)
     elif "qs4" in qw:
-        y = quant_matmul4_stacked(x2d, qw["qs4"], qw["scales"], li, fast=fast, off=off)
+        y = quant_matmul4_stacked(x2d, qw["qs4"], qw["scales"], li, fast=fast, off=off,
+                                  dq16=dq16)
     else:
-        y = quant_matmul_stacked(x2d, qw["qs"], qw["scales"], li, fast=fast)
+        y = quant_matmul_stacked(x2d, qw["qs"], qw["scales"], li, fast=fast, dq16=dq16)
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"][int(li)])
     return y.reshape(*x.shape[:-1], -1)
 
 
-def quant_linear_panel(x: torch.Tensor, qw: dict, fast: bool = False) -> torch.Tensor:
+def quant_linear_panel(x: torch.Tensor, qw: dict, fast: bool = False,
+                       dq16: bool = False) -> torch.Tensor:
     """x (..., K) @ a panelized dict {"qs_p" or "qs4_p", "scales_p"[, "mins"]}
     -> (..., N); "mins" are (K // group, N) as in the strided forms."""
     x2d = x.reshape(-1, x.shape[-1])
     if "qs4_p" in qw:
         y = quant_matmul_panel4(x2d, qw["qs4_p"], qw["scales_p"], fast=fast,
-                                off=8 if "mins" not in qw else 0)
+                                off=8 if "mins" not in qw else 0, dq16=dq16)
     else:
-        y = quant_matmul_panel(x2d, qw["qs_p"], qw["scales_p"], fast=fast)
+        y = quant_matmul_panel(x2d, qw["qs_p"], qw["scales_p"], fast=fast, dq16=dq16)
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"])
     return y.reshape(*x.shape[:-1], -1)

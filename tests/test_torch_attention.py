@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from qwen2_audio_tpu.models.encoder import _sdpa as jax_sdpa
+from qwen2_audio_tpu_torch.ops import fa_variants as tfv
 from qwen2_audio_tpu_torch.ops import flash_attention as tfa
 
 # the package's ops/__init__ re-exports a function of the module's name
@@ -46,7 +47,7 @@ def test_encoder_entry_matches_jax(monkeypatch, rng):
     q, k, v = (rng.standard_normal((B, T, D)).astype(np.float32) for _ in range(3))
     want = np.asarray(jfa.flash_attention_encoder(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H))
-    got = tfa.flash_attention_encoder(torch.from_numpy(q), torch.from_numpy(k),
+    got = tfv.flash_attention_encoder(torch.from_numpy(q), torch.from_numpy(k),
                                       torch.from_numpy(v), H)
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=1e-4)
 

@@ -77,12 +77,12 @@ def test_context_on_card_matches_cpu(device):
     torch.testing.assert_close(out[0], out[1], atol=2e-3, rtol=0)
 
 
-def _tol(want, dtype, p_abs_v=None):
+def _tol(want, dtype, p_abs_v=None, any_type=False):
     """chip_smoke's elementwise tolerance; the causal kernel's bf16 check
-    adds the p-rounding term."""
+    adds the p-rounding term (``any_type``: pexp16's, in float32 too)."""
     atol, rtol = chip_smoke.ATTN_TOL[str(dtype).removeprefix("torch.")]
     tol = atol + rtol * want.float().abs()
-    if dtype == torch.bfloat16 and p_abs_v is not None:
+    if (dtype == torch.bfloat16 or any_type) and p_abs_v is not None:
         tol = tol + chip_smoke.P_ROUND * p_abs_v.float()
     return tol
 
@@ -446,3 +446,78 @@ def test_int8_group_matmul_refuses_what_the_kernel_does_not_take(device):
         t8.quant_matmul_int8(x, qw["qs"][:, ::2], qw["scales"][:, ::2])
     with pytest.raises(ValueError):      # float16 activations at the quantizer
         t8.quantize_activations(x.half())
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke._variant_cases())))
+def test_attention_variant_matches_plain(device, i):
+    """The lite, unpadded and blockwise entries and the exp2 / pexp16
+    options against their plain versions (chip_smoke's phase-2 cases and
+    tolerances; NaN past kv_valid in the ragged cases)."""
+    entry, opts, dtype, (B, H, Hkv, T, d, kv_valid, fused) = chip_smoke._variant_cases()[i]
+    q, k, v = chip_smoke._attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed=9)
+    if not fused and kv_valid < T:
+        k[:, :, kv_valid:] = float("nan")
+        v[:, :, kv_valid:] = float("nan")
+    if "sm_scale" in opts:
+        q = q * (1.0 / opts["sm_scale"])
+    kern, plain = chip_smoke._variant_fns(entry, opts, kv_valid)
+    counter = chip_smoke._attention_entries()[entry]
+    before = counter.launches
+    got = kern(q, k, v)
+    assert counter.launches == before + 1
+    want = plain(q, k, v)
+    tol = _tol(want, dtype, plain(q, k, v.abs()) if opts.get("pexp16") else None,
+               any_type=True)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+def test_lite_nan_tail_contributes_nothing(device):
+    """Keys at or past kv_valid holding NaN leave the lite output as zeros
+    there would."""
+    from qwen2_audio_tpu_torch.ops import fa_variants as tfv
+    q, k, v = chip_smoke._attn_case(device, torch.bfloat16, 2, 4, 4, 300, 64, 300, False,
+                                    seed=10)
+    k0, v0 = k.clone(), v.clone()
+    k0[:, :, 237:] = 0.0
+    v0[:, :, 237:] = 0.0
+    k[:, :, 237:] = float("nan")
+    v[:, :, 237:] = float("nan")
+    got = tfv.attention_lite(q, k, v, sm_scale=1.0, kv_valid=237)
+    want = tfv.attention_lite(q, k0, v0, sm_scale=1.0, kv_valid=237)
+    assert torch.equal(got, want)
+
+
+def test_quantize_kv_bits_equal_cpu(device):
+    """The int8 cache's scales and values on the card bit-equal to the CPU's
+    over amax values where a reciprocal multiply rounds otherwise than
+    division."""
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import _quantize_kv
+    x = chip_smoke.kv_with_scales(chip_smoke.reciprocal_misses(512, seed=11), seed=12)
+    (q_c, s_c), (q_g, s_g) = _quantize_kv(x), _quantize_kv(x.to(device))
+    assert torch.equal(s_g.cpu(), s_c)
+    assert torch.equal(q_g.cpu(), q_c)
+
+
+@pytest.mark.parametrize("fmt,M", [("q8_0", 1), ("q8_0", 752), ("q4_0", 1), ("q4_0", 752)])
+def test_dequant16_strided_equals_panel(device, fmt, M):
+    """dq16 through the stacked strided entry and the stacked panel entry on
+    the same bytes: the same bits, and the plain version within
+    chip_smoke's tolerance."""
+    qw = chip_smoke._rand_blocks(device, 512, 1024, fmt, seed=13, layers=2)
+    packed = fmt == "q4_0"
+    kw = {"fast": True, **({"off": 8} if packed else {})}
+    x = torch.randn(M, 512, generator=torch.Generator(device=device).manual_seed(14),
+                    device=device)
+    key = "qs4" if packed else "qs"
+    pw = tqm.panelize_weight(qw, 256)
+    strided = tqm.quant_matmul4_stacked if packed else tqm.quant_matmul_stacked
+    panel = tqm.quant_matmul_panel4_stacked if packed else tqm.quant_matmul_panel_stacked
+    got = strided(x, qw[key], qw["scales"], 1, dq16=True, **kw)
+    assert torch.equal(panel(x, pw[key + "_p"], pw["scales_p"], 1, dq16=True, **kw), got)
+    plain = tqm.quant_matmul4_plain if packed else tqm.quant_matmul_plain
+    want = plain(x, qw[key][1], qw["scales"][1], dq16=True, **kw)
+    top = want.abs().max().item()
+    assert (got - want).abs().max().item() <= chip_smoke.QMM_ATOL_F32 * top
+    assert (got - strided(x, qw[key], qw["scales"], 1, **kw)).abs().max().item() \
+        > chip_smoke.QMM_ATOL_F32 * top
