@@ -17,7 +17,11 @@ before the result lines are printed):
    decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
    and float32 x, q8_0, symmetric q4_0, q4_1 (mins) and q6_K (group 16),
    and at every one of those cases the panel entry of the same weight in
-   contiguous column panels, bit-equal to the strided entry; the five
+   contiguous column panels, bit-equal to the strided entry; the edges of the
+   large-M wgmma tile: M = 9, 65, 129, 753, a weight of N = 1296 (a multiple
+   of 16, not of the tile's 128 columns) and K = 1312 (a multiple of 32, not
+   of the 64-deep stage) in q8_0 (float16 and float32 scales), q4_0 and q6_K,
+   float32 x in fast mode, in panels of widths 16, 48 and 432; the five
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
    I = 18944) at M = 1, 7, 64, both modes, bf16 and float32 x, over q8_0,
    q6_K, q5_1 (mins), symmetric q4_0 and q4_1 blocks, the split schema
@@ -27,7 +31,9 @@ before the result lines are printed):
    groups), then its three entries (flat int8 values, stacked int8 values
    or nibble bytes, stacked int32 words) at M = 1, 7, 752, 1500 over the
    decoder's, the lm_head's and the encoder's K x N, q8_0, symmetric q4_0 as
-   bytes and as words, q4_1 and q5_1 with mins, the flat entry bit-equal to
+   bytes and as words, q4_1 and q5_1 with mins, and at the wgmma tile's edges
+   (M = 9, 65, 129, 753, N = 1296, K = 1312 against the 128-deep stage, each
+   form, float16 and float32 scales), the flat entry bit-equal to
    the stacked one and the words to the bytes with off 8, two runs
    bit-equal; the lite and unpadded one-shot entries (TPU rows 18, 19), the
    blockwise entry (row 3 without the mask) at d = 64 and 128, exp2 on the
@@ -258,9 +264,34 @@ def build() -> float:
     secs = time.perf_counter() - t0
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "setmaxnreg" in line:
                 log(f"ptxas[{name}]: {line.strip()}")
+    for name in ("quant_matmul", "quant_matmul_int8"):
+        for fn, n in sass_counts(str(_build._target(name)), ("HGMMA", "IGMMA")).items():
+            log(f"sass[{name}]: {fn}: {n}")
     return secs
+
+
+def sass_counts(lib: str, ops: tuple) -> dict:
+    """{kernel: "op count ..."} of the SASS instructions named in ops, per
+    kernel of a built library that has any (cuobjdump -sass); empty where
+    cuobjdump is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=False).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn is not None:
+            for op in ops:
+                if f" {op}." in line or f" {op} " in line:
+                    counts.setdefault(fn, {}).setdefault(op, 0)
+                    counts[fn][op] += 1
+    return {f: " ".join(f"{op} {n}" for op, n in c.items()) for f, c in counts.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -844,6 +875,19 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         "fc1 q4_1": (E, 4 * E, _quantized(device, E, 4 * E, GGMLType.Q4_1, 78), False),
         "fc2 q6_K": (4 * E, E, _quantized(device, 4 * E, E, GGMLType.Q6_K, 79), False),
     }
+    # the large-M tile's edges: N a multiple of 16 and not of the 128-wide
+    # tile, K a multiple of 32 and not of the 64-deep stage (K = 1280 for
+    # q6_K, whose blocks span 256), f32 scales with group 32
+    RK, RN = E + 32, E + 16
+    weights["rag q8_0"] = (RK, RN, _rand_blocks(device, RK, RN, "q8_0", 80, layers=2), True)
+    weights["rag q4_0"] = (RK, RN, _rand_blocks(device, RK, RN, "q4_0", 81), False)
+    weights["rag q6_K"] = (E, RN, _quantized(device, E, RN, GGMLType.Q6_K, 82), False)
+    r8 = weights["rag q8_0"][2]
+    weights["rag q8_0 f32s"] = (RK, RN, {"qs": r8["qs"], "scales": r8["scales"].float()}, True)
+    # panel widths that are not a multiple of the tile's 128 columns
+    p = next(f for f in range(2, RN // 16 + 1) if RN // 16 % f == 0)
+    panel_bn = {"rag q8_0": RN // p, "rag q4_0": 16, "rag q6_K": 16 * p,
+                "rag q8_0 f32s": RN // p}
     panels = {}   # name: the weight in column panels, made at its first case
     cases = [   # (weight, M, x dtype, fast, kernels-line name or None)
         ("qkv q8_0", 1, bf, True, None), ("qkv q8_0", 1, f32, False, None),
@@ -865,6 +909,15 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("fc1 q4_1", 1500, bf, True, None), ("fc1 q4_1", 7, f32, False, None),
         ("fc2 q6_K", 1500, bf, True, None), ("fc2 q6_K", 1500, f32, False, None),
         ("fc2 q6_K", 1, bf, True, None), ("fc2 q6_K", 7, f32, False, None),
+        ("gate_up q8_0", 753, bf, True, None), ("fc1 q8_0", 129, bf, True, None),
+        ("fc1 q4_1", 65, f32, True, None),
+        ("rag q8_0", 9, bf, True, None), ("rag q8_0", 65, f32, True, None),
+        ("rag q8_0", 129, bf, True, None), ("rag q8_0", 753, bf, True, None),
+        ("rag q8_0", 129, f32, False, None),
+        ("rag q4_0", 9, bf, True, None), ("rag q4_0", 65, bf, True, None),
+        ("rag q4_0", 753, f32, True, None),
+        ("rag q6_K", 129, bf, True, None), ("rag q6_K", 753, f32, True, None),
+        ("rag q8_0 f32s", 65, bf, True, None), ("rag q8_0 f32s", 753, f32, True, None),
     ]
     rows = {"quant_matmul": 207, "quant_matmul_stacked": 474,
             "quant_matmul4": 1010, "quant_matmul4_stacked": 819,
@@ -911,7 +964,7 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             require(rel <= QMM_ATOL_F32, f"{what}: the min term is off ({rel})")
         # the same values in column panels: the same bits
         if wname not in panels:
-            panels[wname] = qm.panelize_weight(qw)
+            panels[wname] = qm.panelize_weight(qw, panel_bn.get(wname, 0))
         pw = panels[wname]
         pq, psc = pw["qs4_p" if packed else "qs_p"], pw["scales_p"]
         pentry = getattr(qm, "quant_matmul_panel" + ("4" if packed else "")
@@ -924,6 +977,8 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             require(torch.equal(qm.quant_linear_panel(x, pw, fast=fast),
                                 qm.quant_linear(x, qw, fast=fast)),
                     f"{what}: quant_linear_panel differs from quant_linear")
+        if line is None and M not in (1, 7, 752, 1500):
+            continue   # an edge case: checked, not timed
         # the entry's time beside its bound, its plain version and one
         # torch.matmul on the dequantized weight in x's type
         nbytes = (ql.numel() + scl.numel() * scl.element_size()
@@ -1108,6 +1163,13 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         "fc2 q5_1": _quantized(device, 4 * E, E, GGMLType.Q5_1, 169),
     }
     weights["lm_head q4_0 b32"] = b32(weights["lm_head q4_0 b32"])
+    # the large-M tile's edges: N a multiple of 16 and not of the 128-wide
+    # tile, K a multiple of 32 and not of the 128-deep stage, f32 scales
+    RK, RN = E + 32, E + 16
+    rag4 = _rand_blocks(device, RK, RN, "q4_0", 180, layers=2)
+    rag8 = _rand_blocks(device, RK, RN, "q8_0", 181)
+    weights.update({"rag q8_0": rag8, "rag q4_0": rag4, "rag q4_0 b32": b32(rag4),
+                    "rag q8_0 f32s": {"qs": rag8["qs"], "scales": rag8["scales"].float()}})
     rows = {"quant_matmul_int8": ("quant_matmul_int8.py", 53),
             "quant_matmul_int8_stacked": ("quant_matmul_int8.py", 178),
             "quant_matmul_q4b_stacked": ("quant_matmul_q4b.py", 105)}
@@ -1128,6 +1190,12 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("fc1 q4_0", 1500, bf, None), ("fc1 q4_0 b32", 1500, f32, None),
         ("fc1 q4_0 b32", 1500, bf, None),
         ("fc1 q4_1", 1500, bf, None), ("fc1 q4_1", 7, f32, None),
+        ("gate_up q8_0", 753, bf, None), ("fc1 q8_0", 129, f32, None),
+        ("rag q8_0", 9, bf, None), ("rag q8_0", 65, f32, None), ("rag q8_0", 129, bf, None),
+        ("rag q8_0", 753, bf, None), ("rag q4_0", 9, bf, None), ("rag q4_0", 129, bf, None),
+        ("rag q4_0", 753, f32, None), ("rag q4_0 b32", 65, bf, None),
+        ("rag q4_0 b32", 753, bf, None), ("rag q4_0 b32", 9, f32, None),
+        ("rag q8_0 f32s", 129, bf, None), ("rag q8_0 f32s", 753, f32, None),
     ]
     main, worst = {}, 0.0
     for i, (wname, M, dtype, line) in enumerate(cases):

@@ -1,7 +1,8 @@
-"""Time the dequantizing matmul kernels of csrc/quant_matmul.cu at the
-shapes of the encode path, the decoder prefill and a decode step, for one
-checkout of the port. Run it on two checkouts on the same card, in
-alternating order, to compare them.
+"""Time the quantized matmul kernels of csrc/quant_matmul.cu (dequantizing)
+and csrc/quant_matmul_int8.cu (exact-integer, mode "int8") at the shapes of
+the encode path, the decoder prefill and a decode step, for one checkout of
+the port, and print a digest of every output. Run it on two checkouts on the
+same card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -10,8 +11,13 @@ built (default: the one holding this script). Weights are random q8_0 and
 symmetric q4_0 blocks (``random_quant_linear``), x is bf16 and the kernels
 run in fast mode, dq16 off, as the encoder and the bf16-mode decoder call
 them; where the checkout takes ``dq16``, each shape is also timed with it.
-Each time is the median over 7 rounds of CUDA events around 20 launches,
-divided by 20. Per path the sum over its launches is printed: encode 32
+The integer entries run on the same weights and x: q8_0 as int8 values,
+q4_0 as nibble bytes ("int8") and as int32 words ("words"). Each case's
+inputs come from its own seed, so that two checkouts see the same ones; its
+line holds the SHA-256 (first 16 hex digits) of the output's bytes and the
+largest |kernel - plain version|.
+Each time is the median over 7 replays of a CUDA graph of 20 calls, by CUDA
+events, divided by 20: device time, not the host's call rate. Per path the sum over its launches is printed: encode 32
 layers x (qkv 1280 -> 3840, out 1280 -> 1280, fc1 1280 -> 5120, fc2 5120 ->
 1280) at M = 1500; prefill 28 layers x (qkv 3584 -> 4608, o 3584 -> 3584,
 gate_up 3584 -> 37888, down 18944 -> 3584) at M = 752; decode the same
@@ -22,6 +28,7 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -33,18 +40,28 @@ DECODER = (28, ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)))
 
 
 def time_ms(fn, rounds: int = 7, iters: int = 20) -> float:
+    """Device ms of one fn(): the median over ``rounds`` replays of a CUDA
+    graph of ``iters`` calls, by CUDA events, so that the host's call rate
+    (about 0.11 ms a wrapper call) does not bound a short kernel's time."""
     import torch
     for _ in range(3):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -62,29 +79,49 @@ def main(argv=None) -> int:
         return 1
     import qwen2_audio_tpu_torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    from qwen2_audio_tpu_torch.ops import _build
     from qwen2_audio_tpu_torch.ops import quant_matmul as qm
     here = os.path.dirname(os.path.abspath(qwen2_audio_tpu_torch.__file__))
     if os.path.dirname(here) != os.path.abspath(args.root):
         raise RuntimeError(f"qmm_ab: imported {here}, not from {args.root}")
+    _build.build_all()   # every kernel source at once, one nvcc each
 
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as q4b
     device = torch.device("cuda", 0)
-    g = torch.Generator(device=device).manual_seed(0)
     shapes, paths = {}, {}
+
+    def record(key: str, path: str, layers: int, out, want, t: dict) -> None:
+        t["sha256"] = hashlib.sha256(out.contiguous().view(torch.uint8).cpu().numpy()
+                                     .tobytes()).hexdigest()[:16]
+        t["max_abs_vs_plain"] = (out.float() - want.float()).abs().max().item()
+        shapes[key] = t
+        for k, ms in t.items():
+            if k.endswith("ms"):
+                name = path + (" dq16" if k == "dq16_ms" else "")
+                paths[name] = paths.get(name, 0.0) + layers * ms
+
+    seed = 0
     for fmt in ("q8_0", "q4_0"):
         packed = fmt == "q4_0"
         kw = {"fast": True, **({"off": 8} if packed else {})}
         flat = qm.quant_matmul4 if packed else qm.quant_matmul
         stacked = qm.quant_matmul4_stacked if packed else qm.quant_matmul_stacked
+        plain = qm.quant_matmul4_plain if packed else qm.quant_matmul_plain
         cases = [("encode", ENCODER[1], K, N, False, ENCODER[0]) for K, N in ENCODER[2]]
         cases += [(path, M, K, N, True, DECODER[0]) for path, M in (("prefill", 752),
                                                                    ("decode", 1))
                   for K, N in DECODER[1]]
         for path, M, K, N, is_stacked, layers in cases:
+            seed += 1
+            g = torch.Generator(device=device).manual_seed(seed)
             w = random_quant_linear(g, ((2,) if is_stacked else ()) + (K, N), fmt)
             q, sc = w["qs4" if packed else "qs"], w["scales"]
             x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
             li = (1,) if is_stacked else ()
+            ql, scl = (q[1], sc[1]) if is_stacked else (q, sc)
             entry = stacked if is_stacked else flat
+            key = f"{fmt} {path} M={M} K={K} N={N}"
             t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw))}
             try:
                 entry(x, q, sc, *li, dq16=True, **kw)
@@ -92,11 +129,29 @@ def main(argv=None) -> int:
                 pass
             else:
                 t["dq16_ms"] = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw))
-            shapes[f"{fmt} {path} M={M} K={K} N={N}"] = t
-            for key, ms in t.items():
-                name = f"{fmt} {path}" + (" dq16" if key == "dq16_ms" else "")
-                paths[name] = paths.get(name, 0.0) + layers * ms
-            del w, q, sc, x
+            record(key, f"{fmt} {path}", layers, entry(x, q, sc, *li, **kw),
+                   plain(x, ql, scl, **kw), t)
+            # the exact-integer group matmul (mode "int8"): q8_0 int8 values,
+            # q4_0 as nibble bytes and as int32 words, a flat weight as a
+            # one-layer stack where the flat entry takes int8 values only
+            q3, sc3 = (q, sc) if is_stacked else (q[None], sc[None])
+            lj = li[0] if is_stacked else 0
+            if packed:
+                forms = {"int8": (lambda: q8.quant_matmul_int8_stacked(x, q3, sc3, lj, off=8),
+                                  lambda: q8.quant_matmul_int8_packed_plain(x, ql, scl, off=8))}
+                words = q4b.pack_b32(q3)
+                forms["words"] = (lambda: q4b.quant_matmul_q4b_stacked(x, words, sc3, lj),
+                                  lambda: q4b.quant_matmul_q4b_plain(x, words[lj], scl))
+            elif is_stacked:
+                forms = {"int8": (lambda: q8.quant_matmul_int8_stacked(x, q, sc, 1),
+                                  lambda: q8.quant_matmul_int8_plain(x, ql, scl))}
+            else:
+                forms = {"int8": (lambda: q8.quant_matmul_int8(x, q, sc),
+                                  lambda: q8.quant_matmul_int8_plain(x, ql, scl))}
+            for form, (run, ref) in forms.items():
+                record(f"{key} {form}", f"{fmt} {path} {form}", layers, run(), ref(),
+                       {"ms": time_ms(run)})
+            del w, q, sc, x, forms
         torch.cuda.empty_cache()
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

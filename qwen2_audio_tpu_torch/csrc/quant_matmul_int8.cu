@@ -38,23 +38,44 @@
 //   own group of the <= 8 rows of x (a shuffle max, the same device function
 //   as the standalone kernel, so every block sees the same xq): no extra
 //   launch per linear in the host-bound decode loop. Group dots are __dp4a.
-// - M > 8 (the 752-position prefill, the encoder's 1500 rows): operations
-//   (2 M K N int8 operations; fc1 of the encoder 19.7 G, 10 us at 1979
-//   TOP/s). quantize_q8_1_kernel first writes xq (M, K) and sx transposed
-//   (K / 32, M), one warp per row and group; then qmm8_mma_kernel runs 128 x
-//   128 output tiles, 8 warps of 32 x 64, K one 32-group at a time: one
-//   mma.sync m16n8k32 (s8 in, s32 out) per 16 x 8 piece and group, whose
-//   int32 result is turned to float and added to a float32 accumulator
-//   with sx * sw. A fragments are 32-bit words of row-major xq, B fragments
-//   the words above, both from shared memory with padded rows (12 and 136
-//   words) so that a warp's fragment reads hit 32 distinct banks. A simple
-//   tile: no cp.async, TMA, wgmma or pipelining yet.
+// - M > 8 (the 752-position prefill, the encoder's 1500 rows): 2 M K N int8
+//   operations (fc1 of the encoder 19.7 G, 10 us at 1979 TOP/s) and, what
+//   sets the pace, the rescale of every group's integer dot on the CUDA
+//   cores: M N K / 32 (output, group) pairs (gate_up at M = 752: 3.19 G),
+//   each an exact int -> float, a multiply sx * sw and an FMA, which ggml's
+//   numerics (the float32 sum in group order) do not let us skip.
+//   quantize_q8_1_kernel first writes xq (M, K) and sx transposed (K / 32,
+//   M rounded up to 4, so that its rows are 16-byte aligned); then
+//   qmm8_wgmma_kernel runs 128 x 128 output tiles, K in stages of four
+//   groups, 384 threads:
+//   * xq (in the 128-byte-swizzled K-major layout wgmma reads), the
+//     stage's raw weight (any of the three forms), sw and sx arrive as TMA
+//     boxes (hopper_mma.cuh), zeros past M, N and K;
+//   * wgmma takes s8 operands K-major only, and the weight is stored with N
+//     fastest, so a transform warpgroup turns each raw stage into the K-major
+//     B tile with transpose_bytes and the nibble unpacking below (the words
+//     form needs no transpose), and the scales into float32 rows beside it;
+//     its thread 0 also issues the loads;
+//   * two consumer warpgroups run one wgmma m64n128k32 (s32, zeroed) per
+//     group, then c = fmaf(float(p), sx * sw, c) per output, float(p) by the
+//     exact 2^22 trick (small_int_to_float: an integer add and a subtract
+//     in place of a conversion). A group's dot is at most 32 * 128 * 127 <
+//     2^22 in magnitude.
+//   The rescale's 4 instructions per (output, group) are the floor (gate_up
+//   at M = 752: 0.46 ms at one warp instruction per clock per SM
+//   sub-partition); measured on the H100 the kernel runs at about twice
+//   that, as each group's product latency is not hidden. Keeping two s32
+//   register sets to hide it did not pay: at 64 + 2 x 64 values a thread the
+//   consumers spill, and two half-width products per group or a fixed
+//   alternation of the two warpgroups measured slower (PERF.md).
+//   The integer dots are exact and each output's float32 arithmetic (one
+//   FMA per group, in group order) does not depend on the tiling, so any
+//   tiling gives the same bits (qmm_ab.py's digests hold two builds to it).
 //
-// One layout fact carries the three forms: a word of the words form is
-// already the B operand of mma.sync m16n8k32 s8 for its column. Lane t's B
-// registers hold k = 4 (t % 4) + 0..3 of column t / 4 and the same + 16; the
-// low nibbles of word 4g + t % 4 are the first, its high nibbles the second.
-// The packed form gathers the same word from 4 byte rows with __byte_perm,
+// One layout fact carries the three forms: the low nibbles of word 4g + r
+// of the words form are k = 32 g + 4 r + 0..3 of its column, its high
+// nibbles the same + 16, in the order the K-major B operand wants them. The
+// packed form gathers the same 4 values from 4 byte rows with __byte_perm,
 // and the strided form gathers k .. k + 3 of a column from 4 rows the same
 // way, so the three forms feed the same integer products: the packed and the
 // words forms of the same bytes give the same bits.
@@ -62,7 +83,11 @@
 // N must be a multiple of 16 and K of 32 (the wrapper checks); the kernels
 // mask their own ragged M and N edges and pad nothing in device memory.
 
+#include "hopper_mma.cuh"
 #include "qmm_common.cuh"
+
+
+
 
 namespace {
 
@@ -144,7 +169,7 @@ __device__ __forceinline__ void nibble_words(const uint8_t* __restrict__ q, int 
 template <typename XT>
 __global__ void __launch_bounds__(256)
 quantize_q8_1_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ sx, int M, int K, int transposed) {
+                     float* __restrict__ sx, int M, int K, int ldt) {
   const int G = K / kGroup;
   const long long w = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   if (w >= (long long)M * G) return;   // the whole warp
@@ -152,7 +177,7 @@ quantize_q8_1_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
   const long long i = (long long)m * K + g * kGroup + lane;
   float s;
   xq[i] = static_cast<int8_t>(q8_1_lane(to_float(x[i]), s));
-  if (lane == 0) sx[transposed ? (long long)g * M + m : (long long)m * G + g] = s;
+  if (lane == 0) sx[ldt ? (long long)g * ldt + m : (long long)m * G + g] = s;
 }
 
 // ------------------------------------------------------------------------- //
@@ -257,140 +282,242 @@ qmm8_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------- //
-// M > 8: 128 x 128 output tiles, one 32-group of K per step, s8 tensor cores
-// ------------------------------------------------------------------------- //
+// M > 8: TMA-fed wgmma s8 tiles, 384 threads in roles that never reconverge:
+//   warpgroups 0, 1   consumers: rows 64 w .. 64 w + 63 of the block's
+//                     128 x 128 tile; per 32-group one wgmma m64n128k32
+//                     (s32, zeroed), then the group's rescale
+//   warpgroup 2       transform: the stage's raw weight (any form) as
+//                     K-major int8 in the swizzled B layout, 2 x 16 values
+//                     of K at 4 columns a thread, and sw, sx as float32 rows;
+//                     its thread 0 issues the TMA loads of every stage
+// Stages of 128 values of K (four groups); a ragged last stage runs only its
+// groups. setmaxnreg moves registers from the transform to the consumers,
+// which hold 64 float32 sums and 64 int32 products.
+constexpr int kWgBM = 128, kWgBN = 128, kWgBK = 128, kWgThreads = 384;
+constexpr int kStages = 3, kRawStages = 3;
+constexpr int kXBytes = kWgBM * kSwizzleRow;        // (128, 128) s8
+constexpr int kBBytes = kWgBN * kSwizzleRow;        // (128 n, 128 k) s8
+constexpr int kScBytes = 4 * kWgBN * 4;             // 4 groups x 128, float32
+constexpr int kRawW = kWgBK * kWgBN;                // the strided form's 128 rows
+constexpr int kWgSmem = kStages * (kXBytes + kBBytes + 2 * kScBytes) +
+                        kRawStages * (kRawW + 2 * kScBytes) +
+                        (3 * kStages + kRawStages) * 8 + 1024;
 
-constexpr int kBM = 128, kBN = 128, kTileThreads = 256;
-constexpr int kLDA = 12;    // words per row of the xq tile (8 used)
-constexpr int kLDB = 136;   // words per k-quad row of the weight tile (128 used)
-
-// d = a (16 x 32, row) * b (32 x 8, col), s8 in, exact s32 out
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  d[0] = d[1] = d[2] = d[3] = 0;
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// float(p) for |p| < 2^22, exactly: 1.5 * 2^23 + p has p in its mantissa
+__device__ __forceinline__ float small_int_to_float(int p) {
+  return __fsub_rn(__int_as_float(p + 0x4B400000), 12582912.f);
 }
 
-// Bs[i * kLDB + n]: k 4i .. 4i + 3 of the group at tile column n, int8
-template <int FORM>
-__device__ __forceinline__ void load_weight_tile(uint32_t* Bs, const uint8_t* __restrict__ q,
-                                                 int N, int gi, int n0, int off, int tid) {
-  const int r = tid >> 5, cq = tid & 31, col = n0 + cq * 4;
-  if constexpr (FORM == kStrided) {   // 8 k-quads x 32 column quads: one a thread
-    uint32_t c4[4] = {0u, 0u, 0u, 0u};
-    if (col < N) {
-      const uint8_t* p = q + ((long long)gi * kGroup + 4 * r) * N + col;
-      transpose_bytes(ld32(p), ld32(p + N), ld32(p + 2 * N), ld32(p + 3 * N), c4);
-    }
-    *reinterpret_cast<uint4*>(Bs + r * kLDB + cq * 4) = make_uint4(c4[0], c4[1], c4[2], c4[3]);
-  } else if (tid < 128) {   // 4 word rows x 32 column quads
-    uint32_t w4[4] = {0u, 0u, 0u, 0u}, lo[4], hi[4];
-    if (col < N) nibble_words<FORM>(q, N, gi, r, col, w4);
+// c[4 i + e] += float(d[4 i + e]) * (sx * sw): rows r (e < 2) and r + 8,
+// columns 8 i + 2 (lane % 4) + e % 2 of the tile (swr at the first)
+__device__ __forceinline__ void rescale(float (&c)[64], const int (&d)[64], float sx0, float sx1,
+                                       const float* swr) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) nibble_quads(w4[c], off, lo[c], hi[c]);
-    *reinterpret_cast<uint4*>(Bs + r * kLDB + cq * 4) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    *reinterpret_cast<uint4*>(Bs + (4 + r) * kLDB + cq * 4) =
-        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  for (int i = 0; i < 16; ++i) {
+    const float2 sw = *reinterpret_cast<const float2*>(swr + 8 * i);
+    c[4 * i] = fmaf(small_int_to_float(d[4 * i]), __fmul_rn(sx0, sw.x), c[4 * i]);
+    c[4 * i + 1] = fmaf(small_int_to_float(d[4 * i + 1]), __fmul_rn(sx0, sw.y), c[4 * i + 1]);
+    c[4 * i + 2] = fmaf(small_int_to_float(d[4 * i + 2]), __fmul_rn(sx1, sw.x), c[4 * i + 2]);
+    c[4 * i + 3] = fmaf(small_int_to_float(d[4 * i + 3]), __fmul_rn(sx1, sw.y), c[4 * i + 3]);
+  }
+}
+
+// One stage's GV groups: per group one wgmma m64n128k32, then its rescale.
+template <int GV>
+__device__ __forceinline__ void consume_stage(float (&acc)[64], int (&d)[64], uint64_t a,
+                                              uint64_t b, const float* sxg, const float* swg) {
+#pragma unroll
+  for (int j = 0; j < GV; ++j) {
+    wgmma_fence();
+    wgmma_s8_n128(d, a + 2 * j, b + 2 * j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    rescale(acc, d, sxg[j * kWgBM], sxg[j * kWgBM + 8], swg + j * kWgBN);
   }
 }
 
 template <typename XT, int FORM>
-__global__ void __launch_bounds__(kTileThreads)
-qmm8_mma_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx_t,
-                const uint8_t* __restrict__ q, const void* __restrict__ sc, int s_f16,
-                XT* __restrict__ out, int M, int K, int N, int off) {
-  __shared__ __align__(16) uint32_t As[kBM * kLDA];   // [m][k quad]
-  __shared__ __align__(16) uint32_t Bs[8 * kLDB];     // [k quad][n]
-  __shared__ float sxs[kBM], sws[kBN];
+__global__ void __launch_bounds__(kWgThreads, 1)
+qmm8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap smap,
+                  const __grid_constant__ CUtensorMap sxmap, int s_f16, XT* __restrict__ out,
+                  int M, int K, int N, int off) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* xs = smem;
+  uint8_t* bs = xs + kStages * kXBytes;
+  float* sws = reinterpret_cast<float*>(bs + kStages * kBBytes);   // [stage][g][n]
+  float* sxs = sws + kStages * 4 * kWgBN;                           // [stage][g][m]
+  uint8_t* raw_w = reinterpret_cast<uint8_t*>(sxs + kStages * 4 * kWgBM);
+  uint8_t* raw_s = raw_w + kRawStages * kRawW;
+  float* raw_x = reinterpret_cast<float*>(raw_s + kRawStages * kScBytes);
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(raw_x + kRawStages * 4 * kWgBM);
+  uint64_t* full_b = full_x + kStages;
+  uint64_t* empty = full_b + kStages;
+  uint64_t* raw_full = empty + kStages;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;      // 4 x 2 warps of 32 x 64 outputs
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int xr = tid >> 1, xh = tid & 1;        // the thread's 16 bytes of the xq tile
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int G = K / kGroup;
-  for (int gi = 0; gi < G; ++gi) {
-    __syncthreads();   // every warp is done with the previous group's tiles
-    {
-      uint4 a = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + xr < M)
-        a = *reinterpret_cast<const uint4*>(xq + (long long)(m0 + xr) * K + gi * kGroup +
-                                            xh * 16);
-      *reinterpret_cast<uint4*>(As + xr * kLDA + xh * 4) = a;
+  const int m0 = blockIdx.x * kWgBM, n0 = blockIdx.y * kWgBN;
+  const int G = K / kGroup, steps = (G + 3) / 4;
+  // raw weight rows a stage and bytes a row: 128 int8 rows, 64 nibble-byte
+  // rows, or 16 word rows of 128 int32
+  constexpr int RROWS = FORM == kStrided ? 128 : FORM == kPacked ? 64 : 16;
+  constexpr int RB = FORM == kWords ? 512 : 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_x[s], 1);
+      mbar_init(&full_b[s], 128);
+      mbar_init(&empty[s], 256);
     }
-    load_weight_tile<FORM>(Bs, q, N, gi, n0, off, tid);
-    if (tid < kBM) {
-      sxs[tid] = m0 + tid < M ? sx_t[(long long)gi * M + m0 + tid] : 0.f;
-    } else {
-      const int c = n0 + tid - kBM;
-      const long long idx = (long long)gi * N + c;
-      sws[tid - kBM] = c >= N ? 0.f
-                       : s_f16 ? __half2float(static_cast<const __half*>(sc)[idx])
-                               : static_cast<const float*>(sc)[idx];
+    for (int s = 0; s < kRawStages; ++s) {
+      mbar_init(&raw_full[s], 1);
     }
-    __syncthreads();
-
-    uint32_t a[2][4];
-    float sxr[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r = wm * 32 + mt * 16 + gid;
-      a[mt][0] = As[r * kLDA + tig];
-      a[mt][1] = As[(r + 8) * kLDA + tig];
-      a[mt][2] = As[r * kLDA + 4 + tig];
-      a[mt][3] = As[(r + 8) * kLDA + 4 + tig];
-      sxr[mt][0] = sxs[r];
-      sxr[mt][1] = sxs[r + 8];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int n = wn * 64 + nt * 8;
-      const uint32_t b0 = Bs[tig * kLDB + n + gid], b1 = Bs[(4 + tig) * kLDB + n + gid];
-      const float s0 = sws[n + 2 * tig], s1 = sws[n + 2 * tig + 1];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        int d[4];
-        mma_s8(d, a[mt], b0, b1);
-        float* c = acc[mt][nt];
-        c[0] = fmaf(static_cast<float>(d[0]), __fmul_rn(sxr[mt][0], s0), c[0]);
-        c[1] = fmaf(static_cast<float>(d[1]), __fmul_rn(sxr[mt][0], s1), c[1]);
-        c[2] = fmaf(static_cast<float>(d[2]), __fmul_rn(sxr[mt][1], s0), c[2]);
-        c[3] = fmaf(static_cast<float>(d[3]), __fmul_rn(sxr[mt][1], s1), c[3]);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
+  if (threadIdx.x >= 256) {
+    // ---- transform; its thread 0 also issues the loads ----
+    setmaxnreg_dec<72>();
+    const int t = threadIdx.x - 256, lane = t & 31, w = t >> 5;
+    const uint32_t raw_bytes = RROWS * RB + 4 * kWgBN * (s_f16 ? 2 : 4) + 4 * kWgBM * 4;
+    auto load_raw = [&](int kt) {   // the stage's raw weight, sw and sx
+      const int slot = kt % kRawStages;
+      mbar_expect_tx(&raw_full[slot], raw_bytes);
+      tma_load_2d(raw_w + slot * kRawW, &wmap, &raw_full[slot], n0, kt * RROWS);
+      tma_load_2d(raw_s + slot * kScBytes, &smap, &raw_full[slot], n0, kt * 4);
+      tma_load_2d(raw_x + slot * 4 * kWgBM, &sxmap, &raw_full[slot], m0, kt * 4);
+    };
+    auto load_x = [&](int kt) {   // the stage's xq, once the consumers are done with its slot
+      const int s = kt % kStages;
+      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+      mbar_expect_tx(&full_x[s], kXBytes);
+      tma_load_2d(xs + s * kXBytes, &xmap, &full_x[s], kt * kWgBK, m0);
+    };
+    if (t == 0) {
+      for (int kt = 0; kt < kRawStages - 1 && kt < steps; ++kt) load_raw(kt);
+      load_x(0);
+    }
+    for (int kt = 0; kt < steps; ++kt) {
+      const int slot = kt % kRawStages, s = kt % kStages;
+      named_sync(1, 128);   // every transform thread is done with stage kt - 1's raw slot
+      if (t == 0) {
+        if (kt + kRawStages - 1 < steps) load_raw(kt + kRawStages - 1);
+        if (kt + 1 < steps) load_x(kt + 1);
+      }
+      mbar_wait(&raw_full[slot], (kt / kRawStages) & 1);
+      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+      const uint8_t* rw = raw_w + slot * kRawW;
+      uint8_t* bd = bs + s * kBBytes;
+#pragma unroll 1
+      for (int it = 0; it < 2; ++it) {   // not unrolled: the transform has few registers
+        // values 16 c .. 16 c + 15 of the stage (group c / 2, half c % 2) at
+        // columns 4 lane .. 4 lane + 3; the c of neighbouring lanes differ, so
+        // the swizzled 16-byte writes do not collide on a bank
+        const int c = (lane + 2 * w + it) & 7;
+        uint32_t col4[4][4];   // col4[j][i]: k 4i .. 4i + 3 of the chunk, column 4 lane + j
+        if constexpr (FORM == kWords) {   // word row 4g + i: k 4i.. (low), + 16 (high)
+          const int sh = (c & 1) * 4;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int ra = m0 + wm * 32 + mt * 16 + gid, rb = ra + 8;
+          for (int i = 0; i < 4; ++i) {
+            const uint4 v =
+                *reinterpret_cast<const uint4*>(rw + ((c >> 1) * 4 + i) * RB + lane * 16);
+            const uint32_t wv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = n0 + wn * 64 + nt * 8 + 2 * tig;
+            for (int j = 0; j < 4; ++j) {
+              const uint32_t b = (wv[j] >> sh) & 0x0F0F0F0Fu;
+              col4[j][i] = off ? swar_sub8(b) : b;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uint32_t r4[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              if constexpr (FORM == kStrided) {
+                r4[r] = *reinterpret_cast<const uint32_t*>(rw + (16 * c + 4 * i + r) * RB +
+                                                           lane * 4);
+              } else {   // byte row 16 g + k: value k low, k + 16 high
+                const uint32_t b = (*reinterpret_cast<const uint32_t*>(
+                                        rw + (16 * (c >> 1) + 4 * i + r) * RB + lane * 4) >>
+                                    ((c & 1) * 4)) &
+                                   0x0F0F0F0Fu;
+                r4[r] = off ? swar_sub8(b) : b;
+              }
+            }
+            uint32_t t4[4];
+            transpose_bytes(r4[0], r4[1], r4[2], r4[3], t4);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) col4[j][i] = t4[j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint4*>(bd + swizzle_chunk(4 * lane + j, c)) =
+              make_uint4(col4[j][0], col4[j][1], col4[j][2], col4[j][3]);
+      }
+      // the stage's scales as float32: sw [g][n], sx [g][m], 4 each a thread
+      const uint8_t* rs = raw_s + slot * kScBytes;
+      const float* rx = raw_x + slot * 4 * kWgBM;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = u * 128 + t;
+        sws[s * 4 * kWgBN + e] = s_f16 ? __half2float(reinterpret_cast<const __half*>(rs)[e])
+                                       : reinterpret_cast<const float*>(rs)[e];
+        sxs[s * 4 * kWgBM + e] = rx[e];
+      }
+      fence_async_shared();
+      mbar_arrive(&full_b[s]);
+    }
+  } else {
+    // ---- consumers ----
+    setmaxnreg_inc<216>();
+    const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, wq4 = (threadIdx.x >> 5) & 3;
+    const int rl = wg * 64 + wq4 * 16 + (lane >> 2);   // row in the tile; and rl + 8
+    float acc[64];
+    int d[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      d[i] = 0;
+    }
+    for (int kt = 0; kt < steps; ++kt) {
+      const int s = kt % kStages;
+      const uint32_t par = (kt / kStages) & 1;
+      mbar_wait(&full_x[s], par);
+      mbar_wait(&full_b[s], par);
+      const uint64_t a = wgmma_desc(xs + s * kXBytes + wg * 64 * kSwizzleRow);
+      const uint64_t b = wgmma_desc(bs + s * kBBytes);
+      const float* sxg = sxs + s * 4 * kWgBM + rl;
+      const float* swg = sws + s * 4 * kWgBN + 2 * (lane & 3);
+      switch (min(4, G - 4 * kt)) {   // the groups of this stage
+        case 4: consume_stage<4>(acc, d, a, b, sxg, swg); break;
+        case 3: consume_stage<3>(acc, d, a, b, sxg, swg); break;
+        case 2: consume_stage<2>(acc, d, a, b, sxg, swg); break;
+        default: consume_stage<1>(acc, d, a, b, sxg, swg); break;
+      }
+      mbar_arrive(&empty[s]);
+    }
+    const int ra = m0 + rl, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
       if (col < N) {
-        if (ra < M) store2(out + (long long)ra * N + col, acc[mt][nt][0], acc[mt][nt][1]);
-        if (rb < M) store2(out + (long long)rb * N + col, acc[mt][nt][2], acc[mt][nt][3]);
+        if (ra < M) store2(out + (long long)ra * N + col, acc[4 * j], acc[4 * j + 1]);
+        if (rb < M) store2(out + (long long)rb * N + col, acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
   }
 }
 
 template <typename XT>
-void quantize(const XT* x, int8_t* xq, float* sx, int M, int K, int transposed,
+void quantize(const XT* x, int8_t* xq, float* sx, int M, int K, int ldt,
               cudaStream_t st) {
   const long long warps = (long long)M * (K / kGroup);
   quantize_q8_1_kernel<XT><<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(x, xq, sx, M, K,
-                                                                         transposed);
+                                                                         ldt);
 }
 
 template <typename XT, int FORM>
@@ -417,10 +544,29 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out, floa
           partial, op, ksplit, mn);
     }
   } else {
-    quantize<XT>(xp, xq, sx_t, M, K, 1, st);
-    const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-    qmm8_mma_kernel<XT, FORM><<<grid, kTileThreads, 0, st>>>(xq, sx_t, qp, sc, s_f16, op,
-                                                             M, K, N, off);
+    const int ldt = (M + 3) / 4 * 4;   // sx_t's rows 16-byte aligned for TMA
+    quantize<XT>(xp, xq, sx_t, M, K, ldt, st);
+    // boxes: xq (128, 128) swizzled; the raw weight, one stage's rows of 128
+    // columns; sw and sx, 4 groups of 128 columns or rows
+    CUtensorMap xmap, wmap, smap, sxmap;
+    const int G = K / kGroup;
+    const long long rows = FORM == kStrided ? K : FORM == kPacked ? K / 2 : K / 8;
+    const int welem = FORM == kWords ? 4 : 1;
+    if (!make_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, K, kWgBK, kWgBM, true) ||
+        !make_map_2d(&wmap, qp,
+                     FORM == kWords ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                     welem, rows, N, N, kWgBN, (int)(kWgBK * rows / K), false) ||
+        !make_map_2d(&smap, sc,
+                     s_f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     s_f16 ? 2 : 4, G, N, N, kWgBN, 4, false) ||
+        !make_map_2d(&sxmap, sx_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, G, M, ldt, kWgBM, 4,
+                     false))
+      return cudaErrorNotSupported;
+    const cudaError_t attr = allow_smem<qmm8_wgmma_kernel<XT, FORM>>(kWgSmem);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid((M + kWgBM - 1) / kWgBM, (N + kWgBN - 1) / kWgBN);
+    qmm8_wgmma_kernel<XT, FORM><<<grid, kWgThreads, kWgSmem, st>>>(xmap, wmap, smap, sxmap, s_f16,
+                                                                    op, M, K, N, off);
   }
   return cudaGetLastError();
 }
@@ -450,9 +596,10 @@ extern "C" int qa_quantize_q8_1(const void* x, void* xq, void* sx, int M, int K,
   int8_t* q = static_cast<int8_t*>(xq);
   float* s = static_cast<float*>(sx);
   if (x_bf16)
-    quantize<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), q, s, M, K, transposed, st);
+    quantize<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), q, s, M, K,
+                            transposed ? M : 0, st);
   else
-    quantize<float>(static_cast<const float*>(x), q, s, M, K, transposed, st);
+    quantize<float>(static_cast<const float*>(x), q, s, M, K, transposed ? M : 0, st);
   return (int)cudaGetLastError();
 }
 
@@ -460,14 +607,14 @@ extern "C" int qa_quantize_q8_1(const void* x, void* xq, void* sx, int M, int K,
 // 1 (nibble bytes (K / 2, N)) or 2 (int32 words (K / 8, N)); sc (K / 32, N)
 // float16 or float32; out (M, N) in x's type. scratch: float32 (ksplit, M,
 // N), read only when M <= 8 and ksplit > 1; xq (M, K) int8 and sx_t float32
-// (K / 32, M), read only when M > 8. off: 8 (symmetric q4_0) or 0.
+// (K / 32, M rounded up to a multiple of 4), read only when M > 8. off: 8 (symmetric q4_0) or 0.
 extern "C" int qa_quant_matmul_int8(const void* x, const void* q, const void* sc, void* out,
                                     void* scratch, void* xq, void* sx_t, int M, int K, int N,
                                     int x_bf16, int s_f16, int form, int off, int ksplit,
                                     void* stream) {
   if (M < 1 || K < kGroup || K % kGroup || N < 16 || N % 16 || form < kStrided ||
       form > kWords || (off != 0 && off != 8) || (form == kStrided && off != 0) ||
-      ksplit < 1 || ksplit > 65535 || (N + kBN - 1) / kBN > 65535 ||
+      ksplit < 1 || ksplit > 65535 || (N + kWgBN - 1) / kWgBN > 65535 ||
       (ksplit > 1 && (M > 8 || scratch == nullptr)) ||
       (M > 8 && (xq == nullptr || sx_t == nullptr)))
     return (int)cudaErrorInvalidValue;

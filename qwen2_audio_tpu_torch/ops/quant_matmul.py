@@ -60,6 +60,7 @@ _X_TYPES = (torch.float32, torch.bfloat16)
 _S_TYPES = (torch.float32, torch.float16)
 _SMALL_M = 8          # rows the weight-streaming kernel takes
 _SMALL_COLS = 128     # its columns per block
+_TILE = 128           # rows and columns of an M > 8 tile
 _sm_count: dict[int, int] = {}
 
 
@@ -190,6 +191,18 @@ def split_k(M: int, K: int, N: int, sm_count: int) -> int:
     return max(1, min(want, K // 32 // 8))
 
 
+def split_tiles(M: int, K: int, N: int, sm_count: int) -> int:
+    """Splits along K for the fast M > 8 tile: 2 where its 128 x 128 tiles
+    fill a second wave of SMs less than half (the prefill's o and down
+    projections: 168 tiles on 132 SMs), so that the card is busier, and the
+    64-deep stages halve evenly; else 1."""
+    tiles = -(-M // _TILE) * -(-N // _TILE)
+    stages = -(-K // 64)
+    if sm_count < tiles <= sm_count * 3 // 2 and stages % 2 == 0 and stages >= 8:
+        return 2
+    return 1
+
+
 def _check(name: str, x, q, sc, packed: bool) -> int:
     """Shapes and types every device takes, for a row-major weight (2-D) or
     column panels (3-D); returns the group size."""
@@ -220,8 +233,17 @@ def sm_count(device: torch.device) -> int:
     return _sm_count[dev]
 
 
-def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
-            fast: bool, dq16: bool = False) -> torch.Tensor:
+def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
+    """The kernel's launch for x (M, K) and a row-major or panel weight, from
+    shapes, types and addresses alone (no device is touched): which kernel
+    (``"small"`` at M <= 8, ``"wgmma"`` the fast large-M tile, ``"fma"`` the
+    exact one), its grid, the K split and the bytes of scratch the wrapper
+    allocates (the splits' float32 sums, then a bf16 copy of float32 x for
+    the fast large-M tile; 0 for none). Raises for what the kernel does not take:
+    x or scales of another type, K not a multiple of 32, N or a panel's
+    width not a multiple of 16, an input that is not contiguous or not
+    16-byte aligned (the TMA box and the 16-byte loads need both; nothing
+    is copied)."""
     M, K = x.shape
     bn = q.shape[-1]                       # the panel width, or N
     N = bn * (q.shape[0] if q.dim() == 3 else 1)
@@ -232,25 +254,41 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
         raise ValueError(f"{name}: the kernel takes M >= 1, K a multiple of 32 and N "
                          f"(and a panel's width) a multiple of 16, got M={M}, K={K}, "
                          f"N={N}, width {bn}")
-    if off not in (0, 8):
-        raise ValueError(f"{name}: off must be 0 or 8, got {off}")
-    x = x.contiguous()
     for t in (x, q, sc):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte "
                              f"aligned and on {x.device}")
-    ksplit = split_k(M, K, N, sm_count(x.device))
+    if M <= _SMALL_M:
+        kernel, ksplit = "small", split_k(M, K, N, sms)
+        grid = (-(-N // _SMALL_COLS), ksplit)
+    else:
+        kernel = "wgmma" if fast else "fma"
+        ksplit = split_tiles(M, K, N, sms) if fast else 1
+        grid = (-(-M // _TILE), -(-N // _TILE), ksplit)
+    # the splits' float32 sums, then (fast, M > 8, float32 x) x in bf16
+    scratch = (4 * ksplit * M * N if ksplit > 1 else 0) \
+        + (2 * M * K if kernel == "wgmma" and x.dtype == torch.float32 else 0)
+    return {"kernel": kernel, "grid": grid, "M": M, "K": K, "N": N, "bn": bn,
+            "group": group, "ksplit": ksplit, "scratch": scratch}
+
+
+def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
+            fast: bool, dq16: bool = False) -> torch.Tensor:
+    if off not in (0, 8):
+        raise ValueError(f"{name}: off must be 0 or 8, got {off}")
+    plan = launch_plan(name, x, q, sc, group, fast, sm_count(x.device))
+    M, N = plan["M"], plan["N"]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    scratch = (torch.empty((ksplit, M, N), dtype=torch.float32, device=x.device)
-               if ksplit > 1 else None)
+    scratch = (torch.empty(plan["scratch"], dtype=torch.uint8, device=x.device)
+               if plan["scratch"] else None)
     lib = _build.library("quant_matmul")
     with torch.cuda.device(x.device):
         rc = lib.qa_quant_matmul(
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            M, K, N, bn, group, int(x.dtype == torch.bfloat16),
+            M, plan["K"], N, plan["bn"], group, int(x.dtype == torch.bfloat16),
             int(sc.dtype == torch.float16), int(packed), off, int(fast),
-            int(dq16 and fast), ksplit, torch.cuda.current_stream().cuda_stream)
+            int(dq16 and fast), plan["ksplit"], torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return out
 
@@ -373,7 +411,7 @@ def quant_linear4(x: torch.Tensor, qw: dict, fast: bool = False,
                   dq16: bool = False) -> torch.Tensor:
     """x (..., K) @ {"qs4", "scales"[, "mins"]} -> (..., N); a dict without
     "mins" is symmetric q4_0, dequantized (q - 8) * d inside the kernel."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     sym = "mins" not in qw
     y = quant_matmul4(x2d, qw["qs4"], qw["scales"], fast=fast, off=8 if sym else 0,
                       dq16=dq16)
@@ -389,7 +427,7 @@ def quant_linear(x: torch.Tensor, qw: dict, fast: bool = False,
     caller picks the q4 or the q8 switch)."""
     if "qs4" in qw:
         return quant_linear4(x, qw, fast=fast, dq16=dq16)
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     y = quant_matmul(x2d, qw["qs"], qw["scales"], fast=fast, dq16=dq16)
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"])
@@ -401,7 +439,7 @@ def quant_linear_stacked(x: torch.Tensor, qw: dict, li: int,
     """``quant_linear`` over layer ``li`` of a dict whose every leaf has a
     leading (L,) axis, in any of the four storage forms ("qs", "qs4", or
     their panels "qs_p", "qs4_p" with "scales_p")."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     off = 8 if "mins" not in qw else 0
     if "qs4_p" in qw:
         y = quant_matmul_panel4_stacked(x2d, qw["qs4_p"], qw["scales_p"], li, fast=fast,
@@ -423,7 +461,7 @@ def quant_linear_panel(x: torch.Tensor, qw: dict, fast: bool = False,
                        dq16: bool = False) -> torch.Tensor:
     """x (..., K) @ a panelized dict {"qs_p" or "qs4_p", "scales_p"[, "mins"]}
     -> (..., N); "mins" are (K // group, N) as in the strided forms."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     if "qs4_p" in qw:
         y = quant_matmul_panel4(x2d, qw["qs4_p"], qw["scales_p"], fast=fast,
                                 off=8 if "mins" not in qw else 0, dq16=dq16)

@@ -30,7 +30,7 @@ design.
 
 On the card the kernel is bound by the weight bytes at M <= 8 (a decode
 step; the quantization of x is fused into it) and by int8 operations above
-(a quantizing launch, then mma.sync s8 tiles); the design notes are in the
+(a quantizing launch, then TMA-fed wgmma s8 tiles); the design notes are in the
 CUDA source. Its float32 sums run in another order than the plain
 version's, so the two agree to a tolerance, not bit for bit; two runs, a flat
 and a stacked entry on the same values, and the nibble-byte and int32-word
@@ -45,8 +45,8 @@ from __future__ import annotations
 import torch
 
 from qwen2_audio_tpu_torch.ops import _build
-from qwen2_audio_tpu_torch.ops.quant_matmul import (_SMALL_M, _layer, _nd, _with_mins, sm_count,
-                                                    split_k, unpack4)
+from qwen2_audio_tpu_torch.ops.quant_matmul import (_SMALL_COLS, _SMALL_M, _TILE, _layer, _nd,
+                                                    _with_mins, sm_count, split_k, unpack4)
 
 GROUP = 32
 _X_TYPES = (torch.float32, torch.bfloat16)
@@ -154,7 +154,16 @@ def _check(name: str, x, q, sc, form: int, off: int) -> None:
         raise ValueError(f"{name}: off {off}: 0, or 8 for nibbles")
 
 
-def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
+def launch_plan(name: str, x, q, sc, sms: int) -> dict:
+    """The kernel's launch for x (M, K) and a weight (K, N) of one form, from
+    shapes, types and addresses alone (no device is touched): which kernel
+    (``"small"`` at M <= 8, x quantized inside it; ``"wgmma"`` above, after
+    the quantizing launch), its grid, the K split and the buffers the
+    wrapper allocates by name (shape and type): the float32 partial sums of
+    a split, or xq (M, K) and sx transposed (K / 32, M rounded up to 4, so
+    that its rows are 16-byte aligned). Raises for x or scales of another
+    type, N not a multiple of 16, and an input that is not contiguous or not
+    16-byte aligned (nothing is copied)."""
     M, K = x.shape
     N = q.shape[1]
     if x.dtype not in _X_TYPES or sc.dtype not in _S_TYPES:
@@ -162,28 +171,39 @@ def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
                          f"{_S_TYPES}, got {x.dtype}, {sc.dtype}")
     if N % 16:
         raise ValueError(f"{name}: the kernel takes N a multiple of 16, got {N}")
-    x = x.contiguous()
     for t in (x, q, sc):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte aligned "
                              f"and on {x.device}")
-    ksplit = split_k(M, K, N, sm_count(x.device))
+    ksplit = split_k(M, K, N, sms)
+    if M <= _SMALL_M:
+        bufs = {"scratch": ((ksplit, M, N), torch.float32)} if ksplit > 1 else {}
+        return {"kernel": "small", "grid": (-(-N // _SMALL_COLS), ksplit), "M": M, "K": K,
+                "N": N, "ksplit": ksplit, "buffers": bufs}
+    return {"kernel": "wgmma", "grid": (-(-M // _TILE), -(-N // _TILE)), "M": M, "K": K,
+            "N": N, "ksplit": ksplit,
+            "buffers": {"xq": ((M, K), torch.int8),
+                        "sx_t": ((K // GROUP, -(-M // 4) * 4), torch.float32)}}
+
+
+def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
+    plan = launch_plan(name, x, q, sc, sm_count(x.device))
+    M, K, N = plan["M"], plan["K"], plan["N"]
     dev = x.device
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
-    scratch = torch.empty((ksplit, M, N), dtype=torch.float32, device=dev) if ksplit > 1 else None
-    big = M > _SMALL_M
-    xq = torch.empty((M, K), dtype=torch.int8, device=dev) if big else None
-    sx_t = torch.empty((K // GROUP, M), dtype=torch.float32, device=dev) if big else None
+    bufs = {k: torch.empty(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in plan["buffers"].items()}
 
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
+    def ptr(k):
+        return bufs[k].data_ptr() if k in bufs else None
 
     lib = _build.library("quant_matmul_int8")
     with torch.cuda.device(dev):
         rc = lib.qa_quant_matmul_int8(
-            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr(scratch), ptr(xq),
-            ptr(sx_t), M, K, N, int(x.dtype == torch.bfloat16), int(sc.dtype == torch.float16),
-            form, off, ksplit, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("scratch"),
+            ptr("xq"), ptr("sx_t"), M, K, N, int(x.dtype == torch.bfloat16),
+            int(sc.dtype == torch.float16), form, off, plan["ksplit"],
+            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return out
 
@@ -235,7 +255,7 @@ for _entry in ENTRIES:
 def quant_linear_int8(x: torch.Tensor, qw: dict) -> torch.Tensor:
     """x (..., K) @ {"qs", "scales"[, "mins"]} -> (..., N) through the exact
     integer group matmul; the min term on the raw x outside the kernel."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     y = quant_matmul_int8(x2d, qw["qs"], qw["scales"])
     if "mins" in qw:
         y = _with_mins(y, x2d, qw["mins"])
@@ -246,7 +266,7 @@ def quant_linear_int8_stacked(x: torch.Tensor, qw: dict, li: int) -> torch.Tenso
     """``quant_linear_int8`` over layer ``li`` of a stacked {"qs" | "qs4",
     "scales"[, "mins"]} dict; "qs4" without "mins" is symmetric q4_0 (off
     8)."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     packed = "qs4" in qw
     y = quant_matmul_int8_stacked(x2d, qw["qs4" if packed else "qs"], qw["scales"], li,
                                   off=8 if packed and "mins" not in qw else 0)

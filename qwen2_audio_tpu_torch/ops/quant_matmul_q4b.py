@@ -88,7 +88,7 @@ ENTRIES = (quant_matmul_q4b_stacked,)
 def quant_linear_q4b_stacked(x: torch.Tensor, qw: dict, li: int) -> torch.Tensor:
     """x (..., K) @ layer ``li`` of {"qs4b" (L, K // 8, N), "scales" (L, K //
     32, N)} -> (..., N)."""
-    x2d = x.reshape(-1, x.shape[-1])
+    x2d = x.reshape(-1, x.shape[-1]).contiguous()
     y = quant_matmul_q4b_stacked(x2d, qw["qs4b"], qw["scales"], li)
     return y.reshape(*x.shape[:-1], -1)
 

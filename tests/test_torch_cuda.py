@@ -521,3 +521,58 @@ def test_dequant16_strided_equals_panel(device, fmt, M):
     assert (got - want).abs().max().item() <= chip_smoke.QMM_ATOL_F32 * top
     assert (got - strided(x, qw[key], qw["scales"], 1, **kw)).abs().max().item() \
         > chip_smoke.QMM_ATOL_F32 * top
+
+
+@pytest.mark.parametrize("fmt,M,dtype,bn", [
+    ("q8_0", 9, torch.bfloat16, 48), ("q8_0", 65, torch.float32, 432),
+    ("q8_0", 129, torch.bfloat16, 16), ("q8_0", 753, torch.bfloat16, 144),
+    ("q4_0", 9, torch.float32, 16), ("q4_0", 129, torch.bfloat16, 432),
+    ("q4_0", 753, torch.bfloat16, 48),
+])
+def test_large_m_tile_edges_match_plain(device, fmt, M, dtype, bn):
+    """The fast large-M tile where it is most likely wrong: M off the 128-row
+    tile, N = 1296 (a multiple of 16, not of 128), K = 1312 (a multiple of
+    32, not of the 64-deep stage), and panels whose width is not a multiple
+    of the tile's: within tolerance, the panels bit-equal to strided."""
+    K, N = 1312, 1296
+    qw = chip_smoke._rand_blocks(device, K, N, fmt, seed=51)
+    packed = fmt == "q4_0"
+    q, sc = qw["qs4" if packed else "qs"], qw["scales"]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(52),
+                    device=device).to(dtype)
+    kw = {"fast": True, **({"off": 8} if packed else {})}
+    entry, pentry, plain = ((tqm.quant_matmul4, tqm.quant_matmul_panel4,
+                             tqm.quant_matmul4_plain) if packed else
+                            (tqm.quant_matmul, tqm.quant_matmul_panel, tqm.quant_matmul_plain))
+    got = entry(x, q, sc, **kw)
+    want = plain(x, q, sc, **kw)
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, dtype)).all())
+    pw = tqm.panelize_weight(qw, bn)
+    assert torch.equal(pentry(x, pw["qs4_p" if packed else "qs_p"], pw["scales_p"], **kw), got)
+
+
+@pytest.mark.parametrize("M", [9, 129, 753])
+def test_int8_tile_edges_agree_across_forms(device, M):
+    """The integer large-M tile at N = 1296 and K = 1312 (a multiple of 32,
+    not of the 128-deep stage), f16 and f32 scales: within tolerance of the
+    plain version, the nibble bytes and the int32 words of the same q4_0
+    bytes bit-equal, the flat and stacked int8 entries bit-equal."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    K, N = 1312, 1296
+    w4 = chip_smoke._rand_blocks(device, K, N, "q4_0", seed=53, layers=2)
+    w8 = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=54)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(55),
+                    device=device).to(torch.bfloat16)
+    for sc in (w8["scales"], w8["scales"].float()):
+        got = t8.quant_matmul_int8(x, w8["qs"], sc)
+        want = t8.quant_matmul_int8_plain(x, w8["qs"], sc)
+        assert bool(((got.float() - want.float()).abs()
+                     <= _qmm_tol(want, torch.bfloat16)).all())
+        assert torch.equal(got, t8.quant_matmul_int8_stacked(x, w8["qs"][None], sc[None], 0))
+    by = t8.quant_matmul_int8_stacked(x, w4["qs4"], w4["scales"], 1, off=8)
+    want = t8.quant_matmul_int8_packed_plain(x, w4["qs4"][1], w4["scales"][1], off=8)
+    assert bool(((by.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(by, tb.quant_matmul_q4b_stacked(x, tb.pack_b32(w4["qs4"]),
+                                                       w4["scales"], 1))
