@@ -188,6 +188,11 @@ ATTN_TOL = {"float32": (2e-5, 0.0), "bfloat16": (1e-3, 2.0 ** -7)}   # (atol, rt
 # the causal kernel's bf16 check adds 2^-8 of the p-weighted mean of |V|: p
 # rounded to bf16 against a chunk's running max, where few keys carry a row
 P_ROUND = 2.0 ** -8
+# the one-shot tile's edge cases add P_ROUND only where at most FEW_KEYS keys
+# carry every row (kv_valid <= 64), as one p rounded the other way moves such
+# an output by more than ATTN_TOL allows (1.074 of it at Tq 63, d 128,
+# kv_valid 50); every other edge case is held to ATTN_TOL alone
+FEW_KEYS = 64
 PARITY_ATOL = 2e-3
 MAIN_COS_MIN = 0.99
 DEC_PARITY_PREFILL, DEC_PARITY_STEPS = 160, 8
@@ -232,6 +237,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, rounds: int = 7, iters: int = 20) -> float:
+    """Device ms of one fn(): the median over ``rounds`` replays of a CUDA
+    graph of ``iters`` calls, by CUDA events, so that the host's call rate
+    (about 0.11 ms a wrapper call back to back) does not bound a short
+    kernel's time. qmm_ab.py times with it too."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 100, batches: int = 5) -> float:
+    """Host microseconds a call of fn() takes to enqueue its work (no
+    synchronisation inside a batch: the card runs behind), the least over
+    ``batches`` batches of ``calls``, as the host's other load only adds."""
+    import torch
+    best = float("inf")
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
 def bound(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
@@ -269,7 +317,24 @@ def build() -> float:
     for name in ("quant_matmul", "quant_matmul_int8"):
         for fn, n in sass_counts(str(_build._target(name)), ("HGMMA", "IGMMA")).items():
             log(f"sass[{name}]: {fn}: {n}")
+    check_attention_sass(sass_counts(str(_build._target("attention_single")),
+                                     ("HGMMA", "HMMA")))
     return secs
+
+
+def check_attention_sass(counts: dict) -> None:
+    """Every bf16 attention kernel runs its products on wgmma (HGMMA in each
+    instantiation of attn_wgmma_kernel, six of them) and none on mma.sync
+    (HMMA); fails where cuobjdump is missing (empty counts)."""
+    for fn, n in counts.items():
+        log(f"sass[attention_single]: {fn}: {n}")
+    require(bool(counts), "attention_single: no SASS counts (cuobjdump missing, or "
+            "no kernel issues HGMMA or HMMA)")
+    wgmma = [fn for fn in counts if "attn_wgmma_kernel" in fn]
+    require(len(wgmma) == 6 and all("HGMMA" in counts[fn] for fn in wgmma),
+            f"attention_single: {len(wgmma)} wgmma instantiations with HGMMA, not 6")
+    require(not any("HMMA" in c.split() for c in counts.values()),
+            "attention_single: a kernel still issues mma.sync (HMMA)")
 
 
 def sass_counts(lib: str, ops: tuple) -> dict:
@@ -400,15 +465,19 @@ def check_attention(device) -> tuple[dict, dict]:
                 "source": "qwen2_audio_tpu_torch/csrc/attention_single.cu",
                 "replaces": "qwen2_audio_tpu/ops/flash_attention.py:113",
                 "max_abs_err": err,
-                "ms": time_ms(lambda: attention_single(q, k, v)),
+                "ms": graph_ms(lambda: attention_single(q, k, v)),
                 "plain_ms": time_ms(lambda: attention_single_plain(q, k, v), iters=5),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                     qc, kc, vc, scale=1.0)),
             }
-            log(f"attention {tname} at the encoder shape: " + json.dumps(
-                {k_: main[tname][k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                                "library_ms")}))
+            extra = {"events_ms": time_ms(lambda: attention_single(q, k, v)),
+                     "host_us": host_us(lambda: attention_single(q, k, v))}
+            log(f"attention {tname} at the encoder shape (ms, library_ms: graph "
+                "replays; events_ms: back to back; host_us: a call's enqueue): "
+                + json.dumps({**{k_: main[tname][k_] for k_ in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}, **extra}))
+    check_attention_edges(device)
     return main["bfloat16"], main["float32"]
 
 
@@ -435,6 +504,64 @@ def _held(got, want, tname: str, what: str, p_abs_v=None,
     return diff.max().item(), used
 
 
+def _edge_case(device, B, H, Hkv, Tq, Tk, d, kv_valid, fused, seed):
+    """bf16 q (B, H, Tq, d), k/v (B, Hkv, Tk, d), and k/v with NaN at and
+    past kv_valid (what the kernel is given; the clean pair is the plain
+    version's). ``fused``: head views of one (B, T, 3 H d) projection output
+    (Tq = Tk, H = Hkv), the encoder's layout."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    if fused:
+        qkv = torch.randn(B, Tq, 3 * H * d, generator=g).to(device, torch.bfloat16)
+        q, k, v = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in qkv.chunk(3, -1))
+        q = q * d ** -0.5
+        clean = (k.clone(), v.clone())
+    else:
+        q = (torch.randn(B, H, Tq, d, generator=g) * d ** -0.5).to(device, torch.bfloat16)
+        k = torch.randn(B, Hkv, Tk, d, generator=g).to(device, torch.bfloat16)
+        v = torch.randn(B, Hkv, Tk, d, generator=g).to(device, torch.bfloat16)
+        clean = (k.clone(), v.clone())
+    k[:, :, kv_valid:] = float("nan")
+    v[:, :, kv_valid:] = float("nan")
+    return q, k, v, clean
+
+
+def _edge_cases():
+    """The bf16 tile's edges (128 queries a block, 128 keys a chunk): query
+    and key lengths on either side of 64 and 128, Tq != Tk, ragged kv_valid,
+    d = 64 and 128, GQA groups of 7 at B = 2, fused-QKV views:
+    (B, H, Hkv, Tq, Tk, d, kv_valid, fused)."""
+    return [
+        (2, 14, 2, 1, 1, 64, 1, False), (2, 14, 2, 63, 63, 128, 50, False),
+        (2, 14, 2, 64, 64, 64, 64, False), (2, 14, 2, 65, 65, 128, 1, False),
+        (2, 14, 2, 127, 127, 64, 100, False), (2, 14, 2, 128, 128, 128, 127, False),
+        (2, 14, 2, 129, 129, 64, 128, False), (2, 14, 2, 129, 129, 128, 129, False),
+        (2, 14, 2, 1500, 1500, 64, 1500, False), (1, 14, 2, 1500, 1500, 128, 1337, False),
+        (2, 14, 2, 65, 129, 64, 129, False), (2, 14, 2, 1, 1500, 128, 1400, False),
+        (2, 7, 1, 129, 1, 64, 1, False), (1, 14, 2, 1500, 63, 64, 63, False),
+        (2, 20, 20, 129, 129, 64, 129, True), (2, 20, 20, 1500, 1500, 64, 1201, True),
+        (2, 8, 8, 1500, 1500, 128, 1500, True), (2, 8, 8, 127, 127, 128, 65, True),
+    ]
+
+
+def check_attention_edges(device) -> None:
+    """The bf16 tile at its edges (``_edge_cases``) against the plain version
+    on the clean inputs, with NaN at and past kv_valid in what the kernel
+    reads: finite, and within ATTN_TOL, + P_ROUND * P|V| (the causal check's
+    term) where at most FEW_KEYS keys carry every row: there one p rounded
+    to bf16 the other way (scores summed in another order) moves an output
+    by up to 2^-8 of P|V|, more than ATTN_TOL allows at a small output."""
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    for i, (B, H, Hkv, Tq, Tk, d, kv_valid, fused) in enumerate(_edge_cases()):
+        q, k, v, (kc, vc) = _edge_case(device, B, H, Hkv, Tq, Tk, d, kv_valid, fused, 400 + i)
+        got = fa.attention_single(q, k, v, kv_valid)
+        _held(got, fa.attention_single_plain(q, kc, vc, kv_valid), "bfloat16",
+              f"edge single B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={Tk} d={d} kv_valid={kv_valid}"
+              + (" fused-qkv views" if fused else ""),
+              fa.attention_single_plain(q, kc, vc.abs(), kv_valid)
+              if kv_valid <= FEW_KEYS else None)
+
+
 def _causal_case(device, dtype, B, Hq, Hkv, T, d, seed):
     """q, k, v as (B, H, T, d) head views in the decoder's layout: q and k
     from (B, T, H, d) tensors (the RoPE outputs), v a view into the fused
@@ -455,6 +582,11 @@ def _causal_cases():
         (bf, 1, 28, 4, 752, 128, 752), (f32, 1, 28, 4, 752, 128, 752),
         (bf, 2, 28, 4, 333, 128, 333), (f32, 2, 28, 4, 333, 128, 333),
         (bf, 1, 8, 2, 200, 128, 150), (f32, 1, 8, 2, 200, 128, 150),
+        # the bf16 tile's edges (128 queries a block, 128 keys a chunk)
+        (bf, 2, 14, 2, 1, 128, 1), (bf, 2, 14, 2, 129, 128, 129),
+        (bf, 2, 14, 2, 129, 128, 100), (bf, 2, 7, 1, 129, 128, 64),
+        (bf, 1, 28, 4, 752, 128, 600), (bf, 2, 28, 4, 752, 128, 751),
+        (bf, 2, 14, 2, 65, 128, 65), (bf, 1, 14, 2, 128, 128, 127),
     ]
 
 
@@ -466,13 +598,16 @@ def check_causal(device, cases=None) -> tuple[dict, dict]:
     main = {}
     for i, (dtype, B, Hq, Hkv, T, d, kv_valid) in enumerate(cases or _causal_cases()):
         q, k, v = _causal_case(device, dtype, B, Hq, Hkv, T, d, seed=30 + i)
+        kc, vc = k.clone(), v.clone()   # the plain version's; NaN past kv_valid in k, v
+        k[:, :, kv_valid:] = float("nan")
+        v[:, :, kv_valid:] = float("nan")
         scale = d ** -0.5
         got = attention_causal(q, k, v, scale, kv_valid)
-        want = attention_causal_plain(q, k, v, scale, kv_valid)
+        want = attention_causal_plain(q, kc, vc, scale, kv_valid)
         tname = str(dtype).removeprefix("torch.")
         err, _ = _held(got, want, tname, f"causal {tname} B={B} Hq={Hq} Hkv={Hkv} "
                        f"T={T} d={d} kv_valid={kv_valid}",
-                       attention_causal_plain(q, k, v.abs(), scale, kv_valid))
+                       attention_causal_plain(q, kc, vc.abs(), scale, kv_valid))
         if tname in main:
             continue
         # least work: the visible (query, key) pairs only
@@ -486,15 +621,18 @@ def check_causal(device, cases=None) -> tuple[dict, dict]:
             "source": "qwen2_audio_tpu_torch/csrc/attention_single.cu",
             "replaces": "qwen2_audio_tpu/ops/flash_attention.py:52",
             "max_abs_err": err,
-            "ms": time_ms(lambda: attention_causal(q, k, v, scale, kv_valid)),
+            "ms": graph_ms(lambda: attention_causal(q, k, v, scale, kv_valid)),
             "plain_ms": time_ms(lambda: attention_causal_plain(q, k, v, scale, kv_valid),
                                 iters=5),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, is_causal=True, scale=scale, enable_gqa=True)),
         }
-        log(f"causal {tname} at the prefill shape: " + json.dumps(
-            {k_: main[tname][k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+        extra = {"events_ms": time_ms(lambda: attention_causal(q, k, v, scale, kv_valid)),
+                 "host_us": host_us(lambda: attention_causal(q, k, v, scale, kv_valid))}
+        log(f"causal {tname} at the prefill shape (ms, library_ms: graph replays): "
+            + json.dumps({**{k_: main[tname][k_] for k_ in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}, **extra}))
     return main["bfloat16"], main["float32"]
 
 
@@ -521,6 +659,28 @@ def _variant_cases():
         ("attention_single", {"pexp16": True}, f32, enc),
         ("attention_single", {"pexp16": True, "exp2": True}, bf, (2, 4, 4, 300, 64, 237, False)),
         ("attention_single", {"sm_scale": 0.125}, f32, (1, 8, 2, 200, 128, 150, False)),
+    ]
+
+
+def _variant_edge_cases():
+    """Each entry and option of ``_variant_cases`` across the bf16 tile's
+    edges (128 queries a block, 128 keys a chunk; GQA groups of 7, NaN past
+    kv_valid), in its format; held to ATTN_TOL, + P_ROUND where pexp16 is on
+    or at most FEW_KEYS keys carry every row, as ``check_attention_edges``."""
+    import torch
+    bf = torch.bfloat16
+    return [
+        ("attention_lite", {}, bf, (2, 14, 2, 129, 128, 100, False)),
+        ("attention_lite", {"exp2": True}, bf, (2, 14, 2, 1, 64, 1, False)),
+        ("attention_lite", {"sm_scale": 0.125}, bf, (2, 14, 2, 1500, 64, 1201, False)),
+        ("flash_attention_nopad", {"exp2": True}, bf, (2, 14, 2, 65, 128, 65, False)),
+        ("flash_attention_nopad", {"sm_scale": 0.125}, bf, (2, 14, 2, 127, 64, 127, False)),
+        ("attention_blockwise", {"exp2": True}, bf, (2, 14, 2, 129, 64, 1, False)),
+        ("attention_blockwise", {"sm_scale": 0.125}, bf, (2, 14, 2, 128, 128, 127, False)),
+        ("attention_single", {"exp2": True}, bf, (2, 14, 2, 63, 128, 63, False)),
+        ("attention_single", {"pexp16": True}, bf, (2, 14, 2, 127, 128, 64, False)),
+        ("attention_single", {"pexp16": True, "exp2": True}, bf, (2, 7, 1, 1500, 64, 1499, False)),
+        ("attention_single", {"sm_scale": 0.125}, bf, (2, 14, 2, 129, 128, 128, False)),
     ]
 
 
@@ -557,6 +717,7 @@ def check_attention_variants(device) -> tuple[dict, dict]:
     cases timed against the plain version, the default one-shot kernel and
     bf16 SDPA. Q is pre-scaled by d^-0.5 (and LOG2E under exp2) in its own
     type; where ``sm_scale`` is set, Q is unscaled and the kernel scales.
+    Kernel, default and SDPA times are graph replays (``graph_ms``).
     Returns the kernels line's entries for rows 18 and 19."""
     import torch
     import torch.nn.functional as F
@@ -564,7 +725,8 @@ def check_attention_variants(device) -> tuple[dict, dict]:
 
     main, lines, timed = {}, {}, set()
     sdpa = default = None
-    for i, (entry, opts, dtype, shape) in enumerate(_variant_cases()):
+    cases = [(c, False) for c in _variant_cases()] + [(c, True) for c in _variant_edge_cases()]
+    for i, ((entry, opts, dtype, shape), edge) in enumerate(cases):
         B, H, Hkv, T, d, kv_valid, fused = shape
         q, k, v = _attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed=200 + i)
         if not fused and kv_valid < T:      # NaN past kv_valid: never read
@@ -583,7 +745,8 @@ def check_attention_variants(device) -> tuple[dict, dict]:
         tname = str(dtype).removeprefix("torch.")
         what = (f"{entry} {json.dumps(opts)} {tname} B={B} H={H} Hkv={Hkv} T={T} d={d} "
                 f"kv_valid={kv_valid}{' fused-qkv views' if fused else ''}")
-        pv = plain(q, k, v.abs()) if opts.get("pexp16") else None
+        few = edge and kv_valid <= FEW_KEYS
+        pv = plain(q, k, v.abs()) if opts.get("pexp16") or few else None
         err, _ = _held(got, want, tname, what, pv, any_type=True)
         key = (entry, json.dumps(opts))
         if not fused or dtype != torch.bfloat16 or key in timed:
@@ -591,11 +754,11 @@ def check_attention_variants(device) -> tuple[dict, dict]:
         timed.add(key)
         if sdpa is None:
             qc, kc, vc = (x.contiguous() for x in (q, k, v))
-            sdpa = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, scale=1.0))
-            default = time_ms(lambda: fa.attention_single(q, k, v))
+            sdpa = graph_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc, scale=1.0))
+            default = graph_ms(lambda: fa.attention_single(q, k, v))
         flops = 4 * B * T * T * d * H
         b_ms, b_by = bound(flops, 4 * B * T * H * d * q.element_size(), PEAK_BF16)
-        t = {"ms": time_ms(lambda: kern(q, k, v)),
+        t = {"ms": graph_ms(lambda: kern(q, k, v)),
              "plain_ms": time_ms(lambda: plain(q, k, v), iters=5),
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": sdpa,
              "default_single_ms": default}
@@ -617,8 +780,8 @@ def check_attention_variants(device) -> tuple[dict, dict]:
     want = fa.attention_causal_plain(q, c[1], c[2], scale, exp2=True)
     _held(got, want, "bfloat16", "attention_causal exp2 bf16 B=1 Hq=28 Hkv=4 T=752 d=128",
           fa.attention_causal_plain(q, c[1], c[2].abs(), scale, exp2=True))
-    t2 = time_ms(lambda: fa.attention_causal(q, c[1], c[2], scale, exp2=True))
-    t1 = time_ms(lambda: fa.attention_causal(c[0], c[1], c[2], scale))
+    t2 = graph_ms(lambda: fa.attention_causal(q, c[1], c[2], scale, exp2=True))
+    t1 = graph_ms(lambda: fa.attention_causal(c[0], c[1], c[2], scale))
     log(f"attention_causal exp2 at the prefill shape: {t2:.4f} ms against {t1:.4f} "
         "without exp2")
     require(set(lines) == {"attention_lite", "attention_nopad"},
@@ -2522,9 +2685,9 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
 
 
 def _causal_bf16(kernel_name: str) -> bool:
-    """Whether a profiled kernel is attn_bf16_kernel<D, CAUSAL, OPTS> with
+    """Whether a profiled kernel is attn_wgmma_kernel<D, CAUSAL, OPTS> with
     CAUSAL true."""
-    _, found, rest = kernel_name.partition("attn_bf16_kernel<")
+    _, found, rest = kernel_name.partition("attn_wgmma_kernel<")
     args = rest.split(">", 1)[0].split(",")
     return bool(found) and len(args) > 1 and args[1].strip() == "true"
 

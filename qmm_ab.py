@@ -1,8 +1,9 @@
 """Time the quantized matmul kernels of csrc/quant_matmul.cu (dequantizing)
-and csrc/quant_matmul_int8.cu (exact-integer, mode "int8") at the shapes of
-the encode path, the decoder prefill and a decode step, for one checkout of
-the port, and print a digest of every output. Run it on two checkouts on the
-same card, in alternating order, to compare their times and their bits.
+and csrc/quant_matmul_int8.cu (exact-integer, mode "int8") and the bf16
+attention kernels of csrc/attention_single.cu at the shapes of the encode
+path, the decoder prefill and a decode step, for one checkout of the port,
+and print a digest of every output. Run it on two checkouts on the same
+card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE]
 
@@ -21,8 +22,17 @@ events, divided by 20: device time, not the host's call rate. Per path the sum o
 layers x (qkv 1280 -> 3840, out 1280 -> 1280, fc1 1280 -> 5120, fc2 5120 ->
 1280) at M = 1500; prefill 28 layers x (qkv 3584 -> 4608, o 3584 -> 3584,
 gate_up 3584 -> 37888, down 18944 -> 3584) at M = 752; decode the same
-at M = 1. Prints one JSON line and, with ``--out``, appends it there.
-Needs a CUDA device.
+at M = 1. The attention paths: "attention encode", 32 layers x the one-shot
+kernel at (B 1, 20 heads, T 1500, d 64) over views into one fused QKV
+output, and "attention prefill", 28 layers x the causal kernel at (B 1, 28
+query heads on 4 KV heads, T 752, d 128); each attention case also holds
+``host_us``, the host's microseconds to enqueue one wrapper call, and
+``c_us``, the same for the bare C entry (which encodes the tensor maps where
+the checkout has them). "attention edges" holds, for each of chip_smoke's
+bf16 tile edge cases (``_edge_cases``, its inputs and seeds, NaN past
+kv_valid), the share of ``ATTN_TOL`` alone that the one-shot kernel's
+largest distance from the plain version uses. Prints one JSON line and,
+with ``--out``, appends it there. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,38 +41,33 @@ import argparse
 import hashlib
 import json
 import os
-import statistics
-import subprocess
 import sys
+
+from chip_smoke import ATTN_TOL, _edge_case, _edge_cases, gpu_line, host_us
+from chip_smoke import graph_ms as time_ms
 
 ENCODER = (32, 1500, ((1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280)))
 DECODER = (28, ((3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584)))
+ATT_ENCODE = (1, 20, 20, 1500, 64)     # (B, H, Hkv, T, d)
+ATT_PREFILL = (1, 28, 4, 752, 128)
 
 
-def time_ms(fn, rounds: int = 7, iters: int = 20) -> float:
-    """Device ms of one fn(): the median over ``rounds`` replays of a CUDA
-    graph of ``iters`` calls, by CUDA events, so that the host's call rate
-    (about 0.11 ms a wrapper call) does not bound a short kernel's time."""
+def c_entry(q, k, v, causal: bool):
+    """The bare C entry of csrc/attention_single.cu on these bf16 inputs, its
+    arguments made once: what a call costs the host below the wrapper (the
+    tensor maps' encoding, where the checkout encodes them, and the launch)."""
     import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    del graph
-    return statistics.median(times)
+
+    from qwen2_audio_tpu_torch.ops import _build
+    B, H, T, d = q.shape
+    o = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    lib = _build.library("attention_single")
+    fn = lib.qa_attention_causal if causal else lib.qa_attention_single
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], B, H, k.shape[1], T,
+            k.shape[2], d, 1, d ** -0.5 if causal else 1.0, 0,
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*args)
 
 
 def main(argv=None) -> int:
@@ -153,11 +158,50 @@ def main(argv=None) -> int:
                        {"ms": time_ms(run)})
             del w, q, sc, x, forms
         torch.cuda.empty_cache()
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=False).stdout.strip()
-    line = json.dumps({"label": args.label, "root": args.root, "gpu": gpu,
-                       "paths_ms": paths, "shapes": shapes})
+
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    for path, layers, (B, H, Hkv, T, d) in (("attention encode", ENCODER[0], ATT_ENCODE),
+                                            ("attention prefill", DECODER[0], ATT_PREFILL)):
+        seed += 1
+        g = torch.Generator(device=device).manual_seed(seed)
+        if path == "attention encode":   # head views of the fused QKV output
+            qkv = torch.randn(B, T, 3 * H * d, generator=g, device=device).to(torch.bfloat16)
+            q, k, v = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in qkv.chunk(3, -1))
+            run = lambda: fa.attention_single(q, k, v)            # noqa: E731
+            ref = lambda: fa.attention_single_plain(q, k, v)      # noqa: E731
+        else:
+            q = torch.randn(B, T, H, d, generator=g, device=device).to(torch.bfloat16)
+            k, v = (torch.randn(B, T, Hkv, d, generator=g, device=device).to(torch.bfloat16)
+                    for _ in range(2))
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+            run = lambda: fa.attention_causal(q, k, v, d ** -0.5)  # noqa: E731
+            ref = lambda: fa.attention_causal_plain(q, k, v, d ** -0.5)  # noqa: E731
+        record(f"{path} B={B} H={H} Hkv={Hkv} T={T} d={d}", path, layers, run(), ref(),
+               {"ms": time_ms(run), "host_us": host_us(run),
+                "c_us": host_us(c_entry(q, k, v, path == "attention prefill"))})
+    return emit(args, {"paths_ms": paths, "shapes": shapes,
+                       "attention edges": edge_shares(device)})
+
+
+def edge_shares(device) -> dict:
+    """{case: the largest |kernel - plain| over ATTN_TOL's elementwise
+    tolerance} of the one-shot entry at chip_smoke's tile edge cases."""
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    atol, rtol = ATTN_TOL["bfloat16"]
+    out = {}
+    for i, (B, H, Hkv, Tq, Tk, d, kv_valid, fused) in enumerate(_edge_cases()):
+        q, k, v, (kc, vc) = _edge_case(device, B, H, Hkv, Tq, Tk, d, kv_valid, fused, 400 + i)
+        want = fa.attention_single_plain(q, kc, vc, kv_valid).float()
+        diff = (fa.attention_single(q, k, v, kv_valid).float() - want).abs()
+        out[f"B={B} H={H} Hkv={Hkv} Tq={Tq} Tk={Tk} d={d} kv_valid={kv_valid}"
+            + (" fused" if fused else "")] = (diff / (atol + rtol * want.abs())).max().item()
+    return out
+
+
+def emit(args, payload: dict) -> int:
+    """Print one JSON line (label, root, the card's name and power limit, the
+    payload) and, with --out, append it there."""
+    line = json.dumps({"label": args.label, "root": args.root, "gpu": gpu_line(), **payload})
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:

@@ -24,10 +24,9 @@
 // The same entries serve the TPU kernels' options and variants, chosen by
 // the runtime `flags`. Each kernel has two instantiations: OPTS = false is
 // the default path (no flag, sm_scale 1 for the one-shot kernel, causal for
-// the float32 causal kernel) compiled as it was before the options came, so
-// that they cost it no registers or branches; OPTS = true reads the flags,
-// sm_scale and the causal switch at run time. The build stays about as long
-// (fused_mlp.cu, built beside it, takes the longest):
+// the float32 causal kernel), which carries no option branch; OPTS = true
+// reads the flags, sm_scale and the causal switch at run time (the bf16
+// tile picks one branch-free softmax body per flag set once per chunk):
 // - kExp2: the scores are log2-domain logits (the caller folded LOG2E into
 //   its Q pre-scale) and both the running-max rescale and p take exp2f
 //   (flash_attention.py:56, :136-143, fa_variants.py:136);
@@ -51,23 +50,52 @@
 //
 // Design: the TPU kernel held a whole (128 x 1536) float32 score tile in
 // VMEM (768 KB); a Hopper block has at most 227 KB of shared memory, so the
-// keys stream through shared memory in chunks of 64 with a running max and
-// sum per query row (online softmax) inside one block, and the scores never
+// keys stream through shared memory in chunks with a running max and sum
+// per query row (online softmax) inside one block, and the scores never
 // leave registers.
-// - bf16: one block of 4 warps per (batch, head, 64 queries); each warp owns
-//   16 query rows and runs mma.sync m16n8k16 (bf16 in, float32 accumulate)
-//   for Q K^T and for P V. P goes from the score accumulators straight into
-//   the A fragments of the second product, cast to bf16 as the TPU kernel
-//   casts p to V's type; the row sum is taken over the float32 p (over the
-//   bf16 p under kPexp16 or kLite). V is stored transposed in shared memory
-//   so both products read their B fragments as 32-bit words; rows are
-//   padded by 8 elements so the 8 rows a fragment load touches fall on
-//   distinct banks.
+// - bf16, attn_wgmma_kernel: one block of three warpgroups (384 threads) per
+//   (batch, head, 128 queries), in roles that never reconverge:
+//   * warpgroup 0, the producer, gives its registers up (setmaxnreg 24); one
+//     thread issues every load as a TMA box (hopper_mma.cuh) in the
+//     128-byte-swizzled layout wgmma reads: the block's Q once, then K and
+//     V in chunks of 128 keys into a ring of kStages stages, K and V of a
+//     stage on mbarriers of their own so that Q K^T starts before V lands;
+//   * warpgroups 1 and 2, the consumers (setmaxnreg 240), 64 query rows
+//     each: S = Q K^T by wgmma m64n128k16 from shared memory, both operands
+//     K-major (Q and K rows are d-contiguous); the softmax on S in the
+//     accumulator's registers; then O += P V by wgmma m64n{d}k16 with A from
+//     registers (S's float32 accumulator packed to bf16 is, register for
+//     register, the A fragment of the next product) and B = V as it lies,
+//     MN-major, read with the transpose bit. A stage's K is released by an
+//     mbarrier arrival once its Q K^T has completed, its V once its P V has.
+//   The producer runs up to kStages chunks ahead, so the next chunk's K and
+//   V are in flight while the consumers work. Warpgroup 1 starts once
+//   warpgroup 0's first Q K^T has completed, so that the two stay out of
+//   step and one's softmax runs under the other's products. What limits the
+//   tile is the softmax, not the tensor cores: clock64 stamps of one block
+//   (qmm_ab.py --variants, on an H100) put 47-51 % of a consumer's time in
+//   it, 12-19 % in each product and 12-17 % in waiting for a K stage that
+//   the other warpgroup has not yet released. Half of the softmax's
+//   instructions are the exact expf that the default keeps; the rest are
+//   the max, the shifted scores, the sums, the rescale and the bf16 packing
+//   of P. The registers bind too: 12 warps put 3 on each SM sub-partition,
+//   so ptxas holds a thread to about 168 registers whatever setmaxnreg
+//   allows at run time, and a second set of scores (FA3's overlap of the
+//   next Q K^T with the softmax) serializes the wgmma at d = 128.
+//   Heads are read by stride: Q, K and V are each a 4-D tensor map (d,
+//   token, head, batch) over the caller's strides, so views into the fused
+//   QKV projection are read in place. d = 128 is two 64-column swizzle
+//   boxes; the K-major descriptors step into the second box after four k16
+//   steps, and the MN-major V descriptor finds it by its leading byte
+//   offset. The K and V maps end at kv_valid, so TMA zero-fills every key at
+//   or past it and a NaN there is never read; the mask is applied only on
+//   the chunk that crosses kv_valid and, causal, on the chunks that cross
+//   the diagonal. Grid: (batch x head, query tiles); causal query tiles are
+//   launched heaviest first (blockIdx.y 0 takes the last tile), so that an
+//   uneven last wave does not end on a long tile.
 // - float32: FMA only (no TF32), one thread per query row, 128 rows per
 //   block, keys in chunks of 32 that every thread reads by broadcast (d = 64;
 //   d = 128 takes the causal float32 kernel below with the mask off).
-// - causal bf16: the bf16 kernel above with the mask and the loop bound
-//   of the causal template flag.
 // - causal float32 (d = 128): one query row would need 2*d float
 //   registers for q and the accumulator, so two threads share a row, each
 //   holding every other float4 of d (the two halves then read neighbouring
@@ -75,7 +103,8 @@
 //   dot products meet with one shuffle; 64 rows per block of 128 threads.
 // Heads are read by stride, so Q/K/V may be views into the fused QKV
 // projection output; the output is written in the layout the strides give.
-// wgmma, TMA and warp specialisation are left for later work.
+
+#include "hopper_mma.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,14 +113,17 @@
 
 namespace {
 
+using namespace qa;
+
 struct Strides {
   long long b, h, t;
 };
 
-constexpr int kBQ = 64;      // bf16: queries per block (4 warps x 16 rows)
-constexpr int kBK = 64;      // bf16: keys per chunk
-constexpr int kWarps = 4;
-constexpr int kPad = 8;      // bf16 elements of padding per shared row
+constexpr int kBQ = 128;        // bf16: queries per block (2 consumer warpgroups x 64)
+constexpr int kBK = 128;        // bf16: keys per chunk
+constexpr int kStages = 2;      // bf16: K/V chunks in the ring
+constexpr int kThreads = 384;   // bf16: the producer and 2 consumer warpgroups
+constexpr int kBox = kBQ * kSwizzleRow;   // one (128 rows, 64 values) bf16 box: 16 KB
 
 // option bits of `flags`
 constexpr int kExp2 = 1;     // exp2f in place of expf
@@ -113,199 +145,316 @@ __device__ __forceinline__ float prob(float x, int flags) {
   return expo(x, flags);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 in, float32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// Q, then kStages stages of K and of V, each (128 rows, D) in D / 64 boxes;
+// the mbarriers; 1024 bytes to align the boxes to the swizzle atom
 template <int D>
 constexpr int bf16_smem_bytes() {
-  return (kBQ * (D + kPad) + kBK * (D + kPad) + D * (kBK + kPad)) * 2;
+  return (1 + 2 * kStages) * (D / 64) * kBox + (1 + 4 * kStages) * 8 + 1024;
+}
+
+// A consumer thread's part of a (64, 128) chunk of scores, in wgmma's
+// accumulator layout: sc[4 n + e] is row qa and sc[4 n + 2 + e] row qc = qa
+// + 8, key k0 + 8 n + 2 t4 + e (e = 0, 1). Scales (SCALE) and masks (EDGE:
+// the chunk crosses kv_valid or, causal, the diagonal) the scores in place
+// and returns the two rows' maxima over the quad.
+template <bool CAUSAL, bool SCALE, bool EDGE>
+__device__ __forceinline__ void scale_mask_max(float (&sc)[kBK / 2], int k0,
+                                               int t4, int kv_valid, int qa, int qc,
+                                               float sm_scale, float& mx0, float& mx1) {
+  float pm0[4], pm1[4];   // four partial maxima a row: shorter dependency chains
+#pragma unroll
+  for (int i = 0; i < 4; ++i) pm0[i] = pm1[i] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x0 = SCALE ? sc[4 * n + e] * sm_scale : sc[4 * n + e];
+      float x1 = SCALE ? sc[4 * n + 2 + e] * sm_scale : sc[4 * n + 2 + e];
+      if (EDGE) {
+        const int col = k0 + 8 * n + 2 * t4 + e;
+        x0 = col < kv_valid && (!CAUSAL || col <= qa) ? x0 : -INFINITY;
+        x1 = col < kv_valid && (!CAUSAL || col <= qc) ? x1 : -INFINITY;
+      }
+      sc[4 * n + e] = x0;
+      sc[4 * n + 2 + e] = x1;
+      pm0[n & 3] = fmaxf(pm0[n & 3], x0);
+      pm1[n & 3] = fmaxf(pm1[n & 3], x1);
+    }
+  mx0 = fmaxf(fmaxf(pm0[0], pm0[1]), fmaxf(pm0[2], pm0[3]));
+  mx1 = fmaxf(fmaxf(pm1[0], pm1[1]), fmaxf(pm1[2], pm1[3]));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// p = prob(s - m) in place, P packed to bf16 as the A fragments of P V's
+// k16 steps, and the two rows' sums of p (kLite: of p rounded to bf16, read
+// back from the packed words; kPexp16: p is a bf16 value already), for the
+// option bits F known at compile time: no branch inside the loop. Keys 16 kk
+// .. 16 kk + 15 are column groups n = 2 kk and 2 kk + 1: the fragment's
+// values 2 t4 (+ 1) and 2 t4 + 8 (+ 1) of rows g and g + 8. Four partial
+// sums a row shorten the chain of dependent adds.
+template <int F>
+__device__ __forceinline__ void chunk_probs(float (&sc)[kBK / 2], float mn0, float mn1,
+                                            uint32_t (&pa)[kBK / 16][4], float& ls0,
+                                            float& ls1) {
+  float ps0[4] = {0.f, 0.f, 0.f, 0.f}, ps1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+    sc[4 * n] = prob(sc[4 * n] - mn0, F);
+    sc[4 * n + 1] = prob(sc[4 * n + 1] - mn0, F);
+    sc[4 * n + 2] = prob(sc[4 * n + 2] - mn1, F);
+    sc[4 * n + 3] = prob(sc[4 * n + 3] - mn1, F);
+    const uint32_t w0 = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+    const uint32_t w1 = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+    pa[n >> 1][2 * (n & 1)] = w0;
+    pa[n >> 1][2 * (n & 1) + 1] = w1;
+    if ((F & kLite) && !(F & kPexp16)) {
+      ps0[n & 3] += bf16_lo(w0) + bf16_hi(w0);
+      ps1[n & 3] += bf16_lo(w1) + bf16_hi(w1);
+    } else {
+      ps0[n & 3] += sc[4 * n] + sc[4 * n + 1];
+      ps1[n & 3] += sc[4 * n + 2] + sc[4 * n + 3];
+    }
+  }
+  ls0 = (ps0[0] + ps0[1]) + (ps0[2] + ps0[3]);
+  ls1 = (ps1[0] + ps1[1]) + (ps1[2] + ps1[3]);
+}
+
+// The online-softmax step of one chunk: the scores become p (and P, in
+// pa), the running maxima and sums move on, and a0 / a1 are the factors
+// that rescale the rows' earlier sums of P V. Every chunk holds key k0 < kv_valid, and key 0
+// is visible to every row (causal too), so the maxima are finite from the
+// first chunk on and a chunk with no visible key for a row leaves its
+// maximum alone.
+template <bool CAUSAL, bool OPTS>
+__device__ __forceinline__ void softmax_chunk(float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
+                                              bool edge, int k0, int t4, int kv_valid, int qa,
+                                              int qc, float sm_scale, int flags, float& m0,
+                                              float& m1, float& l0, float& l1, float& a0,
+                                              float& a1) {
+  constexpr bool SCALE = CAUSAL || OPTS;   // the one-shot default: Q pre-scaled
+  float mx0, mx1;
+  if (edge)   // a branch, not selects on every chunk
+    scale_mask_max<CAUSAL, SCALE, true>(sc, k0, t4, kv_valid, qa, qc, sm_scale, mx0, mx1);
+  else
+    scale_mask_max<CAUSAL, SCALE, false>(sc, k0, t4, kv_valid, qa, qc, sm_scale, mx0, mx1);
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  a0 = expo(m0 - mn0, flags);
+  a1 = expo(m1 - mn1, flags);
+  m0 = mn0;
+  m1 = mn1;
+  float ls0, ls1;
+  if (!OPTS) {
+    chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1);
+  } else if (CAUSAL) {   // the causal entry takes kExp2 only
+    if (flags & kExp2)
+      chunk_probs<kExp2>(sc, mn0, mn1, pa, ls0, ls1);
+    else
+      chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1);
+  } else {
+    switch (flags) {   // kPexp16 | kLite sums as kPexp16 does (p is bf16)
+      case kExp2: chunk_probs<kExp2>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kPexp16:
+      case kPexp16 | kLite: chunk_probs<kPexp16>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kPexp16 | kExp2:
+      case kPexp16 | kLite | kExp2:
+        chunk_probs<kPexp16 | kExp2>(sc, mn0, mn1, pa, ls0, ls1);
+        break;
+      case kLite: chunk_probs<kLite>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kLite | kExp2: chunk_probs<kLite | kExp2>(sc, mn0, mn1, pa, ls0, ls1); break;
+      default: chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1); break;
+    }
+  }
+  l0 = l0 * a0 + ls0;
+  l1 = l1 * a1 + ls1;
+}
+
+// S = Q K^T for the warpgroup's 64 rows over one K stage, both operands
+// K-major: box kk / 4, 32 bytes a k16 step
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], const uint8_t* qw,
+                                         const uint8_t* kst) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk >> 2) * kBox + (kk & 3) * 32;
+    wgmma_bf16_n128(sc, wgmma_desc(qw + off), wgmma_desc(kst + off), kk > 0);
+  }
+}
+
+// O += P V over one V stage: P from registers, V MN-major, 16 keys (two
+// 8-row atoms) a k16 step
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[kBK / 16][4],
+                                         const uint8_t* vst) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t bd = wgmma_desc_mn(vst + kk * 2 * kSwizzleAtom, kBox);
+    if constexpr (D == 64)
+      wgmma_bf16_rs_n64(acc, pa[kk], bd);
+    else
+      wgmma_bf16_rs_n128(acc, pa[kk], bd);
+  }
+}
+
+// keep the registers an in-flight wgmma reads or writes where they are
+template <int N>
+__device__ __forceinline__ void pin_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(r[i]);
+}
+__device__ __forceinline__ void pin_all(uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pin(pa[kk][i]);
 }
 
 template <int D, bool CAUSAL, bool OPTS>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
-                 Strides sv, Strides so, int group, int Tq, int kv_valid,
-                 float sm_scale, int opt_flags) {
+__global__ void __launch_bounds__(kThreads, 1)
+attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  __nv_bfloat16* __restrict__ o, Strides so, int H, int group, int Tq,
+                  int kv_valid, float sm_scale, int opt_flags) {
+  constexpr int NB = D / 64;          // 64-value swizzle boxes per row
+  constexpr int kTile = NB * kBox;    // Q, or one stage's K or V
   const int flags = OPTS ? opt_flags : 0;
-  constexpr bool SCALE = CAUSAL || OPTS;   // the one-shot default: Q pre-scaled
-  constexpr int LD = D + kPad;      // row stride of Qs and Ks
-  constexpr int LDV = kBK + kPad;   // row stride of Vt
-  constexpr int V8 = D / 8;         // 16-byte vectors per row
-  extern __shared__ float4 smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBQ][LD]
-  __nv_bfloat16* Ks = Qs + kBQ * LD;                               // [kBK][LD]
-  __nv_bfloat16* Vt = Ks + kBK * LD;                               // [D][LDV]
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* ks = qs + kTile;              // [kStages][kTile]
+  uint8_t* vs = ks + kStages * kTile;    // [kStages][kTile]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + kStages * kTile);
+  uint64_t* full_k = full_q + 1;         // [kStages] each
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int hk = h / group;
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* kb = k + b * sk.b + hk * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + hk * sv.h;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  // the row sum adds p as P V takes it, rounded to bf16
-  const bool sum16 = flags & (kPexp16 | kLite);
-
-  for (int i = tid; i < kBQ * V8; i += kWarps * 32) {
-    const int r = i / V8, c = (i % V8) * 8;
-    uint4 val = zero;
-    if (q0 + r < Tq)
-      val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * sq.t + c);
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
-  }
-  __syncthreads();
-
-  const int r0 = warp * 16 + g;     // this thread's rows: r0 and r0 + 8
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    qf[ks][0] = ld32(Qs + r0 * LD + ks * 16 + 2 * t4);
-    qf[ks][1] = ld32(Qs + (r0 + 8) * LD + ks * 16 + 2 * t4);
-    qf[ks][2] = ld32(Qs + r0 * LD + ks * 16 + 2 * t4 + 8);
-    qf[ks][3] = ld32(Qs + (r0 + 8) * LD + ks * 16 + 2 * t4 + 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
+  const int b = blockIdx.x / H, h = blockIdx.x - b * H, hk = h / group;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kBQ;
   int n_chunks = (kv_valid + kBK - 1) / kBK;
   if (CAUSAL)   // tile skip: no key past the block's last query row
     n_chunks = min(n_chunks, (q0 + kBQ - 1) / kBK + 1);
-  const int qa = q0 + r0, qc = qa + 8;   // this thread's two query rows
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int k0 = ch * kBK;
-    __syncthreads();   // every warp is done with the previous chunk
-    for (int i = tid; i < kBK * V8; i += kWarps * 32) {
-      // K: lanes walk along a row (16-byte stores, conflict-free)
-      const int r = i / V8, c = (i % V8) * 8;
-      uint4 kv = zero;
-      if (k0 + r < kv_valid)
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * sk.t + c);
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kv;
-      // V: lanes walk along the keys, so the transposed stores of one
-      // element index land on consecutive halves of shared memory
-      const int rv = i % kBK, cv = (i / kBK) * 8;
-      uint4 vv = zero;
-      if (k0 + rv < kv_valid)
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + rv) * sv.t + cv);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(cv + e) * LDV + rv] = ve[e];
-    }
-    __syncthreads();
 
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt) {
-        const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + ks * 16 + 2 * t4;
-        mma16816(s[nt], qf[ks], ld32(kr), ld32(kr + 8));
-      }
-
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = k0 + nt * 8 + 2 * t4 + e;
-        const float x0 = SCALE ? s[nt][e] * sm_scale : s[nt][e];
-        const float x1 = SCALE ? s[nt][2 + e] * sm_scale : s[nt][2 + e];
-        s[nt][e] = col < kv_valid && (!CAUSAL || col <= qa) ? x0 : -INFINITY;
-        s[nt][2 + e] = col < kv_valid && (!CAUSAL || col <= qc) ? x1 : -INFINITY;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every chunk holds key k0 < kv_valid (and, causal, k0 <= q0 <= both
-    // rows), so the new maxima are finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expo(m0 - mn0, flags), a1 = expo(m1 - mn1, flags);
-    m0 = mn0;
-    m1 = mn1;
-    float ls0 = 0.f, ls1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt) {
-      s[nt][0] = prob(s[nt][0] - mn0, flags);
-      s[nt][1] = prob(s[nt][1] - mn0, flags);
-      s[nt][2] = prob(s[nt][2] - mn1, flags);
-      s[nt][3] = prob(s[nt][3] - mn1, flags);
-      if (sum16) {
-        ls0 += round_bf16(s[nt][0]) + round_bf16(s[nt][1]);
-        ls1 += round_bf16(s[nt][2]) + round_bf16(s[nt][3]);
-      } else {
-        ls0 += s[nt][0] + s[nt][1];
-        ls1 += s[nt][2] + s[nt][3];
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 256);
+      mbar_init(&empty_v[s], 256);
     }
-    l0 = l0 * a0 + ls0;
-    l1 = l1 * a1 + ls1;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= a0;
-      acc[nd][1] *= a0;
-      acc[nd][2] *= a1;
-      acc[nd][3] *= a1;
-    }
-
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                              pack_bf16(s[2 * j][2], s[2 * j][3]),
-                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* vr = Vt + (nd * 8 + g) * LDV + j * 16 + 2 * t4;
-        mma16816(acc[nd], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
-  const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
-  __nv_bfloat16* ob = o + b * so.b + h * so.h;
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, kTile);
+      for (int c = 0; c < NB; ++c) tma_load_4d(qs + c * kBox, &qmap, full_q, 64 * c, q0, h, b);
+      for (int j = 0; j < n_chunks; ++j) {
+        const int s = j % kStages;
+        const uint32_t free_par = ((j / kStages) & 1) ^ 1;
+        mbar_wait(&empty_k[s], free_par);
+        mbar_expect_tx(&full_k[s], kTile);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(ks + s * kTile + c * kBox, &kmap, &full_k[s], 64 * c, j * kBK, hk, b);
+        mbar_wait(&empty_v[s], free_par);
+        mbar_expect_tx(&full_v[s], kTile);
+        for (int c = 0; c < NB; ++c)
+          tma_load_4d(vs + s * kTile + c * kBox, &vmap, &full_v[s], 64 * c, j * kBK, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers ----
+    // Per chunk: S = Q K^T, the softmax, O += P V, each product waited for
+    // before its registers are read. A stage's K is released once its Q K^T
+    // has completed, its V once its P V has, so the producer refills K while
+    // the softmax runs. (Issuing chunk j's Q K^T beside chunk j - 1's P V,
+    // FA3's overlap inside a warpgroup, and FA3's ping-pong of the two
+    // warpgroups measured slower: PERF.md.)
+    setmaxnreg_inc<240>();
+    const int wg = (threadIdx.x >> 7) - 1;   // rows 64 wg .. 64 wg + 63 of the block
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int row_lo = q0 + 64 * wg;
+    const int qa = row_lo + 16 * warp + g, qc = qa + 8;   // this thread's two rows
+    const uint8_t* qw = qs + wg * 64 * kSwizzleRow;
+    float acc[D / 2];            // O: rows qa, qc; columns 8 n + 2 t4 (+ 1)
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t4;
-    if (qa < Tq)
-      *reinterpret_cast<uint32_t*>(ob + qa * so.t + col) =
-          pack_bf16(acc[nd][0] * inv0, acc[nd][1] * inv0);
-    if (qc < Tq)
-      *reinterpret_cast<uint32_t*>(ob + qc * so.t + col) =
-          pack_bf16(acc[nd][2] * inv1, acc[nd][3] * inv1);
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float sc[kBK / 2];           // S, then P, of the chunk
+    uint32_t pa[kBK / 16][4];    // P as the A fragments of the k16 steps of P V
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+    // only a chunk that crosses kv_valid or (causal) the diagonal is masked
+    const int clean_end = CAUSAL ? min(kv_valid, row_lo + 1) : kv_valid;
+
+    // warpgroup 1 starts once warpgroup 0's first Q K^T has completed: out
+    // of step, one's softmax runs under the other's products (in step, both
+    // wait on the tensor cores at once: 9 % slower at the encoder shape)
+    if (wg == 1) named_sync(1, 256);
+    mbar_wait(full_q, 0);
+    for (int j = 0; j < n_chunks; ++j) {
+      const int s = j % kStages;
+      const uint32_t par = (j / kStages) & 1;
+      mbar_wait(&full_k[s], par);
+      wgmma_fence();
+      issue_qk<D>(sc, qw, ks + s * kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_all(sc);
+      mbar_arrive(&empty_k[s]);
+      if (wg == 0 && j == 0) named_arrive(1, 256);
+      softmax_chunk<CAUSAL, OPTS>(sc, pa, (j + 1) * kBK > clean_end, j * kBK, t4, kv_valid, qa,
+                                  qc, sm_scale, flags, m0, m1, l0, l1, a0, a1);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= a0;
+        acc[4 * n + 1] *= a0;
+        acc[4 * n + 2] *= a1;
+        acc[4 * n + 3] *= a1;
+      }
+      pin_all(acc);
+      pin_all(pa);
+      mbar_wait(&full_v[s], par);
+      wgmma_fence();
+      issue_pv<D>(acc, pa, vs + s * kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin_all(acc);
+      pin_all(pa);
+      mbar_arrive(&empty_v[s]);
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = l0 == 0.f ? 1.f : 1.f / l0;
+    const float inv1 = l1 == 0.f ? 1.f : 1.f / l1;
+    __nv_bfloat16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = 8 * n + 2 * t4;
+      if (qa < Tq)
+        *reinterpret_cast<uint32_t*>(ob + qa * so.t + col) =
+            pack_bf16(acc[4 * n] * inv0, acc[4 * n + 1] * inv0);
+      if (qc < Tq)
+        *reinterpret_cast<uint32_t*>(ob + qc * so.t + col) =
+            pack_bf16(acc[4 * n + 2] * inv1, acc[4 * n + 3] * inv1);
+    }
   }
 }
 
@@ -512,20 +661,50 @@ attn_f32_causal_kernel(const float* __restrict__ q, const float* __restrict__ k,
         make_float4(acc[c].x * inv, acc[c].y * inv, acc[c].z * inv, acc[c].w * inv);
 }
 
-template <int D, bool CAUSAL>
-void launch_bf16(const void* q, const void* k, const void* v, void* o,
-                 Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-                 int group, int Tq, int kv_valid, float sm_scale, int flags,
-                 cudaStream_t stream) {
+// A (B, heads, tokens, D) bf16 operand read by stride: a 4-D tensor map
+// (d, token, head, batch) in (64, 128, 1, 1) boxes with the 128-byte
+// swizzle; tokens at or past `tokens` read as zero. The stride of an
+// extent-1 dimension is never used, so it is replaced by one TMA takes.
+template <int D>
+bool head_map(CUtensorMap* map, const void* base, Strides s, int B, int heads, int tokens) {
+  const long long dims[4] = {D, tokens, heads, B};
+  long long st[3] = {s.t * 2, s.h * 2, s.b * 2};
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) st[i] = D * 2;
+  const int box[4] = {64, kBK, 1, 1};
+  return make_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, dims, st, box, true);
+}
+
+template <int D, bool CAUSAL, bool OPTS>
+cudaError_t launch_wgmma(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                         void* o, Strides so, int B, int H, int group, int Tq, int kv_valid,
+                         float sm_scale, int flags, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<D>();
+  const cudaError_t attr = allow_smem<attn_wgmma_kernel<D, CAUSAL, OPTS>>(smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
+  attn_wgmma_kernel<D, CAUSAL, OPTS><<<grid, kThreads, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), so, H, group, Tq, kv_valid, sm_scale, flags);
+  return cudaGetLastError();
+}
+
+// the bf16 tile: three tensor maps encoded on the host, then the launch
+// (OPTS: the instantiation that reads flags and sm_scale)
+template <int D, bool CAUSAL>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
+                        int Hkv, int Tq, int kv_valid, float sm_scale, int flags,
+                        cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!head_map<D>(&qm, q, sq, B, H, Tq) || !head_map<D>(&km, k, sk, B, Hkv, kv_valid) ||
+      !head_map<D>(&vm, v, sv, B, Hkv, kv_valid))
+    return cudaErrorNotSupported;
+  const int group = H / Hkv;
   const bool opts = flags != 0 || (!CAUSAL && sm_scale != 1.f);
-  auto kernel = opts ? attn_bf16_kernel<D, CAUSAL, true> : attn_bf16_kernel<D, CAUSAL, false>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq,
-      sk, sv, so, group, Tq, kv_valid, sm_scale, flags);
+  return opts ? launch_wgmma<D, CAUSAL, true>(qm, km, vm, o, so, B, H, group, Tq, kv_valid,
+                                              sm_scale, flags, stream)
+              : launch_wgmma<D, CAUSAL, false>(qm, km, vm, o, so, B, H, group, Tq, kv_valid,
+                                               sm_scale, flags, stream);
 }
 
 template <int D>
@@ -548,7 +727,8 @@ void launch_f32_causal(const void* q, const void* k, const void* v, void* o,
 // its (batch, head, token) strides in elements with a unit stride along d.
 // bf16 and float32 take d = 64 or 128. 1 <= kv_valid <= Tk. sm_scale
 // multiplies the float32 scores; flags: kExp2 | kPexp16 | kLite.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaGetLastError() after the launch, or cudaErrorNotSupported
+// where a bf16 operand cannot be described as a tensor map.
 extern "C" int qa_attention_single(
     const void* q, const void* k, const void* v, void* o,
     long long qsb, long long qsh, long long qst,
@@ -565,11 +745,11 @@ extern "C" int qa_attention_single(
   const int group = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16 && d == 64) {
-    launch_bf16<64, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid,
-                           sm_scale, flags, st);
+    return (int)launch_bf16<64, false>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, Tq, kv_valid,
+                                       sm_scale, flags, st);
   } else if (is_bf16 && d == 128) {
-    launch_bf16<128, false>(q, k, v, o, sq, sk, sv, so, B, H, group, Tq, kv_valid,
-                            sm_scale, flags, st);
+    return (int)launch_bf16<128, false>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, Tq, kv_valid,
+                                        sm_scale, flags, st);
   } else if (!is_bf16 && d == 64) {
     const dim3 grid((Tq + kRowsF32 - 1) / kRowsF32, H, B);
     auto kernel = flags != 0 || sm_scale != 1.f ? attn_f32_kernel<64, true>
@@ -591,7 +771,7 @@ extern "C" int qa_attention_single(
 // addressed by its (batch, head, token) strides in elements with a unit
 // stride along d; key j is visible to query i iff j <= i and j < kv_valid.
 // bf16 and float32 take d = 128 (the decoder's head dim). 1 <= kv_valid <= T.
-// flags: kExp2. Returns cudaGetLastError() after the launch.
+// flags: kExp2. Returns as qa_attention_single does.
 extern "C" int qa_attention_causal(
     const void* q, const void* k, const void* v, void* o,
     long long qsb, long long qsh, long long qst,
@@ -608,8 +788,8 @@ extern "C" int qa_attention_causal(
   const int group = H / Hkv;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16) {
-    launch_bf16<128, true>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale,
-                           flags, st);
+    return (int)launch_bf16<128, true>(q, k, v, o, sq, sk, sv, so, B, H, Hkv, T, kv_valid,
+                                       sm_scale, flags, st);
   } else {
     launch_f32_causal<128>(q, k, v, o, sq, sk, sv, so, B, H, group, T, kv_valid, sm_scale,
                            1, flags, st);

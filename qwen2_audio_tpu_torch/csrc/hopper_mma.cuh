@@ -1,17 +1,23 @@
 // Hopper (sm_90a) building blocks of the large-M quantized matmul tiles in
-// quant_matmul.cu and quant_matmul_int8.cu: mbarriers, TMA tile loads and
-// the host-side tensor map, cp.async with zero fill, wgmma descriptors and
-// the two wgmma shapes the tiles issue (m64n128k16 bf16 -> f32, m64n128k32
-// s8 -> s32), setmaxnreg, and the 128-byte swizzle both operands are
-// stored in.
+// quant_matmul.cu and quant_matmul_int8.cu and of the bf16 attention tile in
+// attention_single.cu: mbarriers, TMA tile loads and the host-side tensor
+// map, cp.async with zero fill, wgmma descriptors and the wgmma shapes the
+// tiles issue (m64n128k16 bf16 -> f32 from shared memory, m64n64k16 and
+// m64n128k16 bf16 -> f32 with A from registers, m64n128k32 s8 -> s32),
+// setmaxnreg, and the 128-byte swizzle the operands are stored in.
 //
-// Operand layout: every wgmma operand here is K-major with a 128-byte
-// swizzle. A tile of R rows holds 128 bytes of K per row (64 bf16 or 128 s8
+// Operand layout: every shared-memory wgmma operand here has a 128-byte
+// swizzle. A tile of R rows holds 128 bytes per row (64 bf16 or 128 s8
 // values); the 16-byte chunk c of row r lies at r * 128 + ((c ^ (r % 8)) *
-// 16). TMA writes x tiles in this layout (CU_TENSOR_MAP_SWIZZLE_128B); the
+// 16). TMA writes tiles in this layout (CU_TENSOR_MAP_SWIZZLE_128B); the
 // transform warpgroups write the weight tiles in it by hand (swizzle_chunk).
-// One wgmma reads 32 bytes of K per row, so the k-th step within a tile is
-// the descriptor of the tile plus 32 * k bytes.
+// - K-major (wgmma_desc): a row holds 64 values of K. One wgmma reads 32
+//   bytes of K per row, so the k-th step within a tile is the descriptor
+//   of the tile plus 32 * k bytes.
+// - MN-major (wgmma_desc_mn, the attention tile's V): a row holds 64 values
+//   of N and rows walk K, 8 rows (1024 bytes) to an atom. One k16 step is
+//   two atoms, so the k-th step is the descriptor plus 2048 * k bytes; a
+//   second block of 64 values of N lies `lbo` bytes after the first.
 
 #pragma once
 
@@ -130,9 +136,25 @@ __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// arrive at named barrier id (1..15) of count threads without waiting
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // shared-memory writes of this thread made visible to wgmma (the async proxy)
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a 4-D box at (c0 inner, c1, c2, c3) into shared memory; completes on bar
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
 }
 
 // ---- wgmma -------------------------------------------------------------- //
@@ -143,6 +165,16 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(kSwizzleAtom >> 4) << 32) |
          (1ull << 62);
+}
+
+// descriptor of an MN-major, 128-byte-swizzled tile at p (1024-byte
+// aligned): rows of 128 bytes (64 values of N) walk K, atoms of 8 rows are
+// 1024 bytes apart (the stride byte offset), and the next 64 values of N
+// lie lbo bytes on (the leading byte offset; unused where N is 64)
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(kSwizzleAtom >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -156,15 +188,20 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// keep the compiler from moving a register that a wgmma is writing
+// keep the compiler from moving a register that a wgmma is writing or reading
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 
 #define QA_R8(T, d, i)                                                                     \
   T(d[i]), T(d[i + 1]), T(d[i + 2]), T(d[i + 3]), T(d[i + 4]), T(d[i + 5]), T(d[i + 6]), \
       T(d[i + 7])
+#define QA_R32(T, d) QA_R8(T, d, 0), QA_R8(T, d, 8), QA_R8(T, d, 16), QA_R8(T, d, 24)
 #define QA_R64(T, d)                                                                      \
   QA_R8(T, d, 0), QA_R8(T, d, 8), QA_R8(T, d, 16), QA_R8(T, d, 24), QA_R8(T, d, 32),      \
       QA_R8(T, d, 40), QA_R8(T, d, 48), QA_R8(T, d, 56)
+#define QA_OPS32                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define QA_OPS64                                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
@@ -193,7 +230,34 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t
       : "l"(a), "l"(b), "r"(0));
 }
 
+// d (64 x 64, float32) += a (64 x 16 bf16, the register fragment: a[0..3]
+// rows g and g + 8 of the warp's 16, values 2 t4, 2 t4 + 1 and + 8) * b
+// (16 x 64 bf16), b MN-major in shared memory (the transpose bit)
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " QA_OPS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : QA_R32("+f", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, float32) += a (64 x 16 bf16, registers) * b (16 x 128 bf16,
+// MN-major in shared memory)
+__device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " QA_OPS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : QA_R64("+f", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef QA_OPS32
 #undef QA_OPS64
+#undef QA_R32
 #undef QA_R64
 #undef QA_R8
 
@@ -249,7 +313,7 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor of up to 3 dimensions, innermost first: dims[i] values with
+// A tensor of up to 4 dimensions, innermost first: dims[i] values with
 // strides[i] bytes from one index of dimension i + 1 to the next, read in
 // boxes of box[i] values, with or without the 128-byte swizzle; values out
 // of range read as zero.
@@ -257,9 +321,9 @@ inline bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType typ
                      const long long* dims, const long long* strides, const int* box,
                      bool swizzle128) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr || rank < 1 || rank > 3) return false;
-  cuuint64_t d[3], st[2];
-  cuuint32_t bx[3], es[3];
+  if (fn == nullptr || rank < 1 || rank > 4) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], es[4];
   for (int i = 0; i < rank; ++i) {
     d[i] = (cuuint64_t)dims[i];
     bx[i] = (cuuint32_t)box[i];

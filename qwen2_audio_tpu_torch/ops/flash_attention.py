@@ -11,10 +11,12 @@ the l == 0 -> 1 guard, output in the input type. It is bound by arithmetic
 12 us at the card's 989 TFLOP/s bf16 peak).
 
 The TPU kernel held the whole (128 x 1536) float32 score tile in VMEM; a
-Hopper block has at most 227 KB of shared memory, so the CUDA kernel streams
-the keys in chunks of 64 with a running max and sum (online softmax) inside
-one block. bf16 runs on mma.sync tensor-core tiles, float32 on plain FMA (no
-TF32). Design notes are in the CUDA source.
+Hopper block has at most 227 KB of shared memory, so the CUDA kernels stream
+the keys in chunks with a running max and sum (online softmax) inside one
+block. bf16 runs on a TMA-fed wgmma tile (128 queries a block, keys in
+chunks of 128, a producer warpgroup and two consumer warpgroups), float32 on
+plain FMA (no TF32). ``launch_plan`` says which kernel a call takes and how
+it is launched; design notes are in the CUDA source.
 
 ``attention_single`` launches the kernel for CUDA tensors and runs
 ``attention_single_plain`` for CPU tensors.
@@ -122,23 +124,73 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kv_valid
 
 
-def _launch(entry: str, head_dims: dict, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, kv_valid: int, sm_scale: float, option_bits: int
-            ) -> torch.Tensor:
-    """Check the card's inputs and launch ``entry`` of csrc/attention_single.cu;
-    returns (B, H, Tq, d) laid out in memory as (B, Tq, H, d)."""
-    B, H, Tq, d = q.shape
-    Hkv = k.shape[1]
-    if d not in head_dims.get(q.dtype, ()):
+# the bf16 wgmma tile (csrc/attention_single.cu): queries a block, keys a
+# chunk, threads (a producer and two consumer warpgroups)
+_BQ, _BK, _THREADS = 128, 128, 384
+_F32_ROWS = {"f32": 128, "f32_causal": 64}   # query rows per block of 128 threads
+
+
+def _refuse(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> None:
+    """Raise for what the kernels do not take rather than copying it:
+    another type or head dim, inputs of mixed type or device, a last stride
+    other than 1, a base not 16-byte aligned or a stride not a multiple of
+    16 bytes (the TMA boxes and 16-byte loads)."""
+    head_dims = _CAUSAL_HEAD_DIMS if causal else _KERNEL_HEAD_DIMS
+    if q.shape[-1] not in head_dims.get(q.dtype, ()):
         raise ValueError(f"{entry}: the kernel takes head dims {head_dims} by "
-                         f"type, got {q.dtype} d={d}")
+                         f"type, got {q.dtype} d={q.shape[-1]}")
     vec = 16 // q.element_size()   # the kernel moves rows in 16-byte vectors
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.dtype != q.dtype or x.device != q.device or x.stride(-1) != 1 \
-                or x.data_ptr() % 16 or any(s % vec for s in x.stride()[:3]):
+        st = x.stride()
+        if x.dtype != q.dtype or x.device != q.device or st[3] != 1 \
+                or x.data_ptr() % 16 or st[0] % vec or st[1] % vec or st[2] % vec:
             raise ValueError(f"{entry}: {name} must be {q.dtype} on "
                              f"{q.device} with a unit last stride, 16-byte "
                              f"aligned rows and strides divisible by {vec}")
+
+
+def launch_plan(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                kv_valid: int, *, causal: bool = False, sm_scale: float = 1.0,
+                option_bits: int = 0) -> dict:
+    """How ``entry`` launches for these inputs, from shapes, types, strides
+    and addresses alone (no device is touched). ``kernel``: ``"wgmma"`` (the
+    bf16 tile), ``"f32"`` (float32, d = 64, non-causal) or ``"f32_causal"``
+    (float32 causal, and non-causal d = 128); ``grid`` as launched, and for
+    the bf16 tile ``tiles`` (the query tile each blockIdx.y takes: the last
+    first for causal, heaviest first), ``chunks`` (key chunks per tile),
+    ``kv_extent`` (the K/V tensor maps' token extent, kv_valid: TMA
+    zero-fills every key past it) and ``opts`` (the instantiation that
+    reads flags and sm_scale). Raises as the wrapper does (``_refuse``).
+
+    The plan describes the launch but does not drive it: the C launcher of
+    csrc/attention_single.cu computes the same grid, tile order and chunks
+    itself, so a change to one must be made in the other."""
+    _refuse(entry, q, k, v, causal)
+    B, H, Tq, d = q.shape
+    if q.dtype == torch.bfloat16:
+        n = -(-Tq // _BQ)
+        tiles = tuple(range(n))[::-1] if causal else tuple(range(n))
+        full = -(-kv_valid // _BK)
+        chunks = tuple(min(full, t + 1) if causal else full for t in tiles)
+        return {"kernel": "wgmma", "grid": (B * H, n, 1), "threads": _THREADS,
+                "block_q": _BQ, "block_k": _BK, "tiles": tiles,
+                "chunks": chunks, "kv_extent": kv_valid,
+                "opts": bool(option_bits) or (not causal and sm_scale != 1.0)}
+    kernel = "f32" if d == 64 and not causal else "f32_causal"
+    rows = _F32_ROWS[kernel]
+    return {"kernel": kernel, "grid": (-(-Tq // rows), H, B), "threads": 128,
+            "kv_extent": kv_valid}
+
+
+def _launch(entry: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            kv_valid: int, sm_scale: float, option_bits: int, causal: bool
+            ) -> torch.Tensor:
+    """Check the card's inputs and launch ``entry`` of csrc/attention_single.cu;
+    returns (B, H, Tq, d) laid out in memory as (B, Tq, H, d)."""
+    _refuse(entry, q, k, v, causal)
+    B, H, Tq, d = q.shape
+    Hkv = k.shape[1]
     o = torch.empty((B, Tq, H, d), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
     lib = _build.library("attention_single")
@@ -159,8 +211,8 @@ def counted(entry, plain, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with these arguments and counted on ``entry.launches``."""
     if q.device.type == "cpu":
         return plain()
-    head_dims = _CAUSAL_HEAD_DIMS if kernel == "qa_attention_causal" else _KERNEL_HEAD_DIMS
-    o = _launch(kernel, head_dims, q, k, v, kv_valid, float(sm_scale), option_bits)
+    o = _launch(kernel, q, k, v, kv_valid, float(sm_scale), option_bits,
+                causal=kernel == "qa_attention_causal")
     entry.launches += 1
     return o
 
@@ -217,15 +269,16 @@ def attention_causal_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            exp2: bool = False) -> torch.Tensor:
     """q (B, H, T, d), k/v (B, Hkv, T, d) -> (B, H, T, d) in q's type: causal
     softmax(sm_scale * Q K^T) V. Scores, softmax and the P V sum in float32;
-    p is cast to V's type before the P V product, as the TPU kernel does."""
+    p is cast to V's type before the P V product, as the TPU kernel does.
+    Keys at or past kv_valid are not read, as the kernel reads none."""
     B, H, T, d = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     kv_valid = Tk if kv_valid is None else kv_valid
+    k, v = k[:, :, :kv_valid], v[:, :, :kv_valid]
     qg = q.float().unflatten(1, (Hkv, H // Hkv))             # (B, Hkv, g, T, d)
     s = (qg @ k.float()[:, :, None].transpose(-1, -2)) * sm_scale
-    col = torch.arange(Tk, device=q.device)
-    visible = (col[None, :] <= torch.arange(T, device=q.device)[:, None]) \
-        & (col < kv_valid)
+    col = torch.arange(kv_valid, device=q.device)
+    visible = col[None, :] <= torch.arange(T, device=q.device)[:, None]
     s = s.masked_fill(~visible, -torch.inf)
     p = _exp(s - s.amax(dim=-1, keepdim=True), exp2)
     l = p.sum(dim=-1, keepdim=True)

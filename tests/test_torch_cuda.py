@@ -92,6 +92,9 @@ def _tol(want, dtype, p_abs_v=None, any_type=False):
     (torch.float32, 1, 28, 4, 752, 128, 752),
     (torch.bfloat16, 2, 28, 4, 333, 128, 333),
     (torch.float32, 2, 14, 2, 100, 128, 77),
+    (torch.bfloat16, 2, 14, 2, 129, 128, 100),
+    (torch.bfloat16, 2, 7, 1, 1, 128, 1),
+    (torch.bfloat16, 2, 28, 4, 752, 128, 600),
 ])
 def test_causal_kernel_matches_plain(device, dtype, B, Hq, Hkv, T, d, kv_valid):
     q, k, v = chip_smoke._causal_case(device, dtype, B, Hq, Hkv, T, d, seed=7)
@@ -100,6 +103,47 @@ def test_causal_kernel_matches_plain(device, dtype, B, Hq, Hkv, T, d, kv_valid):
     assert tfa.attention_causal.launches == before + 1
     want = tfa.attention_causal_plain(q, k, v, d ** -0.5, kv_valid)
     tol = _tol(want, dtype, tfa.attention_causal_plain(q, k, v.abs(), d ** -0.5, kv_valid))
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke._edge_cases())))
+def test_attention_tile_edges_match_plain(device, i):
+    """The bf16 tile where queries and keys cross its 64- and 128-row edges,
+    Tq != Tk, GQA groups of 7, fused-QKV views, NaN at and past kv_valid
+    (chip_smoke's phase-2 edge cases and tolerance: ATTN_TOL, with the
+    p-rounding term only where at most FEW_KEYS keys carry every row)."""
+    B, H, Hkv, Tq, Tk, d, kv_valid, fused = chip_smoke._edge_cases()[i]
+    q, k, v, (kc, vc) = chip_smoke._edge_case(device, B, H, Hkv, Tq, Tk, d, kv_valid, fused,
+                                             seed=13)
+    got = tfa.attention_single(q, k, v, kv_valid)
+    want = tfa.attention_single_plain(q, kc, vc, kv_valid)
+    few = kv_valid <= chip_smoke.FEW_KEYS
+    tol = _tol(want, torch.bfloat16,
+               tfa.attention_single_plain(q, kc, vc.abs(), kv_valid) if few else None)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke._variant_edge_cases())))
+def test_attention_variant_edges_match_plain(device, i):
+    """Each attention entry and option across the bf16 tile's edges, NaN
+    past kv_valid (chip_smoke's phase-2 cases and tolerance: the p-rounding
+    term under pexp16 or where at most FEW_KEYS keys carry every row)."""
+    entry, opts, dtype, (B, H, Hkv, T, d, kv_valid, fused) = chip_smoke._variant_edge_cases()[i]
+    q, k, v = chip_smoke._attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed=14)
+    k[:, :, kv_valid:] = float("nan")
+    v[:, :, kv_valid:] = float("nan")
+    if "sm_scale" in opts:
+        q = q * (1.0 / opts["sm_scale"])
+    kern, plain = chip_smoke._variant_fns(entry, opts, kv_valid)
+    counter = chip_smoke._attention_entries()[entry]
+    before = counter.launches
+    got = kern(q, k, v)
+    assert counter.launches == before + 1
+    want = plain(q, k, v)
+    few = opts.get("pexp16") or kv_valid <= chip_smoke.FEW_KEYS
+    tol = _tol(want, dtype, plain(q, k, v.abs()) if few else None, any_type=True)
+    assert bool(torch.isfinite(got).all())
     assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
