@@ -11,7 +11,9 @@ before the result lines are printed):
    (sm_90a), in parallel, and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with stated tolerances (the decode kernels over a
-   cache filled with NaN past each stream's position), and time kernel,
+   cache filled with NaN past each stream's position, at the split-KV
+   kernel's range edges too, its launch plan held to what the card keeps
+   resident), and time kernel,
    plain version and (where one exists) the one-call library equivalent;
    the four dequantizing-matmul entries at M = 1, 7, 752 and 1500 over the
    decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
@@ -45,7 +47,8 @@ before the result lines are printed):
    its own plain version, away from the one without the option, and the
    kernel without the option the other way round); the int8 KV cache's quantizer
    bit-equal to the CPU's over scales that a reciprocal multiply would round
-   otherwise; dq16 (scales rounded to bf16 first) on the dequantizing
+   otherwise, and its one-launch quantize-and-write (kv_append_quant) the
+   same; dq16 (scales rounded to bf16 first) on the dequantizing
    entries at M = 1 and 752 over q8_0, symmetric q4_0 and q4_1, the panel
    entry bit-equal, the output moved against dq16 off;
 3. parity at full width and depth 2, card against CPU in float32: the
@@ -70,7 +73,10 @@ before the result lines are printed):
       the card, ``--dec-layers`` deep) and answer 1 request on a 30 s clip
       through capi.whisper_full with ``--new-tokens`` new tokens, plus one
       request over the int8 KV cache; check the launch counts of the prefill and decode kernels
-      against the prefills and decoder forwards the runs report, the
+      and of the int8 cache writes (one a layer and forward, the prefill's
+      included) against the prefills and decoder forwards the runs report,
+      log the int8-cache request's decode ms per token beside the bf16
+      one's and the device kernels of one decode step over each cache, the
       segments, tokens and logits, and, teacher-forced over the same
       tokens, the plain-attention path (cosine per step);
    c. quantized encode: the checkpoint of (a) through
@@ -128,7 +134,9 @@ kernels in bf16 also + 2**-8 * (P |V|), the p-weighted mean of |V| (the
 plain attention of |V|): each p is rounded to bf16 (2**-9 relative)
 against another running maximum in the kernel than in the plain version,
 which moves the output by up to that much where few keys carry the row,
-as in a causal prefill's first rows; the attention variants the encoder
+as in a causal prefill's first rows (the decode kernels' range-edge cases,
+on the streams of at most 128 visible rows; the decode kernels' other
+cases are held to the bf16 tolerance alone); the attention variants the encoder
 attention's, and under pexp16 also + 2**-8 * (P |V|), in float32 too: s - m
 and p are rounded to bf16 against a running maximum (a dropped chunk or a missing
 rescale still reads 10x or more, tests/test_torch_fa_variants.py), and
@@ -193,6 +201,13 @@ P_ROUND = 2.0 ** -8
 # an output by more than ATTN_TOL allows (1.074 of it at Tq 63, d 128,
 # kv_valid 50); every other edge case is held to ATTN_TOL alone
 FEW_KEYS = 64
+# the decode kernels' range-edge cases add P_ROUND for the streams with at
+# most FEW_DECODE_ROWS visible rows: p is rounded against a split's own
+# maximum (in the parent kernel, a 64-key chunk's running one), and where
+# few keys carry an output that cancels, one p rounded the other way moves
+# it past ATTN_TOL (1.054 of it at S 2048, pos 64, in both kernels'
+# arithmetic); every other decode case is held to ATTN_TOL alone
+FEW_DECODE_ROWS = 2 * FEW_KEYS
 PARITY_ATOL = 2e-3
 MAIN_COS_MIN = 0.99
 DEC_PARITY_PREFILL, DEC_PARITY_STEPS = 160, 8
@@ -895,12 +910,32 @@ def kv_with_scales(amax, seed: int, shape=(2, 64, 4, 128)):
     return torch.from_numpy(x)
 
 
-def check_quantize_kv(device) -> None:
+def _cache_diff(card: list, cpu: list) -> float:
+    """The largest |card - cpu| over int8 cache tensors (values, scales),
+    infinity where their NaN (never written) entries differ."""
+    import torch
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a = a.cpu()
+        if not torch.equal(a.isnan(), b.isnan()):
+            return float("inf")
+        worst = max(worst, (a.float() - b.float()).nan_to_num().abs().max().item())
+    return worst
+
+
+def check_quantize_kv(device) -> dict:
     """The int8 KV cache's scales and values on the card bit-equal to the
     CPU's, over amax values where a reciprocal multiply rounds otherwise
-    than IEEE division (ROADMAP.md section 3 item 1)."""
+    than IEEE division (ROADMAP.md section 3): the plain
+    quantizer on the card, and the one-launch quantize-and-write
+    ``kv_append_quant`` (bf16 and float32 K/V, V a strided view, B 2 at
+    positions 3 and 180 of 200, rows past the capacity dropped) against its
+    plain route on the CPU. Times the kernel at a decode step (T 1) and a
+    752-position prefill (T 752) of the 7B decoder's 4 KV heads; returns
+    the decode step's entry."""
     import torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import _quantize_kv
+    from qwen2_audio_tpu_torch.ops import flash_decode as fd
     amax = reciprocal_misses(512, seed=7)
     x = kv_with_scales(amax, seed=8)
     (q_c, s_c), (q_g, s_g) = _quantize_kv(x), _quantize_kv(x.to(device))
@@ -913,6 +948,50 @@ def check_quantize_kv(device) -> None:
         f"{torch.equal(q_g.cpu(), q_c)}")
     require(torch.equal(s_g.cpu(), s_c) and torch.equal(q_g.cpu(), q_c),
             "quantize_kv: the card's int8 cache differs from the CPU's")
+
+    def cache(dev, B=2, S=200, H=4):
+        c = [torch.full((B, S, H, 128), -7, dtype=torch.int8, device=dev),
+             torch.full((B, S, H), float("nan"), device=dev)]
+        return c + [t.clone() for t in c]
+
+    pos = torch.tensor([3, 180], dtype=torch.int32)
+    for xdt in (torch.bfloat16, torch.float32):
+        kv = torch.cat([x, x.flip(1) * 3.0], dim=-1).to(xdt)   # v: a strided view
+        k, v = kv[..., :128].contiguous(), kv[..., 128:]
+        want, got = cache("cpu"), cache(device)
+        fd.kv_append_quant(k, v, *want, pos)
+        fd.kv_append_quant(k.to(device), v.to(device), *got, pos.to(device))
+        same = _cache_diff(got, want) == 0.0
+        log(f"kv_append_quant ({str(xdt).removeprefix('torch.')} K/V): the card's int8 "
+            f"cache bit-equal to the CPU's {same}")
+        require(same, "kv_append_quant: the card's int8 cache differs from the CPU's")
+
+    entry = None
+    for T in (1, 752):   # a decode step, then a prefill
+        g = torch.Generator(device="cpu").manual_seed(T)
+        k, v = (torch.randn(1, T, 4, 128, generator=g).to(device, torch.bfloat16)
+                for _ in range(2))
+        c, posv = cache(device, B=1, S=2048), torch.tensor([783 if T == 1 else 0],
+                                                           dtype=torch.int32, device=device)
+        c_cpu = [t.cpu() for t in c]
+        fd.kv_append_quant_plain(k.cpu(), v.cpu(), *c_cpu, posv.cpu())
+        fd.kv_append_quant(k, v, *c, posv)
+        err = _cache_diff(c, c_cpu)
+        require(err == 0.0, f"kv_append_quant: T={T} differs from its plain version")
+        nbytes = 2 * k.numel() * k.element_size() + 2 * k.numel() + 2 * T * 4 * 4 + 4
+        b_ms, b_by = bound(0, nbytes, PEAK_F32)
+        t = {"name": "kv_append_quant", "route": "cuda",
+             "source": "qwen2_audio_tpu_torch/csrc/flash_decode.cu",
+             "replaces": "qwen2_audio_tpu/models/qwen2_decoder.py:105",
+             "max_abs_err": err,
+             "ms": graph_ms(lambda: fd.kv_append_quant(k, v, *c, posv)),
+             "plain_ms": time_ms(lambda: fd.kv_append_quant_plain(k, v, *c, posv)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        log(f"kv_append_quant at T={T} (bf16 K/V, 4 KV heads, d 128), the plain route "
+            f"on the card beside it: " + json.dumps(
+                {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms")}))
+        entry = entry or t
+    return entry
 
 
 def _decode_case(device, qdt, kvdt, B, S, pos, seed, Hq=28, Hkv=4, d=128):
@@ -941,20 +1020,92 @@ def _decode_case(device, qdt, kvdt, B, S, pos, seed, Hq=28, Hkv=4, d=128):
 def _decode_cases():
     import torch
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
-    spread = [17, 63, 64, 783]   # first chunk, both sides of a chunk edge, S - 1
+    spread = [17, 63, 64, 783]   # one split, one full split, a second split of one row, S - 1
     return [  # (q dtype, cache dtype, B, S, positions); first of each kernel: main
+        (bf, bf, 1, 2048, [783]), (bf, i8, 1, 2048, [783]),
         (bf, bf, 1, 784, [783]), (bf, i8, 1, 784, [783]),
         (f32, f32, 1, 784, [783]), (f32, bf, 1, 784, [783]), (f32, i8, 1, 784, [783]),
         (bf, bf, 4, 784, spread), (f32, f32, 4, 784, spread), (bf, i8, 4, 784, spread),
         (bf, bf, 1, 8192, [8191]), (bf, i8, 1, 8192, [8191]),
+        *_decode_edge_cases(),
     ]
 
 
+def _decode_edge_cases():
+    """The split-KV kernel's range edges at a capacity of 2048 (16 splits of
+    64-row granules at B 1, 4 at B 4): pos 0 (one row, 15 splits empty), 63
+    and 64 (one split; a second split of one row), 1023 and 1024 (16 full
+    splits; 9 splits of two stages, the last of one row), 2047 (S - 1), and
+    B 4 at mixed positions, each over both cache types."""
+    import torch
+    bf, i8 = torch.bfloat16, torch.int8
+    return ([(bf, kv, 1, 2048, [p]) for kv in (bf, i8) for p in (0, 63, 64, 1023, 1024, 2047)]
+            + [(bf, kv, 4, 2048, [0, 64, 1024, 2047]) for kv in (bf, i8)])
+
+
+def decode_p_abs_v(plain, q, cache, posv, scale):
+    """P|V|, the plain decode attention over |V|, for the streams with at
+    most FEW_DECODE_ROWS visible rows and 0 for the others (None where no
+    stream has so few): the p-rounding term of the range-edge cases."""
+    few = posv + 1 <= FEW_DECODE_ROWS
+    if not bool(few.any()):
+        return None
+    # |V| past pos is masked by the plain version (int8: |-128| stays -128 there)
+    absv = [*cache[:2], cache[2].abs(), *cache[3:]] if len(cache) == 4 else [cache[0],
+                                                                             cache[1].abs()]
+    return plain(q, *absv, posv, sm_scale=scale).float() * few[:, None, None]
+
+
+def check_decode_residency(device) -> None:
+    """The launch plan's split count keeps every cluster resident at once:
+    for each batch of the 7B decoder's 4 KV heads up to 8 streams at a
+    capacity of 2048, the plan's B * Hkv clusters of ``splits`` CTAs against
+    what the card holds (cudaOccupancyMaxActiveClusters of the bf16 kernel at
+    the plan's shared memory); what it holds of clusters of 16 and 8 at one
+    CTA an SM (the most stages) is logged."""
+    import ctypes
+
+    import torch
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import flash_decode as fd
+    lib = _build.library("flash_decode")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def resident(splits: int, stages: int) -> int:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            _build.check(lib.qa_flash_decode_resident_clusters(splits, stages,
+                                                               ctypes.byref(out)),
+                         "qa_flash_decode_resident_clusters")
+        return out.value
+
+    seen = {}
+    for B in (1, 2, 3, 4, 8):
+        plan = fd.decode_plan(B, 2048, 4, 7, torch.bfloat16, n_sm)
+        held = resident(plan["splits"], plan["stages"])
+        seen[B] = (plan["splits"], held)
+        require(B * 4 <= held, f"decode plan: B={B} puts {B * 4} clusters of "
+                f"{plan['splits']} CTAs on a card that holds {held} at once")
+    most = fd.decode_plan(1, 8192, 4, 7, torch.bfloat16, n_sm)["stages"]
+    log(f"decode plan residency (B: splits, clusters the card holds): {json.dumps(seen)}; "
+        f"at one CTA an SM {n_sm} SMs hold {resident(16, most)} clusters of 16 and "
+        f"{resident(8, most)} of 8")
+
+
 def check_decode(device, cases=None) -> tuple[dict, dict]:
+    """Rows 4 and 5 against their plain versions over every case (NaN past
+    each stream's position; the range-edge cases with the p-rounding term
+    for streams of few rows, ``decode_p_abs_v``), each case's launch plan
+    (splits, CTAs holding keys) logged; at B 1 and bf16 q, the first case of each kernel and
+    capacity timed by CUDA-graph replays beside bf16 SDPA over the prefix,
+    the back-to-back event time and the host's enqueue time logged beside
+    them. The first case of each kernel (capacity 2048, pos 783: the audio
+    -> text request's) is its main entry."""
     import torch
     import torch.nn.functional as F
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
-    main = {}
+    main, timed, edges = {}, set(), _decode_edge_cases()
+    check_decode_residency(device)
     for i, (qdt, kvdt, B, S, pos) in enumerate(cases or _decode_cases()):
         q, cache, posv = _decode_case(device, qdt, kvdt, B, S, pos, seed=50 + i)
         d = q.shape[-1]
@@ -965,35 +1116,41 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
         got = kern(q, *cache, posv, sm_scale=scale)
         want = plain(q, *cache, posv, sm_scale=scale)
         tname = str(qdt).removeprefix("torch.")
-        err, _ = _held(got, want, tname, f"decode q {tname} cache "
-                       f"{str(kvdt).removeprefix('torch.')} B={B} S={S} pos={pos}")
-        name = "flash_decode_quant" if quant else "flash_decode"
-        if name in main:
-            continue
         Hq, Hkv = q.shape[1], cache[0].shape[2]
+        plan = fd.decode_plan(B, S, Hkv, Hq // Hkv, kvdt,
+                              torch.cuda.get_device_properties(device).multi_processor_count)
+        what = (f"decode q {tname} cache {str(kvdt).removeprefix('torch.')} B={B} S={S} "
+                f"pos={pos} (splits {plan['splits']}, stages {plan['stages']}, "
+                f"{plan['ctas_with_keys'](pos)} of {plan['splits'] * Hkv * B} CTAs hold keys)")
+        p_abs_v = (decode_p_abs_v(plain, q, cache, posv, scale)
+                   if (qdt, kvdt, B, S, pos) in edges else None)
+        err, _ = _held(got, want, tname, what, p_abs_v)
+        name = "flash_decode_quant" if quant else "flash_decode"
+        if B != 1 or qdt != torch.bfloat16 or (name, S) in timed:
+            continue
+        timed.add((name, S))
         n = sum(p + 1 for p in pos)   # cache rows the function must read
         nbytes = (2 * n * Hkv * d * cache[0].element_size() + 2 * q.numel() * q.element_size()
                   + (2 * n * Hkv * 4 if quant else 0))
-        b_ms, b_by = bound(4 * Hq * d * n, nbytes, PEAK_BF16 if qdt == torch.bfloat16 else PEAK_F32)
+        b_ms, b_by = bound(4 * Hq * d * n, nbytes, PEAK_BF16)
+        run = lambda: kern(q, *cache, posv, sm_scale=scale)   # noqa: E731
         lib = None
         if not quant:
             q4 = q[:, :, None]
             kp, vp = (c[:, :pos[0] + 1].transpose(1, 2) for c in cache)
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(
                 q4, kp, vp, scale=scale, enable_gqa=True))
-        main[name] = {
-            "name": name, "route": "cuda",
-            "source": "qwen2_audio_tpu_torch/csrc/flash_decode.cu",
-            "replaces": "qwen2_audio_tpu/ops/flash_decode.py:43",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: kern(q, *cache, posv, sm_scale=scale), iters=50),
-            "plain_ms": time_ms(lambda: plain(q, *cache, posv, sm_scale=scale)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-        }
-        log(f"{name} at the main path's last step: " + json.dumps(
-            {k_: main[name][k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")}))
+        t = {"name": name, "route": "cuda",
+             "source": "qwen2_audio_tpu_torch/csrc/flash_decode.cu",
+             "replaces": "qwen2_audio_tpu/ops/flash_decode.py:43",
+             "max_abs_err": err, "ms": graph_ms(run),
+             "plain_ms": time_ms(lambda: plain(q, *cache, posv, sm_scale=scale)),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+        log(f"{name} at S={S} pos={pos[0]} (graph replay; SDPA as library_ms): " + json.dumps(
+            {**{k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             "events_ms": time_ms(run, iters=50), "host_us": host_us(run)}))
+        main.setdefault(name, t)
     return main["flash_decode"], main["flash_decode_quant"]
-
 
 
 def _rand_blocks(device, K: int, N: int, fmt: str, seed: int, layers: int = 0) -> dict:
@@ -2035,11 +2192,12 @@ def _quant_entries() -> tuple:
 
 def _launch_counters():
     from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal, attention_single
-    from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
+    from qwen2_audio_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_quant,
+                                                        kv_append_quant)
     from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
     return {"mel_log_frames": mel_frames, "attention_single": attention_single,
             "attention_causal": attention_causal, "flash_decode": flash_decode,
-            "flash_decode_quant": flash_decode_quant,
+            "flash_decode_quant": flash_decode_quant, "kv_append_quant": kv_append_quant,
             **{e.__name__: e for e in _quant_entries()}}
 
 
@@ -2189,6 +2347,10 @@ def run_audio_to_text(ctx, cfg, requests: int, new_tokens: int) -> dict:
     require(launches["flash_decode_quant"] == L * fw_q8,
             f"int8 decode kernel launched {launches['flash_decode_quant']} times, "
             f"want {L} x {fw_q8}")
+    n_q8 = sum(r["cache"] == "q8" for r in runs)   # one prefill a request
+    require(launches["kv_append_quant"] == L * (fw_q8 + n_q8),
+            f"int8 cache writes launched {launches['kv_append_quant']} times, want {L} x "
+            f"({fw_q8} decode forwards + {n_q8} prefill)")
     require(launches["mel_log_frames"] == n_req
             and launches["attention_single"] == n_req * ctx.hparams.n_audio_layer,
             "text: encoder kernels not launched once per request and layer")
@@ -2201,9 +2363,49 @@ def run_audio_to_text(ctx, cfg, requests: int, new_tokens: int) -> dict:
     bundle.cache_dtype = torch.bfloat16
     profile_call(lambda: capi.whisper_full(ctx, params, clips[0]), "whisper_full (audio -> text)")
     bf = [r for r in runs if r["cache"] != "q8"]
+    q8 = [r["decode_ms_per_token"] for r in runs if r["cache"] == "q8"]
+    log(f"text: decode ms per token, int8 cache {json.dumps(q8)} beside bf16 "
+        f"{json.dumps([r['decode_ms_per_token'] for r in bf])} (ratio "
+        f"{statistics.median(q8) / statistics.median(r['decode_ms_per_token'] for r in bf):.3f}); "
+        f"one decode step by cache: {json.dumps(step_launches(bundle))}")
     return {"launches": launches, "runs": runs, "peak_gib": peak,
             "prefill_ms": statistics.median(r["prefill_ms"] for r in bf),
             "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in bf)}
+
+
+def step_launches(bundle, pos: int = 783, capacity: int = 2048) -> dict:
+    """One decode step of the bundle's decoder at ``pos`` over a fresh bf16
+    and int8 cache: the device kernels it launches (counted by the profiler)
+    and its host ms (the median of 5 steps, each ending in a device
+    synchronisation)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    out = {}
+    x = bundle.decoder.embed(torch.tensor([[7]], device=bundle.decoder.device))
+    for dtype in (torch.bfloat16, "q8"):
+        cache = create_cache(bundle.cfg, 1, capacity, dtype=dtype, device=x.device)
+
+        def step():
+            decoder_forward(bundle.params, bundle.cfg, x, cache, pos)
+
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        kernels = sum(ev.count for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+        out["bf16" if dtype == torch.bfloat16 else "int8"] = {
+            "kernels": kernels, "host_ms": statistics.median(times[1:])}
+        del cache
+    return out
 
 
 def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
@@ -2555,7 +2757,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
                 mine = teacher_forced_logits(bundle, first)
                 cos = [_cosine(a, b) for a, b in zip(first_logits, mine)]
                 split, n_ties = first_real_disagreement(first_logits, mine)
-                upto = n_tok if split is None else split
+                upto = n_tok if split is None else min(split, n_tok)
                 log(f"{what}: against the first configuration, teacher-forced over "
                     f"{len(cos)} steps: min cos {min(cos):.6f} (min {MAIN_COS_MIN}); "
                     f"{n_ties} near-tie steps pick another token; this request's tokens "
@@ -2717,6 +2919,7 @@ def profile_call(fn, what: str) -> dict | None:
                  or _causal_bf16(name)
                  else "attention_single" if "attn_" in name
                  else "flash_decode" if "decode_kernel" in name
+                 else "kv_append_quant" if "kv_append_quant" in name
                  else "mel_log_frames" if "mel_log_frames" in name
                  else "quant_matmul" if "qmm_" in name
                  else "fused_mlp" if "swiglu_kernel" in name
@@ -2779,7 +2982,7 @@ def main(argv=None) -> int:
         causal_bf16, causal_f32 = check_causal(device)
         lite, nopad = check_attention_variants(device)
         check_option_effects(device)
-        check_quantize_kv(device)
+        kv_append = check_quantize_kv(device)
         stamp("phase 2 attention")
         decode, decode_q8 = check_decode(device)
         qmm = check_quant_matmul(device)
@@ -2838,7 +3041,7 @@ def main(argv=None) -> int:
         k["launches"] = res["launches"][k["name"]]
     lite["launches"] = variants["lite"]["launches"]["attention_lite"]
     nopad["launches"] = variants["nopad"]["launches"]["flash_attention_nopad"]
-    for k in (causal_bf16, decode, decode_q8):
+    for k in (causal_bf16, decode, decode_q8, kv_append):
         k["launches"] = text["launches"][k["name"]]
     # each kernel's launches on the configuration of the main path that runs it
     on_path = {
@@ -2859,7 +3062,7 @@ def main(argv=None) -> int:
                            ("quant_matmul_int8_stacked", "q8_0 int8 mode"),
                            ("quant_matmul_q4b_stacked", "q4_0 b32")):
         int8[name]["launches"] = int8_runs[run_name]["launches"][name]
-    kernels = [mel, attn_bf16, causal_bf16, decode, decode_q8,
+    kernels = [mel, attn_bf16, causal_bf16, decode, decode_q8, kv_append,
                qmm["quant_matmul"], qmm["quant_matmul_stacked"],
                qmm["quant_matmul4_stacked"], qmm["quant_matmul4"],
                qmm["quant_matmul_panel"], qmm["quant_matmul_panel_stacked"],

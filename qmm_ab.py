@@ -5,7 +5,7 @@ path, the decoder prefill and a decode step, for one checkout of the port,
 and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
-    python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE]
+    python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -31,13 +31,22 @@ query heads on 4 KV heads, T 752, d 128); each attention case also holds
 the checkout has them). "attention edges" holds, for each of chip_smoke's
 bf16 tile edge cases (``_edge_cases``, its inputs and seeds, NaN past
 kv_valid), the share of ``ATTN_TOL`` alone that the one-shot kernel's
-largest distance from the plain version uses. Prints one JSON line and,
+largest distance from the plain version uses. The decode-step cache
+attention (``decode_paths``): "attention decode" and "attention decode
+int8", 28 layers x the bf16- or int8-cache kernel at (B 1, 28 query heads
+on 4 KV heads, d 128, capacity 2048, pos 783) over 28 caches in turn, and
+each cache type at S = 784, 2048 and 8192 alone, with bf16 SDPA over the
+prefix beside the bf16 cache and, where the checkout has ``decode_plan``,
+its splits and CTAs; "decode step, 2 layers": the device kernels (by the
+profiler) and host ms of one step of a full-width 2-layer bf16 decoder over
+each cache. Prints one JSON line and,
 with ``--out``, appends it there. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -75,6 +84,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="time only the decode-step cache attention")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -102,10 +113,13 @@ def main(argv=None) -> int:
         t["max_abs_vs_plain"] = (out.float() - want.float()).abs().max().item()
         shapes[key] = t
         for k, ms in t.items():
-            if k.endswith("ms"):
+            if k.endswith("ms") and layers:
                 name = path + (" dq16" if k == "dq16_ms" else "")
                 paths[name] = paths.get(name, 0.0) + layers * ms
 
+    if args.decode_only:
+        decode_paths(device, record, shapes, paths)
+        return emit(args, {"paths_ms": paths, "shapes": shapes})
     seed = 0
     for fmt in ("q8_0", "q4_0"):
         packed = fmt == "q4_0"
@@ -179,8 +193,71 @@ def main(argv=None) -> int:
         record(f"{path} B={B} H={H} Hkv={Hkv} T={T} d={d}", path, layers, run(), ref(),
                {"ms": time_ms(run), "host_us": host_us(run),
                 "c_us": host_us(c_entry(q, k, v, path == "attention prefill"))})
+    decode_paths(device, record, shapes, paths)
     return emit(args, {"paths_ms": paths, "shapes": shapes,
                        "attention edges": edge_shares(device)})
+
+
+def decode_paths(device, record, shapes: dict, paths: dict) -> None:
+    """The decode-step cache attention (TPU rows 4 and 5) at one step of a
+    32-token request: q bf16 (B 1, 28 query heads on 4 KV heads, d 128) over
+    a bf16 or int8 cache of capacity S at pos, NaN past pos. Each shape is
+    timed on one cache (warm in L2, as chip_smoke times it) beside bf16 SDPA
+    over the prefix; the paths "attention decode" and "attention decode
+    int8" are 28 layers' caches of capacity 2048 at pos 783 read in turn
+    (45 MB of prefixes, about the L2), summed over the layers."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _decode_case
+    from qwen2_audio_tpu_torch.ops import flash_decode as fd
+    layers, d = DECODER[0], 128
+    for seed, (kvdt, S, pos) in enumerate((
+            (torch.bfloat16, 784, 783), (torch.bfloat16, 2048, 783),
+            (torch.bfloat16, 8192, 8191), (torch.int8, 784, 783),
+            (torch.int8, 2048, 783), (torch.int8, 8192, 8191)), start=900):
+        quant = kvdt == torch.int8
+        kern = fd.flash_decode_quant if quant else fd.flash_decode
+        plain = fd.flash_decode_quant_plain if quant else fd.flash_decode_plain
+        q, cache, posv = _decode_case(device, torch.bfloat16, kvdt, 1, S, [pos], seed)
+        run = lambda: kern(q, *cache, posv, sm_scale=d ** -0.5)   # noqa: E731
+        t = {"ms": time_ms(run), "host_us": host_us(run)}
+        if not quant:
+            kp, vp = (c[:, :pos + 1].transpose(1, 2) for c in cache)
+            t["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kp, vp, scale=d ** -0.5, enable_gqa=True))
+        if hasattr(fd, "decode_plan"):   # the split-KV kernel's launch
+            plan = fd.decode_plan(1, S, 4, 7, kvdt)
+            t["plan"] = {"splits": plan["splits"], "grid": plan["grid"],
+                         "ctas_with_keys": plan["ctas_with_keys"](posv.tolist())}
+        key = f"attention decode {str(kvdt).removeprefix('torch.')} S={S} pos={pos}"
+        record(key, "", 0, run(), plain(q, *cache, posv, sm_scale=d ** -0.5), t)   # no path
+        del q, cache
+    for seed, kvdt in ((1000, torch.bfloat16), (1100, torch.int8)):
+        quant = kvdt == torch.int8
+        kern = fd.flash_decode_quant if quant else fd.flash_decode
+        per = [_decode_case(device, torch.bfloat16, kvdt, 1, 2048, [783], seed + li)
+               for li in range(layers)]
+
+        def run():
+            for q, cache, posv in per:
+                kern(q, *cache, posv, sm_scale=d ** -0.5)
+
+        path = "attention decode" + (" int8" if quant else "")
+        paths[path] = time_ms(run)
+        shapes[f"{path} {layers} layers S=2048 pos=783"] = {"ms": paths[path] / layers}
+        del per
+        torch.cuda.empty_cache()
+    # the device kernels of one decode step by cache, at full width and depth 2
+    from chip_smoke import step_launches
+    from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
+    bundle = random_bundle(torch.Generator(device=device).manual_seed(0), cfg, 1280,
+                           dtype=torch.bfloat16, max_ctx=2048, cache_dtype=torch.bfloat16)
+    shapes["decode step, 2 layers"] = step_launches(bundle)
+    del bundle
+    torch.cuda.empty_cache()
 
 
 def edge_shares(device) -> dict:

@@ -53,7 +53,11 @@ from torch import nn
 from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
 from qwen2_audio_tpu_torch.models.encoder import _Tree
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal
-from qwen2_audio_tpu_torch.ops.flash_decode import flash_decode, flash_decode_quant
+from qwen2_audio_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_quant,
+                                                    kv_append_quant)
+# the int8 cache's quantizer under its former name here (chip_smoke and the
+# tests import it from this module)
+from qwen2_audio_tpu_torch.ops.flash_decode import quantize_kv as _quantize_kv  # noqa: F401
 from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_at, fused_mlp_split_at, linear,
                                                linear_at)
 from qwen2_audio_tpu_torch.ops.quant_matmul import panelize_weight
@@ -120,19 +124,6 @@ def create_cache(cfg: Qwen2DecoderConfig, batch: int, max_ctx: int,
     if dtype == "q8" or dtype == torch.int8:
         return QuantKVCache.create(cfg, batch, max_ctx, device=device)
     return KVCache.create(cfg, batch, max_ctx, dtype=dtype, device=device)
-
-
-def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, H, d) -> int8 values + per-vector float32 scale.
-
-    Both divisions are tensor by tensor: on the card PyTorch divides by a
-    Python number through its reciprocal, which can round ``amax / 127``
-    otherwise than IEEE division does (and than the JAX package does)."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1)
-    s = amax / torch.full_like(amax, 127.0)
-    inv = torch.where(s > 0, torch.ones_like(s) / s, torch.zeros_like(s))
-    return torch.round(xf * inv[..., None]).to(torch.int8), s
 
 
 class _MixedForms(Exception):
@@ -302,16 +293,12 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
     k = apply_rope(k.unflatten(-1, (Hkv, dh)), cos, sin)
     v = v.unflatten(-1, (Hkv, dh))
 
-    rows = slice(pos0, pos0 + T)
     quant = isinstance(cache, QuantKVCache)
-    if quant:
-        kq, ks = _quantize_kv(k)
-        vq, vs = _quantize_kv(v)
-        cache.k_q[li, :, rows] = kq
-        cache.k_s[li, :, rows] = ks
-        cache.v_q[li, :, rows] = vq
-        cache.v_s[li, :, rows] = vs
+    if quant:   # one quantize-and-write launch on the card
+        kv_append_quant(k, v, cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li],
+                        pos_dev)
     else:
+        rows = slice(pos0, pos0 + T)
         cache.k[li, :, rows] = k.to(cache.k.dtype)
         cache.v[li, :, rows] = v.to(cache.v.dtype)
 
@@ -382,8 +369,8 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
                          f"past the cache capacity {cache.max_ctx}")
     positions = torch.arange(pos0, pos0 + T, device=x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    pos_dev = None
-    if use_flash and not block_only and T == 1:
+    pos_dev = None   # the (B,) positions the kernels read on the device
+    if isinstance(cache, QuantKVCache) or (use_flash and not block_only and T == 1):
         pos_dev = torch.full((x.shape[0],), pos0, dtype=torch.int32, device=x.device)
     layers = params["layers"]
     for li in range(cfg.num_hidden_layers):

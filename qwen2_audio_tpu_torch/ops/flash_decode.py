@@ -1,5 +1,6 @@
-"""Decode-step attention over the KV cache: the CUDA kernel
-csrc/flash_decode.cu and its plain versions.
+"""Decode-step attention over the KV cache and the int8 cache's
+quantize-and-write: the CUDA kernels of csrc/flash_decode.cu and their plain
+versions.
 
 Replaces the TPU kernel qwen2_audio_tpu/ops/flash_decode.py::_decode_kernel
 at both of its call sites: ``flash_decode`` (bf16 or float32 cache) and
@@ -13,7 +14,10 @@ V scales and cast to q's type before P V, and the output is in q's type.
 
 The cache is the decoder's own (B, S, Hkv, d) layer buffer, used in place;
 the query heads of KV head h are h * g .. h * g + g - 1. The kernel is bound
-by the bytes of the valid cache prefix (design notes in the CUDA source).
+by the bytes of the valid cache prefix; it splits each (stream, KV head)'s
+rows over a cluster of CTAs (``decode_plan``; design notes in the CUDA
+source). ``kv_append_quant`` quantizes a layer's fresh K and V and writes
+them into the int8 cache in one launch.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors, and counts its launches.
@@ -21,14 +25,118 @@ version for CPU tensors, and counts its launches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from qwen2_audio_tpu_torch.ops import _build
 
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_X_TYPES = {torch.float32: 0, torch.bfloat16: 1}   # kv_append_quant's K and V
 _HEAD_DIM = 128
 _MAX_GROUP = 8
+# the launch plan's constants, as csrc/flash_decode.cu has them
+_CHUNK = 64             # rows per shared-memory stage
+_GRANULE = _CHUNK       # a split's rows start at a multiple of this
+_MAX_SPLITS = 16        # CTAs per cluster
+_MAX_STAGES = 16
+_THREADS = 256
+_SMEM_MAX = 232448      # a block's shared memory on sm_90
+# mbarriers; q (4 floats of padding every 32), p, the chunks' and the warps'
+# row maxima and sums, and what the cluster's CTAs push: every split's row
+# maxima and sums, and its sums of this CTA's slice of the outputs
+_TAIL_BYTES = _MAX_STAGES * 8 + (_MAX_GROUP * _HEAD_DIM // 32 * 36 + _CHUNK * _MAX_GROUP
+                                 + _MAX_STAGES * _MAX_GROUP + 8 * _MAX_GROUP
+                                 + 2 * _MAX_SPLITS * _MAX_GROUP
+                                 + _MAX_GROUP * _HEAD_DIM + _MAX_SPLITS) * 4
+_RED_BYTES = 8 * _MAX_GROUP * _HEAD_DIM * 4   # the warps' sums, over the stages
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, H, d) -> int8 values + per-vector float32 scale.
+
+    Both divisions are tensor by tensor: on the card PyTorch divides by a
+    Python number through its reciprocal, which can round ``amax / 127``
+    otherwise than IEEE division does (and than the JAX package does)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    s = amax / torch.full_like(amax, 127.0)
+    inv = torch.where(s > 0, torch.ones_like(s) / s, torch.zeros_like(s))
+    return torch.round(xf * inv[..., None]).to(torch.int8), s
+
+
+def split_ranges(pos: int, S: int, splits: int) -> list[tuple[int, int]]:
+    """The cache rows [lo, hi) each of the ``splits`` CTAs of one (stream,
+    KV head) takes at position ``pos``, as the kernel computes them from
+    pos on the device: n = min(pos + 1, S) visible rows, c = ceil(n /
+    splits) rounded up to the granule (a 64-row stage), CTA j takes
+    [j c, min(n, (j + 1) c)) (empty where j c >= n). A stream of at most
+    64 rows stays in one split."""
+    n = max(0, min(pos + 1, S))
+    c = -(-n // splits)
+    c = -(-c // _GRANULE) * _GRANULE
+    return [(min(n, j * c), min(n, j * c + c)) for j in range(splits)]
+
+
+def _resident_clusters(size: int, n_sm: int) -> int:
+    """How many clusters of ``size`` CTAs (one an SM) a card of n_sm SMs
+    holds at once. A cluster lies within one GPC, and SMs of a GPC that do
+    not make up a whole cluster stay idle; the card is taken as GPCs of 18
+    SMs (an H100 GPC's most), which never counts more clusters than this
+    card's GPCs hold (132 SMs: 7 clusters of 16, 29 of 4 where the card
+    holds 30; chip_smoke's check_decode_residency holds the plan to the
+    card's own count)."""
+    gpcs, rest = divmod(n_sm, 18)
+    return gpcs * (18 // size) + rest // size
+
+
+def _stage_bytes(kv_type: torch.dtype) -> int:
+    """A stage's K and V rows (and, int8, their scales) in shared memory."""
+    return 2 * _CHUNK * _HEAD_DIM * kv_type.itemsize + (2 * _CHUNK * 4 if kv_type == torch.int8
+                                                        else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, S: int, Hkv: int, g: int, kv_type: torch.dtype,
+                n_sm: int = 132) -> dict:
+    """How the decode kernel launches for a batch of B streams over a cache
+    of capacity S with Hkv KV heads of g query heads each, from the shapes
+    alone (never from the positions): ``splits`` CTAs per (stream, KV head)
+    in one thread-block cluster (``cluster``): the largest power of two, at
+    most 16 and at most the power of two at or above S / 64 (the 64-row
+    stages of a full cache), whose B * Hkv clusters are all resident at
+    once, ``_resident_clusters``; ``grid`` (splits, Hkv, B); ``stages``
+    64-row stages of shared memory, enough for the longest range (at pos =
+    S - 1) where they fit (so the range's copies are all in flight at
+    once), else the most that fit (a ring); ``smem`` bytes; ``ranges(pos)`` the rows each split takes;
+    ``ctas_with_keys(positions)`` how many CTAs of the grid hold at least
+    one row at these per-stream positions. Raises for what the kernel does
+    not take. Cached: the wrapper asks on every call."""
+    if not 1 <= g <= _MAX_GROUP or kv_type not in _KV_TYPES:
+        raise ValueError(f"decode_plan: the kernel takes 1 to {_MAX_GROUP} query heads "
+                         f"per KV head and a cache in {list(_KV_TYPES)}, got g={g}, "
+                         f"{kv_type}")
+    if min(B, S, Hkv, n_sm) < 1:
+        raise ValueError(f"decode_plan: empty shape B={B} S={S} Hkv={Hkv}")
+    splits = min(_MAX_SPLITS, 1 << (-(-S // _GRANULE) - 1).bit_length())
+    while splits > 1 and B * Hkv > _resident_clusters(splits, n_sm):
+        splits //= 2
+    lo, hi = split_ranges(S - 1, S, splits)[0]
+    stage = _stage_bytes(kv_type)
+    most = min(_MAX_STAGES, (_SMEM_MAX - _TAIL_BYTES) // stage)
+    stages = min(most, max(-(-(hi - lo) // _CHUNK), -(-_RED_BYTES // stage)))
+    ranges = functools.partial(split_ranges, S=S, splits=splits)
+    return {"grid": (splits, Hkv, B), "cluster": (splits, 1, 1), "threads": _THREADS,
+            "splits": splits, "granule": _GRANULE, "chunk": _CHUNK, "stages": stages,
+            "smem": _TAIL_BYTES + stages * stage, "ranges": ranges,
+            "ctas_with_keys": lambda positions: Hkv * sum(
+                hi > lo for p in positions for lo, hi in ranges(int(p)))}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _decode_plain(q, k, v, pos, sm_scale, k_s=None, v_s=None):
@@ -81,10 +189,13 @@ def _check(name: str, q, k, v, scales=()) -> None:
                              f"{tuple(k.shape[:3])}")
 
 
-def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tensor:
+def _refuse(name: str, q, k, v, pos, k_s=None, v_s=None) -> None:
+    """Raise for inputs the kernel does not take: q in bf16 or float32, a
+    cache in bf16, float32 or int8 (int8 with float32 scales), d = 128, at
+    most 8 query heads per KV head, every tensor (pos a (B,) int32 tensor)
+    contiguous, 16-byte aligned and on q's device."""
     B, Hq, d = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
-    g = Hq // Hkv
+    g = Hq // k.shape[2]
     if q.dtype not in _Q_TYPES or k.dtype not in _KV_TYPES or v.dtype != k.dtype \
             or (k.dtype == torch.int8) != (k_s is not None):
         raise ValueError(f"{name}: the kernel takes q in {list(_Q_TYPES)} and a "
@@ -93,14 +204,22 @@ def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tens
     if d != _HEAD_DIM or g > _MAX_GROUP:
         raise ValueError(f"{name}: the kernel takes d = {_HEAD_DIM} and at most "
                          f"{_MAX_GROUP} query heads per KV head, got d={d}, g={g}")
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device).expand(B).contiguous()
     scales = () if k_s is None else (k_s, v_s)
+    if any(s.dtype != torch.float32 for s in scales) or pos.dtype != torch.int32 \
+            or pos.shape != (B,):
+        raise ValueError(f"{name}: the scales must be float32 and pos (B,) int32")
     for x in (q, k, v, pos, *scales):
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte "
                              f"aligned and on {q.device}")
-    if any(s.dtype != torch.float32 for s in scales):
-        raise ValueError(f"{name}: the scales must be float32")
+
+
+def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tensor:
+    B, Hq, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device).expand(B).contiguous()
+    _refuse(name, q, k, v, pos, k_s, v_s)
+    plan = decode_plan(B, S, Hkv, Hq // Hkv, k.dtype, _sm_count(q.device.index or 0))
     o = torch.empty_like(q)
     lib = _build.library("flash_decode")
     with torch.cuda.device(q.device):
@@ -108,8 +227,8 @@ def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tens
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_s.data_ptr() if k_s is not None else None,
             v_s.data_ptr() if v_s is not None else None,
-            pos.data_ptr(), o.data_ptr(), B, S, Hkv, g, d, _Q_TYPES[q.dtype],
-            _KV_TYPES[k.dtype], float(sm_scale),
+            pos.data_ptr(), o.data_ptr(), B, S, Hkv, Hq // Hkv, d, _Q_TYPES[q.dtype],
+            _KV_TYPES[k.dtype], float(sm_scale), plan["splits"], plan["stages"],
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return o
@@ -122,7 +241,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos, *,
     Returns (B, Hq, d) in q's type.
 
     Runs the CUDA kernel for CUDA tensors and the plain version for CPU
-    tensors."""
+    tensors. On the card pos is read on the device only: a (B,) int32
+    tensor there lets a captured graph replay with pos changed in place."""
     _check("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, pos, sm_scale=sm_scale)
@@ -154,3 +274,69 @@ def flash_decode_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
 
 
 flash_decode_quant.launches = 0
+
+
+def kv_append_quant_plain(k, v, k_q, k_s, v_q, v_s, pos) -> None:
+    """``quantize_kv`` of k and v, written into the int8 cache at rows
+    pos[b] .. pos[b] + T - 1 of each stream b in place (rows at or past the
+    capacity are dropped)."""
+    B, T = k.shape[:2]
+    S = k_q.shape[1]
+    pos = torch.as_tensor(pos).expand(B)
+    for x, xq, xs in ((k, k_q, k_s), (v, v_q, v_s)):
+        q, s = quantize_kv(x)
+        for b in range(B):
+            p = int(pos[b])
+            n = max(0, min(T, S - p))
+            xq[b, p:p + n] = q[b, :n]
+            xs[b, p:p + n] = s[b, :n]
+
+
+def kv_append_quant(k: torch.Tensor, v: torch.Tensor, k_q: torch.Tensor,
+                    k_s: torch.Tensor, v_q: torch.Tensor, v_s: torch.Tensor,
+                    pos) -> None:
+    """Quantize one layer's fresh k and v, (B, T, Hkv, d) in the activation
+    type (d contiguous, any other strides), and write them into its int8
+    cache views k_q/v_q (B, S, Hkv, d) and scales k_s/v_s (B, S, Hkv) at
+    rows pos[b] .. pos[b] + T - 1, in place: ``quantize_kv`` and the sliced
+    writes, bit for bit. pos is a (B,) int32 tensor (or an int for every
+    stream), read on the device by the kernel.
+
+    Runs the CUDA kernel for CUDA tensors (one launch) and the plain version
+    for CPU tensors."""
+    B, T, Hkv, d = k.shape
+    if v.shape != k.shape or k_q.dim() != 4 or k_q.shape[0] != B \
+            or k_q.shape[2:] != (Hkv, d) or v_q.shape != k_q.shape \
+            or k_s.shape != k_q.shape[:3] or v_s.shape != k_q.shape[:3]:
+        raise ValueError(f"kv_append_quant: shapes k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"cache {tuple(k_q.shape)}, scales {tuple(k_s.shape)}")
+    if k.device.type == "cpu":
+        return kv_append_quant_plain(k, v, k_q, k_s, v_q, v_s, pos)
+    if k.device.type != "cuda":
+        raise ValueError(f"kv_append_quant: unsupported device {k.device}")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=k.device).expand(B).contiguous()
+    if k.dtype not in _X_TYPES or v.dtype != k.dtype or d != _HEAD_DIM \
+            or k.stride(-1) != 1 or v.stride(-1) != 1 \
+            or k_q.dtype != torch.int8 or v_q.dtype != torch.int8 \
+            or k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise ValueError(f"kv_append_quant: the kernel takes k, v in {list(_X_TYPES)} "
+                         f"with d = {_HEAD_DIM} contiguous and an int8 cache with "
+                         f"float32 scales, got {k.dtype}, d={d}, cache {k_q.dtype}")
+    for x in (v, k_q, k_s, v_q, v_s, pos):
+        if x.device != k.device:
+            raise ValueError(f"kv_append_quant: every input must be on {k.device}")
+    for x in (k_q, k_s, v_q, v_s):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError("kv_append_quant: the cache must be contiguous and "
+                             "16-byte aligned")
+    lib = _build.library("flash_decode")
+    with torch.cuda.device(k.device):
+        rc = lib.qa_kv_append_quant(
+            k.data_ptr(), v.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), pos.data_ptr(), *k.stride()[:3], *v.stride()[:3], B, T, Hkv,
+            d, k_q.shape[1], _X_TYPES[k.dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "kv_append_quant")
+    kv_append_quant.launches += 1
+
+
+kv_append_quant.launches = 0

@@ -147,15 +147,27 @@ def test_attention_variant_edges_match_plain(device, i):
     assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
+_BF, _F32, _I8 = torch.bfloat16, torch.float32, torch.int8
+
+
 @pytest.mark.parametrize("qdt,kvdt,B,S,pos", [
-    (torch.bfloat16, torch.bfloat16, 1, 784, [783]),
-    (torch.float32, torch.float32, 4, 784, [17, 63, 64, 783]),
-    (torch.float32, torch.bfloat16, 1, 300, [150]),
-    (torch.bfloat16, torch.int8, 4, 784, [17, 63, 64, 783]),
-    (torch.float32, torch.int8, 1, 8192, [8191]),
+    (_BF, _BF, 1, 784, [783]),
+    (_F32, _F32, 4, 784, [17, 63, 64, 783]),
+    (_F32, _BF, 1, 300, [150]),
+    (_BF, _I8, 4, 784, [17, 63, 64, 783]),
+    (_F32, _I8, 1, 8192, [8191]),
+    # the split-KV kernel's range edges (chip_smoke's): pos 0, 63, 64, 1023,
+    # 1024, 2047 at a capacity of 2048, and B 4 at mixed positions
+    *chip_smoke._decode_edge_cases(),
+    # pos = S - 1 at the main shape; S 8192: 512-row ranges over a ring
+    (_BF, _I8, 1, 784, [783]), (_BF, _BF, 1, 8192, [8191]), (_BF, _I8, 1, 8192, [4000]),
+    # q float32 over each cache type
+    (_F32, _F32, 1, 2048, [783]), (_F32, _BF, 1, 2048, [783]), (_F32, _I8, 1, 2048, [783]),
 ])
 def test_decode_kernel_matches_plain_over_poisoned_cache(device, qdt, kvdt, B, S, pos):
-    """Rows past each stream's position hold NaN (int8: junk and NaN scales)."""
+    """Rows past each stream's position hold NaN (int8: junk and NaN scales).
+    The range-edge cases add chip_smoke's p-rounding term for streams of few
+    rows (``decode_p_abs_v``); every other case is held to ATTN_TOL alone."""
     q, cache, posv = chip_smoke._decode_case(device, qdt, kvdt, B, S, pos, seed=8)
     quant = kvdt == torch.int8
     kern = tfd.flash_decode_quant if quant else tfd.flash_decode
@@ -164,9 +176,34 @@ def test_decode_kernel_matches_plain_over_poisoned_cache(device, qdt, kvdt, B, S
     got = kern(q, *cache, posv, sm_scale=128 ** -0.5)
     assert kern.launches == before + 1
     want = plain(q, *cache, posv, sm_scale=128 ** -0.5)
-    tol = _tol(want, qdt)
+    p_abs_v = None
+    if (qdt, kvdt, B, S, pos) in chip_smoke._decode_edge_cases():
+        p_abs_v = chip_smoke.decode_p_abs_v(plain, q, cache, posv, 128 ** -0.5)
+    tol = _tol(want, qdt, p_abs_v)
     assert bool(torch.isfinite(got).all())
     assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("kvdt", [_BF, _I8])
+def test_decode_kernel_replays_in_a_graph_with_pos_changed(device, kvdt):
+    """One call captured in a CUDA graph, then pos changed in place and the
+    graph replayed: the kernel reads pos on the device only, so each replay
+    matches the plain version at the new positions."""
+    q, cache, posv = chip_smoke._decode_case(device, _BF, kvdt, 2, 2048, [2047, 2047], seed=9)
+    quant = kvdt == torch.int8
+    kern = tfd.flash_decode_quant if quant else tfd.flash_decode
+    plain = tfd.flash_decode_quant_plain if quant else tfd.flash_decode_plain
+    kern(q, *cache, posv, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kern(q, *cache, posv, sm_scale=128 ** -0.5)
+    for new in ([783, 100], [0, 2047], [1151, 64]):
+        posv.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain(q, *cache, posv, sm_scale=128 ** -0.5)
+        assert bool(((out.float() - want.float()).abs() <= _tol(want, _BF)).all()), new
 
 
 def test_decoder_context_on_card_matches_cpu(device):
@@ -541,6 +578,62 @@ def test_quantize_kv_bits_equal_cpu(device):
     (q_c, s_c), (q_g, s_g) = _quantize_kv(x), _quantize_kv(x.to(device))
     assert torch.equal(s_g.cpu(), s_c)
     assert torch.equal(q_g.cpu(), q_c)
+
+
+@pytest.mark.parametrize("xdt", [_F32, _BF])
+def test_kv_append_quant_bits_equal_cpu(device, xdt):
+    """One launch writes the int8 cache bit-equal to the CPU's plain route,
+    over amax values where a reciprocal multiply rounds otherwise than
+    division: B 2 at positions 3 and 180 of 200 (the second stream's rows
+    past the capacity dropped), v a strided view of a fused K/V buffer."""
+    x = chip_smoke.kv_with_scales(chip_smoke.reciprocal_misses(512, seed=11), seed=12)
+    kv = torch.cat([x, x.flip(1) * 3.0], dim=-1).to(xdt)      # (2, 64, 4, 256)
+    k, v = kv[..., :128].contiguous(), kv[..., 128:]
+    pos = torch.tensor([3, 180], dtype=torch.int32)
+    caches = []
+    for dev in ("cpu", device):
+        c = [torch.full((2, 200, 4, 128), -7, dtype=torch.int8, device=dev),
+             torch.full((2, 200, 4), float("nan"), device=dev)]
+        c = c + [t.clone() for t in c]
+        before = tfd.kv_append_quant.launches
+        tfd.kv_append_quant(k.to(dev), v.to(dev), *c, pos.to(dev))
+        assert tfd.kv_append_quant.launches == before + (dev != "cpu")
+        caches.append([t.cpu() for t in c])
+    for cpu, card in zip(*caches):
+        assert torch.equal(cpu.isnan(), card.isnan())
+        assert torch.equal(cpu.nan_to_num(), card.nan_to_num())
+
+
+def test_int8_cache_of_a_decoder_bit_equal_to_the_old_route(device, monkeypatch):
+    """A 4-layer bf16 decoder over the int8 cache, a 40-position prefill and
+    8 steps: the cache written by kv_append_quant (one launch per layer and
+    forward) bit-equal to the one the plain quantizer and sliced writes give
+    on the card."""
+    from qwen2_audio_tpu_torch.models import qwen2_decoder as qd
+    cfg = Qwen2DecoderConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                             num_hidden_layers=4, num_attention_heads=14,
+                             num_key_value_heads=2, head_dim=128)
+    params = qd.fuse_decoder_params(qd.random_decoder_params(
+        np.random.default_rng(3), cfg, dtype=_BF, scale=0.2, device=device))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    embeds = [torch.randn(1, 40, 256, generator=g).to(device, _BF)]
+    embeds += [torch.randn(1, 1, 256, generator=g).to(device, _BF) for _ in range(8)]
+
+    def run():
+        cache = qd.create_cache(cfg, 1, 64, dtype="q8", device=device)
+        qd.decoder_forward(params, cfg, embeds[0], cache, 0, block_only=True,
+                           logits_last_only=True)
+        for j, e in enumerate(embeds[1:]):
+            qd.decoder_forward(params, cfg, e, cache, 40 + j)
+        return cache
+
+    before = tfd.kv_append_quant.launches
+    new = run()
+    assert tfd.kv_append_quant.launches == before + cfg.num_hidden_layers * len(embeds)
+    monkeypatch.setattr(qd, "kv_append_quant", tfd.kv_append_quant_plain)
+    old = run()
+    for name in ("k_q", "k_s", "v_q", "v_s"):
+        assert torch.equal(getattr(new, name), getattr(old, name)), name
 
 
 @pytest.mark.parametrize("fmt,M", [("q8_0", 1), ("q8_0", 752), ("q4_0", 1), ("q4_0", 752)])

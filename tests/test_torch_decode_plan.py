@@ -1,0 +1,172 @@
+"""The split-KV decode kernel's launch plan (``ops.flash_decode.decode_plan``)
+and its key partition, and the wrapper's refusals: what the CUDA kernel
+csrc/flash_decode.cu takes and how it divides a stream's cache rows over a
+cluster of CTAs, checked here without a card."""
+
+import pytest
+import torch
+
+from qwen2_audio_tpu_torch.ops import flash_decode as tfd
+
+BF, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+
+
+@pytest.mark.parametrize("B,S,positions,splits,stages,with_keys", [
+    # the main path: one stream, 28 query heads on 4 KV heads, pos 783;
+    # 13 of 16 splits hold keys
+    (1, 784, [783], 16, 1, 52),
+    (1, 2048, [783], 16, 2, 52),
+    (1, 2048, [2047], 16, 2, 64),
+    # B 4 at mixed positions: 4 splits a (stream, KV head)
+    (4, 784, [17, 63, 64, 783], 4, 4, 4 * (1 + 1 + 2 + 4)),
+    # S 8192: 512-row ranges over a ring of 6 bf16 stages
+    (1, 8192, [8191], 16, 6, 64),
+])
+def test_plan_at_the_main_shapes(B, S, positions, splits, stages, with_keys):
+    plan = tfd.decode_plan(B, S, 4, 7, BF)
+    assert plan["splits"] == splits and plan["cluster"] == (splits, 1, 1)
+    assert plan["grid"] == (splits, 4, B) and plan["threads"] == 256
+    assert plan["stages"] == stages
+    assert plan["ctas_with_keys"](positions) == with_keys
+
+
+def test_main_shape_puts_keys_in_at_least_48_ctas():
+    """At B 1, 4 KV heads, pos 783 (today 4 CTAs, one a KV head)."""
+    for S in (784, 2048):
+        assert tfd.decode_plan(1, S, 4, 7, BF)["ctas_with_keys"]([783]) >= 48
+
+
+@pytest.mark.parametrize("kv_type,most", [(BF, 6), (F32, 3), (I8, 13)])
+def test_stages_fit_shared_memory_and_ring_long_ranges(kv_type, most):
+    """The longest range's stages where they fit, else the most that fit
+    (at least 3, a ring); never more than a block's shared memory, and
+    enough for the warps' partial sums (int8 at least 2)."""
+    for S in (1, 64, 65, 784, 2048, 8192, 32768):
+        plan = tfd.decode_plan(1, S, 4, 7, kv_type)
+        lo, hi = plan["ranges"](S - 1)[0]
+        need = -(-(hi - lo) // 64)
+        assert plan["smem"] <= 232448
+        assert plan["stages"] == min(most, max(need, 2 if kv_type == I8 else 1))
+        assert plan["stages"] >= 3 or need <= plan["stages"]
+
+
+@pytest.mark.parametrize("B,Hkv,n_sm,splits", [
+    (1, 4, 132, 16), (2, 4, 132, 8), (3, 4, 132, 8), (4, 4, 132, 4), (8, 4, 132, 2),
+    (33, 4, 132, 1), (1, 4, 114, 16), (1, 8, 132, 8), (1, 32, 132, 2), (8, 4, 114, 2)])
+def test_splits_from_batch_heads_and_sm_count(B, Hkv, n_sm, splits):
+    """The largest power of two, at most 16, whose B * Hkv clusters are all
+    resident at once, a cluster within one GPC of 18 SMs (132 SMs: 7
+    clusters of 16, 14 of 8, 29 of 4, 66 of 2)."""
+    plan = tfd.decode_plan(B, 8192, Hkv, 4, BF, n_sm)
+    assert plan["splits"] == splits
+    assert B * Hkv <= tfd._resident_clusters(splits, n_sm)
+    assert splits == 16 or B * Hkv > tfd._resident_clusters(2 * splits, n_sm)
+
+
+def test_resident_clusters_on_132_sms():
+    assert [tfd._resident_clusters(s, 132) for s in (16, 8, 4, 2, 1)] == [7, 14, 29, 66, 132]
+
+
+@pytest.mark.parametrize("S,splits", [(1, 1), (63, 1), (64, 1), (65, 2), (129, 4),
+                                      (784, 16), (1024, 16)])
+def test_splits_bounded_by_the_stages_of_a_full_cache(S, splits):
+    assert tfd.decode_plan(1, S, 4, 7, BF)["splits"] == splits
+
+
+def test_plan_depends_on_shapes_only():
+    """The same plan whatever the positions: it is made before pos is
+    known, and the kernel reads pos on the device."""
+    a = tfd.decode_plan(1, 2048, 4, 7, I8)
+    b = tfd.decode_plan(1, 2048, 4, 7, I8)
+    assert a is b   # cached: the wrapper asks on every call
+
+
+def _check_partition(S, pos, splits):
+    ranges = tfd.split_ranges(pos, S, splits)
+    assert len(ranges) == splits
+    n = min(pos + 1, S)
+    covered = torch.zeros(S, dtype=torch.int64)
+    for lo, hi in ranges:
+        assert 0 <= lo <= hi <= n
+        assert lo % 64 == 0 or lo == hi
+        covered[lo:hi] += 1
+    # every row 0..pos in exactly one range, no row past pos in any
+    assert bool((covered[:n] == 1).all()) and int(covered[n:].sum()) == 0
+    # balanced: the longest split (the CTA every other waits for) as short
+    # in 64-row stages as any partition can make it; a stream of <= 64 rows
+    # in one split
+    stages = [-(-(hi - lo) // 64) for lo, hi in ranges]
+    assert max(stages) == -(-n // (64 * splits))
+    if n <= 64:
+        assert ranges[0] == (0, n)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 784])
+def test_partition_covers_every_row_once_at_every_position(S):
+    for splits in {tfd.decode_plan(1, S, 4, 7, BF)["splits"], 8, 16}:
+        for pos in range(S):
+            _check_partition(S, pos, splits)
+
+
+@pytest.mark.parametrize("S", [2048, 8192])
+def test_partition_at_sampled_positions(S):
+    g = torch.Generator().manual_seed(S)
+    sampled = torch.randint(0, S, (200,), generator=g).tolist()
+    edges = [p + e for k in range(1, S // 64 + 1) for p in (64 * k - 1,) for e in (-1, 0, 1)]
+    for pos in sorted(set(sampled + [0, S - 1] + [p for p in edges if 0 <= p < S])):
+        for splits in (tfd.decode_plan(1, S, 4, 7, BF)["splits"], 8):
+            _check_partition(S, pos, splits)
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        tfd.decode_plan(1, 784, 4, 9, BF)
+    with pytest.raises(ValueError):
+        tfd.decode_plan(1, 784, 4, 7, torch.float16)
+
+
+def _inputs(kv_type=BF, d=128, Hq=28):
+    q = torch.zeros(1, Hq, d, dtype=BF)
+    k = torch.zeros(1, 64, 4, d, dtype=kv_type)
+    pos = torch.tensor([10], dtype=torch.int32)
+    scales = (torch.zeros(1, 64, 4), torch.zeros(1, 64, 4)) if kv_type == I8 else (None, None)
+    return q, k, k.clone(), pos, scales
+
+
+def test_wrapper_refusals():
+    """What the wrapper raises for on the card, checked on CPU tensors."""
+    q, k, v, pos, _ = _inputs()
+    tfd._refuse("flash_decode", q, k, v, pos)          # taken
+    q64, k64, v64, _, _ = _inputs(d=64)
+    with pytest.raises(ValueError, match="d = 128"):
+        tfd._refuse("flash_decode", q64, k64, v64, pos)
+    q36 = torch.zeros(1, 36, 128, dtype=BF)             # g = 9
+    with pytest.raises(ValueError, match="at most 8"):
+        tfd._refuse("flash_decode", q36, k, v, pos)
+    kt = torch.zeros(1, 4, 64, 128, dtype=BF).transpose(1, 2)   # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        tfd._refuse("flash_decode", q, kt, kt, pos)
+    buf = torch.zeros(1 * 64 * 4 * 128 + 1, dtype=BF)
+    km = buf[1:].view(1, 64, 4, 128)                     # 2 bytes off the 16-byte grid
+    with pytest.raises(ValueError, match="aligned"):
+        tfd._refuse("flash_decode", q, km, v, pos)
+    with pytest.raises(ValueError, match="int32"):
+        tfd._refuse("flash_decode", q, k, v, pos.long())
+    qi, ki, vi, _, (ks, vs) = _inputs(I8)
+    tfd._refuse("flash_decode_quant", qi, ki, vi, pos, ks, vs)
+    with pytest.raises(ValueError, match="float32"):
+        tfd._refuse("flash_decode_quant", qi, ki, vi, pos, ks.double(), vs)
+    with pytest.raises(ValueError, match="int8 with scales"):
+        tfd._refuse("flash_decode_quant", qi, ki, vi, pos)
+
+
+def test_kv_append_quant_refuses_bad_shapes():
+    k = torch.zeros(1, 3, 4, 128)
+    c = [torch.zeros(1, 16, 4, 128, dtype=I8), torch.zeros(1, 16, 4)]
+    with pytest.raises(ValueError):
+        tfd.kv_append_quant(k, torch.zeros(1, 3, 2, 128), *c, *c, 0)
+    with pytest.raises(ValueError):
+        tfd.kv_append_quant(k, k, c[0], torch.zeros(1, 16, 3), *c, 0)
+    m = k.to("meta")
+    with pytest.raises(ValueError):
+        tfd.kv_append_quant(m, m, *(t.to("meta") for t in c + c), 0)

@@ -56,6 +56,9 @@ def _modes():
     yield
     jl.set_group_matmul_mode(None)
     tl.set_group_matmul_mode(None)
+    # the JAX package reads the mode when it traces: a jitted function
+    # traced here in mode "int8" must not serve a later test in another mode
+    jax.clear_caches()
 
 
 def _x(m, dtype, seed=0, k=K):
