@@ -8,7 +8,11 @@
 quick rehearsal.) Phases, each of which must pass (any failure exits non-zero
 before the result lines are printed):
 1. build every CUDA kernel from qwen2_audio_tpu_torch/csrc with nvcc
-   (sm_90a), in parallel, and print the card's name and power limit;
+   (sm_90a), in parallel, and print the card's name and power limit; the
+   SASS of every tensor-core kernel is checked (cuobjdump): the bf16
+   attention tile on wgmma, and each fast-mode instantiation of the two
+   M <= 8 weight-streaming kernels (qmm_stream_kernel, swiglu_stream_kernel)
+   on HMMA or HGMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with stated tolerances (the decode kernels over a
    cache filled with NaN past each stream's position, at the split-KV
@@ -23,11 +27,15 @@ before the result lines are printed):
    large-M wgmma tile: M = 9, 65, 129, 753, a weight of N = 1296 (a multiple
    of 16, not of the tile's 128 columns) and K = 1312 (a multiple of 32, not
    of the 64-deep stage) in q8_0 (float16 and float32 scales), q4_0 and q6_K,
-   float32 x in fast mode, in panels of widths 16, 48 and 432; the five
+   float32 x in fast mode, in panels of widths 16, 48 and 432, and the M <= 8
+   streaming kernel at M = 1 on that N in panels of 16 and 48; the five
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
-   I = 18944) at M = 1, 7, 64, both modes, bf16 and float32 x, over q8_0,
-   q6_K, q5_1 (mins), symmetric q4_0 and q4_1 blocks, the split schema
-   bit-equal to the fused one, two runs bit-equal, M = 65 refused; the
+   I = 18944) at M = 1, 7, 64 in both modes and M = 2, 8, 9 in fast mode,
+   bf16 and float32 x, over q8_0, q6_K, q5_1 (mins), symmetric q4_0 and q4_1
+   blocks, the split schema
+   bit-equal to the fused one, two runs bit-equal, M = 65 refused; every
+   M <= 8 case of the two timed by CUDA-graph replay (the back-to-back
+   events' figure beside it), with its share of the bound; the
    exact-integer group matmul: the q8_1 quantizing kernel bit-equal to its
    plain version (M = 1, 7, 752, 1500, bf16 and float32 x, ties and all-zero
    groups), then its three entries (flat int8 values, stacked int8 values
@@ -334,7 +342,32 @@ def build() -> float:
             log(f"sass[{name}]: {fn}: {n}")
     check_attention_sass(sass_counts(str(_build._target("attention_single")),
                                      ("HGMMA", "HMMA")))
+    check_stream_sass({name: sass_counts(str(_build._target(name)), STREAM_SASS_OPS)
+                       for name in STREAM_KERNELS})
     return secs
+
+
+# the M <= 8 weight-streaming kernels (fast mode): library, kernel, instantiations
+STREAM_KERNELS = {"quant_matmul": ("qmm_stream_kernel", 8),
+                  "fused_mlp": ("swiglu_stream_kernel", 8)}
+STREAM_SASS_OPS = ("HMMA", "HGMMA", "F2FP", "F2F", "FFMA", "FMUL", "FADD", "PRMT")
+
+
+def check_stream_sass(counts: dict) -> None:
+    """Every fast-mode instantiation of the two M <= 8 weight-streaming
+    kernels (qmm_stream_kernel: x type x packed x dq16; swiglu_stream_kernel:
+    x type x packed x mins) runs its products on the tensor cores: it issues
+    HMMA or HGMMA. Logs each instantiation's counts of the instructions a
+    weight value costs (static counts in the code, not executed ones); fails
+    where cuobjdump is missing (empty counts)."""
+    for lib, (kernel, want) in STREAM_KERNELS.items():
+        found = {fn: c for fn, c in counts[lib].items() if kernel in fn}
+        for fn, c in found.items():
+            log(f"sass[{lib}]: {fn}: {c}")
+        require(len(found) == want, f"{lib}: {len(found)} instantiations of {kernel} in the "
+                f"SASS counts, not {want} (cuobjdump missing?)")
+        require(all("HMMA" in c.split() or "HGMMA" in c.split() for c in found.values()),
+                f"{lib}: an instantiation of {kernel} issues neither HMMA nor HGMMA")
 
 
 def check_attention_sass(counts: dict) -> None:
@@ -1238,6 +1271,10 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("rag q4_0", 753, f32, True, None),
         ("rag q6_K", 129, bf, True, None), ("rag q6_K", 753, f32, True, None),
         ("rag q8_0 f32s", 65, bf, True, None), ("rag q8_0 f32s", 753, f32, True, None),
+        # the M <= 8 streaming kernel at N = 1296 (a ragged last column group),
+        # in panels of 16 and 48
+        ("rag q4_0", 1, bf, True, None), ("rag q6_K", 1, bf, True, None),
+        ("rag q8_0 f32s", 1, f32, True, None),
     ]
     rows = {"quant_matmul": 207, "quant_matmul_stacked": 474,
             "quant_matmul4": 1010, "quant_matmul4_stacked": 819,
@@ -1306,11 +1343,17 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_BF16 if fast else PEAK_F32)
         dense = qm.block_weight(ql, scl, packed=packed, off=off).to(dtype)
         big = K * N > 1e8
-        t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50),
+        # M <= 8 by graph replay (back-to-back calls are bound by the host's
+        # call rate near 0.1 ms), the events' figure beside it
+        run = lambda: entry(x, q, sc, *li, **kw)   # noqa: E731
+        t = {"ms": graph_ms(run) if M <= 8 else time_ms(run, iters=10),
              "plain_ms": time_ms(lambda: plain(x, ql, scl, **kw), iters=3 if big else 10,
                                  warmup=1),
              "bound_ms": b_ms, "bound_by": b_by,
              "library_ms": time_ms(lambda: x @ dense, iters=10)}
+        if M <= 8:
+            t["events_ms"] = time_ms(run, iters=50)
+            t["bound_share"] = b_ms / t["ms"]
         del dense
         log(f"{what}: " + json.dumps(t))
         if line in rows:
@@ -1325,8 +1368,10 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             pl_, psl = (pq[1], psc[1]) if stacked else (pq, psc)
             require(torch.equal(pplain(x, pl_, psl, **kw), want),
                     f"{what}: the panel entry's plain version differs from the strided one's")
-            pt = {**t, "ms": time_ms(lambda: pentry(x, pq, psc, *li, **kw), iters=50),
+            prun = lambda: pentry(x, pq, psc, *li, **kw)   # noqa: E731
+            pt = {**t, "ms": graph_ms(prun), "events_ms": time_ms(prun, iters=50),
                   "plain_ms": time_ms(lambda: pplain(x, pl_, psl, **kw), iters=3, warmup=1)}
+            pt["bound_share"] = b_ms / pt["ms"]
             pwhat = what.replace(entry.__name__, pentry.__name__) + \
                 f" panels {pq.shape[-3]} x {pq.shape[-1]}"
             log(f"{pwhat}: " + json.dumps(pt) + f"; strided entry {t['ms']:.4f} ms")
@@ -1662,9 +1707,10 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
         d_l = tuple(dn[k][li] for k in order)
         group = D // gu["scales"].shape[1]
         worst = 0.0
+        # M = 2, 8 and 9 only in fast mode: the exact mode keeps its kernel
         for ci, (M, dtype, fast) in enumerate(
-                (M, dtype, fast) for M in (1, 7, 64) for dtype in (bf, f32)
-                for fast in (True, False)):
+                (M, dtype, fast) for M in (1, 2, 7, 8, 9, 64) for dtype in (bf, f32)
+                for fast in (True, False) if fast or M in (1, 7, 64)):
             gen = torch.Generator(device=device).manual_seed(140 + 10 * fi + ci)
             x = torch.randn(M, D, generator=gen, device=device).to(dtype)
             got = entry(x, *args, li, fast=fast)
@@ -1714,12 +1760,14 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                 return qm.quant_linear_stacked(F.silu(y[..., :I]) * y[..., I:], dn, li,
                                                fast=True)
 
-            t = {"ms": time_ms(lambda: entry(x, *args, li, fast=True), iters=50),
+            run = lambda: entry(x, *args, li, fast=True)   # noqa: E731
+            t = {"ms": graph_ms(run), "events_ms": time_ms(run, iters=50),
                  "plain_ms": time_ms(lambda: fm.fused_mlp_plain(
                      x, g_l, u_l, d_l, packed=packed, fast=True), iters=3, warmup=1),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": time_ms(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, iters=20),
-                 "two_launch_ms": time_ms(unfused, iters=50)}
+                 "two_launch_ms": graph_ms(unfused)}
+            t["bound_share"] = b_ms / t["ms"]
             del wg, wu, wd
             log(f"{what}: " + json.dumps(t) + f" ({nbytes / 1e6:.1f} MB)")
             if fmt == "q8_0":
@@ -1734,7 +1782,7 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                 pass
             else:
                 raise SmokeFailure("fused MLP: 65 rows were not refused")
-        log(f"fused MLP {fmt}: 12 cases, worst {worst:.3f} of the tolerance")
+        log(f"fused MLP {fmt}: 18 cases, worst {worst:.3f} of the tolerance")
         del gu, dn, args, g_l, u_l, d_l
         torch.cuda.empty_cache()
     require(bool(line), "fused MLP: the kernels-line entry is missing")
@@ -2922,7 +2970,7 @@ def profile_call(fn, what: str) -> dict | None:
                  else "kv_append_quant" if "kv_append_quant" in name
                  else "mel_log_frames" if "mel_log_frames" in name
                  else "quant_matmul" if "qmm_" in name
-                 else "fused_mlp" if "swiglu_kernel" in name
+                 else "fused_mlp" if "swiglu_" in name
                  else "split sums (quant_matmul, fused_mlp)" if "reduce_partials" in name
                  else "matmul" if any(w in name for w in ("gemm", "nvjet", "cutlass", "sm90"))
                  else "memcpy" if "memcpy" in name

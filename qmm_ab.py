@@ -6,6 +6,7 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
+                      [--decode-weights]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -39,7 +40,11 @@ each cache type at S = 784, 2048 and 8192 alone, with bf16 SDPA over the
 prefix beside the bf16 cache and, where the checkout has ``decode_plan``,
 its splits and CTAs; "decode step, 2 layers": the device kernels (by the
 profiler) and host ms of one step of a full-width 2-layer bf16 decoder over
-each cache. Prints one JSON line and,
+each cache. ``--decode-weights`` times only the M <= 8 weight-streaming
+kernels with cold weights (``decode_weights``): each decoder projection as
+a 28-layer stack taken in turn, the lm_head, the one-launch SwiGLU beside
+the two-launch path over the same weights, and mode "int8" (and q4_0
+words) on the same bytes. Prints one JSON line and,
 with ``--out``, appends it there. Needs a CUDA device.
 """
 
@@ -86,6 +91,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--decode-only", action="store_true",
                     help="time only the decode-step cache attention")
+    ap.add_argument("--decode-weights", action="store_true",
+                    help="time only the M <= 8 weight-streaming kernels, cold")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -119,6 +126,9 @@ def main(argv=None) -> int:
 
     if args.decode_only:
         decode_paths(device, record, shapes, paths)
+        return emit(args, {"paths_ms": paths, "shapes": shapes})
+    if args.decode_weights:
+        decode_weights(device, record, shapes, paths)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
     seed = 0
     for fmt in ("q8_0", "q4_0"):
@@ -258,6 +268,149 @@ def decode_paths(device, record, shapes: dict, paths: dict) -> None:
     shapes["decode step, 2 layers"] = step_launches(bundle)
     del bundle
     torch.cuda.empty_cache()
+
+
+def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECODER[0],
+                   dims=DECODER[1], vocab: int = 156032, ms=(1, 7),
+                   mlp_ms=(1, 7, 8, 64)) -> None:
+    """The M <= 8 weight-streaming kernels (TPU rows 6-13 at M <= 8 and row
+    17) with cold weights, bf16 x, fast mode. Each projection of ``dims``
+    (qkv, o, gate_up, down) is a stack of ``layers`` layers of random q8_0 or
+    symmetric q4_0 blocks (7.5 / 4.0 GB at full width, far past the 50 MB
+    L2), timed as the graph replay of one call per layer over the layers in
+    turn, per call; the lm_head (``vocab`` columns, 559 / 280 MB) strided and
+    in panels of 128; the one-launch SwiGLU over the gate_up and down stacks
+    beside the two-launch path over the same weights (gate_up, SiLU * up,
+    down); mode "int8" on the same bytes (q8_0 int8 values, q4_0 nibble
+    bytes, and q4_0 as int32 words). Paths at M = 1, summed over the layers:
+    "<fmt> decode" (the four projections), "<fmt> decode fused" (qkv, o and
+    the SwiGLU), "<fmt> decode two-launch" (qkv, o and the two-launch MLP),
+    "<fmt> decode int8" and "q4_0 decode words". Every case's digest and
+    largest distance are taken on layer 0 against its plain version. Last,
+    the device kernels of one decode step (the profiler's count) of a
+    full-width 2-layer decoder of random q8_0 or q4_0 blocks, with the
+    one-launch SwiGLU and without."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import graph_ms
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    from qwen2_audio_tpu_torch.ops import fused_mlp as fm
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as q4b
+
+    def per_call(fn) -> float:   # one call per layer, layers in turn
+        return graph_ms(lambda: [fn(li) for li in range(layers)], iters=2) / layers
+
+    plan_of = getattr(qm, "stream_plan", None)
+    for fi, fmt in enumerate(("q8_0", "q4_0")):
+        packed = fmt == "q4_0"
+        kw = {"fast": True, **({"off": 8} if packed else {})}
+        stacked = qm.quant_matmul4_stacked if packed else qm.quant_matmul_stacked
+        plain = qm.quant_matmul4_plain if packed else qm.quant_matmul_plain
+        g = torch.Generator(device=device).manual_seed(2000 + fi)
+        w = {name: random_quant_linear(g, (layers, K, N), fmt) for name, K, N in
+             (("qkv", *dims[0]), ("o", *dims[1]), ("gate_up", *dims[2]), ("down", *dims[3]))}
+        key_q = "qs4" if packed else "qs"
+        t1 = {}   # name: ms at M = 1
+        for name, (K, N) in zip(w, dims):
+            q, sc = w[name][key_q], w[name]["scales"]
+            words = q4b.pack_b32(q) if packed else None
+            for M in ms:
+                x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+                t = {"ms": per_call(lambda li: stacked(x, q, sc, li, **kw))}
+                if plan_of is not None:
+                    t["plan"] = {k: v for k, v in plan_of(M, K, N, qm.sm_count(device)).items()
+                                 if k in ("grid", "ksplit")}
+                record(f"{fmt} {name} M={M} K={K} N={N} cold", "", 0,
+                       stacked(x, q, sc, 0, **kw), plain(x, q[0], sc[0], **kw), t)
+                forms = {"int8": (lambda li: q8.quant_matmul_int8_stacked(
+                    x, q, sc, li, **({"off": 8} if packed else {})),
+                    (lambda: q8.quant_matmul_int8_packed_plain(x, q[0], sc[0], off=8))
+                    if packed else (lambda: q8.quant_matmul_int8_plain(x, q[0], sc[0])))}
+                if packed:
+                    forms["words"] = (lambda li: q4b.quant_matmul_q4b_stacked(x, words, sc, li),
+                                      lambda: q4b.quant_matmul_q4b_plain(x, words[0], sc[0]))
+                for form, (run, ref) in forms.items():
+                    tf = {"ms": per_call(run)}
+                    record(f"{fmt} {name} M={M} K={K} N={N} cold {form}", "", 0, run(0), ref(),
+                           tf)
+                    if M == 1:
+                        path = f"{fmt} decode {form}"
+                        paths[path] = paths.get(path, 0.0) + layers * tf["ms"]
+                if M == 1:
+                    t1[name] = t["ms"]
+            del words
+        paths[f"{fmt} decode"] = layers * sum(t1.values())
+        # the one-launch SwiGLU and the two-launch path over the gate_up and down stacks
+        gu, dn = w["gate_up"], w["down"]
+        (D, I2), (I, _) = dims[2], dims[3]
+        fused = fm.fused_mlp4_sym_stacked if packed else fm.fused_mlp_stacked
+        g_l = (gu[key_q][0][:, :I], gu["scales"][0][:, :I])
+        u_l = (gu[key_q][0][:, I:], gu["scales"][0][:, I:])
+        d_l = (dn[key_q][0], dn["scales"][0])
+        for M in mlp_ms:
+            x = torch.randn(M, D, generator=g, device=device).to(torch.bfloat16)
+            args = (gu[key_q], gu["scales"], dn[key_q], dn["scales"])
+
+            def two_launch(li):
+                y = stacked(x, gu[key_q], gu["scales"], li, **kw)
+                return stacked(F.silu(y[..., :I]) * y[..., I:], dn[key_q], dn["scales"], li,
+                               **kw)
+
+            t = {"ms": per_call(lambda li: fused(x, *args, li, fast=True)),
+                 "two_launch_ms": per_call(two_launch)}
+            plan = getattr(fm, "swiglu_plan", None)
+            if plan is not None:
+                t["plan"] = {k: v for k, v in plan(M, D, I, dn[key_q].shape[-1],
+                                                   qm.sm_count(device)).items()
+                             if k in ("grid", "slices")}
+            record(f"{fmt} swiglu M={M} K={D} I={I} cold", "", 0, fused(x, *args, 0, fast=True),
+                   fm.fused_mlp_plain(x, g_l, u_l, d_l, packed=packed, fast=True), t)
+            if M == 1:
+                paths[f"{fmt} decode fused"] = layers * (t1["qkv"] + t1["o"] + t["ms"])
+                paths[f"{fmt} decode two-launch"] = layers * (t1["qkv"] + t1["o"]
+                                                              + t["two_launch_ms"])
+        del w, gu, dn, g_l, u_l, d_l
+        torch.cuda.empty_cache()
+        # the lm_head, strided and in panels of 128
+        K = dims[0][0]
+        head = random_quant_linear(g, (K, vocab), fmt)
+        flat = qm.quant_matmul4 if packed else qm.quant_matmul
+        pflat = qm.quant_matmul_panel4 if packed else qm.quant_matmul_panel
+        pw = qm.panelize_weight(head, 128)
+        q, sc = head[key_q], head["scales"]
+        pq, psc = pw[key_q + "_p"], pw["scales_p"]
+        for M in ms:
+            x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+            want = plain(x, q, sc, **kw)
+            got = flat(x, q, sc, **kw)
+            record(f"{fmt} lm_head M={M} K={K} N={vocab}", "", 0, got, want,
+                   {"ms": graph_ms(lambda: flat(x, q, sc, **kw)),
+                    "panel_ms": graph_ms(lambda: pflat(x, pq, psc, **kw)),
+                    "panel_equal": bool(torch.equal(pflat(x, pq, psc, **kw), got))})
+        del head, pw, q, sc, pq, psc
+        torch.cuda.empty_cache()
+    # the device kernels of one decode step of a full-width 2-layer decoder of
+    # random blocks, with the one-launch SwiGLU and without
+    from chip_smoke import step_launches
+    from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    from qwen2_audio_tpu_torch.ops import linear
+    cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
+    for fmt in ("q8_0", "q4_0"):
+        bundle = random_bundle(torch.Generator(device=device).manual_seed(7), cfg, 1280,
+                               dtype=torch.bfloat16, max_ctx=2048,
+                               cache_dtype=torch.bfloat16, device=device, quant=fmt)
+        for fused in (True, False):
+            linear.set_fused_mlp(fused)
+            shapes[f"decode step, 2 layers, {fmt}, "
+                   + ("one-launch SwiGLU" if fused else "per-projection MLP")] = \
+                step_launches(bundle)["bf16"]
+        linear.set_fused_mlp(None)
+        del bundle
+        torch.cuda.empty_cache()
 
 
 def edge_shares(device) -> dict:

@@ -1,7 +1,7 @@
 // Shared by quant_matmul.cu, fused_mlp.cu and quant_matmul_int8.cu: how a
-// thread turns the bytes of a ggml block weight into floats, the
-// weight-streaming step the first two are built from, and the deterministic
-// sum of split partials all three use.
+// thread turns the bytes of a ggml block weight into floats, the float32
+// weight-streaming step of the first two's exact mode at M <= 8, and the
+// deterministic sum of split partials all three use.
 //
 // A weight is stored [in, out]: byte row r of a column holds int8 value r,
 // or (packed) the nibbles of values g * 32 + j (low) and g * 32 + j + 16
@@ -84,8 +84,9 @@ __device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
   }
 }
 
-// One lane's share of 32 values of K: acc[m][c] += sum over k of
-// xr[m][k] * wr[k][c] for the lane's 4 neighbouring columns c.
+// One lane's share of 32 values of K in float32 (the exact mode of the
+// M <= 8 kernels): acc[m][c] += sum over k of x[m][k] * w[k][c] for the
+// lane's 4 neighbouring columns c.
 //   qp      the byte row of the first value (row k0, or k0 / 2 packed) at
 //           the lane's first column; ldq bytes from one row to the next
 //   s0, s1  element index, at the lane's first column, of the scale row of
@@ -93,19 +94,14 @@ __device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&v)[8]) {
 //           group is 32); mn, if MINS, is indexed the same way
 //   x       value k0 of the first row of x; ldx elements from row to row;
 //           rows >= 1 rows are valid, a row past them repeats the last one
-//   fast    x and each w rounded once to bf16 (q * s + m as a whole)
-//   DQ16    (with fast) s rounded to bf16 before the multiply: q * bf16(s)
-//           is exact in float32, so w is the bf16 product of the TPU's
-//           bf16-domain dequant (quant_matmul.py:86-92, :135-140); a template
-//           parameter, so that the default instantiation is unchanged
 // The weight bytes are read once, 4 bytes per lane and row, so a warp reads
 // 128 contiguous bytes of each row. q * s + m is a multiply and an add, each
 // rounded, as the plain version does it.
-template <typename XT, bool PACKED, bool MINS, int MT, bool DQ16 = false>
+template <typename XT, bool PACKED, bool MINS, int MT>
 __device__ __forceinline__ void block32_fma(
     float (&acc)[MT][4], const uint8_t* __restrict__ qp, long long ldq,
     const void* __restrict__ sc, int s_f16, const float* __restrict__ mn, long long s0,
-    long long s1, float zero, int fast, const XT* __restrict__ x, long long ldx, int rows) {
+    long long s1, float zero, const XT* __restrict__ x, long long ldx, int rows) {
   constexpr int ROWS = PACKED ? 16 : 32;   // byte rows per 32 values of K
   uint32_t wq[ROWS];
 #pragma unroll
@@ -124,13 +120,6 @@ __device__ __forceinline__ void block32_fma(
       if (MINS) mv[1][c] = mv[0][c];
     }
   }
-  if (DQ16) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      s[0][c] = round_bf16(s[0][c]);
-      s[1][c] = round_bf16(s[1][c]);
-    }
-  }
 #pragma unroll
   for (int c8 = 0; c8 < 4; ++c8) {
     float w[8][4];
@@ -143,7 +132,7 @@ __device__ __forceinline__ void block32_fma(
       for (int c = 0; c < 4; ++c) {
         float v = __fmul_rn(byte_as_float(word, c) - zero, s[k >> 4][c]);
         if (MINS) v = __fadd_rn(v, mv[k >> 4][c]);
-        w[jj][c] = fast ? round_bf16(v) : v;
+        w[jj][c] = v;
       }
     }
 #pragma unroll
@@ -153,9 +142,8 @@ __device__ __forceinline__ void block32_fma(
       load_x8(x + (long long)mr * ldx + c8 * 8, xv);
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        const float xf = fast ? round_bf16(xv[jj]) : xv[jj];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xf, w[jj][c], acc[m][c]);
+        for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv[jj], w[jj][c], acc[m][c]);
       }
     }
   }

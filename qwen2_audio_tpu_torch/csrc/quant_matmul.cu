@@ -31,16 +31,23 @@
 // What bounds it:
 // - M <= 8 (a decode step): the weight bytes. A 3584 x 3584 q8_0 layer is
 //   12.8 MB of int8 and 0.8 MB of f16 scales, 4.1 us at 3.35 TB/s, against
-//   25.7 MFLOP. qmm_small_kernel streams the weight once: a lane owns 4
-//   neighbouring columns (one 4-byte load per k row, a warp reads 128
-//   contiguous bytes), a warp owns whole 32-row blocks of K, and K is split
-//   over the 4 warps of a block and over gridDim.y blocks so that about four
-//   blocks per SM are in flight even where N / 128 is 28. The 4 warps meet
-//   in shared memory in a fixed order; with more than one split the blocks
-//   write float32 partial sums (S, M, N) and reduce_partials_kernel adds them in
-//   split order, so the result does not vary from run to run (no atomics).
-//   Bytes become floats by the 2^23 trick (byte_perm into the mantissa of
-//   0x4B000000, one subtract), which is exact and needs no int8 negation.
+//   25.7 MFLOP. fast mode: qmm_stream_kernel, the tensor-core streaming core
+//   of qmm_stream.cuh (a warp's 64-column block through its own cp.async
+//   ring, the dequantized weight as A of mma.sync m16n8k16, x rounded once
+//   per block into shared memory as B). A block is 4 warps, 256 neighbouring
+//   columns, over one range of whole 32-row groups of K; the wrapper's plan
+//   (ops/quant_matmul.py stream_plan, from M, K and N only) splits K so that
+//   about two blocks per SM run at once and a block stages at most 16384
+//   values of x. With more than one split the blocks write float32 partial
+//   sums (S, M, N); the last block of a column group to finish, found by a
+//   ticket counter, adds the splits' sums in split order and writes the
+//   output in the same launch, so the result does not vary from run to run
+//   (no float atomics). exact mode: qmm_small_kernel, float32 FMA: a lane
+//   owns 4 neighbouring columns, a warp whole 32-row blocks of K, K split
+//   over the 4 warps of a block and over gridDim.y blocks (split_k), the
+//   splits added in order by reduce_partials_kernel. Bytes become floats by
+//   the 2^23 trick (byte_perm into the mantissa of 0x4B000000, one
+//   subtract), which is exact and needs no int8 negation.
 // - M > 8 (prefill M = 752, the encoder M = 1500): operations (gate_up of
 //   the 7B tower at M = 752: 204 GFLOP, 0.21 ms at 989 TFLOP/s in bf16).
 //   fast mode: qmm_wgmma_kernel, 128 x 128 output tiles, K in stages of 64.
@@ -89,6 +96,7 @@
 
 #include "hopper_mma.cuh"
 #include "qmm_common.cuh"
+#include "qmm_stream.cuh"
 
 #include <type_traits>
 
@@ -121,8 +129,15 @@ __device__ __forceinline__ void load_scales8(const void* sc, int s_f16, long lon
 // M <= 8: stream the weight once
 // ------------------------------------------------------------------------- //
 
-constexpr int kSmallCols = 128;    // columns per block: 32 lanes x 4
+constexpr int kSmallCols = 128;    // exact mode: columns per block, 32 lanes x 4
 constexpr int kSmallWarps = 4;
+constexpr int kStreamWarps = 4;    // fast mode: 64-column blocks a block
+constexpr int kStreamX = 16384;    // most values of x a block stages (M x its K range)
+constexpr int kMaxTickets = 4096;  // column groups a K-split launch may have
+
+// one ticket per column group of a K-split launch: the blocks of a group
+// add one as they finish, the last one resets it to 0 (one launch at a time)
+__device__ unsigned int g_tickets[kMaxTickets];
 
 // the lane's weight and scale bases: the panel of its columns, then the
 // column inside the panel (one panel of width N when the weight is row-major)
@@ -135,12 +150,11 @@ __device__ __forceinline__ PanelAt panel_at(int col, int bn, long long q_rows,
   return {(long long)p * q_rows * bn + c, (long long)p * s_rows * bn + c};
 }
 
-template <typename XT, bool PACKED, int MT, bool DQ16>
+template <typename XT, bool PACKED, int MT>
 __global__ void __launch_bounds__(kSmallWarps * 32)
 qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                  const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
-                 XT* __restrict__ out, int M, int K, int N, int bn, int group, float zero,
-                 int fast) {
+                 XT* __restrict__ out, int M, int K, int N, int bn, int group, float zero) {
   __shared__ __align__(16) float red[kSmallWarps][MT][kSmallCols];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col = blockIdx.x * kSmallCols + lane * 4;
@@ -154,10 +168,10 @@ qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
     const PanelAt at = panel_at(col, bn, PACKED ? K / 2 : K, K / group);
     for (int b32 = blockIdx.y * kSmallWarps + warp; b32 < K / 32; b32 += n_warps) {
       const int k0 = b32 * 32;
-      block32_fma<XT, PACKED, false, MT, DQ16>(
+      block32_fma<XT, PACKED, false, MT>(
           acc, q + at.q + (long long)(PACKED ? k0 / 2 : k0) * bn, bn, sc, s_f16, nullptr,
           at.s + (long long)(k0 / group) * bn, at.s + (long long)((k0 + 16) / group) * bn,
-          zero, fast, x + k0, K, M);
+          zero, x + k0, K, M);
     }
   }
 
@@ -180,6 +194,105 @@ qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
           out[(long long)m * N + cc] = from_float<XT>(v);
       }
     }
+  }
+}
+
+// fast mode: 4 warps, each a 64-column block of the block's 256 columns,
+// over groups g0 .. g1 - 1 (32 values of K each) of split blockIdx.y
+template <typename XT, bool PACKED, bool DQ16>
+__global__ void __launch_bounds__(kStreamWarps * 32)
+qmm_stream_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
+                  const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
+                  XT* __restrict__ out, int M, int K, int N, int bn, int group, float zero,
+                  int ks) {
+  using St = Stage<PACKED, false>;
+  constexpr int RING = St::kRing;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = K / 32, split = blockIdx.y;
+  const int g0 = (int)((long long)split * G / ks), g1 = (int)((long long)(split + 1) * G / ks);
+  const int n = g1 - g0, es = s_f16 ? 2 : 4, srows = 32 / group;
+  const int col0 = (blockIdx.x * kStreamWarps + warp) * kWarpCols;
+  const bool active = col0 < N;
+  uint8_t* ring = smem + warp * RING * St::kBytes;
+  uint2* xs = reinterpret_cast<uint2*>(smem + kStreamWarps * RING * St::kBytes);
+
+  // the lane's 16 weight columns and its scale chunk, each inside one panel
+  const long long q_rows = PACKED ? K / 2 : K, s_rows = K / group;
+  const int qc = col0 + 16 * (lane & 3), scol = col0 + (lane % (4 * es)) * (16 / es);
+  const uint8_t* sb = static_cast<const uint8_t*>(sc);
+  LaneCopy cp = lane_copy<PACKED, false>(
+      q + (qc < N ? panel_at(qc, bn, q_rows, s_rows).q : 0), qc < N, bn,
+      sb + (scol < N ? panel_at(scol, bn, q_rows, s_rows).s * es : 0), scol < N,
+      (long long)bn * es, sb, false, 0, es, srows, g0, lane);
+#pragma unroll
+  for (int i = 0; i < RING - 1; ++i) {
+    if (active && i < n) issue_stage<PACKED, false>(ring + i * St::kBytes, cp, lane);
+    cp_async_commit();
+  }
+  stage_x(x + (long long)g0 * 32, K, M, n * 32, xs, threadIdx.x, kStreamWarps * 32);
+  __syncthreads();
+
+  float acc[4][4] = {};
+  if (active) {
+    for (int i = 0; i < n; ++i) {
+      cp_async_wait<RING - 2>();
+      __syncwarp();
+      if (i + RING - 1 < n)
+        issue_stage<PACKED, false>(ring + ((i + RING - 1) & (RING - 1)) * St::kBytes, cp, lane);
+      cp_async_commit();
+      consume_stage<PACKED, false, DQ16>(acc, ring + (i & (RING - 1)) * St::kBytes, es, group,
+                                         zero, b_frag(xs, 2 * i, M, lane),
+                                         b_frag(xs, 2 * i + 1, M, lane), lane);
+    }
+  }
+  cp_async_wait<0>();   // no copy outlives its thread
+
+  const int g = lane >> 2, t = lane & 3, col = col0 + 8 * g;
+  if (ks == 1) {
+    if (active && col < N) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (2 * t + h < M) {
+          float o[8];
+          acc_row(acc, h, o);
+          store8(out + (long long)(2 * t + h) * N + col, o);
+        }
+      }
+    }
+    return;
+  }
+  // K split: this split's float32 sums, then the group's last block adds the
+  // splits in order
+  if (active && col < N) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (2 * t + h < M) {
+        float o[8];
+        acc_row(acc, h, o);
+        store8(partial + ((long long)split * M + 2 * t + h) * N + col, o);
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&g_tickets[blockIdx.x], 1u) == (unsigned)ks - 1;
+    if (last) g_tickets[blockIdx.x] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  constexpr int kQuads = kStreamWarps * kWarpCols / 4;   // float4 of a row of the group
+  const int c_base = blockIdx.x * kStreamWarps * kWarpCols;
+  for (int e = threadIdx.x; e < M * kQuads; e += kStreamWarps * 32) {
+    const int m = e / kQuads, c = c_base + 4 * (e % kQuads);
+    if (c >= N) continue;
+    const float4 v = sum_splits4(partial + (long long)m * N + c, ks, (long long)M * N);
+    XT* o = out + (long long)m * N + c;
+    store2(o, v.x, v.y);
+    store2(o + 2, v.z, v.w);
   }
 }
 
@@ -614,6 +727,30 @@ cudaError_t launch_wgmma(const void* xb, const uint8_t* q, const void* sc, int s
   return cudaGetLastError();
 }
 
+// the blocks' shared memory: the 4 warps' rings, then x of the longest
+// K range in bf16
+template <bool PACKED>
+constexpr int stream_smem(int M, int kc) {
+  return kStreamWarps * Stage<PACKED, false>::kRing * Stage<PACKED, false>::kBytes + M * kc * 2;
+}
+
+template <typename XT, bool PACKED, bool DQ16>
+cudaError_t launch_stream(const XT* x, const uint8_t* q, const void* sc, int s_f16,
+                          void* scratch, XT* out, int M, int K, int N, int bn, int group,
+                          float zero, int ks, cudaStream_t st) {
+  const int groups = (N + kStreamWarps * kWarpCols - 1) / (kStreamWarps * kWarpCols);
+  const int kc = (K / 32 + ks - 1) / ks * 32;
+  if (M * kc > kStreamX || (ks > 1 && (groups > kMaxTickets || scratch == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaError_t attr =
+      allow_smem<qmm_stream_kernel<XT, PACKED, DQ16>>(stream_smem<PACKED>(1, kStreamX));
+  if (attr != cudaSuccess) return attr;
+  qmm_stream_kernel<XT, PACKED, DQ16>
+      <<<dim3(groups, ks), kStreamWarps * 32, stream_smem<PACKED>(M, kc), st>>>(
+          x, q, sc, s_f16, static_cast<float*>(scratch), out, M, K, N, bn, group, zero, ks);
+  return cudaGetLastError();
+}
+
 template <typename XT, bool PACKED>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
                    void* scratch, int M, int K, int N, int bn, int group, int s_f16,
@@ -622,23 +759,21 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
   const float zero = zero_point(PACKED, off);
-  if (M <= 8) {
+  if (M <= 8 && fast) {
+    return dq16 ? launch_stream<XT, PACKED, true>(xp, qp, sc, s_f16, scratch, op, M, K, N, bn,
+                                                  group, zero, ksplit, st)
+                : launch_stream<XT, PACKED, false>(xp, qp, sc, s_f16, scratch, op, M, K, N, bn,
+                                                   group, zero, ksplit, st);
+  } else if (M <= 8) {
     const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
     float* partial = ksplit > 1 ? static_cast<float*>(scratch) : nullptr;
-#define QMM_SMALL(MT, DQ16)                                                        \
-  qmm_small_kernel<XT, PACKED, MT, DQ16><<<grid, kSmallWarps * 32, 0, st>>>(       \
-      xp, qp, sc, s_f16, partial, op, M, K, N, bn, group, zero, fast)
-#define QMM_SMALL_M(DQ16)                                                          \
-  if (M == 1) QMM_SMALL(1, DQ16);                                                  \
-  else if (M == 2) QMM_SMALL(2, DQ16);                                             \
-  else if (M <= 4) QMM_SMALL(4, DQ16);                                             \
-  else QMM_SMALL(8, DQ16)
-    if (dq16) {
-      QMM_SMALL_M(true);
-    } else {
-      QMM_SMALL_M(false);
-    }
-#undef QMM_SMALL_M
+#define QMM_SMALL(MT)                                                             \
+  qmm_small_kernel<XT, PACKED, MT><<<grid, kSmallWarps * 32, 0, st>>>(            \
+      xp, qp, sc, s_f16, partial, op, M, K, N, bn, group, zero)
+    if (M == 1) QMM_SMALL(1);
+    else if (M == 2) QMM_SMALL(2);
+    else if (M <= 4) QMM_SMALL(4);
+    else QMM_SMALL(8);
 #undef QMM_SMALL
     if (ksplit > 1) {
       const long long mn = (long long)M * N;
@@ -676,9 +811,10 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 // sc (N / bn, K / group, bn) float16 or float32; out (M, N) in x's type.
 // scratch: float32 (ksplit, M, N) when ksplit > 1, followed, when M > 8,
 // fast and x is float32, by bf16 (M, K), x rounded for the tensor cores.
-// ksplit splits K: at M <= 8 over blocks of 32 rows, at M > 8 in fast mode
-// over the 64-deep stages (it divides their count); 1 in exact mode at
-// M > 8.
+// ksplit splits K: at M <= 8 over groups of 32 rows (fast mode: every
+// split's values of x, M x its K range, at most 16384; more than one split
+// at most 4096 column groups of 256), at M > 8 in fast mode over the
+// 64-deep stages (it divides their count); 1 in exact mode at M > 8.
 // dq16 (fast mode only) rounds each scale to bf16 before the multiply, so
 // that wr = bf16(v * bf16(s)), the TPU kernels' bf16-domain dequant; it runs
 // its own instantiations, and the default ones compile as without it.

@@ -60,9 +60,9 @@ SIGNATURES = {
     },
     "fused_mlp": {
         # x, gate (q, scales, mins), up (q, scales, mins), down (q, scales,
-        # mins), out, scratch, M, K, I, D, ld_gu, bi, group, x_bf16, gu_s_f16,
-        # dn_s_f16, packed, off, fast, stream
-        "qa_fused_mlp": [P] * 12 + [I] * 4 + [L] + [I] * 8 + [P],
+        # mins), out, scratch, M, K, I, D, ld_gu, bi, slices, group, x_bf16,
+        # gu_s_f16, dn_s_f16, packed, off, fast, stream
+        "qa_fused_mlp": [P] * 12 + [I] * 4 + [L] + [I] * 9 + [P],
     },
     "quant_matmul_int8": {
         # x, xq, sx, M, K, x_bf16, transposed, stream

@@ -26,9 +26,11 @@ the two-launch path, so with mins the two paths differ by rounding. Group
 
 What the kernel keeps out of device memory is the (M, I) intermediate. On
 the card each block owns a slice of I and the float32 partial (M, D) sums of
-the slices are added in slice order by a second small kernel (one launch of
+the slices are added in slice order by a second small kernel (one call of
 the wrapper), so a result repeats bit for bit; design notes in the CUDA
-source. Each wrapper launches the kernel for CUDA tensors, runs
+source. ``fast`` runs the tensor-core kernel, whose slices ``swiglu_plan``
+spreads over the SMs in whole 32-column units; the exact mode runs the
+float32 kernel, whose slices ``slice_width`` sets. Each wrapper launches the kernel for CUDA tensors, runs
 ``fused_mlp_plain`` for CPU tensors, raises for anything else, and counts
 its launches. The TPU blocking knobs (``block_i``, padding M to 8) have no
 counterpart.
@@ -39,11 +41,13 @@ from __future__ import annotations
 import torch
 
 from qwen2_audio_tpu_torch.ops import _build
-from qwen2_audio_tpu_torch.ops.quant_matmul import GROUP, _layer, block_weight
+from qwen2_audio_tpu_torch.ops.quant_matmul import GROUP, _layer, block_weight, sm_count
 
 MAX_M = 64
-_TILE = 64                      # columns of I a block takes per pass
+_TILE = 64                      # exact mode: columns of I a block takes per pass
+_UNIT = 32                      # fast mode: columns of I a slice is made of
 _SCRATCH_BYTES = 64 << 20       # most the partial sums may take
+_MAX_SMEM = 232448              # shared memory a block may have
 _X_TYPES = (torch.float32, torch.bfloat16)
 _S_TYPES = (torch.float32, torch.float16)
 
@@ -97,12 +101,50 @@ def gated_rounding_bound(x: torch.Tensor, g: tuple, u: tuple, dn: tuple, *,
 # --------------------------------------------------------------------------- #
 
 def slice_width(M: int, I: int, D: int) -> int:
-    """Columns of I per block: one 64-column tile while the float32 partial
-    sums (slices, M, D) fit the scratch budget, more tiles per block for
-    larger M."""
+    """Exact mode: columns of I per block, one 64-column tile while the
+    float32 partial sums (slices, M, D) fit the scratch budget, more tiles
+    per block for larger M."""
     tiles = -(-I // _TILE)
     most = max(1, _SCRATCH_BYTES // (M * D * 4))
     return -(-tiles // min(tiles, most)) * _TILE
+
+
+def swiglu_plan(M: int, K: int, I: int, D: int, sms: int, packed: bool = False,
+                mins: bool = False) -> dict:
+    """The launch of the fast-mode kernel (swiglu_stream_kernel), from M, K,
+    I and D: one block of 8 warps per slice; the slices are whole 32-column
+    units of I, at most one per SM (``sms``) and as many as the partial-sum
+    budget allows (64 MB of float32 (slices, M, D)), spread so that no
+    slice has more than one unit more than another: ``slices[p]`` is slice
+    p's columns of I. Rows are taken 8 at a time. ``ucap``: the pairs of
+    64-column gate and up blocks whose warp sums meet in shared memory
+    between two barriers (every pair of the slice where it fits); ``smem``:
+    a block's shared memory (the warps' rings, x of 8 rows, the warps' sums
+    of ucap pairs, gated of the widest slice); ``scratch``: bytes of the partial sums. Raises where the
+    block's shared memory would pass the card's 227 KB (K above about 9900
+    at 8 rows)."""
+    if not 1 <= M <= MAX_M or K % 32 or I % _UNIT or D % 16 or min(K, I, D) < 1:
+        raise ValueError(f"swiglu_plan: M in 1..{MAX_M}, K and I multiples of 32, D of 16, "
+                         f"got M={M}, K={K}, I={I}, D={D}")
+    units = I // _UNIT
+    P = max(1, min(units, sms, _SCRATCH_BYTES // (M * D * 4)))
+    slices = [(p * units // P * _UNIT, (p + 1) * units // P * _UNIT) for p in range(P)]
+    widest = max(b - a for a, b in slices)
+    mr = min(M, 8)
+    stage = (16 if packed else 32) * 64 + (256 if packed else 512) * (2 if mins else 1)
+
+    def smem_of(ucap):   # rings, x, the warps' sums of ucap pairs of blocks, gated
+        return (8 * (4 if packed else 2) * stage + 2 * mr * K + 2 * ucap * 8 * mr * 64 * 4
+                + 2 * mr * widest)
+
+    ucap = -(-widest // (2 * _UNIT))
+    while ucap > 1 and smem_of(ucap) > _MAX_SMEM:
+        ucap -= 1
+    if smem_of(ucap) > _MAX_SMEM:
+        raise ValueError(f"swiglu_plan: K={K} at {mr} rows needs {smem_of(ucap)} bytes of "
+                         f"shared memory a block (at most {_MAX_SMEM})")
+    return {"kernel": "stream", "grid": (P,), "slices": slices, "ucap": ucap,
+            "smem": smem_of(ucap), "scratch": 4 * P * M * D}
 
 
 def _check(name: str, x, g: tuple, u: tuple, dn: tuple, packed: bool) -> int:
@@ -163,9 +205,14 @@ def _launch(name: str, x, g: tuple, u: tuple, dn: tuple, group: int, packed: boo
                                  "columns contiguous and aligned to 4 elements")
     if g[1].dtype != u[1].dtype:
         raise ValueError(f"{name}: gate and up scales differ in type")
-    bi = slice_width(M, I, D)
+    if fast:
+        plan = swiglu_plan(M, K, I, D, sm_count(x.device), packed, mins)
+        bi, slices = 0, plan["grid"][0]
+    else:
+        bi = slice_width(M, I, D)
+        slices = -(-I // bi)
     out = torch.empty((M, D), dtype=x.dtype, device=x.device)
-    scratch = torch.empty((-(-I // bi), M, D), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((slices, M, D), dtype=torch.float32, device=x.device)
 
     def ptrs(w):
         return [t.data_ptr() for t in w] + ([] if mins else [None])
@@ -174,7 +221,7 @@ def _launch(name: str, x, g: tuple, u: tuple, dn: tuple, group: int, packed: boo
     with torch.cuda.device(x.device):
         rc = lib.qa_fused_mlp(
             x.data_ptr(), *ptrs(g), *ptrs(u), *ptrs(dn), out.data_ptr(), scratch.data_ptr(),
-            M, K, I, D, ld, bi, group, int(x.dtype == torch.bfloat16),
+            M, K, I, D, ld, bi, slices, group, int(x.dtype == torch.bfloat16),
             int(g[1].dtype == torch.float16), int(dn[1].dtype == torch.float16),
             int(packed), 8 if packed and not mins else 0, int(fast),
             torch.cuda.current_stream().cuda_stream)

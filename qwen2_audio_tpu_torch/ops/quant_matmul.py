@@ -41,8 +41,11 @@ pointer.
 
 On the card the kernel is bound by the weight bytes at M <= 8 (a decode
 step) and by operations above (prefill, the encoder); the design notes are
-in the CUDA source. With a K split the partial sums are added in a fixed
-order by a second small kernel, so results do not vary from run to run.
+in the CUDA source. At M <= 8 in fast mode the weight streams through the
+tensor cores (``stream_plan``: column groups and K splits, from M, K and N
+only), and a K split's partial sums are added in split order in the same
+launch; elsewhere a second small kernel adds them in a fixed order. Either
+way results do not vary from run to run.
 
 Each wrapper launches the kernel for CUDA tensors, runs its plain version
 for CPU tensors, raises for anything else, and counts its launches. No
@@ -58,8 +61,14 @@ from qwen2_audio_tpu_torch.ops import _build
 GROUP = 32
 _X_TYPES = (torch.float32, torch.bfloat16)
 _S_TYPES = (torch.float32, torch.float16)
-_SMALL_M = 8          # rows the weight-streaming kernel takes
-_SMALL_COLS = 128     # its columns per block
+_SMALL_M = 8          # rows the weight-streaming kernels take
+_SMALL_COLS = 128     # exact mode: columns per block
+_STREAM_COLS = 256    # fast mode: columns per block (4 warps of 64)
+_STREAM_X = 16384     # fast mode: most values of x a block stages (M x its K range)
+_STREAM_SPREAD = 5    # fast mode: K splits aim at this many blocks per SM
+_STREAM_SPLITS = 28   # fast mode: most K splits (each adds a partial-sum pass)
+_STREAM_LEAST = 4     # fast mode: K splits wide weights take all the same
+_MAX_TICKETS = 4096   # fast mode: column groups of a K-split launch
 _TILE = 128           # rows and columns of an M > 8 tile
 _sm_count: dict[int, int] = {}
 
@@ -191,6 +200,40 @@ def split_k(M: int, K: int, N: int, sm_count: int) -> int:
     return max(1, min(want, K // 32 // 8))
 
 
+def stream_plan(M: int, K: int, N: int, sms: int, packed: bool = False) -> dict:
+    """The launch of the fast-mode M <= 8 kernel (qmm_stream_kernel), from
+    M, K and N only, so that row-major and panel storage of one weight get
+    the same plan and the same bits: blocks of 4 warps, each warp a
+    64-column block, grid (column groups of 256, K splits); split s takes
+    the 32-row groups ``k_ranges[s]`` of K (whole groups, no two splits more
+    than one group apart). The splits bring the blocks to about five per SM
+    (``sms``; a few SMs' worth of warps hides the latency of each warp's
+    short ring), and to at least 4 for wide weights (gate_up, the lm_head:
+    a block's time then varies less), each split at least 8 groups and at
+    most 28 splits, and
+    keep a block's x (M x its K range, staged in bf16) within 16384 values;
+    past 4096 column groups there is one split. ``scratch``: bytes of the
+    splits' float32 sums (0 for one split); ``smem``: a block's shared
+    memory (the rings, then x)."""
+    if not 1 <= M <= _SMALL_M or K < 32 or K % 32 or N < 16 or N % 16:
+        raise ValueError(f"stream_plan: M in 1..{_SMALL_M}, K a multiple of 32 and N of "
+                         f"16, got M={M}, K={K}, N={N}")
+    groups, G = -(-N // _STREAM_COLS), K // 32
+    least = -(-G // (_STREAM_X // (32 * M)))   # splits that x's budget asks for
+    want = max(1, min(max(_STREAM_LEAST, round(_STREAM_SPREAD * sms / groups)), G // 8,
+                      _STREAM_SPLITS))
+    ks = min(G, max(least, want if groups <= _MAX_TICKETS else 1))
+    if ks > 1 and groups > _MAX_TICKETS:
+        raise ValueError(f"stream_plan: N={N} with K={K} at M={M} needs {ks} splits of "
+                         f"{groups} column groups (at most {_MAX_TICKETS})")
+    k_ranges = [(s * G // ks * 32, (s + 1) * G // ks * 32) for s in range(ks)]
+    kc = max(b - a for a, b in k_ranges)
+    stage = (16 if packed else 32) * 64 + (256 if packed else 512)
+    return {"kernel": "small", "grid": (groups, ks), "ksplit": ks, "k_ranges": k_ranges,
+            "scratch": 4 * ks * M * N if ks > 1 else 0,
+            "smem": 4 * (4 if packed else 2) * stage + 2 * M * kc}
+
+
 def split_tiles(M: int, K: int, N: int, sm_count: int) -> int:
     """Splits along K for the fast M > 8 tile: 2 where its 128 x 128 tiles
     fill a second wave of SMs less than half (the prefill's o and down
@@ -236,10 +279,11 @@ def sm_count(device: torch.device) -> int:
 def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
     """The kernel's launch for x (M, K) and a row-major or panel weight, from
     shapes, types and addresses alone (no device is touched): which kernel
-    (``"small"`` at M <= 8, ``"wgmma"`` the fast large-M tile, ``"fma"`` the
-    exact one), its grid, the K split and the bytes of scratch the wrapper
-    allocates (the splits' float32 sums, then a bf16 copy of float32 x for
-    the fast large-M tile; 0 for none). Raises for what the kernel does not take:
+    (``"small"`` at M <= 8: in fast mode the tensor-core streaming kernel,
+    see ``stream_plan``, in exact mode the float32 one; above, ``"wgmma"``
+    the fast tile and ``"fma"`` the exact one), its grid, the K split and the bytes of scratch
+    the wrapper allocates (the splits' float32 sums, then a bf16 copy of
+    float32 x for the fast large-M tile; 0 for none). Raises for what the kernel does not take:
     x or scales of another type, K not a multiple of 32, N or a panel's
     width not a multiple of 16, an input that is not contiguous or not
     16-byte aligned (the TMA box and the 16-byte loads need both; nothing
@@ -258,6 +302,9 @@ def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte "
                              f"aligned and on {x.device}")
+    if M <= _SMALL_M and fast:
+        plan = stream_plan(M, K, N, sms, packed=q.dtype == torch.uint8)
+        return {**plan, "M": M, "K": K, "N": N, "bn": bn, "group": group}
     if M <= _SMALL_M:
         kernel, ksplit = "small", split_k(M, K, N, sms)
         grid = (-(-N // _SMALL_COLS), ksplit)

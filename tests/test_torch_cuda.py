@@ -713,3 +713,67 @@ def test_int8_tile_edges_agree_across_forms(device, M):
     assert bool(((by.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
     assert torch.equal(by, tb.quant_matmul_q4b_stacked(x, tb.pack_b32(w4["qs4"]),
                                                        w4["scales"], 1))
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 64])
+def test_stream_matmul_rows_match_plain(device, fmt, M):
+    """The M <= 8 tensor-core streaming kernel (fast mode; M = 9 and 64 take
+    the large-M tile) at a ragged N = 1296 and K = 1312, bf16 x: within
+    tolerance of the plain version, two runs bit-equal, the stacked entry and
+    panels of 16 and 48 bit-equal to the flat one."""
+    K, N = 1312, 1296
+    qw = chip_smoke._rand_blocks(device, K, N, fmt, seed=61, layers=2)
+    packed = fmt == "q4_0"
+    key = "qs4" if packed else "qs"
+    q, sc = qw[key], qw["scales"]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(62),
+                    device=device).to(torch.bfloat16)
+    kw = {"fast": True, **({"off": 8} if packed else {})}
+    flat, stacked, pentry, plain = (
+        (tqm.quant_matmul4, tqm.quant_matmul4_stacked, tqm.quant_matmul_panel4,
+         tqm.quant_matmul4_plain) if packed else
+        (tqm.quant_matmul, tqm.quant_matmul_stacked, tqm.quant_matmul_panel,
+         tqm.quant_matmul_plain))
+    got = flat(x, q[1], sc[1], **kw)
+    want = plain(x, q[1], sc[1], **kw)
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(got, flat(x, q[1], sc[1], **kw))
+    assert torch.equal(got, stacked(x, q, sc, 1, **kw))
+    for bn in (16, 48):
+        pw = tqm.panelize_weight({key: q[1], "scales": sc[1]}, bn)
+        assert torch.equal(pentry(x, pw[key + "_p"], pw["scales_p"], **kw), got)
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0", "q4_1", "q6_K"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 64])
+def test_stream_swiglu_rows_match_plain(device, fmt, M):
+    """The one-launch SwiGLU's tensor-core kernel (fast mode) at every row
+    count up to 8 and at 9 and 64 (taken 8 rows at a time), at a ragged D =
+    528: within tolerance of the plain version, two runs bit-equal, the split
+    schema bit-equal to the fused one."""
+    from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
+    K, I, D = 512, 1056, 528
+    gu, dn = chip_smoke._rand_mlp(device, K, I, D, fmt, seed=63)
+    packed = "qs4" in gu
+    order = (("qs4" if packed else "qs"), "scales") + (("mins",) if "mins" in gu else ())
+    entry = {(False, 2): tfm.fused_mlp_stacked, (True, 3): tfm.fused_mlp4_stacked,
+             (True, 2): tfm.fused_mlp4_sym_stacked}[packed, len(order)]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(64),
+                    device=device).to(torch.bfloat16)
+    args = [w[k] for w in (gu, dn) for k in order]
+    leaves = [tuple(w[k][1] for k in order) for w in
+              ({k: gu[k][..., :I] for k in order}, {k: gu[k][..., I:] for k in order}, dn)]
+    got = entry(x, *args, 1, fast=True)
+    want = tfm.fused_mlp_plain(x, *leaves, packed=packed, fast=True)
+    tol = _qmm_tol(want, torch.bfloat16) \
+        + chip_smoke.FUSED_FLIPS * tfm.gated_rounding_bound(x, *leaves, packed=packed)
+    assert got.shape == (M, D) and bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert torch.equal(got, entry(x, *args, 1, fast=True))
+    split = tfm.fused_mlp_split_stacked(
+        x, tuple(gu[k][..., :I].contiguous() for k in order),
+        tuple(gu[k][..., I:].contiguous() for k in order), tuple(dn[k] for k in order), 1,
+        packed=packed, fast=True)
+    assert torch.equal(split, got)

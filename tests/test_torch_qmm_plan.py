@@ -29,8 +29,9 @@ def _weight(K, N, packed=False, group=32, scale_dtype=torch.float16):
 ])
 def test_dequantizing_plan_picks_the_kernel_grid_and_scratch(M, fast, dtype, kernel, scratch):
     """M <= 8 streams the weight (split over K, float32 partial sums in
-    scratch); above, the 128 x 128 tile, whose grid walks M first; float32 x
-    in fast mode gets a bf16 copy, rounded once, for the TMA box."""
+    scratch): in fast mode on the tensor cores, in exact mode in float32;
+    above, the 128 x 128 tile, whose grid walks M first; float32 x in fast
+    mode gets a bf16 copy, rounded once, for the TMA box."""
     K, N = 1312, 1296
     q, sc = _weight(K, N)
     x = torch.zeros(M, K, dtype=dtype)
@@ -38,8 +39,10 @@ def test_dequantizing_plan_picks_the_kernel_grid_and_scratch(M, fast, dtype, ker
     assert plan["kernel"] == kernel and plan["scratch"] == scratch
     assert (plan["M"], plan["K"], plan["N"], plan["bn"]) == (M, K, N, N)
     if kernel == "small":
-        # about four blocks per SM, at most K / 256 splits (41 / 8 here)
-        assert plan["grid"] == (-(-N // 128), 5) and plan["ksplit"] == 5
+        # at most K / 256 splits (41 / 8 here): fast mode, 6 column groups of
+        # 256 (stream_plan); exact mode, about four blocks of 128 per SM
+        cols = 256 if fast else 128
+        assert plan["grid"] == (-(-N // cols), 5) and plan["ksplit"] == 5
     else:
         assert plan["grid"] == (-(-M // 128), -(-N // 128), 1) and plan["ksplit"] == 1
 
