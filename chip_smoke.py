@@ -12,9 +12,10 @@ before the result lines are printed):
    SASS of every tensor-core kernel is checked (cuobjdump): the bf16
    attention tile on wgmma, and each fast-mode instantiation of the two
    M <= 8 weight-streaming kernels (qmm_stream_kernel, swiglu_stream_kernel)
-   on HMMA or HGMMA;
+   on HMMA or HGMMA; the mel kernel on float32 FMA with no HMMA or HGMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, with stated tolerances (the decode kernels over a
+   main path's shapes, with stated tolerances (the mel kernel on MEL_CASES,
+   each also against the float64 oracle; the decode kernels over a
    cache filled with NaN past each stream's position, at the split-KV
    kernel's range edges too, its launch plan held to what the card keeps
    resident), and time kernel,
@@ -27,7 +28,9 @@ before the result lines are printed):
    large-M wgmma tile: M = 9, 65, 129, 753, a weight of N = 1296 (a multiple
    of 16, not of the tile's 128 columns) and K = 1312 (a multiple of 32, not
    of the 64-deep stage) in q8_0 (float16 and float32 scales), q4_0 and q6_K,
-   float32 x in fast mode, in panels of widths 16, 48 and 432, and the M <= 8
+   float32 x in fast mode, in panels of widths 16, 48 and 432, the K-split
+   M <= 8 launch on two streams at once and in a CUDA graph, bit-equal to
+   one stream (ticket counters per stream and per capture), and the M <= 8
    streaming kernel at M = 1 on that N in panels of 16 and 48; the five
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
    I = 18944) at M = 1, 7, 64 in both modes and M = 2, 8, 9 in fast mode,
@@ -344,7 +347,21 @@ def build() -> float:
                                      ("HGMMA", "HMMA")))
     check_stream_sass({name: sass_counts(str(_build._target(name)), STREAM_SASS_OPS)
                        for name in STREAM_KERNELS})
+    check_mel_sass(sass_counts(str(_build._target("mel")), ("FFMA", "HMMA", "HGMMA")))
     return secs
+
+
+def check_mel_sass(counts: dict) -> None:
+    """The mel kernel runs float32 FMA and no tensor-core instruction: its
+    SASS has FFMA and neither HMMA nor HGMMA; fails where cuobjdump is
+    missing (empty counts)."""
+    found = {fn: c.split() for fn, c in counts.items() if "mel_log_frames_kernel" in fn}
+    for fn, c in found.items():
+        log(f"sass[mel]: {fn}: {' '.join(c)}")
+    require(len(found) == 1 and all("FFMA" in c for c in found.values()),
+            "mel: no SASS counts of mel_log_frames_kernel with FFMA (cuobjdump missing?)")
+    require(not any(op in c for c in found.values() for op in ("HMMA", "HGMMA")),
+            "mel: the kernel issues tensor-core instructions")
 
 
 # the M <= 8 weight-streaming kernels (fast mode): library, kernel, instantiations
@@ -411,45 +428,194 @@ def sass_counts(lib: str, ops: tuple) -> dict:
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------- #
 
-def check_mel(device, n_mels: int = 128, seconds: float = 30.0) -> dict:
+# check_mel's cases: the main path's 30 s clip at 128 mels first (3002
+# frames, the timed one), then the edges: 6002 frames, silence (-1.5
+# everywhere), full-scale white noise, a tone centred on DFT bin 37 (a wide
+# range in one frame: the Hann window leaves bins 36..38, the rest is float32
+# rounding), clips shorter than 201 samples, a single-frame launch, frame
+# counts one below, at and one above multiples of the kernel's 8 frames a
+# CTA, and a filterbank that is not triangular and has an empty row
+MEL_CASES = ("30 s, 128 mels", "60 s, 80 mels", "silence", "white noise", "bin tone",
+             "100 samples", "200 samples", "one frame", "dense bank, empty row",
+             "7 frames", "8 frames", "9 frames", "15 frames", "16 frames", "17 frames")
+
+
+def _mel_inputs(name: str):
+    """(samples, filters) of a MEL_CASES case; samples is None for the
+    single-frame launch (400 samples of noise, n_frames = 1)."""
+    import numpy as np
+    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+    rng = np.random.default_rng(MEL_CASES.index(name))
+    if name.endswith(" frames"):   # 160 c - 280 samples give c content frames
+        c = int(name.split()[0])
+        return noisy_tone(1.0, seed=c)[:160 * c - 280], mel_filterbank(80 if c < 10 else 128)
+    if name == "dense bank, empty row":
+        bank = rng.uniform(0, 0.05, (80, 201)).astype(np.float32)
+        bank[5] = 0
+        return noisy_tone(3.0, seed=13), bank
+    bank = mel_filterbank(128 if name in ("30 s, 128 mels", "white noise", "bin tone",
+                                          "200 samples") else 80)
+    if name == "30 s, 128 mels":
+        return noisy_tone(30.0, seed=1), bank
+    if name == "60 s, 80 mels":
+        return noisy_tone(60.0, seed=12, freq=1000.0), bank
+    if name == "silence":
+        return np.zeros(16000, np.float32), bank
+    if name == "white noise":
+        return rng.uniform(-1, 1, 48000).astype(np.float32), bank
+    if name == "bin tone":
+        return np.cos(2 * np.pi * 1480.0 * np.arange(32000) / 16000).astype(np.float32), bank
+    if name == "one frame":
+        return None, bank
+    return rng.uniform(-0.5, 0.5, int(name.split()[0])).astype(np.float32), bank
+
+
+def mel_case(device, name: str) -> dict:
+    """One MEL_CASES case on the card: the kernel and its plain version on
+    the same signal, both normalised (audio/mel.py normalize) and held to
+    the float64 oracle, audio/mel.py log_mel_spectrogram_np; for the
+    single-frame launch and for clips of at most 200 samples, whose front
+    the oracle reflect-pads with fewer than 200 samples where pad_signal
+    zero-extends first (as the JAX package does), the same float64 loop over
+    pad_signal's frames. Returns the inputs and the three largest
+    distances."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.audio.mel import (hann_window, log_mel_spectrogram_np,
+                                                 normalize, pad_signal)
+    from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_plain, mel_tables
+
+    samples, filters = _mel_inputs(name)
+    if samples is None:
+        padded = np.random.default_rng(99).uniform(-0.5, 0.5, 400).astype(np.float32)
+        n_len = n_frames = 1
+    else:
+        padded, n_len, _, n_frames = pad_signal(samples)
+    if samples is not None and samples.size > 200:
+        oracle = log_mel_spectrogram_np(samples, filters).data
+    else:
+        frames = np.lib.stride_tricks.sliding_window_view(
+            padded.astype(np.float64), 400)[::160][:n_frames] * hann_window()
+        spec = np.fft.rfft(frames, axis=-1)
+        mel = (spec.real ** 2 + spec.imag ** 2) @ filters.T.astype(np.float64)
+        oracle = normalize(torch.from_numpy(np.log10(np.maximum(mel, 1e-10))
+                                            .astype(np.float32)), n_len)
+    tables = mel_tables(filters, device)
+    x = torch.from_numpy(padded).to(device)
+    got = normalize(mel_frames(x, tables, n_frames), n_len).cpu()
+    want = normalize(mel_frames_plain(x, tables, n_frames), n_len).cpu()
+    dist = lambda a, b: (a - b).abs().max().item()   # noqa: E731
+    return {"x": x, "tables": tables, "filters": filters, "n_frames": n_frames,
+            "got": got, "err_plain": dist(got, want), "err_oracle": dist(got, oracle),
+            "plain_err_oracle": dist(want, oracle)}
+
+
+def check_mel(device) -> dict:
+    """Every MEL_CASES case held to MEL_ATOL against the plain version and
+    the float64 oracle (silence to -1.5 everywhere); the main case timed by
+    graph replay (the kernel, the plain version and, as an orientation
+    figure for the DFT part alone, torch.stft over the same frames: cuFFT,
+    not a log-mel, and never called by the port)."""
     import math
 
     import numpy as np
     import torch
-    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
-    from qwen2_audio_tpu_torch.audio.mel import normalize, pad_signal
-    from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames, mel_frames_plain, mel_tables
+    from qwen2_audio_tpu_torch.ops.mel_kernel import (FFT_FLOPS_PER_FRAME, mel_frames,
+                                                      mel_frames_plain)
 
-    padded, n_len, _, n_content = pad_signal(noisy_tone(seconds, seed=1))
-    filters = mel_filterbank(n_mels)
-    tables = mel_tables(filters, device)
-    x = torch.from_numpy(padded).to(device)
-    got = mel_frames(x, tables, n_content)
-    want = mel_frames_plain(x, tables, n_content)
-    err = (normalize(got, n_len) - normalize(want, n_len)).abs().max().item()
-    log(f"mel: frames={n_content} n_mel={n_mels} max_abs_err={err:.3e} "
-        f"(normalised, tol {MEL_ATOL}), raw log10 err="
-        f"{(got - want).abs().max().item():.3e}")
-    require(err <= MEL_ATOL, f"mel kernel disagrees with its plain version: {err}")
+    errs = []
+    for name in MEL_CASES:
+        c = mel_case(device, name)
+        log(f"mel case {name!r}: frames={c['n_frames']} n_mel={len(c['filters'])} "
+            f"|kernel - plain|={c['err_plain']:.3e} |kernel - oracle|={c['err_oracle']:.3e} "
+            f"|plain - oracle|={c['plain_err_oracle']:.3e} (normalised, tol {MEL_ATOL})")
+        require(max(c["err_plain"], c["err_oracle"], c["plain_err_oracle"]) <= MEL_ATOL,
+                f"mel case {name!r}: kernel, plain version and oracle disagree")
+        if name == "silence":
+            require(bool(((c["got"] + 1.5).abs() <= 1e-6).all()),
+                    "mel: silence is not -1.5 everywhere")
+        errs.append(c["err_plain"])
+        if name == MEL_CASES[0]:
+            main = c
+    x, tables, n, filters = main["x"], main["tables"], main["n_frames"], main["filters"]
     # Least work of the function, not of the kernel's design: a 400-point
     # real FFT (2.5 N log2 N), the window, the power, the filterbank's
     # nonzeros (each bin falls in at most two triangles) and the log, per
     # frame; bytes are the signal and the filterbank in, the frames out.
     nnz = int(np.count_nonzero(filters))
-    flops = n_content * (2.5 * 400 * math.log2(400) + 400 + 3 * 201 + 2 * nnz + n_mels)
-    nbytes = 4 * (x.numel() + filters.size + n_content * n_mels)
+    n_mels = len(filters)
+    flops = n * (2.5 * 400 * math.log2(400) + 400 + 3 * 201 + 2 * nnz + n_mels)
+    nbytes = 4 * (x.numel() + filters.size + n * n_mels)
     b_ms, b_by = bound(flops, nbytes, PEAK_F32)
-    design = n_content * 400 * 402 * 2 + n_content * 201 * n_mels * 2
+    in_ranges = int(tables.weights.numel())
+    design = n * (FFT_FLOPS_PER_FRAME + 2 * in_ranges)
     log(f"mel: bound counts {flops / 1e6:.1f} MFLOP (rFFT + {nnz} filterbank "
-        f"nonzeros) and {nbytes / 1e6:.2f} MB; the kernel's dense-DFT design does "
-        f"{design / 1e9:.3f} GFLOP ({design / PEAK_F32 * 1e3:.4f} ms at the f32 peak)")
+        f"nonzeros) and {nbytes / 1e6:.2f} MB; the kernel's FFT design does "
+        f"{design / 1e6:.2f} MFLOP ({FFT_FLOPS_PER_FRAME} a frame + 2 x {in_ranges} "
+        f"weights in the ranges; {design / PEAK_F32 * 1e3:.5f} ms at the f32 peak)")
+    ms = graph_ms(lambda: mel_frames(x, tables, n))
+    plain_ms = graph_ms(lambda: mel_frames_plain(x, tables, n))
+    window = torch.hann_window(400, periodic=True, device=device)
+    frames = x[:(n - 1) * 160 + 400]
+    stft_ms = graph_ms(lambda: torch.stft(frames, 400, hop_length=160, window=window,
+                                          center=False, return_complex=True))
+    log(f"mel: {n} frames, {n_mels} mels: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}); torch.stft over the same frames (cuFFT, the DFT "
+        f"alone, an orientation figure) {stft_ms:.5f} ms; graph replay, device time")
     return {"name": "mel_log_frames", "route": "cuda",
             "source": "qwen2_audio_tpu_torch/csrc/mel.cu",
             "replaces": "qwen2_audio_tpu/ops/mel_kernel.py:48",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: mel_frames(x, tables, n_content)),
-            "plain_ms": time_ms(lambda: mel_frames_plain(x, tables, n_content)),
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def stream_ticket_mismatches(device, fmt: str, rounds: int = 64) -> tuple[int, int]:
+    """The K-split M = 1 streaming matmul at the qkv shape (3584 -> 4608),
+    ``rounds`` launches on each of two streams, queued behind a sleep on
+    each so that the two streams' launches run at the same time, then one
+    replay of a CUDA graph of 4 launches: (outputs that differ from the
+    single-stream one's bits, outputs). Launches on two streams, or in a
+    graph, count on ticket arrays of their own, so none may differ."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    K, N = 3584, 4608
+    packed = fmt == "q4_0"
+    w = _rand_blocks(device, K, N, fmt, seed=70)
+    q, sc = w["qs4" if packed else "qs"], w["scales"]
+    entry = qm.quant_matmul4 if packed else qm.quant_matmul
+    kw = {"fast": True, **({"off": 8} if packed else {})}
+    x = torch.randn(1, K, generator=torch.Generator(device=device).manual_seed(71),
+                    device=device).to(torch.bfloat16)
+    require(qm.stream_plan(1, K, N, qm.sm_count(device))["ksplit"] > 1,
+            "tickets: the qkv shape no longer splits K")
+    ref = entry(x, q, sc, **kw)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    outs = []
+    for s in streams:   # hold both streams until every launch is queued
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(int(2e8))
+    for _ in range(rounds):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(entry(x, q, sc, **kw))
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            captured = [entry(x, q, sc, **kw) for _ in range(4)]
+    graph.replay()
+    torch.cuda.synchronize()
+    outs += captured
+    return sum(not torch.equal(o, ref) for o in outs), len(outs)
+
+
+def check_stream_tickets(device) -> None:
+    for fmt in ("q8_0", "q4_0"):
+        bad, total = stream_ticket_mismatches(device, fmt)
+        log(f"tickets {fmt}: {total} K-split launches on two streams and in a graph, "
+            f"{bad} not bit-equal to the single-stream output")
+        require(bad == 0, f"tickets {fmt}: {bad} of {total} outputs differ")
 
 
 def _attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed):
@@ -2984,7 +3150,8 @@ def profile_call(fn, what: str) -> dict | None:
         f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%), by group "
         + json.dumps({k: round(v, 4) for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1])}))
-    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "groups": groups}
 
 
 def main(argv=None) -> int:
@@ -3034,6 +3201,7 @@ def main(argv=None) -> int:
         stamp("phase 2 attention")
         decode, decode_q8 = check_decode(device)
         qmm = check_quant_matmul(device)
+        check_stream_tickets(device)
         check_dequant16(device)
         stamp("phase 2 dequantizing matmul")
         fused = check_fused_mlp(device)

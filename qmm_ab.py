@@ -6,7 +6,7 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
-                      [--decode-weights]
+                      [--decode-weights] [--mel-only] [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -40,11 +40,19 @@ each cache type at S = 784, 2048 and 8192 alone, with bf16 SDPA over the
 prefix beside the bf16 cache and, where the checkout has ``decode_plan``,
 its splits and CTAs; "decode step, 2 layers": the device kernels (by the
 profiler) and host ms of one step of a full-width 2-layer bf16 decoder over
-each cache. ``--decode-weights`` times only the M <= 8 weight-streaming
-kernels with cold weights (``decode_weights``): each decoder projection as
-a 28-layer stack taken in turn, the lm_head, the one-launch SwiGLU beside
-the two-launch path over the same weights, and mode "int8" (and q4_0
-words) on the same bytes. Prints one JSON line and,
+each cache. The log-mel kernel (``mel_paths``): ``mel_frames`` at a 30 s
+clip (3002 frames, 128 mels) and at 1 s (102 frames, 80 mels) beside its
+plain version, by graph replay, with ``host_us``; then "whisper_full", the
+host ms per 30 s clip (median of the calls after the first), the mel's
+``t_mel_us`` per call and the device busy ms of one profiled call (the mel
+kernel's part beside it) of a random-weight F16 qwen2-audio checkpoint
+(32 layers, written once to ``--ckpt`` and reused), loaded in bf16.
+``--mel-only`` runs just these (about a minute a checkout, the build and
+the checkpoint included). ``--decode-weights`` times only the M <= 8
+weight-streaming kernels with cold weights (``decode_weights``): each
+decoder projection as a 28-layer stack taken in turn, the lm_head, the
+one-launch SwiGLU beside the two-launch path over the same weights, and
+mode "int8" (and q4_0 words) on the same bytes. Prints one JSON line and,
 with ``--out``, appends it there. Needs a CUDA device.
 """
 
@@ -56,6 +64,7 @@ import hashlib
 import json
 import os
 import sys
+import tempfile
 
 from chip_smoke import ATTN_TOL, _edge_case, _edge_cases, gpu_line, host_us
 from chip_smoke import graph_ms as time_ms
@@ -93,6 +102,10 @@ def main(argv=None) -> int:
                     help="time only the decode-step cache attention")
     ap.add_argument("--decode-weights", action="store_true",
                     help="time only the M <= 8 weight-streaming kernels, cold")
+    ap.add_argument("--mel-only", action="store_true",
+                    help="time only the log-mel kernel and whisper_full per 30 s clip")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
+                    help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -124,6 +137,9 @@ def main(argv=None) -> int:
                 name = path + (" dq16" if k == "dq16_ms" else "")
                 paths[name] = paths.get(name, 0.0) + layers * ms
 
+    if args.mel_only:
+        mel_paths(device, record, shapes, args.ckpt)
+        return emit(args, {"paths_ms": paths, "shapes": shapes})
     if args.decode_only:
         decode_paths(device, record, shapes, paths)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
@@ -204,8 +220,64 @@ def main(argv=None) -> int:
                {"ms": time_ms(run), "host_us": host_us(run),
                 "c_us": host_us(c_entry(q, k, v, path == "attention prefill"))})
     decode_paths(device, record, shapes, paths)
+    mel_paths(device, record, shapes, args.ckpt)
     return emit(args, {"paths_ms": paths, "shapes": shapes,
                        "attention edges": edge_shares(device)})
+
+
+def mel_paths(device, record, shapes: dict, ckpt: str, layers: int = 32,
+              calls: int = 8) -> None:
+    """The log-mel kernel (TPU row 1) at the encode path's 30 s clip (3002
+    frames, 128 mels) and at 1 s (102 frames, 80 mels), kernel and plain
+    version by graph replay; then whisper_full per 30 s clip through the
+    checkout's capi, host clock (each call ends in a synchronisation), and
+    its t_mel_us per call, and the device busy ms of one profiled call, the
+    mel kernel's share beside it."""
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import noisy_tone, profile_call
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+    from qwen2_audio_tpu_torch.audio.mel import pad_signal
+    from qwen2_audio_tpu_torch.config import WHISPER_PRESETS
+    from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
+    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+    from qwen2_audio_tpu_torch.ops import mel_kernel as mk
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+    for seconds, n_mels in ((30.0, 128), (1.0, 80)):
+        padded, _, _, n = pad_signal(noisy_tone(seconds, seed=1))
+        tables = mk.mel_tables(mel_filterbank(n_mels), device)
+        x = torch.from_numpy(padded).to(device)
+        run = lambda: mk.mel_frames(x, tables, n)                  # noqa: E731
+        plain = lambda: mk.mel_frames_plain(x, tables, n)          # noqa: E731
+        record(f"mel {seconds:g} s n_mel={n_mels} frames={n}", "", 0, run(), plain(),
+               {"ms": time_ms(run), "plain_ms": time_ms(plain), "host_us": host_us(run)})
+    hp = dataclasses.replace(WHISPER_PRESETS["qwen2-audio"], n_audio_layer=layers)
+    if not os.path.exists(ckpt):
+        write_encoder_checkpoint(ckpt, random_encoder_params(np.random.default_rng(0), hp), hp,
+                                 mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
+    ctx = capi.whisper_init_from_file_with_params(
+        ckpt, ContextParams(compute_dtype=torch.bfloat16))
+    clip, params = noisy_tone(30.0, seed=3), capi.whisper_full_default_params()
+    per_call = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        if capi.whisper_full(ctx, params, clip) != 0:
+            raise RuntimeError("qmm_ab: whisper_full failed")
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+    t_mel_us = ctx.state.timings.t_mel_us / calls
+    prof = profile_call(lambda: capi.whisper_full(ctx, params, clip), "whisper_full (encode)")
+    shapes[f"whisper_full {layers} layers, 30 s clip"] = {
+        "ms": statistics.median(per_call[1:]), "per_call_ms": per_call, "t_mel_us": t_mel_us,
+        "device_busy_ms": prof and prof["busy_ms"],
+        "device_mel_ms": prof and prof["groups"].get("mel_log_frames")}
+    capi.whisper_free(ctx)
+    torch.cuda.empty_cache()
 
 
 def decode_paths(device, record, shapes: dict, paths: dict) -> None:

@@ -42,7 +42,10 @@
 //   sums (S, M, N); the last block of a column group to finish, found by a
 //   ticket counter, adds the splits' sums in split order and writes the
 //   output in the same launch, so the result does not vary from run to run
-//   (no float atomics). exact mode: qmm_small_kernel, float32 FMA: a lane
+//   (no float atomics). The tickets are the caller's: one array per stream
+//   and per CUDA-graph capture (ops/quant_matmul.py), made zero once and
+//   left at zero by each launch's last blocks, so that launches in flight at
+//   once never share one and no launch pays for zeroing them. exact mode: qmm_small_kernel, float32 FMA: a lane
 //   owns 4 neighbouring columns, a warp whole 32-row blocks of K, K split
 //   over the 4 warps of a block and over gridDim.y blocks (split_k), the
 //   splits added in order by reduce_partials_kernel. Bytes become floats by
@@ -135,10 +138,6 @@ constexpr int kStreamWarps = 4;    // fast mode: 64-column blocks a block
 constexpr int kStreamX = 16384;    // most values of x a block stages (M x its K range)
 constexpr int kMaxTickets = 4096;  // column groups a K-split launch may have
 
-// one ticket per column group of a K-split launch: the blocks of a group
-// add one as they finish, the last one resets it to 0 (one launch at a time)
-__device__ unsigned int g_tickets[kMaxTickets];
-
 // the lane's weight and scale bases: the panel of its columns, then the
 // column inside the panel (one panel of width N when the weight is row-major)
 struct PanelAt {
@@ -198,13 +197,15 @@ qmm_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 }
 
 // fast mode: 4 warps, each a 64-column block of the block's 256 columns,
-// over groups g0 .. g1 - 1 (32 values of K each) of split blockIdx.y
+// over groups g0 .. g1 - 1 (32 values of K each) of split blockIdx.y; with
+// ks > 1 splits the blocks of column group g add one to tickets[g] (zero at
+// the launch) as they finish, and the last one resets it to 0
 template <typename XT, bool PACKED, bool DQ16>
 __global__ void __launch_bounds__(kStreamWarps * 32)
 qmm_stream_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                   const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
-                  XT* __restrict__ out, int M, int K, int N, int bn, int group, float zero,
-                  int ks) {
+                  unsigned int* __restrict__ tickets, XT* __restrict__ out, int M, int K, int N,
+                  int bn, int group, float zero, int ks) {
   using St = Stage<PACKED, false>;
   constexpr int RING = St::kRing;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -278,8 +279,8 @@ qmm_stream_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    last = atomicAdd(&g_tickets[blockIdx.x], 1u) == (unsigned)ks - 1;
-    if (last) g_tickets[blockIdx.x] = 0;
+    last = atomicAdd(&tickets[blockIdx.x], 1u) == (unsigned)ks - 1;
+    if (last) tickets[blockIdx.x] = 0;
   }
   __syncthreads();
   if (!last) return;
@@ -736,34 +737,37 @@ constexpr int stream_smem(int M, int kc) {
 
 template <typename XT, bool PACKED, bool DQ16>
 cudaError_t launch_stream(const XT* x, const uint8_t* q, const void* sc, int s_f16,
-                          void* scratch, XT* out, int M, int K, int N, int bn, int group,
-                          float zero, int ks, cudaStream_t st) {
+                          void* scratch, unsigned int* tickets, XT* out, int M, int K, int N,
+                          int bn, int group, float zero, int ks, cudaStream_t st) {
   const int groups = (N + kStreamWarps * kWarpCols - 1) / (kStreamWarps * kWarpCols);
   const int kc = (K / 32 + ks - 1) / ks * 32;
-  if (M * kc > kStreamX || (ks > 1 && (groups > kMaxTickets || scratch == nullptr)))
+  if (M * kc > kStreamX ||
+      (ks > 1 && (groups > kMaxTickets || scratch == nullptr || tickets == nullptr)))
     return cudaErrorInvalidValue;
   const cudaError_t attr =
       allow_smem<qmm_stream_kernel<XT, PACKED, DQ16>>(stream_smem<PACKED>(1, kStreamX));
   if (attr != cudaSuccess) return attr;
   qmm_stream_kernel<XT, PACKED, DQ16>
       <<<dim3(groups, ks), kStreamWarps * 32, stream_smem<PACKED>(M, kc), st>>>(
-          x, q, sc, s_f16, static_cast<float*>(scratch), out, M, K, N, bn, group, zero, ks);
+          x, q, sc, s_f16, static_cast<float*>(scratch), tickets, out, M, K, N, bn, group, zero,
+          ks);
   return cudaGetLastError();
 }
 
 template <typename XT, bool PACKED>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
-                   void* scratch, int M, int K, int N, int bn, int group, int s_f16,
-                   int off, int fast, int dq16, int ksplit, cudaStream_t st) {
+                   void* scratch, unsigned int* tickets, int M, int K, int N, int bn,
+                   int group, int s_f16, int off, int fast, int dq16, int ksplit,
+                   cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
   const float zero = zero_point(PACKED, off);
   if (M <= 8 && fast) {
-    return dq16 ? launch_stream<XT, PACKED, true>(xp, qp, sc, s_f16, scratch, op, M, K, N, bn,
-                                                  group, zero, ksplit, st)
-                : launch_stream<XT, PACKED, false>(xp, qp, sc, s_f16, scratch, op, M, K, N, bn,
-                                                   group, zero, ksplit, st);
+    return dq16 ? launch_stream<XT, PACKED, true>(xp, qp, sc, s_f16, scratch, tickets, op, M,
+                                                  K, N, bn, group, zero, ksplit, st)
+                : launch_stream<XT, PACKED, false>(xp, qp, sc, s_f16, scratch, tickets, op, M,
+                                                   K, N, bn, group, zero, ksplit, st);
   } else if (M <= 8) {
     const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
     float* partial = ksplit > 1 ? static_cast<float*>(scratch) : nullptr;
@@ -811,6 +815,9 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 // sc (N / bn, K / group, bn) float16 or float32; out (M, N) in x's type.
 // scratch: float32 (ksplit, M, N) when ksplit > 1, followed, when M > 8,
 // fast and x is float32, by bf16 (M, K), x rounded for the tensor cores.
+// tickets (fast mode, M <= 8, ksplit > 1): uint32, one per column group of
+// 256, all 0, and no launch in flight at once may share them; the launch
+// leaves them at 0.
 // ksplit splits K: at M <= 8 over groups of 32 rows (fast mode: every
 // split's values of x, M x its K range, at most 16384; more than one split
 // at most 4096 column groups of 256), at M > 8 in fast mode over the
@@ -819,8 +826,8 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 // that wr = bf16(v * bf16(s)), the TPU kernels' bf16-domain dequant; it runs
 // its own instantiations, and the default ones compile as without it.
 extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, void* out,
-                               void* scratch, int M, int K, int N, int bn, int group,
-                               int x_bf16, int s_f16, int packed, int off, int fast,
+                               void* scratch, void* tickets, int M, int K, int N, int bn,
+                               int group, int x_bf16, int s_f16, int packed, int off, int fast,
                                int dq16, int ksplit, void* stream) {
   if (M < 1 || K % 32 || N % 16 || bn < 16 || bn % 16 || N % bn || (dq16 && !fast) ||
       (group != 16 && group != 32) || (packed && group != 32) || ksplit < 1 ||
@@ -830,17 +837,29 @@ extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* scr = scratch;
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
   cudaError_t rc;
   if (x_bf16) {
-    rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, M, K, N, bn, group,
+    rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, tk, M, K, N, bn, group,
                                               s_f16, off, fast, dq16, ksplit, st)
-                : launch<__nv_bfloat16, false>(x, q, sc, out, scr, M, K, N, bn, group,
+                : launch<__nv_bfloat16, false>(x, q, sc, out, scr, tk, M, K, N, bn, group,
                                                s_f16, off, fast, dq16, ksplit, st);
   } else {
-    rc = packed ? launch<float, true>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
+    rc = packed ? launch<float, true>(x, q, sc, out, scr, tk, M, K, N, bn, group, s_f16, off,
                                       fast, dq16, ksplit, st)
-                : launch<float, false>(x, q, sc, out, scr, M, K, N, bn, group, s_f16, off,
+                : launch<float, false>(x, q, sc, out, scr, tk, M, K, N, bn, group, s_f16, off,
                                        fast, dq16, ksplit, st);
   }
+  return (int)rc;
+}
+
+// *id: the id of the CUDA-graph capture under way on the stream, or 0 where
+// none is (the key of the caller's ticket arrays).
+extern "C" int qa_stream_capture_id(void* stream, unsigned long long* id) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+  unsigned long long cid = 0;
+  const cudaError_t rc =
+      cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status, &cid);
+  *id = status == cudaStreamCaptureStatusActive ? cid : 0;
   return (int)rc;
 }

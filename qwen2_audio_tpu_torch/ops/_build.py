@@ -32,8 +32,9 @@ P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signature of every entry point, by source
 SIGNATURES = {
     "mel": {
-        # padded, n_padded, wcos, wsin, filt_t, out, n_frames, n_mel, stream
-        "qa_mel_log_frames": [P, L, P, P, P, P, I, I, P],
+        # padded, n_padded, fft_tab, ranges, weights, n_weights, out,
+        # n_frames, n_mel, stream
+        "qa_mel_log_frames": [P, L, P, P, P, I, P, I, I, P],
     },
     "attention_single": {
         # q, k, v, o, strides (b, h, t) of q, k, v, o, B, H, Hkv, Tq,
@@ -54,9 +55,11 @@ SIGNATURES = {
         "qa_kv_append_quant": [P] * 7 + [L] * 6 + [I] * 6 + [P],
     },
     "quant_matmul": {
-        # x, q, scales, out, scratch, M, K, N, bn, group, x_bf16, s_f16,
-        # packed, off, fast, dq16, ksplit, stream
-        "qa_quant_matmul": [P] * 5 + [I] * 12 + [P],
+        # x, q, scales, out, scratch, tickets, M, K, N, bn, group, x_bf16,
+        # s_f16, packed, off, fast, dq16, ksplit, stream
+        "qa_quant_matmul": [P] * 6 + [I] * 12 + [P],
+        # stream, out: the id of the graph capture under way on it, or 0
+        "qa_stream_capture_id": [P, P],
     },
     "fused_mlp": {
         # x, gate (q, scales, mins), up (q, scales, mins), down (q, scales,

@@ -44,8 +44,10 @@ step) and by operations above (prefill, the encoder); the design notes are
 in the CUDA source. At M <= 8 in fast mode the weight streams through the
 tensor cores (``stream_plan``: column groups and K splits, from M, K and N
 only), and a K split's partial sums are added in split order in the same
-launch; elsewhere a second small kernel adds them in a fixed order. Either
-way results do not vary from run to run.
+launch, by the last block of each column group, which a ticket counter
+finds (``ticket_array``: one array per stream and per graph capture);
+elsewhere a second small kernel adds them in a fixed order. Either way
+results do not vary from run to run.
 
 Each wrapper launches the kernel for CUDA tensors, runs its plain version
 for CPU tensors, raises for anything else, and counts its launches. No
@@ -53,6 +55,8 @@ path on the card dequantizes a weight to a dense tensor.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -71,6 +75,7 @@ _STREAM_LEAST = 4     # fast mode: K splits wide weights take all the same
 _MAX_TICKETS = 4096   # fast mode: column groups of a K-split launch
 _TILE = 128           # rows and columns of an M > 8 tile
 _sm_count: dict[int, int] = {}
+_tickets: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 # --------------------------------------------------------------------------- #
@@ -319,6 +324,24 @@ def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
             "group": group, "ksplit": ksplit, "scratch": scratch}
 
 
+def ticket_array(device: torch.device, stream: int) -> torch.Tensor:
+    """The ticket counters of fast-mode K-split launches on ``stream`` (a
+    cudaStream_t), or, while a CUDA graph is being captured on it, of the
+    launches in that capture: int32 (4096,), made zero once (in a capture,
+    by a fill the graph replays before its first launch) and left at zero
+    by each launch's last blocks. Launches on one stream, or in one graph,
+    run one after another, so no two launches in flight at once share an
+    array and no launch pays for zeroing one. An array lives as long as the
+    process (16 KB per stream and per capture)."""
+    lib = _build.library("quant_matmul")
+    cid = ctypes.c_ulonglong(0)
+    _build.check(lib.qa_stream_capture_id(stream, ctypes.byref(cid)), "ticket_array")
+    key = (device.index, stream, cid.value)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(_MAX_TICKETS, dtype=torch.int32, device=device)
+    return _tickets[key]
+
+
 def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
             fast: bool, dq16: bool = False) -> torch.Tensor:
     if off not in (0, 8):
@@ -330,12 +353,16 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
                if plan["scratch"] else None)
     lib = _build.library("quant_matmul")
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets = ticket_array(x.device, stream) \
+            if plan["kernel"] == "small" and fast and plan["ksplit"] > 1 else None
         rc = lib.qa_quant_matmul(
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
             M, plan["K"], N, plan["bn"], group, int(x.dtype == torch.bfloat16),
             int(sc.dtype == torch.float16), int(packed), off, int(fast),
-            int(dq16 and fast), plan["ksplit"], torch.cuda.current_stream().cuda_stream)
+            int(dq16 and fast), plan["ksplit"], stream)
     _build.check(rc, name)
     return out
 

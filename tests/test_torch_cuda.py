@@ -46,6 +46,37 @@ def test_mel_kernel_matches_plain(device, seconds, n_mels):
     torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
 
 
+@pytest.mark.parametrize("name", chip_smoke.MEL_CASES)
+def test_mel_kernel_edge_cases(device, name):
+    """The per-frame FFT kernel on chip_smoke's MEL_CASES (silence, white
+    noise, a bin-centred tone, clips under 201 samples, one frame, frame
+    counts around multiples of the CTA's 8, 3002 and 6002 frames, 80 and 128
+    mels, a dense bank with an empty row): within MEL_ATOL of its plain
+    version and of the float64 oracle after normalisation, one launch."""
+    before = tmk.mel_frames.launches
+    c = chip_smoke.mel_case(device, name)
+    assert tmk.mel_frames.launches == before + 1
+    assert max(c["err_plain"], c["err_oracle"], c["plain_err_oracle"]) <= chip_smoke.MEL_ATOL
+    if name == "silence":
+        assert bool(((c["got"] + 1.5).abs() <= 1e-6).all())
+
+
+def test_mel_kernel_replays_in_a_graph(device):
+    """Captured in a CUDA graph, the mel launch replays to the eager bits."""
+    padded, _, _, n = pad_signal(chip_smoke.noisy_tone(30.0, seed=4))
+    tables = tmk.mel_tables(mel_filterbank(128), device)
+    x = torch.from_numpy(padded).to(device)
+    want = tmk.mel_frames(x, tables, n)
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            got = tmk.mel_frames(x, tables, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype,B,H,Hkv,T,d,kv_valid,fused", [
     (torch.bfloat16, 1, 20, 20, 1500, 64, 1500, True),
     (torch.float32, 1, 20, 20, 1500, 64, 1500, True),
@@ -713,6 +744,16 @@ def test_int8_tile_edges_agree_across_forms(device, M):
     assert bool(((by.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
     assert torch.equal(by, tb.quant_matmul_q4b_stacked(x, tb.pack_b32(w4["qs4"]),
                                                        w4["scales"], 1))
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+def test_k_split_launches_on_two_streams_are_bit_equal(device, fmt):
+    """The K-split M = 1 streaming matmul (qkv 3584 -> 4608) launched many
+    times on two streams at once, and replayed in a CUDA graph: every output
+    bit-equal to the single-stream one (launches on two streams, or in a
+    graph, count their blocks on ticket arrays of their own)."""
+    bad, total = chip_smoke.stream_ticket_mismatches(device, fmt, rounds=128)
+    assert total == 2 * 128 + 4 and bad == 0
 
 
 @pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
