@@ -74,12 +74,16 @@ before the result lines are printed):
    over a prefill and one step teacher-forced on the card), each card run
    launching the integer entry for every quantized linear and no other;
 4. the main path at full width, each path with the launch counters set
-   to 0 just before it and read just after:
+   to 0 just before it and read just after (the encoder forward and the
+   decode step run as CUDA graphs captured once and replayed; each replay
+   adds the launches its capture recorded, ops/graphs.py):
    a. encode: write a random-weight (seed 0) F16 qwen2-audio checkpoint
       with the port's ggml writer, load it through
       capi.whisper_init_from_file_with_params in bf16, run whisper_full on
       a 30 s clip ``--calls`` times; check the launch counts, the output
-      shape, finiteness, and agreement with the plain attention path;
+      shape, finiteness, agreement with the plain attention path, and the
+      replayed encode against the eager encoder_forward on the same window
+      (bit-equal, the same fingerprint; ms per 30 s clip of each);
    b. audio -> text: attach a random bf16 Qwen2 decoder (seed 0, made on
       the card, ``--dec-layers`` deep) and answer 1 request on a 30 s clip
       through capi.whisper_full with ``--new-tokens`` new tokens, plus one
@@ -89,7 +93,14 @@ before the result lines are printed):
       log the int8-cache request's decode ms per token beside the bf16
       one's and the device kernels of one decode step over each cache, the
       segments, tokens and logits, and, teacher-forced over the same
-      tokens, the plain-attention path (cosine per step);
+      tokens, the plain-attention path (cosine per step); each request
+      decoded again from its prefill, replayed and as the eager step loop
+      (the same tokens, bit-equal log-probabilities and logits, ms per
+      token of each, and one forward's device ms by CUDA-graph replays
+      between events), decode ms per token with the done flags read every
+      1, 4, 8 and 16 steps, the captured steps' capture ms, and one decode
+      step over each cache eager and replayed (kernels, host ms to enqueue
+      it, host ms to its end);
    c. quantized encode: the checkpoint of (a) through
       io.export.quantize_checkpoint to q8_0 and to q4_0 (the q4_0 one
       ``--q4-layers`` deep), each loaded with keep_quantized=True and run
@@ -111,6 +122,8 @@ before the result lines are printed):
       gate_up left strided (panels and the one-launch SwiGLU together: the
       strided request's tokens and logits, bit for bit). Every launch count
       is derived from the prefills and decoder forwards the run reports;
+      every request is decoded again replayed and as the eager step loop,
+      as in (b);
    e. mode "int8" and the word-packed q4_0 form, behind the q8_0 encoder,
       one request each on the same clip: the encoder alone in mode "int8"
       (4 launches of the flat integer entry per layer, none of a
@@ -121,12 +134,14 @@ before the result lines are printed):
       exact dequantizing one; no fused launch; logits teacher-forced against
       the bf16 mode), and the same q4_0 bytes as int32 words in the default
       mode (the word entry for every linear and the lm_head; teacher-forced
-      against the q4_0 request in mode "int8");
+      against the q4_0 request in mode "int8"); each request replayed
+      against the eager step loop, as in (b);
    f. behind the bf16 context of (a), before (b): whisper_full on one clip
       under each encoder attention variant (set_attention_variants: lite,
       nopad, exp2, pexp16, single off), the variant's entry launched once
-      per layer and call and no other attention entry, the median ms per
-      call, one profiled call, the embedding against the default path's.
+      per layer and call and no other attention entry, each setting
+      replaying an encoder graph of its own, the median ms per call, one
+      profiled call, the embedding against the default path's.
    The quantized paths (c, d) also run with dq16 switched on
    (set_dequant16): three encodes behind each quantized encoder (the
    embedding against the switch off) and one 8-token request per format
@@ -2326,10 +2341,54 @@ def run_main_path(hp, calls: int, workdir: str) -> dict:
     log(f"main: kernel path vs plain-attention path on the card: cos={cos:.6f} "
         f"(min {MAIN_COS_MIN}), max_abs_diff={(a - b).abs().max().item():.3e}")
     require(cos >= MAIN_COS_MIN, "main: kernel path disagrees with the plain path")
+    encode = captured_against_eager_encode(enc, win, emb, calls)
     profile_call(lambda: capi.whisper_full(ctx, params, x), "whisper_full (encode)")
     steady = per_call[1:] or per_call
     return ctx, {"launches": launches, "per_call_ms": per_call, "path": path,
-                 "steady_ms": statistics.median(steady)}
+                 "steady_ms": statistics.median(steady), "encode": encode}
+
+
+def _host_ms(fn, calls: int = 6) -> list[float]:
+    """Host ms of ``calls`` calls, each ended by a device synchronisation."""
+    import torch
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def captured_against_eager_encode(enc, win, emb, calls: int) -> dict:
+    """Phase 4a's encoder graph: ``calls`` whisper_full calls replayed one
+    graph; the eager encoder_forward on the same window gives the replay's
+    bits and fingerprint; host ms per 30 s clip of the encoder alone,
+    replayed and eager (medians of 5 after one)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward, fingerprint
+
+    graphs = enc.graphs.values()
+    require(len(graphs) == 1 and graphs[0].replays == calls,
+            f"main: {len(graphs)} encoder graphs, replays "
+            f"{[g.replays for g in graphs]}, want one replayed {calls} times")
+
+    def eager():
+        return encoder_forward(enc.params, win, enc.hp, gelu_approximate=enc.gelu_approximate,
+                               use_flash=True, compute_dtype=enc.compute_dtype)[0]
+
+    ref = eager()
+    same = torch.equal(ref, emb)
+    fp_graph, fp_eager = fingerprint(emb), fingerprint(ref)
+    graph_ms = statistics.median(_host_ms(lambda: enc(win))[1:])
+    eager_ms = statistics.median(_host_ms(eager)[1:])
+    log(f"main: captured encode (graph captured in {graphs[0].capture_ms:.1f} ms) against "
+        f"the eager encoder_forward: output bit-equal {same}; fingerprint replayed "
+        f"{fp_graph!r}, eager {fp_eager!r}; encoder ms per 30 s clip (host clock, "
+        f"synchronised) replayed {graph_ms:.3f}, eager {eager_ms:.3f}")
+    require(same and fp_graph == fp_eager, "main: the captured encode differs from the eager one")
+    return {"capture_ms": graphs[0].capture_ms, "graph_ms": graph_ms, "eager_ms": eager_ms}
 
 
 ATTN_VARIANTS = (   # phase 4f: (name, set_attention_variants arguments, entry)
@@ -2357,7 +2416,7 @@ def run_attention_variants(ctx, calls: int) -> dict:
     n_layer = ctx.hparams.n_audio_layer
     clip = noisy_tone(30.0, seed=3)
     params = capi.whisper_full_default_params()
-    out = {}
+    out, graphs = {}, {}
     try:
         for name, switch, entry in (("default", {}, "attention_single"),) + ATTN_VARIANTS:
             fv.set_attention_variants(**switch)
@@ -2386,12 +2445,21 @@ def run_attention_variants(ctx, calls: int) -> dict:
             require(launches == want, f"variant {name}: launches {launches}, want {want}")
             require(cos >= MAIN_COS_MIN, f"variant {name}: the embedding disagrees with "
                     "the default path's")
+            # each setting replays an encoder graph of its own
+            graphs[name] = ctx.encoder.graphs.values()[-1]
+            require(name == "default" or graphs[name].replays == calls,
+                    f"variant {name}: its graph replayed {graphs[name].replays} times, "
+                    f"want {calls}")
             prof = profile_call(lambda: capi.whisper_full(ctx, params, clip),
                                 f"whisper_full (encode, attention {name})")
             out[name] = {"launches": launches, "ms": ms, "cos": cos,
                          "busy_ms": (prof or {}).get("busy_ms")}
     finally:
         fv.set_attention_variants()
+    require(len({id(g) for g in graphs.values()}) == len(graphs),
+            "phase 4f: two attention settings replayed one encoder graph")
+    log("variants: one encoder graph per setting, captured in ms " + json.dumps(
+        {k: round(g.capture_ms, 1) for k, g in graphs.items()}))
     return out
 
 
@@ -2405,14 +2473,10 @@ def _quant_entries() -> tuple:
 
 
 def _launch_counters():
-    from qwen2_audio_tpu_torch.ops.flash_attention import attention_causal, attention_single
-    from qwen2_audio_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_quant,
-                                                        kv_append_quant)
-    from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
-    return {"mel_log_frames": mel_frames, "attention_single": attention_single,
-            "attention_causal": attention_causal, "flash_decode": flash_decode,
-            "flash_decode_quant": flash_decode_quant, "kv_append_quant": kv_append_quant,
-            **{e.__name__: e for e in _quant_entries()}}
+    """The package's list of counting wrappers (the one ops/graphs.py adds
+    a captured call's launches to at each replay)."""
+    from qwen2_audio_tpu_torch.ops import launch_counters
+    return launch_counters()
 
 
 def _cosine(a, b) -> float:
@@ -2470,6 +2534,91 @@ def teacher_forced_cosines(bundle, st, other=None) -> list[float]:
     log(f"teacher-forced kernel path reproduces the request's tokens: "
         f"{again == st.result_tokens}")
     return [_cosine(a, b) for a, b in zip(mine, theirs)]
+
+
+def captured_against_eager(bundle, st, params, what: str) -> dict:
+    """The request of ``st`` (its audio embedding, the suppression masks and
+    the budget of ``params``) decoded again from the same prefill, replayed
+    from the captured step and as the eager step loop: the same tokens,
+    bit-equal log-probabilities and final logits. Returns each one's decode
+    ms per token (host clock, synchronised)."""
+    import numpy as np
+    from qwen2_audio_tpu_torch.runtime.decoding import (_prefill_embeds, build_blank_mask,
+                                                        build_suppress_mask)
+    from qwen2_audio_tpu_torch.runtime.generate import greedy_decode_device
+    from qwen2_audio_tpu_torch.utils.timings import Timings
+
+    prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
+    kw = dict(max_new_tokens=params.max_new_tokens,
+              repetition_penalty=params.repetition_penalty,
+              suppress_mask=build_suppress_mask(bundle, params),
+              suppress_first=build_blank_mask(bundle, params))
+    res, ms = {}, {}
+    for name, capture in (("replayed", True), ("eager", False)):
+        tm = Timings()
+        res[name] = greedy_decode_device(bundle, prefill, capture=capture, timings=tm, **kw)
+        ms[name] = tm.t_decode_us / 1e3 / max(tm.n_decode, 1)
+    g, e = res["replayed"], res["eager"]
+    same = (g.tokens == e.tokens and g.logprobs == e.logprobs
+            and np.array_equal(g.final_logits, e.final_logits))
+    T0 = prefill.shape[1]
+    device_ms = step_device_ms(bundle, T0, min(bundle.max_ctx, T0 + params.max_new_tokens))
+    log(f"{what}: replayed against the eager step loop from the same prefill: "
+        f"{len(g.tokens[0])} tokens, tokens, log-probabilities and final logits "
+        f"bit-equal {same} ({g.n_decode_forwards} and {e.n_decode_forwards} forwards); decode "
+        f"ms per token replayed {ms['replayed']:.3f}, eager {ms['eager']:.3f}; one decoder "
+        f"forward at position {T0} {device_ms:.3f} ms of device time")
+    require(same, f"{what}: the captured decode differs from the eager step loop")
+    return {"replayed_ms_per_token": ms["replayed"], "eager_ms_per_token": ms["eager"],
+            "device_ms_per_step": device_ms}
+
+
+def step_device_ms(bundle, pos: int, capacity: int, replays: int = 10) -> float:
+    """Device ms of one decoder forward of the bundle's decoder at ``pos``
+    over a fresh cache of ``capacity`` rows in the bundle's cache type: a
+    CUDA graph of the forward replayed ``replays`` times back to back
+    between two events, after one replay."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.ops.graphs import Graph
+
+    dev = bundle.decoder.device
+    x = bundle.decoder.embed(torch.tensor([[7]], device=dev))
+    at = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    cache = create_cache(bundle.cfg, 1, capacity, dtype=bundle.cache_dtype, device=dev)
+    graph = Graph(lambda: decoder_forward(bundle.params, bundle.cfg, x, cache, at), dev)
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay(replays)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def check_every_sweep(bundle, st, params, values=(1, 4, 8, 16), rounds: int = 4) -> dict:
+    """Decode ms per token of the request of ``st`` replayed with the done
+    flags read every k steps: the values of k taken in turn, forward and
+    then backward, so that a drift of the card's speed over the sweep falls
+    on every k alike; the median of ``rounds`` runs for each k."""
+    from qwen2_audio_tpu_torch.runtime.decoding import (_prefill_embeds, build_blank_mask,
+                                                        build_suppress_mask)
+    from qwen2_audio_tpu_torch.runtime.generate import greedy_decode_device
+    from qwen2_audio_tpu_torch.utils.timings import Timings
+
+    prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
+    masks = dict(suppress_mask=build_suppress_mask(bundle, params),
+                 suppress_first=build_blank_mask(bundle, params))
+    per, forwards = {k: [] for k in values}, {}
+    for r in range(rounds):
+        for k in values if r % 2 == 0 else values[::-1]:
+            tm = Timings()
+            res = greedy_decode_device(bundle, prefill, max_new_tokens=params.max_new_tokens,
+                                       check_every=k, timings=tm, **masks)
+            per[k].append(tm.t_decode_us / 1e3 / max(tm.n_decode, 1))
+            forwards[k] = res.n_decode_forwards
+    return {k: {"ms_per_token": statistics.median(per[k]), "runs": per[k],
+                "forwards": forwards[k]} for k in values}
 
 
 def first_real_disagreement(ref: list, other: list) -> tuple[int | None, int]:
@@ -2574,51 +2723,80 @@ def run_audio_to_text(ctx, cfg, requests: int, new_tokens: int) -> dict:
         f"{len(cos)} steps: min cos {min(cos):.6f} (min {MAIN_COS_MIN}), per step "
         f"{json.dumps([round(c, 6) for c in cos])}")
     require(min(cos) >= MAIN_COS_MIN, "text: kernel path disagrees with the plain path")
+    from qwen2_audio_tpu_torch.runtime.generate import CARD_CHECK_EVERY, captured_steps
+    log("text: decode steps captured (capture ms, replays, launches a replay): " + json.dumps(
+        [[round(g.capture_ms, 1), g.replays, sum(g.launches.values())]
+         for g in captured_steps()]) + f"; check_every {CARD_CHECK_EVERY}")
+    against = {}
+    for st, cache_dtype in zip(states, caches):
+        bundle.cache_dtype = cache_dtype
+        against[str(cache_dtype).removeprefix("torch.")] = captured_against_eager(
+            bundle, st, params, f"text ({cache_dtype} cache)")
     bundle.cache_dtype = torch.bfloat16
-    profile_call(lambda: capi.whisper_full(ctx, params, clips[0]), "whisper_full (audio -> text)")
+    sweep = check_every_sweep(bundle, states[0], params)
+    log(f"text: decode ms per token by check_every (bf16 cache, medians): "
+        + json.dumps({k: round(v["ms_per_token"], 4) for k, v in sweep.items()})
+        + f"; runs {json.dumps({k: [round(x, 4) for x in v['runs']] for k, v in sweep.items()})}"
+        + f"; forwards {json.dumps({k: v['forwards'] for k, v in sweep.items()})}")
+    prof = profile_call(lambda: capi.whisper_full(ctx, params, clips[0]),
+                        "whisper_full (audio -> text)")
     bf = [r for r in runs if r["cache"] != "q8"]
     q8 = [r["decode_ms_per_token"] for r in runs if r["cache"] == "q8"]
+    steps = step_launches(bundle)
     log(f"text: decode ms per token, int8 cache {json.dumps(q8)} beside bf16 "
         f"{json.dumps([r['decode_ms_per_token'] for r in bf])} (ratio "
         f"{statistics.median(q8) / statistics.median(r['decode_ms_per_token'] for r in bf):.3f}); "
-        f"one decode step by cache: {json.dumps(step_launches(bundle))}")
+        f"one decode step by cache: {json.dumps(steps)}")
     return {"launches": launches, "runs": runs, "peak_gib": peak,
             "prefill_ms": statistics.median(r["prefill_ms"] for r in bf),
-            "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in bf)}
+            "decode_ms_per_token": statistics.median(r["decode_ms_per_token"] for r in bf),
+            "against": against, "sweep": sweep, "steps": steps, "profile": prof}
 
 
 def step_launches(bundle, pos: int = 783, capacity: int = 2048) -> dict:
     """One decode step of the bundle's decoder at ``pos`` over a fresh bf16
-    and int8 cache: the device kernels it launches (counted by the profiler)
-    and its host ms (the median of 5 steps, each ending in a device
-    synchronisation)."""
+    and int8 cache, eager and replayed from a CUDA graph of the same step at
+    a device position: the device kernels each launches (counted by the
+    profiler), the host ms to enqueue it, and its host ms ending in a device
+    synchronisation (each the median of 5 after one; a replay's synchronised
+    ms is about the step's device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.ops.graphs import Graph
     out = {}
-    x = bundle.decoder.embed(torch.tensor([[7]], device=bundle.decoder.device))
+    dev = bundle.decoder.device
+    x = bundle.decoder.embed(torch.tensor([[7]], device=dev))
+    at = torch.full((1,), pos, dtype=torch.int32, device=dev)
     for dtype in (torch.bfloat16, "q8"):
         cache = create_cache(bundle.cfg, 1, capacity, dtype=dtype, device=x.device)
 
         def step():
-            decoder_forward(bundle.params, bundle.cfg, x, cache, pos)
+            decoder_forward(bundle.params, bundle.cfg, x, cache, at)
 
-        times = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step()
-            torch.cuda.synchronize()
-        kernels = sum(ev.count for ev in prof.key_averages()
-                      if ev.device_type == torch.autograd.DeviceType.CUDA)
-        out["bf16" if dtype == torch.bfloat16 else "int8"] = {
-            "kernels": kernels, "host_ms": statistics.median(times[1:])}
-        del cache
+        graph = Graph(step, dev)
+        row = {}
+        for name, fn in (("eager", step), ("replay", graph.replay)):
+            enqueue, total = [], []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                enqueue.append((t1 - t0) * 1e3)
+                total.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = sum(ev.count for ev in prof.key_averages()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA)
+            row[name] = {"kernels": kernels, "enqueue_ms": statistics.median(enqueue[1:]),
+                         "host_ms": statistics.median(total[1:])}
+        row["capture_ms"] = graph.capture_ms
+        out["bf16" if dtype == torch.bfloat16 else "int8"] = row
+        del cache, graph
     return out
 
 
@@ -2943,6 +3121,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
             require((n_fused > 0) == (fused_on and (panel is None
                                                     or bool(panel.get("skip_gate_up")))),
                     f"{what}: {n_fused} fused launches")
+            run["against"] = captured_against_eager(bundle, st, params, what)
 
             if first is None:
                 # against the same weights dequantized to dense bf16 (cuBLAS)
@@ -3071,6 +3250,7 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
             require(launches["attention_causal"] == L
                     and launches["flash_decode"] == L * st.n_decode_forwards,
                     f"{what}: prefill or decode kernel launches")
+            run["against"] = captured_against_eager(bundle, st, params, what)
             mine = teacher_forced_logits(bundle, st)
             if b32:     # the same bytes as nibble bytes, in mode "int8"
                 other = teacher_forced_logits(q4[0], st, mode="int8")
@@ -3297,6 +3477,23 @@ def main(argv=None) -> int:
         f"decoder, bf16): prefill {text['prefill_ms']:.3f} ms, decode "
         f"{text['decode_ms_per_token']:.3f} ms per token (medians), peak "
         f"{text['peak_gib']:.2f} GiB")
+    enc = res["encode"]
+    log(f"summary captured encode: the encoder alone {enc['graph_ms']:.3f} ms per 30 s clip "
+        f"replayed, {enc['eager_ms']:.3f} eager (host clock, synchronised); graph captured "
+        f"in {enc['capture_ms']:.1f} ms")
+    for cache, row in text["steps"].items():
+        log(f"summary decode step ({cache} cache, {args.dec_layers} layers): eager "
+            f"{row['eager']['kernels']} kernels, enqueue {row['eager']['enqueue_ms']:.3f} ms, "
+            f"synchronised {row['eager']['host_ms']:.3f} ms; replay {row['replay']['kernels']} "
+            f"kernels, enqueue {row['replay']['enqueue_ms']:.3f} ms, synchronised "
+            f"{row['replay']['host_ms']:.3f} ms; captured in {row['capture_ms']:.1f} ms")
+    for cache, row in text["against"].items():
+        log(f"summary audio -> text ({cache} cache): decode ms per token replayed "
+            f"{row['replayed_ms_per_token']:.3f}, eager {row['eager_ms_per_token']:.3f}; "
+            f"one forward's device ms {row['device_ms_per_step']:.3f}")
+    prof = text["profile"] or {}
+    log(f"summary audio -> text (bf16 cache): device busy "
+        f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled request")
     for name, v in variants.items():
         log(f"summary attention variant {name}: {v['ms']:.3f} ms per encode (median), "
             f"device busy {v['busy_ms']} ms of a profiled call, embedding cos {v['cos']:.6f}")
@@ -3310,7 +3507,11 @@ def main(argv=None) -> int:
                 r = c["run"]
                 prof = r["profile"] or {}
                 log(f"summary {fmt} ({name}): prefill {r['prefill_ms']:.3f} ms, decode "
-                    f"{r['decode_ms_per_token']:.3f} ms per token over {r['tokens']} tokens, "
+                    f"{r['decode_ms_per_token']:.3f} ms per token over {r['tokens']} tokens "
+                    f"(again from the same prefill: replayed "
+                    f"{r['against']['replayed_ms_per_token']:.3f}, eager "
+                    f"{r['against']['eager_ms_per_token']:.3f}; one forward's device ms "
+                    f"{r['against']['device_ms_per_step']:.3f}), "
                     f"wall {r['wall_ms']:.1f} ms, device busy "
                     f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, "
                     f"peak {r['peak_gib']:.2f} GiB")
@@ -3318,7 +3519,10 @@ def main(argv=None) -> int:
         r, prof = c["run"], c["run"]["profile"] or {}
         log(f"summary int8 paths ({name}): " + (
             f"prefill {r['prefill_ms']:.3f} ms, decode {r['decode_ms_per_token']:.3f} ms per "
-            f"token over {r['tokens']} tokens, " if name != "encode" else
+            f"token over {r['tokens']} tokens (again from the same prefill: replayed "
+            f"{r['against']['replayed_ms_per_token']:.3f}, eager "
+            f"{r['against']['eager_ms_per_token']:.3f}; one forward's device ms "
+            f"{r['against']['device_ms_per_step']:.3f}), " if name != "encode" else
             f"encode {r['encode_ms']:.3f} ms, ") + f"wall {r['wall_ms']:.1f} ms, device busy "
             f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, peak "
             f"{r['peak_gib']:.2f} GiB")

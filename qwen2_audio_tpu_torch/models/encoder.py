@@ -29,7 +29,13 @@ a ggml block dict ({"qs" | "qs4" | "qs4b", "scales"[, "mins"], "b"}, see
 quant/qparams.py), which ops.linear multiplies through the dequantizing
 kernels or the exact-integer group matmul (mode "int8", and "qs4b").
 ``Encoder`` holds such a tree as module buffers, so ``.to(device)`` moves
-it.
+it. For a CUDA input it captures ``encoder_forward`` once per key as a CUDA
+graph and replays it (ops/graphs.py): the key is the mel's shape and type,
+``pos_offset``, the compute type, the GELU form and the process switches;
+the graphs belong to the module's weights, and ``.to()`` and the other
+Module methods that replace them drop the graphs. The last
+``Encoder.MAX_GRAPHS`` graphs are kept. The output is copied out of the
+graph's buffer, which the next replay rewrites.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from torch import nn
 from qwen2_audio_tpu_torch.config import WhisperHParams
 from qwen2_audio_tpu_torch.ops.fa_variants import flash_attention_encoder
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_encoder_plain
+from qwen2_audio_tpu_torch.ops.graphs import Graph, GraphCache, switches
 from qwen2_audio_tpu_torch.ops.linear import linear
 from qwen2_audio_tpu_torch.quant.qparams import (QUANT_TYPES,
                                                  device_weight_from_ggml_tensor)
@@ -331,7 +338,10 @@ class _Tree(nn.Module):
 class Encoder(nn.Module):
     """The encoder as a module: holds the parameter tree and runs
     ``encoder_forward`` with attention through ops.flash_attention (the
-    CUDA kernel on the card, its plain version on the CPU)."""
+    CUDA kernel on the card, its plain version on the CPU), on the card as a
+    captured CUDA graph."""
+
+    MAX_GRAPHS = 2
 
     def __init__(self, params: Params, hp: WhisperHParams, *,
                  gelu_approximate: bool = False,
@@ -341,14 +351,37 @@ class Encoder(nn.Module):
         self.hp = hp
         self.gelu_approximate = gelu_approximate
         self.compute_dtype = compute_dtype
+        self.graphs = GraphCache(self.MAX_GRAPHS)
 
     @property
     def params(self) -> Params:
         return self.weights.tree()
 
-    @torch.no_grad()
-    def forward(self, mel: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def _apply(self, fn, recurse=True):
+        # .to(), .cuda(), .half() ... replace the weights the graphs read
+        self.graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def _run(self, params: Params, mel: torch.Tensor, pos_offset: int) -> torch.Tensor:
         return encoder_forward(
-            self.params, mel, self.hp, pos_offset=pos_offset,
+            params, mel, self.hp, pos_offset=pos_offset,
             gelu_approximate=self.gelu_approximate, use_flash=True,
             compute_dtype=self.compute_dtype)
+
+    @torch.no_grad()
+    def forward(self, mel: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+        if mel.device.type != "cuda":
+            return self._run(self.params, mel, pos_offset)
+        key = (tuple(mel.shape), mel.dtype, mel.device, int(pos_offset), self.compute_dtype,
+               self.gelu_approximate, switches())
+
+        def make() -> Graph:
+            static, params = mel.clone(), self.params
+            graph = Graph(lambda: self._run(params, static, pos_offset), mel.device)
+            graph.input = static
+            return graph
+
+        graph = self.graphs.get(key, make)
+        graph.input.copy_(mel)
+        graph.replay()
+        return graph.output.clone()

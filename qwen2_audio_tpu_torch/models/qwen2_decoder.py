@@ -36,8 +36,14 @@ the plain einsum attention on any device. The cast order follows the JAX
 package: RMSNorm's ``.to(x.dtype) * w``, RoPE in float32 cast back to
 ``x.dtype``, attention scores and softmax in float32.
 
-Per-stream positions (continuous batching), the tensor-parallel psums, the
-DTW attention tap and beam tiling are not ported yet (ROADMAP.md).
+``pos0`` is an int (every stream at one position) or, as the JAX
+package's ``pos0.ndim == 1`` branch, a (B,) int32 tensor of per-stream
+positions on the activations' device. With a tensor nothing in a forward
+reads the device from the host: the RoPE angles, the cache rows and the
+kernels' positions all come from it on the device, so a forward can be
+captured in a CUDA graph and replayed with the positions changed in place.
+The tensor-parallel psums, the DTW attention tap and beam tiling are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -208,7 +214,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables: positions (T,) -> (T, head_dim) in float32."""
+    """cos/sin tables in float32: positions (T,) -> (T, head_dim), or
+    per-stream positions (B, T) -> (B, T, head_dim)."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=positions.device) / head_dim
     inv_freq = 1.0 / (theta ** exponent)
@@ -218,25 +225,32 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x (B, T, H, d); cos/sin (T, d). Float32 products, cast back to x's type."""
+    """x (B, T, H, d); cos/sin (T, d) shared or (B, T, d) per stream. Float32
+    products, cast back to x's type."""
     d = x.shape[-1]
     rotated = torch.cat([-x[..., d // 2:], x[..., :d // 2]], dim=-1)
-    return (x * cos[None, :, None, :] + rotated * sin[None, :, None, :]).to(x.dtype)
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    return (x * cos[:, :, None, :] + rotated * sin[:, :, None, :]).to(x.dtype)
 
 
-def _visible_mask(q_pos0: int, T: int, S: int, device) -> torch.Tensor:
-    """(T, S) causal + cache-validity mask: key j visible to query t iff
-    j <= q_pos0 + t."""
+def _visible_mask(q_pos0, T: int, S: int, device) -> torch.Tensor:
+    """Causal + cache-validity mask broadcastable over (B, Hkv, g, T, S): key
+    j visible to query t iff j <= q_pos0 + t. q_pos0 is an int (every
+    stream) or a (B,) tensor of per-stream positions."""
     t = torch.arange(T, device=device)[:, None]
     s = torch.arange(S, device=device)[None, :]
-    return s <= q_pos0 + t
+    if not isinstance(q_pos0, torch.Tensor):
+        return s <= q_pos0 + t
+    return (s[None] <= q_pos0[:, None, None] + t[None])[:, None, None]
 
 
 def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_pos0: int) -> torch.Tensor:
+                   q_pos0) -> torch.Tensor:
     """Plain attention: q (B, T, Hq, d), k/v (B, S, Hkv, d) -> (B, T, Hq*d).
-    Key j is visible to query t iff j <= q_pos0 + t; scores and softmax in
-    float32, weights cast to V's type before the weighted sum."""
+    Key j is visible to query t iff j <= q_pos0 + t (q_pos0 an int or (B,)
+    per-stream positions); scores and softmax in float32, weights cast to
+    V's type before the weighted sum."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.unflatten(2, (Hkv, Hq // Hkv))                         # (B,T,Hkv,g,d)
@@ -250,7 +264,7 @@ def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _gqa_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
                          v_q: torch.Tensor, v_s: torch.Tensor,
-                         q_pos0: int) -> torch.Tensor:
+                         q_pos0) -> torch.Tensor:
     """Plain attention over the int8 cache: the per-vector K scales multiply
     the float32 logits and the V scales the softmax weights, which are then
     cast to q's type. q (B, T, Hq, d); k_q/v_q (B, S, Hkv, d); k_s/v_s
@@ -271,12 +285,34 @@ def _gqa_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     return out.reshape(B, T, Hq * d)
 
 
+def _cache_rows(pos: torch.Tensor, T: int, S: int) -> list:
+    """For per-stream positions pos (B,): for each t, (the streams, the rows
+    pos[b] + t clamped to S - 1, whether that row lies inside the cache),
+    made once a forward for every layer's writes (int64, the index type, so
+    that no layer converts them again)."""
+    streams = torch.arange(pos.shape[0], device=pos.device)
+    return [(streams, (pos + t).clamp(max=S - 1).long(), pos + t < S) for t in range(T)]
+
+
+def _write_rows(buf: torch.Tensor, val: torch.Tensor, rows: list) -> None:
+    """buf (B, S, ...) [b, pos[b] + t] = val[b, t] in place (``rows`` from
+    ``_cache_rows``); rows at or past S are dropped, as the JAX scatter
+    drops them. One ``index_put_`` per t, each to distinct streams: a
+    dropped row rewrites row S - 1 with its own current value, so no two
+    writes of one call meet."""
+    for t, (streams, at, keep) in enumerate(rows):
+        keep = keep.view(-1, *([1] * (val.dim() - 2)))
+        buf.index_put_((streams, at),
+                       torch.where(keep, val[:, t].to(buf.dtype), buf[streams, at]))
+
+
 def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
-           cache, cos: torch.Tensor, sin: torch.Tensor, pos0: int,
-           pos_dev: torch.Tensor | None, block_only: bool,
+           cache, cos: torch.Tensor, sin: torch.Tensor, pos0,
+           pos_dev: torch.Tensor | None, rows: list | None, block_only: bool,
            use_flash: bool) -> torch.Tensor:
     """One decoder block over x (B, T, D); writes this layer's K/V into the
-    cache at positions pos0..pos0+T-1 in place."""
+    cache at positions pos0..pos0+T-1 (per stream for a (B,) tensor pos0,
+    at ``rows``) in place."""
     B, T, _ = x.shape
     Hq, Hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     h = rms_norm(x, layers["ln1"]["w"][li], cfg.rms_norm_eps)
@@ -297,10 +333,13 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
     if quant:   # one quantize-and-write launch on the card
         kv_append_quant(k, v, cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li],
                         pos_dev)
+    elif rows is not None:
+        _write_rows(cache.k[li], k, rows)
+        _write_rows(cache.v[li], v, rows)
     else:
-        rows = slice(pos0, pos0 + T)
-        cache.k[li, :, rows] = k.to(cache.k.dtype)
-        cache.v[li, :, rows] = v.to(cache.v.dtype)
+        span = slice(pos0, pos0 + T)
+        cache.k[li, :, span] = k.to(cache.k.dtype)
+        cache.v[li, :, span] = v.to(cache.v.dtype)
 
     scale = dh ** -0.5
     if block_only and use_flash:
@@ -348,12 +387,20 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
 
 @torch.no_grad()
 def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
-                    inputs_embeds: torch.Tensor, cache, pos0: int,
+                    inputs_embeds: torch.Tensor, cache, pos0,
                     block_only: bool = False, logits_last_only: bool = False,
                     use_flash: bool = True):
     """Run T positions (absolute positions pos0..pos0+T-1) through all
     layers; returns (logits (B, T, V) float32, cache), the cache updated in
-    place and its ``pos`` set to pos0 + T.
+    place.
+
+    ``pos0`` is an int, or a (B,) int32 tensor of per-stream positions on
+    x's device (stream b at pos0[b]..pos0[b]+T-1; its rows at or past the
+    capacity are dropped). For an int the cache's ``pos`` becomes pos0 + T
+    and positions past the capacity raise. For a tensor nothing is read
+    back to the host: there is no capacity check, and ``cache.pos`` is left
+    as it was, the high-water mark being the caller's to keep, as in the
+    JAX package.
 
     ``block_only``: nothing precedes pos0 in the cache (a fresh prefill), so
     attention runs within the block (T x T) through the causal prefill
@@ -362,19 +409,25 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     takes the plain einsum attention on any device. ``logits_last_only``
     skips the lm_head for all but the last position."""
     x = inputs_embeds
-    T = x.shape[1]
-    pos0 = int(pos0)
-    if pos0 + T > cache.max_ctx:
-        raise ValueError(f"decoder_forward: positions {pos0}..{pos0 + T - 1} "
-                         f"past the cache capacity {cache.max_ctx}")
-    positions = torch.arange(pos0, pos0 + T, device=x.device)
+    B, T = x.shape[:2]
+    if isinstance(pos0, torch.Tensor):
+        pos0 = pos0.to(device=x.device, dtype=torch.int32)
+        positions = pos0[:, None] + torch.arange(T, dtype=torch.int32, device=x.device)
+        pos_dev = pos0   # the (B,) positions the kernels read on the device
+        rows = None if isinstance(cache, QuantKVCache) else _cache_rows(pos0, T, cache.max_ctx)
+    else:
+        pos0 = int(pos0)
+        if pos0 + T > cache.max_ctx:
+            raise ValueError(f"decoder_forward: positions {pos0}..{pos0 + T - 1} "
+                             f"past the cache capacity {cache.max_ctx}")
+        positions = torch.arange(pos0, pos0 + T, device=x.device)
+        pos_dev, rows = None, None
+        if isinstance(cache, QuantKVCache) or (use_flash and not block_only and T == 1):
+            pos_dev = torch.full((B,), pos0, dtype=torch.int32, device=x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    pos_dev = None   # the (B,) positions the kernels read on the device
-    if isinstance(cache, QuantKVCache) or (use_flash and not block_only and T == 1):
-        pos_dev = torch.full((x.shape[0],), pos0, dtype=torch.int32, device=x.device)
     layers = params["layers"]
     for li in range(cfg.num_hidden_layers):
-        x = _layer(cfg, x, layers, li, cache, cos, sin, pos0, pos_dev,
+        x = _layer(cfg, x, layers, li, cache, cos, sin, pos0, pos_dev, rows,
                    block_only, use_flash)
     if logits_last_only:
         x = x[:, -1:]
@@ -383,7 +436,8 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
         logits = x @ params["embed"].T.to(x.dtype)
     else:
         logits = linear(x, params["lm_head"])
-    cache.pos = pos0 + T
+    if not isinstance(pos0, torch.Tensor):
+        cache.pos = pos0 + T
     return logits.float(), cache
 
 
@@ -411,7 +465,7 @@ class Decoder(nn.Module):
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed_tokens(self.params, tokens)
 
-    def forward(self, inputs_embeds: torch.Tensor, cache, pos0: int,
+    def forward(self, inputs_embeds: torch.Tensor, cache, pos0,
                 block_only: bool = False, logits_last_only: bool = False,
                 use_flash: bool = True):
         return decoder_forward(self.params, self.cfg, inputs_embeds, cache, pos0,

@@ -42,6 +42,7 @@ from qwen2_audio_tpu_torch.models.encoder import (
 from qwen2_audio_tpu_torch.ops.mel_kernel import log_mel_spectrogram_fused, mel_tables
 from qwen2_audio_tpu_torch.runtime import decoding
 from qwen2_audio_tpu_torch.runtime.decoding import DecoderBundle
+from qwen2_audio_tpu_torch.runtime.generate import clear_graphs
 from qwen2_audio_tpu_torch.tokenizer import WhisperVocab
 from qwen2_audio_tpu_torch.utils.logging import log_error, log_warn
 from qwen2_audio_tpu_torch.utils.timings import Timings, time_us
@@ -287,9 +288,11 @@ class WhisperContext:
         context's device."""
         if bundle is not None and not isinstance(bundle, DecoderBundle):
             raise TypeError(f"decoder must be a DecoderBundle, got {type(bundle).__name__}")
+        clear_graphs()   # the decode steps captured over the weights it replaces
         self._decoder = None if bundle is None else bundle.to(self.device)
 
     def free(self) -> None:
+        clear_graphs()
         self.encoder = None
         self._decoder = None
         self.state = None

@@ -43,14 +43,20 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: int, top_p: float
 
 
 def sample_token(logits: torch.Tensor, seen_mask: torch.Tensor | None,
-                 generator: torch.Generator | None, temperature: float = 0.0,
+                 generator: torch.Generator | None,
+                 temperature: float | torch.Tensor = 0.0,
                  repetition_penalty: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
     """logits (B, V) -> (token ids (B,) int64, their log-probabilities (B,)).
-    temperature == 0 is the argmax (the first of equal maxima)."""
+    temperature == 0 is the argmax (the first of equal maxima). A 0-dim
+    tensor temperature (read on the device, never by the host, as in a
+    captured decode step) always samples."""
     logits = apply_repetition_penalty(logits, seen_mask, repetition_penalty)
     logprobs = torch.log_softmax(logits, dim=-1)
-    if temperature > 0:
+    if isinstance(temperature, torch.Tensor):
+        f = top_k_top_p_filter(logits / temperature.clamp(min=1e-6), top_k, top_p)
+        tok = torch.multinomial(torch.softmax(f, dim=-1), 1, generator=generator)[:, 0]
+    elif temperature > 0:
         f = top_k_top_p_filter(logits / max(temperature, 1e-6), top_k, top_p)
         tok = torch.multinomial(torch.softmax(f, dim=-1), 1,
                                 generator=generator)[:, 0]

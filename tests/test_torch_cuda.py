@@ -818,3 +818,131 @@ def test_stream_swiglu_rows_match_plain(device, fmt, M):
         tuple(gu[k][..., I:].contiguous() for k in order), tuple(dn[k] for k in order), 1,
         packed=packed, fast=True)
     assert torch.equal(split, got)
+
+
+# --------------------------------------------------------------------------- #
+# CUDA graphs of the decode step and the encoder (runtime/generate.py,
+# models/encoder.py, ops/graphs.py)
+# --------------------------------------------------------------------------- #
+
+_GRAPH_CFG = Qwen2DecoderConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                num_hidden_layers=2, num_attention_heads=14,
+                                num_key_value_heads=2, head_dim=128,
+                                tie_word_embeddings=False)
+
+
+def _graph_decoder(device, quant, seed=0):
+    return random_bundle(torch.Generator(device=device).manual_seed(seed), _GRAPH_CFG, 128,
+                         dtype=torch.bfloat16, quant=quant)
+
+
+def _generate_both(bundle, x, cache_dtype, steps=8, **kw):
+    """The same request eager (the step read every step) and captured
+    (replayed 3 steps a chunk): the outputs of each and the decode kernel's
+    launches each counted."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    no_eos = torch.zeros(_GRAPH_CFG.vocab_size, device=x.device)
+    no_eos[bundle.eos_token_id] = -torch.inf
+    entry = tfd.flash_decode_quant if cache_dtype == "q8" else tfd.flash_decode
+    out = []
+    for capture, every in ((False, 1), (True, 3)):
+        before = entry.launches
+        res = tgen.generate_on_device(
+            bundle.params, _GRAPH_CFG, x, no_eos, None, max_new_tokens=steps + 1,
+            eos_token_id=bundle.eos_token_id, cache_max_ctx=64, cache_dtype=cache_dtype,
+            capture=capture, check_every=every, **kw)
+        torch.cuda.synchronize()
+        out.append((res, entry.launches - before))
+    return out
+
+
+@pytest.mark.parametrize("quant", [None, "q8_0"], ids=["bf16_weights", "q8_0_weights"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, "q8"], ids=["bf16_cache", "int8_cache"])
+def test_captured_decode_step_bit_equal_to_eager(device, quant, cache_dtype):
+    """8 steps of the decode step replayed from a CUDA graph, the positions
+    moving on the device between replays, against the same steps run
+    eagerly: the same tokens, bit-equal log-probabilities and logits, and
+    the decode kernel counted L times a forward either way."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, quant)
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    (eager, n_eager), (graph, n_graph) = _generate_both(bundle, x, cache_dtype)
+    assert eager[2] == graph[2] == 9
+    for a, b in zip(eager, graph):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    assert n_eager == n_graph == _GRAPH_CFG.num_hidden_layers * 8
+    assert len(tgen.captured_steps()) == 1 and tgen.captured_steps()[0].replays == 8
+
+
+def test_captured_step_keyed_on_switches_and_weights(device):
+    """A process switch or another weight tree gets a graph of its own (not
+    the stale one): each run bit-equal to the eager step under the same
+    switch and weights."""
+    from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, "q8_0")
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    runs = []
+    try:
+        for switch, b in ((None, bundle), (False, bundle), (False, _graph_decoder(
+                device, "q8_0", seed=1))):
+            set_fused_mlp(switch)
+            (eager, _), (graph, _) = _generate_both(b, x, torch.bfloat16)
+            assert torch.equal(eager[0], graph[0]) and torch.equal(eager[3], graph[3])
+            runs.append(graph)
+    finally:
+        set_fused_mlp(None)
+    assert len(tgen.captured_steps()) == 3
+    assert not torch.equal(runs[0][3], runs[2][3])
+
+
+def test_captured_step_draws_from_its_generator(device):
+    """At temperature > 0 the captured step draws from the generator
+    registered with its graph: the eager step's tokens from the same seed,
+    at two temperatures through one graph."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, None)
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    for temperature in (0.9, 0.5):
+        (eager, _), (graph, _) = _generate_both(bundle, x, torch.bfloat16,
+                                                temperature=temperature, top_k=40, seed=5)
+        assert torch.equal(eager[0], graph[0]) and torch.equal(eager[1], graph[1])
+    assert len(tgen.captured_steps()) == 1
+
+
+def test_captured_encoder_equals_encoder_forward(device):
+    """whisper_full's encode replays a captured encoder_forward: bit-equal to
+    the eager forward on the same window, the attention kernel counted once
+    a layer and call, and two states' embeddings held apart."""
+    from qwen2_audio_tpu_torch.audio.mel import mel_input_window
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward
+    hp = WhisperHParams(n_vocab=64, n_audio_state=128, n_audio_head=2,
+                        n_audio_layer=2, n_mels=80)
+    buf = io.BytesIO()
+    write_encoder_checkpoint(buf, random_encoder_params(np.random.default_rng(0), hp),
+                             hp, mel_filterbank(80), [b"a"])
+    ctx = capi.whisper_init_from_buffer_with_params(
+        buf.getvalue(), ContextParams(compute_dtype=torch.bfloat16))
+    p = capi.whisper_full_default_params()
+    states = [ctx.init_state() for _ in range(2)]
+    before = tfa.attention_single.launches
+    for i, st in enumerate(states):
+        assert capi.whisper_full_with_state(ctx, st, p,
+                                            chip_smoke.noisy_tone(2.0, seed=6 + i)) == 0
+    assert tfa.attention_single.launches == before + 2 * hp.n_audio_layer
+    assert len(ctx.encoder.graphs) == 1 and ctx.encoder.graphs.values()[0].replays == 2
+    enc = ctx.encoder
+    for st in states:
+        win = mel_input_window(st.mel, 0, hp.n_audio_ctx).to(device)[None]
+        want = encoder_forward(enc.params, win, hp, gelu_approximate=enc.gelu_approximate,
+                               use_flash=True, compute_dtype=enc.compute_dtype)[0]
+        assert torch.equal(st.embd_enc, want)
+    assert states[0].embd_enc.data_ptr() != states[1].embd_enc.data_ptr()
+    assert not torch.equal(states[0].embd_enc, states[1].embd_enc)
