@@ -61,11 +61,18 @@ before the result lines are printed):
    otherwise, and its one-launch quantize-and-write (kv_append_quant) the
    same; dq16 (scales rounded to bf16 first) on the dequantizing
    entries at M = 1 and 752 over q8_0, symmetric q4_0 and q4_1, the panel
-   entry bit-equal, the output moved against dq16 off;
+   entry bit-equal, the output moved against dq16 off; and at the shapes
+   of beam search and speculative decoding: the decode kernels at B = 5
+   over a capacity of 784 (mixed positions, and every stream at one, timed
+   beside SDPA), the dequantizing entries strided and in panels at M = 5
+   and 8 (timed), the integer entries at M = 5 and 8, the one-launch SwiGLU
+   at M = 5, 8 and 9 (timed beside the two-launch path);
 3. parity at full width and depth 2, card against CPU in float32: the
    encoder (embedding, dense and from a q8_0 checkpoint), and the Qwen2
    decoder (a 160-position prefill and 8 greedy steps: the same tokens,
-   logits within tolerance), dense and with q8_0 (layers and lm_head) and
+   logits within tolerance; a beam-5 search, captured on the card, the
+   same tokens; speculative decoding at K = 7 and 8, the greedy tokens;
+   the DTW attention tap within TAP_ATOL), dense and with q8_0 (layers and lm_head) and
    q4_0 (layers) weights from the ggml quantizers (a 16-position prefill
    and 4 steps, exact mode), each with the one-launch SwiGLU off, and once
    more with it on (q8_0) and with the decoder panelized (q4_0); in mode
@@ -142,6 +149,18 @@ before the result lines are printed):
       per layer and call and no other attention entry, each setting
       replaying an encoder graph of its own, the median ms per call, one
       profiled call, the embedding against the default path's.
+   g. behind (b)'s bf16 decoder (the bf16 and the int8 cache) and (d)'s
+      q8_0 and q4_0 ones (blocks in panels with gate_up strided, the
+      one-launch SwiGLU on): a greedy request, a beam-5 request, a request
+      with speculative_k 7 and one with token_timestamps and max_len 16,
+      each with the launch counters set to 0 just before it and read just
+      after; every beam request decoded again captured and as the eager
+      host loop (bit-equal tokens and log-probabilities), the speculative
+      one captured and eager (bit-equal) with its iterations, its tokens
+      the greedy request's or first different at a near tie (SPEC_TIE); the
+      timestamps' segments concatenating to the greedy tokens, the times
+      non-decreasing within the window; one beam and one verify step's
+      device ms and the beam reorder's by graph replays.
    The quantized paths (c, d) also run with dq16 switched on
    (set_dequant16): three encodes behind each quantized encoder (the
    embedding against the switch off) and one 8-token request per format
@@ -235,6 +254,10 @@ FEW_KEYS = 64
 # arithmetic); every other decode case is held to ATTN_TOL alone
 FEW_DECODE_ROWS = 2 * FEW_KEYS
 PARITY_ATOL = 2e-3
+# the DTW tap's pre-softmax scores, card against CPU in float32: the logits'
+# tolerance (the scores sum over d = 128 products of activations that
+# already carry the two devices' summation orders)
+TAP_ATOL = PARITY_ATOL
 MAIN_COS_MIN = 0.99
 DEC_PARITY_PREFILL, DEC_PARITY_STEPS = 160, 8
 TEXT_REQUESTS = 1     # audio -> text requests over the bf16 cache (+1 over int8)
@@ -248,6 +271,15 @@ FUSED_FLIPS = 2       # bf16 roundings of gated that may fall the other way, per
 PANEL_TOKENS = 8      # new tokens of the q8_0 panelized request
 INT8_REL = 0.02       # of max|ref|: q8_1 rounding of x (the JAX suite's bound)
 INT8_PARITY_REL = 0.015  # of max|cpu|: phase 3 in mode "int8" and for int32 words
+BEAM = 5              # beams of the beam requests (FullParams.beam_size's default)
+SPEC_K = 7            # speculative_k of phase 4g's speculative requests (verify M = 8)
+# phase 4g: where the speculative request's tokens differ from the greedy
+# request's, the greedy step's top-2 logit gap at the first difference must
+# be at most SPEC_TIE x the widest logit difference, over the greedy tokens,
+# between one-position forwards and (K + 1)-position ones (a near tie that
+# the other width rounds the other way)
+SPEC_TIE = 2.0
+TS_MAX_LEN = 16       # max_len of phase 4g's token_timestamps request
 
 
 class SmokeFailure(RuntimeError):
@@ -1241,8 +1273,20 @@ def _decode_cases():
         (f32, f32, 1, 784, [783]), (f32, bf, 1, 784, [783]), (f32, i8, 1, 784, [783]),
         (bf, bf, 4, 784, spread), (f32, f32, 4, 784, spread), (bf, i8, 4, 784, spread),
         (bf, bf, 1, 8192, [8191]), (bf, i8, 1, 8192, [8191]),
-        *_decode_edge_cases(),
+        *_decode_edge_cases(), *_beam_decode_cases(),
     ]
+
+
+def _beam_decode_cases():
+    """The beam step's shape: B = 5 hypotheses over a capacity of 784 (a
+    752-position prefill and 32 tokens), 20 (stream, KV head) clusters: at
+    mixed positions (one row, a split's edge, S - 1; the streams of few
+    rows with the range-edge cases' p-rounding term) and, as a beam step
+    has them, every stream at one position, each over both cache types."""
+    import torch
+    bf, i8 = torch.bfloat16, torch.int8
+    return [(bf, kv, BEAM, 784, pos) for kv in (bf, i8)
+            for pos in ([0, 63, 64, 400, 783], [783] * BEAM)]
 
 
 def _decode_edge_cases():
@@ -1294,7 +1338,7 @@ def check_decode_residency(device) -> None:
         return out.value
 
     seen = {}
-    for B in (1, 2, 3, 4, 8):
+    for B in (1, 2, 3, 4, BEAM, 8):
         plan = fd.decode_plan(B, 2048, 4, 7, torch.bfloat16, n_sm)
         held = resident(plan["splits"], plan["stages"])
         seen[B] = (plan["splits"], held)
@@ -1314,11 +1358,14 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
     capacity timed by CUDA-graph replays beside bf16 SDPA over the prefix,
     the back-to-back event time and the host's enqueue time logged beside
     them. The first case of each kernel (capacity 2048, pos 783: the audio
-    -> text request's) is its main entry."""
+    -> text request's) is its main entry; the beam step's (B 5, capacity
+    784, every stream at 783) is timed the same way and kept in the entry
+    under "B5"."""
     import torch
     import torch.nn.functional as F
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
-    main, timed, edges = {}, set(), _decode_edge_cases()
+    main, timed, beam = {}, set(), {}
+    edges = _decode_edge_cases() + _beam_decode_cases()
     check_decode_residency(device)
     for i, (qdt, kvdt, B, S, pos) in enumerate(cases or _decode_cases()):
         q, cache, posv = _decode_case(device, qdt, kvdt, B, S, pos, seed=50 + i)
@@ -1340,16 +1387,17 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
                    if (qdt, kvdt, B, S, pos) in edges else None)
         err, _ = _held(got, want, tname, what, p_abs_v)
         name = "flash_decode_quant" if quant else "flash_decode"
-        if B != 1 or qdt != torch.bfloat16 or (name, S) in timed:
+        beam_step = B == BEAM and len(set(pos)) == 1
+        if not (B == 1 or beam_step) or qdt != torch.bfloat16 or (name, B, S) in timed:
             continue
-        timed.add((name, S))
+        timed.add((name, B, S))
         n = sum(p + 1 for p in pos)   # cache rows the function must read
         nbytes = (2 * n * Hkv * d * cache[0].element_size() + 2 * q.numel() * q.element_size()
                   + (2 * n * Hkv * 4 if quant else 0))
         b_ms, b_by = bound(4 * Hq * d * n, nbytes, PEAK_BF16)
         run = lambda: kern(q, *cache, posv, sm_scale=scale)   # noqa: E731
         lib = None
-        if not quant:
+        if not quant:   # every stream at pos[0]
             q4 = q[:, :, None]
             kp, vp = (c[:, :pos[0] + 1].transpose(1, 2) for c in cache)
             lib = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1360,10 +1408,16 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
              "max_abs_err": err, "ms": graph_ms(run),
              "plain_ms": time_ms(lambda: plain(q, *cache, posv, sm_scale=scale)),
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
-        log(f"{name} at S={S} pos={pos[0]} (graph replay; SDPA as library_ms): " + json.dumps(
-            {**{k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")},
-             "events_ms": time_ms(run, iters=50), "host_us": host_us(run)}))
-        main.setdefault(name, t)
+        log(f"{name} at B={B} S={S} pos={pos[0]} (graph replay; SDPA as library_ms): "
+            + json.dumps({**{k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                          "events_ms": time_ms(run, iters=50), "host_us": host_us(run)}))
+        if beam_step:
+            beam[name] = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "max_abs_err")}
+        else:
+            main.setdefault(name, t)
+    for name, t in beam.items():
+        main[name]["B5"] = t
     return main["flash_decode"], main["flash_decode_quant"]
 
 
@@ -1456,6 +1510,11 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         # in panels of 16 and 48
         ("rag q4_0", 1, bf, True, None), ("rag q6_K", 1, bf, True, None),
         ("rag q8_0 f32s", 1, f32, True, None),
+        # the beam step's M = 5 and a K = 7 speculative verify forward's M =
+        # 8 (the M <= 8 limit), every entry strided and in panels, timed
+        *((w, M, bf, True, "small") for M in (BEAM, 8)
+          for w in ("gate_up q8_0", "gate_up q4_0", "lm_head q8_0", "lm_head q4_0")),
+        ("qkv q8_0", BEAM, f32, False, None), ("down q4_0", 8, bf, True, None),
     ]
     rows = {"quant_matmul": 207, "quant_matmul_stacked": 474,
             "quant_matmul4": 1010, "quant_matmul4_stacked": 819,
@@ -1542,7 +1601,10 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
                           "source": "qwen2_audio_tpu_torch/csrc/quant_matmul.cu",
                           "replaces": f"qwen2_audio_tpu/ops/quant_matmul.py:{rows[line]}",
                           "shape": what, "max_abs_err": diff.max().item(), **t}
-        if line in panel_lines:
+        small = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        if line == "small":
+            main[entry.__name__][f"M{M}"] = {**small, "max_abs_err": diff.max().item()}
+        if line in panel_lines or line == "small":
             # the panel entry at the same inputs: the strided case's bound and
             # library time hold for it, its own time and its plain version's
             pplain = qm.quant_matmul_panel4_plain if packed else qm.quant_matmul_panel_plain
@@ -1556,6 +1618,10 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             pwhat = what.replace(entry.__name__, pentry.__name__) + \
                 f" panels {pq.shape[-3]} x {pq.shape[-1]}"
             log(f"{pwhat}: " + json.dumps(pt) + f"; strided entry {t['ms']:.4f} ms")
+            if line == "small":
+                main[pentry.__name__][f"M{M}"] = {
+                    **{k_: pt[k_] for k_ in small}, "max_abs_err": diff.max().item()}
+                continue
             main[pentry.__name__] = {
                 "name": pentry.__name__, "route": "cuda",
                 "source": "qwen2_audio_tpu_torch/csrc/quant_matmul.cu",
@@ -1742,6 +1808,11 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("rag q4_0", 753, f32, None), ("rag q4_0 b32", 65, bf, None),
         ("rag q4_0 b32", 753, bf, None), ("rag q4_0 b32", 9, f32, None),
         ("rag q8_0 f32s", 129, bf, None), ("rag q8_0 f32s", 753, f32, None),
+        # the beam step's M = 5 and a K = 7 verify forward's M = 8
+        ("lm_head q8_0", BEAM, bf, None), ("lm_head q8_0", 8, bf, None),
+        ("gate_up q8_0", BEAM, bf, None), ("gate_up q8_0", 8, f32, None),
+        ("down q4_0", BEAM, bf, None), ("down q4_0", 8, bf, None),
+        ("gate_up q4_0 b32", BEAM, bf, None), ("gate_up q4_0 b32", 8, bf, None),
     ]
     main, worst = {}, 0.0
     for i, (wname, M, dtype, line) in enumerate(cases):
@@ -1877,7 +1948,7 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
         "q4_0": (fm.fused_mlp4_sym_stacked, ("qs4", "scales")),
         "q4_1": (fm.fused_mlp4_stacked, ("qs4", "scales", "mins")),
     }
-    line = {}
+    line, by_m = {}, {}
     for fi, (fmt, (entry, order)) in enumerate(flavours.items()):
         gu, dn = _rand_mlp(device, D, I, D, fmt, seed=120 + fi)
         packed = "qs4" in gu
@@ -1888,10 +1959,12 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
         d_l = tuple(dn[k][li] for k in order)
         group = D // gu["scales"].shape[1]
         worst = 0.0
-        # M = 2, 8 and 9 only in fast mode: the exact mode keeps its kernel
+        # M = 2, 5, 8 and 9 only in fast mode: the exact mode keeps its kernel
+        n_cases = 0
         for ci, (M, dtype, fast) in enumerate(
-                (M, dtype, fast) for M in (1, 2, 7, 8, 9, 64) for dtype in (bf, f32)
+                (M, dtype, fast) for M in (1, 2, BEAM, 7, 8, 9, 64) for dtype in (bf, f32)
                 for fast in (True, False) if fast or M in (1, 7, 64)):
+            n_cases += 1
             gen = torch.Generator(device=device).manual_seed(140 + 10 * fi + ci)
             x = torch.randn(M, D, generator=gen, device=device).to(dtype)
             got = entry(x, *args, li, fast=fast)
@@ -1925,12 +1998,14 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                     tuple(gu[k][..., I:].contiguous() for k in order),
                     tuple(dn[k] for k in order), li, packed=packed, fast=fast)
                 require(torch.equal(split, got), f"{what}: the split schema differs")
-            if not (M == 1 and dtype == bf and fast and fmt in ("q8_0", "q4_0")):
+            if not (M in (1, BEAM, 8, 9) and dtype == bf and fast
+                    and fmt in ("q8_0", "q4_0")):
                 continue
-            # M = 1 times: the kernel, its bound (every leaf once, x in, y
-            # out), the plain version, three matmuls on the dequantized bf16
-            # weights around SiLU * up (never called by the port), and the
-            # two-launch path the kernel replaces
+            # M = 1 times (and the beam step's M = 5, a verify forward's 8 and
+            # 9, the kernel's path above 8 rows): the kernel, its bound (every
+            # leaf once, x in, y out), the plain version, three matmuls on the
+            # dequantized bf16 weights around SiLU * up (never called by the
+            # port), and the two-launch path the kernel replaces
             nbytes = sum(t.numel() * t.element_size() for t in g_l + u_l + d_l) \
                 + (x.numel() + got.numel()) * x.element_size()
             b_ms, b_by = bound(2.0 * M * 3 * D * I, nbytes, PEAK_BF16)
@@ -1951,7 +2026,10 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
             t["bound_share"] = b_ms / t["ms"]
             del wg, wu, wd
             log(f"{what}: " + json.dumps(t) + f" ({nbytes / 1e6:.1f} MB)")
-            if fmt == "q8_0":
+            if M != 1:
+                by_m[f"{fmt} M{M}"] = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                                            "library_ms", "two_launch_ms")}
+            elif fmt == "q8_0":
                 line = {"name": "fused_mlp", "route": "cuda",
                         "source": "qwen2_audio_tpu_torch/csrc/fused_mlp.cu",
                         "replaces": "qwen2_audio_tpu/ops/fused_mlp.py:105",
@@ -1963,11 +2041,11 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                 pass
             else:
                 raise SmokeFailure("fused MLP: 65 rows were not refused")
-        log(f"fused MLP {fmt}: 18 cases, worst {worst:.3f} of the tolerance")
+        log(f"fused MLP {fmt}: {n_cases} cases, worst {worst:.3f} of the tolerance")
         del gu, dn, args, g_l, u_l, d_l
         torch.cuda.empty_cache()
     require(bool(line), "fused MLP: the kernels-line entry is missing")
-    return line
+    return {**line, **by_m}
 
 
 # --------------------------------------------------------------------------- #
@@ -2046,9 +2124,66 @@ def check_decoder_parity(device, cfg, T0: int = DEC_PARITY_PREFILL,
         f"final logits max_abs_err={err:.3e} (tol {PARITY_ATOL})")
     require(cn == hn == steps and torch.equal(ct, ht), "decoder parity: tokens differ")
     require(err <= PARITY_ATOL, f"decoder parity: card and CPU logits differ by {err}")
+    check_decode_options_parity(device, cfg, dec.params, cpu_params, x, steps,
+                                ct[0, :cn].tolist())
     del dec, cpu_params
     torch.cuda.empty_cache()
     return err
+
+
+def check_decode_options_parity(device, cfg, params, cpu_params, x, steps: int,
+                                greedy: list) -> None:
+    """Phase 3's beam, speculative and attention-tap parity on the decoder of
+    ``check_decoder_parity`` (float32, full width, depth 2), card against
+    CPU: a beam-5 search (captured on the card, eager on the CPU) of
+    ``steps`` tokens, the same tokens and log-probabilities within
+    PARITY_ATOL; speculative decoding at K = 7 and K = 8 (verify forwards of
+    8 and 9 rows), the same tokens on both, each the greedy tokens; the DTW
+    tap of a 160-position block, within TAP_ATOL."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.runtime.generate import (beam_search_on_device,
+                                                        generate_speculative)
+    T0, eos = x.shape[1], cfg.vocab_size - 1
+    sides = (("card", params, device), ("cpu", cpu_params, "cpu"))
+    beams = {}
+    for where, p, dev in sides:
+        t0 = time.perf_counter()
+        tok, lp, n, _ = beam_search_on_device(p, cfg, x.to(dev), beam_size=BEAM,
+                                              max_new_tokens=steps, eos_token_id=eos,
+                                              cache_max_ctx=T0 + steps,
+                                              cache_dtype=torch.float32)
+        beams[where] = (tok.tolist(), lp)
+        log(f"decode options parity: {where} beam {BEAM} of {n} tokens in "
+            f"{time.perf_counter() - t0:.1f} s")
+    (bt, bl), (ht, hl) = beams["card"], beams["cpu"]
+    berr = (bl - hl).abs().max().item() if bt == ht else float("inf")
+    log(f"decode options parity: beam tokens card {bt} cpu {ht}; log-probabilities "
+        f"max_abs_err={berr:.3e} (tol {PARITY_ATOL})")
+    require(bt == ht and berr <= PARITY_ATOL, "decode options parity: beam differs")
+    for k in (7, 8):
+        spec = {}
+        for where, p, dev in sides:
+            tok, _, n, _, _, iters = generate_speculative(
+                p, cfg, x.to(dev), max_new_tokens=steps, eos_token_id=eos,
+                cache_max_ctx=T0 + steps + k, cache_dtype=torch.float32, spec_k=k)
+            spec[where] = (tok[0, :n].tolist(), iters)
+        log(f"decode options parity: speculative K = {k} (verify M = {k + 1}) card "
+            f"{spec['card']}, cpu {spec['cpu']} (tokens, iterations), greedy {greedy}")
+        require(spec["card"][0] == spec["cpu"][0] == greedy,
+                f"decode options parity: speculative K = {k} tokens differ")
+    taps = {}
+    cut = (T0 - 60, 60, 10, 80)
+    for where, p, dev in sides:
+        cache = create_cache(cfg, 1, T0, dtype=torch.float32, device=dev)
+        taps[where] = decoder_forward(p, cfg, x.to(dev), cache, 0, block_only=True,
+                                      logits_last_only=True, use_flash=False,
+                                      attn_slice=cut)[2].cpu()
+    terr = (taps["card"] - taps["cpu"]).abs().max().item()
+    log(f"decode options parity: attention tap {cut} shape {tuple(taps['card'].shape)} "
+        f"max_abs_err={terr:.3e} (tol {TAP_ATOL}, max|cpu| "
+        f"{taps['cpu'].abs().max().item():.3f})")
+    require(terr <= TAP_ATOL, f"decode options parity: the taps differ by {terr}")
 
 
 
@@ -2800,6 +2935,235 @@ def step_launches(bundle, pos: int = 783, capacity: int = 2048) -> dict:
     return out
 
 
+def graph_device_ms(graph, replays: int = 10) -> float:
+    """Device ms of one replay of a captured graph: ``replays`` replays back
+    to back between two events, after one."""
+    import torch
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay(replays)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def block_forced_logits(bundle, st, width: int) -> list:
+    """The request's prefill and tokens through the decoder on the card in
+    forwards of ``width`` positions (a speculative verify forward's width),
+    teacher-forced: one (V,) logits row per step, aligned with
+    ``teacher_forced_logits``."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
+
+    prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
+    T0, toks = prefill.shape[1], st.result_tokens[:-1]
+    cache = create_cache(bundle.cfg, 1, T0 + len(toks) + width, dtype=torch.bfloat16,
+                         device=prefill.device)
+    lg, cache = decoder_forward(bundle.params, bundle.cfg, prefill, cache, 0,
+                                block_only=True, logits_last_only=True)
+    rows = [lg[0, -1]]
+    for i in range(0, len(toks), width):
+        chunk = toks[i:i + width]
+        x = bundle.decoder.embed(torch.tensor([chunk], device=prefill.device))
+        lg, cache = decoder_forward(bundle.params, bundle.cfg, x, cache, T0 + i)
+        rows.extend(lg[0, :len(chunk)])
+    return rows
+
+
+def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool = False,
+                       quantized: bool = False) -> dict:
+    """Phase 4g on the decoder attached to ``ctx``: through capi.whisper_full
+    on one clip, every launch counter set to 0 just before each request and
+    read just after, a greedy request, a beam-5 request (and with
+    ``int8_cache`` one over the int8 KV cache), a request with
+    speculative_k = SPEC_K (and with ``int8_cache`` one over the int8
+    cache), and one with token_timestamps and max_len = TS_MAX_LEN.
+
+    Each beam request is decoded again from its prefill, captured and as
+    the eager host loop: the request's tokens, bit-equal log-probabilities.
+    The speculative request's tokens are the greedy request's, or differ
+    first at a near tie (SPEC_TIE); it is decoded again captured and eager,
+    bit-equal, for its iterations. The timestamps request's segments hold
+    the greedy tokens in order, each token's time non-decreasing within the
+    window. Logged: ms per token of each request, one captured step's
+    device ms (beam and speculative, by replays between events), the beam
+    reorder's device ms, iterations and tokens per forward."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.ops.graphs import Graph
+    from qwen2_audio_tpu_torch.runtime import generate as gen
+    from qwen2_audio_tpu_torch.runtime.decoding import (_prefill_embeds, beam_search,
+                                                        build_blank_mask,
+                                                        build_suppress_mask,
+                                                        compute_token_timestamps)
+    from qwen2_audio_tpu_torch.utils.timings import Timings
+
+    bundle = ctx.decoder
+    L = bundle.cfg.num_hidden_layers
+    out = {}
+
+    def request(name: str, check_quant: bool = True, **opts) -> tuple:
+        params = _text_params(new_tokens)
+        for k, v in opts.items():
+            setattr(params, k, v)
+        st, run, launches = _request(ctx, clip, params)
+        require(len(st.result_tokens) > 0 and len(st.segments) >= 1,
+                f"{what} {name}: no tokens")
+        run["launches"] = {k: n for k, n in launches.items() if n}
+        out[name] = run
+        log(f"4g {what} {name}: request {json.dumps(run)}")
+        require(launches["attention_causal"] == L,
+                f"{what} {name}: {launches['attention_causal']} prefill kernel launches, "
+                f"want {L}")
+        if quantized and check_quant:
+            _check_quant_launches(f"{what} {name}", launches, expected_quant_launches(
+                ctx, bundle, True, 1, st.n_decode_forwards, run["prefill_positions"]),
+                f"1 prefill and {st.n_decode_forwards} decode forwards")
+        return st, params, launches
+
+    def prefill_of(st):
+        return _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
+
+    greedy, gparams, _ = request("greedy")
+    masks = dict(suppress_mask=build_suppress_mask(bundle, gparams),
+                 suppress_first=build_blank_mask(bundle, gparams))
+    caches = [("bf16", bundle.cache_dtype)] + ([("int8", "q8")] if int8_cache else [])
+    for cname, cache_dtype in caches:
+        bundle.cache_dtype = cache_dtype
+        name = "beam" if cname == "bf16" else f"beam {cname} cache"
+        st, params, launches = request(name, strategy="beam", beam_size=BEAM)
+        n_fw = st.n_decode_forwards
+        kernel = "flash_decode_quant" if cache_dtype == "q8" else "flash_decode"
+        require(launches[kernel] == L * n_fw,
+                f"{what} {name}: {kernel} launched {launches[kernel]} times, want {L} x {n_fw}")
+        if cache_dtype == "q8":
+            require(launches["kv_append_quant"] == L * (n_fw + 1),
+                    f"{what} {name}: int8 cache writes {launches['kv_append_quant']}")
+        prefill = prefill_of(st)
+        kw = dict(beam_size=BEAM, max_new_tokens=new_tokens, length_penalty=params.length_penalty,
+                  repetition_penalty=params.repetition_penalty, **masks)
+        tm = {"captured": Timings(), "eager": Timings()}
+        cap = gen.beam_search_device(bundle, prefill, timings=tm["captured"], capture=True, **kw)
+        graph = gen.captured_steps()[-1]
+        eager = beam_search(bundle, prefill, timings=tm["eager"], capture=False, **kw)
+        same = cap.tokens == eager.tokens and cap.logprobs == eager.logprobs
+        require(same and cap.tokens[0] == st.result_tokens,
+                f"{what} {name}: the captured beam differs from the eager host loop or "
+                "from the request")
+        step_ms = graph_device_ms(graph)
+        src = torch.tensor([1, 0, 2, 3, 4][:BEAM], device=prefill.device)
+        cache = graph.state.cache
+        reorder = Graph(lambda: cache.reorder(src), prefill.device)
+        reorder_ms = graph_device_ms(reorder)
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.parts())
+        ms = {k: t.t_decode_us / 1e3 / max(t.n_decode, 1) for k, t in tm.items()}
+        out[name].update({"replayed_ms_per_token": ms["captured"],
+                          "eager_ms_per_token": ms["eager"], "step_device_ms": step_ms,
+                          "reorder_device_ms": reorder_ms,
+                          "reorder_bound_ms": 2 * cache_bytes / PEAK_BYTES * 1e3})
+        log(f"4g {what} {name}: captured against the eager host loop from the same prefill: "
+            f"{len(cap.tokens[0])} tokens, tokens and log-probabilities bit-equal {same}; "
+            f"decode ms per token replayed {ms['captured']:.3f}, eager {ms['eager']:.3f}; "
+            f"one beam step {step_ms:.3f} ms of device time (graph replays), its cache "
+            f"reorder {reorder_ms:.4f} ms (a {cache_bytes / 1e9:.3f} GB cache gathered into "
+            f"the scratch and copied back; bound {out[name]['reorder_bound_ms']:.4f} ms, the "
+            f"cache read once and written once at 3.35 TB/s)")
+        del reorder
+
+    for cname, cache_dtype in caches:
+        bundle.cache_dtype = cache_dtype
+        name = "speculative" if cname == "bf16" else f"speculative {cname} cache"
+        st, params, launches = request(name, speculative_k=SPEC_K)
+        if cache_dtype == "q8":
+            require(launches["kv_append_quant"] == L * (st.n_decode_forwards + 1),
+                    f"{what} {name}: int8 cache writes {launches['kv_append_quant']}")
+        require(launches["flash_decode"] == launches["flash_decode_quant"] == 0,
+                f"{what} {name}: a verify forward of {SPEC_K + 1} rows launched the "
+                "one-position decode kernel")
+        prefill = prefill_of(st)
+        kw = dict(max_new_tokens=new_tokens, spec_k=SPEC_K, **masks)
+        tm = {"captured": Timings(), "eager": Timings()}
+        cap = gen.greedy_decode_device(bundle, prefill, timings=tm["captured"], capture=True,
+                                       **kw)
+        graph = gen.captured_steps()[-1]
+        eager = gen.greedy_decode_device(bundle, prefill, timings=tm["eager"], capture=False,
+                                         **kw)
+        same = (cap.tokens == eager.tokens and cap.logprobs == eager.logprobs
+                and cap.spec_iters == eager.spec_iters)
+        require(same and cap.tokens[0] == st.result_tokens,
+                f"{what} {name}: the captured speculative decode differs from the eager "
+                "loop or from the request")
+        step_ms = graph_device_ms(graph)
+        ms = {k: t.t_decode_us / 1e3 / max(t.n_decode, 1) for k, t in tm.items()}
+        n_tok = len(cap.tokens[0])
+        out[name].update({"replayed_ms_per_token": ms["captured"],
+                          "eager_ms_per_token": ms["eager"], "step_device_ms": step_ms,
+                          "iters": cap.spec_iters, "forwards": cap.n_decode_forwards,
+                          "tokens_per_forward": n_tok / max(cap.spec_iters, 1)})
+        log(f"4g {what} {name}: captured against the eager loop: bit-equal {same}; "
+            f"{n_tok} tokens in {cap.spec_iters} iterations ({cap.n_decode_forwards} "
+            f"forwards replayed), {n_tok / max(cap.spec_iters, 1):.3f} tokens per forward; "
+            f"decode ms per token replayed {ms['captured']:.3f}, eager {ms['eager']:.3f}; "
+            f"one verify step ({SPEC_K + 1} positions) {step_ms:.3f} ms of device time")
+        if cname != "bf16":
+            continue
+        # against the greedy request: equal, or first different at a near tie
+        ref, got = greedy.result_tokens, st.result_tokens
+        j = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+        if j is None and len(ref) != len(got):
+            j = min(len(ref), len(got))
+        one = teacher_forced_logits(bundle, greedy)
+        wide = block_forced_logits(bundle, greedy, SPEC_K + 1)
+        spread = max((a.float() - b.float()).abs().max().item() for a, b in zip(one, wide))
+        gaps = [(r.float().topk(2).values[0] - r.float().topk(2).values[1]).item()
+                for r in one]
+        out[name].update({"first_difference": j, "spread": spread, "min_gap": min(gaps)})
+        if j is None:
+            log(f"4g {what} {name}: the greedy request's {len(ref)} tokens; widest logit "
+                f"difference between one- and {SPEC_K + 1}-position forwards {spread:.4f}, "
+                f"smallest greedy top-2 gap {min(gaps):.4f}")
+        else:
+            gap = gaps[min(j, len(gaps) - 1)]
+            out[name]["gap"] = gap
+            log(f"4g {what} {name}: first differs from the greedy request at token {j} "
+                f"({ref[j:j + 1]} against {got[j:j + 1]}); the greedy step's top-2 gap there "
+                f"{gap:.4f}, bound {SPEC_TIE} x {spread:.4f}")
+            require(gap <= SPEC_TIE * spread, f"{what} {name}: tokens differ at {j} with a "
+                    f"top-2 gap of {gap:.4f}, not a near tie")
+
+    bundle.cache_dtype = caches[0][1]
+    name = "token timestamps"
+    # the tap's teacher-forced forward adds launches of its own: the quantized
+    # entries' counts are logged, not derived
+    st, params, _ = request(name, check_quant=False, token_timestamps=True, max_len=TS_MAX_LEN)
+    require(st.result_tokens == greedy.result_tokens,
+            f"{what} {name}: tokens differ from the greedy request's")
+    segs = st.segments
+    joined = [t for sg in segs for t in sg["tokens"]]
+    times = [t for sg in segs for t in sg["token_times"]]
+    lo, hi = params.offset_ms // 10, params.offset_ms // 10 + 3000
+    require(joined == st.result_tokens and len(times) == len(joined),
+            f"{what} {name}: the segments' tokens do not concatenate to the result")
+    require(all(lo <= t <= hi for t in times) and all(b >= a for a, b in zip(times, times[1:])),
+            f"{what} {name}: token times {times} not non-decreasing within [{lo}, {hi}]")
+    prefill = prefill_of(st)
+    n_aud = bundle.project_audio(st.embd_enc).shape[0]
+    n_content = max(1, min(n_aud, -(-st.mel.n_len_org // 4)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = compute_token_timestamps(bundle, prefill, st.result_tokens, len(bundle.bos_tokens),
+                                     n_aud, n_content, n_top=ctx.params.dtw_n_top)
+    dtw_ms = (time.perf_counter() - t0) * 1e3
+    require(again == times, f"{what} {name}: the times are not reproduced")
+    out[name].update({"segments": len(segs), "dtw_ms": dtw_ms})
+    log(f"4g {what} {name}: {len(segs)} segments (max_len {TS_MAX_LEN}), token times "
+        f"{times}; the tap forward and DTW {dtw_ms:.1f} ms (host clock, synchronised)")
+    bundle.cache_dtype = caches[0][1]
+    return out
+
+
 def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
     """Quantize the F16 checkpoint with the port's quantize_checkpoint, load
     it with the block weights kept, and run whisper_full ``calls`` times
@@ -3163,6 +3527,14 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
             run["profile"] = profile_call(lambda: capi.whisper_full(ctx, params, clip),
                                           f"whisper_full (audio -> text, {fmt}, {name})")
             out[name] = {"launches": launches, "run": run, "forms": forms}
+        # phase 4g: the blocks in panels with gate_up strided and the
+        # one-launch SwiGLU on, so that the two formats' requests launch
+        # rows 6-13 and 17 between them
+        set_fused_mlp(True)
+        set_dequant16()
+        bundle.decoder = Decoder(panelize_decoder_params(strided.params, skip_gate_up=True), cfg)
+        out["options"] = run_decode_options(ctx, f"{fmt} (panelized, gate_up strided)",
+                                            new_tokens, clip, quantized=True)
     finally:
         set_fused_mlp(None)
         set_dequant16()
@@ -3408,6 +3780,9 @@ def main(argv=None) -> int:
             stamp("phase 4f")
             text = run_audio_to_text(ctx, dec_cfg, TEXT_REQUESTS, args.new_tokens)
             stamp("phase 4b")
+            opts = run_decode_options(ctx, "bf16", args.new_tokens,
+                                      noisy_tone(30.0, seed=20, freq=300.0), int8_cache=True)
+            stamp("phase 4g (bf16)")
             capi.whisper_free(ctx)
             torch.cuda.empty_cache()
             ctx8, enc8 = run_quant_encode(
@@ -3467,6 +3842,30 @@ def main(argv=None) -> int:
                int8["quant_matmul_q4b_stacked"], lite, nopad]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
+    # phase 4g: the launches of rows 4/5, 6-13 and 17 on the beam and
+    # speculative requests (row 4's are 0 on a speculative request: its
+    # verify forwards of K + 1 positions take the plain attention, as in JAX)
+    int8_reqs = ("beam int8 cache", "speculative int8 cache")
+    for k, reqs in ((decode, ("beam", "speculative")), (decode_q8, int8_reqs),
+                    (kv_append, int8_reqs)):
+        k["launches_4g"] = {r: opts[r]["launches"].get(k["name"], 0) for r in reqs}
+    rows_by_fmt = {"q8_0": ("quant_matmul", "quant_matmul_stacked", "quant_matmul_panel",
+                            "quant_matmul_panel_stacked"),
+                   "q4_0": ("quant_matmul4", "quant_matmul4_stacked", "quant_matmul_panel4",
+                            "quant_matmul_panel4_stacked")}
+    for fmt, txt in (("q8_0", text8), ("q4_0", text4)):
+        for name in rows_by_fmt[fmt]:
+            qmm[name]["launches_4g"] = {r: txt["options"][r]["launches"].get(name, 0)
+                                        for r in ("beam", "speculative")}
+        fused.setdefault("launches_4g", {}).update(
+            {f"{fmt} {r}": sum(n for e, n in txt["options"][r]["launches"].items()
+                               if e.startswith("fused_mlp")) for r in ("beam", "speculative")})
+    require(decode["launches_4g"]["beam"] > 0 and decode_q8["launches_4g"]["beam int8 cache"] > 0,
+            "phase 4g: a decode kernel was not launched on a beam request")
+    for k in [qmm[n] for n in qmm] + [fused]:
+        require(all(n > 0 for n in k["launches_4g"].values()),
+                f"phase 4g: {k['name']} was not launched on every beam and speculative "
+                f"request: {k['launches_4g']}")
     log(f"summary: whisper_full steady {res['steady_ms']:.3f} ms per 30 s clip, "
         f"{args.layers} layers, bf16; attention f32 at the encoder shape "
         f"{attn_f32['ms']:.4f} ms (plain {attn_f32['plain_ms']:.4f}, sdpa "
@@ -3503,7 +3902,7 @@ def main(argv=None) -> int:
             f"device busy {enc['dq16']['busy_ms']} ms); {txt['block_gb']:.2f} GB of blocks "
             "per decode step")
         for name, c in txt.items():
-            if isinstance(c, dict):
+            if isinstance(c, dict) and "run" in c:
                 r = c["run"]
                 prof = r["profile"] or {}
                 log(f"summary {fmt} ({name}): prefill {r['prefill_ms']:.3f} ms, decode "
@@ -3526,6 +3925,16 @@ def main(argv=None) -> int:
             f"encode {r['encode_ms']:.3f} ms, ") + f"wall {r['wall_ms']:.1f} ms, device busy "
             f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, peak "
             f"{r['peak_gib']:.2f} GiB")
+    for cfg_name, runs in (("bf16", opts), ("q8_0", text8["options"]),
+                           ("q4_0", text4["options"])):
+        for req, r in runs.items():
+            log(f"summary 4g {cfg_name} ({req}): " + json.dumps(
+                {k: r[k] for k in ("prefill_ms", "decode_ms_per_token", "tokens", "forwards",
+                                   "replayed_ms_per_token", "eager_ms_per_token",
+                                   "step_device_ms", "reorder_device_ms", "reorder_bound_ms",
+                                   "iters", "tokens_per_forward", "first_difference", "gap",
+                                   "spread", "min_gap", "segments", "dtw_ms", "wall_ms")
+                 if k in r}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

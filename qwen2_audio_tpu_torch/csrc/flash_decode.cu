@@ -657,7 +657,8 @@ int launch_append(const void* k, const void* v, long long ksb, long long kst, lo
 // pos: (B,) int32 on the device, the query's position (rows 0..pos[b] are
 // visible); o: (B, Hkv * G, d) in q_type. d = 128, 1 <= G <= 8; splits (the
 // cluster size, 1..16) and stages (64-row stages of shared memory) from the
-// launch plan. Pointers 16-byte aligned. Returns the launch's error, or
+// launch plan. Pointers 16-byte aligned, ks and vs 4-byte (read a float at
+// a time). Returns the launch's error, or
 // cudaGetLastError() after it.
 extern "C" int qa_flash_decode(const void* q, const void* k, const void* v,
                                const void* ks, const void* vs, const void* pos,

@@ -42,8 +42,16 @@ positions on the activations' device. With a tensor nothing in a forward
 reads the device from the host: the RoPE angles, the cache rows and the
 kernels' positions all come from it on the device, so a forward can be
 captured in a CUDA graph and replayed with the positions changed in place.
-The tensor-parallel psums, the DTW attention tap and beam tiling are not
-ported yet (ROADMAP.md).
+A block of T positions at per-stream positions (a decode step, or the
+speculative verify forward) writes its bf16 rows with one ``index_put_``
+per buffer.
+
+Beam search reorders the hypotheses in place (``KVCache.reorder``: a gather
+along the batch axis through one scratch buffer, so that a captured graph
+keeps its addresses) and tiles a B = 1 prefill into a B = K cache
+(``tile_cache``). ``attn_slice`` returns the pre-softmax scores of a block
+of queries over a range of keys, the DTW token-timestamp tap
+(models/dtw.py). The tensor-parallel psums are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -95,6 +103,16 @@ class KVCache:
     def max_ctx(self) -> int:
         return self.k.shape[2]
 
+    def parts(self) -> tuple[torch.Tensor, ...]:
+        return self.k, self.v
+
+    def reorder(self, beam_idx: torch.Tensor) -> "KVCache":
+        """Gather the hypotheses along the batch axis in place (the JAX
+        ``k[:, beam_idx]``, as the reference's kv_cache seq_cp): cache row
+        b becomes row ``beam_idx[b]``. Returns the cache."""
+        _reorder(self, beam_idx)
+        return self
+
 
 @dataclasses.dataclass
 class QuantKVCache:
@@ -122,6 +140,54 @@ class QuantKVCache:
     @property
     def max_ctx(self) -> int:
         return self.k_q.shape[2]
+
+    def parts(self) -> tuple[torch.Tensor, ...]:
+        return self.k_q, self.k_s, self.v_q, self.v_s
+
+    def reorder(self, beam_idx: torch.Tensor) -> "QuantKVCache":
+        """``KVCache.reorder`` over the int8 values and their scales."""
+        _reorder(self, beam_idx)
+        return self
+
+
+def _reorder(cache, beam_idx: torch.Tensor) -> None:
+    """Each buffer (L, B, ...) gathered along B by ``beam_idx`` into one
+    scratch buffer and copied back: two launches a buffer, the addresses
+    unchanged. The scratch (the largest buffer's bytes) lives with the
+    cache, made on its first reorder, so that a captured reorder replays on
+    memory that stays allocated."""
+    parts = cache.parts()
+    nbytes = max(p.numel() * p.element_size() for p in parts)
+    scratch = getattr(cache, "_scratch", None)
+    if scratch is None or scratch.numel() < nbytes:
+        scratch = cache._scratch = torch.empty(nbytes, dtype=torch.uint8,
+                                               device=parts[0].device)
+    idx = beam_idx.to(device=parts[0].device, dtype=torch.long)
+    for buf in parts:
+        tmp = scratch[:buf.numel() * buf.element_size()].view(buf.dtype).view(buf.shape)
+        torch.index_select(buf, 1, idx, out=tmp)
+        buf.copy_(tmp)
+
+
+def tile_cache(cache, n: int, out=None):
+    """Repeat a cache's streams ``n`` times along the batch axis (the JAX
+    ``jnp.repeat(a, n, axis=1)``): beam search tiles its one prefill across
+    the beams. With ``out`` (a cache of the same type with n times the
+    streams and the same capacity) the rows are copied into it in place and
+    nothing is allocated; ``pos`` is shared."""
+    if out is None:
+        out = dataclasses.replace(cache, **{
+            f.name: torch.empty_like(getattr(cache, f.name).repeat_interleave(n, dim=1))
+            for f in dataclasses.fields(cache) if f.name != "pos"})
+    for src, dst in zip(cache.parts(), out.parts()):
+        if dst.shape[:1] + dst.shape[2:] != src.shape[:1] + src.shape[2:] \
+                or dst.shape[1] != n * src.shape[1]:
+            raise ValueError(f"tile_cache: a {tuple(src.shape)} buffer does not tile "
+                             f"{n} times into {tuple(dst.shape)}")
+        dst.copy_(src.expand(-1, n, *src.shape[2:]) if src.shape[1] == 1
+                  else src.repeat_interleave(n, dim=1))
+    out.pos = cache.pos
+    return out
 
 
 def create_cache(cfg: Qwen2DecoderConfig, batch: int, max_ctx: int,
@@ -246,11 +312,15 @@ def _visible_mask(q_pos0, T: int, S: int, device) -> torch.Tensor:
 
 
 def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   q_pos0) -> torch.Tensor:
+                   q_pos0, attn_slice: tuple | None = None):
     """Plain attention: q (B, T, Hq, d), k/v (B, S, Hkv, d) -> (B, T, Hq*d).
     Key j is visible to query t iff j <= q_pos0 + t (q_pos0 an int or (B,)
     per-stream positions); scores and softmax in float32, weights cast to
-    V's type before the weighted sum."""
+    V's type before the weighted sum.
+
+    ``attn_slice=(q0, qn, k0, kn)`` also returns the masked pre-softmax
+    scores of query rows [q0, q0 + qn) over key columns [k0, k0 + kn) as
+    (B, Hq, qn, kn) float32: the DTW timestamp tap."""
     B, T, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     qg = q.unflatten(2, (Hkv, Hq // Hkv))                         # (B,T,Hkv,g,d)
@@ -259,7 +329,11 @@ def _gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.masked_fill(~_visible_mask(q_pos0, T, S, q.device), -torch.inf)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", w.float(), v.float()).to(q.dtype)
-    return out.reshape(B, T, Hq * d)
+    out = out.reshape(B, T, Hq * d)
+    if attn_slice is None:
+        return out
+    q0, qn, k0, kn = attn_slice
+    return out, logits[:, :, :, q0:q0 + qn, k0:k0 + kn].reshape(B, Hq, qn, kn)
 
 
 def _gqa_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
@@ -285,34 +359,39 @@ def _gqa_attention_quant(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     return out.reshape(B, T, Hq * d)
 
 
-def _cache_rows(pos: torch.Tensor, T: int, S: int) -> list:
-    """For per-stream positions pos (B,): for each t, (the streams, the rows
-    pos[b] + t clamped to S - 1, whether that row lies inside the cache),
-    made once a forward for every layer's writes (int64, the index type, so
-    that no layer converts them again)."""
+def _cache_rows(pos: torch.Tensor, T: int, S: int):
+    """How ``_write_rows`` writes a block of T rows at per-stream positions
+    pos (B,), made once a forward for every layer's writes (int64, the index
+    type, so that no layer converts them again): (the streams (B, T), the
+    rows pos[b] + t clamped to S - 1, the t whose value each row takes,
+    whether the stream starts past the cache). A row clamped onto S - 1
+    takes the value that the row inside the cache writes there, so that
+    every write to one row carries one value."""
     streams = torch.arange(pos.shape[0], device=pos.device)
-    return [(streams, (pos + t).clamp(max=S - 1).long(), pos + t < S) for t in range(T)]
+    at = (pos[:, None] + torch.arange(T, device=pos.device)).clamp(max=S - 1).long()
+    src = (at - pos[:, None]).clamp(min=0)
+    return streams[:, None].expand(-1, T), at, src, pos >= S
 
 
-def _write_rows(buf: torch.Tensor, val: torch.Tensor, rows: list) -> None:
+def _write_rows(buf: torch.Tensor, val: torch.Tensor, rows: tuple) -> None:
     """buf (B, S, ...) [b, pos[b] + t] = val[b, t] in place (``rows`` from
     ``_cache_rows``); rows at or past S are dropped, as the JAX scatter
-    drops them. One ``index_put_`` per t, each to distinct streams: a
-    dropped row rewrites row S - 1 with its own current value, so no two
-    writes of one call meet."""
-    for t, (streams, at, keep) in enumerate(rows):
-        keep = keep.view(-1, *([1] * (val.dim() - 2)))
-        buf.index_put_((streams, at),
-                       torch.where(keep, val[:, t].to(buf.dtype), buf[streams, at]))
+    drops them. One ``index_put_`` of every row, the rows clamped onto
+    S - 1 writing the value that row takes anyway (its current one where
+    the stream starts past the cache)."""
+    streams, at, src, past = rows
+    past = past.view(-1, *([1] * (val.dim() - 1)))
+    buf.index_put_((streams, at), torch.where(past, buf[:, -1:], val[streams, src].to(buf.dtype)))
 
 
 def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
            cache, cos: torch.Tensor, sin: torch.Tensor, pos0,
-           pos_dev: torch.Tensor | None, rows: list | None, block_only: bool,
-           use_flash: bool) -> torch.Tensor:
+           pos_dev: torch.Tensor | None, rows: tuple | None, block_only: bool,
+           use_flash: bool, attn_slice: tuple | None = None):
     """One decoder block over x (B, T, D); writes this layer's K/V into the
     cache at positions pos0..pos0+T-1 (per stream for a (B,) tensor pos0,
-    at ``rows``) in place."""
+    at ``rows``) in place. With ``attn_slice`` also returns the layer's
+    attention tap."""
     B, T, _ = x.shape
     Hq, Hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     h = rms_norm(x, layers["ln1"]["w"][li], cfg.rms_norm_eps)
@@ -349,7 +428,9 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
                                 v.transpose(1, 2), sm_scale=scale)
         attn = attn.transpose(1, 2).reshape(B, T, Hq * dh)
     elif block_only:
-        attn = _gqa_attention(q, k.to(x.dtype), v.to(x.dtype), 0)
+        attn = _gqa_attention(q, k.to(x.dtype), v.to(x.dtype), 0, attn_slice)
+        if attn_slice is not None:
+            attn, tap = attn
     elif use_flash and T == 1:
         # one position over the cache: the decode kernel reads rows 0..pos0
         if quant:
@@ -382,14 +463,14 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
                 * linear_at(h, layers["up"], li)
     if y is None:
         y = linear_at(gated, layers["down"], li)
-    return x + y
+    return x + y if attn_slice is None else (x + y, tap)
 
 
 @torch.no_grad()
 def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
                     inputs_embeds: torch.Tensor, cache, pos0,
                     block_only: bool = False, logits_last_only: bool = False,
-                    use_flash: bool = True):
+                    use_flash: bool = True, attn_slice: tuple | None = None):
     """Run T positions (absolute positions pos0..pos0+T-1) through all
     layers; returns (logits (B, T, V) float32, cache), the cache updated in
     place.
@@ -407,7 +488,16 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     kernel. Otherwise T == 1 steps go through the decode kernel. Both
     wrappers run their plain versions for CPU tensors; ``use_flash=False``
     takes the plain einsum attention on any device. ``logits_last_only``
-    skips the lm_head for all but the last position."""
+    skips the lm_head for all but the last position.
+
+    ``attn_slice=(q0, qn, k0, kn)`` (with ``block_only`` and
+    ``use_flash=False`` only, as in the JAX package, whose tap is its plain
+    einsum attention) returns a third output: every layer's pre-softmax
+    scores of queries [q0, q0 + qn) over keys [k0, k0 + kn), (L, B, Hq, qn,
+    kn) float32, for the DTW token timestamps."""
+    if attn_slice is not None and (use_flash or not block_only):
+        raise ValueError("decoder_forward: the attention tap needs block_only=True "
+                         "and use_flash=False")
     x = inputs_embeds
     B, T = x.shape[:2]
     if isinstance(pos0, torch.Tensor):
@@ -426,9 +516,13 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
             pos_dev = torch.full((B,), pos0, dtype=torch.int32, device=x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     layers = params["layers"]
+    taps = []
     for li in range(cfg.num_hidden_layers):
         x = _layer(cfg, x, layers, li, cache, cos, sin, pos0, pos_dev, rows,
-                   block_only, use_flash)
+                   block_only, use_flash, attn_slice)
+        if attn_slice is not None:
+            x, tap = x
+            taps.append(tap)
     if logits_last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["ln_f"]["w"], cfg.rms_norm_eps)
@@ -438,6 +532,8 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
         logits = linear(x, params["lm_head"])
     if not isinstance(pos0, torch.Tensor):
         cache.pos = pos0 + T
+    if attn_slice is not None:
+        return logits.float(), cache, torch.stack(taps)
     return logits.float(), cache
 
 

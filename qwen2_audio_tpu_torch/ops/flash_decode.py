@@ -193,7 +193,9 @@ def _refuse(name: str, q, k, v, pos, k_s=None, v_s=None) -> None:
     """Raise for inputs the kernel does not take: q in bf16 or float32, a
     cache in bf16, float32 or int8 (int8 with float32 scales), d = 128, at
     most 8 query heads per KV head, every tensor (pos a (B,) int32 tensor)
-    contiguous, 16-byte aligned and on q's device."""
+    contiguous, aligned and on q's device: 16 bytes, the scales 4 (the
+    kernel reads them a float at a time, so that a layer's scales may start
+    anywhere on the float grid, whatever the capacity)."""
     B, Hq, d = q.shape
     g = Hq // k.shape[2]
     if q.dtype not in _Q_TYPES or k.dtype not in _KV_TYPES or v.dtype != k.dtype \
@@ -208,10 +210,10 @@ def _refuse(name: str, q, k, v, pos, k_s=None, v_s=None) -> None:
     if any(s.dtype != torch.float32 for s in scales) or pos.dtype != torch.int32 \
             or pos.shape != (B,):
         raise ValueError(f"{name}: the scales must be float32 and pos (B,) int32")
-    for x in (q, k, v, pos, *scales):
-        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{name}: every input must be contiguous, 16-byte "
-                             f"aligned and on {q.device}")
+    for x, align in ((q, 16), (k, 16), (v, 16), (pos, 16), *((s, 4) for s in scales)):
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % align:
+            raise ValueError(f"{name}: every input must be contiguous, aligned "
+                             f"(16 bytes, the scales 4) and on {q.device}")
 
 
 def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tensor:
@@ -325,10 +327,10 @@ def kv_append_quant(k: torch.Tensor, v: torch.Tensor, k_q: torch.Tensor,
     for x in (v, k_q, k_s, v_q, v_s, pos):
         if x.device != k.device:
             raise ValueError(f"kv_append_quant: every input must be on {k.device}")
-    for x in (k_q, k_s, v_q, v_s):
-        if not x.is_contiguous() or x.data_ptr() % 16:
+    for x, align in ((k_q, 16), (k_s, 4), (v_q, 16), (v_s, 4)):
+        if not x.is_contiguous() or x.data_ptr() % align:
             raise ValueError("kv_append_quant: the cache must be contiguous and "
-                             "16-byte aligned")
+                             "aligned (16 bytes, the scales 4)")
     lib = _build.library("flash_decode")
     with torch.cuda.device(k.device):
         rc = lib.qa_kv_append_quant(

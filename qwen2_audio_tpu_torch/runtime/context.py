@@ -82,9 +82,9 @@ class ContextParams:
 class FullParams:
     """≙ whisper_full_params (header :359-437), defaults from
     whisper_full_default_params (src/qwen2-whisper.cpp:4231-4294). The
-    decoding fields are read when a decoder is attached; beam search,
-    token_timestamps and speculative_k > 0 are refused there
-    (runtime/decoding.py::_check_unsupported)."""
+    decoding fields are read when a decoder is attached
+    (runtime/decoding.py::run); detect_language and translate are refused
+    there, as the Qwen2 vocabulary has no whisper language or task tokens."""
 
     n_threads: int = 4
     n_max_text_ctx: int = 16384
@@ -134,13 +134,14 @@ class FullParams:
     logprob_thold: float = -1.0
     no_speech_thold: float = 0.6
 
-    strategy: str = "greedy"     # "greedy" ("beam" is refused)
+    strategy: str = "greedy"     # "greedy" | "beam"
     beam_size: int = 5
     best_of: int = 5
     max_new_tokens: int = 128
     repetition_penalty: float = 1.0
-    # n-gram speculative decoding: -1 (auto) and 0 are plain greedy here;
-    # > 0 is refused (not ported yet)
+    # n-gram speculative decoding: K drafts verified a forward (B = 1
+    # greedy, exact greedy output); -1 (auto) and 0 are plain greedy here,
+    # as the port takes no hardware markers to turn it on
     speculative_k: int = -1
 
     new_segment_callback: Callable | None = None

@@ -1,15 +1,16 @@
-"""Decoding engine: audio-conditioned Qwen2 generation (greedy), the
-temperature fallback, penalties and suppression masks.
+"""Decoding engine: audio-conditioned Qwen2 generation with greedy (plain
+or n-gram speculative) and beam-search strategies, the temperature
+fallback, penalties, suppression masks, and DTW token timestamps with the
+max_len segment splitting they drive.
 
 Flow (HF Qwen2-Audio semantics):
     encoder output (750, 1280) --projector--> (750, D_text)
     prompt embeds = [pre-audio tokens][audio embeds][post-audio tokens]
-    prefill -> greedy decode over a static-shape KV cache.
+    prefill -> greedy / beam decode over a static-shape KV cache.
 
-``run`` is whisper_full()'s decode stage. Beam search, DTW token
-timestamps (and the max_len splitting they drive) and speculative decoding
-are not ported yet: ``run`` refuses them with a logged error and a code
-(see ``_check_unsupported``) instead of falling back to something else.
+``run`` is whisper_full()'s decode stage. It refuses detect_language and
+translate with a logged error and a code (``_check_unsupported``), as the
+JAX package does: the Qwen2 vocabulary has neither whisper token.
 """
 
 from __future__ import annotations
@@ -23,17 +24,17 @@ import numpy as np
 import torch
 
 from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
-from qwen2_audio_tpu_torch.models.qwen2_decoder import Decoder, embed_tokens
-from qwen2_audio_tpu_torch.runtime.generate import GenerationResult, greedy_decode_device
+from qwen2_audio_tpu_torch.models.dtw import token_timestamps_from_attention
+from qwen2_audio_tpu_torch.models.qwen2_decoder import (Decoder, create_cache,
+                                                        decoder_forward, embed_tokens)
+from qwen2_audio_tpu_torch.runtime.generate import (GenerationResult, beam_search_device,
+                                                    greedy_decode_device)
 from qwen2_audio_tpu_torch.tokenizer import _NON_SPEECH
 from qwen2_audio_tpu_torch.utils.logging import log_error, log_info, log_warn
 
 # return codes of run() for the options this decoder refuses
 ERR_DETECT_LANGUAGE = -6
 ERR_TRANSLATE = -7
-ERR_BEAM = -8
-ERR_TOKEN_TIMESTAMPS = -9
-ERR_SPECULATIVE = -10
 
 
 @dataclasses.dataclass
@@ -224,6 +225,71 @@ def greedy_decode(
         abort_callback=abort_callback, timings=timings)
 
 
+def beam_search(
+    bundle: DecoderBundle,
+    prefill: torch.Tensor,               # (1, T0, D): one stream
+    *,
+    beam_size: int,
+    max_new_tokens: int,
+    length_penalty: float = -1.0,
+    repetition_penalty: float = 1.0,
+    abort_callback: Callable | None = None,
+    timings=None,
+    suppress_mask: np.ndarray | None = None,
+    suppress_first: np.ndarray | None = None,
+    capture: bool | None = None,
+) -> GenerationResult:
+    """The JAX package's host beam loop, whose ``abort_callback`` can stop
+    it after every token: here the beam loop of runtime/generate.py with
+    the done flags read after every step (eager with ``capture=False``, on
+    the card captured by default). ``run`` calls ``beam_search_device``,
+    which reads them after every step whenever an abort callback is set."""
+    return beam_search_device(
+        bundle, prefill, beam_size=beam_size, max_new_tokens=max_new_tokens,
+        length_penalty=length_penalty, repetition_penalty=repetition_penalty,
+        suppress_mask=suppress_mask, suppress_first=suppress_first,
+        abort_callback=abort_callback, timings=timings, check_every=1, capture=capture)
+
+
+@torch.no_grad()
+def compute_token_timestamps(
+    bundle: DecoderBundle,
+    prefill: torch.Tensor,         # (1, T0, D): the decoded prompt's embeddings
+    ids: list[int],                # generated tokens
+    aud0: int,                     # first audio-embedding position of the block
+    n_aud: int,                    # audio-embedding positions
+    n_content: int,                # content positions (the rest is padding)
+    n_top: int = -1,               # alignment heads: every head of the top n layers
+    t_offset_cs: int = 0,
+) -> list[int]:
+    """Per-token start times (centiseconds) by DTW over decoder attention.
+
+    One teacher-forced forward over [prompt; generated tokens], into a fresh
+    cache of the sequence's length, taps each generated token's
+    pre-softmax attention to the audio positions (the self-attention
+    analogue of whisper.cpp's cross-attention recording,
+    src/qwen2-whisper.cpp:4112-4184), through the plain attention as in
+    the JAX package; models/dtw.py aligns. Encoder positions are 40 ms
+    apart (stride 4 over 10 ms mel frames): 25 frames a second."""
+    if not ids:
+        return []
+    cfg = bundle.cfg
+    T0 = prefill.shape[1]
+    gen = embed_tokens(bundle.params, torch.tensor([ids], device=prefill.device))
+    x = torch.cat([prefill, gen.to(prefill.dtype)], dim=1)
+    cache = create_cache(cfg, 1, x.shape[1], dtype=bundle.cache_dtype, device=x.device)
+    _, _, taps = decoder_forward(bundle.params, cfg, x, cache, 0, block_only=True,
+                                 logits_last_only=True, use_flash=False,
+                                 attn_slice=(T0, len(ids), aud0, n_aud))
+    taps = taps[:, 0]                                   # (L, Hq, n, n_aud)
+    L = taps.shape[0]
+    if n_top <= 0:
+        n_top = max(1, L // 2)    # the WHISPER_AHEADS_N_TOP_MOST default
+    heads = taps[L - min(n_top, L):].reshape(-1, len(ids), n_aud)
+    times_s = token_timestamps_from_attention(heads, n_content, frames_per_second=25.0)
+    return [t_offset_cs + int(round(t * 100.0)) for t in times_s]
+
+
 def _token_surfaces(bundle: DecoderBundle, ids: list[int]) -> list[str]:
     to_str = _surface_fn(bundle)
     if to_str is None:
@@ -235,6 +301,44 @@ def _token_surfaces(bundle: DecoderBundle, ids: list[int]) -> list[str]:
         except Exception:
             out.append("")
     return out
+
+
+def split_segment_by_length(bundle: DecoderBundle, ids: list[int],
+                            lps: list[float], times_cs: list[int],
+                            max_len: int, split_on_word: bool,
+                            t1_cs: int) -> list[dict]:
+    """whisper.cpp's max_len / split_on_word segment wrapping from token
+    timestamps: tokens packed greedily until the surface text would pass
+    max_len characters, splitting at word starts only with
+    split_on_word."""
+    surfaces = _token_surfaces(bundle, ids)
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    cur_len = 0
+    for i, s in enumerate(surfaces):
+        starts_word = s.startswith((" ", "\n")) or i == 0
+        if cur and cur_len + len(s) > max_len and (starts_word or not split_on_word):
+            groups.append(cur)
+            cur, cur_len = [], 0
+        cur.append(i)
+        cur_len += len(s)
+    if cur:
+        groups.append(cur)
+
+    segs = []
+    for gi, g in enumerate(groups):
+        t0 = times_cs[g[0]]
+        t1 = times_cs[groups[gi + 1][0]] if gi + 1 < len(groups) else t1_cs
+        segs.append({
+            "t0": t0, "t1": max(t1, t0),
+            "text": "".join(surfaces[i] for i in g),
+            "tokens": [ids[i] for i in g],
+            "token_texts": [surfaces[i] for i in g],
+            "probs": [float(np.exp(min(lps[i], 0.0))) for i in g],
+            "token_times": [times_cs[i] for i in g],
+            "speaker_turn_next": False,
+        })
+    return segs
 
 
 _WARNED_FLAGS: set = set()
@@ -263,18 +367,6 @@ def _check_unsupported(params) -> int:
                   "whisper task tokens; steer the task with "
                   "initial_prompt instead\n")
         return ERR_TRANSLATE
-    if params.strategy == "beam":
-        log_error("strategy 'beam' is not ported yet (ROADMAP.md, section 1, "
-                  "item 6); use strategy 'greedy'\n")
-        return ERR_BEAM
-    if params.token_timestamps:
-        log_error("token_timestamps (DTW alignment, and the max_len splitting "
-                  "it drives) is not ported yet (ROADMAP.md, section 1, item 6)\n")
-        return ERR_TOKEN_TIMESTAMPS
-    if params.speculative_k > 0:
-        log_error("speculative decoding (speculative_k > 0) is not ported yet "
-                  "(ROADMAP.md, section 1, item 8)\n")
-        return ERR_SPECULATIVE
     if params.tdrz_enable:
         _warn_once("tdrz", "tdrz_enable ignored: tinydiarize speaker-turn "
                    "tokens are not in the Qwen2 vocabulary")
@@ -283,7 +375,8 @@ def _check_unsupported(params) -> int:
                    "decoder emits no whisper timestamp tokens")
     if params.thold_pt != 0.01 or params.thold_ptsum != 0.01:
         _warn_once("thold_pt", "thold_pt/thold_ptsum ignored: they tune the "
-                   "non-DTW timestamp heuristic")
+                   "non-DTW timestamp heuristic; token_timestamps here uses "
+                   "DTW attention alignment (models/dtw.py)")
     return 0
 
 
@@ -315,16 +408,32 @@ def run(ctx, state, params) -> int:
 
     result = None
     for ti, temp in enumerate(temperatures):
-        result = greedy_decode(
-            bundle, prefill, max_new_tokens=params.max_new_tokens,
-            temperature=temp,
-            top_k=params.best_of if temp > 0 else 0,
-            repetition_penalty=params.repetition_penalty,
-            abort_callback=params.abort_callback,
-            seed=ti,
-            timings=state.timings,
-            suppress_mask=suppress_mask,
-            suppress_first=suppress_first)
+        if params.strategy == "beam" and temp == 0.0:
+            # an abort callback is checked after every token
+            result = beam_search_device(
+                bundle, prefill, beam_size=params.beam_size,
+                max_new_tokens=params.max_new_tokens,
+                length_penalty=params.length_penalty,
+                repetition_penalty=params.repetition_penalty,
+                abort_callback=params.abort_callback, timings=state.timings,
+                suppress_mask=suppress_mask, suppress_first=suppress_first)
+        else:
+            # speculative_k: -1 ("auto") is plain greedy in the port, which
+            # takes no hardware markers; > 0 drafts on the greedy fast path
+            spec_k = max(params.speculative_k, 0)
+            use_spec = (spec_k > 0 and temp == 0.0 and params.abort_callback is None
+                        and params.repetition_penalty == 1.0 and prefill.shape[0] == 1)
+            result = greedy_decode_device(
+                bundle, prefill, max_new_tokens=params.max_new_tokens,
+                temperature=temp,
+                top_k=params.best_of if temp > 0 else 0,
+                repetition_penalty=params.repetition_penalty,
+                abort_callback=params.abort_callback,
+                seed=ti,
+                timings=state.timings,
+                suppress_mask=suppress_mask,
+                suppress_first=suppress_first,
+                spec_k=spec_k if use_spec else 0)
         state.n_decode_forwards += result.n_decode_forwards
         # temperature fallback (whisper_full_params :413-418 semantics):
         # retry hotter when the decode is low-confidence (avg logprob below
@@ -363,19 +472,41 @@ def run(ctx, state, params) -> int:
 
     t0_cs = params.offset_ms // 10
     t1_cs = t0_cs + 3000
+    token_times = None
+    if params.token_timestamps:
+        aud0 = len(bundle.bos_tokens)
+        n_aud = int(audio.shape[0])
+        n_len = state.mel.n_len_org if state.mel is not None else 4 * n_aud
+        # encoder positions cover 4 mel frames (10 ms) each
+        n_content = max(1, min(n_aud, -(-n_len // 4)))
+        token_times = compute_token_timestamps(
+            bundle, prefill, ids, aud0, n_aud, n_content,
+            n_top=ctx.params.dtw_n_top, t_offset_cs=t0_cs)
+
     state.result_tokens = ids
-    if params.max_len > 0 and not params.single_segment:
-        _warn_once("max_len", "max_len/split_on_word need token_timestamps, "
-                   "which is not ported yet; emitting one segment")
-    state.segments = [{
-        "t0": t0_cs,
-        "t1": t1_cs,
-        "text": bundle.text(ids),
-        "tokens": ids,
-        "token_texts": _token_surfaces(bundle, ids),
-        "probs": [float(np.exp(l)) for l in result.logprobs[0]],
-        "speaker_turn_next": False,
-    }]
+    if token_times is not None and params.max_len > 0 and not params.single_segment:
+        # single_segment forces one segment whatever max_len says
+        # (whisper_full_params.single_segment, header :384)
+        state.segments = split_segment_by_length(
+            bundle, ids, result.logprobs[0], token_times,
+            params.max_len, params.split_on_word, t1_cs)
+    else:
+        if params.max_len > 0 and not params.single_segment:
+            _warn_once("max_len", "max_len/split_on_word need "
+                       "token_timestamps=True here (DTW times drive the "
+                       "split); emitting one segment")
+        seg = {
+            "t0": t0_cs,
+            "t1": t1_cs,
+            "text": bundle.text(ids),
+            "tokens": ids,
+            "token_texts": _token_surfaces(bundle, ids),
+            "probs": [float(np.exp(l)) for l in result.logprobs[0]],
+            "speaker_turn_next": False,
+        }
+        if token_times is not None:
+            seg["token_times"] = token_times
+        state.segments = [seg]
     if params.print_realtime:
         for s in state.segments:
             print(s["text"], flush=True)

@@ -37,8 +37,20 @@ kept, the least recently used dropped first, and ``clear_graphs`` drops
 them all (``WhisperContext`` does when a decoder is attached or freed).
 At temperature > 0 the step draws from a ``torch.Generator`` registered
 with its graph, the temperature itself a device value of the state, so one
-graph serves every temperature of a fallback. Speculative decoding
-(``spec_k > 0``) is not ported yet.
+graph serves every temperature of a fallback.
+
+Two more loops take the same shape. ``generate_speculative`` (B = 1
+greedy, n-gram prompt-lookup drafts verified by one (K + 1)-position
+forward) advances ``count`` by 1 to K + 1 tokens an iteration, so the host
+cannot count iterations to the budget: each iteration does nothing once
+``done`` or ``count >= max_new_tokens`` (every state write a
+``torch.where`` on that flag), and the host replays chunks between reads of
+the flag. ``beam_search_on_device`` prefills once at B = 1, tiles the cache
+across the K beams and advances all K hypotheses a step: top-K of the K x V
+candidate scores (ties to the lower index, as ``jax.lax.top_k``), the
+cache reordered in place, finished hypotheses snapshotted. A graph cannot
+skip the reorder when it is the identity, as the JAX ``lax.cond`` does, so
+the captured step gathers the cache every step.
 """
 
 from __future__ import annotations
@@ -50,9 +62,11 @@ import numpy as np
 import torch
 
 from qwen2_audio_tpu_torch.models.qwen2_decoder import (KVCache, QuantKVCache,
-                                                        create_cache, decoder_forward)
+                                                        create_cache, decoder_forward,
+                                                        tile_cache)
 from qwen2_audio_tpu_torch.ops.graphs import Graph, GraphCache, switches, tree_key
-from qwen2_audio_tpu_torch.runtime.sampling import sample_token
+from qwen2_audio_tpu_torch.runtime.sampling import (apply_repetition_penalty,
+                                                    length_penalty_score, sample_token)
 from qwen2_audio_tpu_torch.utils.timings import time_us
 
 # steps replayed between two reads of the done flags on the card. On an H100
@@ -73,9 +87,13 @@ class GenerationResult:
     final_logits: np.ndarray | None = None
     # raw logits of the first decode step (B, V) — the no-speech probability
     first_logits: np.ndarray | None = None
-    # single-position decoder forwards the loop ran, the prefill excluded: one
-    # per step, those replayed after every stream stopped included
+    # decoder forwards the loop ran, the prefill excluded: one per step (a
+    # speculative step's forward has K + 1 positions), those replayed after
+    # every stream stopped included
     n_decode_forwards: int = 0
+    # speculative decoding: the iterations that emitted tokens (the JAX
+    # ``iters``; tokens per forward = len(tokens) / spec_iters)
+    spec_iters: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,8 +190,8 @@ def emit(s: GenState, smp: Sampling) -> None:
     col = s.count.expand(B)[:, None]
     s.tokens.scatter_(1, col, tok.to(torch.int32)[:, None])
     s.logprobs.scatter_(1, col, lp.masked_fill(s.done, 0.0)[:, None])
-    if s.seen is not None:
-        s.seen[torch.arange(B, device=tok.device), tok] = True
+    if s.seen is not None:   # a device tensor of Trues (a Python one would be copied in)
+        s.seen.index_put_((torch.arange(B, device=tok.device), tok), torch.ones_like(s.done))
     s.done |= tok == smp.eos_token_id
     s.prev_logits.copy_(torch.where(running, s.last_logits, s.prev_logits))
     s.tok.copy_(tok)
@@ -204,23 +222,12 @@ def captured_steps() -> list[Graph]:
     return _GRAPHS.values()
 
 
-def _step_key(params, cfg, layout: tuple, flags: dict, smp: Sampling, device) -> tuple:
+def _step_key(params, cfg, layout: tuple, flags: dict, settings, device) -> tuple:
     """Everything a captured step froze: the weights' addresses and forms,
-    the config, (B, budget, capacity, cache type), which optional buffers
-    the state has, the sampling settings, the process switches, the device."""
-    return (tree_key(params), cfg, layout, tuple(flags.items()), smp, switches(), device)
-
-
-def _captured(params, cfg, layout: tuple, flags: dict, smp: Sampling, device) -> Graph:
-    """The step captured for this key, with its static state in ``.state``."""
-    def make() -> Graph:
-        s = new_state(cfg, *layout, device, **flags)
-        graph = Graph(lambda: step(params, cfg, s, smp), device,
-                      (s.generator,) if s.generator is not None else ())
-        graph.state = s
-        return graph
-
-    return _GRAPHS.get(_step_key(params, cfg, layout, flags, smp, device), make)
+    the config, (B or beams, budget, capacity, cache type), which optional
+    buffers the state has, its settings (sampling, beam or speculative),
+    the process switches, the device."""
+    return (tree_key(params), cfg, layout, tuple(flags.items()), settings, switches(), device)
 
 
 def _sync(device: torch.device) -> None:
@@ -237,52 +244,25 @@ def _generate(params, cfg, prefill: torch.Tensor, suppress_mask, suppress_first,
     """``generate_on_device``'s work; also returns the forwards it ran."""
     B, T0, _ = prefill.shape
     dev = prefill.device
-    capture = dev.type == "cuda" if capture is None else capture
-    if capture and dev.type != "cuda":
-        raise ValueError(f"generate_on_device: capture needs a CUDA device, got {dev}")
-    if abort_callback is not None:
-        check_every = 1
-    elif check_every is None:
-        check_every = CARD_CHECK_EVERY if dev.type == "cuda" else 1
-    if check_every < 1:
-        raise ValueError(f"generate_on_device: check_every must be >= 1, got {check_every}")
+    check_every = _check_every(dev, check_every, abort_callback, "generate_on_device")
     smp = Sampling(eos_token_id, float(repetition_penalty), int(top_k), float(top_p))
     layout = (B, max_new_tokens, cache_max_ctx, cache_dtype)
     flags = dict(seen=repetition_penalty != 1.0, suppress=suppress_mask is not None,
                  suppress_first=suppress_first is not None, sampled=temperature > 0)
-    graph = None
-    if capture:
-        graph = _captured(params, cfg, layout, flags, smp, dev)
-        s = graph.state
-    else:
-        s = new_state(cfg, *layout, dev, **flags)
+    s, graph = _state_and_graph("greedy", params, cfg, layout, flags, smp, dev,
+                                lambda: new_state(cfg, *layout, dev, **flags), step, capture,
+                                "generate_on_device")
 
-    t0 = time_us()
-    logits, _ = decoder_forward(params, cfg, prefill, s.cache, 0,
-                                block_only=True, logits_last_only=True)
-    first_logits = logits[:, -1]
-    if timings is not None:
-        _sync(dev)
-        timings.t_prompt_us += time_us() - t0
-        timings.n_prompt += T0
-
+    first_logits = _prefill(params, cfg, prefill, s.cache, timings)
     t1 = time_us()
     load(s, first_logits, T0, eos_token_id, seed, suppress_mask, suppress_first, temperature)
     budget = min(max_new_tokens, cache_max_ctx - T0)   # tokens the loop may emit
     steps = 0
     if budget > 0:
         emit(s, smp)
-        steps = 1
-        while not bool(s.done.all()) \
-                and not (abort_callback is not None and abort_callback()) \
-                and steps < budget:
-            n = min(check_every, budget - steps)
-            if graph is not None:
-                graph.replay(n)
-            else:
-                for _ in range(n):
-                    step(params, cfg, s, smp)
-            steps += n
+        steps = _run_chunks(graph, lambda: step(params, cfg, s, smp),
+                            lambda: bool(s.done.all()), 1, budget, check_every,
+                            abort_callback)
     out = (s.tokens.clone(), s.logprobs.clone(), int(s.count), s.prev_logits.clone(),
            first_logits.clone())
     if timings is not None:
@@ -323,34 +303,49 @@ def generate_on_device(params, cfg, prefill: torch.Tensor,
 def greedy_decode_device(bundle, prefill: torch.Tensor, *, max_new_tokens: int,
                          temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                          repetition_penalty: float = 1.0, seed: int = 0,
-                         suppress_mask=None, spec_k: int = 0,
+                         suppress_mask=None, cache_ctx: int | None = None,
+                         spec_k: int = 0, ngram: int = 2,
                          suppress_first=None, abort_callback: Callable | None = None,
                          timings=None, check_every: int | None = None,
                          capture: bool | None = None) -> GenerationResult:
     """DecoderBundle entry over ``generate_on_device``: tokens cut after each
-    stream's first EOS, suppression masks given as (V,) arrays."""
-    if spec_k > 0:
-        raise NotImplementedError("speculative decoding is not ported yet "
-                                  "(ROADMAP.md, section 1, item 8)")
+    stream's first EOS, suppression masks given as (V,) arrays.
+
+    ``cache_ctx`` overrides the cache's capacity (default: this call's, the
+    prefill plus the budget, at most ``bundle.max_ctx``). ``spec_k > 0``
+    routes B = 1 greedy decoding through ``generate_speculative`` (n-gram
+    drafts, ``spec_k`` verified a forward: the same tokens, fewer weight
+    passes), with the budget clipped to the capacity as the plain loop
+    clips it and the cache grown by the draft's ``spec_k`` rows."""
     B, T0, _ = prefill.shape
     if T0 >= bundle.max_ctx:
         raise ValueError(
             f"prefill length {T0} exceeds DecoderBundle.max_ctx "
             f"{bundle.max_ctx}; raise max_ctx when attaching the decoder")
-    max_ctx = min(bundle.max_ctx, T0 + max_new_tokens)
+    max_ctx = cache_ctx or min(bundle.max_ctx, T0 + max_new_tokens)
     dev = prefill.device
-
-    def on_dev(m):
-        return None if m is None else torch.as_tensor(m, dtype=torch.float32, device=dev)
-
-    tokens, logprobs, count, last_logits, first_logits, forwards = _generate(
-        bundle.params, bundle.cfg, prefill, on_dev(suppress_mask),
-        on_dev(suppress_first), max_new_tokens=max_new_tokens,
-        eos_token_id=bundle.eos_token_id, cache_max_ctx=max_ctx,
-        cache_dtype=bundle.cache_dtype, temperature=temperature,
-        repetition_penalty=repetition_penalty, top_k=top_k, top_p=top_p,
-        seed=seed, abort_callback=abort_callback, timings=timings,
-        check_every=check_every, capture=capture)
+    sup, sup0 = _on_dev(suppress_mask, dev), _on_dev(suppress_first, dev)
+    iters = None
+    if spec_k > 0:
+        if temperature > 0 or repetition_penalty != 1.0 or top_k > 0:
+            raise ValueError("speculative path is exact for plain greedy "
+                             "only (temperature=0, no penalties)")
+        eff_new = min(max_new_tokens, max(max_ctx - T0, 0))
+        tokens, logprobs, count, last_logits, first_logits, iters, forwards = _speculative(
+            bundle.params, bundle.cfg, prefill, sup, sup0, max_new_tokens=eff_new,
+            eos_token_id=bundle.eos_token_id,
+            cache_max_ctx=max(max_ctx, T0 + eff_new + spec_k),
+            cache_dtype=bundle.cache_dtype, spec_k=spec_k, ngram=ngram,
+            abort_callback=abort_callback, timings=timings, check_every=check_every,
+            capture=capture)
+    else:
+        tokens, logprobs, count, last_logits, first_logits, forwards = _generate(
+            bundle.params, bundle.cfg, prefill, sup, sup0, max_new_tokens=max_new_tokens,
+            eos_token_id=bundle.eos_token_id, cache_max_ctx=max_ctx,
+            cache_dtype=bundle.cache_dtype, temperature=temperature,
+            repetition_penalty=repetition_penalty, top_k=top_k, top_p=top_p,
+            seed=seed, abort_callback=abort_callback, timings=timings,
+            check_every=check_every, capture=capture)
     tokens = tokens.cpu().numpy()
     logprobs = logprobs.cpu().numpy()
     out_t, out_l = [], []
@@ -366,4 +361,567 @@ def greedy_decode_device(bundle, prefill: torch.Tensor, *, max_new_tokens: int,
         tokens=out_t, logprobs=out_l,
         avg_logprob=[float(np.mean(l)) if l else 0.0 for l in out_l],
         final_logits=last_logits.cpu().numpy(),
-        first_logits=first_logits.cpu().numpy(), n_decode_forwards=forwards)
+        first_logits=first_logits.cpu().numpy(), n_decode_forwards=forwards,
+        spec_iters=iters)
+
+
+def _on_dev(mask, dev: torch.device) -> torch.Tensor | None:
+    return None if mask is None else torch.as_tensor(mask, dtype=torch.float32, device=dev)
+
+
+def _prefill(params, cfg, prefill: torch.Tensor, cache, timings) -> torch.Tensor:
+    """The prompt through the decoder into ``cache`` (a fresh block, the
+    causal prefill kernel on the card); the last position's logits (B, V).
+    ``timings`` receives t_prompt_us (ended by a synchronisation) and
+    n_prompt."""
+    t0 = time_us()
+    logits, _ = decoder_forward(params, cfg, prefill, cache, 0,
+                                block_only=True, logits_last_only=True)
+    if timings is not None:
+        _sync(prefill.device)
+        timings.t_prompt_us += time_us() - t0
+        timings.n_prompt += prefill.shape[1]
+    return logits[:, -1]
+
+
+def _check_every(dev: torch.device, check_every: int | None,
+                 abort_callback: Callable | None, what: str) -> int:
+    if abort_callback is not None:
+        return 1
+    if check_every is None:
+        return CARD_CHECK_EVERY if dev.type == "cuda" else 1
+    if check_every < 1:
+        raise ValueError(f"{what}: check_every must be >= 1, got {check_every}")
+    return check_every
+
+
+def _state_and_graph(kind: str, params, cfg, layout: tuple, flags: dict, settings,
+                     device, make_state: Callable, step_fn: Callable,
+                     capture: bool | None, what: str):
+    """(state, graph or None): on the card (or with ``capture``) the
+    ``kind`` of step captured for this key (``_step_key``) with its static
+    state in ``.state`` and its generator registered; otherwise a fresh
+    state for the eager loop."""
+    capture = device.type == "cuda" if capture is None else capture
+    if capture and device.type != "cuda":
+        raise ValueError(f"{what}: capture needs a CUDA device, got {device}")
+    if not capture:
+        return make_state(), None
+
+    def make() -> Graph:
+        st = make_state()
+        gen = getattr(st, "generator", None)
+        graph = Graph(lambda: step_fn(params, cfg, st, settings), device,
+                      () if gen is None else (gen,))
+        graph.state = st
+        return graph
+
+    key = (kind,) + _step_key(params, cfg, layout, flags, settings, device)
+    graph = _GRAPHS.get(key, make)
+    return graph.state, graph
+
+
+def _run_chunks(graph: Graph | None, step: Callable, stopped: Callable[[], bool],
+                steps: int, limit: int, check_every: int,
+                abort_callback: Callable | None) -> int:
+    """From ``steps`` steps run, replay the graph (or run ``step``) in chunks
+    of ``check_every`` steps until ``stopped()``, the abort callback or
+    ``limit`` steps; returns the steps run. ``stopped`` is read once a
+    chunk; the callback after every step (and first where a token was
+    emitted before the loop, ``steps`` > 0)."""
+    while not stopped() \
+            and not (steps > 0 and abort_callback is not None and abort_callback()) \
+            and steps < limit:
+        n = min(check_every, limit - steps)
+        if graph is not None:
+            graph.replay(n)
+        else:
+            for _ in range(n):
+                step()
+        steps += n
+    return steps
+
+
+# --------------------------------------------------------------------------- #
+# speculative decoding: n-gram prompt-lookup self-drafting at B = 1
+# --------------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class SpecSettings:
+    """What a captured speculative step froze."""
+    eos_token_id: int
+    max_new_tokens: int
+    spec_k: int
+    ngram: int
+
+
+@dataclasses.dataclass
+class SpecState:
+    """The JAX ``SpecState`` as device tensors, updated in place."""
+    cache: KVCache | QuantKVCache
+    last_logits: torch.Tensor           # (1, V) raw logits after the last emitted token
+    prev_logits: torch.Tensor           # (1, V) raw logits the last token came from
+    tokens: torch.Tensor                # (1, max_new + K + 1) int32
+    logprobs: torch.Tensor              # (1, max_new + K + 1) float32
+    done: torch.Tensor                  # () bool
+    count: torch.Tensor                 # () int64: tokens emitted
+    iters: torch.Tensor                 # () int64: iterations that emitted
+    base: torch.Tensor                  # () int32: the prefill's length T0
+    suppress: torch.Tensor              # (V,) additive mask (zeros without one)
+    suppress_first: torch.Tensor | None  # (V,) mask for the first token only
+
+
+def new_spec_state(cfg, max_new_tokens: int, spec_k: int, cache_max_ctx: int, cache_dtype,
+                   device: torch.device, *, suppress_first: bool) -> SpecState:
+    V, width = cfg.vocab_size, max_new_tokens + spec_k + 1
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return SpecState(
+        cache=create_cache(cfg, 1, cache_max_ctx, dtype=cache_dtype, device=device),
+        last_logits=zeros(1, V), prev_logits=zeros(1, V),
+        tokens=zeros(1, width, dtype=torch.int32), logprobs=zeros(1, width),
+        done=zeros(dtype=torch.bool), count=zeros(dtype=torch.int64),
+        iters=zeros(dtype=torch.int64), base=zeros(dtype=torch.int32), suppress=zeros(V),
+        suppress_first=zeros(V) if suppress_first else None)
+
+
+def spec_step(params, cfg, s: SpecState, st: SpecSettings) -> None:
+    """One JAX ``generate_speculative`` iteration on the device: d0, the
+    argmax of the last logits; a draft of K tokens, those that followed the
+    most recent earlier match of the trailing n-gram [last ngram - 1
+    emitted, d0] in the history (d0 repeated where there is none); one
+    (K + 1)-position forward at T0 + count; the drafts accepted while they
+    equal the forward's argmax, so that n_acc + 1 tokens land, cut at an
+    EOS and at the budget. Nothing changes once ``done`` or ``count`` has
+    reached the budget; nothing is read back to the host."""
+    K, n = st.spec_k, st.ngram
+    width = s.tokens.shape[1]
+    dev = s.tokens.device
+    c = s.count
+    active = ~s.done & (c < st.max_new_tokens)
+    lg_prev = s.last_logits[0] + s.suppress
+    if s.suppress_first is not None:
+        lg_prev = torch.where(c == 0, lg_prev + s.suppress_first, lg_prev)
+    d0 = torch.argmax(lg_prev)
+
+    # draft: the most recent match of [last ngram - 1 emitted, d0]
+    h = s.tokens[0].long()
+    idx = torch.arange(width, device=dev)
+    tail = d0[None]
+    if n > 1:
+        at = (c - (n - 1)).clamp(0, width - (n - 1)) + torch.arange(n - 1, device=dev)
+        tail = torch.cat([h[at], tail])
+    wins = torch.stack([h.roll(-j) for j in range(n)], dim=1)            # (width, n)
+    match = (wins == tail[None, :]).all(dim=1) & (idx <= c - n)
+    best = torch.where(match, idx, -1).max()
+    found = best >= 0
+    start = torch.where(found, best + n, 0)
+    kk = torch.arange(K, device=dev)
+    draft = h[start.clamp(max=width - K) + kk]
+    draft = torch.where(found & (start + kk < c), draft, d0)
+
+    # one (K + 1)-position forward verifies the whole draft; past the stop
+    # it runs at a position whose rows fit the cache and changes nothing read
+    seq = torch.cat([d0[None], draft])                                    # (K + 1,)
+    S = s.cache.max_ctx
+    pos = (s.base + c).clamp(max=S - (K + 1)).to(torch.int32).view(1)
+    out, _ = decoder_forward(params, cfg, params["embed"][seq][None], s.cache, pos)
+    out = out[0]                                                          # (K + 1, V)
+    rows = out + s.suppress[None, :]
+    tgt = torch.argmax(rows, dim=-1)
+    n_emit = (draft == tgt[:K]).long().cumprod(0).sum() + 1               # d0 always lands
+    epos = torch.arange(K + 1, device=dev)
+    eos_here = (seq == st.eos_token_id) & (epos < n_emit)
+    eos_in = eos_here.any()
+    idx_eos = torch.argmax(eos_here.long())                               # the first
+    n_emit = torch.where(eos_in, torch.minimum(n_emit, idx_eos + 1), n_emit)
+    n_emit = torch.minimum(n_emit, st.max_new_tokens - c)
+
+    logp_prev = torch.log_softmax(lg_prev, dim=-1)
+    logp_rows = torch.log_softmax(rows, dim=-1)
+    lp = torch.cat([logp_prev[d0[None]], logp_rows[:K].gather(-1, draft[:, None])[:, 0]])
+    cols = c.clamp(max=width - (K + 1)) + epos
+    s.tokens[0, cols] = torch.where(active, seq.to(torch.int32), s.tokens[0, cols])
+    s.logprobs[0, cols] = torch.where(active, lp, s.logprobs[0, cols])
+    # the distribution the last emitted token came from: row n_emit - 2 of
+    # this forward, or the carried-in logits where d0 alone landed (rows
+    # picked by one-element index tensors: a 0-dim one would be read by the
+    # host)
+    last = out[(n_emit - 1).clamp(0, K)[None]][0]
+    prev = torch.where(n_emit >= 2, out[(n_emit - 2).clamp(0, K)[None]][0], s.last_logits[0])
+    s.prev_logits.copy_(torch.where(active, prev, s.prev_logits[0])[None])
+    s.last_logits.copy_(torch.where(active, last, s.last_logits[0])[None])
+    s.done |= active & eos_in
+    s.count += torch.where(active, n_emit, 0)
+    s.iters += active
+
+
+@torch.no_grad()
+def _speculative(params, cfg, prefill: torch.Tensor, suppress_mask, suppress_first, *,
+                 max_new_tokens: int, eos_token_id: int, cache_max_ctx: int, cache_dtype,
+                 spec_k: int, ngram: int, abort_callback: Callable | None = None,
+                 timings=None, check_every: int | None = None,
+                 capture: bool | None = None) -> tuple:
+    """``generate_speculative``'s work; also returns the forwards it ran."""
+    B, T0, _ = prefill.shape
+    if B != 1:
+        raise ValueError("speculative decoding is a B=1 latency path; "
+                         "batch throughput comes from plain batching")
+    if spec_k < 1 or ngram < 1:
+        raise ValueError(f"generate_speculative: spec_k {spec_k} and ngram {ngram} must be >= 1")
+    K = spec_k
+    if cache_max_ctx < T0 + max_new_tokens + K:
+        raise ValueError(
+            f"cache_max_ctx {cache_max_ctx} < prefill {T0} + max_new "
+            f"{max_new_tokens} + spec_k {K}: the draft block needs "
+            "headroom past the last emitted token")
+    dev = prefill.device
+    check_every = _check_every(dev, check_every, abort_callback, "generate_speculative")
+    st = SpecSettings(eos_token_id, max_new_tokens, K, ngram)
+    s, graph = _state_and_graph(
+        "speculative", params, cfg, (max_new_tokens, cache_max_ctx, cache_dtype),
+        dict(suppress_first=suppress_first is not None), st, dev,
+        lambda: new_spec_state(cfg, max_new_tokens, K, cache_max_ctx, cache_dtype, dev,
+                               suppress_first=suppress_first is not None),
+        spec_step, capture, "generate_speculative")
+
+    first_logits = _prefill(params, cfg, prefill, s.cache, timings)
+    t1 = time_us()
+    s.last_logits.copy_(first_logits)
+    s.prev_logits.copy_(first_logits)
+    s.tokens.fill_(eos_token_id)
+    s.logprobs.zero_()
+    s.done.zero_()
+    s.count.zero_()
+    s.iters.zero_()
+    s.base.fill_(T0)
+    if suppress_mask is not None:
+        s.suppress.copy_(suppress_mask)
+    else:
+        s.suppress.zero_()
+    if s.suppress_first is not None:
+        s.suppress_first.copy_(suppress_first)
+    # every iteration emits at least one token until the stop
+    forwards = _run_chunks(graph, lambda: spec_step(params, cfg, s, st),
+                           lambda: bool(s.done | (s.count >= max_new_tokens)),
+                           0, max_new_tokens, check_every, abort_callback)
+    count = int(s.count)
+    # past count: the speculative overhang, EOS padding
+    live = torch.arange(s.tokens.shape[1], device=dev)[None, :] < count
+    tokens = torch.where(live, s.tokens, eos_token_id)[:, :max_new_tokens]
+    logprobs = torch.where(live, s.logprobs, 0.0)[:, :max_new_tokens]
+    out = (tokens, logprobs, count, s.prev_logits.clone(), first_logits.clone(),
+           int(s.iters), forwards)
+    if timings is not None:
+        _sync(dev)
+        timings.t_decode_us += time_us() - t1
+    return out
+
+
+def generate_speculative(params, cfg, prefill: torch.Tensor,
+                         suppress_mask: torch.Tensor | None = None,
+                         suppress_first: torch.Tensor | None = None, *,
+                         max_new_tokens: int, eos_token_id: int, cache_max_ctx: int,
+                         cache_dtype=torch.bfloat16, spec_k: int = 8, ngram: int = 2,
+                         abort_callback: Callable | None = None, timings=None,
+                         check_every: int | None = None, capture: bool | None = None):
+    """Greedy decoding with n-gram (prompt-lookup) self-drafting, prefill
+    (1, T0, D) on the decoder's device. A forward over K + 1 positions
+    reads the weight bytes of one, so verifying ``spec_k`` drafted tokens
+    in one forward multiplies tokens per forward by the mean accepted
+    length. Every emitted token is the argmax the plain loop takes given
+    the same logits; at bf16 a (K + 1)-wide forward can round differently
+    from a one-position forward, so a near-tie argmax may flip (exact in
+    float32). The cache must hold T0 + max_new_tokens + spec_k rows.
+
+    Returns (tokens (1, max_new), logprobs (1, max_new), count,
+    final_logits (1, V), first_logits (1, V), iters) as the JAX function
+    does: past count, EOS and 0. ``abort_callback``, ``timings``,
+    ``check_every`` (iterations between two reads of the stop flag) and
+    ``capture`` as in ``generate_on_device``."""
+    return _speculative(params, cfg, prefill, suppress_mask, suppress_first,
+                        max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+                        cache_max_ctx=cache_max_ctx, cache_dtype=cache_dtype, spec_k=spec_k,
+                        ngram=ngram, abort_callback=abort_callback, timings=timings,
+                        check_every=check_every, capture=capture)[:6]
+
+
+# --------------------------------------------------------------------------- #
+# beam search
+# --------------------------------------------------------------------------- #
+
+def topk_lower_first(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of a 1-D float32 tensor, equal values taken lower index first,
+    as ``jax.lax.top_k`` takes them (``torch.topk`` promises no order among
+    ties): one ``topk`` over int64 keys, each value's order-preserving bits
+    above its reversed index. Returns (values, indices)."""
+    bits = x.float().contiguous().view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long() * 2 ** 32
+    n = x.numel()
+    key += n - 1 - torch.arange(n, device=x.device)
+    idx = torch.topk(key, k).indices
+    return x[idx], idx
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamSettings:
+    """What a captured beam step froze."""
+    eos_token_id: int
+    max_new_tokens: int
+    length_penalty: float
+    repetition_penalty: float
+
+
+@dataclasses.dataclass
+class BeamState:
+    """The JAX ``BeamState`` as device tensors, updated in place, with the
+    B = 1 cache the prefill fills before it is tiled across the beams."""
+    cache1: KVCache | QuantKVCache
+    cache: KVCache | QuantKVCache
+    scores: torch.Tensor                # (K,) float32 cumulative log-probability
+    tokens: torch.Tensor                # (K, max_new) int32
+    logprobs: torch.Tensor              # (K, max_new) float32
+    seen: torch.Tensor | None           # (K, V) bool, with a repetition penalty
+    done: torch.Tensor                  # (K,) bool: the beam's last token is EOS
+    count: torch.Tensor                 # () int64: tokens emitted per beam
+    best_score: torch.Tensor            # () float32: best length-penalised finished
+    best_tokens: torch.Tensor           # (max_new,) int32
+    best_lps: torch.Tensor              # (max_new,) float32
+    best_len: torch.Tensor              # () int64
+    base: torch.Tensor                  # () int32: the prefill's length T0
+    suppress: torch.Tensor | None       # (V,) additive mask
+
+
+def new_beam_state(cfg, beam_size: int, max_new_tokens: int, cache_max_ctx: int,
+                   cache_dtype, device: torch.device, *, seen: bool,
+                   suppress: bool) -> BeamState:
+    K, V = beam_size, cfg.vocab_size
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    s = BeamState(
+        cache1=create_cache(cfg, 1, cache_max_ctx, dtype=cache_dtype, device=device),
+        cache=create_cache(cfg, K, cache_max_ctx, dtype=cache_dtype, device=device),
+        scores=zeros(K), tokens=zeros(K, max_new_tokens, dtype=torch.int32),
+        logprobs=zeros(K, max_new_tokens), seen=zeros(K, V, dtype=torch.bool) if seen else None,
+        done=zeros(K, dtype=torch.bool), count=zeros(dtype=torch.int64), best_score=zeros(),
+        best_tokens=zeros(max_new_tokens, dtype=torch.int32), best_lps=zeros(max_new_tokens),
+        best_len=zeros(dtype=torch.int64), base=zeros(dtype=torch.int32),
+        suppress=zeros(V) if suppress else None)
+    s.cache.reorder(torch.arange(K, device=device))    # its scratch, made once
+    return s
+
+
+def _record_finished(s: BeamState, scores, tokens, logprobs, newly_done, count,
+                     length_penalty: float, when) -> None:
+    """Snapshot the best newly finished hypothesis into the running best
+    where ``when`` holds and it scores above it (its score includes the EOS
+    token's log-probability, as in the host loop)."""
+    fin = torch.where(newly_done, length_penalty_score(scores, count, length_penalty),
+                      -torch.inf)
+    i = torch.argmax(fin)[None]
+    better = when & (fin[i][0] > s.best_score)
+    s.best_score.copy_(torch.where(better, fin[i][0], s.best_score))
+    s.best_tokens.copy_(torch.where(better, tokens[i][0], s.best_tokens))
+    s.best_lps.copy_(torch.where(better, logprobs[i][0], s.best_lps))
+    s.best_len.copy_(torch.where(better, count, s.best_len))
+
+
+def beam_load(s: BeamState, first_logits: torch.Tensor, T0: int, bs: BeamSettings,
+              suppress_mask: torch.Tensor | None,
+              suppress_first: torch.Tensor | None) -> None:
+    """Start a request in ``s`` (its B = 1 cache holds the prefill): tile
+    the cache across the beams and take the first expansion, top-K of one
+    row of log-probabilities (with the suppression masks, the first-token
+    mask included)."""
+    K = s.scores.shape[0]
+    tile_cache(s.cache1, K, out=s.cache)
+    lp0 = torch.log_softmax(first_logits, dim=-1)[0]
+    if suppress_mask is not None:
+        lp0 = lp0 + suppress_mask
+    if suppress_first is not None:
+        lp0 = lp0 + suppress_first
+    first_lp, first_tok = topk_lower_first(lp0, K)
+    s.tokens.fill_(bs.eos_token_id)
+    s.tokens[:, 0] = first_tok.to(torch.int32)
+    s.logprobs.zero_()
+    s.logprobs[:, 0] = first_lp
+    if s.seen is not None:
+        s.seen.zero_()
+        s.seen.index_put_((torch.arange(K, device=s.seen.device), first_tok),
+                          torch.ones_like(s.done))
+    if s.suppress is not None:
+        s.suppress.copy_(suppress_mask)
+    s.done.copy_(first_tok == bs.eos_token_id)
+    s.count.fill_(1)
+    s.scores.copy_(first_lp)
+    s.base.fill_(T0)
+    s.best_score.fill_(-torch.inf)
+    s.best_tokens.copy_(s.tokens[0])
+    s.best_lps.copy_(s.logprobs[0])
+    s.best_len.zero_()
+    _record_finished(s, s.scores, s.tokens, s.logprobs, s.done, s.count,
+                     bs.length_penalty, True)
+
+
+def beam_step(params, cfg, s: BeamState, bs: BeamSettings) -> None:
+    """One JAX ``beam_search_on_device`` iteration on the device: the K
+    beams' last tokens through the decoder at T0 + count - 1, the
+    repetition penalty over each beam's seen tokens, top-K of the K x V
+    candidate scores (finished beams at -inf), the hypotheses reordered
+    (the cache in place, every step), finished ones snapshotted. Nothing
+    changes once every beam is done or count has reached the budget or the
+    capacity; nothing is read back to the host."""
+    K, V = s.scores.shape[0], cfg.vocab_size
+    dev = s.scores.device
+    c = s.count
+    S = s.cache.max_ctx
+    active = (c < bs.max_new_tokens) & ~s.done.all() & (s.base + c < S)
+    beams = torch.arange(K, device=dev)
+    tok = s.tokens[:, (c - 1).clamp(min=0)[None]][:, 0].long()
+    pos = (s.base + c - 1).clamp(max=S - 1).to(torch.int32).expand(K)
+    logits, _ = decoder_forward(params, cfg, params["embed"][tok][:, None, :], s.cache, pos)
+    pen = apply_repetition_penalty(logits[:, -1], s.seen, bs.repetition_penalty)
+    lp = torch.log_softmax(pen, dim=-1)
+    if s.suppress is not None:
+        lp = lp + s.suppress[None, :]
+    cand = torch.where(s.done[:, None], -torch.inf, s.scores[:, None] + lp)
+    top_scores, best = topk_lower_first(cand.reshape(-1), K)
+    src = torch.where(active, best // V, beams)
+    nxt = best % V
+    s.cache.reorder(src)
+
+    col = c.clamp(max=bs.max_new_tokens - 1).expand(K, 1)
+    tokens = s.tokens[src].scatter(1, col, nxt.to(torch.int32)[:, None])
+    logprobs = s.logprobs[src].scatter(1, col, lp[src, nxt][:, None])
+    done = nxt == bs.eos_token_id
+    count = c + 1
+    _record_finished(s, top_scores, tokens, logprobs, done, count, bs.length_penalty, active)
+    if s.seen is not None:
+        seen = s.seen[src].index_put_((beams, nxt), torch.ones_like(s.done))
+        s.seen.copy_(torch.where(active, seen, s.seen))
+    s.tokens.copy_(torch.where(active, tokens, s.tokens))
+    s.logprobs.copy_(torch.where(active, logprobs, s.logprobs))
+    s.scores.copy_(torch.where(active, top_scores, s.scores))
+    s.done.copy_(torch.where(active, done, s.done))
+    s.count += active
+
+
+def beam_result(s: BeamState, bs: BeamSettings) -> tuple:
+    """The JAX final selection: every surviving beam competes with the
+    finished snapshots (re-scoring a finished beam changes nothing).
+    Returns (tokens (max_new,), logprobs (max_new,), n) on the device and n
+    as an int."""
+    K = s.scores.shape[0]
+    final = length_penalty_score(s.scores, s.count, bs.length_penalty)
+    i = torch.argmax(torch.cat([final, s.best_score[None]]))
+    from_beam = i < K
+    ib = i.clamp(max=K - 1)[None]
+    return (torch.where(from_beam, s.tokens[ib][0], s.best_tokens),
+            torch.where(from_beam, s.logprobs[ib][0], s.best_lps),
+            int(torch.where(from_beam, s.count, s.best_len)))
+
+
+@torch.no_grad()
+def _beam(params, cfg, prefill: torch.Tensor, suppress_mask, suppress_first, *,
+          beam_size: int, max_new_tokens: int, eos_token_id: int, cache_max_ctx: int,
+          cache_dtype, length_penalty: float, repetition_penalty: float,
+          abort_callback: Callable | None, timings, check_every: int | None,
+          capture: bool | None) -> tuple:
+    """``beam_search_on_device``'s work; also returns the steps it ran."""
+    B, T0, _ = prefill.shape
+    if B != 1:
+        raise ValueError(f"beam search decodes one stream, got a batch of {B}")
+    if not 1 <= beam_size <= cfg.vocab_size:
+        raise ValueError(f"beam search: beam_size {beam_size} outside 1..{cfg.vocab_size}")
+    if max_new_tokens < 1 or T0 >= cache_max_ctx:
+        raise ValueError(f"beam search: max_new_tokens {max_new_tokens} and a prefill of "
+                         f"{T0} in a cache of {cache_max_ctx} leave no token to emit")
+    dev = prefill.device
+    check_every = _check_every(dev, check_every, abort_callback, "beam search")
+    bs = BeamSettings(eos_token_id, max_new_tokens, float(length_penalty),
+                      float(repetition_penalty))
+    flags = dict(seen=repetition_penalty != 1.0, suppress=suppress_mask is not None)
+    s, graph = _state_and_graph(
+        "beam", params, cfg, (beam_size, max_new_tokens, cache_max_ctx, cache_dtype), flags,
+        bs, dev, lambda: new_beam_state(cfg, beam_size, max_new_tokens, cache_max_ctx,
+                                        cache_dtype, dev, **flags),
+        beam_step, capture, "beam search")
+
+    first_logits = _prefill(params, cfg, prefill, s.cache1, timings)
+    t1 = time_us()
+    beam_load(s, first_logits, T0, bs, suppress_mask, suppress_first)
+    # count starts at 1 (the first expansion) and stops at the budget or the
+    # capacity
+    steps = _run_chunks(graph, lambda: beam_step(params, cfg, s, bs),
+                        lambda: bool(s.done.all()), 1,
+                        min(max_new_tokens, cache_max_ctx - T0), check_every,
+                        abort_callback) - 1
+    tokens, logprobs, n = beam_result(s, bs)
+    out = (tokens[:n].cpu(), logprobs[:n].cpu(), n, first_logits.clone())
+    if timings is not None:
+        _sync(dev)
+        timings.t_decode_us += time_us() - t1
+    return out + (steps,)
+
+
+def beam_search_on_device(params, cfg, prefill: torch.Tensor,
+                          suppress_mask: torch.Tensor | None = None,
+                          suppress_first: torch.Tensor | None = None, *,
+                          beam_size: int, max_new_tokens: int, eos_token_id: int,
+                          cache_max_ctx: int, cache_dtype=torch.bfloat16,
+                          length_penalty: float = -1.0, repetition_penalty: float = 1.0,
+                          abort_callback: Callable | None = None, timings=None,
+                          check_every: int | None = None, capture: bool | None = None):
+    """Beam search of one stream, prefill (1, T0, D) on the decoder's device,
+    with the JAX function's semantics: finished hypotheses are snapshotted
+    the step they emit EOS (their slot then recycled by live expansions),
+    and the winner is the best length-penalised score over the snapshots
+    and the final beams. Returns (tokens (n,), logprobs (n,), n,
+    first_logits (1, V)), the first two on the host.
+
+    ``abort_callback`` (optional) is called after every step; a true result
+    ends the search there with what it has. ``timings``, ``check_every``
+    (steps between two reads of the done flags) and ``capture`` as in
+    ``generate_on_device``."""
+    return _beam(params, cfg, prefill, suppress_mask, suppress_first, beam_size=beam_size,
+                 max_new_tokens=max_new_tokens, eos_token_id=eos_token_id,
+                 cache_max_ctx=cache_max_ctx, cache_dtype=cache_dtype,
+                 length_penalty=length_penalty, repetition_penalty=repetition_penalty,
+                 abort_callback=abort_callback, timings=timings, check_every=check_every,
+                 capture=capture)[:4]
+
+
+def beam_search_device(bundle, prefill: torch.Tensor, *, beam_size: int,
+                       max_new_tokens: int, length_penalty: float = -1.0,
+                       repetition_penalty: float = 1.0, suppress_mask=None,
+                       suppress_first=None, abort_callback: Callable | None = None,
+                       timings=None, check_every: int | None = None,
+                       capture: bool | None = None) -> GenerationResult:
+    """DecoderBundle entry over ``beam_search_on_device``: the cache sized to
+    this call (the prefill plus the budget, at most ``bundle.max_ctx``),
+    suppression masks given as (V,) arrays."""
+    _, T0, _ = prefill.shape
+    if T0 >= bundle.max_ctx:
+        raise ValueError(
+            f"prefill length {T0} exceeds DecoderBundle.max_ctx "
+            f"{bundle.max_ctx}; raise max_ctx when attaching the decoder")
+    dev = prefill.device
+    tokens, lps, n, first_logits, steps = _beam(
+        bundle.params, bundle.cfg, prefill, _on_dev(suppress_mask, dev),
+        _on_dev(suppress_first, dev), beam_size=beam_size, max_new_tokens=max_new_tokens,
+        eos_token_id=bundle.eos_token_id,
+        cache_max_ctx=min(bundle.max_ctx, T0 + max_new_tokens),
+        cache_dtype=bundle.cache_dtype, length_penalty=length_penalty,
+        repetition_penalty=repetition_penalty, abort_callback=abort_callback,
+        timings=timings, check_every=check_every, capture=capture)
+    toks, lps = tokens.tolist(), lps.tolist()
+    if timings is not None:
+        timings.n_decode += len(toks)
+    return GenerationResult(tokens=[toks], logprobs=[lps],
+                            avg_logprob=[float(np.mean(lps)) if lps else 0.0],
+                            first_logits=first_logits.cpu().numpy(),
+                            n_decode_forwards=steps)

@@ -65,12 +65,13 @@ def sample_token(logits: torch.Tensor, seen_mask: torch.Tensor | None,
     return tok, torch.gather(logprobs, -1, tok[:, None])[:, 0]
 
 
-def length_penalty_score(score: torch.Tensor | float, length: int,
+def length_penalty_score(score: torch.Tensor | float, length: int | torch.Tensor,
                          penalty: float):
     """Beam score normalization: penalty < 0 -> simple length normalization;
     else the GNMT ((5+len)/6)^penalty rule (openai/whisper decoding.py,
-    referenced from whisper_full_params :410)."""
-    length = max(length, 1)
+    referenced from whisper_full_params :410). ``length`` may be a device
+    tensor (a beam step's count), never read by the host."""
+    length = length.clamp(min=1) if isinstance(length, torch.Tensor) else max(length, 1)
     if penalty < 0:
         return score / length
     return score / ((5.0 + length) / 6.0) ** penalty

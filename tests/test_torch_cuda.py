@@ -635,6 +635,34 @@ def test_kv_append_quant_bits_equal_cpu(device, xdt):
         assert torch.equal(cpu.nan_to_num(), card.nan_to_num())
 
 
+def test_int8_cache_at_an_odd_capacity(device):
+    """Layer 1 of a 2-layer int8 cache at Hkv 2 and capacity 39 (a
+    speculative request's T0 + budget + K): its scales start off the
+    16-byte grid. The append writes the CPU's bits, and the decode kernel
+    over it matches its plain version (39 rows visible: the range-edge cases'
+    p-rounding term)."""
+    gen = torch.Generator().manual_seed(21)
+    k, v = (torch.randn(1, 8, 2, 128, generator=gen).to(_BF) for _ in range(2))
+    q = torch.randn(1, 14, 128, generator=gen).to(_BF)
+    pos = torch.tensor([31], dtype=torch.int32)
+    caches = []
+    for dev in ("cpu", device):
+        c = [torch.zeros(2, 1, 39, 2, 128, dtype=torch.int8, device=dev),
+             torch.zeros(2, 1, 39, 2, device=dev)]
+        c = c + [t.clone() for t in c]
+        layer = [t[1] for t in c]
+        tfd.kv_append_quant(k.to(dev), v.to(dev), *layer, pos.to(dev))
+        caches.append(layer)
+    for cpu, card in zip(*caches):
+        assert torch.equal(cpu, card.cpu())
+    got = tfd.flash_decode_quant(q.to(device), *caches[1], (pos + 7).to(device),
+                                 sm_scale=128 ** -0.5)
+    want = tfd.flash_decode_quant_plain(q, *caches[0], pos + 7, sm_scale=128 ** -0.5)
+    p_abs_v = chip_smoke.decode_p_abs_v(tfd.flash_decode_quant_plain, q, caches[0], pos + 7,
+                                        128 ** -0.5)
+    assert bool(((got.cpu().float() - want.float()).abs() <= _tol(want, _BF, p_abs_v)).all())
+
+
 def test_int8_cache_of_a_decoder_bit_equal_to_the_old_route(device, monkeypatch):
     """A 4-layer bf16 decoder over the int8 cache, a 40-position prefill and
     8 steps: the cache written by kv_append_quant (one launch per layer and
@@ -875,6 +903,69 @@ def test_captured_decode_step_bit_equal_to_eager(device, quant, cache_dtype):
             assert torch.equal(a, b)
     assert n_eager == n_graph == _GRAPH_CFG.num_hidden_layers * 8
     assert len(tgen.captured_steps()) == 1 and tgen.captured_steps()[0].replays == 8
+
+
+@pytest.mark.parametrize("quant", [None, "q8_0"], ids=["bf16_weights", "q8_0_weights"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, "q8"], ids=["bf16_cache", "int8_cache"])
+def test_captured_beam_step_bit_equal_to_eager(device, quant, cache_dtype):
+    """Beam search of 5 hypotheses replayed from a captured step (the cache
+    gathered in place every step) against the eager step loop: the same
+    tokens, bit-equal log-probabilities, the decode kernel launched once a
+    layer and step at B = 5."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, quant)
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    entry = tfd.flash_decode_quant if cache_dtype == "q8" else tfd.flash_decode
+    out = []
+    for capture, every in ((False, 1), (True, 3)):
+        before = entry.launches
+        res = tgen.beam_search_on_device(
+            bundle.params, _GRAPH_CFG, x, beam_size=5, max_new_tokens=9,
+            eos_token_id=bundle.eos_token_id, cache_max_ctx=64, cache_dtype=cache_dtype,
+            repetition_penalty=1.3, capture=capture, check_every=every)
+        torch.cuda.synchronize()
+        out.append((res, entry.launches - before))
+    (eager, n_eager), (graph, n_graph) = out
+    assert eager[2] == graph[2] == 9
+    assert torch.equal(eager[0], graph[0]) and torch.equal(eager[1], graph[1])
+    assert n_eager == n_graph == _GRAPH_CFG.num_hidden_layers * 8
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, "q8"], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("spec_k", [7, 8])
+def test_captured_speculative_step_bit_equal_to_eager(device, cache_dtype, spec_k):
+    """Speculative decoding replayed from a captured verify step, replays
+    after the stop included, against the eager loop: the same tokens,
+    log-probabilities and iterations, bit for bit. The cache holds
+    T0 + budget + K rows, 39 at K = 7: at Hkv = 2 each layer's int8-cache
+    scales start off the 16-byte grid."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, "q8_0")
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    runs = [tgen.generate_speculative(
+        bundle.params, _GRAPH_CFG, x, max_new_tokens=12, eos_token_id=bundle.eos_token_id,
+        cache_max_ctx=20 + 12 + spec_k, cache_dtype=cache_dtype, spec_k=spec_k,
+        capture=capture, check_every=every) for capture, every in ((False, 1), (True, 4))]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+def test_captured_step_with_repetition_penalty(device):
+    """A repetition penalty keeps a seen-token mask in the captured step,
+    written with device values only (a Python True would be copied in from
+    the host, which a capture refuses): bit-equal to the eager step."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, None)
+    x = torch.randn(1, 20, 256, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device).to(torch.bfloat16)
+    (eager, _), (graph, _) = _generate_both(bundle, x, torch.bfloat16, repetition_penalty=1.3)
+    for a, b in zip(eager, graph):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 def test_captured_step_keyed_on_switches_and_weights(device):

@@ -160,6 +160,24 @@ def test_wrapper_refusals():
         tfd._refuse("flash_decode_quant", qi, ki, vi, pos)
 
 
+def test_scales_need_only_float_alignment():
+    """A layer's scales start where the layer before ends: at Hkv 2 and an
+    odd capacity (2 x 39 floats a layer) on the 4-byte grid, off the 16-byte
+    one. The kernels read and write the scales a float at a time, so the
+    wrappers take them; the int8 values keep their 16-byte rule."""
+    qi = torch.zeros(1, 14, 128, dtype=BF)
+    kq = torch.zeros(2, 1, 39, 2, 128, dtype=I8)
+    ks = torch.zeros(2, 1, 39, 2)
+    assert ks[1].data_ptr() % 16 and not ks[1].data_ptr() % 4
+    tfd._refuse("flash_decode_quant", qi, kq[1], kq[1], torch.tensor([10], dtype=torch.int32),
+                ks[1], ks[1])
+    buf = torch.zeros(39 * 2 * 128 + 4, dtype=I8)
+    km = buf[4:].view(1, 39, 2, 128)                     # 4 bytes off the 16-byte grid
+    with pytest.raises(ValueError, match="aligned"):
+        tfd._refuse("flash_decode_quant", qi, km, km, torch.tensor([10], dtype=torch.int32),
+                    ks[1], ks[1])
+
+
 def test_kv_append_quant_refuses_bad_shapes():
     k = torch.zeros(1, 3, 4, 128)
     c = [torch.zeros(1, 16, 4, 128, dtype=I8), torch.zeros(1, 16, 4)]

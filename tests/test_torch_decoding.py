@@ -238,9 +238,6 @@ def test_whisper_full_audio_to_text_matches_jax(contexts):
 @pytest.mark.parametrize("field,value,code", [
     ("detect_language", True, -6),
     ("translate", True, -7),
-    ("strategy", "beam", -8),
-    ("token_timestamps", True, -9),
-    ("speculative_k", 4, -10),
 ])
 def test_refused_options_return_their_codes(contexts, field, value, code):
     _, tctx = contexts
@@ -248,6 +245,45 @@ def test_refused_options_return_their_codes(contexts, field, value, code):
     setattr(p, field, value)
     x = (0.1 * np.random.default_rng(9).standard_normal(20000)).astype(np.float32)
     assert tcapi.whisper_full(tctx, p, x) == code
+
+
+@pytest.mark.parametrize("opts", [
+    dict(strategy="beam"),
+    dict(strategy="beam", beam_size=3, length_penalty=0.5, abort_after=5),
+    dict(token_timestamps=True, max_len=2),
+    dict(speculative_k=4),
+    dict(speculative_k=7, token_timestamps=True),
+], ids=["beam", "beam_host_loop", "token_timestamps", "speculative", "speculative_timed"])
+def test_decode_options_match_jax(contexts, opts):
+    """The options the port once refused (beam -8, token_timestamps -9,
+    speculative_k -10) through both packages' whisper_full: return code 0,
+    the same tokens, segments and probabilities."""
+    jctx, tctx = contexts
+    x = (0.1 * np.random.default_rng(9).standard_normal(20000)).astype(np.float32)
+    states = []
+    for ctx, p in ((jctx, jrt.full_default_params()),
+                   (tctx, tcapi.whisper_full_default_params())):
+        p.max_new_tokens = 8
+        p.temperature_inc = 0.0
+        for k, v in opts.items():
+            if k == "abort_after":
+                calls = []
+                p.abort_callback = lambda calls=calls, n=v: calls.append(1) or len(calls) >= n
+            else:
+                setattr(p, k, v)
+        st = ctx.init_state()
+        assert ctx.full_with_state(st, p, x) == 0
+        states.append(st)
+    js, ts = states
+    assert ts.result_tokens == js.result_tokens and len(ts.result_tokens) > 0
+    if "abort_after" in opts:
+        # one check after the encode, then one after every token
+        assert len(ts.result_tokens) == opts["abort_after"] - 1
+    assert len(ts.segments) == len(js.segments) >= 1
+    for w, g in zip(js.segments, ts.segments):
+        assert {k: g[k] for k in g if k != "probs"} == {k: w[k] for k in w if k != "probs"}
+        np.testing.assert_allclose(g["probs"], w["probs"], atol=1e-5)
+    assert ts.no_speech_prob == pytest.approx(js.no_speech_prob, abs=1e-6)
 
 
 def test_temperature_fallback_and_abort_path(contexts):

@@ -36,6 +36,12 @@ def test_quantized_weight_modules_are_scanned():
         assert f"qwen2_audio_tpu_torch.{m}" in mods
 
 
+def test_decode_modules_are_scanned():
+    mods = set(_port_modules())
+    for m in ("models.dtw", "models.qwen2_decoder", "runtime.generate", "runtime.decoding"):
+        assert f"qwen2_audio_tpu_torch.{m}" in mods
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
