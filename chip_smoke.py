@@ -161,6 +161,30 @@ before the result lines are printed):
       timestamps' segments concatenating to the greedy tokens, the times
       non-decreasing within the window; one beam and one verify step's
       device ms and the beam reorder's by graph replays.
+   h. serving, HF loading and the w8a8 form: behind (b)'s bf16 decoder
+      (bf16 cache, then the int8 cache) and (d)'s strided q8_0 decoder
+      (one-launch SwiGLU at its default), transcribe_many over 6 clips of
+      12-75 s (10 windows) through POOL_SLOTS slots, POOL_CHUNK tokens a
+      chunk, plain and with speculative_k 7 (the int8 cache plain only),
+      its EOS a token the windows' own B = 1 greedy streams emit at
+      different steps, so that slots finish apart and refill mid-run at
+      ragged positions; each run's launches derived from its chunks, its
+      segments against each window's B = 1 decode (equal up to a first
+      near tie, SPEC_TIE) and again with the chunks run eagerly
+      (bit-equal); aggregate tokens/s, ms per chunk, refills, one captured
+      pool step's and one verify iteration's device ms (q8_0 also with the
+      one-launch SwiGLU off) beside a B = 1 step's; a 28-layer decoder of
+      random w8a8 weights made on the card (one request, replayed against
+      eager, the int8 product counted once per linear and forward, its
+      step against the weights' byte bound); capi.whisper_full_parallel on
+      an encoder-only context (120 s in 4 chunks, one B = 4 encode, each
+      chunk against a B = 1 encode); a random full-width depth-2 HF
+      checkpoint (torch.save, .bin) through io.hf.load_qwen2_audio onto the
+      card and onto the CPU for decoder_quant None, q8_0 and w8a8 (the
+      trees equal, the embedding and an 8-token request card against CPU).
+      Phase 2 adds rows 4/5 at B = POOL_SLOTS with ragged positions, rows
+      6-13 and 17 at M = 64, and the w8a8 product (torch._int_mm) exact
+      against its plain version at M = 1, 8, 64 and 1500.
    The quantized paths (c, d) also run with dq16 switched on
    (set_dequant16): three encodes behind each quantized encoder (the
    embedding against the switch off) and one 8-token request per format
@@ -280,6 +304,15 @@ SPEC_K = 7            # speculative_k of phase 4g's speculative requests (verify
 # the other width rounds the other way)
 SPEC_TIE = 2.0
 TS_MAX_LEN = 16       # max_len of phase 4g's token_timestamps request
+POOL_SLOTS = 8        # decode slots of phase 4h's pools (max_streams)
+POOL_CHUNK = 16       # tokens a plain chunk (chunk_tokens)
+# the pool's clips (seconds): 1 + 3 + 1 + 2 + 2 + 1 = 10 windows of 30 s
+POOL_CLIPS = (12.0, 75.0, 20.0, 45.0, 35.0, 15.0)
+PARALLEL_PROCESSORS = 4
+PARALLEL_COS_MIN = 0.9999     # full_parallel's chunks against B = 1 encodes
+HF_TOKENS = 8                 # new tokens of the HF-loaded request, card and CPU
+HF_PROMPT = 16                # its prompt: token embeddings, no audio
+W8A8_M = (1, 8, 64, 1500)
 
 
 class SmokeFailure(RuntimeError):
@@ -1273,7 +1306,7 @@ def _decode_cases():
         (f32, f32, 1, 784, [783]), (f32, bf, 1, 784, [783]), (f32, i8, 1, 784, [783]),
         (bf, bf, 4, 784, spread), (f32, f32, 4, 784, spread), (bf, i8, 4, 784, spread),
         (bf, bf, 1, 8192, [8191]), (bf, i8, 1, 8192, [8191]),
-        *_decode_edge_cases(), *_beam_decode_cases(),
+        *_decode_edge_cases(), *_beam_decode_cases(), *_pool_decode_cases(),
     ]
 
 
@@ -1287,6 +1320,16 @@ def _beam_decode_cases():
     bf, i8 = torch.bfloat16, torch.int8
     return [(bf, kv, BEAM, 784, pos) for kv in (bf, i8)
             for pos in ([0, 63, 64, 400, 783], [783] * BEAM)]
+
+
+def _pool_decode_cases():
+    """The slot pool's step shape: B = POOL_SLOTS streams over the pool's
+    capacity of 2048, each at its own position (a prefill of about 752 plus
+    the tokens each has decoded since its refill), over both cache types."""
+    import torch
+    bf, i8 = torch.bfloat16, torch.int8
+    pos = [783, 755, 801, 760, 790, 752, 812, 770][:POOL_SLOTS]
+    return [(bf, kv, POOL_SLOTS, 2048, pos) for kv in (bf, i8)]
 
 
 def _decode_edge_cases():
@@ -1364,7 +1407,7 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
     import torch
     import torch.nn.functional as F
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
-    main, timed, beam = {}, set(), {}
+    main, timed, beam, pool = {}, set(), {}, {}
     edges = _decode_edge_cases() + _beam_decode_cases()
     check_decode_residency(device)
     for i, (qdt, kvdt, B, S, pos) in enumerate(cases or _decode_cases()):
@@ -1388,7 +1431,9 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
         err, _ = _held(got, want, tname, what, p_abs_v)
         name = "flash_decode_quant" if quant else "flash_decode"
         beam_step = B == BEAM and len(set(pos)) == 1
-        if not (B == 1 or beam_step) or qdt != torch.bfloat16 or (name, B, S) in timed:
+        pool_step = B == POOL_SLOTS and len(set(pos)) > 1 and S == 2048
+        if not (B == 1 or beam_step or pool_step) or qdt != torch.bfloat16 \
+                or (name, B, S) in timed:
             continue
         timed.add((name, B, S))
         n = sum(p + 1 for p in pos)   # cache rows the function must read
@@ -1397,7 +1442,14 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
         b_ms, b_by = bound(4 * Hq * d * n, nbytes, PEAK_BF16)
         run = lambda: kern(q, *cache, posv, sm_scale=scale)   # noqa: E731
         lib = None
-        if not quant:   # every stream at pos[0]
+        if not quant and pool_step:   # each stream's rows by a mask, NaN rows zeroed
+            q4 = q[:, :, None]
+            kp, vp = (torch.nan_to_num(c).transpose(1, 2) for c in cache)
+            mask = (torch.arange(S, device=device)[None, :] <= posv[:, None].long())
+            mask = mask[:, None, None, :]
+            lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                q4, kp, vp, attn_mask=mask, scale=scale, enable_gqa=True))
+        elif not quant:   # every stream at pos[0]
             q4 = q[:, :, None]
             kp, vp = (c[:, :pos[0] + 1].transpose(1, 2) for c in cache)
             lib = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1411,13 +1463,17 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
         log(f"{name} at B={B} S={S} pos={pos[0]} (graph replay; SDPA as library_ms): "
             + json.dumps({**{k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms")},
                           "events_ms": time_ms(run, iters=50), "host_us": host_us(run)}))
+        keep = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}
         if beam_step:
-            beam[name] = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                "max_abs_err")}
+            beam[name] = keep
+        elif pool_step:
+            pool[name] = keep
         else:
             main.setdefault(name, t)
     for name, t in beam.items():
         main[name]["B5"] = t
+    for name, t in pool.items():
+        main[name][f"B{POOL_SLOTS} ragged"] = t
     return main["flash_decode"], main["flash_decode_quant"]
 
 
@@ -1512,7 +1568,7 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("rag q8_0 f32s", 1, f32, True, None),
         # the beam step's M = 5 and a K = 7 speculative verify forward's M =
         # 8 (the M <= 8 limit), every entry strided and in panels, timed
-        *((w, M, bf, True, "small") for M in (BEAM, 8)
+        *((w, M, bf, True, "small") for M in (BEAM, 8, 64)
           for w in ("gate_up q8_0", "gate_up q4_0", "lm_head q8_0", "lm_head q4_0")),
         ("qkv q8_0", BEAM, f32, False, None), ("down q4_0", 8, bf, True, None),
     ]
@@ -1998,7 +2054,7 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                     tuple(gu[k][..., I:].contiguous() for k in order),
                     tuple(dn[k] for k in order), li, packed=packed, fast=fast)
                 require(torch.equal(split, got), f"{what}: the split schema differs")
-            if not (M in (1, BEAM, 8, 9) and dtype == bf and fast
+            if not (M in (1, BEAM, 8, 9, 64) and dtype == bf and fast
                     and fmt in ("q8_0", "q4_0")):
                 continue
             # M = 1 times (and the beam step's M = 5, a verify forward's 8 and
@@ -3405,12 +3461,14 @@ def _text_params(n_new: int):
     return params
 
 
-def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
+def run_quant_text(ctx, cfg, fmt: str, new_tokens: int, pool_clips=None) -> dict:
     """Behind the quantized encoder of ``ctx``, attach a decoder whose
     linears and lm_head are random ``fmt`` blocks made on the card (seed 0)
     and answer one request per storage configuration on one clip through
     capi.whisper_full, each with the launch counters set to 0 just before
-    and read just after. Returns the configurations' results by name."""
+    and read just after. With ``pool_clips``, phase 4h's pools over them on
+    the strided blocks with the one-launch SwiGLU at its default (under
+    "pool"). Returns the configurations' results by name."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch import capi
@@ -3527,11 +3585,17 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int) -> dict:
             run["profile"] = profile_call(lambda: capi.whisper_full(ctx, params, clip),
                                           f"whisper_full (audio -> text, {fmt}, {name})")
             out[name] = {"launches": launches, "run": run, "forms": forms}
+        set_fused_mlp(None)
+        set_dequant16()
+        if pool_clips is not None:
+            t0 = time.perf_counter()
+            bundle.decoder = strided
+            out["pool"] = run_pool(ctx, fmt, new_tokens, pool_clips, verify_ab=True)
+            out["pool"]["seconds"] = time.perf_counter() - t0
         # phase 4g: the blocks in panels with gate_up strided and the
         # one-launch SwiGLU on, so that the two formats' requests launch
         # rows 6-13 and 17 between them
         set_fused_mlp(True)
-        set_dequant16()
         bundle.decoder = Decoder(panelize_decoder_params(strided.params, skip_gate_up=True), cfg)
         out["options"] = run_decode_options(ctx, f"{fmt} (panelized, gate_up strided)",
                                             new_tokens, clip, quantized=True)
@@ -3652,6 +3716,559 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 4h: HF loading, the w8a8 form, the serving layer
+# --------------------------------------------------------------------------- #
+
+
+
+def check_w8a8(device, dims=(3584, 18944, 156032, 1280)) -> dict:
+    """The w8a8 product (ops/linear.py::int8_matmul, one torch._int_mm, the
+    rows of M < 17 padded) against its plain version, exact in int32, at M =
+    1, 8, 64 and 1500 over the decoder's qkv, gate_up, down and lm_head and
+    the encoder's fc1 and fc2, the weight K-major as the modules hold it
+    and row-major; the whole w8a8 linear (rows quantized, product, rescale)
+    bit-equal to the CPU's at each M of the decoder's gate_up. Timed (the
+    K-major weight) where the main path runs it (M 1 and 8 by graph
+    replay): the product, its plain version and its bound (the int8 inputs
+    read once, the int32 output written once; 2MKN int8 operations), and
+    the row-major weight's time beside it."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import linear as tl
+    D, I, V, E = dims
+    shapes = {"qkv": (D, D + D // 7 * 2), "gate_up": (D, 2 * I), "down": (I, D),
+              "lm_head": (D, V), "fc1": (E, 4 * E), "fc2": (4 * E, E)}
+    cases = [(w, M) for w in ("qkv", "gate_up", "down", "lm_head") for M in W8A8_M[:3]] \
+        + [(w, 1500) for w in ("gate_up", "fc1", "fc2")]
+    out = {}
+    for i, (w, M) in enumerate(cases):
+        K, N = shapes[w]
+        g = torch.Generator(device=device).manual_seed(300 + i)
+        a = torch.randint(-128, 128, (M, K), generator=g, device=device, dtype=torch.int8)
+        # K-major, as the decoder and encoder modules hold "qs8"
+        b = tl.w8a8_layout({"qs8": torch.randint(-128, 128, (K, N), generator=g,
+                                                 device=device, dtype=torch.int8)})["qs8"]
+        got = tl.int8_matmul(a, b)
+        want = tl.int8_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(tl.int8_matmul(a, b.contiguous()), want),
+                f"w8a8 {w} M={M}: torch._int_mm differs from the exact int32 product")
+        what = f"w8a8 product {w} M={M} K={K} N={N}"
+        if w == "gate_up" and M <= 64:
+            x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+            sc = torch.rand(N, generator=g, device=device) * 1e-3
+            card = tl.w8a8(x, b, sc)
+            require(torch.equal(card.cpu(), tl.w8a8(x.cpu(), b.cpu(), sc.cpu())),
+                    f"{what}: the w8a8 linear differs from the CPU's bits")
+        if (w, M) not in (("qkv", 1), ("gate_up", 1), ("gate_up", 8), ("gate_up", 64),
+                          ("lm_head", 1), ("fc1", 1500)):
+            log(f"{what}: exact")
+            continue
+        nbytes = a.numel() + b.numel() + 4 * M * N
+        b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8)
+        run = lambda: tl.int8_matmul(a, b)   # noqa: E731
+        bn = b.contiguous()
+        t = {"ms": graph_ms(run) if M <= 8 else time_ms(run, iters=10),
+             "plain_ms": time_ms(lambda: tl.int8_matmul_plain(a, b), iters=3, warmup=1),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "row_major_ms": graph_ms(lambda: tl.int8_matmul(a, bn)) if M <= 8
+             else time_ms(lambda: tl.int8_matmul(a, bn), iters=10)}
+        t["bound_share"] = b_ms / t["ms"]
+        log(f"{what}: exact; " + json.dumps(t))
+        out[f"{w} M{M}"] = t
+        del a, b, bn
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pool_windows(ctx, clips) -> list:
+    """Each clip's 30 s windows in transcribe_many's order: (clip, t0_cs,
+    prefill (1, T0, D)), the prefill as the pool builds it."""
+    from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
+    from qwen2_audio_tpu_torch.runtime.serving import _chunk_offsets, encode_windows
+    bundle = ctx.decoder
+    out = []
+    for a, clip in enumerate(clips):
+        st = ctx.init_state()
+        require(ctx.pcm_to_mel_with_state(st, clip) == 0, "pool: mel")
+        offs = _chunk_offsets(st.mel.n_len_org, ctx.hparams.n_audio_ctx)
+        enc = encode_windows(ctx, st.mel, offs)
+        out += [(a, off, _prefill_embeds(bundle, bundle.project_audio(enc[w]), []))
+                for w, off in enumerate(offs)]
+    return out
+
+
+def _forced_rows(bundle, prefills: list, toks: list, width: int) -> list:
+    """Teacher forcing of B = len(prefills) streams at once, each at its own
+    positions: every prompt prefilled into its slot (prefill_slot), then the
+    streams' tokens fed ``width`` at a time; per stream, one (V,) logits row
+    per token (the row its token was picked from)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.runtime.generate import prefill_slot
+    B, dev, cfg = len(prefills), prefills[0].device, bundle.cfg
+    T0 = [p.shape[1] for p in prefills]
+    n = max(len(t) for t in toks)
+    pool = (create_cache(cfg, B, max(T0) + n + width, dtype=bundle.cache_dtype, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.zeros(B, cfg.vocab_size, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev))
+    for b, p in enumerate(prefills):
+        prefill_slot(bundle.params, cfg, *pool, b, p)
+    rows = [[pool[2][b].clone()] for b in range(B)]
+    for i in range(0, n - 1, width):
+        block = [(list(t[i:i + width]) + [0] * width)[:width] for t in toks]
+        x = bundle.decoder.embed(torch.tensor(block, device=dev))
+        pos = torch.tensor([t0 + i for t0 in T0], dtype=torch.int32, device=dev)
+        lg, _ = decoder_forward(bundle.params, cfg, x, pool[0], pos)
+        for b in range(B):
+            rows[b].extend(lg[b, :max(0, min(width, len(toks[b]) - 1 - i))])
+    return rows
+
+
+def _against_reference(bundle, windows, refs: list, got: list, width: int,
+                       what: str) -> dict:
+    """Each window's pool tokens against its own B = 1 greedy decode: equal,
+    or equal up to a first difference where the reference's top-2 logit gap
+    is at most SPEC_TIE x the widest logit difference, up to that token,
+    between its B = 1 one-position forwards and B = POOL_SLOTS forwards
+    ``width`` positions wide over the same tokens (teacher-forced, computed
+    only then)."""
+    diffs = {}
+    for w, (r, g) in enumerate(zip(refs, got)):
+        j = next((i for i, (a, b) in enumerate(zip(r, g)) if a != b), None)
+        if j is None and len(r) != len(g):
+            j = min(len(r), len(g))
+        if j is None:
+            continue
+        group = list(range(max(0, w - POOL_SLOTS + 1), w + 1))[-POOL_SLOTS:]
+        ref_rows = _forced_rows(bundle, [windows[w][2]], [r[:j + 1]], 1)[0]
+        pool_rows = _forced_rows(bundle, [windows[v][2] for v in group],
+                                 [refs[v][:j + 1] for v in group], width)[group.index(w)]
+        spread = max((a - b).abs().max().item() for a, b in zip(ref_rows, pool_rows))
+        top = ref_rows[min(j, len(ref_rows) - 1)].topk(2).values
+        gap = (top[0] - top[1]).item()
+        diffs[w] = {"at": j, "gap": gap, "spread": spread}
+        log(f"{what}: window {w} first differs from its B = 1 decode at token {j} "
+            f"({r[j:j + 1]} against {g[j:j + 1]}); the reference's top-2 gap there "
+            f"{gap:.4f}, bound {SPEC_TIE} x {spread:.4f}")
+        require(gap <= SPEC_TIE * spread, f"{what}: window {w} differs at {j} with a "
+                f"top-2 gap of {gap:.4f}, not a near tie")
+    return diffs
+
+
+def _pick_eos(refs: list) -> int:
+    """The token whose first emission splits the windows' B = 1 streams into
+    the most different stopping steps (a window that never emits it runs to
+    the budget), so that slots finish apart and refill mid-run."""
+    def stops(t):
+        return {r.index(t) if t in r else len(r) for r in refs}
+    cands = sorted({t for r in refs for t in r})
+    best = max(cands, key=lambda t: (len(stops(t)), -t))
+    require(len(stops(best)) >= 2, f"pool: every window's stream stops alike {refs}")
+    return best
+
+
+def run_pool(ctx, what: str, new_tokens: int, clips, spec_ks=(0, SPEC_K),
+             verify_ab: bool = False) -> dict:
+    """Phase 4h on the decoder attached to ``ctx``: transcribe_many over
+    ``clips`` through POOL_SLOTS slots, POOL_CHUNK tokens a chunk, once per
+    ``speculative_k`` in ``spec_ks``, every launch counter set to 0 just
+    before each run and read just after. The EOS is a token the windows'
+    own B = 1 greedy streams emit at different steps (``_pick_eos``), so
+    slots finish apart, refill mid-run and stand at different positions.
+
+    Each run: its segments against each window's B = 1 greedy decode (equal
+    up to a first near tie), again with the pool's chunks run eagerly
+    (bit-equal tokens and probabilities), launches derived from its chunks;
+    aggregate tokens/s, ms per chunk, refills, peak GiB; one captured pool
+    step's device ms (B = POOL_SLOTS) beside one B = 1 step's, and for the
+    speculative pool one verify iteration's (M = POOL_SLOTS x (K + 1)),
+    with ``verify_ab`` also with the one-launch SwiGLU off."""
+    import functools
+
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp
+    from qwen2_audio_tpu_torch.runtime import generate as gen
+    from qwen2_audio_tpu_torch.runtime import serving
+
+    bundle = ctx.decoder
+    L, eos0 = bundle.cfg.num_hidden_layers, bundle.eos_token_id
+    cache_name = "int8" if bundle.cache_dtype == "q8" else "bf16"
+    windows = _pool_windows(ctx, clips)
+    refs0 = [gen.greedy_decode_device(bundle, p, max_new_tokens=new_tokens).tokens[0]
+             for _, _, p in windows]
+    eos = _pick_eos(refs0)
+    refs = [r[:r.index(eos) + 1] if eos in r else r for r in refs0]
+    log(f"4h {what}: {len(windows)} windows of {len(clips)} clips; EOS {eos}, emitted at "
+        f"steps {[len(r) - 1 if r[-1] == eos else None for r in refs]} of their B = 1 "
+        f"decodes")
+    out = {"eos": eos, "windows": len(windows)}
+    prefills = [p for _, _, p in windows][:POOL_SLOTS]
+    bundle.eos_token_id = eos
+    try:
+        for k in spec_ks:
+            name = "plain" if k == 0 else f"speculative K = {k}"
+            params = _text_params(new_tokens)
+            params.speculative_k = k
+
+            def pool_run(capture: bool):
+                patch = {} if capture else {
+                    f: getattr(serving, f) for f in ("decode_chunk_slots",
+                                                     "decode_chunk_slots_spec")}
+                for f, fn in patch.items():
+                    setattr(serving, f, functools.partial(fn, capture=False))
+                try:
+                    st = ctx.init_state()
+                    ctx.state = st
+                    t0 = time.perf_counter()
+                    segs = list(serving.transcribe_many(ctx, clips, params,
+                                                        max_streams=POOL_SLOTS,
+                                                        chunk_tokens=POOL_CHUNK))
+                    torch.cuda.synchronize()
+                    return segs, st, (time.perf_counter() - t0) * 1e3
+                finally:
+                    for f, fn in patch.items():
+                        setattr(serving, f, fn)
+
+            counters = _launch_counters()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            segs, st, wall = pool_run(True)
+            launches = {n_: c.launches for n_, c in counters.items() if c.launches}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            stats = {k_: v for k_, v in serving.LAST_POOL_STATS.items()}
+            by_window = {(a, s.t0_cs): s for a, s in segs}
+            require(len(segs) == len(windows) and set(by_window) == {(a, t) for a, t, _ in
+                                                                     windows},
+                    f"4h {what} {name}: {len(segs)} segments for {len(windows)} windows")
+            got = [by_window[(a, t)].tokens for a, t, _ in windows]
+            n_tok = sum(len(t) for t in got)
+            chunks = stats["plain_chunks"] + stats["spec_chunks"]
+            # launches, from the chunks: a plain chunk is POOL_CHUNK forwards of
+            # B = POOL_SLOTS one position wide; a verify forward takes the
+            # plain attention
+            n_win, n_clip = len(windows), len(clips)
+            kern = "flash_decode_quant" if cache_name == "int8" else "flash_decode"
+            want = {"attention_causal": L * n_win, "mel_log_frames": n_clip,
+                    "attention_single": n_win * ctx.hparams.n_audio_layer,
+                    kern: L * POOL_CHUNK * stats["plain_chunks"]}
+            for n_, v in want.items():
+                require(launches.get(n_, 0) == v, f"4h {what} {name}: {n_} launched "
+                        f"{launches.get(n_, 0)} times, want {v}")
+            require(launches.get(kern, 0) > 0 or k > 0, f"4h {what} {name}: no {kern}")
+            _, e_st, e_wall = pool_run(False)
+            order = [(sg["t0"], sg["tokens"], sg["probs"]) for sg in st.segments]
+            require([(sg["t0"], sg["tokens"], sg["probs"]) for sg in e_st.segments] == order,
+                    f"4h {what} {name}: the captured pool differs from the eager one "
+                    "(tokens, probabilities or completion order)")
+            diffs = _against_reference(bundle, windows, refs, got, 1 if k == 0 else k + 1,
+                                       f"4h {what} {name}")
+            tm = st.timings
+            run = {"tokens": n_tok, "wall_ms": wall, "eager_wall_ms": e_wall,
+                   "decode_ms": tm.t_decode_us / 1e3,
+                   "tokens_per_s": n_tok / max(tm.t_decode_us / 1e6, 1e-9),
+                   "wall_tokens_per_s": n_tok / (wall / 1e3),
+                   "chunks": chunks, "ms_per_chunk": statistics.median(stats["chunk_ms"]),
+                   "chunk_ms": [round(v, 3) for v in stats["chunk_ms"]],
+                   "refills": stats["refills"], "peak_gib": peak,
+                   "same_as_b1": len(windows) - len(diffs), "near_ties": len(diffs)}
+            if k:
+                run.update(iters=stats["spec_iters"],
+                           tokens_per_verify=stats["spec_tokens"] / max(stats["spec_iters"], 1))
+            # one captured pool step by graph replays, over the first windows
+            pool = (gen.create_cache(bundle.cfg, POOL_SLOTS, bundle.max_ctx,
+                                     dtype=bundle.cache_dtype, device=ctx.device),
+                    torch.zeros(POOL_SLOTS, dtype=torch.int32, device=ctx.device),
+                    torch.zeros(POOL_SLOTS, bundle.cfg.vocab_size, device=ctx.device),
+                    torch.zeros(POOL_SLOTS, dtype=torch.bool, device=ctx.device))
+            for s_, p in enumerate(prefills):
+                gen.prefill_slot(bundle.params, bundle.cfg, *pool, s_, p)
+            hist = torch.zeros(POOL_SLOTS, new_tokens + POOL_CHUNK + 16, dtype=torch.int32,
+                               device=ctx.device)
+            hlen = torch.zeros(POOL_SLOTS, dtype=torch.int32, device=ctx.device)
+
+            def step_ms():
+                if k == 0:
+                    gen.decode_chunk_slots(bundle.params, bundle.cfg, *pool,
+                                           chunk=POOL_CHUNK, eos_token_id=-1)
+                else:
+                    gen.decode_chunk_slots_spec(bundle.params, bundle.cfg, *pool, hist, hlen,
+                                                chunk=POOL_CHUNK, eos_token_id=-1, spec_k=k)
+                ms = graph_device_ms(gen.captured_steps()[-1])
+                gen.drop_pool_graphs(pool[1])
+                return ms
+
+            run["step_device_ms" if k == 0 else "verify_device_ms"] = step_ms()
+            if k and verify_ab:
+                set_fused_mlp(False)
+                try:
+                    run["verify_device_ms_swiglu_off"] = step_ms()
+                finally:
+                    set_fused_mlp(None)
+            T0 = prefills[0].shape[1]
+            run["b1_step_device_ms"] = step_device_ms(bundle, T0 + new_tokens // 2,
+                                                      bundle.max_ctx)
+            run["launches"] = launches
+            out[name] = run
+            log(f"4h {what} {name}: " + json.dumps(run))
+    finally:
+        bundle.eos_token_id = eos0
+    return out
+
+
+def run_w8a8_request(ctx, cfg, new_tokens: int) -> dict:
+    """A decoder of random per-channel w8a8 weights made on the card (every
+    linear and the lm_head), one request through whisper_full on one clip
+    with the launch counters set to 0 just before and read just after (the
+    int8 product once per linear and forward), decoded again replayed and
+    eager from the same prefill (bit-equal); ms per token and one step's
+    device ms against the weights' byte bound."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    t0 = time.perf_counter()
+    bundle = random_bundle(torch.Generator(device=ctx.device).manual_seed(0), cfg,
+                           ctx.hparams.n_audio_state, dtype=torch.bfloat16, max_ctx=2048,
+                           cache_dtype=torch.bfloat16, quant="w8a8")
+    ctx.decoder = bundle
+    torch.cuda.synchronize()
+    w_bytes = sum(t.numel() * t.element_size() for n, t in bundle.decoder.named_buffers()
+                  if n.rsplit(".", 1)[-1] in ("qs8", "scale_n"))
+    log(f"4h w8a8: {cfg.num_hidden_layers}-layer decoder, {w_bytes / 1e9:.3f} GB of int8 "
+        f"weights and scales made in {time.perf_counter() - t0:.1f} s")
+    params = _text_params(new_tokens)
+    st, run, launches = _request(ctx, noisy_tone(30.0, seed=50, freq=320.0), params)
+    L = cfg.num_hidden_layers
+    forwards = st.n_decode_forwards + 1
+    require(run["tokens"] > 0, "4h w8a8: no tokens")
+    require(launches["int8_matmul"] == (4 * L + 1) * forwards,
+            f"4h w8a8: int8 products {launches['int8_matmul']}, want {4 * L + 1} x "
+            f"{forwards} forwards")
+    run["against"] = captured_against_eager(bundle, st, params, "4h w8a8")
+    run["bound_ms"] = w_bytes / PEAK_BYTES * 1e3
+    run["launches"] = {k: v for k, v in launches.items() if v}
+    log(f"4h w8a8: request {json.dumps(run)}")
+    ctx.decoder = None
+    del bundle
+    torch.cuda.empty_cache()
+    return run
+
+
+def write_hf_checkpoint(path: str, hp, cfg, device, seed: int = 0) -> float:
+    """A random Qwen2-Audio checkpoint in HF naming (audio_tower.*,
+    multi_modal_projector.*, language_model.*), bf16, ``hp`` and ``cfg``
+    wide and deep, written with torch.save as ``pytorch_model.bin`` beside
+    its ``config.json``, the values drawn on ``device``; returns the GB
+    written."""
+    import torch
+    os.makedirs(path, exist_ok=True)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sd = {}
+
+    def put(name, *shape, std=0.02, one=False):
+        t = torch.ones(shape, device=device) if one else \
+            torch.randn(shape, generator=g, device=device) * std
+        sd[name] = t.to(torch.bfloat16).cpu()
+
+    E, D, I, V = hp.n_audio_state, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    nq, nkv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    a = "audio_tower."
+    put(a + "conv1.weight", E, hp.n_mels, 3)
+    put(a + "conv1.bias", E)
+    put(a + "conv2.weight", E, E, 3)
+    put(a + "conv2.bias", E)
+    put(a + "embed_positions.weight", hp.n_audio_ctx, E)
+    for i in range(hp.n_audio_layer):
+        p = f"{a}layers.{i}."
+        for ln in ("self_attn_layer_norm", "final_layer_norm"):
+            put(p + ln + ".weight", E, one=True)
+            put(p + ln + ".bias", E)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            put(p + f"self_attn.{proj}.weight", E, E)
+            if proj != "k_proj":
+                put(p + f"self_attn.{proj}.bias", E)
+        put(p + "fc1.weight", 4 * E, E)
+        put(p + "fc1.bias", 4 * E)
+        put(p + "fc2.weight", E, 4 * E)
+        put(p + "fc2.bias", E)
+    put(a + "layer_norm.weight", E, one=True)
+    put(a + "layer_norm.bias", E)
+    put("multi_modal_projector.linear.weight", D, E)
+    put("multi_modal_projector.linear.bias", D)
+    m = "language_model.model."
+    put(m + "embed_tokens.weight", V, D)
+    for i in range(cfg.num_hidden_layers):
+        p = f"{m}layers.{i}."
+        put(p + "input_layernorm.weight", D, one=True)
+        put(p + "post_attention_layernorm.weight", D, one=True)
+        for proj, n in (("q_proj", nq), ("k_proj", nkv), ("v_proj", nkv)):
+            put(p + f"self_attn.{proj}.weight", n, D)
+            put(p + f"self_attn.{proj}.bias", n)
+        put(p + "self_attn.o_proj.weight", D, nq)
+        put(p + "mlp.gate_proj.weight", I, D)
+        put(p + "mlp.up_proj.weight", I, D)
+        put(p + "mlp.down_proj.weight", D, I)
+    put(m + "norm.weight", D, one=True)
+    put("language_model.lm_head.weight", V, D)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    config = {
+        "audio_config": {"d_model": E, "encoder_attention_heads": hp.n_audio_head,
+                         "encoder_layers": hp.n_audio_layer, "num_mel_bins": hp.n_mels,
+                         "max_source_positions": hp.n_audio_ctx},
+        "text_config": {"vocab_size": V, "hidden_size": D, "intermediate_size": I,
+                        "num_hidden_layers": cfg.num_hidden_layers,
+                        "num_attention_heads": cfg.num_attention_heads,
+                        "num_key_value_heads": cfg.num_key_value_heads,
+                        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+                        "tie_word_embeddings": False},
+        "audio_token_index": cfg.audio_token_id, "tie_word_embeddings": False}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    return sum(t.numel() * 2 for t in sd.values()) / 1e9
+
+
+def run_hf_load(device, workdir: str, hp, cfg) -> dict:
+    """io/hf.py::load_qwen2_audio on a random full-width, depth-2 checkpoint
+    in HF naming (a torch .bin: the GPU host may lack safetensors), onto the
+    card and onto the CPU, in float32, for decoder_quant None, "q8_0" and
+    "w8a8": the two loads' trees equal leaf for leaf; the embedding of one
+    clip (first load) and an HF_TOKENS-token greedy request on HF_PROMPT
+    prompt tokens, card against CPU (the first token equal, the first
+    logits within PARITY_ATOL of the largest, q8_0 in the exact mode; w8a8
+    within INT8_PARITY_REL); load seconds."""
+    import torch
+    from qwen2_audio_tpu_torch.audio import mel_filterbank
+    from qwen2_audio_tpu_torch.audio.mel import log_mel_spectrogram, mel_input_window
+    from qwen2_audio_tpu_torch.io.hf import load_qwen2_audio
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.runtime.decoding import greedy_decode
+
+    path = os.path.join(workdir, "hf_qwen2_audio")
+    t0 = time.perf_counter()
+    gb = write_hf_checkpoint(path, hp, cfg, device)
+    out = {"checkpoint_gb": gb, "write_s": time.perf_counter() - t0}
+    log(f"4h hf: wrote a {hp.n_audio_layer} + {cfg.num_hidden_layers}-layer full-width "
+        f"checkpoint ({gb:.2f} GB bf16, pytorch_model.bin) in {out['write_s']:.1f} s")
+    mel = log_mel_spectrogram(noisy_tone(30.0, seed=51), mel_filterbank(hp.n_mels),
+                              device="cpu")
+    win = mel_input_window(mel, 0, hp.n_audio_ctx)[None]
+    prompt = torch.randint(2, min(1000, cfg.vocab_size), (1, HF_PROMPT),
+                           generator=torch.Generator().manual_seed(5))
+    for quant in (None, "q8_0", "w8a8"):
+        loaded, secs = {}, {}
+        for dev in ("card", "cpu"):
+            t0 = time.perf_counter()
+            # the card by default: no device argument
+            kw = {} if dev == "card" else {"device": "cpu"}
+            loaded[dev] = load_qwen2_audio(path, dtype=torch.float32,
+                                           cache_dtype=torch.float32, decoder_quant=quant, **kw)
+            torch.cuda.synchronize()
+            secs[dev] = time.perf_counter() - t0
+        card, cpu = loaded["card"], loaded["cpu"]
+        name = quant or "dense"
+        require(card["bundle"].device == device and cpu["bundle"].device.type == "cpu",
+                f"4h hf {name}: devices")
+        tc, tu = _flat(card["bundle"].params), _flat(cpu["bundle"].params)
+        require(tc.keys() == tu.keys() and all(
+            tc[k].dtype == tu[k].dtype and torch.equal(tc[k].cpu(), tu[k]) for k in tc),
+            f"4h hf {name}: the card's tree differs from the CPU's")
+        row = {"load_s_card": secs["card"], "load_s_cpu": secs["cpu"],
+               "form": sorted(card["bundle"].params["layers"]["qkv"])}
+        if quant is None:
+            ec = encoder_forward(card["encoder_params"], win.to(device), card["hparams"],
+                                 use_flash=True)
+            eu = encoder_forward(cpu["encoder_params"], win, cpu["hparams"], use_flash=True)
+            err = (ec.cpu() - eu).abs().max().item() / eu.abs().max().item()
+            row["embedding_err"] = err
+            require(err <= PARITY_ATOL, f"4h hf: embedding card vs CPU {err:.3e}")
+        res = {}
+        # q8_0 in the exact mode, as phase 3 holds the card to the CPU: the
+        # bf16 mode rounds x to bf16 before each product, where a float32
+        # difference upstream flips a rounding; w8a8 rounds x to int8 a row,
+        # where such a flip moves a row as mode "int8" does (INT8_PARITY_REL)
+        tol = INT8_PARITY_REL if quant == "w8a8" else PARITY_ATOL
+        set_group_matmul_mode("dequant" if quant == "q8_0" else None)
+        try:
+            for dev, ld in loaded.items():
+                b = ld["bundle"]
+                x = b.decoder.embed(prompt.to(b.device))
+                res[dev] = greedy_decode(b, x, max_new_tokens=HF_TOKENS)
+        finally:
+            set_group_matmul_mode(None)
+        rc, ru = res["card"], res["cpu"]
+        top = float(abs(ru.first_logits).max())
+        ferr = float(abs(rc.first_logits - ru.first_logits).max()) / top
+        row.update(tokens_equal=rc.tokens == ru.tokens, first_logits_err=ferr, tol=tol)
+        if rc.tokens != ru.tokens:
+            j = next(i for i, (a, b_) in enumerate(zip(rc.tokens[0], ru.tokens[0])) if a != b_)
+            row["first_difference"] = j
+        log(f"4h hf {name}: " + json.dumps(row))
+        require(ferr <= tol, f"4h hf {name}: first logits card vs CPU {ferr:.3e}")
+        require(rc.tokens == ru.tokens or row["first_difference"] > 0,
+                f"4h hf {name}: the first token differs between card and CPU")
+        out[name] = row
+        del loaded, card, cpu, tc, tu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        return {k2: v for k, sub in tree.items() for k2, v in _flat(sub, f"{prefix}{k}.").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k2: v for i, sub in enumerate(tree) for k2, v in _flat(sub, f"{prefix}{i}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def run_full_parallel(ctx, seconds: float = 120.0, calls: int = 4) -> dict:
+    """capi.whisper_full_parallel on an encoder-only context: a 120 s clip
+    in PARALLEL_PROCESSORS chunks through one captured encode at B =
+    PARALLEL_PROCESSORS (one launch of each encoder kernel a layer), each
+    chunk's embedding against a B = 1 encode of that chunk (cosine at least
+    PARALLEL_COS_MIN); the median ms per call and per chunk."""
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.audio.mel import mel_input_window
+    clip = noisy_tone(seconds, seed=52)
+    params = _text_params(1)
+    n = PARALLEL_PROCESSORS
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    require(capi.whisper_full_parallel(ctx, params, clip, n_processors=n) == 0,
+            "4h full_parallel: non-zero return")
+    launches = {k: c.launches for k, c in counters.items() if c.launches}
+    L = ctx.hparams.n_audio_layer
+    require(launches.get("attention_single") == L and launches.get("mel_log_frames") == n,
+            f"4h full_parallel: launches {launches}")
+    emb = ctx.state.embd_enc.clone()
+    n_ctx = ctx.hparams.n_audio_ctx // 2
+    require(tuple(emb.shape) == (n * n_ctx, ctx.hparams.n_audio_state),
+            f"4h full_parallel: embedding shape {tuple(emb.shape)}")
+    cos = []
+    for i, chunk in enumerate(np.array_split(clip, n)):
+        st = ctx.init_state()
+        ctx.pcm_to_mel_with_state(st, chunk)
+        one = ctx.encoder(mel_input_window(st.mel, 0, ctx.hparams.n_audio_ctx)[None])[0]
+        cos.append(_cosine(one, emb[i * n_ctx:(i + 1) * n_ctx]))
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        capi.whisper_full_parallel(ctx, params, clip, n_processors=n)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"cos": cos, "ms_per_call": statistics.median(ms[1:]),
+           "ms_per_chunk": statistics.median(ms[1:]) / n, "calls_ms": ms,
+           "launches": launches}
+    log(f"4h full_parallel: {json.dumps(out)}")
+    require(min(cos) >= PARALLEL_COS_MIN, f"4h full_parallel: chunk cosine {min(cos):.6f}")
+    return out
+
+
 def _causal_bf16(kernel_name: str) -> bool:
     """Whether a profiled kernel is attn_wgmma_kernel<D, CAUSAL, OPTS> with
     CAUSAL true."""
@@ -3758,6 +4375,7 @@ def main(argv=None) -> int:
         stamp("phase 2 dequantizing matmul")
         fused = check_fused_mlp(device)
         int8 = check_int8_matmul(device)
+        w8a8 = check_w8a8(device)
         if args.kernels_only:
             log(f"kernels only: phases 1 and 2 passed in {time.perf_counter() - t_start:.1f} s")
             return 0
@@ -3783,14 +4401,32 @@ def main(argv=None) -> int:
             opts = run_decode_options(ctx, "bf16", args.new_tokens,
                                       noisy_tone(30.0, seed=20, freq=300.0), int8_cache=True)
             stamp("phase 4g (bf16)")
+            t4h = time.perf_counter()
+            clips = [noisy_tone(sec, seed=60 + i, freq=250.0 + 40.0 * i)
+                     for i, sec in enumerate(POOL_CLIPS)]
+            pools = {"bf16": run_pool(ctx, "bf16", args.new_tokens, clips)}
+            ctx.decoder.cache_dtype = "q8"
+            pools["bf16, int8 cache"] = run_pool(ctx, "bf16 (int8 cache)", args.new_tokens,
+                                                 clips, spec_ks=(0,))
+            ctx.decoder = None
+            torch.cuda.empty_cache()
+            stamp("phase 4h (bf16 pools)")
+            w8a8_run = run_w8a8_request(ctx, dec_cfg, args.new_tokens)
+            parallel = run_full_parallel(ctx)
+            hf = run_hf_load(device, workdir, dataclasses.replace(full, n_audio_layer=2), two)
+            t4h = time.perf_counter() - t4h
+            stamp("phase 4h (w8a8, full_parallel, HF load)")
             capi.whisper_free(ctx)
             torch.cuda.empty_cache()
             ctx8, enc8 = run_quant_encode(
                 res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
                 QUANT_CALLS, workdir)
             stamp("phase 4c (q8_0)")
-            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens)
-            stamp("phase 4d (q8_0)")
+            t8 = time.perf_counter()
+            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens, pool_clips=clips)
+            t4h += text8["pool"]["seconds"]
+            stamp(f"phase 4d (q8_0; its 4h pool {text8['pool']['seconds']:.1f} s of "
+                  f"{time.perf_counter() - t8:.1f})")
             int8_runs = run_int8_paths(ctx8, dec_cfg, args.new_tokens)
             stamp("phase 4e")
             capi.whisper_free(ctx8)
@@ -3862,6 +4498,28 @@ def main(argv=None) -> int:
                                if e.startswith("fused_mlp")) for r in ("beam", "speculative")})
     require(decode["launches_4g"]["beam"] > 0 and decode_q8["launches_4g"]["beam int8 cache"] > 0,
             "phase 4g: a decode kernel was not launched on a beam request")
+    # phase 4h: the launches of each kernel on the pools that run it
+    pool_runs = {f"{cfg_name} {mode}": r["launches"]
+                 for cfg_name, runs in (("bf16", pools["bf16"]),
+                                        ("bf16 int8 cache", pools["bf16, int8 cache"]),
+                                        ("q8_0", text8["pool"]))
+                 for mode, r in runs.items() if isinstance(r, dict) and "launches" in r}
+    for k in (mel, attn_bf16, causal_bf16, decode, decode_q8, kv_append,
+              qmm["quant_matmul"], qmm["quant_matmul_stacked"]):
+        k["launches_4h"] = {r: lc.get(k["name"], 0) for r, lc in pool_runs.items()}
+    for k, runs in ((mel, pool_runs), (attn_bf16, pool_runs), (causal_bf16, pool_runs),
+                    (decode, ("bf16 plain",)), (decode_q8, ("bf16 int8 cache plain",)),
+                    (kv_append, ("bf16 int8 cache plain",)),
+                    (qmm["quant_matmul"], ("q8_0 plain", f"q8_0 speculative K = {SPEC_K}")),
+                    (qmm["quant_matmul_stacked"], ("q8_0 plain",
+                                                   f"q8_0 speculative K = {SPEC_K}"))):
+        require(all(k["launches_4h"][r] > 0 for r in runs),
+                f"phase 4h: {k['name']} was not launched on {runs}: {k['launches_4h']}")
+    fused_4h = {r: sum(n for e, n in pool_runs[r].items() if e.startswith("fused_mlp"))
+                for r in ("q8_0 plain", f"q8_0 speculative K = {SPEC_K}")}
+    fused["launches_4h"] = fused_4h
+    require(all(n > 0 for n in fused_4h.values()),
+            f"phase 4h: the one-launch SwiGLU was not launched on the q8_0 pools: {fused_4h}")
     for k in [qmm[n] for n in qmm] + [fused]:
         require(all(n > 0 for n in k["launches_4g"].values()),
                 f"phase 4g: {k['name']} was not launched on every beam and speculative "
@@ -3935,6 +4593,26 @@ def main(argv=None) -> int:
                                    "iters", "tokens_per_forward", "first_difference", "gap",
                                    "spread", "min_gap", "segments", "dtw_ms", "wall_ms")
                  if k in r}))
+    for cfg_name, runs in (("bf16", pools["bf16"]), ("bf16 int8 cache", pools["bf16, int8 cache"]),
+                           ("q8_0", text8["pool"])):
+        for mode, r in runs.items():
+            if isinstance(r, dict) and "tokens" in r:
+                log(f"summary 4h pool {cfg_name} ({mode}): " + json.dumps(
+                    {k: r[k] for k in ("tokens", "tokens_per_s", "wall_tokens_per_s",
+                                       "ms_per_chunk", "chunks", "refills", "step_device_ms",
+                                       "verify_device_ms", "verify_device_ms_swiglu_off",
+                                       "b1_step_device_ms", "iters", "tokens_per_verify",
+                                       "near_ties", "peak_gib") if k in r}))
+    log("summary 4h w8a8 request: " + json.dumps(
+        {"decode_ms_per_token": w8a8_run["decode_ms_per_token"],
+         "step_device_ms": w8a8_run["against"]["device_ms_per_step"],
+         "bound_ms": w8a8_run["bound_ms"], "tokens": w8a8_run["tokens"]})
+        + "; the product: " + json.dumps(w8a8))
+    log(f"summary 4h full_parallel: {parallel['ms_per_call']:.3f} ms per call of "
+        f"{PARALLEL_PROCESSORS} chunks ({parallel['ms_per_chunk']:.3f} per chunk), chunk "
+        f"cosines {json.dumps([round(c, 7) for c in parallel['cos']])}")
+    log("summary 4h hf load: " + json.dumps(hf))
+    log(f"summary 4h: {t4h:.1f} s in all")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Function-style API mirroring include/qwen2-whisper.h: init (file, buffer,
-loader; with and without state), mel, encode, full, the segment and token
-accessors and logits of a decode, the embedding fingerprint, timings and
-free. Tokenization and the rest of the header are not ported yet
+loader; with and without state), mel, encode, full, full_parallel, the
+segment and token accessors and logits of a decode, the embedding
+fingerprint, timings and free. Tokenization and the rest of the header are not ported yet
 (ROADMAP.md, section 1, item 12).
 """
 
@@ -96,6 +96,10 @@ def whisper_full(ctx, params: FullParams, samples, n_samples=None) -> int:
 
 def whisper_full_with_state(ctx, state, params, samples, n_samples=None) -> int:
     return ctx.full_with_state(state, params, np.asarray(samples, np.float32))
+
+
+def whisper_full_parallel(ctx, params, samples, n_samples=None, n_processors: int = 1) -> int:
+    return ctx.full_parallel(params, np.asarray(samples, np.float32), n_processors)
 
 
 # ---- accessors, timings, debug (header :296-357, :517-527) ----

@@ -41,13 +41,12 @@ def encoder_params_from_jax(tree):
 # the decoder's pytree is dicts of stacked arrays: the same map
 decoder_params_from_jax = encoder_params_from_jax
 
-_NOT_PORTED_LEAVES = ("qs8", "scale_n")
-_VALUE_KEYS = ("qs", "qs4", "qs4b", "qs_p", "qs4_p")
+_VALUE_KEYS = ("qs", "qs4", "qs4b", "qs_p", "qs4_p", "qs8")
 
 
 def _quant_leaf(key: str, a) -> torch.Tensor:
     a = np.array(a, copy=True)
-    if key in ("qs", "qs_p"):             # int8, or int4 where JAX holds it
+    if key in ("qs", "qs_p", "qs8"):      # int8, or int4 where JAX holds it
         return torch.from_numpy(a.astype(np.int8))
     if key in ("qs4", "qs4_p"):           # nibble bytes, stored int8 or uint8
         return torch.from_numpy(a.view(np.uint8))
@@ -64,14 +63,9 @@ def quant_params_from_jax(tree):
     uint8 (the JAX package may hold the same bytes as int8), uint16 scale
     bit patterns float16, the nibble words "qs4b" int32; values are
     unchanged, and the panel leaves "qs_p", "qs4_p" and "scales_p" convert
-    like their strided namesakes. Dense leaves pass through. The per-channel
-    form ("qs8", "scale_n") has no counterpart in the port and raises."""
+    like their strided namesakes; the per-channel w8a8 form keeps int8 "qs8"
+    and float32 "scale_n". Dense leaves pass through."""
     if isinstance(tree, dict):
-        bad = [k for k in _NOT_PORTED_LEAVES if k in tree]
-        if bad:
-            raise NotImplementedError(
-                f"weight form {sorted(tree)} is not ported yet (ROADMAP.md, section 1, "
-                "item 7)")
         if any(k in tree for k in _VALUE_KEYS):
             return {k: _quant_leaf(k, v) for k, v in tree.items()}
         return {k: quant_params_from_jax(v) for k, v in tree.items()}

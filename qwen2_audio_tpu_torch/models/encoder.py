@@ -51,7 +51,7 @@ from qwen2_audio_tpu_torch.config import WhisperHParams
 from qwen2_audio_tpu_torch.ops.fa_variants import flash_attention_encoder
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_encoder_plain
 from qwen2_audio_tpu_torch.ops.graphs import Graph, GraphCache, switches
-from qwen2_audio_tpu_torch.ops.linear import linear
+from qwen2_audio_tpu_torch.ops.linear import linear, w8a8_layout
 from qwen2_audio_tpu_torch.quant.qparams import (QUANT_TYPES,
                                                  device_weight_from_ggml_tensor)
 
@@ -177,8 +177,9 @@ def encoder_forward(
 def fuse_encoder_qkv(params: Params) -> Params:
     """Concatenate each layer's q/k/v projections into one "qkv" leaf dict
     along the output axis (a runtime layout; checkpoints keep q/k/v). Works
-    for every weight form, dense "w" or block "qs" / "qs4" / "qs4b" /
-    "scales" / "mins": the quantization groups run along the input axis.
+    for every weight form, dense "w", block "qs" / "qs4" / "qs4b" /
+    "scales" / "mins" or per-channel "qs8" / "scale_n": the quantization
+    groups run along the input axis.
     K's missing bias (reference :632) becomes zeros in the fused bias."""
 
     def fuse_layer(lyr: dict) -> dict:
@@ -347,7 +348,7 @@ class Encoder(nn.Module):
                  gelu_approximate: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.weights = _Tree(params)
+        self.weights = _Tree(w8a8_layout(params))
         self.hp = hp
         self.gelu_approximate = gelu_approximate
         self.compute_dtype = compute_dtype

@@ -36,20 +36,25 @@ def bundle_from_hf_state_dict(
     max_ctx: int = 2048,
     cache_dtype=torch.bfloat16,
     device: torch.device | str = "cpu",
+    fuse: bool = True,
 ) -> DecoderBundle:
-    """The decode-side bundle from a HF Qwen2-Audio state dict of arrays
-    (keys multi_modal_projector.linear.*, language_model.model.*,
-    language_model.lm_head.weight). No file I/O."""
+    """The decode-side bundle from a HF Qwen2-Audio state dict of arrays or
+    tensors (keys multi_modal_projector.linear.*, language_model.model.*,
+    language_model.lm_head.weight), the decoder's projections fused unless
+    ``fuse`` is False. No file I/O."""
     dec = decoder_params_from_hf_state_dict(
         sd, cfg, dtype=dtype, prefix="language_model.model.",
         lm_head_key="language_model.lm_head.weight", device=device)
 
     def arr(name):
-        return torch.as_tensor(np.asarray(sd[name], np.float32))
+        a = sd[name]
+        if isinstance(a, torch.Tensor):
+            return a.detach().to("cpu", torch.float32)
+        return torch.as_tensor(np.asarray(a, np.float32))
 
     return DecoderBundle(
         cfg=cfg,
-        decoder=Decoder(dec, cfg),
+        decoder=Decoder(dec, cfg, fuse=fuse),
         proj_w=arr("multi_modal_projector.linear.weight").T.contiguous().to(device, dtype),
         proj_b=arr("multi_modal_projector.linear.bias").to(device, dtype),
         eos_token_id=eos_token_id,
@@ -69,9 +74,10 @@ def random_bundle(rng, cfg: Qwen2DecoderConfig, enc_state: int, *,
                   quant: str | None = None, b32: bool = False) -> DecoderBundle:
     """Random weights. A numpy Generator draws what the JAX package's
     random_bundle draws from the same seed; a torch.Generator draws on its
-    own device (random_decoder_params). ``quant`` ("q8_0" or "q4_0", with a
-    torch.Generator) makes the linears and the lm_head random ggml blocks
-    instead, q4_0 in int32 words with ``b32`` (random_quant_decoder_params)."""
+    own device (random_decoder_params). ``quant`` ("q8_0", "q4_0" or "w8a8",
+    with a torch.Generator) makes the linears and the lm_head random ggml
+    blocks or per-channel int8 weights instead, q4_0 in int32 words with
+    ``b32`` (random_quant_decoder_params)."""
     if quant is not None:
         dec = random_quant_decoder_params(rng, cfg, quant, dtype=dtype, b32=b32)
     else:

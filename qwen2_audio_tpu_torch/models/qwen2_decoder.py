@@ -73,7 +73,7 @@ from qwen2_audio_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_q
 # tests import it from this module)
 from qwen2_audio_tpu_torch.ops.flash_decode import quantize_kv as _quantize_kv  # noqa: F401
 from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_at, fused_mlp_split_at, linear,
-                                               linear_at)
+                                               linear_at, w8a8_layout)
 from qwen2_audio_tpu_torch.ops.quant_matmul import panelize_weight
 from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import pack_b32
 from qwen2_audio_tpu_torch.utils.logging import log_warn
@@ -206,9 +206,9 @@ def fuse_decoder_params(params: Params) -> Params:
     """Concatenate q/k/v -> "qkv" and gate/up -> "gate_up" along the output
     axis of the stacked leaves (a runtime layout: at decode every projection
     is a weight-bound matrix-vector product, and 7 of them per layer become
-    4). Works for every weight form, dense "w" or block "qs" / "qs4" /
-    "qs4b" / "scales" / "mins", because the quantization groups run along
-    the input axis; biases concatenate with zeros for a missing one. Projections whose
+    4). Works for every weight form, dense "w", block "qs" / "qs4" /
+    "qs4b" / "scales" / "mins" or per-channel "qs8" / "scale_n", because the
+    quantization groups run along the input axis; biases concatenate with zeros for a missing one. Projections whose
     forms differ (a k-quant checkpoint may keep v at another type than q)
     cannot concatenate: the tree is then returned as it is, with separate
     projections."""
@@ -224,7 +224,7 @@ def fuse_decoder_params(params: Params) -> Params:
                  for leaf in sorted(forms[0])}
         if any("b" in e for e in entries):
             some = next(e["b"] for e in entries if "b" in e)
-            width = [next(e[k] for k in ("w", "qs", "qs4", "qs4b") if k in e).shape[-1]
+            width = [next(e[k] for k in ("w", "qs", "qs4", "qs4b", "qs8") if k in e).shape[-1]
                      for e in entries]
             fused["b"] = torch.cat(
                 [e["b"] if "b" in e else some.new_zeros(some.shape[0], n)
@@ -542,12 +542,13 @@ def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 class Decoder(nn.Module):
-    """The decoder as a module: holds the (fused) parameter tree as buffers
-    and runs ``decoder_forward``."""
+    """The decoder as a module: holds the parameter tree as buffers, fused
+    (``fuse_decoder_params``) unless ``fuse`` is False, w8a8 weights
+    K-major (``ops.linear.w8a8_layout``), and runs ``decoder_forward``."""
 
-    def __init__(self, params: Params, cfg: Qwen2DecoderConfig):
+    def __init__(self, params: Params, cfg: Qwen2DecoderConfig, fuse: bool = True):
         super().__init__()
-        self.weights = _Tree(fuse_decoder_params(params))
+        self.weights = _Tree(w8a8_layout(fuse_decoder_params(params) if fuse else params))
         self.cfg = cfg
 
     @property
@@ -631,18 +632,22 @@ def random_quant_linear(rng: torch.Generator, shape: tuple[int, ...], fmt: str =
     "q8_0" int8 values {"qs"}, or "q4_0" packed symmetric nibbles {"qs4"}
     (``b32``: the same bytes as int32 words {"qs4b"}, ``Q4Form(b32=True)``'s
     form), with float16 scales sized so that the dequantized weight has
-    about ``scale`` standard deviation. Every byte value is a valid block
-    content (int8 -128..127, or two nibbles), filled in place without a
-    wider temporary; valid blocks, but no quantizer's output."""
-    if fmt not in ("q8_0", "q4_0") or (b32 and fmt != "q4_0"):
+    about ``scale`` standard deviation; or "w8a8", the per-channel form
+    {"qs8", "scale_n"} with float32 scales the same way. Every byte value is
+    a valid block content (int8 -128..127, or two nibbles), filled in place
+    without a wider temporary; valid blocks, but no quantizer's output."""
+    if fmt not in ("q8_0", "q4_0", "w8a8") or (b32 and fmt != "q4_0"):
         raise ValueError(f"random_quant_linear: fmt {fmt!r}{' b32' if b32 else ''}, want "
-                         "q8_0 or q4_0 (b32: q4_0)")
+                         "q8_0, q4_0 or w8a8 (b32: q4_0)")
     *lead, K, N = shape
-    q = torch.empty(*lead, K if fmt == "q8_0" else K // 2, N, dtype=torch.uint8,
+    q = torch.empty(*lead, K // 2 if fmt == "q4_0" else K, N, dtype=torch.uint8,
                     device=rng.device)
     q.random_(0, 256, generator=rng)
     # a uniform int8 has std 73.9, a uniform nibble - 8 std 4.61
-    s_mean = scale / (73.9 if fmt == "q8_0" else 4.61)
+    s_mean = scale / (4.61 if fmt == "q4_0" else 73.9)
+    if fmt == "w8a8":
+        sc = torch.rand((*lead, N), generator=rng, device=rng.device)
+        return {"qs8": q.view(torch.int8), "scale_n": (0.5 + sc) * s_mean}
     sc = torch.rand((*lead, K // 32, N), generator=rng, device=rng.device)
     scales = ((0.5 + sc) * s_mean).to(torch.float16)
     if fmt == "q8_0":
@@ -657,7 +662,8 @@ def random_quant_decoder_params(rng: torch.Generator, cfg: Qwen2DecoderConfig,
                                 dtype: torch.dtype = torch.bfloat16,
                                 scale: float = 0.02, b32: bool = False) -> Params:
     """A decoder whose linears and lm_head are ``random_quant_linear`` blocks
-    drawn on the generator's device: for full-size models, where quantizing
+    (or per-channel w8a8 weights, ``fmt="w8a8"``) drawn on the generator's
+    device: for full-size models, where quantizing
     dense weights with the host codecs would take minutes. Norms, biases and
     the embedding are dense ``dtype`` as in ``random_decoder_params``.
     ``b32`` packs q4_0's nibbles in int32 words: the same seed gives the
@@ -698,11 +704,15 @@ def decoder_params_from_hf_state_dict(sd: dict, cfg: Qwen2DecoderConfig,
                                       device: torch.device | str = "cpu"
                                       ) -> Params:
     """Map HF Qwen2ForCausalLM (or the language_model inside Qwen2-Audio)
-    state-dict names (numpy arrays or tensors) onto the stacked tree;
+    state-dict names (numpy arrays or tensors of any float type) onto the
+    stacked tree;
     linears transposed to [in, out]. No file I/O."""
 
     def g(name):
-        return torch.as_tensor(np.asarray(sd[name], dtype=np.float32))
+        a = sd[name]
+        if isinstance(a, torch.Tensor):
+            return a.detach().to("cpu", torch.float32)
+        return torch.as_tensor(np.asarray(a, dtype=np.float32))
 
     def stack(fmt, transpose=False):
         arrs = [g(fmt.format(i=i)) for i in range(cfg.num_hidden_layers)]

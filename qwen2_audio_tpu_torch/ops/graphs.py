@@ -139,6 +139,11 @@ class GraphCache:
     def values(self) -> list[Graph]:
         return list(self._graphs.values())
 
+    def drop(self, pred: Callable[[Graph], bool]) -> None:
+        """Drop every graph for which ``pred`` holds."""
+        for key in [k for k, g in self._graphs.items() if pred(g)]:
+            del self._graphs[key]
+
     def clear(self) -> None:
         self._graphs.clear()
 

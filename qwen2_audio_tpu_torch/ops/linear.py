@@ -39,8 +39,17 @@ view, never a copy. ``fused_mlp_at`` and ``fused_mlp_split_at`` run a whole
 SwiGLU MLP (gate, up, SiLU, down) of strided block dicts in one launch at
 decode M (ops/fused_mlp.py) or return None, and the caller then takes
 ``linear_at`` per projection; ``set_fused_mlp(False)`` switches them off for
-the process, and mode "int8" has no one-launch kernel. The per-channel int8
-form ("qs8") is not ported and raises.
+the process, and mode "int8" has no one-launch kernel.
+
+The per-channel w8a8 form {"qs8", "scale_n"[, "b"]} (quant/qparams.py,
+``mode="fast"``) multiplies as the JAX package's ``_w8a8``: x quantized to
+int8 per row (s_x = max|x| / 127, x_q = round(x / s_x) half to even), one
+int8 x int8 -> int32 product, y = acc * s_x * scale_n. No TPU kernel backs
+it (an XLA ``dot_general`` there), so on the card the product is one
+library call, ``torch._int_mm`` (cuBLAS), with the rows of a decode product
+padded past its 16-row minimum; on the CPU the exact plain product. The
+decoder and encoder modules hold "qs8" K-major (``w8a8_layout``), the
+layout the library call reads at speed.
 """
 
 from __future__ import annotations
@@ -60,9 +69,9 @@ _FUSED_MLP: bool | None = None
 _DEQUANT16 = (False, False)      # (q4, q8)
 _BLOCK_KEYS = ("qs", "qs4", "qs_p", "qs4_p")
 
-_NOT_PORTED = {
-    "qs8": "the per-channel w8a8 form (ROADMAP.md, section 1, item 7)",
-}
+# torch._int_mm on the card takes more than 16 rows, and K and N multiples of 8
+INT_MM_MIN_M = 17
+INT_MM_ALIGN = 8
 
 
 def set_group_matmul_mode(mode: str | None) -> None:
@@ -117,15 +126,96 @@ def _int8(x: torch.Tensor, scales: torch.Tensor) -> bool:
 
 
 def _refuse(p: dict):
-    for key, what in _NOT_PORTED.items():
-        if key in p:
-            raise NotImplementedError(f"weight form {sorted(p)}: {what} is not ported yet")
     raise ValueError(f"not a linear layer's parameters: keys {sorted(p)}")
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (M, K) -> (x_q int8 (M, K), s_x float32 (M, 1)): s_x = max|x| / 127
+    per row, x_q = round(x * (1 / s_x)) (0 where s_x is 0), half to even, as
+    the JAX package's ``_w8a8``; the quotients tensor by tensor, which the
+    card computes as IEEE divisions (a division by a Python number is a
+    multiplication by its reciprocal there)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s_x = amax / torch.full_like(amax, 127.0)
+    pos = s_x > 0
+    one = torch.ones_like(s_x)
+    inv = torch.where(pos, one / torch.where(pos, s_x, one), torch.zeros_like(s_x))
+    return torch.round(xf * inv).to(torch.int8), s_x
+
+
+# rows of K a float32 product sums exactly: 1024 * 127 * 127 < 2^24
+PLAIN_K_CHUNK = 1024
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> int32, exact: float32 products over
+    chunks of ``PLAIN_K_CHUNK`` rows of K (every partial sum an integer
+    below 2^24, so exact in any order), summed in int32. The float32 copy
+    of b is made a chunk at a time."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.int32, device=a.device)
+    for k0 in range(0, a.shape[1], PLAIN_K_CHUNK):
+        k1 = k0 + PLAIN_K_CHUNK
+        acc += (a[:, k0:k1].float() @ b[k0:k1].float()).to(torch.int32)
+    return acc
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> int32 (M, N). On the card one
+    ``torch._int_mm`` (cuBLAS), a's rows padded with zeros to
+    ``INT_MM_MIN_M`` where there are fewer; K and N must be multiples of 8.
+    The plain version for CPU tensors; any other device raises."""
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"int8_matmul: no product for device {a.device}")
+    M, K = a.shape
+    N = b.shape[1]
+    if K % INT_MM_ALIGN or N % INT_MM_ALIGN:
+        raise ValueError(f"int8_matmul: K {K} and N {N} must be multiples of "
+                         f"{INT_MM_ALIGN} for torch._int_mm")
+    a = a.contiguous()
+    if M < INT_MM_MIN_M:
+        a = torch.cat([a, a.new_zeros(INT_MM_MIN_M - M, K)])
+    int8_matmul.launches += 1
+    return torch._int_mm(a, b)[:M]
+
+
+int8_matmul.launches = 0
+
+
+def w8a8_layout(tree):
+    """The tree with every per-channel w8a8 weight ("qs8", (..., K, N))
+    stored K-major: the same (..., K, N) view over memory laid out
+    (..., N, K), which ``torch._int_mm`` reads 5-14 times faster on the card
+    than the row-major layout (PERF.md section 6). Values and every other
+    leaf unchanged; a K-major leaf is kept as it is."""
+    if isinstance(tree, (list, tuple)):
+        return [w8a8_layout(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: w8a8_layout(v) for k, v in tree.items()}
+    q = tree.get("qs8")
+    if isinstance(q, torch.Tensor) and q.dim() >= 2 and q.stride(-2) != 1:
+        out["qs8"] = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return out
+
+
+def w8a8(x: torch.Tensor, qs8: torch.Tensor, scale_n: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ the per-channel w8a8 weight (qs8 (K, N), scale_n (N,)):
+    the JAX package's ``_w8a8``, in x's type."""
+    lead = x.shape[:-1]
+    x_q, s_x = quantize_rows(x.reshape(-1, x.shape[-1]))
+    acc = int8_matmul(x_q, qs8)
+    y = acc.float() * s_x * scale_n.float()
+    return y.to(x.dtype).reshape(*lead, -1)
 
 
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     if "w" in p:
         y = x @ p["w"].to(x.dtype)
+    elif "qs8" in p:
+        y = w8a8(x, p["qs8"], p["scale_n"])
     elif "qs4b" in p:
         y = quant_linear_q4b(x, p)
     elif "qs_p" in p or "qs4_p" in p:
@@ -145,6 +235,8 @@ def linear_at(x: torch.Tensor, p: dict, li: int) -> torch.Tensor:
     """``linear`` with layer ``li`` of the stacked leaves."""
     if "w" in p:
         y = x @ p["w"][li].to(x.dtype)
+    elif "qs8" in p:
+        y = w8a8(x, p["qs8"][li], p["scale_n"][li])
     elif "qs4b" in p:
         y = quant_linear_q4b_stacked(x, p, li)
     elif ("qs" in p or "qs4" in p) and _int8(x, p["scales"]):

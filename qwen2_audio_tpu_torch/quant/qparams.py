@@ -23,6 +23,10 @@ One explicit form with one default:
     qs_p, qs4_p, scales_p
             the same values in contiguous column panels (P, rows, bn), made
             from the forms above by ops.quant_matmul.panelize_weight
+    qs8, scale_n
+            the per-channel w8a8 form (``mode="fast"``): int8 values (K, N)
+            and one float32 scale per output column (N,), multiplied by
+            ops.linear's int8 x int8 -> int32 product
 
 All ten formats reduce to ``w = q * d (+ m)``: q4_K / q5_K at 32-group
 granularity (super-block scale times 6-bit sub-scale), q2_K / q3_K / q6_K at
@@ -344,10 +348,35 @@ def device_weight_from_ggml_tensor(t: GGMLTensor, form: Q4Form | None = None,
     return {k: v.to(device) for k, v in out.items()}
 
 
+def q8_0_from_array(w: torch.Tensor) -> dict:
+    """ggml's quantize_row_q8_0 over the 32-groups along K of a float32
+    (K, N) weight, in torch on the weight's device (threads on the CPU):
+    d = max|w| / 127 a group, q = round(w / d) half away from zero, d stored
+    float16. The same bits as ``codecs.quantize`` then unpacking (the same
+    float32 operations, IEEE quotients), without the byte stream: a 7B
+    lm_head in seconds instead of minutes."""
+    K, N = w.shape
+    if K % QK:
+        raise ValueError(f"q8_0: K {K} is not a multiple of {QK}")
+    wb = w.float().reshape(K // QK, QK, N)
+    amax = wb.abs().amax(dim=1)
+    d = amax / torch.full_like(amax, 127.0)
+    nz = d != 0
+    one = torch.ones_like(d)
+    inv = torch.where(nz, one / torch.where(nz, d, one), torch.zeros_like(d))
+    scaled = wb * inv[:, None, :]
+    q = torch.sign(scaled) * torch.floor(scaled.abs() + 0.5)
+    return {"qs": q.to(torch.int8).reshape(K, N), "scales": d.to(torch.float16)}
+
+
 def quantize_array_for_device(w, ttype: GGMLType, form: Q4Form | None = None,
                               device: torch.device | str = "cpu") -> dict:
     """Dense [in, out] float weight -> kernel dict (groups along in), through
-    the ggml quantizers so values round-trip exactly through files."""
+    the ggml quantizers so values round-trip exactly through files (q8_0 by
+    ``q8_0_from_array``, the same bits)."""
+    if GGMLType(ttype) == GGMLType.Q8_0:
+        w = torch.as_tensor(w).detach().to("cpu", torch.float32)
+        return {k: v.to(device) for k, v in q8_0_from_array(w).items()}
     if isinstance(w, torch.Tensor):
         w = w.detach().to("cpu", torch.float32).numpy()
     w = np.asarray(w, dtype=np.float32)
@@ -357,49 +386,81 @@ def quantize_array_for_device(w, ttype: GGMLType, form: Q4Form | None = None,
                                           form=form, device=device)
 
 
+def fast_w8_from_array(w, device: torch.device | str | None = None) -> dict:
+    """Dense [in, out] float weight -> the per-channel w8a8 form {"qs8":
+    int8 (K, N), "scale_n": float32 (N,)}: s = max|w| / 127 over each
+    column, q = rint(w / s). Not bit-compatible with the ggml blocks (one
+    scale per output channel, not per 32-group). The arithmetic is the JAX
+    package's float32 numpy, in torch (threads); the leaves land on
+    ``device`` (default: the weight's own, the CPU for numpy)."""
+    if isinstance(w, torch.Tensor):
+        device = w.device if device is None else device
+    w = torch.as_tensor(w).detach().to("cpu", torch.float32)
+    amax = w.abs().amax(dim=0)                                           # (N,)
+    s = amax / torch.full_like(amax, 127.0)
+    pos = s > 0
+    one = torch.ones_like(s)
+    inv = torch.where(pos, one / torch.where(pos, s, one), torch.zeros_like(s))
+    q = torch.round(w * inv[None, :]).to(torch.int8)     # half to even, as np.rint
+    device = "cpu" if device is None else device
+    return {"qs8": q.to(device), "scale_n": s.to(device)}
+
+
+def fast_w8_from_ggml_blocks(qw: dict) -> dict:
+    """A ggml block dict re-quantized to the per-channel w8a8 form
+    (dequantize, then ``fast_w8_from_array``), on the block dict's device."""
+    from qwen2_audio_tpu_torch.ops.quant_matmul import dequantize_weight
+    return fast_w8_from_array(dequantize_weight(qw).cpu(), device=qw["scales"].device)
+
+
 _DECODER_QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
 _ENCODER_QUANT_KEYS = ("q", "k", "v", "o", "fc1", "fc2")
+_MODES = ("ggml", "fast")
 
 
-def _only_ggml(mode: str) -> None:
+def _quantizer(ttype: GGMLType, mode: str, form: Q4Form | None):
+    """w, device -> the dict of one weight: ggml blocks (``mode="ggml"``)
+    or the per-channel w8a8 form (``mode="fast"``)."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown quantization mode {mode!r}: want one of {_MODES}")
     if mode == "fast":
-        raise NotImplementedError(
-            'mode="fast": the per-channel w8a8 form is not ported yet '
-            "(ROADMAP.md, section 1, item 7)")
-    if mode != "ggml":
-        raise ValueError(f"unknown quantization mode {mode!r}")
+        return fast_w8_from_array
+    return lambda w, device: quantize_array_for_device(w, ttype, form=form, device=device)
 
 
 def quantize_decoder_params(params: dict, ttype: GGMLType,
                             quantize_lm_head: bool = True, mode: str = "ggml",
                             form: Q4Form | None = None) -> dict:
-    """Replace the stacked decoder linears (L, K, N) by block dicts whose
-    leaves are stacked the same way ({"qs": (L, K, N), "scales":
-    (L, K // group, N)}, bit-exact with the ggml format), on the device of
-    the dense weights; biases, norms and the embedding stay dense."""
-    _only_ggml(mode)
+    """Replace the stacked decoder linears (L, K, N) by quantized dicts
+    whose leaves are stacked the same way, on the device of the dense
+    weights; biases, norms and the embedding stay dense.
+
+    mode="ggml": {"qs": (L, K, N), "scales": (L, K // group, N)}, bit-exact
+    with the ggml format. mode="fast": {"qs8": (L, K, N) int8, "scale_n":
+    (L, N) float32}, the per-channel w8a8 form (``ttype`` unused)."""
+    quant = _quantizer(ttype, mode, form)
     out = dict(params)
     layers = dict(params["layers"])
     for key in _DECODER_QUANT_KEYS:
         entry = dict(layers[key])
         w = entry.pop("w")                              # (L, K, N)
-        per_layer = [quantize_array_for_device(w[i], ttype, form=form)
-                     for i in range(w.shape[0])]
+        per_layer = [quant(w[i], "cpu") for i in range(w.shape[0])]
         for leaf in per_layer[0]:
             entry[leaf] = torch.stack([d[leaf] for d in per_layer]).to(w.device)
         layers[key] = entry
     out["layers"] = layers
     if quantize_lm_head and "lm_head" in params:
         w = params["lm_head"]["w"]
-        out["lm_head"] = quantize_array_for_device(w, ttype, form=form, device=w.device)
+        out["lm_head"] = quant(w, w.device)
     return out
 
 
 def quantize_encoder_params(params: dict, ttype: GGMLType, mode: str = "ggml",
                             form: Q4Form | None = None) -> dict:
     """Quantize the encoder's per-layer attention and MLP linears (conv
-    stem, norms and positions stay dense, the quantize tool's skip set)."""
-    _only_ggml(mode)
+    stem, norms and positions stay dense, the quantize tool's skip set):
+    ggml blocks, or the per-channel w8a8 form with ``mode="fast"``."""
+    quant = _quantizer(ttype, mode, form)
     out = dict(params)
     new_layers = []
     for lyr in params["layers"]:
@@ -407,7 +468,7 @@ def quantize_encoder_params(params: dict, ttype: GGMLType, mode: str = "ggml",
         for key in _ENCODER_QUANT_KEYS:
             entry = dict(lyr[key])
             w = entry.pop("w")
-            entry.update(quantize_array_for_device(w, ttype, form=form, device=w.device))
+            entry.update(quant(w, w.device))
             nl[key] = entry
         new_layers.append(nl)
     out["layers"] = new_layers

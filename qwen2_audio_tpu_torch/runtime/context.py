@@ -139,9 +139,11 @@ class FullParams:
     best_of: int = 5
     max_new_tokens: int = 128
     repetition_penalty: float = 1.0
-    # n-gram speculative decoding: K drafts verified a forward (B = 1
-    # greedy, exact greedy output); -1 (auto) and 0 are plain greedy here,
-    # as the port takes no hardware markers to turn it on
+    # n-gram speculative decoding: K drafts verified a forward (exact greedy
+    # output); in whisper_full (B = 1) -1 (auto) and 0 are plain greedy, as
+    # the port takes no hardware markers to turn it on; in the serving slot
+    # pool (runtime/serving.py) auto is 7 and adaptive on the CPU, 0 on the
+    # card
     speculative_k: int = -1
 
     new_segment_callback: Callable | None = None
@@ -397,6 +399,42 @@ class WhisperContext:
 
     def full(self, params: FullParams, samples: np.ndarray | None) -> int:
         return self.full_with_state(self.state, params, samples)
+
+    def full_parallel(self, params: FullParams, samples: np.ndarray,
+                      n_processors: int) -> int:
+        """≙ whisper_full_parallel (header :464-469): the batch axis does
+        the work of the n processors. Without a decoder the audio is split
+        into ``n_processors`` chunks, whose first windows go through one
+        captured encode at B = n_processors, and state.embd_enc holds the
+        chunks' embeddings one after the other. With a decoder the audio's
+        30 s windows are encoded and decoded in batches of n_processors
+        (runtime/serving.py::transcribe_long_form), one segment each."""
+        if n_processors <= 1:
+            return self.full(params, samples)
+        if self._decoder is None:
+            wins = []
+            for chunk in np.array_split(np.asarray(samples, np.float32), n_processors):
+                st = WhisperState()
+                if self.pcm_to_mel_with_state(st, chunk) != 0:
+                    return -2
+                wins.append(mel_input_window(st.mel, 0, self.hparams.n_audio_ctx))
+            t0 = time_us()
+            out = self.encoder(torch.stack(wins).to(self.device))
+            self.state.embd_enc = out.reshape(-1, out.shape[-1])
+            self._sync()
+            self.state.timings.t_encode_us += time_us() - t0
+            self.state.timings.n_encode += n_processors
+            return 0
+        from qwen2_audio_tpu_torch.runtime.serving import transcribe_long_form
+        state = self.state
+        try:
+            for _ in transcribe_long_form(self, samples, params, batch_size=n_processors):
+                pass   # the generator writes the segments and runs the callbacks
+        except RuntimeError as e:
+            log_error("full_parallel: %s\n", str(e))
+            return -2
+        state.result_tokens = [t for seg in state.segments for t in seg["tokens"]]
+        return 0
 
     # ---- accessors (header :296-357) ----
 

@@ -51,6 +51,14 @@ candidate scores (ties to the lower index, as ``jax.lax.top_k``), the
 cache reordered in place, finished hypotheses snapshotted. A graph cannot
 skip the reorder when it is the identity, as the JAX ``lax.cond`` does, so
 the captured step gathers the cache every step.
+
+The continuous-batching slot pool (``prefill_slot``, ``decode_chunk_slots``,
+``decode_chunk_slots_spec``; runtime/serving.py drives it) keeps B streams
+in one cache, each at its own position. Its tensors are the caller's and
+are updated in place; on the card one step is captured per pool (the
+tensors' addresses are part of its key) and replayed ``chunk`` times, or,
+speculative, in groups until the loop's condition, a device value that
+gates every write, fails.
 """
 
 from __future__ import annotations
@@ -925,3 +933,307 @@ def beam_search_device(bundle, prefill: torch.Tensor, *, beam_size: int,
                             avg_logprob=[float(np.mean(lps)) if lps else 0.0],
                             first_logits=first_logits.cpu().numpy(),
                             n_decode_forwards=steps)
+
+
+# --------------------------------------------------------------------------- #
+# continuous batching: a pool of decode slots over one shared cache
+# --------------------------------------------------------------------------- #
+
+def _cache_kind(cache) -> str:
+    return "q8" if isinstance(cache, QuantKVCache) else str(cache.k.dtype)
+
+
+@torch.no_grad()
+def prefill_slot(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: torch.Tensor,
+                 slot_active: torch.Tensor, slot, prefill: torch.Tensor):
+    """Prefill ONE stream (1, T0, D) and install it in slot ``slot`` of the
+    pool: its K/V block at cache[:, slot, :T0] (bf16 / float32 or the int8
+    cache with its scales), its next-token logits at slot_logits[slot],
+    slot_pos[slot] = T0, slot_active[slot] = True; in place, and returned as
+    the JAX function returns them. The prompt runs as a fresh block (the
+    causal prefill kernel on the card) into a cache of its own T0 rows,
+    which is then copied in: the JAX package's order."""
+    slot = int(slot)
+    _, T0, _ = prefill.shape
+    if not 0 <= slot < slot_pos.shape[0] or T0 > cache.max_ctx:
+        raise ValueError(f"prefill_slot: slot {slot} of {slot_pos.shape[0]}, prefill of "
+                         f"{T0} into a cache of {cache.max_ctx}")
+    mini = create_cache(cfg, 1, T0, dtype=torch.int8 if isinstance(cache, QuantKVCache)
+                        else cache.k.dtype, device=prefill.device)
+    logits, _ = decoder_forward(params, cfg, prefill, mini, 0, block_only=True,
+                                logits_last_only=True)
+    for buf, block in zip(cache.parts(), mini.parts()):
+        buf[:, slot, :T0].copy_(block[:, 0])
+    slot_pos[slot] = T0
+    slot_logits[slot].copy_(logits[0, -1])
+    slot_active[slot] = True
+    return cache, slot_pos, slot_logits, slot_active
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotSettings:
+    """What a captured pool step froze."""
+    eos_token_id: int
+    chunk: int
+    spec_k: int = 0
+    ngram: int = 2
+
+
+@dataclasses.dataclass
+class SlotState:
+    """A pool's step state: the caller's pool tensors (updated in place)
+    and this call's outputs, a device step counter included."""
+    cache: KVCache | QuantKVCache
+    pos: torch.Tensor                   # (B,) int32
+    logits: torch.Tensor                # (B, V) float32, raw
+    active: torch.Tensor                # (B,) bool
+    suppress: torch.Tensor | None       # (V,) additive mask
+    toks: torch.Tensor                  # (B, width) int32
+    lps: torch.Tensor                   # (B, width) float32
+    i: torch.Tensor                     # () int64: steps (verify iterations) run
+    hist: torch.Tensor | None = None    # (B, HBUF) int32 (speculative)
+    hlen: torch.Tensor | None = None    # (B,) int32
+    emitted: torch.Tensor | None = None  # (B,) int64: tokens emitted this chunk
+
+
+def slot_step(params, cfg, s: SlotState, st: SlotSettings) -> None:
+    """One JAX ``decode_chunk_slots`` step on the device: every ACTIVE slot
+    takes the argmax of its logits (plus the suppression mask), writes it
+    and its log-probability at column ``i``, and runs one decoder forward
+    at its own position; an inactive slot yields EOS with log-probability
+    0, keeps its logits and position, and parks its cache write on row
+    S - 1 (no stream reads that row before it writes it itself). A slot
+    stops at EOS or when pos + 1 reaches the capacity. Nothing is read
+    back to the host."""
+    B = s.pos.shape[0]
+    S = s.cache.max_ctx
+    eos = st.eos_token_id
+    lg = s.logits if s.suppress is None else s.logits + s.suppress[None, :]
+    logp = torch.log_softmax(lg, dim=-1)
+    am = torch.argmax(lg, dim=-1)
+    tok = torch.where(s.active, am, eos)
+    lp = torch.where(s.active, logp.gather(-1, am[:, None])[:, 0], 0.0)
+    # a replay past the chunk (a timing loop's) rewrites the last column
+    col = s.i.clamp(max=s.toks.shape[1] - 1).expand(B)[:, None]
+    s.toks.scatter_(1, col, tok.to(torch.int32)[:, None])
+    s.lps.scatter_(1, col, lp[:, None])
+    new_active = s.active & (tok != eos) & (s.pos + 1 < S)
+    write_pos = torch.where(s.active, s.pos, S - 1)
+    out, _ = decoder_forward(params, cfg, params["embed"][am][:, None, :], s.cache, write_pos)
+    s.logits.copy_(torch.where(s.active[:, None], out[:, -1], s.logits))
+    s.pos.copy_(torch.where(s.active, s.pos + 1, s.pos))
+    s.active.copy_(new_active)
+    s.i += 1
+
+
+def spec_slot_step(params, cfg, s: SlotState, st: SlotSettings) -> None:
+    """One JAX ``decode_chunk_slots_spec`` iteration on the device, which
+    changes nothing once no active slot has emitted fewer than ``chunk``
+    tokens or ``chunk`` iterations ran (the JAX loop's condition, ``go``):
+    each active slot drafts K tokens from its own history (those that
+    followed the most recent earlier match of [last ngram - 1 emitted, d0],
+    d0 repeated where there is none), one (B, K + 1) forward at each slot's
+    position verifies them, and the accepted prefix plus d0 lands, cut at
+    an EOS, at the chunk and at the capacity. Frozen slots ride the forward;
+    their rows land at or above their live ones (rewritten before they are
+    read) or past the capacity (dropped). Nothing is read back to the host."""
+    B, V = s.logits.shape
+    S = s.cache.max_ctx
+    K, n, chunk, eos = st.spec_k, st.ngram, st.chunk, st.eos_token_id
+    HBUF, OUT = s.hist.shape[1], s.toks.shape[1]
+    dev = s.pos.device
+    go = (s.active & (s.emitted < chunk)).any() & (s.i < chunk)
+    live = go & s.active
+    lg = s.logits + s.suppress[None, :]
+    d0 = torch.argmax(lg, dim=-1)                                         # (B,)
+    hist, hlen = s.hist.long(), s.hlen.long()
+
+    # the draft: the most recent match of [last ngram - 1 emitted, d0]
+    tail = d0[:, None]
+    if n > 1:
+        at = (hlen - (n - 1)).clamp(min=0)[:, None] + torch.arange(n - 1, device=dev)
+        tail = torch.cat([hist.gather(1, at.clamp(max=HBUF - 1)), tail], dim=1)
+    wins = torch.stack([hist.roll(-j, dims=1) for j in range(n)], dim=2)  # (B, HBUF, n)
+    idx = torch.arange(HBUF, device=dev)[None, :]
+    match = (wins == tail[:, None, :]).all(dim=2) & (idx <= (hlen - n)[:, None])
+    best = torch.where(match, idx, -1).amax(dim=1)
+    found = best >= 0
+    start = torch.where(found, best + n, 0)
+    didx = start[:, None] + torch.arange(K, device=dev)[None, :]         # (B, K)
+    draft = hist.gather(1, didx.clamp(max=HBUF - 1))
+    draft = torch.where(found[:, None] & (didx < hlen[:, None]), draft, d0[:, None])
+
+    # one (B, K + 1) verify forward at every slot's position
+    seq = torch.cat([d0[:, None], draft], dim=1)                          # (B, K + 1)
+    out, _ = decoder_forward(params, cfg, params["embed"][seq], s.cache, s.pos)
+    rows = out + s.suppress[None, None, :]
+    tgt = torch.argmax(rows, dim=-1)
+    n_emit = (draft == tgt[:, :K]).long().cumprod(1).sum(1) + 1          # d0 always lands
+    epos = torch.arange(K + 1, device=dev)[None, :]
+    eos_here = (seq == eos) & (epos < n_emit[:, None])
+    eos_in = eos_here.any(dim=1)
+    idx_eos = torch.argmax(eos_here.long(), dim=1)                        # the first
+    n_emit = torch.where(eos_in, torch.minimum(n_emit, idx_eos + 1), n_emit)
+    n_emit = torch.minimum(n_emit, chunk - s.emitted)
+    # capacity: the last token may write row S - 1, as in the plain pool
+    n_emit = torch.minimum(n_emit, (S - s.pos.long()).clamp(min=0))
+    n_emit = torch.where(live, n_emit, 0)
+    eos_emitted = eos_in & (idx_eos < n_emit)
+
+    logp_prev = torch.log_softmax(lg, dim=-1)
+    logp_rows = torch.log_softmax(rows, dim=-1)
+    lp = torch.cat([logp_prev.gather(1, d0[:, None]),
+                    logp_rows[:, :K].gather(2, draft[:, :, None])[:, :, 0]], dim=1)
+
+    # this iteration's block at each slot's emitted offset and history
+    # length (columns past the buffer dropped), as gathers: no two writes
+    # meet one column
+    def put(buf, base, vals):
+        j = torch.arange(buf.shape[1], device=dev)[None, :] - base[:, None]
+        take = live[:, None] & (j >= 0) & (j <= K)
+        buf.copy_(torch.where(take, vals.gather(1, j.clamp(0, K)).to(buf.dtype), buf))
+
+    put(s.toks, s.emitted, seq)
+    put(s.lps, s.emitted, lp)
+    put(s.hist, hlen, seq)
+    s.hlen.copy_(torch.minimum(hlen + n_emit, torch.full_like(hlen, HBUF)).to(s.hlen.dtype))
+
+    # the next distribution: the raw logits at the last emitted position
+    last = out.gather(1, (n_emit - 1).clamp(min=0)[:, None, None].expand(B, 1, V))[:, 0]
+    s.logits.copy_(torch.where((n_emit > 0)[:, None], last, s.logits))
+    pos = s.pos + n_emit.to(s.pos.dtype)
+    s.pos.copy_(pos)
+    s.active.copy_(torch.where(go, s.active & ~eos_emitted & (pos < S), s.active))
+    s.emitted += n_emit
+    s.i += go
+
+
+def _pool_state(cache, slot_pos, slot_logits, slot_active, suppress: bool, width: int,
+                hist=None, hlen=None) -> SlotState:
+    """A step state over the caller's pool tensors, with this call's own
+    output buffers."""
+    B, V = slot_logits.shape
+    dev = slot_logits.device
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    spec = hist is not None
+    return SlotState(cache=cache, pos=slot_pos, logits=slot_logits, active=slot_active,
+                     suppress=zeros(V) if suppress else None,
+                     toks=zeros(B, width, dtype=torch.int32), lps=zeros(B, width),
+                     i=zeros(dtype=torch.int64), hist=hist, hlen=hlen,
+                     emitted=zeros(B, dtype=torch.int64) if spec else None)
+
+
+def _pool_graph(kind: str, params, cfg, pool: tuple, settings: SlotSettings, width: int,
+                suppress_mask, capture: bool | None, what: str, step_fn):
+    """(state, graph or None) of a pool step. On the card the step is
+    captured once per pool (its tensors' addresses are part of the key);
+    the capture's warm-up call runs one real step, so the pool's positions,
+    logits, flags and history are put back after it (its cache rows land
+    where a step writes before it reads)."""
+    cache, slot_pos, slot_logits, slot_active = pool[:4]
+    dev = slot_pos.device
+    B = slot_pos.shape[0]
+    layout = (B, width, cache.max_ctx, _cache_kind(cache), tree_key(list(cache.parts()) +
+                                                                    list(pool[1:])))
+    flags = dict(suppress=suppress_mask is not None or kind == "spec_slots")
+    saved = []
+
+    def make_state() -> SlotState:
+        saved.extend(t.clone() for t in pool[1:])
+        return _pool_state(cache, slot_pos, slot_logits, slot_active, flags["suppress"],
+                           width, *pool[4:])
+
+    s, graph = _state_and_graph(kind, params, cfg, layout, flags, settings, dev, make_state,
+                                step_fn, capture, what)
+    if graph is not None:       # a capture just ran its warm-up step: undo it
+        for t, v in zip(pool[1:], saved):
+            t.copy_(v)
+    s.toks.fill_(settings.eos_token_id)
+    s.lps.zero_()
+    s.i.zero_()
+    if s.suppress is not None:
+        if suppress_mask is None:
+            s.suppress.zero_()
+        else:
+            s.suppress.copy_(torch.as_tensor(suppress_mask, dtype=torch.float32))
+    return s, graph
+
+
+@torch.no_grad()
+def decode_chunk_slots(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: torch.Tensor,
+                       slot_active: torch.Tensor, suppress_mask=None, *, chunk: int,
+                       eos_token_id: int, capture: bool | None = None):
+    """Advance every ACTIVE slot of the pool by up to ``chunk`` greedy tokens,
+    each slot at its own position (inactive slots frozen: no position
+    advance, their writes parked on row S - 1). Returns (cache, slot_pos,
+    slot_logits, slot_active, tokens (B, chunk) int32, logprobs (B, chunk)
+    float32) as the JAX function does, the pool tensors updated in place;
+    tokens of frozen or finished steps read ``eos_token_id``.
+
+    On the card (or with ``capture``) one step is captured as a CUDA graph
+    per pool and replayed ``chunk`` times, the step index a device counter;
+    the host reads nothing until the chunk has run. ``capture=False`` runs
+    the same step eagerly."""
+    if chunk < 1:
+        raise ValueError(f"decode_chunk_slots: chunk {chunk} < 1")
+    st = SlotSettings(int(eos_token_id), int(chunk))
+    s, graph = _pool_graph("slots", params, cfg, (cache, slot_pos, slot_logits, slot_active),
+                           st, chunk, suppress_mask, capture, "decode_chunk_slots", slot_step)
+    _run_chunks(graph, lambda: slot_step(params, cfg, s, st), lambda: False, 0, chunk, chunk,
+                None)
+    return cache, slot_pos, slot_logits, slot_active, s.toks.clone(), s.lps.clone()
+
+
+@torch.no_grad()
+def decode_chunk_slots_spec(params, cfg, cache, slot_pos: torch.Tensor,
+                            slot_logits: torch.Tensor, slot_active: torch.Tensor,
+                            slot_hist: torch.Tensor, slot_hlen: torch.Tensor,
+                            suppress_mask=None, *, chunk: int, eos_token_id: int,
+                            spec_k: int = 7, ngram: int = 2, check_every: int | None = None,
+                            capture: bool | None = None):
+    """The batched speculative pool: every ACTIVE slot self-drafts
+    ``spec_k`` tokens from its own n-gram history (``slot_hist`` (B, HBUF)
+    int32, ``slot_hlen`` (B,) int32; reset a row on refill) and verifies
+    them in one (B, spec_k + 1) forward, iterations running while an active
+    slot has emitted fewer than ``chunk`` tokens, at most ``chunk`` of them.
+    Every slot emits exactly the plain pool's tokens (exact at float32),
+    the capacity boundary included.
+
+    Returns (cache, slot_pos, slot_logits, slot_active, slot_hist,
+    slot_hlen, tokens (B, chunk + spec_k + 1), logprobs, n_new (B,), iters)
+    as the JAX function does: the first n_new[b] entries of row b are the
+    new tokens (EOS and 0 past them), ``iters`` the verify forwards.
+
+    A graph cannot branch, so on the card (or with ``capture``) one
+    iteration is captured (every write a ``torch.where`` on the loop's
+    condition) and replayed in groups of ``check_every`` (default:
+    ``CARD_CHECK_EVERY`` on the card, 1 on the CPU), the condition read
+    once a group, at most ``chunk`` iterations; ``capture=False`` runs it
+    eagerly. Iterations replayed after the condition fails change nothing
+    the caller reads."""
+    if chunk < 1 or spec_k < 1 or ngram < 1:
+        raise ValueError(f"decode_chunk_slots_spec: chunk {chunk}, spec_k {spec_k} and "
+                         f"ngram {ngram} must be >= 1")
+    st = SlotSettings(int(eos_token_id), int(chunk), int(spec_k), int(ngram))
+    check_every = _check_every(slot_pos.device, check_every, None, "decode_chunk_slots_spec")
+    pool = (cache, slot_pos, slot_logits, slot_active, slot_hist, slot_hlen)
+    s, graph = _pool_graph("spec_slots", params, cfg, pool, st, chunk + spec_k + 1,
+                           suppress_mask, capture, "decode_chunk_slots_spec", spec_slot_step)
+    s.emitted.zero_()
+    _run_chunks(graph, lambda: spec_slot_step(params, cfg, s, st),
+                lambda: not bool((s.active & (s.emitted < chunk)).any() & (s.i < chunk)),
+                0, chunk, check_every, None)
+    live = torch.arange(s.toks.shape[1], device=slot_pos.device)[None, :] < s.emitted[:, None]
+    toks = torch.where(live, s.toks, eos_token_id)
+    lps = torch.where(live, s.lps, 0.0)
+    return (cache, slot_pos, slot_logits, slot_active, slot_hist, slot_hlen, toks, lps,
+            s.emitted.clone(), s.i.clone())
+
+
+def drop_pool_graphs(slot_pos: torch.Tensor) -> None:
+    """Drop the captured steps of the pool whose position vector is
+    ``slot_pos`` (they hold its tensors, the shared cache included)."""
+    _GRAPHS.drop(lambda g: getattr(g.state, "pos", None) is slot_pos)

@@ -116,3 +116,31 @@ class WhisperVocab:
     def tokenize(self, text: str) -> list[int]:
         raise NotImplementedError(
             "text tokenization is not ported yet (ROADMAP.md, section 1, item 5)")
+
+
+def gpt2_bytes_to_unicode() -> dict[int, str]:
+    """The GPT-2 byte <-> unicode table (openai/gpt-2 encoder.py) mapping
+    every byte to a printable character in byte-level BPE vocab files."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("¡"), ord("¬") + 1))
+          + list(range(ord("®"), ord("ÿ") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+_BYTE_DECODER = {c: b for b, c in gpt2_bytes_to_unicode().items()}
+
+
+def token_surface_to_bytes(surface: str) -> bytes:
+    """Byte-level BPE token surface ('Ġthe') -> raw bytes (b' the'); special
+    tokens whose characters are outside the table ('<|endoftext|>') pass
+    through as UTF-8."""
+    try:
+        return bytes(_BYTE_DECODER[c] for c in surface)
+    except KeyError:
+        return surface.encode("utf-8")

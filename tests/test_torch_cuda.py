@@ -1037,3 +1037,147 @@ def test_captured_encoder_equals_encoder_forward(device):
         assert torch.equal(st.embd_enc, want)
     assert states[0].embd_enc.data_ptr() != states[1].embd_enc.data_ptr()
     assert not torch.equal(states[0].embd_enc, states[1].embd_enc)
+
+
+# --------------------------------------------------------------------------- #
+# the slot pool, the w8a8 product (runtime/generate.py, ops/linear.py)
+# --------------------------------------------------------------------------- #
+
+def _pool_run(bundle, prefills, cache_dtype, capture, eos, spec_k=0, chunk=5, rounds=4):
+    """A pool of 3 slots over prefills of different lengths: after each chunk
+    every finished slot is refilled with the next stream (its position
+    restarting there), as runtime/serving.py does; every chunk's outputs
+    and the pool's positions and logits after it."""
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    dev = prefills[0].device
+    B, V = 3, _GRAPH_CFG.vocab_size
+    pool = (create_cache(_GRAPH_CFG, B, 64, dtype=cache_dtype, device=dev),
+            torch.zeros(B, dtype=torch.int32, device=dev), torch.zeros(B, V, device=dev),
+            torch.zeros(B, dtype=torch.bool, device=dev))
+    hist = torch.zeros(B, 64, dtype=torch.int32, device=dev)
+    hlen = torch.zeros(B, dtype=torch.int32, device=dev)
+    queue = iter(prefills)
+    out = []
+
+    def refill(slots):
+        for s in slots:
+            x = next(queue, None)
+            if x is not None:
+                tgen.prefill_slot(bundle.params, _GRAPH_CFG, *pool, s, x)
+                hist[s] = 0
+                hlen[s] = 0
+
+    refill(range(B))
+    for _ in range(rounds):
+        if spec_k:
+            res = tgen.decode_chunk_slots_spec(bundle.params, _GRAPH_CFG, *pool, hist, hlen,
+                                               chunk=chunk, eos_token_id=eos, spec_k=spec_k,
+                                               capture=capture)[6:]
+        else:
+            res = tgen.decode_chunk_slots(bundle.params, _GRAPH_CFG, *pool, chunk=chunk,
+                                          eos_token_id=eos, capture=capture)[4:]
+        out.append([t.clone() for t in res] + [pool[1].clone(), pool[2].clone()])
+        refill([s for s in range(B) if not bool(pool[3][s])])
+    tgen.drop_pool_graphs(pool[1])
+    return out
+
+
+def _pool_prefills(device, n=6):
+    gen = torch.Generator(device=device).manual_seed(5)
+    return [torch.randn(1, t0, 256, generator=gen, device=device).to(torch.bfloat16)
+            for t0 in (20, 13, 27, 9, 17, 22)[:n]]
+
+
+@pytest.mark.parametrize("quant", [None, "q8_0"], ids=["bf16_weights", "q8_0_weights"])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, "q8"], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("spec_k", [0, 7], ids=["plain", "speculative"])
+def test_captured_pool_bit_equal_to_eager(device, quant, cache_dtype, spec_k):
+    """The pool's captured step (plain: replayed ``chunk`` times; speculative:
+    iterations in groups, the condition read once a group) against the same
+    chunks run eagerly, at depth 2 with slots at different positions, an EOS
+    that a slot emits mid-chunk and the refills after it: every chunk's
+    tokens, log-probabilities (and counts), positions and logits bit-equal;
+    the decode kernel launched once a layer and step in the plain pool."""
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, quant)
+    pre = _pool_prefills(device)
+    free = _pool_run(bundle, pre, cache_dtype, False, -1, rounds=1)
+    eos = int(free[0][0][1, 2])         # slot 1 emits it at step 2 of the first chunk
+    entry = tfd.flash_decode_quant if cache_dtype == "q8" else tfd.flash_decode
+    runs = []
+    for capture in (False, True):
+        before = entry.launches
+        runs.append(_pool_run(bundle, pre, cache_dtype, capture, eos, spec_k=spec_k))
+        runs[-1].append(entry.launches - before)
+    eager, graph = runs
+    assert eager[-1] == graph[-1]
+    if not spec_k:
+        assert eager[-1] == _GRAPH_CFG.num_hidden_layers * 5 * 4
+    for a, b in zip(eager[:-1], graph[:-1]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    toks = torch.cat([r[0] for r in eager[:-1]], dim=1)
+    assert bool((toks == eos).any()), "no slot stopped: the refill was not exercised"
+    assert len(set(eager[1][-2].tolist())) > 1, "positions are not ragged"
+    assert not tgen.captured_steps()
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 1500])
+@pytest.mark.parametrize("K,N", [(3584, 4608), (1280, 3840)])
+def test_w8a8_product_exact_on_card(device, M, K, N):
+    """``int8_matmul`` (torch._int_mm, rows padded past 16 below 17) is the
+    plain int32 product exactly, over a row-major and a K-major weight; the
+    whole w8a8 linear (row quantization, product, rescale) gives the CPU's
+    bits."""
+    from qwen2_audio_tpu_torch.ops import linear as tl
+    gen = torch.Generator().manual_seed(M + K)
+    a = torch.randint(-128, 128, (M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8)
+    before = tl.int8_matmul.launches
+    got = tl.int8_matmul(a.to(device), b.to(device))
+    assert tl.int8_matmul.launches == before + 1 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), tl.int8_matmul_plain(a, b))
+    assert torch.equal(tl.int8_matmul_plain(a.to(device), b.to(device)).cpu(), got.cpu())
+    # K-major, as the decoder and encoder modules hold the weight
+    bk = tl.w8a8_layout({"qs8": b.to(device)})["qs8"]
+    assert bk.stride(0) == 1 and torch.equal(tl.int8_matmul(a.to(device), bk), got)
+    x = torch.randn(M, K, generator=gen).to(torch.bfloat16)
+    sc = torch.rand(N, generator=gen) * 0.01
+    card = tl.w8a8(x.to(device), b.to(device), sc.to(device))
+    assert torch.equal(card.cpu(), tl.w8a8(x, b, sc))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tl.int8_matmul(a[:, :K - 4].to(device), b[:K - 4, :].to(device)[:, :N - 4])
+
+
+def test_prefill_slot_into_an_int8_cache_at_an_odd_capacity(device):
+    """A slot prefilled into the int8 pool at capacity 39 (Hkv 2: each
+    layer's scales off the 16-byte grid) holds the bits of the same prefill
+    into a cache of its own; the other slot's rows are untouched; a captured
+    chunk over the pool equals the eager one."""
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.runtime import generate as tgen
+    tgen.clear_graphs()
+    bundle = _graph_decoder(device, None)
+    x = _pool_prefills(device, 1)[0]
+    ref = create_cache(_GRAPH_CFG, 1, 39, dtype="q8", device=device)
+    logits, _ = decoder_forward(bundle.params, _GRAPH_CFG, x, ref, 0, block_only=True,
+                                logits_last_only=True)
+    outs = []
+    for capture in (False, True):
+        pool = (create_cache(_GRAPH_CFG, 2, 39, dtype="q8", device=device),
+                torch.zeros(2, dtype=torch.int32, device=device),
+                torch.zeros(2, _GRAPH_CFG.vocab_size, device=device),
+                torch.zeros(2, dtype=torch.bool, device=device))
+        tgen.prefill_slot(bundle.params, _GRAPH_CFG, *pool, 1, x)
+        for buf, want in zip(pool[0].parts(), ref.parts()):
+            assert torch.equal(buf[:, 1, :20], want[:, 0, :20])
+            assert not buf[:, 0].any() and not buf[:, 1, 20:].any()
+        assert torch.equal(pool[2][1], logits[0, -1]) and pool[1].tolist() == [0, 20]
+        res = tgen.decode_chunk_slots(bundle.params, _GRAPH_CFG, *pool, chunk=6,
+                                      eos_token_id=-1, capture=capture)
+        outs.append([t.clone() for t in res[1:]])
+        tgen.drop_pool_graphs(pool[1])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

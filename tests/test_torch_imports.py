@@ -42,6 +42,21 @@ def test_decode_modules_are_scanned():
         assert f"qwen2_audio_tpu_torch.{m}" in mods
 
 
+def test_loading_and_serving_modules_are_scanned():
+    """The HF loader, the parameter cache and the serving layer are imported
+    by test_import_leaves_jax_out like every module, and import none of the
+    optional packages (safetensors, transformers) at module level."""
+    mods = set(_port_modules())
+    for m in ("io.hf", "io.param_cache", "utils.cache", "runtime.serving"):
+        assert f"qwen2_audio_tpu_torch.{m}" in mods
+    for rel in ("io/hf.py", "io/param_cache.py", "utils/cache.py", "runtime/serving.py"):
+        tree = ast.parse((PORT / rel).read_text())
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        names = [a.name for n in top if isinstance(n, ast.Import) for a in n.names] + \
+            [n.module or "" for n in top if isinstance(n, ast.ImportFrom)]
+        assert not {x.split(".")[0] for x in names} & {"safetensors", "transformers"}, rel
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"

@@ -117,9 +117,12 @@ def test_quant_params_from_jax_maps_trees_and_refuses_panels():
     assert float(panels["q"]["scales_p"][0, 0, 0]) == 1.0
     assert panels["k"]["qs4_p"].dtype == torch.uint8 and int(panels["k"]["qs4_p"][0, 0, 0]) == 255
     assert panels["k"]["scales_p"].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        quant_params_from_jax({"q": {"qs8": np.zeros((32, 16), np.int8),
-                                     "scale_n": np.ones(16, np.float32)}})
+    # the per-channel w8a8 form, refused until it was ported: int8 values,
+    # float32 scales
+    w8 = quant_params_from_jax({"q": {"qs8": np.full((32, 16), -3, np.int8),
+                                      "scale_n": np.ones(16, np.float32)}})["q"]
+    assert w8["qs8"].dtype == torch.int8 and int(w8["qs8"][0, 0]) == -3
+    assert w8["scale_n"].dtype == torch.float32
     # the word-packed nibbles, refused until their kernel was ported: int32,
     # the same bits
     words = quant_params_from_jax({"q": {"qs4b": np.full((4, 16), -2, np.int32),
@@ -178,10 +181,37 @@ def test_payload_form_and_q4form():
 
 
 def test_quantize_params_modes():
-    p = {"layers": {"q": {"w": torch.zeros(1, 32, 16)}}}
-    with pytest.raises(NotImplementedError):
-        tq.quantize_decoder_params(p, GGMLType.Q8_0, mode="fast")
-    with pytest.raises(NotImplementedError):
-        tq.quantize_encoder_params({"layers": []}, GGMLType.Q8_0, mode="fast")
+    # mode="fast", refused until the per-channel w8a8 form was ported, now
+    # gives it (tests/test_torch_w8a8.py holds its values to the JAX ones)
+    w = torch.randn(2, 32, 16)
+    p = {"layers": {k: {"w": w} for k in ("q", "k", "v", "o", "gate", "up", "down")}}
+    fast = tq.quantize_decoder_params(p, GGMLType.Q8_0, mode="fast")["layers"]["q"]
+    assert set(fast) == {"qs8", "scale_n"} and fast["qs8"].shape == (2, 32, 16)
+    assert fast["scale_n"].shape == (2, 16)
+    assert tq.quantize_encoder_params({"layers": []}, GGMLType.Q8_0, mode="fast") == {
+        "layers": []}
+    with pytest.raises(ValueError):
+        tq.quantize_decoder_params(p, GGMLType.Q8_0, mode="other")
     with pytest.raises(ValueError):
         tq.quantize_encoder_params({"layers": []}, GGMLType.Q8_0, mode="other")
+
+
+def test_q8_0_from_array_bits_equal_the_codec():
+    """The torch q8_0 quantizer (every q8_0 weight the port quantizes) gives
+    the bits of the ggml codec's byte stream unpacked: zero groups, values
+    that scale to .5 (rounded away from zero), int8 extremes; a K not a
+    multiple of 32 raises."""
+    from qwen2_audio_tpu_torch.quant import codecs as tcodecs
+    rng = np.random.default_rng(7)
+    w = (0.05 * rng.standard_normal((K, N))).astype(np.float32)
+    w[:32, 3] = 0.0
+    w[32:64, 4] = np.tile([127.0, 0.5, 1.5, -2.5], 8)
+    w[64:96, 5] = np.tile([1.0, -1.0], 16) * 3.0
+    raw = tcodecs.quantize(np.ascontiguousarray(w.T), GGMLType.Q8_0)
+    want = tq.device_weight_from_ggml_tensor(GGMLTensor("_", (N, K), GGMLType.Q8_0, raw))
+    got = tq.q8_0_from_array(torch.from_numpy(w))
+    assert set(got) == set(want)
+    for leaf in got:
+        assert got[leaf].dtype == want[leaf].dtype and torch.equal(got[leaf], want[leaf]), leaf
+    with pytest.raises(ValueError):
+        tq.q8_0_from_array(torch.zeros(48, 8))

@@ -256,16 +256,25 @@ def test_linear_dense_and_default_mode(rng):
 
 @pytest.mark.parametrize("key", ["qs_p", "qs4_p", "qs4b", "qs8"])
 def test_unported_forms_raise(key):
-    """The per-channel form raises; the panel forms and the word-packed
-    nibbles, refused until their kernels were ported, are now taken by
-    ``linear`` and ``linear_at``: the panels give the strided result, the
-    words the integer kernel's result on the same bytes (in every mode)."""
+    """The panel forms, the word-packed nibbles and the per-channel w8a8
+    form, each refused until it was ported, are now taken by ``linear`` and
+    ``linear_at``: the panels give the strided result, the words the integer
+    kernel's result on the same bytes (in every mode), "qs8" the JAX
+    ``_w8a8``'s bits; a dict of none of the forms still raises."""
     if key == "qs8":
-        p = {key: torch.zeros(1, 32, 16, dtype=torch.int8), "scales_p": torch.ones(1, 1, 16)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.linear(torch.zeros(1, 32), p)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.linear_at(torch.zeros(1, 32), p, 0)
+        rng = np.random.default_rng(4)
+        qs8 = rng.integers(-127, 128, (L, K, N)).astype(np.int8)
+        sc = (rng.random((L, N)) * 0.01 + 1e-4).astype(np.float32)
+        x = rng.standard_normal((3, K)).astype(np.float32)
+        want = np.asarray(jl.linear_at(jnp.asarray(x), {"qs8": jnp.asarray(qs8),
+                                                        "scale_n": jnp.asarray(sc)},
+                                       jnp.int32(1)))
+        p = {"qs8": torch.from_numpy(qs8), "scale_n": torch.from_numpy(sc)}
+        assert np.array_equal(tl.linear_at(torch.from_numpy(x), p, 1).numpy(), want)
+        flat = {k_: v[1] for k_, v in p.items()}
+        assert np.array_equal(tl.linear(torch.from_numpy(x), flat).numpy(), want)
+        with pytest.raises(ValueError, match="not a linear"):
+            tl.linear(torch.zeros(1, 32), {"scales_p": torch.ones(1, 16)})
         return
     tl.set_group_matmul_mode("dequant")
     _, tw = _stacked("Q8_0" if key == "qs_p" else "Q4_0")

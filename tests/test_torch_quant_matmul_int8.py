@@ -389,9 +389,10 @@ def test_quant_params_from_jax_takes_qs4b():
     assert out["qs4b"].dtype == torch.int32 and out["scales"].dtype == torch.float16
     assert np.array_equal(out["qs4b"].numpy(), jb.pack_b32(qs4))
     assert torch.equal(tb.unpack_b32(out["qs4b"]), _t(qs4))
-    with pytest.raises(NotImplementedError):
-        quant_params_from_jax({"q": {"qs8": np.zeros((32, 16), np.int8),
-                                     "scale_n": np.ones(16, np.float32)}})
+    # the per-channel w8a8 form, refused until it was ported, converts
+    w8 = quant_params_from_jax({"q": {"qs8": np.zeros((32, 16), np.int8),
+                                      "scale_n": np.ones(16, np.float32)}})["q"]
+    assert w8["qs8"].dtype == torch.int8 and w8["scale_n"].dtype == torch.float32
 
 
 def test_wrappers_refuse_bad_shapes_and_devices():
