@@ -4323,6 +4323,419 @@ def profile_call(fn, what: str) -> dict | None:
             "groups": groups}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4i: tensor parallelism on one card (gloo ranks), and the training step
+# --------------------------------------------------------------------------- #
+
+TP_LAYERS = 2          # depth of phase 4i's full-width decoder
+TP_PREFILL = 752       # prefill positions, then TP_STEPS teacher-forced decode steps
+TP_STEPS = 8
+TP_CAPACITY = 1024     # cache capacity of the TP decode and of the pools
+# TP against one process on the same weights (the logits of the prefill's
+# last position and of every step): the ranks' partial products of o and
+# down are summed in another order, and in bf16 each sum rounds once more,
+# which moves a logit by a few bf16 ulps of the residual stream; a shard
+# cut wrongly or a missing reduce moves every logit by O(max) (cos near 0)
+TP_COS_MIN = 0.999
+TP_REL = 0.03          # max|TP - single| / max|single|
+TP_CASES = {           # tp -> (weights, group matmul mode, KV cache) of each run
+    2: (("bf16", None, "bf16"), ("bf16", None, "q8"), ("q8_0", None, "bf16"),
+        ("q4_0", None, "bf16"), ("q8_0", "int8", "bf16")),
+    4: (("bf16", None, "bf16"), ("q8_0", None, "q8")),
+}
+# the pools' 8 slots at ragged positions, float32 activations and cache and
+# the exact dequantizing mode, so that the streams must equal one process's
+# token for token (in the bf16 mode x rounds to bf16 in the kernels, and one
+# slot's greedy token flipped at a near tie against the other order of the
+# ranks' sums, on the H100)
+TP_POOL_PREFILLS = (40, 57, 73, 88, 96, 111, 120, 137)
+TP_POOL_CHUNK = 8
+TP_POOL_HIST = 64
+TP_ENC_LAYERS = 4      # depth of the sharded encoder (tp = 2)
+TP_TIMEOUT = 240.0     # seconds a world may take, start-up included
+TRAIN_STEPS = 3
+TRAIN_TOKENS = 32
+TRAIN_LR = 1e-4
+TRAIN_PEAK_GIB = 70.0  # the encoder's depth is cut only past this peak
+
+
+def tp_tree(cfg, fmt: str, device, dtype=None, seed: int = 40) -> dict:
+    """Phase 4i's decoder of one seed on ``device``: dense bf16 or random
+    q8_0 / q4_0 blocks, unfused (the TP schema)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import (random_decoder_params,
+                                                            random_quant_decoder_params)
+    dtype = dtype or torch.bfloat16
+    gen = torch.Generator(device).manual_seed(seed)
+    if fmt == "bf16":
+        return random_decoder_params(gen, cfg, dtype=dtype)
+    return random_quant_decoder_params(gen, cfg, fmt, dtype=dtype)
+
+
+def tp_prefill_input(cfg, params, device, T: int, seed: int):
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=device)
+    return params["embed"][toks]
+
+
+def _cache_dtype(kind: str):
+    import torch
+    return "q8" if kind == "q8" else torch.bfloat16
+
+
+def tp_single(cfg, case, device) -> dict:
+    """One process's prefill and TP_STEPS greedy steps on a case's weights:
+    the logits rows (TP_STEPS + 1, V) on the host and the greedy tokens
+    (which the ranks are then fed)."""
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    fmt, mode, kind = case
+    params = tp_tree(cfg, fmt, device)
+    set_group_matmul_mode(mode)
+    try:
+        cache = create_cache(cfg, 1, TP_CAPACITY, dtype=_cache_dtype(kind), device=device)
+        lg, _ = decoder_forward(params, cfg, tp_prefill_input(cfg, params, device, TP_PREFILL,
+                                                              41),
+                                cache, 0, block_only=True, logits_last_only=True)
+        rows, toks = [lg[0, -1]], []
+        for i in range(TP_STEPS):
+            toks.append(int(rows[-1].argmax()))
+            lg, _ = decoder_forward(params, cfg, params["embed"][toks[-1]].view(1, 1, -1),
+                                    cache, TP_PREFILL + i)
+            rows.append(lg[0, -1])
+    finally:
+        set_group_matmul_mode(None)
+    return {"logits": torch.stack(rows).float().cpu(), "tokens": toks}
+
+
+def tp_pool(params, cfg, device, mesh=None) -> list:
+    """Eight slots prefilled at ragged positions, then one plain chunk and
+    one speculative chunk (K = SPEC_K) of TP_POOL_CHUNK tokens, in the exact
+    dequantizing mode: each slot's stream. Through the TP functions with
+    ``mesh``."""
+    import torch
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    set_group_matmul_mode("dequant")
+    try:
+        return _tp_pool(params, cfg, device, mesh)
+    finally:
+        set_group_matmul_mode(None)
+
+
+def _tp_pool(params, cfg, device, mesh) -> list:
+    import torch
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache
+    from qwen2_audio_tpu_torch.parallel import tp as tpm
+    from qwen2_audio_tpu_torch.parallel.mesh import mesh_shape
+    from qwen2_audio_tpu_torch.runtime import generate as g
+    B = len(TP_POOL_PREFILLS)
+    lcfg = cfg if mesh is None else tpm.tp_local_cfg(cfg, mesh_shape(mesh)["tp"])
+    cache = create_cache(lcfg, B, TP_CAPACITY, dtype=torch.float32, device=device)
+    pos = torch.zeros(B, dtype=torch.int32, device=device)
+    logits = torch.zeros(B, cfg.vocab_size, device=device)
+    active = torch.zeros(B, dtype=torch.bool, device=device)
+    for s, T0 in enumerate(TP_POOL_PREFILLS):
+        pre = tp_prefill_input(cfg, params, device, T0, 60 + s)
+        if mesh is None:
+            g.prefill_slot(params, cfg, cache, pos, logits, active, s, pre)
+        else:
+            tpm.tp_prefill_slot(params, cfg, mesh, cache, pos, logits, active, s, pre)
+    kw = dict(chunk=TP_POOL_CHUNK, eos_token_id=-1)
+    args = (cache, pos, logits, active)
+    toks = (g.decode_chunk_slots(params, cfg, *args, **kw) if mesh is None else
+            tpm.tp_decode_chunk_slots(params, cfg, mesh, *args, **kw))[4].cpu()
+    streams = [toks[b].tolist() for b in range(B)]
+    hist = torch.zeros(B, TP_POOL_HIST, dtype=torch.int32, device=device)
+    hlen = torch.zeros(B, dtype=torch.int32, device=device)
+    args = (cache, pos, logits, active, hist, hlen)
+    out = (g.decode_chunk_slots_spec(params, cfg, *args, spec_k=SPEC_K, **kw) if mesh is None
+           else tpm.tp_decode_chunk_slots_spec(params, cfg, mesh, *args, spec_k=SPEC_K, **kw))
+    toks, n_new = out[6].cpu(), out[8].cpu()
+    for b in range(B):
+        streams[b] += toks[b, :int(n_new[b])].tolist()
+    return streams
+
+
+def tp_encoder(hp, device):
+    """(phase 4i's encoder params, a 30 s random mel) on ``device``."""
+    import torch
+    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+    gen = torch.Generator(device).manual_seed(43)
+    mel = torch.randn((1, hp.n_mels, 2 * hp.n_audio_ctx), generator=gen, device=device)
+    return random_encoder_params(gen, hp), mel
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_rank(rank: int, world: int, cfg_kw: dict, hp_kw: dict, cases: tuple,
+            tokens: list) -> dict:
+    """One rank of a phase 4i world (tp = world): each case's prefill and
+    teacher-forced steps, the pools, and (tp = 2) the encoder, on this
+    rank's shard, its launch counts set to 0 just before each run and read
+    just after."""
+    import hashlib
+
+    import torch
+    from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig, WhisperHParams
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.parallel import tp as tpm
+    from qwen2_audio_tpu_torch.parallel.mesh import (encoder_param_spec, local_cache,
+                                                     make_mesh, shard_params, tp_group)
+    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    mesh = make_mesh(1, world)
+    cfg = Qwen2DecoderConfig(**cfg_kw)
+    counters = _launch_counters()
+
+    def zero():
+        for w in counters.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in counters.items() if w.launches}
+
+    def shard(full):
+        sp = tpm.shard_decoder_for_tp(full, mesh)
+        tpm.clear_shard_memo()           # the full tree goes with the caller's reference
+        return sp
+
+    out = {"cases": []}
+    for case, toks in zip(cases, tokens):
+        fmt, mode, kind = case
+        full = tp_tree(cfg, fmt, device)
+        x = tp_prefill_input(cfg, full, device, TP_PREFILL, 41)
+        sp = shard(full)
+        del full
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        cache = local_cache(cfg, 1, TP_CAPACITY, mesh, dtype=_cache_dtype(kind), device=device)
+        set_group_matmul_mode(mode)
+        try:
+            _sync(device)
+            zero()
+            t0 = time.perf_counter()
+            lg, _ = tpm.tp_decoder_forward(sp, cfg, mesh, x, cache, 0, block_only=True,
+                                           logits_last_only=True)
+            _sync(device)
+            t1 = time.perf_counter()
+            rows = [lg[0, -1]]
+            for i, t in enumerate(toks):
+                lg, _ = tpm.tp_decoder_forward(sp, cfg, mesh, sp["embed"][t].view(1, 1, -1),
+                                               cache, TP_PREFILL + i)
+                rows.append(lg[0, -1])
+            _sync(device)
+            t2 = time.perf_counter()
+            launches = read()
+        finally:
+            set_group_matmul_mode(None)
+        L = torch.stack(rows).float().cpu().numpy()
+        out["cases"].append({"logits": L if rank == 0 else None,
+                             "sha": hashlib.sha256(L.tobytes()).hexdigest(),
+                             "tokens": L.argmax(-1).tolist(), "launches": launches,
+                             "prefill_ms": (t1 - t0) * 1e3,
+                             "decode_ms_per_step": (t2 - t1) * 1e3 / len(toks)})
+        del sp, cache, x
+
+    full = tp_tree(cfg, "q8_0", device, dtype=torch.float32, seed=44)
+    sp = shard(full)
+    del full
+    _sync(device)
+    zero()
+    t0 = time.perf_counter()
+    out["pool"] = {"streams": tp_pool(sp, cfg, device, mesh)}
+    _sync(device)
+    out["pool"].update(launches=read(), seconds=time.perf_counter() - t0)
+    del sp
+
+    if hp_kw is not None:
+        hp = WhisperHParams(**hp_kw)
+        params, mel = tp_encoder(hp, device)
+        local = shard_params(params, encoder_param_spec(params), mesh)
+        del params
+        _sync(device)
+        zero()
+        t0 = time.perf_counter()
+        enc = encoder_forward(local, mel, hp, use_flash=True, compute_dtype=torch.bfloat16,
+                              tp_group=tp_group(mesh))
+        _sync(device)
+        out["encoder"] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read(),
+                          "out": enc.float().cpu().numpy() if rank == 0 else None,
+                          "sha": hashlib.sha256(enc.float().cpu().numpy().tobytes()).hexdigest()}
+    if device.type == "cuda":
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _tp_held(tp_rows, single_rows) -> tuple[float, float, float]:
+    """(max|delta|, cos, max|delta| / max|single|) of two logits arrays."""
+    import numpy as np
+    a, b = np.asarray(tp_rows, np.float64), np.asarray(single_rows, np.float64)
+    d = float(np.abs(a - b).max())
+    cos = float((a * b).sum() / (np.linalg.norm(a) * np.linalg.norm(b)))
+    return d, cos, d / float(np.abs(b).max())
+
+
+def run_tp(device, cfg, hp) -> dict:
+    """Phase 4i, tensor parallelism: for tp = 2 and then 4, gloo ranks
+    spawned on the one card (parallel/launch.py), after one process's
+    results on the same weights (made on the card from one seed, in every
+    rank too, each rank keeping its shard). Each case: a TP_PREFILL-position
+    prefill and TP_STEPS teacher-forced decode steps of the full-width
+    decoder at depth TP_LAYERS (bf16 and q8_0, the int8 cache; q4_0 and
+    mode "int8" at tp = 2), logits held to TP_COS_MIN and TP_REL, every
+    rank's logits bit-equal and so its tokens; the q8_0 pools (8 slots,
+    plain and speculative, float32) the single process's streams; at tp = 2
+    the encoder of ``hp`` at depth TP_ENC_LAYERS. The ranks share one
+    card: no time here is a multi-card figure."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward
+    from qwen2_audio_tpu_torch.parallel.launch import spawn_world
+    t_phase = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    ehp = dataclasses.replace(hp, n_audio_layer=TP_ENC_LAYERS)
+    single = {case: tp_single(cfg, case, device) for cases in TP_CASES.values()
+              for case in cases}
+    params = tp_tree(cfg, "q8_0", device, dtype=torch.float32, seed=44)
+    pool_want = tp_pool(params, cfg, device)
+    del params
+    params, mel = tp_encoder(ehp, device)
+    enc_want = encoder_forward(params, mel, ehp, use_flash=True,
+                               compute_dtype=torch.bfloat16).float().cpu().numpy()
+    del params, mel
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t_phase
+    out = {"single_s": t_single, "worlds": {}}
+    for tp, cases in TP_CASES.items():
+        t0 = time.perf_counter()
+        ranks = spawn_world(tp_rank, tp, backend="gloo", timeout=TP_TIMEOUT,
+                            args=(dataclasses.asdict(cfg),
+                                  dataclasses.asdict(ehp) if tp == 2 else None, cases,
+                                  [single[c]["tokens"] for c in cases]))
+        world = {"seconds": time.perf_counter() - t0, "cases": {}, "launches": {}}
+        for i, case in enumerate(cases):
+            name = "/".join(c or "bf16 mode" for c in case)
+            got = [r["cases"][i] for r in ranks]
+            require(len({g["sha"] for g in got}) == 1,
+                    f"phase 4i tp={tp} {name}: the ranks' logits differ")
+            want = single[case]
+            d, cos, rel = _tp_held(got[0]["logits"], want["logits"].numpy())
+            same = sum(a == b for a, b in zip(got[0]["tokens"][:-1], want["tokens"]))
+            log(f"tp {tp} {name}: max|d| {d:.4g}, cos {cos:.7f}, rel {rel:.4g} (limits cos >= "
+                f"{TP_COS_MIN}, rel <= {TP_REL}); greedy tokens {same} of {TP_STEPS} the single "
+                f"process's; prefill {got[0]['prefill_ms']:.1f} ms, decode "
+                f"{got[0]['decode_ms_per_step']:.2f} ms per step (rank 0, {tp} ranks sharing "
+                "one card)")
+            require(cos >= TP_COS_MIN and rel <= TP_REL,
+                    f"phase 4i tp={tp} {name}: logits against one process: cos {cos}, rel {rel}")
+            world["cases"][name] = {"max_abs": d, "cos": cos, "rel": rel, "tokens_same": same,
+                                    "prefill_ms": got[0]["prefill_ms"],
+                                    "decode_ms_per_step": got[0]["decode_ms_per_step"],
+                                    "launches": got[0]["launches"]}
+            for k, n in got[0]["launches"].items():
+                world["launches"][k] = world["launches"].get(k, 0) + n
+        pools = [r["pool"]["streams"] for r in ranks]
+        require(all(p == pools[0] for p in pools), f"phase 4i tp={tp}: the ranks' pools differ")
+        require(pools[0] == pool_want,
+                f"phase 4i tp={tp}: the pool's streams differ from one process's: " + "; ".join(
+                    f"slot {b}: {a} vs {w}" for b, (a, w) in enumerate(zip(pools[0], pool_want))
+                    if a != w))
+        world["pool"] = {"seconds": ranks[0]["pool"]["seconds"],
+                         "launches": ranks[0]["pool"]["launches"]}
+        for k, n in ranks[0]["pool"]["launches"].items():
+            world["launches"][k] = world["launches"].get(k, 0) + n
+        log(f"tp {tp} pools: {len(TP_POOL_PREFILLS)} slots, {TP_POOL_CHUNK} plain + up to "
+            f"{TP_POOL_CHUNK} speculative tokens each, the single process's streams; "
+            f"{ranks[0]['pool']['seconds']:.1f} s")
+        if tp == 2:
+            e = [r["encoder"] for r in ranks]
+            require(len({x["sha"] for x in e}) == 1, "phase 4i: the ranks' encodes differ")
+            d, cos, rel = _tp_held(e[0]["out"], enc_want)
+            log(f"tp 2 encoder ({TP_ENC_LAYERS} layers, {hp.n_audio_head // 2} heads a rank): "
+                f"max|d| {d:.4g}, cos {cos:.7f}, rel {rel:.4g}; {e[0]['ms']:.1f} ms")
+            require(cos >= TP_COS_MIN and rel <= TP_REL,
+                    f"phase 4i encoder: against one process: cos {cos}, rel {rel}")
+            world["encoder"] = {"max_abs": d, "cos": cos, "rel": rel, "ms": e[0]["ms"],
+                                "launches": e[0]["launches"]}
+            for k, n in e[0]["launches"].items():
+                world["launches"][k] = world["launches"].get(k, 0) + n
+        world["peak_gib"] = [r.get("peak_gib") for r in ranks]
+        out["worlds"][tp] = world
+        log(f"tp {tp}: world of {tp} ranks {world['seconds']:.1f} s, peak GiB per rank "
+            + json.dumps([round(p, 2) for p in world["peak_gib"] if p is not None]))
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def run_train(device, hp, cfg, batch: int = 1) -> dict:
+    """Phase 4i, training: TRAIN_STEPS steps of make_train_step in one
+    process at full width (the encoder of ``hp``, the decoder ``cfg``), float32
+    parameters and AdamW, on one repeated batch of ``batch`` 30 s mels and
+    TRAIN_TOKENS tokens. The loss must be finite and fall; ms per step and
+    the peak memory are logged."""
+    import math
+
+    import torch
+    from qwen2_audio_tpu_torch.config import Qwen2AudioConfig
+    from qwen2_audio_tpu_torch.training.step import adamw, init_train_state, make_train_step
+    acfg = Qwen2AudioConfig(audio=hp, text=cfg)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device).manual_seed(50)
+    t0 = time.perf_counter()
+    state = init_train_state(gen, acfg, adamw(TRAIN_LR), device=device)
+    n_params = sum(t.numel() for t in (state.opt_state.param_groups[0]["params"]))
+    mel = torch.randn((batch, hp.n_mels, 2 * hp.n_audio_ctx), generator=gen, device=device)
+    toks = torch.randint(0, cfg.vocab_size, (batch, TRAIN_TOKENS), generator=gen,
+                         device=device)
+    mask = torch.ones((batch, TRAIN_TOKENS), device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    step = make_train_step(acfg)
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, mel, toks, mask)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device.type == "cuda" else None
+    del state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"train: {n_params / 1e9:.3f} B parameters ({hp.n_audio_layer}-layer encoder, "
+        f"{cfg.num_hidden_layers}-layer decoder, float32, AdamW), batch {batch}, losses "
+        + json.dumps(losses) + ", ms per step " + json.dumps([round(m, 1) for m in ms])
+        + (f", peak {peak:.2f} GiB" if peak is not None else "") + f", init {init_s:.1f} s")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"phase 4i training: the loss did not fall: {losses}")
+    return {"losses": losses, "ms_per_step": ms, "peak_gib": peak, "params_b": n_params / 1e9,
+            "init_s": init_s}
+
+
+TP_PATH = {   # phase 4i: the kernels its TP runs must launch, by counter name
+    "attention_single": "tp 2 encoder", "attention_causal": "every prefill",
+    "flash_decode": "bf16 and float32 caches", "flash_decode_quant": "the int8 cache",
+    "kv_append_quant": "the int8 cache", "quant_matmul": "q8_0 lm_head",
+    "quant_matmul_stacked": "q8_0 layers", "quant_matmul4_stacked": "q4_0 layers",
+    "quant_matmul4": "q4_0 lm_head", "quant_matmul_int8": "mode int8 lm_head",
+    "quant_matmul_int8_stacked": "mode int8 layers",
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -4340,6 +4753,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phases 1 and 2 (build, kernels against their plain "
                          "versions) and print no result lines")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run phase 1 (the build) and phase 4i (tensor parallelism, "
+                         "training) alone and print no result lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -4361,6 +4777,16 @@ def main(argv=None) -> int:
         def stamp(what: str) -> None:
             log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
 
+        full = WHISPER_PRESETS["qwen2-audio"]
+        two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
+        tp_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=TP_LAYERS)
+        if args.tp_only:
+            tp = run_tp(device, tp_cfg, full)
+            train = run_train(device, full, two)
+            log("summary 4i: " + json.dumps({"tp": tp, "train": train}, default=str))
+            log(f"tp only: phase 4i passed in {time.perf_counter() - t_start:.1f} s")
+            return 0
+
         mel = check_mel(device)
         attn_bf16, attn_f32 = check_attention(device)
         causal_bf16, causal_f32 = check_causal(device)
@@ -4379,8 +4805,6 @@ def main(argv=None) -> int:
         if args.kernels_only:
             log(f"kernels only: phases 1 and 2 passed in {time.perf_counter() - t_start:.1f} s")
             return 0
-        full = WHISPER_PRESETS["qwen2-audio"]
-        two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
         stamp("phase 2")
         check_parity(device, dataclasses.replace(full, n_audio_layer=2))
         check_quant_encoder_parity(device, dataclasses.replace(full, n_audio_layer=2))
@@ -4438,6 +4862,11 @@ def main(argv=None) -> int:
             text4 = run_quant_text(ctx4, dec_cfg, "q4_0", args.new_tokens)
             stamp("phase 4d (q4_0)")
             capi.whisper_free(ctx4)
+        t4i = time.perf_counter()
+        tp = run_tp(device, tp_cfg, full)
+        train = run_train(device, full, two)
+        t4i = time.perf_counter() - t4i
+        stamp("phase 4i")
     except Exception as e:  # every phase failure ends the run with no result
         import traceback
         traceback.print_exc()
@@ -4520,6 +4949,18 @@ def main(argv=None) -> int:
     fused["launches_4h"] = fused_4h
     require(all(n > 0 for n in fused_4h.values()),
             f"phase 4h: the one-launch SwiGLU was not launched on the q8_0 pools: {fused_4h}")
+    # phase 4i: each kernel's launches over its TP runs (the counts of rank 0,
+    # every rank launching the same), by world
+    for k in kernels:
+        k["launches_4i"] = {
+            f"tp {t}": (sum(n for e, n in w["launches"].items() if e.startswith("fused_mlp"))
+                        if k is fused else w["launches"].get(k["name"], 0))
+            for t, w in tp["worlds"].items()}
+    for k in kernels:
+        if k["name"] in TP_PATH or k is fused:
+            require(sum(k["launches_4i"].values()) > 0,
+                    f"phase 4i: {k['name']} was not launched on its TP runs "
+                    f"({TP_PATH.get(k['name'], 'the q8_0 and q4_0 decode steps')})")
     for k in [qmm[n] for n in qmm] + [fused]:
         require(all(n > 0 for n in k["launches_4g"].values()),
                 f"phase 4g: {k['name']} was not launched on every beam and speculative "
@@ -4613,6 +5054,17 @@ def main(argv=None) -> int:
         f"cosines {json.dumps([round(c, 7) for c in parallel['cos']])}")
     log("summary 4h hf load: " + json.dumps(hf))
     log(f"summary 4h: {t4h:.1f} s in all")
+    log("summary 4i tp (ranks sharing one card): " + json.dumps(
+        {t: {"seconds": w["seconds"], "peak_gib": w["peak_gib"],
+             "cases": {n: {k: c[k] for k in ("max_abs", "cos", "rel", "tokens_same",
+                                              "prefill_ms", "decode_ms_per_step")}
+                       for n, c in w["cases"].items()},
+             "pool_s": w["pool"]["seconds"], "encoder": {k: v for k, v in
+                                                          w.get("encoder", {}).items()
+                                                          if k != "launches"}}
+         for t, w in tp["worlds"].items()}))
+    log("summary 4i train: " + json.dumps(train))
+    log(f"summary 4i: {t4i:.1f} s in all (one-process references {tp['single_s']:.1f} s)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

@@ -36,6 +36,13 @@ the graphs belong to the module's weights, and ``.to()`` and the other
 Module methods that replace them drop the graphs. The last
 ``Encoder.MAX_GRAPHS`` graphs are kept. The output is copied out of the
 graph's buffer, which the next replay rewrites.
+
+With ``tp_group`` the tree is one rank's Megatron shard (parallel/mesh.py,
+``encoder_param_spec``: q/k/v and fc1 column-split, a fused qkv split third
+by third, o and fc2 row-split) and the layers run ``n_audio_head / tp``
+heads; the o and fc2 partial products are summed over the group and their
+biases, replicated, added once after the sum. Autograd flows through
+``encoder_forward`` (parallel/collectives.py carries the gradients).
 """
 
 from __future__ import annotations
@@ -52,6 +59,8 @@ from qwen2_audio_tpu_torch.ops.fa_variants import flash_attention_encoder
 from qwen2_audio_tpu_torch.ops.flash_attention import attention_encoder_plain
 from qwen2_audio_tpu_torch.ops.graphs import Graph, GraphCache, switches
 from qwen2_audio_tpu_torch.ops.linear import linear, w8a8_layout
+from qwen2_audio_tpu_torch.parallel.collectives import (copy_to_tp, group_size,
+                                                        reduce_from_tp)
 from qwen2_audio_tpu_torch.quant.qparams import (QUANT_TYPES,
                                                  device_weight_from_ggml_tensor)
 
@@ -104,8 +113,19 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)[None, :, None]
 
 
+def _row_linear(x: torch.Tensor, p: dict, tp_group) -> torch.Tensor:
+    """A row-parallel linear: the partial products summed over the group,
+    then the (replicated) bias added once."""
+    if tp_group is None:
+        return linear(x, p)
+    y = reduce_from_tp(linear(x, {k: v for k, v in p.items() if k != "b"}), tp_group)
+    return y + p["b"].to(y.dtype) if "b" in p else y
+
+
 def _attention(params: Params, x: torch.Tensor, n_head: int,
-               use_flash: bool) -> torch.Tensor:
+               use_flash: bool, tp_group=None) -> torch.Tensor:
+    """Self-attention over ``n_head`` heads (this rank's under TP)."""
+    x = copy_to_tp(x, tp_group)
     if "qkv" in params:
         q, k, v = linear(x, params["qkv"]).chunk(3, dim=-1)
     else:
@@ -113,7 +133,7 @@ def _attention(params: Params, x: torch.Tensor, n_head: int,
         k = linear(x, params["k"])                # K has no bias (:632, :2037)
         v = linear(x, params["v"])
     attend = flash_attention_encoder if use_flash else attention_encoder_plain
-    return linear(attend(q, k, v, n_head), params["o"])
+    return _row_linear(attend(q, k, v, n_head), params["o"], tp_group)
 
 
 def encoder_forward(
@@ -126,6 +146,7 @@ def encoder_forward(
     use_flash: bool = False,
     compute_dtype: torch.dtype = torch.float32,
     stem: str = "matmul",
+    tp_group=None,
 ) -> torch.Tensor:
     """mel (B, n_mels, 2*n_ctx) -> encoder output (B, n_ctx//2, n_state).
 
@@ -135,8 +156,10 @@ def encoder_forward(
     routes attention through the kernel wrapper (the CUDA kernel for CUDA
     tensors, its plain version for CPU tensors); ``use_flash=False`` takes
     the plain version on any device. ``stem`` picks the conv stem lowering: "matmul" (im2col) or
-    "conv" (F.conv1d)."""
+    "conv" (F.conv1d). ``tp_group``: ``params`` is this rank's
+    tensor-parallel shard (the module docstring)."""
     eps = hp.eps
+    n_head = hp.n_audio_head // group_size(tp_group)
     x = mel.to(compute_dtype)
 
     if stem == "matmul":
@@ -160,10 +183,10 @@ def encoder_forward(
 
     for layer in params["layers"]:
         h = _layer_norm(x, layer["ln1"]["w"], layer["ln1"]["b"], eps)
-        x = x + _attention(layer, h, hp.n_audio_head, use_flash)
-        h = _layer_norm(x, layer["ln2"]["w"], layer["ln2"]["b"], eps)
+        x = x + _attention(layer, h, n_head, use_flash, tp_group)
+        h = copy_to_tp(_layer_norm(x, layer["ln2"]["w"], layer["ln2"]["b"], eps), tp_group)
         h = _gelu(linear(h, layer["fc1"]), gelu_approximate)
-        x = x + linear(h, layer["fc2"])
+        x = x + _row_linear(h, layer["fc2"], tp_group)
 
     # Qwen2-Audio stride-2 average pooler over time (:2160-2171):
     # (x0 + x1) * 0.5 in f32, then one rounding to the compute type
@@ -217,27 +240,37 @@ def fingerprint(enc_out, n: int = 20) -> str:
 # parameter construction
 # --------------------------------------------------------------------------- #
 
-def random_encoder_params(rng: np.random.Generator, hp: WhisperHParams,
-                          dtype: torch.dtype = torch.float32,
+def random_encoder_params(rng, hp: WhisperHParams, dtype: torch.dtype = torch.float32,
                           scale: float = 0.02) -> Params:
-    """Random weights on the CPU. Draws from ``rng`` in the same order, shape
-    and type as the JAX package's random_encoder_params, so one seed gives
-    the same weights in both packages."""
+    """Random weights. A numpy Generator draws on the host in the same
+    order, shape and type as the JAX package's random_encoder_params (one
+    seed gives the same weights in both packages), the tree on the CPU; a
+    torch.Generator draws on its own device, the tree there (for full-size
+    models)."""
     d, m = hp.n_audio_state, hp.n_mels
+    device = "cpu" if isinstance(rng, np.random.Generator) else rng.device
 
     def t(*shape):
+        if not isinstance(rng, np.random.Generator):
+            return torch.randn(shape, generator=rng, device=device).mul_(scale).to(dtype)
         a = rng.standard_normal(shape, dtype=np.float32)
         a *= np.float32(scale)
         return torch.from_numpy(a).to(dtype)
 
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
     def layer():
         return {
-            "ln1": {"w": torch.ones(d, dtype=dtype), "b": torch.zeros(d, dtype=dtype)},
+            "ln1": {"w": ones(d), "b": zeros(d)},
             "q": {"w": t(d, d), "b": t(d)},
             "k": {"w": t(d, d)},
             "v": {"w": t(d, d), "b": t(d)},
             "o": {"w": t(d, d), "b": t(d)},
-            "ln2": {"w": torch.ones(d, dtype=dtype), "b": torch.zeros(d, dtype=dtype)},
+            "ln2": {"w": ones(d), "b": zeros(d)},
             "fc1": {"w": t(d, 4 * d), "b": t(4 * d)},
             "fc2": {"w": t(4 * d, d), "b": t(d)},
         }
@@ -247,7 +280,7 @@ def random_encoder_params(rng: np.random.Generator, hp: WhisperHParams,
         "conv2": {"w": t(d, d, 3), "b": t(d)},
         "pos": t(hp.n_audio_ctx, d),
         "layers": [layer() for _ in range(hp.n_audio_layer)],
-        "ln_post": {"w": torch.ones(d, dtype=dtype), "b": torch.zeros(d, dtype=dtype)},
+        "ln_post": {"w": ones(d), "b": zeros(d)},
     }
 
 

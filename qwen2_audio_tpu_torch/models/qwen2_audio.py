@@ -71,13 +71,15 @@ def random_bundle(rng, cfg: Qwen2DecoderConfig, enc_state: int, *,
                   dtype: torch.dtype = torch.float32, max_ctx: int = 256,
                   cache_dtype=torch.float32,
                   device: torch.device | str = "cpu",
-                  quant: str | None = None, b32: bool = False) -> DecoderBundle:
+                  quant: str | None = None, b32: bool = False,
+                  fuse: bool = True) -> DecoderBundle:
     """Random weights. A numpy Generator draws what the JAX package's
     random_bundle draws from the same seed; a torch.Generator draws on its
     own device (random_decoder_params). ``quant`` ("q8_0", "q4_0" or "w8a8",
     with a torch.Generator) makes the linears and the lm_head random ggml
     blocks or per-channel int8 weights instead, q4_0 in int32 words with
-    ``b32`` (random_quant_decoder_params)."""
+    ``b32`` (random_quant_decoder_params). ``fuse=False`` keeps the
+    projections unfused, the schema tensor-parallel serving needs."""
     if quant is not None:
         dec = random_quant_decoder_params(rng, cfg, quant, dtype=dtype, b32=b32)
     else:
@@ -91,7 +93,7 @@ def random_bundle(rng, cfg: Qwen2DecoderConfig, enc_state: int, *,
                               device=device) * 0.02).to(dtype)
     return DecoderBundle(
         cfg=cfg,
-        decoder=Decoder(dec, cfg),
+        decoder=Decoder(dec, cfg, fuse=fuse),
         proj_w=proj_w,
         proj_b=torch.zeros(cfg.hidden_size, dtype=dtype, device=device),
         eos_token_id=cfg.vocab_size - 1 if eos_token_id is None else eos_token_id,

@@ -51,7 +51,18 @@ along the batch axis through one scratch buffer, so that a captured graph
 keeps its addresses) and tiles a B = 1 prefill into a B = K cache
 (``tile_cache``). ``attn_slice`` returns the pre-softmax scores of a block
 of queries over a range of keys, the DTW token-timestamp tap
-(models/dtw.py). The tensor-parallel psums are not ported yet (ROADMAP.md).
+(models/dtw.py).
+
+With ``tp_group`` (parallel/tp.py) the tree is one rank's Megatron shard
+and the config its per-shard view: the input of every column-parallel
+linear (q/k/v, gate/up, the lm_head) passes ``copy_to_tp``, the outputs of
+the row-parallel o and down projections are summed over the group
+(``reduce_from_tp``), and the column-split lm_head's logits are gathered
+along V (unless the embeddings are tied, whose logits are whole on every
+rank). ``decoder_forward`` runs under ``torch.no_grad``;
+``decoder_forward_grad`` is the same code with autograd, for training
+(parallel/collectives.py's functions carry the gradients), the KV-cache
+writes kept out of the graph.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_at, fused_mlp_split_at, 
                                                linear_at, w8a8_layout)
 from qwen2_audio_tpu_torch.ops.quant_matmul import panelize_weight
 from qwen2_audio_tpu_torch.ops.quant_matmul_q4b import pack_b32
+from qwen2_audio_tpu_torch.parallel.collectives import copy_to_tp, gather_last, reduce_from_tp
 from qwen2_audio_tpu_torch.utils.logging import log_warn
 
 Params = dict[str, Any]
@@ -387,14 +399,14 @@ def _write_rows(buf: torch.Tensor, val: torch.Tensor, rows: tuple) -> None:
 def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
            cache, cos: torch.Tensor, sin: torch.Tensor, pos0,
            pos_dev: torch.Tensor | None, rows: tuple | None, block_only: bool,
-           use_flash: bool, attn_slice: tuple | None = None):
+           use_flash: bool, attn_slice: tuple | None = None, tp_group=None):
     """One decoder block over x (B, T, D); writes this layer's K/V into the
     cache at positions pos0..pos0+T-1 (per stream for a (B,) tensor pos0,
     at ``rows``) in place. With ``attn_slice`` also returns the layer's
     attention tap."""
     B, T, _ = x.shape
     Hq, Hkv, dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    h = rms_norm(x, layers["ln1"]["w"][li], cfg.rms_norm_eps)
+    h = copy_to_tp(rms_norm(x, layers["ln1"]["w"][li], cfg.rms_norm_eps), tp_group)
 
     if "qkv" in layers:
         nq, nkv = Hq * dh, Hkv * dh
@@ -409,16 +421,17 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
     v = v.unflatten(-1, (Hkv, dh))
 
     quant = isinstance(cache, QuantKVCache)
+    kc, vc = k.detach(), v.detach()     # the cache stays out of an autograd graph
     if quant:   # one quantize-and-write launch on the card
-        kv_append_quant(k, v, cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li],
+        kv_append_quant(kc, vc, cache.k_q[li], cache.k_s[li], cache.v_q[li], cache.v_s[li],
                         pos_dev)
     elif rows is not None:
-        _write_rows(cache.k[li], k, rows)
-        _write_rows(cache.v[li], v, rows)
+        _write_rows(cache.k[li], kc, rows)
+        _write_rows(cache.v[li], vc, rows)
     else:
         span = slice(pos0, pos0 + T)
-        cache.k[li, :, span] = k.to(cache.k.dtype)
-        cache.v[li, :, span] = v.to(cache.v.dtype)
+        cache.k[li, :, span] = kc.to(cache.k.dtype)
+        cache.v[li, :, span] = vc.to(cache.v.dtype)
 
     scale = dh ** -0.5
     if block_only and use_flash:
@@ -446,9 +459,9 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
                                     cache.v_q[li], cache.v_s[li], pos0)
     else:
         attn = _gqa_attention(q, cache.k[li], cache.v[li], pos0)
-    x = x + linear_at(attn, layers["o"], li)
+    x = x + reduce_from_tp(linear_at(attn, layers["o"], li), tp_group)
 
-    h = rms_norm(x, layers["ln2"]["w"][li], cfg.rms_norm_eps)
+    h = copy_to_tp(rms_norm(x, layers["ln2"]["w"][li], cfg.rms_norm_eps), tp_group)
     if "gate_up" in layers:
         # the one-launch SwiGLU where the weight form and M allow it
         y = fused_mlp_at(h, layers["gate_up"], layers["down"], li)
@@ -463,6 +476,7 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
                 * linear_at(h, layers["up"], li)
     if y is None:
         y = linear_at(gated, layers["down"], li)
+    y = reduce_from_tp(y, tp_group)
     return x + y if attn_slice is None else (x + y, tap)
 
 
@@ -470,7 +484,20 @@ def _layer(cfg: Qwen2DecoderConfig, x: torch.Tensor, layers: Params, li: int,
 def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
                     inputs_embeds: torch.Tensor, cache, pos0,
                     block_only: bool = False, logits_last_only: bool = False,
-                    use_flash: bool = True, attn_slice: tuple | None = None):
+                    use_flash: bool = True, attn_slice: tuple | None = None,
+                    tp_group=None):
+    """``decoder_forward_grad`` under ``torch.no_grad``: the inference path."""
+    return decoder_forward_grad(params, cfg, inputs_embeds, cache, pos0,
+                                block_only=block_only, logits_last_only=logits_last_only,
+                                use_flash=use_flash, attn_slice=attn_slice,
+                                tp_group=tp_group)
+
+
+def decoder_forward_grad(params: Params, cfg: Qwen2DecoderConfig,
+                         inputs_embeds: torch.Tensor, cache, pos0,
+                         block_only: bool = False, logits_last_only: bool = False,
+                         use_flash: bool = True, attn_slice: tuple | None = None,
+                         tp_group=None):
     """Run T positions (absolute positions pos0..pos0+T-1) through all
     layers; returns (logits (B, T, V) float32, cache), the cache updated in
     place.
@@ -494,7 +521,12 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     ``use_flash=False`` only, as in the JAX package, whose tap is its plain
     einsum attention) returns a third output: every layer's pre-softmax
     scores of queries [q0, q0 + qn) over keys [k0, k0 + kn), (L, B, Hq, qn,
-    kn) float32, for the DTW token timestamps."""
+    kn) float32, for the DTW token timestamps.
+
+    ``tp_group``: ``params`` is this rank's tensor-parallel shard and
+    ``cfg`` its per-shard config (parallel/tp.py); the logits come back
+    whole (B, T, V) on every rank. Autograd flows through this function
+    (the training path); ``decoder_forward`` is it under ``no_grad``."""
     if attn_slice is not None and (use_flash or not block_only):
         raise ValueError("decoder_forward: the attention tap needs block_only=True "
                          "and use_flash=False")
@@ -519,7 +551,7 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     taps = []
     for li in range(cfg.num_hidden_layers):
         x = _layer(cfg, x, layers, li, cache, cos, sin, pos0, pos_dev, rows,
-                   block_only, use_flash, attn_slice)
+                   block_only, use_flash, attn_slice, tp_group)
         if attn_slice is not None:
             x, tap = x
             taps.append(tap)
@@ -528,8 +560,8 @@ def decoder_forward(params: Params, cfg: Qwen2DecoderConfig,
     x = rms_norm(x, params["ln_f"]["w"], cfg.rms_norm_eps)
     if cfg.tie_word_embeddings:
         logits = x @ params["embed"].T.to(x.dtype)
-    else:
-        logits = linear(x, params["lm_head"])
+    else:   # column-split under TP: each rank's V / tp columns, gathered
+        logits = gather_last(linear(copy_to_tp(x, tp_group), params["lm_head"]), tp_group)
     if not isinstance(pos0, torch.Tensor):
         cache.pos = pos0 + T
     if attn_slice is not None:

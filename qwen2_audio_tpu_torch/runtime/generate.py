@@ -64,7 +64,7 @@ gates every write, fails.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -945,14 +945,16 @@ def _cache_kind(cache) -> str:
 
 @torch.no_grad()
 def prefill_slot(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: torch.Tensor,
-                 slot_active: torch.Tensor, slot, prefill: torch.Tensor):
+                 slot_active: torch.Tensor, slot, prefill: torch.Tensor, tp_group=None):
     """Prefill ONE stream (1, T0, D) and install it in slot ``slot`` of the
     pool: its K/V block at cache[:, slot, :T0] (bf16 / float32 or the int8
     cache with its scales), its next-token logits at slot_logits[slot],
     slot_pos[slot] = T0, slot_active[slot] = True; in place, and returned as
     the JAX function returns them. The prompt runs as a fresh block (the
     causal prefill kernel on the card) into a cache of its own T0 rows,
-    which is then copied in: the JAX package's order."""
+    which is then copied in: the JAX package's order. With ``tp_group``
+    ``params`` is this rank's shard, ``cfg`` its per-shard config and the
+    cache its kv heads (parallel/tp.py); the logits come back whole."""
     slot = int(slot)
     _, T0, _ = prefill.shape
     if not 0 <= slot < slot_pos.shape[0] or T0 > cache.max_ctx:
@@ -961,7 +963,7 @@ def prefill_slot(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: torch.
     mini = create_cache(cfg, 1, T0, dtype=torch.int8 if isinstance(cache, QuantKVCache)
                         else cache.k.dtype, device=prefill.device)
     logits, _ = decoder_forward(params, cfg, prefill, mini, 0, block_only=True,
-                                logits_last_only=True)
+                                logits_last_only=True, tp_group=tp_group)
     for buf, block in zip(cache.parts(), mini.parts()):
         buf[:, slot, :T0].copy_(block[:, 0])
     slot_pos[slot] = T0
@@ -977,6 +979,7 @@ class SlotSettings:
     chunk: int
     spec_k: int = 0
     ngram: int = 2
+    tp_group: Any = dataclasses.field(default=None, compare=False)
 
 
 @dataclasses.dataclass
@@ -1019,7 +1022,8 @@ def slot_step(params, cfg, s: SlotState, st: SlotSettings) -> None:
     s.lps.scatter_(1, col, lp[:, None])
     new_active = s.active & (tok != eos) & (s.pos + 1 < S)
     write_pos = torch.where(s.active, s.pos, S - 1)
-    out, _ = decoder_forward(params, cfg, params["embed"][am][:, None, :], s.cache, write_pos)
+    out, _ = decoder_forward(params, cfg, params["embed"][am][:, None, :], s.cache, write_pos,
+                             tp_group=st.tp_group)
     s.logits.copy_(torch.where(s.active[:, None], out[:, -1], s.logits))
     s.pos.copy_(torch.where(s.active, s.pos + 1, s.pos))
     s.active.copy_(new_active)
@@ -1065,7 +1069,8 @@ def spec_slot_step(params, cfg, s: SlotState, st: SlotSettings) -> None:
 
     # one (B, K + 1) verify forward at every slot's position
     seq = torch.cat([d0[:, None], draft], dim=1)                          # (B, K + 1)
-    out, _ = decoder_forward(params, cfg, params["embed"][seq], s.cache, s.pos)
+    out, _ = decoder_forward(params, cfg, params["embed"][seq], s.cache, s.pos,
+                             tp_group=st.tp_group)
     rows = out + s.suppress[None, None, :]
     tgt = torch.argmax(rows, dim=-1)
     n_emit = (draft == tgt[:, :K]).long().cumprod(1).sum(1) + 1          # d0 always lands
@@ -1165,7 +1170,7 @@ def _pool_graph(kind: str, params, cfg, pool: tuple, settings: SlotSettings, wid
 @torch.no_grad()
 def decode_chunk_slots(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: torch.Tensor,
                        slot_active: torch.Tensor, suppress_mask=None, *, chunk: int,
-                       eos_token_id: int, capture: bool | None = None):
+                       eos_token_id: int, capture: bool | None = None, tp_group=None):
     """Advance every ACTIVE slot of the pool by up to ``chunk`` greedy tokens,
     each slot at its own position (inactive slots frozen: no position
     advance, their writes parked on row S - 1). Returns (cache, slot_pos,
@@ -1176,10 +1181,12 @@ def decode_chunk_slots(params, cfg, cache, slot_pos: torch.Tensor, slot_logits: 
     On the card (or with ``capture``) one step is captured as a CUDA graph
     per pool and replayed ``chunk`` times, the step index a device counter;
     the host reads nothing until the chunk has run. ``capture=False`` runs
-    the same step eagerly."""
+    the same step eagerly, as it always runs under a tensor-parallel
+    ``tp_group`` (parallel/tp.py)."""
     if chunk < 1:
         raise ValueError(f"decode_chunk_slots: chunk {chunk} < 1")
-    st = SlotSettings(int(eos_token_id), int(chunk))
+    st = SlotSettings(int(eos_token_id), int(chunk), tp_group=tp_group)
+    capture = False if tp_group is not None else capture
     s, graph = _pool_graph("slots", params, cfg, (cache, slot_pos, slot_logits, slot_active),
                            st, chunk, suppress_mask, capture, "decode_chunk_slots", slot_step)
     _run_chunks(graph, lambda: slot_step(params, cfg, s, st), lambda: False, 0, chunk, chunk,
@@ -1193,7 +1200,7 @@ def decode_chunk_slots_spec(params, cfg, cache, slot_pos: torch.Tensor,
                             slot_hist: torch.Tensor, slot_hlen: torch.Tensor,
                             suppress_mask=None, *, chunk: int, eos_token_id: int,
                             spec_k: int = 7, ngram: int = 2, check_every: int | None = None,
-                            capture: bool | None = None):
+                            capture: bool | None = None, tp_group=None):
     """The batched speculative pool: every ACTIVE slot self-drafts
     ``spec_k`` tokens from its own n-gram history (``slot_hist`` (B, HBUF)
     int32, ``slot_hlen`` (B,) int32; reset a row on refill) and verifies
@@ -1213,11 +1220,14 @@ def decode_chunk_slots_spec(params, cfg, cache, slot_pos: torch.Tensor,
     ``CARD_CHECK_EVERY`` on the card, 1 on the CPU), the condition read
     once a group, at most ``chunk`` iterations; ``capture=False`` runs it
     eagerly. Iterations replayed after the condition fails change nothing
-    the caller reads."""
+    the caller reads. Under a tensor-parallel ``tp_group`` the iterations
+    run eagerly, the condition read from replicated state, the same on
+    every rank."""
     if chunk < 1 or spec_k < 1 or ngram < 1:
         raise ValueError(f"decode_chunk_slots_spec: chunk {chunk}, spec_k {spec_k} and "
                          f"ngram {ngram} must be >= 1")
-    st = SlotSettings(int(eos_token_id), int(chunk), int(spec_k), int(ngram))
+    st = SlotSettings(int(eos_token_id), int(chunk), int(spec_k), int(ngram), tp_group)
+    capture = False if tp_group is not None else capture
     check_every = _check_every(slot_pos.device, check_every, None, "decode_chunk_slots_spec")
     pool = (cache, slot_pos, slot_logits, slot_active, slot_hist, slot_hlen)
     s, graph = _pool_graph("spec_slots", params, cfg, pool, st, chunk + spec_k + 1,

@@ -14,7 +14,16 @@ On the card each chunk of the pool is one captured step replayed ``chunk``
 times (plain) or in groups of iterations (speculative); the host reads the
 pool once a chunk. The encoder runs captured per (batch, mel shape)
 (models/encoder.py::Encoder), so ``encode_windows`` returns a device tensor.
-Tensor-parallel serving (``mesh``) is not ported yet.
+
+With ``mesh`` (parallel/mesh.py, a (dp, tp) mesh; dp is not used here) the
+pool decodes tensor-parallel (parallel/tp.py): every rank of the ``tp``
+group runs the same call on the same audio, encodes its windows itself,
+holds its shard of the decoder and its kv heads of the cache, and the
+pool's step runs eagerly. Every rank must take the same host decisions, or
+the ranks stop in different collectives: the pool's state is replicated,
+so its reads agree, and the choices made from each rank's own clock or
+callbacks (the adaptive speculative mode, the abort callback) are rank 0's,
+broadcast each chunk.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qwen2_audio_tpu_torch.audio.mel import LogMelSpectrogram, mel_input_window
 from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache
@@ -221,6 +231,16 @@ class _Job:
         self.t0_cs, self.t1_cs = t0_cs, t1_cs
 
 
+def _rank0_says(group, flags: list[bool], device) -> list[bool]:
+    """``flags`` as tensor-parallel rank 0 holds them, on every rank of the
+    group (one broadcast); the flags themselves without a group."""
+    if group is None:
+        return flags
+    t = torch.tensor([int(f) for f in flags], dtype=torch.int32, device=device)
+    dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+    return [bool(v) for v in t.tolist()]
+
+
 def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, mesh):
     """Continuous batching: ``n_slots`` decode slots over one shared KV
     cache; a finished slot is refilled from ``jobs`` (pulled lazily) while
@@ -232,10 +252,8 @@ def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, 
     < 0 ("auto") is 7 and adaptive on the CPU, and 0 on the card: the
     adaptive pool times each mode's chunks (discarding each mode's first,
     which carries its capture) and keeps the faster, probing the other
-    after ``_PROBE_MIN`` chunks, backing off to ``_PROBE_MAX``."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel serving (mesh) is not ported yet "
-                                  "(ROADMAP.md, section 1, item 10)")
+    after ``_PROBE_MIN`` chunks, backing off to ``_PROBE_MAX``. With
+    ``mesh`` the decode is tensor-parallel (the module docstring)."""
     state = ctx.state or ctx.init_state()
     bundle = ctx.decoder
     if params.strategy == "beam":
@@ -256,6 +274,12 @@ def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, 
     blank_np = build_blank_mask(bundle, params)
     blank = None if blank_np is None else torch.as_tensor(blank_np, device=dev)
     params_dec, cfg = bundle.params, bundle.cfg
+    group = None
+    if mesh is not None:
+        from qwen2_audio_tpu_torch.parallel.mesh import mesh_shape, tp_group
+        from qwen2_audio_tpu_torch.parallel.tp import shard_decoder_for_tp, tp_local_cfg
+        params_dec = shard_decoder_for_tp(params_dec, mesh)
+        cfg, group = tp_local_cfg(cfg, mesh_shape(mesh)["tp"]), tp_group(mesh)
 
     queue = iter(jobs)
     B = n_slots
@@ -289,7 +313,8 @@ def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, 
                 break
             n += 1
             pre = _prefill_embeds(bundle, bundle.project_audio(job.enc), base_prompt)
-            prefill_slot(params_dec, cfg, cache, slot_pos, slot_logits, slot_active, s, pre)
+            prefill_slot(params_dec, cfg, cache, slot_pos, slot_logits, slot_active, s, pre,
+                         tp_group=group)
             if blank is not None:
                 slot_logits[s] += blank
             if spec_k > 0:          # a fresh draft history for the new stream
@@ -332,15 +357,17 @@ def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, 
         t_refill_us = 0     # lazy encodes inside the decode span, booked as encode time
         n_decoded = 0
         while any(j is not None for j in slot_job):
-            if params.abort_callback is not None and params.abort_callback():
+            abort, use_spec = _rank0_says(group, [
+                params.abort_callback is not None and params.abort_callback(),
+                spec_k > 0 and pick_spec()], dev)
+            if abort:
                 break
-            use_spec = spec_k > 0 and pick_spec()
             t_chunk = time.perf_counter()
             if use_spec:
                 out = decode_chunk_slots_spec(
                     params_dec, cfg, cache, slot_pos, slot_logits, slot_active, slot_hist,
                     slot_hlen, sup, chunk=chunk_tokens, eos_token_id=bundle.eos_token_id,
-                    spec_k=spec_k)
+                    spec_k=spec_k, tp_group=group)
                 toks, lps, n_new = out[6], out[7], out[8].cpu().numpy()
                 stats["spec_iters"] += int(out[9])
                 stats["spec_tokens"] += int(n_new.sum())
@@ -348,7 +375,8 @@ def _serve_pool(ctx, params: FullParams, jobs, n_slots: int, chunk_tokens: int, 
                 pos_before = slot_pos.cpu().numpy().copy()
                 toks, lps = decode_chunk_slots(
                     params_dec, cfg, cache, slot_pos, slot_logits, slot_active, sup,
-                    chunk=chunk_tokens, eos_token_id=bundle.eos_token_id)[4:]
+                    chunk=chunk_tokens, eos_token_id=bundle.eos_token_id,
+                    tp_group=group)[4:]
                 # one token per position advance: a capacity freeze pads
                 # with EOS that the model never emitted
                 n_new = slot_pos.cpu().numpy() - pos_before   # a new array
@@ -409,8 +437,9 @@ def transcribe_continuous(ctx: WhisperContext, samples: np.ndarray,
     ``max_streams`` decode slots shares one KV cache, and a finished window's
     slot is refilled with the next window while the others keep decoding.
     Windows are encoded lazily, a bucket of ``max_streams`` ahead of the
-    pool. Segments are yielded in completion order. ``mesh`` (tensor
-    parallelism) raises: not ported yet."""
+    pool. Segments are yielded in completion order. ``mesh``: the decode is
+    tensor-parallel over its ``tp`` axis, every rank calling with the same
+    audio (the module docstring)."""
     if ctx.decoder is None:
         raise RuntimeError("transcribe_continuous requires an attached decoder")
     params = params or FullParams()
@@ -444,7 +473,8 @@ def transcribe_many(ctx: WhisperContext, audios: list, params: FullParams | None
     one slot pool, so a short clip's slot refills with the next request's
     window while long clips keep decoding. Each audio's mel and encode run
     when the pool first pulls one of its windows. Yields (audio index,
-    Segment) in completion order."""
+    Segment) in completion order. ``mesh`` as in
+    ``transcribe_continuous``."""
     if ctx.decoder is None:
         raise RuntimeError("transcribe_many requires an attached decoder")
     params = params or FullParams()

@@ -1181,3 +1181,71 @@ def test_prefill_slot_into_an_int8_cache_at_an_odd_capacity(device):
         tgen.drop_pool_graphs(pool[1])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# tensor parallelism on one card (gloo ranks) and the training step
+# --------------------------------------------------------------------------- #
+
+TP_SMALL = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+                num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+                tie_word_embeddings=False)
+
+
+def test_tp_forward_on_card_matches_one_process(device):
+    """Two gloo ranks on the card (chip_smoke's phase 4i ranks at a small
+    width): each case's prefill and teacher-forced steps within phase 4i's
+    tolerances of one process, the ranks' logits bit-equal; the q8_0 pools'
+    streams one process's."""
+    import dataclasses
+
+    from qwen2_audio_tpu_torch.parallel.launch import spawn_world
+    cfg = Qwen2DecoderConfig(**TP_SMALL)
+    cases = (("bf16", None, "bf16"), ("q8_0", None, "q8"))
+    single = [chip_smoke.tp_single(cfg, c, device) for c in cases]
+    pool_want = chip_smoke.tp_pool(chip_smoke.tp_tree(cfg, "q8_0", device, torch.float32, 44),
+                                   cfg, device)
+    ranks = spawn_world(chip_smoke.tp_rank, 2, timeout=chip_smoke.TP_TIMEOUT,
+                        args=(dataclasses.asdict(cfg), None, cases,
+                              [s["tokens"] for s in single]))
+    for i, want in enumerate(single):
+        got = [r["cases"][i] for r in ranks]
+        assert got[0]["sha"] == got[1]["sha"]
+        _, cos, rel = chip_smoke._tp_held(got[0]["logits"], want["logits"].numpy())
+        assert cos >= chip_smoke.TP_COS_MIN and rel <= chip_smoke.TP_REL, (cases[i], cos, rel)
+        assert got[0]["launches"].get("attention_causal", 0) > 0
+    assert ranks[0]["pool"]["streams"] == ranks[1]["pool"]["streams"] == pool_want
+
+
+def test_train_step_on_card_matches_cpu(device):
+    """The single-process train step on the card against the same step on
+    the CPU (float32, TF32 off): three losses at rtol 1e-4, the first
+    step's gradients at atol 1e-5, rtol 1e-3."""
+    from qwen2_audio_tpu_torch.config import Qwen2AudioConfig
+    from qwen2_audio_tpu_torch.training import step as tstep
+    cfg = Qwen2AudioConfig(
+        audio=WhisperHParams(n_vocab=64, n_audio_ctx=32, n_audio_state=64, n_audio_head=4,
+                             n_audio_layer=2, n_mels=16),
+        text=Qwen2DecoderConfig(vocab_size=128, hidden_size=64, intermediate_size=128,
+                                num_hidden_layers=2, num_attention_heads=4,
+                                num_key_value_heads=2, head_dim=16,
+                                tie_word_embeddings=False))
+    r = np.random.default_rng(5)
+    batch = (torch.from_numpy(r.standard_normal((2, 16, 64)).astype(np.float32)),
+             torch.from_numpy(r.integers(0, 128, (2, 8))),
+             torch.ones(2, 8))
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        st = tstep.init_train_state(np.random.default_rng(0), cfg, tstep.adamw(1e-3),
+                                    device=dev)
+        train = tstep.make_train_step(cfg)
+        losses, grads = [], None
+        for i in range(3):
+            st, loss = train(st, *(t.to(dev) for t in batch))
+            losses.append(loss)
+            if i == 0:
+                grads = [p.grad.cpu().clone() for p in tstep.leaves(st.params)]
+        runs[dev.type] = (losses, grads)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
+    for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)

@@ -57,6 +57,23 @@ def test_loading_and_serving_modules_are_scanned():
         assert not {x.split(".")[0] for x in names} & {"safetensors", "transformers"}, rel
 
 
+def test_parallel_and_training_modules_are_scanned():
+    """The tensor-parallel and training modules (and the fine-tune example)
+    are imported by test_import_leaves_jax_out like every module, and
+    scanned for forbidden imports; the spawned test ranks' module too."""
+    mods = set(_port_modules())
+    for m in ("parallel", "parallel.mesh", "parallel.tp", "parallel.distributed",
+              "parallel.collectives", "parallel.launch", "training", "training.step",
+              "training.data", "training.checkpoint", "training.finetune"):
+        assert f"qwen2_audio_tpu_torch.{m}" in mods
+    tree = ast.parse((ROOT / "tests" / "test_torch_dist_workers.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            assert not {n.split(".")[0] for n in names} & set(FORBIDDEN), names
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"

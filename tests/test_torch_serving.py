@@ -311,8 +311,9 @@ def test_serving_initial_prompt_and_callbacks(ckpt):
 
 def test_pool_warns_refuses_mesh_and_needs_a_decoder(ckpt):
     """The greedy-only pool warns once on beam / temperature / repetition
-    penalty; a mesh raises (tensor parallelism is not ported); no decoder
-    raises."""
+    penalty; a mesh is taken, and refuses a decoder with fused projections
+    (tensor parallelism needs the unfused schema; the tensor-parallel pool
+    itself is tests/test_torch_tp_decode.py's); no decoder raises."""
     _, tctx = _ctxs(ckpt)
     x = _audio(2)
     for flag, kw in (("pool_beam", dict(strategy="beam")),
@@ -322,9 +323,9 @@ def test_pool_warns_refuses_mesh_and_needs_a_decoder(ckpt):
         list(tsv.transcribe_continuous(tctx, x, _p(tsv, max_new_tokens=3, **kw),
                                        max_streams=2, chunk_tokens=3))
         assert flag in tdec._WARNED_FLAGS
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1, item 10"):
+    with pytest.raises(ValueError, match="unfused"):
         list(tsv.transcribe_continuous(tctx, x, _p(tsv), mesh=object()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unfused"):
         list(tsv.transcribe_many(tctx, [x], _p(tsv), mesh=object()))
     bare = WhisperContext.init_from_buffer_with_params(ckpt, CPU)
     for fn, arg in ((tsv.transcribe_long_form, x), (tsv.transcribe_continuous, x),
