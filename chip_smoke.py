@@ -4324,6 +4324,173 @@ def profile_call(fn, what: str) -> dict | None:
 
 
 # --------------------------------------------------------------------------- #
+# phase 4j: the command line on the card
+# --------------------------------------------------------------------------- #
+
+CLI_OUTPUTS = ("-otxt", "-osrt", "-ovtt", "-oj", "-ocsv", "-olrc")
+CLI_EXTS = ("txt", "srt", "vtt", "json", "csv", "lrc")
+CLI_BENCH_SIZES = (512, 1024, 2048)   # the mul_mat bench's N x N x N products
+CLI_PATH = ("mel_log_frames", "attention_single", "attention_causal", "flash_decode")
+CLI_BENCH_KERNELS = ("quant_matmul", "quant_matmul4", "quant_matmul_int8")
+
+
+def run_cli(workdir: str, model_path: str, hf_dir: str) -> dict:
+    """Phase 4j, the port's command line (qwen2_audio_tpu_torch.cli) on the
+    card: ``cli.main.run`` in this process on a 30 s wav with the 32-layer
+    ggml checkpoint of 4a and the full-width depth-2 HF checkpoint of 4h as
+    ``--decoder``, two whisper_full passes (``--bench-iters 2``), greedy
+    without the temperature fallback (``-nf``: a fallback samples) and the
+    six output files; the launches of the mel, encoder attention, causal
+    prefill and decode kernels over the run, each at least 1; the run held to
+    capi.whisper_full on a context built the same way with the same
+    ``build_full_params(args)`` (the embedding bit-equal, the tokens and
+    segments and every output file equal); ``python -m
+    qwen2_audio_tpu_torch.cli -np`` once in a subprocess (exit 0, the same
+    txt); then capi.whisper_bench_ggml_mul_mat_str at CLI_BENCH_SIZES, each
+    kernel product held to its plain version with phase 2's limits before
+    it is timed, and the launches of the dequantizing (int8 values and
+    packed nibbles) and exact-integer kernels over the bench."""
+    import contextlib
+    import io
+    import torch
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.audio import read_audio, write_wav
+    from qwen2_audio_tpu_torch.cli import main as cli_main
+    from qwen2_audio_tpu_torch.cli.output_formats import write_outputs
+    from qwen2_audio_tpu_torch.io.hf import load_qwen2_audio
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+
+    t_phase = time.perf_counter()
+    d = os.path.join(workdir, "cli")
+    os.makedirs(os.path.join(d, "ref"))
+    wav = os.path.join(d, "clip.wav")
+    write_wav(wav, noisy_tone(30.0, seed=70, freq=350.0))
+    argv = ["-m", model_path, "-f", wav, "--decoder", hf_dir, "--bench-iters", "2", "-nf",
+            *CLI_OUTPUTS]
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc, ctx = cli_main.run(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {k: counters[k].launches for k in CLI_PATH}
+    printed = out.getvalue().splitlines()
+    log(f"4j cli: rc {rc} in {cli_s:.2f} s; stdout {len(printed)} lines: "
+        + " | ".join(ln[:120] for ln in printed[:4]) + f"; launches {json.dumps(launches)}")
+    require(rc == 0 and ctx is not None, f"4j: the CLI returned {rc}")
+    require(ctx.device.type == "cuda", f"4j: the CLI ran on {ctx.device}")
+    for k in CLI_PATH:
+        require(launches[k] >= 1, f"4j: {k} was not launched by the CLI run: {launches}")
+    elapsed = [float(ln.split()[3]) for ln in printed if ln.startswith("Elapsed time is")]
+    require(len(elapsed) == 1, "4j: the CLI printed no elapsed time")
+    ms_per_call = elapsed[0] * 1e3 / 2
+    tokens = list(ctx.state.result_tokens)
+
+    # the same context and request through capi
+    args = cli_main.build_parser().parse_args(cli_main.expand_response_files(argv))
+    ref = capi.whisper_init_from_file_with_params(
+        model_path, ContextParams(use_gpu=True, flash_attn=args.flash_attn))
+    ref.decoder = load_qwen2_audio(hf_dir)["bundle"]
+    samples, _ = read_audio(wav)
+    params = cli_main.build_full_params(args)
+    for _ in range(args.bench_iters):
+        require(capi.whisper_full(ref, params, samples) == 0, "4j: capi.whisper_full failed")
+    require(torch.equal(ctx.state.embd_enc, ref.state.embd_enc),
+            "4j: the CLI's embedding differs from capi.whisper_full's")
+    require(tokens == ref.state.result_tokens and len(tokens) > 0,
+            f"4j: the CLI's tokens differ from capi.whisper_full's: {tokens[:16]} against "
+            f"{ref.state.result_tokens[:16]}")
+    def key(segs):
+        return [(s["t0"], s["t1"], s["text"], list(s["tokens"])) for s in segs]
+    require(key(ctx.state.segments) == key(ref.state.segments),
+            "4j: the CLI's segments differ from capi.whisper_full's")
+    ref_paths = write_outputs(os.path.join(d, "ref", "clip.wav"), ref.state.segments, args)
+    require(sorted(p.rsplit(".", 1)[1] for p in ref_paths) == sorted(CLI_EXTS),
+            f"4j: the reference wrote {ref_paths}")
+    for rp in ref_paths:
+        ext = rp.rsplit(".", 1)[1]
+        with open(os.path.join(d, "clip." + ext), "rb") as f, open(rp, "rb") as g:
+            got, want = f.read(), g.read()
+        require(got == want and len(got) > 0,
+                f"4j: the CLI's .{ext} file differs from capi.whisper_full's")
+    fp = ref.print_emb_enc()
+    log(f"4j cli: embedding bit-equal to capi.whisper_full's ({tuple(ref.state.embd_enc.shape)},"
+        f" fingerprint {fp.strip()[:60]}...), {len(tokens)} tokens, "
+        f"{len(ref.state.segments)} segment(s), six files equal")
+    capi.whisper_free(ctx)
+    capi.whisper_free(ref)
+    del ctx, ref
+    torch.cuda.empty_cache()
+
+    # the command line as a user starts it
+    d2 = os.path.join(d, "sub")
+    os.makedirs(d2)
+    wav2 = os.path.join(d2, "clip.wav")
+    write_wav(wav2, noisy_tone(30.0, seed=70, freq=350.0))
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "qwen2_audio_tpu_torch.cli", "-m", model_path,
+                        "-f", wav2, "--decoder", hf_dir, "--bench-iters", "1", "-nf", "-otxt",
+                        "-np"], cwd=root, capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    log(f"4j cli subprocess: rc {r.returncode} in {sub_s:.1f} s; stderr tail "
+        f"{r.stderr[-300:]!r}")
+    require(r.returncode == 0, f"4j: python -m qwen2_audio_tpu_torch.cli exited {r.returncode}")
+    with open(os.path.join(d2, "clip.txt"), "rb") as f:
+        sub_txt = f.read()
+    with open(os.path.join(d, "clip.txt"), "rb") as f:
+        require(sub_txt == f.read(), "4j: the subprocess's txt differs from the in-process run's")
+
+    # the mul_mat bench through capi, each product held to its plain version
+    held = []
+
+    def check(case, got, want):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        top = want.float().abs().max().item()
+        atol, rtol = QMM_TOL_BF16[0] * top, QMM_TOL_BF16[1]
+        used = (diff / (atol + rtol * want.float().abs())).max().item()
+        n = case["x"].shape[0]
+        held.append({"size": n, "type": case["type"], "kernel": case["kernel"],
+                     "max_abs_err": diff.max().item(), "used": used})
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"4j bench {case['type']} N={n}: shape or type")
+        require(bool(torch.isfinite(got).all()), f"4j bench {case['type']} N={n}: not finite")
+        require(used <= 1.0, f"4j bench {case['type']} N={n}: {case['kernel']} disagrees with "
+                f"its plain version ({used:.3f} of the tolerance)")
+
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    text = capi.whisper_bench_ggml_mul_mat_str(sizes=CLI_BENCH_SIZES, check=check)
+    bench_s = time.perf_counter() - t0
+    bench_launches = {k: counters[k].launches for k in CLI_BENCH_KERNELS}
+    for h in held:
+        log(f"4j bench check: N={h['size']} {h['type']} ({h['kernel']}): max_abs_err "
+            f"{h['max_abs_err']:.3e}, {h['used']:.3f} of the tolerance")
+    for ln in text.splitlines():
+        log(f"4j bench: {ln.strip()}")
+    log(f"4j bench: {bench_s:.1f} s, launches {json.dumps(bench_launches)}")
+    for k in CLI_BENCH_KERNELS:
+        require(bench_launches[k] >= 1, f"4j: {k} was not launched by the bench: {bench_launches}")
+    gflops = {}   # format: {N: GFLOPS}
+    for ln in text.splitlines():
+        left, right = ln.split(":")
+        fmt, val = right.split()[:2]
+        gflops.setdefault(fmt, {})[int(left.split("x")[0])] = float(val)
+    seconds = time.perf_counter() - t_phase
+    log(f"4j: {seconds:.1f} s in all (CLI {cli_s:.1f}, subprocess {sub_s:.1f}, bench "
+        f"{bench_s:.1f})")
+    return {"launches": launches, "bench_launches": bench_launches, "cli_s": cli_s,
+            "ms_per_call": ms_per_call, "tokens": len(tokens), "subprocess_s": sub_s,
+            "bench_s": bench_s, "gflops": gflops, "seconds": seconds}
+
+
+# --------------------------------------------------------------------------- #
 # phase 4i: tensor parallelism on one card (gloo ranks), and the training step
 # --------------------------------------------------------------------------- #
 
@@ -4753,6 +4920,10 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phases 1 and 2 (build, kernels against their plain "
                          "versions) and print no result lines")
+    ap.add_argument("--cli-only", action="store_true",
+                    help="run phase 1 (the build) and phase 4j (the command line and the "
+                         "mul_mat bench, on checkpoints it writes) alone and print no "
+                         "result lines")
     ap.add_argument("--tp-only", action="store_true",
                     help="run phase 1 (the build) and phase 4i (tensor parallelism, "
                          "training) alone and print no result lines")
@@ -4780,6 +4951,23 @@ def main(argv=None) -> int:
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
         tp_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=TP_LAYERS)
+        if args.cli_only:
+            import numpy as np
+            from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+            from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
+            from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+            hp = dataclasses.replace(full, n_audio_layer=args.layers)
+            with tempfile.TemporaryDirectory() as workdir:
+                path = os.path.join(workdir, "qwen2-audio-random-f16.bin")
+                write_encoder_checkpoint(path, random_encoder_params(np.random.default_rng(0), hp),
+                                         hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
+                hf = os.path.join(workdir, "hf_qwen2_audio")
+                write_hf_checkpoint(hf, dataclasses.replace(full, n_audio_layer=2), two, device)
+                stamp("checkpoints")
+                cli = run_cli(workdir, path, hf)
+            log("summary 4j cli: " + json.dumps(cli))
+            log(f"cli only: phase 4j passed in {time.perf_counter() - t_start:.1f} s")
+            return 0
         if args.tp_only:
             tp = run_tp(device, tp_cfg, full)
             train = run_train(device, full, two)
@@ -4842,6 +5030,8 @@ def main(argv=None) -> int:
             stamp("phase 4h (w8a8, full_parallel, HF load)")
             capi.whisper_free(ctx)
             torch.cuda.empty_cache()
+            cli = run_cli(workdir, res["path"], os.path.join(workdir, "hf_qwen2_audio"))
+            stamp("phase 4j")
             ctx8, enc8 = run_quant_encode(
                 res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
                 QUANT_CALLS, workdir)
@@ -4907,6 +5097,11 @@ def main(argv=None) -> int:
                int8["quant_matmul_q4b_stacked"], lite, nopad]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
+    # phase 4j: the launches of rows 1-4 over the CLI run, of 6, 13, 14 over the bench
+    for k in (mel, attn_bf16, causal_bf16, decode):
+        k["launches_4j"] = cli["launches"][k["name"]]
+    for k in (qmm["quant_matmul"], qmm["quant_matmul4"], int8["quant_matmul_int8"]):
+        k["launches_4j"] = cli["bench_launches"][k["name"]]
     # phase 4g: the launches of rows 4/5, 6-13 and 17 on the beam and
     # speculative requests (row 4's are 0 on a speculative request: its
     # verify forwards of K + 1 positions take the plain attention, as in JAX)
@@ -5054,6 +5249,7 @@ def main(argv=None) -> int:
         f"cosines {json.dumps([round(c, 7) for c in parallel['cos']])}")
     log("summary 4h hf load: " + json.dumps(hf))
     log(f"summary 4h: {t4h:.1f} s in all")
+    log("summary 4j cli: " + json.dumps(cli))
     log("summary 4i tp (ranks sharing one card): " + json.dumps(
         {t: {"seconds": w["seconds"], "peak_gib": w["peak_gib"],
              "cases": {n: {k: c[k] for k in ("max_abs", "cos", "rel", "tokens_same",

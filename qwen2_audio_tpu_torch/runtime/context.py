@@ -468,6 +468,12 @@ class WhisperContext:
     def token_to_str(self, token_id: int) -> str:
         return self.vocab.token_to_str(token_id)
 
+    def tokenize(self, text: str) -> list[int]:
+        return self.vocab.tokenize(text)
+
+    def token_count(self, text: str) -> int:
+        return len(self.tokenize(text))
+
     # special tokens (header :325-341)
     def token_eot(self) -> int: return self.vocab.token_eot
     def token_sot(self) -> int: return self.vocab.token_sot
@@ -524,3 +530,13 @@ class WhisperContext:
 
     def full_get_token_p(self, i: int, j: int) -> float:
         return self.state.segments[i]["probs"][j]
+
+
+def print_system_info() -> str:
+    """≙ whisper_print_system_info (:3573-3596): torch and its CUDA version,
+    the device the contexts default to (the card's name, or ``cpu`` without
+    one) and the directory the CUDA kernels build into."""
+    from qwen2_audio_tpu_torch.ops._build import build_dir
+    dev = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    return (f"torch {torch.__version__} | CUDA {torch.version.cuda or 'none'} | "
+            f"device {dev} | kernels built in {build_dir()}")

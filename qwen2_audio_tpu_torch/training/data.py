@@ -3,9 +3,9 @@ loss_mask) with background prefetch.
 
 The mel is the port's host path (audio/mel.py: ``log_mel_spectrogram_np``
 and ``mel_input_window``), computed by worker threads while the training
-step runs. ``use_native=True`` (the threaded C++ wav reader and mel of the
-JAX package's native library) needs ``native.py``, which this package does
-not have yet (ROADMAP.md section 1, entry 8): it raises. Batches come in a
+step runs; ``use_native=True`` reads the wav and computes the mel with the
+threaded C++ of the native host library (native.py, its own host
+fallbacks where the library is not built). Batches come in a
 deterministic order (a permutation from ``seed``) however the workers
 interleave; a worker's load error is raised in the consumer, never hangs
 it, and a consumer that stops early (``break``) stops the workers.
@@ -20,8 +20,10 @@ from pathlib import Path
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 
-from qwen2_audio_tpu_torch.audio.mel import log_mel_spectrogram_np, mel_input_window
+from qwen2_audio_tpu_torch.audio.mel import (LogMelSpectrogram, log_mel_spectrogram_np,
+                                             mel_input_window)
 from qwen2_audio_tpu_torch.audio.wav import read_wav
 from qwen2_audio_tpu_torch.config import WhisperHParams
 
@@ -50,10 +52,7 @@ class AudioTextDataset:
     def __init__(self, examples: Sequence[Example], hp: WhisperHParams,
                  filters: np.ndarray, tokenize: Callable[[str], list[int]],
                  max_tokens: int = 128, use_native: bool = False) -> None:
-        if use_native:
-            raise NotImplementedError(
-                "AudioTextDataset(use_native=True) needs the native wav/mel library "
-                "(native.py), not ported yet (ROADMAP.md section 1, entry 8)")
+        self.use_native = use_native
         self.examples = list(examples)
         self.hp = hp
         self.filters = np.ascontiguousarray(filters, np.float32)
@@ -65,8 +64,14 @@ class AudioTextDataset:
 
     def load(self, idx: int) -> tuple[np.ndarray, list[int]]:
         ex = self.examples[idx]
-        samples, _ = read_wav(ex.audio_path)
-        mel = log_mel_spectrogram_np(samples, self.filters)
+        if self.use_native:
+            from qwen2_audio_tpu_torch import native
+            samples, _rate = native.wav_read(ex.audio_path)
+            data, n_len_org = native.log_mel(samples, self.filters)
+            mel = LogMelSpectrogram(data=torch.from_numpy(data), n_len_org=n_len_org)
+        else:
+            samples, _ = read_wav(ex.audio_path)
+            mel = log_mel_spectrogram_np(samples, self.filters)
         win = mel_input_window(mel, 0, self.hp.n_audio_ctx).numpy()
         toks = self.tokenize(ex.text)[: self.max_tokens]
         return win, toks

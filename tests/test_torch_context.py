@@ -221,7 +221,7 @@ def test_init_forms_and_lifecycle(tmp_path):
     assert c2.decoder is None
     with pytest.raises(TypeError):
         c2.decoder = object()
-    with pytest.raises(NotImplementedError):
-        c2.vocab.tokenize("ab")
+    want = JVocab.from_token_list(VOCAB, HP["n_vocab"]).tokenize("ab ba")
+    assert c2.vocab.tokenize("ab ba") == tcapi.whisper_tokenize(c2, "ab ba") == want == [2, 1, 0]
     tcapi.whisper_free(c2)
     assert c2.state is None and c2.encoder is None

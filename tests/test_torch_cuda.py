@@ -1249,3 +1249,55 @@ def test_train_step_on_card_matches_cpu(device):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     for a, b in zip(runs["cuda"][1], runs["cpu"][1]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)
+
+
+def test_cli_on_card_matches_capi(device, tmp_path, capsys):
+    """The port's CLI in this process (cli.main.run, no -ng) on a tiny ggml
+    checkpoint and a tiny HF decoder on the card: the mel, encoder
+    attention, causal prefill and decode kernels launched; the embedding
+    bit-equal to capi.whisper_full's on a context built the same way with
+    the same build_full_params, the tokens and the txt file the same."""
+    import json
+
+    from qwen2_audio_tpu_torch.audio import write_wav
+    from qwen2_audio_tpu_torch.cli import main as cli_main
+    from qwen2_audio_tpu_torch.cli.output_formats import write_outputs
+    from qwen2_audio_tpu_torch.io.hf import load_qwen2_audio
+    from qwen2_audio_tpu_torch.ops import launch_counters
+
+    hp = WhisperHParams(n_vocab=64, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                        n_mels=80)
+    cfg = Qwen2DecoderConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                             num_hidden_layers=2, num_attention_heads=2,
+                             num_key_value_heads=1, head_dim=128, audio_token_id=500)
+    model = str(tmp_path / "model.bin")
+    write_encoder_checkpoint(model, random_encoder_params(np.random.default_rng(0), hp), hp,
+                             mel_filterbank(80), [b"a"])
+    hf = str(tmp_path / "hf")
+    chip_smoke.write_hf_checkpoint(hf, hp, cfg, device)
+    with open(tmp_path / "hf" / "config.json") as f:
+        conf = json.load(f)
+    conf["text_config"]["eos_token_id"] = 7
+    with open(tmp_path / "hf" / "config.json", "w") as f:
+        json.dump(conf, f)
+    wav = str(tmp_path / "clip.wav")
+    write_wav(wav, chip_smoke.noisy_tone(3.0, seed=8))
+    argv = ["-m", model, "-f", wav, "--decoder", hf, "--bench-iters", "1", "-nf",
+            "--max-new-tokens", "8", "-otxt"]
+    counters = launch_counters()
+    names = ("mel_log_frames", "attention_single", "attention_causal", "flash_decode")
+    before = {k: counters[k].launches for k in names}
+    rc, ctx = cli_main.run(argv)
+    assert rc == 0 and ctx.device.type == "cuda"
+    assert all(counters[k].launches > before[k] for k in names), \
+        {k: counters[k].launches - before[k] for k in names}
+    args = cli_main.build_parser().parse_args(argv)
+    ref = capi.whisper_init_from_file_with_params(model, ContextParams())
+    ref.decoder = load_qwen2_audio(hf)["bundle"]
+    from qwen2_audio_tpu_torch.audio import read_audio
+    assert capi.whisper_full(ref, cli_main.build_full_params(args), read_audio(wav)[0]) == 0
+    assert torch.equal(ctx.state.embd_enc, ref.state.embd_enc)
+    assert ctx.state.result_tokens == ref.state.result_tokens and ctx.state.result_tokens
+    (tmp_path / "ref").mkdir()
+    [txt] = write_outputs(str(tmp_path / "ref" / "clip.wav"), ref.state.segments, args)
+    assert (tmp_path / "clip.txt").read_bytes() == open(txt, "rb").read()

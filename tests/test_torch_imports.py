@@ -74,6 +74,19 @@ def test_parallel_and_training_modules_are_scanned():
             assert not {n.split(".")[0] for n in names} & set(FORBIDDEN), names
 
 
+def test_surface_modules_are_scanned():
+    """The tokenizer, the whole C API, the audio inputs, the text helpers,
+    the native host library's bindings and the command line are imported by
+    test_import_leaves_jax_out like every module, and scanned for forbidden
+    imports (``regex`` among them: the tokenizer's word split is a scanner
+    over unicodedata)."""
+    mods = set(_port_modules())
+    for m in ("tokenizer", "capi", "native", "audio", "audio.mp3", "audio.capture", "audio.vad",
+              "utils.text", "utils.utf8", "utils.bench_utils", "cli", "cli.__main__", "cli.main",
+              "cli.output_formats", "cli.bench_cli", "cli.transcribe", "cli.stream"):
+        assert f"qwen2_audio_tpu_torch.{m}" in mods, m
+
+
 def test_import_leaves_jax_out():
     code = (
         "import sys\n"
