@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (qwen2_audio_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--layers 32] [--calls 8] [--dec-layers 28]
-                          [--new-tokens 32] [--q4-layers 32] [--kernels-only]
+                          [--new-tokens 32] [--kernels-only]
+                          [--cli-only | --surface-only | --tp-only]
 
-(``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8 --q4-layers 4`` is a
-quick rehearsal.) Phases, each of which must pass (any failure exits non-zero
+(``--layers 4 --calls 2 --dec-layers 2 --new-tokens 8`` is a quick
+rehearsal.) Phases, each of which must pass (any failure exits non-zero
 before the result lines are printed):
 1. build every CUDA kernel from qwen2_audio_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, and print the card's name and power limit; the
@@ -108,14 +109,15 @@ before the result lines are printed):
       1, 4, 8 and 16 steps, the captured steps' capture ms, and one decode
       step over each cache eager and replayed (kernels, host ms to enqueue
       it, host ms to its end);
-   c. quantized encode: the checkpoint of (a) through
-      io.export.quantize_checkpoint to q8_0 and to q4_0 (the q4_0 one
-      ``--q4-layers`` deep), each loaded with keep_quantized=True and run
+   c. quantized encode: a checkpoint written as in (a) but CUT_LAYERS deep
+      (at most ``--layers``; the cut checkpoint) through io.export.quantize_checkpoint to
+      q8_0 and to q4_0, each loaded with keep_quantized=True and run
       through whisper_full: 4 launches of the flat entry per layer and
       clip, the embedding held against the same file loaded dense;
    d. quantized audio -> text: behind each quantized encoder a decoder
-      with q8_0 or packed symmetric q4_0 stacked weights and a quantized
-      lm_head, random block contents made on the card, in the storage the
+      (QUANT_DEC_LAYERS deep, at most ``--dec-layers``) with q8_0 or packed symmetric q4_0
+      stacked weights and a quantized lm_head, random block contents made
+      on the card, in the storage the
       decode step is tuned for, one request per configuration on one clip:
       q8_0 with the one-launch SwiGLU off (4 launches of the stacked entry
       per layer and decoder forward, one of the flat entry per forward for
@@ -185,6 +187,21 @@ before the result lines are printed):
       Phase 2 adds rows 4/5 at B = POOL_SLOTS with ragged positions, rows
       6-13 and 17 at M = 64, and the w8a8 product (torch._int_mm) exact
       against its plain version at M = 1, 8, 64 and 1500.
+   i. after (d): tensor parallelism on the one card, 2 and 4 gloo ranks
+      against one process (a 752-position prefill and 8 teacher-forced
+      steps of the full-width 2-layer text tower, the slot pools, the
+      sharded encoder), then 3 full-width training steps (``--tp-only``
+      runs the build and this phase alone).
+   j. after (h): the command line (python -m qwen2_audio_tpu_torch.cli) on
+      the cut checkpoint with (h)'s HF decoder, bit-equal to capi.whisper_full,
+      then the mul_mat bench (``--cli-only``).
+   k. after (j): remote offload, the C API shim and the debug utilities on
+      the cut checkpoint in float32 (``--surface-only``): the RPC server
+      (runtime/rpc.py) as a process of its own, with the port's client,
+      native/qa_rpc and the CLI's --rpc against it, the shim's command
+      line (native_src/), each bit-equal to a local capi.whisper_full; the
+      per-node encoder diff (utils/inspect_graph.py) card against CPU; the
+      torch.profiler trace (utils/profiling.py) naming the kernels.
    The quantized paths (c, d) also run with dq16 switched on
    (set_dequant16): three encodes behind each quantized encoder (the
    embedding against the switch off) and one 8-token request per format
@@ -289,6 +306,13 @@ QMM_ATOL_F32 = 1e-4   # of max|plain|
 QMM_TOL_BF16 = (2.0 ** -8, 2.0 ** -7)   # (atol of max|plain|, rtol)
 QUANT_CALLS = 6       # whisper_full calls of each quantized encode path
 VARIANT_CALLS = 4     # whisper_full calls under each encoder attention variant (4f)
+# encoder depth of the cut checkpoint, which the phases after 4h load (4c,
+# 4j, 4k), and decoder depth of the quantized audio -> text paths (4d, 4e):
+# their loads, quantizations, subprocesses, eager and teacher-forced passes
+# and profiles cost host seconds in proportion to depth, and nothing they
+# check depends on it
+CUT_LAYERS = 8
+QUANT_DEC_LAYERS = 8
 QDEC_PARITY_PREFILL, QDEC_PARITY_STEPS = 16, 4
 INT8_PARITY_STEPS = 2  # mode "int8" parity: the prefill and one cached step
 FUSED_FLIPS = 2       # bf16 roundings of gated that may fall the other way, per output
@@ -313,6 +337,8 @@ PARALLEL_COS_MIN = 0.9999     # full_parallel's chunks against B = 1 encodes
 HF_TOKENS = 8                 # new tokens of the HF-loaded request, card and CPU
 HF_PROMPT = 16                # its prompt: token embeddings, no audio
 W8A8_M = (1, 8, 64, 1500)
+STACKS_AFTER_S = 1100.0       # seconds of a run after which it prints its stacks
+SUBPROCESS_S = 300            # deadline of each command-line subprocess (each takes ~20 s)
 
 
 class SmokeFailure(RuntimeError):
@@ -2466,24 +2492,33 @@ def _decode_steps(params, cfg, x, steps: int, dev, toks=None) -> tuple[list, lis
 # phase 4: the main path
 # --------------------------------------------------------------------------- #
 
-def run_main_path(hp, calls: int, workdir: str) -> dict:
+def write_random_checkpoint(workdir: str, hp, what: str) -> str:
+    """A random-weight (seed 0) F16 checkpoint of ``hp`` written by the
+    port's ggml writer into ``workdir``; its path."""
     import numpy as np
+    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+    from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
+    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+
+    t0 = time.perf_counter()
+    path = os.path.join(workdir, f"qwen2-audio-random-f16-{hp.n_audio_layer}.bin")
+    write_encoder_checkpoint(path, random_encoder_params(np.random.default_rng(0), hp),
+                             hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
+    log(f"{what}: wrote {os.path.getsize(path) / 1e9:.3f} GB checkpoint "
+        f"({hp.n_audio_layer} layers) in {time.perf_counter() - t0:.1f} s")
+    return path
+
+
+def run_main_path(hp, calls: int, workdir: str) -> dict:
     import torch
     from qwen2_audio_tpu_torch import capi
-    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
     from qwen2_audio_tpu_torch.audio.mel import mel_input_window
-    from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
-    from qwen2_audio_tpu_torch.models.encoder import encoder_forward, random_encoder_params
+    from qwen2_audio_tpu_torch.models.encoder import encoder_forward
     from qwen2_audio_tpu_torch.ops.flash_attention import attention_single
     from qwen2_audio_tpu_torch.ops.mel_kernel import mel_frames
     from qwen2_audio_tpu_torch.runtime.context import ContextParams
 
-    t0 = time.perf_counter()
-    path = os.path.join(workdir, "qwen2-audio-random-f16.bin")
-    write_encoder_checkpoint(path, random_encoder_params(np.random.default_rng(0), hp),
-                             hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
-    log(f"main: wrote {os.path.getsize(path) / 1e9:.3f} GB checkpoint "
-        f"({hp.n_audio_layer} layers) in {time.perf_counter() - t0:.1f} s")
+    path = write_random_checkpoint(workdir, hp, "main")
 
     t0 = time.perf_counter()
     ctx = capi.whisper_init_from_file_with_params(
@@ -2676,11 +2711,13 @@ def _cosine(a, b) -> float:
 
 
 def teacher_forced_logits(bundle, st, params=None, flash: bool = True,
-                          fused: bool | None = None, mode: str | None = None) -> list:
+                          fused: bool | None = None, mode: str | None = None,
+                          embd=None) -> list:
     """The request's prefill and tokens through the decoder on the card, one
     (V,) logits row per step: over ``params`` (default: the bundle's), the
     kernel or the plain attention, the one-launch SwiGLU as it is set or as
-    ``fused`` says, in the group-matmul mode that is set or ``mode``."""
+    ``fused`` says, in the group-matmul mode that is set or ``mode``, the
+    prefill from ``embd`` (default: the request's audio embedding)."""
     import torch
     from qwen2_audio_tpu_torch.models.qwen2_decoder import create_cache, decoder_forward
     from qwen2_audio_tpu_torch.ops.linear import (fused_mlp_enabled, group_matmul_mode,
@@ -2688,7 +2725,8 @@ def teacher_forced_logits(bundle, st, params=None, flash: bool = True,
     from qwen2_audio_tpu_torch.runtime.decoding import _prefill_embeds
 
     params = bundle.params if params is None else params
-    prefill = _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
+    prefill = _prefill_embeds(bundle, bundle.project_audio(
+        st.embd_enc if embd is None else embd), [])
     T0, toks = prefill.shape[1], st.result_tokens
     was, was_mode = fused_mlp_enabled(), group_matmul_mode()
     if fused is not None:
@@ -3221,23 +3259,17 @@ def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool =
 
 
 def run_quant_encode(src_path: str, hp, fmt: str, calls: int, workdir: str):
-    """Quantize the F16 checkpoint with the port's quantize_checkpoint, load
-    it with the block weights kept, and run whisper_full ``calls`` times
-    with the launch counters set to 0 just before and read just after."""
-    import numpy as np
+    """Quantize the F16 checkpoint ``src_path`` (of ``hp``) with the port's
+    quantize_checkpoint, load it with the block weights kept, and run
+    whisper_full ``calls`` times with the launch counters set to 0 just
+    before and read just after."""
     import torch
     from qwen2_audio_tpu_torch import capi
-    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
     from qwen2_audio_tpu_torch.config import GGMLFType
-    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint, write_encoder_checkpoint
-    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
+    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint
     from qwen2_audio_tpu_torch.quant.qparams import payload_form
     from qwen2_audio_tpu_torch.runtime.context import ContextParams
 
-    if src_path is None:   # a shallower source of its own
-        src_path = os.path.join(workdir, f"qwen2-audio-random-f16-{hp.n_audio_layer}.bin")
-        write_encoder_checkpoint(src_path, random_encoder_params(np.random.default_rng(0), hp),
-                                 hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
     t0 = time.perf_counter()
     path = os.path.join(workdir, f"qwen2-audio-random-{fmt}.bin")
     types = quantize_checkpoint(src_path, path, GGMLFType[f"MOSTLY_{fmt.upper()}"])
@@ -3567,9 +3599,11 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int, pool_clips=None) -> dict
                     f"{same}")
                 require(same, f"{what}: final logits differ from the first configuration's")
             else:
-                # another order of sums and roundings in the MLP: the first
-                # configuration's tokens teacher-forced through this one
-                mine = teacher_forced_logits(bundle, first)
+                # another order of sums and roundings in the MLP (and with
+                # dq16 in the encoder): the first configuration's tokens
+                # teacher-forced through this one from this request's own
+                # embedding
+                mine = teacher_forced_logits(bundle, first, embd=st.embd_enc)
                 cos = [_cosine(a, b) for a, b in zip(first_logits, mine)]
                 split, n_ties = first_real_disagreement(first_logits, mine)
                 upto = n_tok if split is None else min(split, n_tok)
@@ -4336,8 +4370,8 @@ CLI_BENCH_KERNELS = ("quant_matmul", "quant_matmul4", "quant_matmul_int8")
 
 def run_cli(workdir: str, model_path: str, hf_dir: str) -> dict:
     """Phase 4j, the port's command line (qwen2_audio_tpu_torch.cli) on the
-    card: ``cli.main.run`` in this process on a 30 s wav with the 32-layer
-    ggml checkpoint of 4a and the full-width depth-2 HF checkpoint of 4h as
+    card: ``cli.main.run`` in this process on a 30 s wav with the cut ggml
+    checkpoint (CUT_LAYERS deep) and the full-width depth-2 HF checkpoint of 4h as
     ``--decoder``, two whisper_full passes (``--bench-iters 2``), greedy
     without the temperature fallback (``-nf``: a fallback samples) and the
     six output files; the launches of the mel, encoder attention, causal
@@ -4434,7 +4468,7 @@ def run_cli(workdir: str, model_path: str, hf_dir: str) -> dict:
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "qwen2_audio_tpu_torch.cli", "-m", model_path,
                         "-f", wav2, "--decoder", hf_dir, "--bench-iters", "1", "-nf", "-otxt",
-                        "-np"], cwd=root, capture_output=True, text=True, timeout=600)
+                        "-np"], cwd=root, capture_output=True, text=True, timeout=SUBPROCESS_S)
     sub_s = time.perf_counter() - t0
     log(f"4j cli subprocess: rc {r.returncode} in {sub_s:.1f} s; stderr tail "
         f"{r.stderr[-300:]!r}")
@@ -4488,6 +4522,258 @@ def run_cli(workdir: str, model_path: str, hf_dir: str) -> dict:
     return {"launches": launches, "bench_launches": bench_launches, "cli_s": cli_s,
             "ms_per_call": ms_per_call, "tokens": len(tokens), "subprocess_s": sub_s,
             "bench_s": bench_s, "gflops": gflops, "seconds": seconds}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4k: remote offload, the C API shim and the debug utilities on the card
+# --------------------------------------------------------------------------- #
+
+SURFACE_PATH = ("mel_log_frames", "attention_single")
+SURFACE_CALLS = 2          # full() passes of each client and of the shim's program
+SERVER_START_S = 180.0     # seconds the RPC server may take to accept a connection
+INSPECT_LAYERS = 4         # depth of the card-against-CPU per-node diff (full width)
+# compare_runs' limits for that diff: float32 on both sides, the card's
+# attention kernel and cuBLAS against the CPU's plain attention and matmuls
+# (the order of the float32 sums differs); phase 3's 2-layer encoder parity
+# bound, and a relative part for the residual stream's growth with depth
+INSPECT_ATOL = PARITY_ATOL
+INSPECT_RTOL = 1e-3
+TRACE_KERNELS = ("mel_log_frames_kernel", "attn_f32_kernel")
+TRACE_CALLS = 2            # whisper_full calls inside the profiler trace
+
+
+def _fingerprints(text: str) -> list[str]:
+    return [ln for ln in text.splitlines() if ln.startswith(" ")]
+
+
+def _connect_when_up(port: int, proc) -> tuple:
+    """A RemoteWhisperContext on the server at ``port`` once it accepts
+    connections, and the seconds that took."""
+    from qwen2_audio_tpu_torch.runtime.rpc import RemoteWhisperContext
+    t0 = time.perf_counter()
+    while True:
+        try:
+            return RemoteWhisperContext.connect(f"127.0.0.1:{port}", timeout_s=10), \
+                time.perf_counter() - t0
+        except OSError:
+            require(proc.poll() is None,
+                    f"4k: the RPC server exited with {proc.returncode} before accepting")
+            require(time.perf_counter() - t0 < SERVER_START_S,
+                    f"4k: the RPC server did not accept within {SERVER_START_S:.0f} s")
+            time.sleep(0.2)
+
+
+def run_surface(workdir: str, model_path: str, hp) -> dict:
+    """Phase 4k, the rest of the port's surface on the card, on the cut
+    checkpoint (``model_path``, F16, CUT_LAYERS deep) and one 30 s clip (a wav, so
+    every client reads the same 16-bit samples), in float32 compute, as the
+    command line and the RPC server default to: a local capi.whisper_full
+    on the card as the reference; ``python -m
+    qwen2_audio_tpu_torch.runtime.rpc`` as a process of its own, which a
+    RemoteWhisperContext connects to (backend "cuda"), loads the checkpoint
+    into and runs full() SURFACE_CALLS times (the embedding and the
+    fingerprint bit-equal to the reference), then native/qa_rpc (built
+    through the port's native.build) and ``python -m
+    qwen2_audio_tpu_torch.cli --rpc`` against it (their fingerprint lines
+    the reference's), then CMD_SHUTDOWN (the server exits 0); the port's C
+    API shim built (native.build_capi) and its command line run on the card
+    (SURFACE_CALLS equal fingerprint lines, the reference's);
+    utils.inspect_graph.encoder_intermediates on the card against the CPU at
+    full width, INSPECT_LAYERS deep, T = 1500 (no node diverges at
+    INSPECT_ATOL / INSPECT_RTOL); utils.profiling.trace around TRACE_CALLS
+    local whisper_full calls (the trace names the mel and the attention
+    kernels). The
+    launches of the mel and encoder attention kernels in this process over
+    the phase, each at least 1 (the server's, in its own process, are shown
+    by its embedding being the kernels' bits)."""
+    import contextlib
+    import dataclasses
+    import io
+    import socket
+
+    import numpy as np
+    import torch
+    from qwen2_audio_tpu_torch import capi, native
+    from qwen2_audio_tpu_torch.audio import read_wav, write_wav
+    from qwen2_audio_tpu_torch.models.encoder import fingerprint, random_encoder_params
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+    from qwen2_audio_tpu_torch.utils import profiling
+    from qwen2_audio_tpu_torch.utils.inspect_graph import (compare_runs, encoder_intermediates,
+                                                           first_divergence)
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(workdir, "surface")
+    os.makedirs(d)
+    wav = os.path.join(d, "clip.wav")
+    write_wav(wav, noisy_tone(30.0, seed=80, freq=410.0))
+    samples, _ = read_wav(wav)
+    params = capi.whisper_full_default_params()
+    counters = _launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    steps = {}
+
+    # the reference: a local context on the card
+    t0 = time.perf_counter()
+    ref = capi.whisper_init_from_file_with_params(model_path, ContextParams(use_gpu=True))
+    require(ref.device.type == "cuda", f"4k: the reference ran on {ref.device}")
+    require(capi.whisper_full(ref, params, samples) == 0, "4k: capi.whisper_full failed")
+    ref_emb = ref.state.embd_enc.cpu().numpy()
+    ref_fp = fingerprint(ref.state.embd_enc)
+    require(ref_emb.shape == (hp.n_audio_ctx // 2, hp.n_audio_state)
+            and bool(np.isfinite(ref_emb).all()), "4k: the reference embedding")
+    steps["reference_s"] = time.perf_counter() - t0
+
+    # the RPC server as its own process, and three clients
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    server_log = open(os.path.join(d, "server.log"), "w")
+    server = subprocess.Popen(
+        [sys.executable, "-m", "qwen2_audio_tpu_torch.runtime.rpc", "--host", "127.0.0.1",
+         "--port", str(port)], cwd=root, stdout=server_log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        cli, up_s = _connect_when_up(port, server)
+        steps["server_up_s"] = up_s
+        require(cli.server_backend == "cuda",
+                f"4k: the RPC server reports backend {cli.server_backend!r}")
+        cli.load_model_file(model_path)
+        remote_ms = []
+        for _ in range(SURFACE_CALLS):
+            t1 = time.perf_counter()
+            require(cli.full(params, samples) == 0, "4k: the remote full() failed")
+            remote_ms.append((time.perf_counter() - t1) * 1e3)
+        emb = cli.get_emb_enc()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fp = cli.print_emb_enc()
+        cli.close()
+        require(emb.dtype == np.float32 and np.array_equal(emb, ref_emb),
+                "4k: the RPC server's embedding differs from capi.whisper_full's "
+                f"(max_abs {float(np.abs(emb - ref_emb).max()):.3e})")
+        require(fp == ref_fp, "4k: the RPC server's fingerprint differs")
+        steps["rpc_client_s"] = time.perf_counter() - t0
+        log(f"4k rpc: server up in {up_s:.1f} s on {cli.server_devices}; full() "
+            f"{json.dumps([round(v, 1) for v in remote_ms])} ms (host clock, the "
+            f"{os.path.getsize(model_path) / 1e9:.2f} GB "
+            "model sent once before); embedding bit-equal to capi.whisper_full's")
+
+        t0 = time.perf_counter()
+        native.build()
+        qa_rpc = native._BUILD_DIR / "qa_rpc"
+        r = subprocess.run([str(qa_rpc), f"127.0.0.1:{port}", model_path, wav],
+                           capture_output=True, text=True, timeout=SUBPROCESS_S)
+        require(r.returncode == 0, f"4k: native/qa_rpc exited {r.returncode}: {r.stderr[-500:]}")
+        require(r.stdout.strip() == ref_fp.strip(),
+                f"4k: native/qa_rpc's fingerprint {r.stdout.strip()[:60]!r} differs")
+        steps["qa_rpc_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "qwen2_audio_tpu_torch.cli", "-m", model_path,
+                            "-f", wav, "--rpc", f"127.0.0.1:{port}", "-np", "--bench-iters",
+                            str(SURFACE_CALLS)], cwd=root, capture_output=True, text=True,
+                           timeout=SUBPROCESS_S)
+        require(r.returncode == 0, f"4k: the CLI with --rpc exited {r.returncode}: "
+                f"{r.stderr[-500:]}")
+        require(_fingerprints(r.stdout) == [ref_fp] * SURFACE_CALLS,
+                f"4k: the CLI's --rpc fingerprint lines differ: {r.stdout[:300]!r}")
+        steps["cli_rpc_s"] = time.perf_counter() - t0
+
+        from qwen2_audio_tpu_torch.runtime.rpc import RemoteWhisperContext
+        RemoteWhisperContext.connect(f"127.0.0.1:{port}").close(shutdown_server=True)
+        server_rc = server.wait(timeout=60)
+        require(server_rc == 0, f"4k: the RPC server exited {server_rc} after CMD_SHUTDOWN")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        server_log.close()
+    log(f"4k rpc: qa_rpc and the CLI --rpc printed the reference fingerprint; the server "
+        f"exited 0 on CMD_SHUTDOWN ({json.dumps({k: round(v, 1) for k, v in steps.items()})})")
+
+    # the port's C API shim on the card
+    t0 = time.perf_counter()
+    _, program = native.build_capi()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([root] + [p for p in sys.path if p]))
+    r = subprocess.run([str(program), model_path, wav, str(SURFACE_CALLS)], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=SUBPROCESS_S)
+    require(r.returncode == 0, f"4k: the shim's program exited {r.returncode}: {r.stderr[-800:]}")
+    require("asked for the card; context on cuda:0)" in r.stderr,
+            "4k: the shim's context is not on the card (its str(ctx.device) is not cuda:0): "
+            f"{r.stderr[-300:]!r}")
+    require(_fingerprints(r.stdout) == [ref_fp] * SURFACE_CALLS,
+            f"4k: the shim's fingerprint lines differ: {r.stdout[:300]!r}")
+    steps["shim_s"] = time.perf_counter() - t0
+    log(f"4k shim: {program.name} printed {SURFACE_CALLS} reference fingerprint lines in "
+        f"{steps['shim_s']:.1f} s; "
+        + " | ".join(ln.strip() for ln in r.stdout.splitlines() if ln.startswith("Elapsed")))
+
+    # per-node diff of the encoder, the card against the CPU
+    t0 = time.perf_counter()
+    ihp = dataclasses.replace(hp, n_audio_layer=INSPECT_LAYERS)
+    cpu_params = random_encoder_params(np.random.default_rng(81), ihp)
+    card_params = _tree_to(cpu_params, ref.device)
+    mel = np.random.default_rng(82).standard_normal(
+        (1, hp.n_mels, 2 * hp.n_audio_ctx)).astype(np.float32)
+    before = counters["attention_single"].launches
+    card = encoder_intermediates(card_params, torch.from_numpy(mel).to(ref.device), ihp,
+                                 gelu_approximate=True)
+    require(counters["attention_single"].launches - before == INSPECT_LAYERS,
+            "4k: the card's intermediates did not launch the attention kernel per layer")
+    cpu = encoder_intermediates(cpu_params, torch.from_numpy(mel), ihp, gelu_approximate=True)
+    report = compare_runs(cpu, card, rtol=INSPECT_RTOL, atol=INSPECT_ATOL)
+    worst = max(report, key=lambda r: r["max_abs"])
+    div = first_divergence(report)
+    steps["inspect_s"] = time.perf_counter() - t0
+    log(f"4k inspect: {len(report)} nodes, {INSPECT_LAYERS} layers at T = "
+        f"{hp.n_audio_ctx} ({2 * hp.n_audio_ctx} mel frames); worst {worst['node']} max_abs {worst['max_abs']:.3e} "
+        f"(max_rel {worst['max_rel']:.3e}); first divergence {div} at atol {INSPECT_ATOL}, "
+        f"rtol {INSPECT_RTOL}; ln_post max_abs {report[-1]['max_abs']:.3e}")
+    require(div is None, f"4k: the card's encoder diverges from the CPU's at {div}")
+    del card_params
+
+    # the torch.profiler trace of TRACE_CALLS whisper_full calls: every
+    # kernel event by name, beside the launches the wrappers counted (a
+    # session has lost its first kernel events on this card, the first
+    # call's mel kernel among them, so each kernel must show at least once)
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(d, "trace")
+    before = {k: counters[k].launches for k in SURFACE_PATH}
+    with profiling.trace(trace_dir):
+        for _ in range(TRACE_CALLS):
+            with profiling.annotate("qa_whisper_full"):
+                require(capi.whisper_full(ref, params, samples) == 0,
+                        "4k: traced whisper_full")
+    traced = {k: counters[k].launches - before[k] for k in SURFACE_PATH}
+    with open(os.path.join(trace_dir, profiling.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name") or "" for e in events
+               if (e.get("cat") or "").lower() == "kernel"]
+    found = {k: sum(k in n for n in kernels) for k in TRACE_KERNELS}
+    spans = sum(e.get("name") == "qa_whisper_full" and e.get("cat") == "user_annotation"
+                for e in events)
+    steps["trace_s"] = time.perf_counter() - t0
+    log(f"4k trace: {len(events)} events, {len(kernels)} kernel events, {spans} annotated "
+        f"spans; kernel events by name {json.dumps(found)}; launches counted "
+        f"{json.dumps(traced)}")
+    for k, n in found.items():
+        require(n >= 1, f"4k: the trace names no {k}")
+    require(spans == TRACE_CALLS, "4k: the trace lost an annotated span")
+    require(np.array_equal(ref.state.embd_enc.cpu().numpy(), ref_emb),
+            "4k: the traced whisper_full changed the embedding")
+
+    launches = {k: counters[k].launches for k in SURFACE_PATH}
+    for k in SURFACE_PATH:
+        require(launches[k] >= 1, f"4k: {k} was not launched in the phase: {launches}")
+    capi.whisper_free(ref)
+    del ref
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"4k: {seconds:.1f} s in all; launches in this process {json.dumps(launches)}")
+    return {"launches": launches, "steps": steps, "remote_ms": remote_ms,
+            "inspect_worst": {k: worst[k] for k in ("node", "max_abs", "max_rel")},
+            "seconds": seconds}
 
 
 # --------------------------------------------------------------------------- #
@@ -4906,17 +5192,16 @@ TP_PATH = {   # phase 4i: the kernels its TP runs must launch, by counter name
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="encoder depth of the main-path checkpoint (full: 32)")
+                    help="encoder depth of the main-path checkpoint, phases 4a-4h "
+                         "(full: 32; 4c, 4j and 4k take at most CUT_LAYERS)")
     ap.add_argument("--calls", type=int, default=8,
                     help="encode-path whisper_full calls; the first is warm-up, "
                          "the median of the rest is reported")
     ap.add_argument("--dec-layers", type=int, default=28,
-                    help="decoder depth of the audio -> text path (full: 28)")
+                    help="decoder depth of the audio -> text paths (full: 28; the q8_0 "
+                         "and q4_0 ones of 4d and 4e take at most QUANT_DEC_LAYERS)")
     ap.add_argument("--new-tokens", type=int, default=32,
                     help="new tokens per audio -> text request")
-    ap.add_argument("--q4-layers", type=int, default=32,
-                    help="encoder depth of the q4_0 checkpoint (full: 32; the q8_0 "
-                         "one has --layers)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phases 1 and 2 (build, kernels against their plain "
                          "versions) and print no result lines")
@@ -4924,6 +5209,10 @@ def main(argv=None) -> int:
                     help="run phase 1 (the build) and phase 4j (the command line and the "
                          "mul_mat bench, on checkpoints it writes) alone and print no "
                          "result lines")
+    ap.add_argument("--surface-only", action="store_true",
+                    help="run phase 1 (the build) and phase 4k (remote offload, the C API "
+                         "shim, the debug utilities, on the checkpoint it writes) alone and "
+                         "print no result lines")
     ap.add_argument("--tp-only", action="store_true",
                     help="run phase 1 (the build) and phase 4i (tensor parallelism, "
                          "training) alone and print no result lines")
@@ -4939,6 +5228,9 @@ def main(argv=None) -> int:
     from qwen2_audio_tpu_torch import capi
     from qwen2_audio_tpu_torch.config import WHISPER_PRESETS, Qwen2DecoderConfig
 
+    import faulthandler
+    # every thread's stack on stderr if a run nears its time limit
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     try:
@@ -4951,20 +5243,23 @@ def main(argv=None) -> int:
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
         tp_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=TP_LAYERS)
-        if args.cli_only:
-            import numpy as np
-            from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
-            from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
-            from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
-            hp = dataclasses.replace(full, n_audio_layer=args.layers)
+        cut_hp = dataclasses.replace(full, n_audio_layer=min(CUT_LAYERS, args.layers))
+        if args.cli_only or args.surface_only:
             with tempfile.TemporaryDirectory() as workdir:
-                path = os.path.join(workdir, "qwen2-audio-random-f16.bin")
-                write_encoder_checkpoint(path, random_encoder_params(np.random.default_rng(0), hp),
-                                         hp, mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
-                hf = os.path.join(workdir, "hf_qwen2_audio")
-                write_hf_checkpoint(hf, dataclasses.replace(full, n_audio_layer=2), two, device)
-                stamp("checkpoints")
-                cli = run_cli(workdir, path, hf)
+                path = write_random_checkpoint(workdir, cut_hp, "cut")
+                if args.surface_only:
+                    stamp("checkpoint")
+                    surface = run_surface(workdir, path, cut_hp)
+                else:
+                    hf = os.path.join(workdir, "hf_qwen2_audio")
+                    write_hf_checkpoint(hf, dataclasses.replace(full, n_audio_layer=2), two,
+                                        device)
+                    stamp("checkpoints")
+                    cli = run_cli(workdir, path, hf)
+            if args.surface_only:
+                log("summary 4k surface: " + json.dumps(surface))
+                log(f"surface only: phase 4k passed in {time.perf_counter() - t_start:.1f} s")
+                return 0
             log("summary 4j cli: " + json.dumps(cli))
             log(f"cli only: phase 4j passed in {time.perf_counter() - t_start:.1f} s")
             return 0
@@ -5002,6 +5297,8 @@ def main(argv=None) -> int:
         check_quant_decoder_parity(device, two)
         stamp("phase 3")
         dec_cfg = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=args.dec_layers)
+        qdec_cfg = dataclasses.replace(Qwen2DecoderConfig(),
+                                       num_hidden_layers=min(QUANT_DEC_LAYERS, args.dec_layers))
         with tempfile.TemporaryDirectory() as workdir:
             ctx, res = run_main_path(dataclasses.replace(full, n_audio_layer=args.layers),
                                      args.calls, workdir)
@@ -5030,26 +5327,25 @@ def main(argv=None) -> int:
             stamp("phase 4h (w8a8, full_parallel, HF load)")
             capi.whisper_free(ctx)
             torch.cuda.empty_cache()
-            cli = run_cli(workdir, res["path"], os.path.join(workdir, "hf_qwen2_audio"))
+            cut_path = res["path"] if cut_hp.n_audio_layer == args.layers \
+                else write_random_checkpoint(workdir, cut_hp, "cut")
+            cli = run_cli(workdir, cut_path, os.path.join(workdir, "hf_qwen2_audio"))
             stamp("phase 4j")
-            ctx8, enc8 = run_quant_encode(
-                res["path"], dataclasses.replace(full, n_audio_layer=args.layers), "q8_0",
-                QUANT_CALLS, workdir)
+            surface = run_surface(workdir, cut_path, cut_hp)
+            stamp("phase 4k")
+            ctx8, enc8 = run_quant_encode(cut_path, cut_hp, "q8_0", QUANT_CALLS, workdir)
             stamp("phase 4c (q8_0)")
             t8 = time.perf_counter()
-            text8 = run_quant_text(ctx8, dec_cfg, "q8_0", args.new_tokens, pool_clips=clips)
+            text8 = run_quant_text(ctx8, qdec_cfg, "q8_0", args.new_tokens, pool_clips=clips)
             t4h += text8["pool"]["seconds"]
             stamp(f"phase 4d (q8_0; its 4h pool {text8['pool']['seconds']:.1f} s of "
                   f"{time.perf_counter() - t8:.1f})")
-            int8_runs = run_int8_paths(ctx8, dec_cfg, args.new_tokens)
+            int8_runs = run_int8_paths(ctx8, qdec_cfg, args.new_tokens)
             stamp("phase 4e")
             capi.whisper_free(ctx8)
-            ctx4, enc4 = run_quant_encode(
-                res["path"] if args.q4_layers == args.layers else None,
-                dataclasses.replace(full, n_audio_layer=args.q4_layers), "q4_0",
-                QUANT_CALLS, workdir)
+            ctx4, enc4 = run_quant_encode(cut_path, cut_hp, "q4_0", QUANT_CALLS, workdir)
             stamp("phase 4c (q4_0)")
-            text4 = run_quant_text(ctx4, dec_cfg, "q4_0", args.new_tokens)
+            text4 = run_quant_text(ctx4, qdec_cfg, "q4_0", args.new_tokens)
             stamp("phase 4d (q4_0)")
             capi.whisper_free(ctx4)
         t4i = time.perf_counter()
@@ -5102,6 +5398,10 @@ def main(argv=None) -> int:
         k["launches_4j"] = cli["launches"][k["name"]]
     for k in (qmm["quant_matmul"], qmm["quant_matmul4"], int8["quant_matmul_int8"]):
         k["launches_4j"] = cli["bench_launches"][k["name"]]
+    # phase 4k: the launches of rows 1-2 in this process over the phase (the
+    # reference, the per-node diff and the traced call)
+    for k in (mel, attn_bf16):
+        k["launches_4k"] = surface["launches"][k["name"]]
     # phase 4g: the launches of rows 4/5, 6-13 and 17 on the beam and
     # speculative requests (row 4's are 0 on a speculative request: its
     # verify forwards of K + 1 positions take the plain attention, as in JAX)
@@ -5250,6 +5550,7 @@ def main(argv=None) -> int:
     log("summary 4h hf load: " + json.dumps(hf))
     log(f"summary 4h: {t4h:.1f} s in all")
     log("summary 4j cli: " + json.dumps(cli))
+    log("summary 4k surface: " + json.dumps(surface))
     log("summary 4i tp (ranks sharing one card): " + json.dumps(
         {t: {"seconds": w["seconds"], "peak_gib": w["peak_gib"],
              "cases": {n: {k: c[k] for k in ("max_abs", "cos", "rel", "tokens_same",

@@ -6,8 +6,13 @@ printing the 20-float encoder fingerprint each iteration
 files (txt, vtt, srt, lrc, csv, json, wts).
 
 The context runs on the card (cuda:0); ``-ng`` runs it, and loads the
-``--decoder`` checkpoint, on the CPU. ``--rpc`` is refused: the RPC client
-and server are not ported yet (ROADMAP.md, section 1, entry 8 (f)).
+``--decoder`` checkpoint, on the CPU. On the card a deadline
+(utils/watchdog.py, ``DEADLINE_S``) guards the model upload and each file's
+``full`` passes: a hung kernel or device read ends the process. ``--rpc
+HOST:PORT`` offloads the encode to a server
+(``python -m qwen2_audio_tpu_torch.runtime.rpc``, runtime/rpc.py), which
+makes the context on its card, or on its CPU with ``-ng``; a
+``--decoder`` is local-only and is not used with ``--rpc``.
 
 Usage:  python -m qwen2_audio_tpu_torch.cli -m models/ggml-model.bin -f samples/jfk.wav
 """
@@ -15,6 +20,8 @@ Usage:  python -m qwen2_audio_tpu_torch.cli -m models/ggml-model.bin -f samples/
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -107,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="temperature increment for fallback retries (≙ main.cpp:136)")
     a("-debug", "--debug-mode", action="store_true")
     a("--rpc", default=None, metavar="HOST:PORT",
-      help="offload to a remote RPC server (≙ ggml's RPC backend, "
-           "ggml-rpc.cpp); not ported yet, refused")
+      help="offload to a remote qwen2_audio_tpu_torch.runtime.rpc server "
+           "(≙ ggml's RPC backend, ggml-rpc.cpp); -ng asks it for the CPU")
     return p
 
 
@@ -195,11 +202,6 @@ def run(argv: list[str] | None = None):
     if not args.file:
         print("error: no input files specified", file=sys.stderr)
         return 1, None
-    if args.rpc:
-        raise NotImplementedError(
-            "--rpc: the RPC client and server are not ported yet "
-            "(ROADMAP.md, section 1, entry 8 (f))")
-
     from qwen2_audio_tpu_torch.audio import read_audio
     from qwen2_audio_tpu_torch.io.ggml_format import read_ggml_file
     from qwen2_audio_tpu_torch.runtime import ContextParams, WhisperContext
@@ -242,9 +244,31 @@ def run(argv: list[str] | None = None):
                 print(f"warning: unknown -dtw preset '{args.dtw}'; using "
                       "top-half alignment layers", file=sys.stderr)
             cparams.dtw_n_top = -1
-    ctx = WhisperContext(read_ggml_file(args.model), cparams)
+    # the deadline guards device phases only: the host's checkpoint parse,
+    # the decoder load and the output files run unguarded; it is cancelled
+    # on every way out of its block, an exception included
+    def guard(tag: str):
+        if args.rpc or not cparams.use_gpu:
+            return contextlib.nullcontext()
+        from qwen2_audio_tpu_torch.utils.watchdog import DEADLINE_S, guarded
+        return guarded(DEADLINE_S, tag)
 
-    if args.decoder:
+    if args.rpc:
+        from qwen2_audio_tpu_torch.runtime.rpc import RemoteWhisperContext
+        ctx = RemoteWhisperContext.connect(args.rpc)
+        ctx.load_model_file(args.model, cparams)
+        if not args.no_prints:
+            print(f"rpc: offloading to {args.rpc} "
+                  f"(backend {ctx.server_backend})", file=sys.stderr)
+        if args.decoder:
+            print("warning: --decoder is local-only and not used with --rpc "
+                  "(the server encodes) — flag ignored", file=sys.stderr)
+    else:
+        model = read_ggml_file(args.model)       # host-side, unguarded
+        with guard("cli:init"):                  # the upload to the card
+            ctx = WhisperContext(model, cparams)
+
+    if args.decoder and not args.rpc:
         from qwen2_audio_tpu_torch.io.hf import load_qwen2_audio
         # the card by default; -ng loads onto the CPU
         ctx.decoder = load_qwen2_audio(
@@ -273,18 +297,20 @@ def run(argv: list[str] | None = None):
 
         fp = build_full_params(args)
 
-        # benchmark + parity loop (reference main.cpp:573-583)
-        t0 = time.perf_counter()
-        for _ in range(args.bench_iters):
-            if args.processors > 1:
-                rc = ctx.full_parallel(fp, samples, args.processors)
-            else:
-                rc = ctx.full(fp, samples)
-            if rc != 0:
-                print(f"failed to process audio (rc={rc})", file=sys.stderr)
-                return 10, ctx
-            ctx.print_emb_enc()
-        elapsed = time.perf_counter() - t0
+        # benchmark + parity loop (reference main.cpp:573-583), the device
+        # phase of the per-file work, guarded alone
+        with guard(f"cli:full:{os.path.basename(fname)}"):
+            t0 = time.perf_counter()
+            for _ in range(args.bench_iters):
+                if args.processors > 1:
+                    rc = ctx.full_parallel(fp, samples, args.processors)
+                else:
+                    rc = ctx.full(fp, samples)
+                if rc != 0:
+                    print(f"failed to process audio (rc={rc})", file=sys.stderr)
+                    return 10, ctx
+                ctx.print_emb_enc()
+            elapsed = time.perf_counter() - t0
         print(f"Elapsed time is {elapsed:.6f} seconds.")
 
         if ctx.decoder is not None:

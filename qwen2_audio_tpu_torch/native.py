@@ -5,7 +5,13 @@ same sources the JAX package binds, built into the git-ignored native/build
 Every entry point has a host fallback in Python, so the package works
 without the build; the native paths speed up host-side work (wav decode,
 the host mel, bulk quantization of large checkpoints, the memcpy bench).
-None of them touches the card.
+None of them touches the card. The same build makes native/qa_rpc, the C++
+client of the RPC server (runtime/rpc.py).
+
+``build_capi`` builds the port's C API shim (native_src/qa_capi.cpp, which
+embeds Python and delegates to qwen2_audio_tpu_torch.capi) and its command line
+(native_src/main.c) with g++ and ``python3-config --embed``, into the
+kernels' git-ignored build directory (ops/_build.py).
 
 Build:  python -m qwen2_audio_tpu_torch.native   (or: cmake -S native -B native/build)
 """
@@ -13,8 +19,12 @@ Build:  python -m qwen2_audio_tpu_torch.native   (or: cmake -S native -B native/
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shlex
+import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -29,16 +39,89 @@ _LIB_PATHS = [
 _lib = None
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the library with cmake+make; returns the .so path."""
+def build(verbose: bool = False, build_dir: str | Path | None = None) -> Path:
+    """Compile the library (and native/qa_rpc beside it) with cmake+make
+    into ``build_dir`` (default native/build); returns the .so path."""
     src = _REPO / "native"
-    _BUILD_DIR.mkdir(exist_ok=True)
+    out = Path(build_dir) if build_dir is not None else _BUILD_DIR
+    out.mkdir(parents=True, exist_ok=True)
     kw = {} if verbose else {"capture_output": True}
-    subprocess.run(["cmake", "-S", str(src), "-B", str(_BUILD_DIR),
+    # a venv may carry cmake beside its python without it being on PATH
+    cmake = shutil.which("cmake") or str(Path(sys.executable).with_name("cmake"))
+    subprocess.run([cmake, "-S", str(src), "-B", str(out),
                     "-DCMAKE_BUILD_TYPE=Release"], check=True, **kw)
-    subprocess.run(["cmake", "--build", str(_BUILD_DIR), "-j"],
+    subprocess.run([cmake, "--build", str(out), "-j"],
                    check=True, **kw)
-    return _LIB_PATHS[0]
+    return out / "libqa_native.so"
+
+
+CAPI_SRC = Path(__file__).resolve().parent / "native_src"
+
+
+def _python_config() -> str:
+    """The python-config of the running interpreter's version."""
+    name = f"python{sys.version_info.major}.{sys.version_info.minor}-config"
+    for d in (Path(sys.executable).parent,
+              Path(getattr(sys, "_base_executable", sys.executable)).parent):
+        if (d / name).exists():
+            return str(d / name)
+    path = shutil.which(name) or shutil.which("python3-config")
+    if path is None:
+        raise RuntimeError(f"{name} not found: the C API shim needs an embeddable Python")
+    return path
+
+
+def build_capi(verbose: bool = False, build_dir: str | Path | None = None
+               ) -> tuple[Path, Path]:
+    """Build the port's C API shim ``libqa_capi_torch.so`` and its command line
+    ``qa_main_torch`` (``qa_main_torch [-ng] model.bin audio.wav [iters]``)
+    with g++ and ``python3-config --embed --cflags --ldflags``, into a
+    directory named by a hash of the sources under ``build_dir`` (default:
+    the kernels' build directory); a build already there is reused.
+    Returns (library, program). The program's embedded interpreter finds the
+    package and its dependencies through PYTHONPATH."""
+    if build_dir is None:
+        from qwen2_audio_tpu_torch.ops._build import build_dir as kernels_dir
+        build_dir = kernels_dir()
+    pyconf = _python_config()
+    cflags = subprocess.run([pyconf, "--embed", "--cflags"], check=True,
+                            capture_output=True, text=True).stdout
+    ldflags = subprocess.run([pyconf, "--embed", "--ldflags"], check=True,
+                             capture_output=True, text=True).stdout
+    want = f"-lpython{sys.version_info.major}.{sys.version_info.minor}"
+    if want not in ldflags.split():
+        raise RuntimeError(f"{pyconf} --embed --ldflags gives {ldflags.strip()!r}, "
+                           f"not {want}")
+    sources = [CAPI_SRC / "qa_capi.cpp", CAPI_SRC / "main.c"]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + (cflags + ldflags).encode()).hexdigest()[:16]
+    out = Path(build_dir) / f"capi-{digest}"
+    lib, program = out / "libqa_capi_torch.so", out / "qa_main_torch"
+    if lib.exists() and program.exists():
+        return lib, program
+    tmp = Path(build_dir) / f"capi-{digest}.{os.getpid()}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    ld = shlex.split(ldflags)
+    rpaths = [f"-Wl,-rpath,{f[2:]}" for f in ld if f.startswith("-L")]
+    kw = {} if verbose else {"capture_output": True, "text": True}
+    steps = [
+        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", *shlex.split(cflags),
+         str(sources[0]), "-o", str(tmp / lib.name), *ld, *rpaths, "-lpthread"],
+        ["gcc", "-O2", str(sources[1]), "-o", str(tmp / program.name),
+         f"-L{tmp}", "-lqa_capi_torch", "-Wl,-rpath,$ORIGIN"],
+    ]
+    for cmd in steps:
+        r = subprocess.run(cmd, **kw)
+        if r.returncode != 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise RuntimeError(f"{cmd[0]} failed building the C API shim:\n"
+                               f"{getattr(r, 'stdout', '')}{getattr(r, 'stderr', '')}")
+    try:
+        os.rename(tmp, out)
+    except OSError:        # another process finished the same build first
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib, program
 
 
 def load(auto_build: bool = False):
@@ -209,3 +292,4 @@ def bench_memcpy_gbps(bytes_: int = 1 << 30, n_threads: int = 1) -> float:
 if __name__ == "__main__":
     print("built:", build(verbose=True))
     print("version:", load().qa_version())
+    print("C API shim:", *build_capi(verbose=True))

@@ -178,14 +178,57 @@ def test_cli_errors(assets, capsys):
     assert "no input files" in capsys.readouterr().err
     assert tcli.main(["-m", assets["model"], "-f", assets["wav"], "-di", "-tdrz", "-ng"]) == 1
     assert "cannot use both" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match=r"entry 8 \(f\)"):
-        tcli.main(["-m", assets["model"], "-f", assets["wav"], "--rpc", "localhost:1"])
+    # --rpc connects before anything else: no server on the port, no run
+    with pytest.raises(ConnectionRefusedError):
+        tcli.main(["-m", assets["model"], "-f", assets["wav"], "--rpc", "127.0.0.1:1"])
 
 
 def test_cli_runs_on_the_card_by_default(assets, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["-m", assets["model"], "-f", assets["wav"], "--bench-iters", "1", "-np"])
+
+
+@pytest.mark.parametrize("fail_in", ["init", "full"])
+def test_cli_watchdog_cancelled_when_the_card_phase_raises(assets, monkeypatch, fail_in):
+    """run() is an in-process API: a guarded phase that raises must cancel
+    its deadline, else a daemon thread ends the host process later."""
+    import threading
+
+    import qwen2_audio_tpu_torch.runtime as truntime
+
+    def _guards():
+        return [t for t in threading.enumerate()
+                if t.name.startswith("watchdog:cli:") and t.is_alive()]
+
+    seen = []
+
+    class Failing:
+        def __init__(self, model, cparams):
+            assert cparams.use_gpu
+            seen.append([t.name for t in _guards()])
+            if fail_in == "init":
+                raise RuntimeError("upload failed")
+
+        def full(self, fp, samples):
+            # the upload's deadline was cancelled: its thread ends on its own
+            for t in _guards():
+                if t.name == "watchdog:cli:init":
+                    t.join(timeout=5.0)
+            seen.append([t.name for t in _guards()])
+            raise RuntimeError("kernel failed")
+
+    monkeypatch.setattr(truntime, "WhisperContext", Failing)
+    with pytest.raises(RuntimeError, match="failed"):
+        tcli.run(["-m", assets["model"], "-f", assets["wav"], "--bench-iters", "1", "-np"])
+    # each phase ran under its own armed deadline ...
+    want = [["watchdog:cli:init"]] + ([["watchdog:cli:full:in.wav"]] if fail_in == "full"
+                                      else [])
+    assert seen == want
+    # ... and none is left armed after the exception
+    for t in _guards():
+        t.join(timeout=5.0)
+    assert _guards() == []
 
 
 def test_cli_residual_flags_warn(assets, capsys):

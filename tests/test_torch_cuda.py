@@ -1301,3 +1301,43 @@ def test_cli_on_card_matches_capi(device, tmp_path, capsys):
     (tmp_path / "ref").mkdir()
     [txt] = write_outputs(str(tmp_path / "ref" / "clip.wav"), ref.state.segments, args)
     assert (tmp_path / "clip.txt").read_bytes() == open(txt, "rb").read()
+
+
+def test_rpc_round_trip_on_card(device, tmp_path):
+    """The port's RPC server in this process and its client, the context on
+    the card (the client's default ContextParams): the server reports
+    "cuda", its connection thread launches the mel and encoder attention
+    kernels, and the embedding it returns is bit-equal to a local
+    capi.whisper_full on the card (float32 on both sides)."""
+    from qwen2_audio_tpu_torch.ops import launch_counters
+    from qwen2_audio_tpu_torch.runtime import RemoteWhisperContext, RpcServer
+
+    hp = WhisperHParams(n_vocab=64, n_audio_state=128, n_audio_head=2, n_audio_layer=2,
+                        n_mels=80)
+    model = str(tmp_path / "model.bin")
+    write_encoder_checkpoint(model, random_encoder_params(np.random.default_rng(0), hp), hp,
+                             mel_filterbank(80), [b"a"])
+    pcm = chip_smoke.noisy_tone(3.0, seed=9)
+    srv = RpcServer("127.0.0.1", 0)
+    srv.start_background()
+    try:
+        counters = launch_counters()
+        names = ("mel_log_frames", "attention_single")
+        before = {k: counters[k].launches for k in names}
+        cli = RemoteWhisperContext.connect(f"127.0.0.1:{srv.port}")
+        assert cli.server_backend == "cuda"
+        assert cli.server_devices == [torch.cuda.get_device_name(0)]
+        cli.load_model_file(model)
+        for _ in range(2):
+            assert cli.full(capi.whisper_full_default_params(), pcm) == 0
+        emb, fp = cli.get_emb_enc(), cli.print_emb_enc()
+        cli.close()
+        assert all(counters[k].launches > before[k] for k in names), \
+            {k: counters[k].launches - before[k] for k in names}
+    finally:
+        srv.shutdown()
+    ref = capi.whisper_init_from_file_with_params(model, ContextParams())
+    assert capi.whisper_full(ref, capi.whisper_full_default_params(), pcm) == 0
+    assert ref.device.type == "cuda"
+    np.testing.assert_array_equal(emb, ref.state.embd_enc.cpu().numpy())
+    assert fp == ref.print_emb_enc()

@@ -83,8 +83,58 @@ def test_surface_modules_are_scanned():
     mods = set(_port_modules())
     for m in ("tokenizer", "capi", "native", "audio", "audio.mp3", "audio.capture", "audio.vad",
               "utils.text", "utils.utf8", "utils.bench_utils", "cli", "cli.__main__", "cli.main",
-              "cli.output_formats", "cli.bench_cli", "cli.transcribe", "cli.stream"):
+              "cli.output_formats", "cli.bench_cli", "cli.transcribe", "cli.stream",
+              "runtime.rpc", "utils.watchdog", "utils.profiling", "utils.inspect_graph"):
         assert f"qwen2_audio_tpu_torch.{m}" in mods, m
+
+
+JAX_PKG = ROOT / "qwen2_audio_tpu"
+# the port's ops.flash_attention is its kernel module, so the JAX ops
+# package's two attention functions are exported by ops.fa_variants
+MOVED = {("ops", "flash_attention"): "ops.fa_variants",
+         ("ops", "flash_attention_encoder"): "ops.fa_variants"}
+
+
+def _exports(init: Path) -> set[str]:
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {a.asname or a.name for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names
+
+
+@pytest.mark.parametrize("init", sorted(JAX_PKG.rglob("__init__.py")),
+                         ids=lambda p: str(p.parent.relative_to(ROOT)))
+def test_package_exports_match_jax(init):
+    """Every name a JAX package's __init__ exports, the port's counterpart
+    exports too (two attention functions by design from ops.fa_variants)."""
+    import importlib
+    rel = init.parent.relative_to(JAX_PKG)
+    sub = ".".join(rel.parts)
+    port = importlib.import_module("qwen2_audio_tpu_torch" + (f".{sub}" if sub else ""))
+    missing = []
+    for name in sorted(_exports(init)):
+        where = MOVED.get((sub, name))
+        mod = importlib.import_module(f"qwen2_audio_tpu_torch.{where}") if where else port
+        if not hasattr(mod, name):
+            missing.append(name)
+    assert not missing, (sub, missing)
+
+
+def test_every_jax_module_has_a_counterpart():
+    jax_mods = {p.relative_to(JAX_PKG) for p in JAX_PKG.rglob("*.py")}
+    port_mods = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    assert not jax_mods - port_mods, sorted(map(str, jax_mods - port_mods))
+
+
+def test_no_module_is_left_unported():
+    """No entry point of the port raises NotImplementedError."""
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in PORT.rglob("*.py")
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if "NotImplementedError" in line]
+    assert not hits, hits
 
 
 def test_import_leaves_jax_out():

@@ -4,7 +4,10 @@ same results with the library and, where it is missing, from each
 package's host fallbacks (monkeypatched absent). Quantization and the wav
 and mp3 readers are bit-equal; the mel within 5e-4 (the JAX test's bound for
 the native mel against the Python one; here the port's plain CPU mel against
-the JAX XLA mel in the fallback)."""
+the JAX XLA mel in the fallback). The library cases load the library the
+session builds for itself, not native/build."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -13,17 +16,21 @@ from qwen2_audio_tpu import native as jnative
 from qwen2_audio_tpu.config import GGMLType
 from qwen2_audio_tpu_torch import native as tnative
 from qwen2_audio_tpu_torch.audio import mel_filterbank, write_wav
+from test_torch_native_builds import native_build
 
 FORMATS = [GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1, GGMLType.Q8_0]
 
 
 @pytest.fixture(params=["library", "fallback"])
-def mode(request, monkeypatch):
-    """Both modules with the library loaded (skipped where it is not built),
-    or with it absent (each package's host fallbacks)."""
+def mode(request, monkeypatch, tmp_path_factory):
+    """Both modules with the library loaded, or with it absent (each
+    package's host fallbacks). The library is the one the test session
+    builds for itself (test_torch_native_builds.native_build), so these
+    cases neither skip nor depend on whether native/build exists yet."""
     if request.param == "library":
-        if tnative.load() is None or jnative.load() is None:
-            pytest.skip("the native library is not built")
+        lib = str(native_build(tmp_path_factory) / "libqa_native.so")
+        monkeypatch.setattr(tnative, "_lib", tnative._bind(ctypes.CDLL(lib)))
+        monkeypatch.setattr(jnative, "_lib", jnative._bind(ctypes.CDLL(lib)))
     else:
         for mod in (tnative, jnative):
             monkeypatch.setattr(mod, "load", lambda auto_build=False: None)
