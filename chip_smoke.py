@@ -11,9 +11,10 @@ before the result lines are printed):
 1. build every CUDA kernel from qwen2_audio_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, and print the card's name and power limit; the
    SASS of every tensor-core kernel is checked (cuobjdump): the bf16
-   attention tile on wgmma, and each fast-mode instantiation of the two
-   M <= 8 weight-streaming kernels (qmm_stream_kernel, swiglu_stream_kernel)
-   on HMMA or HGMMA; the mel kernel on float32 FMA with no HMMA or HGMMA;
+   attention tile on wgmma, and each fast-mode instantiation of the M <= 8
+   weight-streaming matmul (qmm_stream_kernel) and of the one-launch SwiGLU
+   (swiglu_coop_kernel) on HMMA or HGMMA; the mel kernel on float32 FMA with
+   no HMMA or HGMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with stated tolerances (the mel kernel on MEL_CASES,
    each also against the float64 oracle; the decode kernels over a
@@ -31,15 +32,21 @@ before the result lines are printed):
    of the 64-deep stage) in q8_0 (float16 and float32 scales), q4_0 and q6_K,
    float32 x in fast mode, in panels of widths 16, 48 and 432, the K-split
    M <= 8 launch on two streams at once and in a CUDA graph, bit-equal to
-   one stream (ticket counters per stream and per capture), and the M <= 8
+   one stream (ticket counters per stream and per capture), the one-launch
+   SwiGLU's cooperative launch (grid barrier, tile tickets) likewise on two
+   streams at M = 1 and 64 and replayed in a graph at M = 1, 8 and 64, all
+   bit-equal, and the M <= 8
    streaming kernel at M = 1 on that N in panels of 16 and 48; the five
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
-   I = 18944) at M = 1, 7, 64 in both modes and M = 2, 8, 9 in fast mode,
+   I = 18944) at M = 1, 7, 64 in both modes and M = 2, 5, 8, 9, 16, 33 in
+   fast mode (FUSED_ROWS),
    bf16 and float32 x, over q8_0, q6_K, q5_1 (mins), symmetric q4_0 and q4_1
    blocks, the split schema
    bit-equal to the fused one, two runs bit-equal, M = 65 refused; every
-   M <= 8 case of the two timed by CUDA-graph replay (the back-to-back
-   events' figure beside it), with its share of the bound; the
+   M <= 8 case of the streaming matmul and the SwiGLU's FUSED_TIMED_ROWS
+   timed by CUDA-graph replay (the back-to-back events' figure beside it),
+   with its share of the bound, the SwiGLU beside the two-launch path and
+   the path the default takes at that M; the
    exact-integer group matmul: the q8_1 quantizing kernel bit-equal to its
    plain version (M = 1, 7, 752, 1500, bf16 and float32 x, ties and all-zero
    groups), then its three entries (flat int8 values, stacked int8 values
@@ -470,17 +477,20 @@ def check_mel_sass(counts: dict) -> None:
             "mel: the kernel issues tensor-core instructions")
 
 
-# the M <= 8 weight-streaming kernels (fast mode): library, kernel, instantiations
+# the weight-streaming kernels (fast mode): library, kernel, instantiations
+# (qmm_stream_kernel: x type x packed x dq16; swiglu_coop_kernel: x type x
+# packed x mins, at 1 n-tile of 8 rows in fused_mlp and 2, 4 or 8 in
+# fused_mlp_rows)
 STREAM_KERNELS = {"quant_matmul": ("qmm_stream_kernel", 8),
-                  "fused_mlp": ("swiglu_stream_kernel", 8)}
+                  "fused_mlp": ("swiglu_coop_kernel", 8),
+                  "fused_mlp_rows": ("swiglu_coop_kernel", 24)}
 STREAM_SASS_OPS = ("HMMA", "HGMMA", "F2FP", "F2F", "FFMA", "FMUL", "FADD", "PRMT")
 
 
 def check_stream_sass(counts: dict) -> None:
-    """Every fast-mode instantiation of the two M <= 8 weight-streaming
-    kernels (qmm_stream_kernel: x type x packed x dq16; swiglu_stream_kernel:
-    x type x packed x mins) runs its products on the tensor cores: it issues
-    HMMA or HGMMA. Logs each instantiation's counts of the instructions a
+    """Every fast-mode instantiation of the two weight-streaming kernels
+    (STREAM_KERNELS) runs its products on the tensor cores: it issues HMMA
+    or HGMMA. Logs each instantiation's counts of the instructions a
     weight value costs (static counts in the code, not executed ones); fails
     where cuobjdump is missing (empty counts)."""
     for lib, (kernel, want) in STREAM_KERNELS.items():
@@ -716,12 +726,81 @@ def stream_ticket_mismatches(device, fmt: str, rounds: int = 64) -> tuple[int, i
     return sum(not torch.equal(o, ref) for o in outs), len(outs)
 
 
+def swiglu_stream_mismatches(device, fmt: str, rounds: int = 32,
+                             dims=(3584, 18944)) -> tuple[int, int]:
+    """The one-launch SwiGLU (cooperative: a grid barrier, tile tickets) at
+    M = 1 and 64, ``rounds`` launches on each of two streams queued behind a
+    sleep on each so that they run at once: (outputs that differ from the
+    single-stream one's bits, outputs). Each stream counts on a ticket array
+    of its own."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import fused_mlp as fm
+    D, I = dims
+    gu, dn = _rand_mlp(device, D, I, D, fmt, seed=72)
+    order = ("qs4", "scales") if fmt == "q4_0" else ("qs", "scales")
+    entry = fm.fused_mlp4_sym_stacked if fmt == "q4_0" else fm.fused_mlp_stacked
+    args = [w[k] for w in (gu, dn) for k in order]
+    bad = total = 0
+    for M in (1, 64):
+        x = torch.randn(M, D, generator=torch.Generator(device=device).manual_seed(73 + M),
+                        device=device).to(torch.bfloat16)
+        ref = entry(x, *args, 1, fast=True)
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(device) for _ in range(2)]
+        outs = []
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(int(1e8))
+        for _ in range(rounds):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    outs.append(entry(x, *args, 1, fast=True))
+        torch.cuda.synchronize()
+        bad += sum(not torch.equal(o, ref) for o in outs)
+        total += len(outs)
+    return bad, total
+
+
+def swiglu_graph_mismatches(device, M: int, dims=(3584, 18944)) -> tuple[int, int]:
+    """The one-launch SwiGLU at M rows captured three times in a CUDA graph
+    (on a side stream, after a warm-up) and replayed three times: (replayed
+    outputs that differ from the eager call's bits, outputs)."""
+    import torch
+    from qwen2_audio_tpu_torch.ops import fused_mlp as fm
+    D, I = dims
+    gu, dn = _rand_mlp(device, D, I, D, "q8_0", seed=74)
+    args = [w[k] for w in (gu, dn) for k in ("qs", "scales")]
+    x = torch.randn(M, D, generator=torch.Generator(device=device).manual_seed(75),
+                    device=device).to(torch.bfloat16)
+    ref = fm.fused_mlp_stacked(x, *args, 1, fast=True)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        fm.fused_mlp_stacked(x, *args, 1, fast=True)
+        with torch.cuda.graph(graph):
+            outs = [fm.fused_mlp_stacked(x, *args, 1, fast=True) for _ in range(3)]
+    bad = 0
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        bad += sum(not torch.equal(o, ref) for o in outs)
+    return bad, 3 * len(outs)
+
+
 def check_stream_tickets(device) -> None:
     for fmt in ("q8_0", "q4_0"):
         bad, total = stream_ticket_mismatches(device, fmt)
         log(f"tickets {fmt}: {total} K-split launches on two streams and in a graph, "
             f"{bad} not bit-equal to the single-stream output")
         require(bad == 0, f"tickets {fmt}: {bad} of {total} outputs differ")
+        bad, total = swiglu_stream_mismatches(device, fmt)
+        log(f"tickets {fmt}: {total} one-launch SwiGLU launches (M = 1, 64) on two streams, "
+            f"{bad} not bit-equal to the single-stream output")
+        require(bad == 0, f"SwiGLU tickets {fmt}: {bad} of {total} outputs differ")
+    for M in (1, 8, 64):
+        bad, total = swiglu_graph_mismatches(device, M)
+        log(f"graph: the one-launch SwiGLU at M = {M} replayed {total} times, {bad} not "
+            "bit-equal to the eager call")
+        require(bad == 0, f"SwiGLU graph M = {M}: {bad} of {total} replays differ")
 
 
 def _attn_case(device, dtype, B, H, Hkv, T, d, kv_valid, fused, seed):
@@ -2013,13 +2092,21 @@ def _rand_mlp(device, K: int, I: int, D: int, fmt: str, seed: int, layers: int =
     return out
 
 
+# rows the one-launch SwiGLU is checked at (fast mode; the exact mode at 1, 7
+# and 64) and timed at (q8_0 and q4_0, bf16 x), against the two-launch path
+FUSED_ROWS = (1, 2, BEAM, 7, 8, 9, 16, 33, 64)
+FUSED_TIMED_ROWS = (1, 2, BEAM, 8, 9, 16, 64)
+
+
 def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
     """The five one-launch SwiGLU entries against the plain version at the
-    decoder's width; returns the kernels line's entry (q8_0, M = 1)."""
+    decoder's width; returns the kernels line's entry (q8_0, M = 1) with the
+    other timed rows beside it."""
     import torch
     import torch.nn.functional as F
     from qwen2_audio_tpu_torch.ops import fused_mlp as fm
     from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    from qwen2_audio_tpu_torch.ops.linear import _fused_form
 
     bf, f32 = torch.bfloat16, torch.float32
     D, I = dims
@@ -2041,10 +2128,10 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
         d_l = tuple(dn[k][li] for k in order)
         group = D // gu["scales"].shape[1]
         worst = 0.0
-        # M = 2, 5, 8 and 9 only in fast mode: the exact mode keeps its kernel
+        # the other rows only in fast mode: the exact mode keeps its kernel
         n_cases = 0
         for ci, (M, dtype, fast) in enumerate(
-                (M, dtype, fast) for M in (1, 2, BEAM, 7, 8, 9, 64) for dtype in (bf, f32)
+                (M, dtype, fast) for M in FUSED_ROWS for dtype in (bf, f32)
                 for fast in (True, False) if fast or M in (1, 7, 64)):
             n_cases += 1
             gen = torch.Generator(device=device).manual_seed(140 + 10 * fi + ci)
@@ -2080,14 +2167,15 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                     tuple(gu[k][..., I:].contiguous() for k in order),
                     tuple(dn[k] for k in order), li, packed=packed, fast=fast)
                 require(torch.equal(split, got), f"{what}: the split schema differs")
-            if not (M in (1, BEAM, 8, 9, 64) and dtype == bf and fast
+            if not (M in FUSED_TIMED_ROWS and dtype == bf and fast
                     and fmt in ("q8_0", "q4_0")):
                 continue
-            # M = 1 times (and the beam step's M = 5, a verify forward's 8 and
-            # 9, the kernel's path above 8 rows): the kernel, its bound (every
-            # leaf once, x in, y out), the plain version, three matmuls on the
-            # dequantized bf16 weights around SiLU * up (never called by the
-            # port), and the two-launch path the kernel replaces
+            # the decode step's M = 1, a pool step's 2 to 8, the beam step's 5,
+            # a verify forward's 8 and 9, and 16 and 64 (the speculative pool's
+            # verify): the kernel, its bound (every leaf once, x in, y out),
+            # the plain version, three matmuls on the dequantized bf16 weights
+            # around SiLU * up (never called by the port), the two-launch path
+            # the kernel replaces, and which of the two the default takes
             nbytes = sum(t.numel() * t.element_size() for t in g_l + u_l + d_l) \
                 + (x.numel() + got.numel()) * x.element_size()
             b_ms, b_by = bound(2.0 * M * 3 * D * I, nbytes, PEAK_BF16)
@@ -2106,11 +2194,14 @@ def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
                  "library_ms": time_ms(lambda: (F.silu(x @ wg) * (x @ wu)) @ wd, iters=20),
                  "two_launch_ms": graph_ms(unfused)}
             t["bound_share"] = b_ms / t["ms"]
+            t["default"] = "one-launch" if _fused_form(x, (gu, dn)) is not None \
+                else "two-launch"
             del wg, wu, wd
             log(f"{what}: " + json.dumps(t) + f" ({nbytes / 1e6:.1f} MB)")
             if M != 1:
                 by_m[f"{fmt} M{M}"] = {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
-                                                            "library_ms", "two_launch_ms")}
+                                                            "library_ms", "two_launch_ms",
+                                                            "default")}
             elif fmt == "q8_0":
                 line = {"name": "fused_mlp", "route": "cuda",
                         "source": "qwen2_audio_tpu_torch/csrc/fused_mlp.cu",

@@ -436,8 +436,8 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
             plan = getattr(fm, "swiglu_plan", None)
             if plan is not None:
                 t["plan"] = {k: v for k, v in plan(M, D, I, dn[key_q].shape[-1],
-                                                   qm.sm_count(device)).items()
-                             if k in ("grid", "slices")}
+                                                   qm.sm_count(device), packed).items()
+                             if k in ("grid", "warps", "splits", "smem")}
             record(f"{fmt} swiglu M={M} K={D} I={I} cold", "", 0, fused(x, *args, 0, fast=True),
                    fm.fused_mlp_plain(x, g_l, u_l, d_l, packed=packed, fast=True), t)
             if M == 1:

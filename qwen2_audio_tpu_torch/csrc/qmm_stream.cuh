@@ -1,5 +1,5 @@
 // The M <= 8 weight-streaming core of quant_matmul.cu (qmm_stream_kernel)
-// and fused_mlp.cu (swiglu_stream_kernel), fast mode: x and each weight
+// and fused_mlp.cu (swiglu_coop_kernel at M <= 8), fast mode: x and each weight
 // rounded once to bf16, products on the tensor cores, float32 sums.
 //
 // What bounds these kernels is the weight bytes, so the design keeps the

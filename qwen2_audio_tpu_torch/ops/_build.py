@@ -63,9 +63,14 @@ SIGNATURES = {
     },
     "fused_mlp": {
         # x, gate (q, scales, mins), up (q, scales, mins), down (q, scales,
-        # mins), out, scratch, M, K, I, D, ld_gu, bi, slices, group, x_bf16,
+        # mins), out, scratch, partial, tickets, M, K, I, D, ld_gu, bi, plan
+        # (7 int32: P, S, units_a, ring_a, ring_b, sg_a, sg_b), group, x_bf16,
         # gu_s_f16, dn_s_f16, packed, off, fast, stream
-        "qa_fused_mlp": [P] * 12 + [I] * 4 + [L] + [I] * 9 + [P],
+        "qa_fused_mlp": [P] * 14 + [I] * 4 + [L, I, P] + [I] * 7 + [P],
+    },
+    "fused_mlp_rows": {
+        # qa_fused_mlp's arguments, fast mode at 9 <= M <= 64
+        "qa_fused_mlp_rows": [P] * 14 + [I] * 4 + [L, I, P] + [I] * 7 + [P],
     },
     "quant_matmul_int8": {
         # x, xq, sx, M, K, x_bf16, transposed, stream

@@ -75,7 +75,7 @@ _STREAM_LEAST = 4     # fast mode: K splits wide weights take all the same
 _MAX_TICKETS = 4096   # fast mode: column groups of a K-split launch
 _TILE = 128           # rows and columns of an M > 8 tile
 _sm_count: dict[int, int] = {}
-_tickets: dict[tuple[int, int, int], torch.Tensor] = {}
+_tickets: dict[tuple[str, int, int, int], torch.Tensor] = {}
 
 
 # --------------------------------------------------------------------------- #
@@ -324,19 +324,22 @@ def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
             "group": group, "ksplit": ksplit, "scratch": scratch}
 
 
-def ticket_array(device: torch.device, stream: int) -> torch.Tensor:
-    """The ticket counters of fast-mode K-split launches on ``stream`` (a
+def ticket_array(device: torch.device, stream: int, kind: str = "quant_matmul") -> torch.Tensor:
+    """The ticket counters of one kernel's launches on ``stream`` (a
     cudaStream_t), or, while a CUDA graph is being captured on it, of the
     launches in that capture: int32 (4096,), made zero once (in a capture,
     by a fill the graph replays before its first launch) and left at zero
-    by each launch's last blocks. Launches on one stream, or in one graph,
-    run one after another, so no two launches in flight at once share an
-    array and no launch pays for zeroing one. An array lives as long as the
-    process (16 KB per stream and per capture)."""
+    by each launch's last blocks. ``kind`` names the kernel that counts on
+    it (the fast-mode K-split launches here, "fused_mlp" for the one-launch
+    SwiGLU's grid barrier and tile tickets), so that two kernels never share
+    an array. Launches on one stream, or in one graph, run one after
+    another, so no two launches in flight at once share an array and no
+    launch pays for zeroing one. An array lives as long as the process (16
+    KB per kernel, stream and capture)."""
     lib = _build.library("quant_matmul")
     cid = ctypes.c_ulonglong(0)
     _build.check(lib.qa_stream_capture_id(stream, ctypes.byref(cid)), "ticket_array")
-    key = (device.index, stream, cid.value)
+    key = (kind, device.index, stream, cid.value)
     if key not in _tickets:
         _tickets[key] = torch.zeros(_MAX_TICKETS, dtype=torch.int32, device=device)
     return _tickets[key]

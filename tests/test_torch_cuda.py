@@ -816,12 +816,13 @@ def test_stream_matmul_rows_match_plain(device, fmt, M):
 
 
 @pytest.mark.parametrize("fmt", ["q8_0", "q4_0", "q4_1", "q6_K"])
-@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 64])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 33, 63, 64])
 def test_stream_swiglu_rows_match_plain(device, fmt, M):
-    """The one-launch SwiGLU's tensor-core kernel (fast mode) at every row
-    count up to 8 and at 9 and 64 (taken 8 rows at a time), at a ragged D =
-    528: within tolerance of the plain version, two runs bit-equal, the split
-    schema bit-equal to the fused one."""
+    """The one-launch SwiGLU's cooperative kernel (fast mode) at every row
+    count up to 8 (per-warp streaming) and at 9, 16, 33, 63 and 64 (all rows
+    at once, 2, 4 or 8 n-tiles), at a ragged D = 528: within tolerance of the
+    plain version, two runs bit-equal, the split schema bit-equal to the
+    fused one."""
     from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
     K, I, D = 512, 1056, 528
     gu, dn = chip_smoke._rand_mlp(device, K, I, D, fmt, seed=63)
@@ -846,6 +847,28 @@ def test_stream_swiglu_rows_match_plain(device, fmt, M):
         tuple(gu[k][..., I:].contiguous() for k in order), tuple(dn[k] for k in order), 1,
         packed=packed, fast=True)
     assert torch.equal(split, got)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_swiglu_captured_replay_is_bit_equal_to_eager(device, M):
+    """The cooperative launch (its grid barrier and tile tickets on the
+    capture's own ticket array) captured in a CUDA graph and replayed: every
+    replay bit-equal to the eager call, at the three row regimes."""
+    from qwen2_audio_tpu_torch.ops import fused_mlp as tfm
+    bad, total = chip_smoke.swiglu_graph_mismatches(device, M, dims=(1536, 8960))
+    assert total == 9 and bad == 0
+    assert tfm.fused_mlp_stacked.launches > 0
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+def test_swiglu_on_two_streams_is_bit_equal(device, fmt):
+    """The cooperative launch many times on two streams at once, queued
+    behind a sleep on each: each stream's launches count on a ticket array
+    of their own (grid barrier and tile tickets), so every output is
+    bit-equal to the single-stream one, at 1 and 64 rows."""
+    bad, total = chip_smoke.swiglu_stream_mismatches(device, fmt, rounds=32,
+                                                     dims=(1536, 8960))
+    assert total == 2 * 2 * 32 and bad == 0
 
 
 # --------------------------------------------------------------------------- #

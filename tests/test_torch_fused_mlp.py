@@ -107,7 +107,7 @@ def _held(got, want, fast, dtype, tx=None, leaves=None):
     assert (np.abs(got - want) <= tol).all(), (np.abs(got - want).max(), top)
 
 
-@pytest.mark.parametrize("m", [1, 7, 64])
+@pytest.mark.parametrize("m", [1, 7, 9, 16, 33, 64])
 @pytest.mark.parametrize("fast,dtype", MODES)
 @pytest.mark.parametrize("fmt", list(KINDS))
 def test_fused_entry_matches_jax(fmt, fast, dtype, m):
@@ -123,7 +123,7 @@ def test_fused_entry_matches_jax(fmt, fast, dtype, m):
         _held(got, want, fast, dtype, tx, _leaves((tgu, tdn), order, li))
 
 
-@pytest.mark.parametrize("m", [1, 7])
+@pytest.mark.parametrize("m", [1, 7, 9])
 @pytest.mark.parametrize("fast,dtype", [(False, "f32"), (True, "bf16")])
 @pytest.mark.parametrize("fmt", ["Q8_0", "Q4_0", "Q4_1"])
 def test_split_entry_matches_jax(fmt, fast, dtype, m):

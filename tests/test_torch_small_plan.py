@@ -1,9 +1,10 @@
-"""The launch plans of the two M <= 8 weight-streaming kernels in fast mode,
-from shapes alone: the dequantizing matmul's (ops.quant_matmul.stream_plan:
+"""The launch plans of the weight-streaming kernels in fast mode, from shapes
+alone: the dequantizing matmul's at M <= 8 (ops.quant_matmul.stream_plan:
 column groups of 256 and K splits of whole 32-row groups) and the one-launch
-SwiGLU's (ops.fused_mlp.swiglu_plan: slices of I in 32-column units). The
-kernels themselves run only on the card (tests/test_torch_cuda.py); these
-need no device."""
+SwiGLU's at M <= 64 (ops.fused_mlp.swiglu_plan: phase A's 16-column units
+of I, phase B's column tiles and splits of Wd, shared memory, the reckoned
+traffic). The kernels themselves run only on the card
+(tests/test_torch_cuda.py); these need no device."""
 
 import pytest
 import torch
@@ -82,40 +83,72 @@ MLP_SHAPES = [(3584, 18944, 3584), (1536, 8960, 1536), (512, 1056, 528), (64, 96
               (256, 32, 16)]
 
 
+def _covered_once(ranges, size, step):
+    """The ranges, in order, tile [0, size) in whole ``step``s, each once."""
+    cells = [c for a, b in ranges for c in range(a // step, b // step)]
+    assert all(a % step == 0 and b % step == 0 and a < b for a, b in ranges)
+    return sorted(cells) == list(range(size // step))
+
+
 @pytest.mark.parametrize("K,I,D", MLP_SHAPES)
 @pytest.mark.parametrize("M", [1, 2, 7, 8, 9, 33, 64])
 @pytest.mark.parametrize("sms", SMS)
 def test_swiglu_plan_covers_every_unit_of_i_once_and_evenly(K, I, D, M, sms):
     plan = fm.swiglu_plan(M, K, I, D, sms)
     (P,) = plan["grid"]
-    assert P == len(plan["slices"]) and 1 <= P <= min(sms, I // 32)
-    edges = [a for a, _ in plan["slices"]] + [plan["slices"][-1][1]]
-    assert edges[0] == 0 and edges[-1] == I
-    assert all(a < b and a % 32 == 0 for a, b in zip(edges, edges[1:]))
-    widths = [b - a for a, b in plan["slices"]]
-    assert max(widths) - min(widths) <= 32      # SMs within one unit of each other
+    # one cooperative CTA (or two, from 9 to 32 rows) an SM
+    assert P == sms * (2 if 8 < M <= 32 else 1) == len(plan["phase_a"])
+    # phase A: every 16-column unit of I in exactly one pass of one CTA; the
+    # CTAs within one unit of each other, a pass at most 12 units (one pass
+    # at M <= 8) and within its ring slot
+    passes = [r for cta in plan["phase_a"] for r in cta]
+    assert _covered_once(passes, I, 16)
+    owned = [sum(b - a for a, b in cta) // 16 for cta in plan["phase_a"]]
+    assert max(owned) - min(owned) <= 1
+    for cta in plan["phase_a"]:
+        units = sum(b - a for a, b in cta) // 16
+        assert len(cta) == (min(1, units) if M <= 8 else -(-units // 12))
+        assert all((b - a) // 16 <= plan["units_a"] for a, b in cta)
+    # phase B: every (row of I, column of D) of Wd in exactly one task, at
+    # most one task a CTA; the columns in tiles of 16 per warp, the rows in
+    # whole 32-row groups
+    tasks = plan["phase_b"]
+    assert len(tasks) == plan["tiles"] * plan["splits"] <= P
+    cells = [(r, c) for (c0, c1), (r0, r1) in tasks
+             for r in range(r0 // 32, r1 // 32) for c in range(c0 // 16, c1 // 16)]
+    assert len(cells) == len(set(cells)) == (I // 32) * (D // 16)
+    assert all(c1 - c0 <= 16 * plan["warps"] and r0 % 32 == 0 for (c0, c1), (r0, _) in tasks)
+    # a CTA's shared memory within the card's 227 KB
+    assert plan["smem"] <= 232448
 
 
-@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("M", [1, 8, 9, 64])
 @pytest.mark.parametrize("packed,mins", [(False, False), (True, False), (False, True),
                                          (True, True)])
 def test_swiglu_plan_stays_within_its_budgets(M, packed, mins):
     K, I, D = 3584, 18944, 3584
     plan = fm.swiglu_plan(M, K, I, D, 132, packed, mins)
-    (P,) = plan["grid"]
-    assert plan["scratch"] == 4 * P * M * D <= 64 << 20
+    S = plan["splits"]
+    # the scratch: gated in bf16, the splits' float32 sums where I is split
+    assert plan["scratch"] == 2 * M * I + (4 * S * M * D if S > 1 else 0)
     assert plan["smem"] <= 232448
-    # every pair of 64-column blocks of a slice between two barriers where
-    # shared memory holds them (at 64 rows the slices widen past that)
-    widest = max(b - a for a, b in plan["slices"]) // 32
-    assert plan["ucap"] == (-(-widest // 2) if M <= 8 else 3)
-    # at decode rows every SM takes a slice; at 64 rows the budget narrows them
-    assert P == (132 if M <= 8 else (64 << 20) // (M * D * 4))
+    # each weight byte read once: the reckoned traffic (weights, x and y once,
+    # every scratch byte and ticket once) within 1.05 x the weight bytes plus
+    # x and y
+    weights = fm.weight_bytes(K, I, D, packed, mins)
+    assert plan["weights"] == weights
+    assert plan["traffic"] <= 1.05 * weights + 2 * M * (K + D)
+    # the splits fill the card: every CTA a task, as many as the budget keeps
+    assert plan["tiles"] * S <= plan["grid"][0] < plan["tiles"] * (S + 1) or \
+        2 * M * I + 4 * (S + 1) * M * D + plan["tickets"] > 0.05 * weights
 
 
 @pytest.mark.parametrize("M,K,I,D", [(65, 3584, 18944, 3584), (0, 3584, 18944, 3584),
                                      (1, 3600, 18944, 3584), (1, 3584, 18960, 3584),
-                                     (1, 3584, 18944, 3592), (8, 11264, 18944, 3584)])
+                                     (1, 3584, 18944, 3592), (8, 11264, 18944, 3584),
+                                     (9, 3584, 18944, 524288)])
 def test_swiglu_plan_refuses(M, K, I, D):
+    # K = 11264 at 8 rows: x staged whole beside the warps' rings passes the
+    # 227 KB of shared memory; D = 524288: more column tiles than tickets
     with pytest.raises(ValueError):
         fm.swiglu_plan(M, K, I, D, 132)
