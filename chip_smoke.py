@@ -451,17 +451,38 @@ def build() -> float:
     secs = time.perf_counter() - t0
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "setmaxnreg" in line:
+            if any(k in line for k in ("registers", "spill", "setmaxnreg", "C75")):
                 log(f"ptxas[{name}]: {line.strip()}")
-    for name in ("quant_matmul", "quant_matmul_int8"):
-        for fn, n in sass_counts(str(_build._target(name)), ("HGMMA", "IGMMA")).items():
-            log(f"sass[{name}]: {fn}: {n}")
+    for fn, n in sass_counts(str(_build._target("quant_matmul")), ("HGMMA", "IGMMA")).items():
+        log(f"sass[quant_matmul]: {fn}: {n}")
+    check_int8_sass(sass_counts(str(_build._target("quant_matmul_int8")), INT8_SASS_OPS))
     check_attention_sass(sass_counts(str(_build._target("attention_single")),
                                      ("HGMMA", "HMMA")))
     check_stream_sass({name: sass_counts(str(_build._target(name)), STREAM_SASS_OPS)
                        for name in STREAM_KERNELS})
     check_mel_sass(sass_counts(str(_build._target("mel")), ("FFMA", "HMMA", "HGMMA")))
     return secs
+
+
+# the integer group matmul's M > 8 tile: x type x weight form x tile width
+INT8_TILE_KERNELS = 12
+INT8_SASS_OPS = ("HGMMA", "IGMMA", "FFMA", "FMUL", "FADD", "IADD3")
+
+
+def check_int8_sass(counts: dict) -> None:
+    """Every instantiation of the integer matmul's M > 8 tile
+    (qmm8_wgmma_kernel) runs its group dots on wgmma (HGMMA or IGMMA); logs
+    each kernel's static counts of those and of the rescale's instructions
+    (FFMA, FMUL, FADD, IADD3); fails where cuobjdump is missing (empty
+    counts)."""
+    for fn, c in counts.items():
+        log(f"sass[quant_matmul_int8]: {fn}: {c}")
+    tiles = {fn: c.split() for fn, c in counts.items() if "qmm8_wgmma_kernel" in fn}
+    require(len(tiles) == INT8_TILE_KERNELS,
+            f"quant_matmul_int8: {len(tiles)} instantiations of qmm8_wgmma_kernel in the SASS "
+            f"counts, not {INT8_TILE_KERNELS} (cuobjdump missing?)")
+    require(all("HGMMA" in c or "IGMMA" in c for c in tiles.values()),
+            "quant_matmul_int8: an instantiation of qmm8_wgmma_kernel issues no wgmma")
 
 
 def check_mel_sass(counts: dict) -> None:
@@ -1900,10 +1921,12 @@ def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
 def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
     """Rows 14, 15 and 16, the exact-integer group matmul, against their
     plain versions at M = 1, 7, 752, 1500 over the decoder's, the lm_head's
-    and the encoder's K x N; the equalities the design promises (row 14 =
+    and the encoder's K x N, the M > 8 tile's ragged edges, and the beam's
+    M = 5 and a verify's M = 8; the equalities the design promises (row 14 =
     row 15 on the same values, row 16 = row 15 over nibble bytes with off 8
-    on the same bytes, two runs) bit for bit; times beside bound, plain and
-    library. Returns the kernels line's three entries."""
+    on the same bytes, two runs) bit for bit; at M = 1, 5, 8, 752 and 1500
+    times by CUDA-graph replay beside bound, plain and library. Returns the
+    kernels line's three entries."""
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
     from qwen2_audio_tpu_torch.ops import quant_matmul as qm
@@ -2034,21 +2057,21 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
             log(f"{what}: with mins against the dense product: {rel:.3e} of max|ref| "
                 "(q8_1 rounding of x)")
             require(rel <= INT8_REL, f"{what}: the min term is off ({rel})")
-        if line is None and M not in (1, 752, 1500):
+        if line is None and M not in (1, BEAM, 8, 752, 1500):
             continue
-        # time beside the bound (weight + scales + x + out once; 2 M K N int8
-        # operations), the plain version and one torch.matmul on the
-        # dequantized weight in x's type
+        # time by CUDA-graph replay beside the bound (weight + scales + x +
+        # out once; 2 M K N int8 operations), the plain version and one
+        # torch.matmul on the dequantized weight in x's type
         nbytes = (ql.numel() * ql.element_size() + scl.numel() * scl.element_size()
                   + (x.numel() + M * N) * x.element_size())
         b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8)
         vals = q4b.unpack_b32(ql) if form == "qs4b" else ql
         dense = qm.block_weight(vals, scl, packed=form != "qs", off=8 if form == "qs4b" else off
                                 ).to(dtype)
-        t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50),
+        t = {"ms": graph_ms(lambda: entry(x, q, sc, *li, **kw)),
              "plain_ms": time_ms(lambda: plain(x, ql, scl), iters=2, warmup=1),
              "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": time_ms(lambda: x @ dense, iters=10)}
+             "library_ms": graph_ms(lambda: x @ dense)}
         del dense
         log(f"{what}: " + json.dumps(t))
         if line is not None:

@@ -6,7 +6,7 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
-                      [--decode-weights] [--mel-only] [--ckpt FILE]
+                      [--decode-weights] [--mel-only] [--int8-only] [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -52,7 +52,9 @@ the checkpoint included). ``--decode-weights`` times only the M <= 8
 weight-streaming kernels with cold weights (``decode_weights``): each
 decoder projection as a 28-layer stack taken in turn, the lm_head, the
 one-launch SwiGLU beside the two-launch path over the same weights, and
-mode "int8" (and q4_0 words) on the same bytes. Prints one JSON line and,
+mode "int8" (and q4_0 words) on the same bytes. ``--int8-only`` times just
+the exact-integer entries at the encode, prefill and decode shapes (about a
+minute a checkout, the build included). Prints one JSON line and,
 with ``--out``, appends it there. Needs a CUDA device.
 """
 
@@ -104,6 +106,8 @@ def main(argv=None) -> int:
                     help="time only the M <= 8 weight-streaming kernels, cold")
     ap.add_argument("--mel-only", action="store_true",
                     help="time only the log-mel kernel and whisper_full per 30 s clip")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="time only the exact-integer group matmul's paths")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
                     help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
@@ -167,15 +171,16 @@ def main(argv=None) -> int:
             ql, scl = (q[1], sc[1]) if is_stacked else (q, sc)
             entry = stacked if is_stacked else flat
             key = f"{fmt} {path} M={M} K={K} N={N}"
-            t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw))}
-            try:
-                entry(x, q, sc, *li, dq16=True, **kw)
-            except TypeError:
-                pass
-            else:
-                t["dq16_ms"] = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw))
-            record(key, f"{fmt} {path}", layers, entry(x, q, sc, *li, **kw),
-                   plain(x, ql, scl, **kw), t)
+            if not args.int8_only:
+                t = {"ms": time_ms(lambda: entry(x, q, sc, *li, **kw))}
+                try:
+                    entry(x, q, sc, *li, dq16=True, **kw)
+                except TypeError:
+                    pass
+                else:
+                    t["dq16_ms"] = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw))
+                record(key, f"{fmt} {path}", layers, entry(x, q, sc, *li, **kw),
+                       plain(x, ql, scl, **kw), t)
             # the exact-integer group matmul (mode "int8"): q8_0 int8 values,
             # q4_0 as nibble bytes and as int32 words, a flat weight as a
             # one-layer stack where the flat entry takes int8 values only
@@ -198,6 +203,8 @@ def main(argv=None) -> int:
                        {"ms": time_ms(run)})
             del w, q, sc, x, forms
         torch.cuda.empty_cache()
+    if args.int8_only:
+        return emit(args, {"paths_ms": paths, "shapes": shapes})
 
     from qwen2_audio_tpu_torch.ops import flash_attention as fa
     for path, layers, (B, H, Hkv, T, d) in (("attention encode", ENCODER[0], ATT_ENCODE),

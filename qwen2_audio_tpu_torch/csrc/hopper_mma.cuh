@@ -3,8 +3,9 @@
 // attention_single.cu: mbarriers, TMA tile loads and the host-side tensor
 // map, cp.async with zero fill, wgmma descriptors and the wgmma shapes the
 // tiles issue (m64n128k16 bf16 -> f32 from shared memory, m64n64k16 and
-// m64n128k16 bf16 -> f32 with A from registers, m64n128k32 s8 -> s32),
-// setmaxnreg, and the 128-byte swizzle the operands are stored in.
+// m64n128k16 bf16 -> f32 with A from registers, m64n64k16 and m64n128k16
+// f16 -> f32 with A from registers and B MN-major), setmaxnreg, and the
+// 128-byte swizzle the operands are stored in.
 //
 // Operand layout: every shared-memory wgmma operand here has a 128-byte
 // swizzle. A tile of R rows holds 128 bytes per row (64 bf16 or 128 s8
@@ -167,14 +168,17 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
          (1ull << 62);
 }
 
-// descriptor of an MN-major, 128-byte-swizzled tile at p (1024-byte
-// aligned): rows of 128 bytes (64 values of N) walk K, atoms of 8 rows are
-// 1024 bytes apart (the stride byte offset), and the next 64 values of N
-// lie lbo bytes on (the leading byte offset; unused where N is 64)
-__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
-  const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+// descriptor of an MN-major, 128-byte-swizzled tile at shared address addr
+// (1024-byte aligned): rows of 128 bytes (64 values of N) walk K, atoms of 8
+// rows are 1024 bytes apart (the stride byte offset), and the next 64
+// values of N lie lbo bytes on (the leading byte offset; unused where N is
+// 64)
+__device__ __forceinline__ uint64_t wgmma_desc_mn_at(uint32_t addr, uint32_t lbo) {
+  return ((uint64_t)(addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(kSwizzleAtom >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
+  return wgmma_desc_mn_at(smem_u32(p), lbo);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -220,16 +224,6 @@ __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a, uint
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 128, int32) = a (64 x 32 s8) * b (32 x 128 s8), exact, d not read
-__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " QA_OPS64
-      ", %64, %65, p;\n}\n"
-      : QA_R64("+r", d)
-      : "l"(a), "l"(b), "r"(0));
-}
-
 // d (64 x 64, float32) += a (64 x 16 bf16, the register fragment: a[0..3]
 // rows g and g + 8 of the warp's 16, values 2 t4, 2 t4 + 1 and + 8) * b
 // (16 x 64 bf16), b MN-major in shared memory (the transpose bit)
@@ -253,6 +247,31 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_
       ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : QA_R64("+f", d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x N, float32) (+)= a (64 x 16 f16, the register fragment: a[0..3]
+// rows g and g + 8 of the warp's 16, values 2 t4, 2 t4 + 1 and + 8) * b
+// (16 x N f16, MN-major in shared memory: the transpose bit), N 64 or 128;
+// d is added to where accumulate is not 0
+template <int N>
+__device__ __forceinline__ void wgmma_f16_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_f16_rs_mn: N is 64 or 128");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " QA_OPS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : QA_R64("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " QA_OPS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : QA_R32("+f", d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
 }
 
 #undef QA_OPS32
@@ -319,7 +338,7 @@ inline EncodeTiledFn encode_tiled() {
 // of range read as zero.
 inline bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int rank,
                      const long long* dims, const long long* strides, const int* box,
-                     bool swizzle128) {
+                     CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || rank < 1 || rank > 4) return false;
   cuuint64_t d[4], st[3];
@@ -331,19 +350,29 @@ inline bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType typ
     if (i + 1 < rank) st[i] = (cuuint64_t)strides[i];
   }
   return fn(map, type, rank, const_cast<void*>(base), d, st, bx, es,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+inline bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int rank,
+                     const long long* dims, const long long* strides, const int* box,
+                     bool swizzle128) {
+  return make_map(map, base, type, rank, dims, strides, box,
+                  swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // a row-major (rows, cols) matrix with rows ld values apart
 inline bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
                         int elem, long long rows, long long cols, long long ld, int box_cols,
-                        int box_rows, bool swizzle128) {
+                        int box_rows, CUtensorMapSwizzle swizzle) {
   const long long dims[2] = {cols, rows}, strides[1] = {ld * elem};
   const int box[2] = {box_cols, box_rows};
-  return make_map(map, base, type, 2, dims, strides, box, swizzle128);
+  return make_map(map, base, type, 2, dims, strides, box, swizzle);
+}
+inline bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                        int elem, long long rows, long long cols, long long ld, int box_cols,
+                        int box_rows, bool swizzle128) {
+  return make_map_2d(map, base, type, elem, rows, cols, ld, box_cols, box_rows,
+                     swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace qa

@@ -76,8 +76,8 @@ SIGNATURES = {
         # x, xq, sx, M, K, x_bf16, transposed, stream
         "qa_quantize_q8_1": [P] * 3 + [I] * 4 + [P],
         # x, q, scales, out, scratch, xq, sx_t, M, K, N, x_bf16, s_f16, form,
-        # off, ksplit, stream
-        "qa_quant_matmul_int8": [P] * 7 + [I] * 8 + [P],
+        # off, ksplit, bn, ctas, stream
+        "qa_quant_matmul_int8": [P] * 7 + [I] * 10 + [P],
     },
 }
 

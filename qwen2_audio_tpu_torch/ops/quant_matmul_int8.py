@@ -29,9 +29,11 @@ q4_0 stored with mins (-8 * d through the float32 group sums) differ by
 design.
 
 On the card the kernel is bound by the weight bytes at M <= 8 (a decode
-step; the quantization of x is fused into it) and by int8 operations above
-(a quantizing launch, then TMA-fed wgmma s8 tiles); the design notes are in the
-CUDA source. Its float32 sums run in another order than the plain
+step; the quantization of x is fused into it). Above 8 rows a quantizing
+launch is followed by persistent TMA-fed tiles whose group dots run on f16
+wgmma (every operand and partial sum is an exact integer in f16 / float32),
+a launch planned by ``tile_plan``; the design notes are in the CUDA source.
+Its float32 sums run in another order than the plain
 version's, so the two agree to a tolerance, not bit for bit; two runs, a flat
 and a stacked entry on the same values, and the nibble-byte and int32-word
 forms of the same bytes give the same bits.
@@ -44,8 +46,10 @@ from __future__ import annotations
 
 import torch
 
+import functools
+
 from qwen2_audio_tpu_torch.ops import _build
-from qwen2_audio_tpu_torch.ops.quant_matmul import (_SMALL_COLS, _SMALL_M, _TILE, _layer, _nd,
+from qwen2_audio_tpu_torch.ops.quant_matmul import (_SMALL_COLS, _SMALL_M, _layer, _nd,
                                                     _with_mins, sm_count, split_k, unpack4)
 
 GROUP = 32
@@ -55,6 +59,10 @@ _S_TYPES = (torch.float32, torch.float16)
 STRIDED, PACKED, WORDS = 0, 1, 2
 _FORMS = {STRIDED: (torch.int8, 1), PACKED: (torch.uint8, 2), WORDS: (torch.int32, 8)}
 _PLAIN_CHUNK_BYTES = 1 << 28
+# the M > 8 tile (csrc/quant_matmul_int8.cu): rows, values of K a stage,
+# the x, B and raw rings' depths
+TILE_M, STAGE_K, X_STAGES, B_STAGES, RAW_STAGES = 128, 64, 6, 4, 8
+SMEM_LIMIT = 232448   # shared memory a block may use on sm_90
 
 
 # --------------------------------------------------------------------------- #
@@ -154,16 +162,57 @@ def _check(name: str, x, q, sc, form: int, off: int) -> None:
         raise ValueError(f"{name}: off {off}: 0, or 8 for nibbles")
 
 
+def tile_smem(bn: int) -> int:
+    """Shared memory of a bn-wide M > 8 tile, as the kernel's wg_smem lays it
+    out: per x/B stage the f16 x box (128 rows x 64 values of K), the f16 B
+    tile, sx and sw (two groups, float32); per raw stage the widest form's
+    64 rows of bytes and the float32 scales; the barriers; 1024 to align."""
+    groups = STAGE_K // GROUP
+    x_stage = TILE_M * STAGE_K + groups * TILE_M * 4
+    b_stage = STAGE_K * bn * 2 + groups * bn * 4
+    raw_stage = STAGE_K * bn + groups * bn * 4
+    return (X_STAGES * x_stage + B_STAGES * b_stage + RAW_STAGES * raw_stage
+            + (2 * X_STAGES + B_STAGES + 2 * RAW_STAGES) * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(M: int, N: int, sms: int) -> dict:
+    """The persistent M > 8 launch for an (M, N) output: the tile width bn
+    (128, or 64 where that cuts the makespan of the waves, counted in
+    128-column tile times, by at least a fifth, so that the last wave is not
+    thin), the tiles (m tiles, n tiles), one CTA an SM up to the tile count,
+    and shared memory. CTA b takes tiles b, b + ctas, ...; tile t is (m
+    tile t % m tiles, n tile t // m tiles), so the CTAs at work at once
+    share few weight columns and read them from device memory about once."""
+    mt = -(-M // TILE_M)
+
+    def span(bn):   # waves x tile time, in 128-column tiles
+        return -(-(mt * -(-N // bn)) // sms) * bn / 128
+
+    bn = 64 if span(64) <= 0.8 * span(128) else 128
+    tiles = mt * -(-N // bn)
+    return {"bn": bn, "tiles": (mt, -(-N // bn)), "ctas": min(tiles, sms),
+            "stages": (X_STAGES, B_STAGES, RAW_STAGES), "smem": tile_smem(bn)}
+
+
+def cta_tiles(plan: dict, b: int) -> range:
+    """The output tiles CTA b of a "wgmma" plan walks, in order."""
+    mt, nt = plan["tiles"]
+    return range(b, mt * nt, plan["grid"][0])
+
+
 def launch_plan(name: str, x, q, sc, sms: int) -> dict:
     """The kernel's launch for x (M, K) and a weight (K, N) of one form, from
     shapes, types and addresses alone (no device is touched): which kernel
     (``"small"`` at M <= 8, x quantized inside it; ``"wgmma"`` above, after
-    the quantizing launch), its grid, the K split and the buffers the
-    wrapper allocates by name (shape and type): the float32 partial sums of
-    a split, or xq (M, K) and sx transposed (K / 32, M rounded up to 4, so
-    that its rows are 16-byte aligned). Raises for x or scales of another
-    type, N not a multiple of 16, and an input that is not contiguous or not
-    16-byte aligned (nothing is copied)."""
+    the quantizing launch), its grid, the K split, the buffers the wrapper
+    allocates by name (shape and type): the float32 partial sums of a split,
+    or xq (M, K) as float16 values and sx transposed (K / 32, M rounded up to
+    4, so that its rows are 16-byte aligned); and above 8 rows ``tile_plan``'s
+    tile width, tiles, stages and shared memory (``cta_tiles`` lists a CTA's
+    tiles). Raises for x or scales of another type, N not a multiple of 16,
+    and an input that is not contiguous or not 16-byte aligned (nothing is
+    copied)."""
     M, K = x.shape
     N = q.shape[1]
     if x.dtype not in _X_TYPES or sc.dtype not in _S_TYPES:
@@ -180,8 +229,9 @@ def launch_plan(name: str, x, q, sc, sms: int) -> dict:
         bufs = {"scratch": ((ksplit, M, N), torch.float32)} if ksplit > 1 else {}
         return {"kernel": "small", "grid": (-(-N // _SMALL_COLS), ksplit), "M": M, "K": K,
                 "N": N, "ksplit": ksplit, "buffers": bufs}
-    return {"kernel": "wgmma", "grid": (-(-M // _TILE), -(-N // _TILE)), "M": M, "K": K,
-            "N": N, "ksplit": ksplit,
+    tp = tile_plan(M, N, sms)
+    return {"kernel": "wgmma", "grid": (tp["ctas"],), "M": M, "K": K, "N": N, "ksplit": ksplit,
+            "bn": tp["bn"], "tiles": tp["tiles"], "stages": tp["stages"], "smem": tp["smem"],
             "buffers": {"xq": ((M, K), torch.int8),
                         "sx_t": ((K // GROUP, -(-M // 4) * 4), torch.float32)}}
 
@@ -202,7 +252,8 @@ def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
         rc = lib.qa_quant_matmul_int8(
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("scratch"),
             ptr("xq"), ptr("sx_t"), M, K, N, int(x.dtype == torch.bfloat16),
-            int(sc.dtype == torch.float16), form, off, plan["ksplit"],
+            int(sc.dtype == torch.float16), form, off, plan["ksplit"], plan.get("bn", 0),
+            plan["grid"][0] if plan["kernel"] == "wgmma" else 0,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
     return out

@@ -774,6 +774,117 @@ def test_int8_tile_edges_agree_across_forms(device, M):
                                                        w4["scales"], 1))
 
 
+def _int8_into(device, x, q, sc, form, off, out):
+    """The integer matmul's C entry into a given output (the wrapper
+    allocates its own), with the launch plan's buffers."""
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import quant_matmul as tqm_
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    plan = t8.launch_plan("t", x, q, sc, tqm_.sm_count(device))
+    bufs = {k: torch.empty(shape, dtype=dt, device=device)
+            for k, (shape, dt) in plan["buffers"].items()}
+    M, K = x.shape
+    rc = _build.library("quant_matmul_int8").qa_quant_matmul_int8(
+        x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), None, bufs["xq"].data_ptr(),
+        bufs["sx_t"].data_ptr(), M, K, q.shape[1], int(x.dtype == torch.bfloat16),
+        int(sc.dtype == torch.float16), form, off, 1, plan["bn"], plan["grid"][0],
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return plan
+
+
+@pytest.mark.parametrize("M,form", [(9, 0), (65, 1), (129, 2), (753, 0), (753, 1)])
+def test_int8_tile_writes_every_output_over_nan(device, M, form):
+    """The M > 8 tile at ragged M and N (1296 = 10 x 128 + 16) writes every
+    output it owns: an output filled with NaN first is finite everywhere
+    after the launch and equals the wrapper's result bit for bit."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    K, N = 1312, 1296
+    fmt = "q8_0" if form == 0 else "q4_0"
+    w = chip_smoke._rand_blocks(device, K, N, fmt, seed=56 + form)
+    q, sc = (w["qs"] if form == 0 else w["qs4"]), w["scales"]
+    if form == 2:
+        q = tb.pack_b32(q)
+    off = 0 if form == 0 else 8
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(57),
+                    device=device).to(torch.bfloat16)
+    out = torch.full((M, N), float("nan"), dtype=torch.bfloat16, device=device)
+    plan = _int8_into(device, x, q, sc, form, off, out)
+    torch.cuda.synchronize()
+    assert plan["kernel"] == "wgmma" and bool(torch.isfinite(out).all())
+    want = (t8.quant_matmul_int8(x, q, sc) if form == 0 else
+            tb.quant_matmul_q4b_stacked(x, q[None], sc[None], 0) if form == 2 else
+            t8.quant_matmul_int8_stacked(x, q[None], sc[None], 0, off=8))
+    assert torch.equal(out, want)
+
+
+def test_int8_tile_replays_in_a_graph_bit_equal(device):
+    """The persistent tile at M = 752 (gate_up's 37888 columns, K cut to
+    512) captured in a CUDA graph: every replay equals the eager call."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    K, N, M = 512, 37888, 752
+    w = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=58, layers=2)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(59),
+                    device=device).to(torch.bfloat16)
+    eager = t8.quant_matmul_int8_stacked(x, w["qs"], w["scales"], 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        t8.quant_matmul_int8_stacked(x, w["qs"], w["scales"], 1)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = t8.quant_matmul_int8_stacked(x, w["qs"], w["scales"], 1)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+def test_int8_tile_on_two_streams_is_bit_equal(device):
+    """Launches of the persistent tile on two streams at once, queued
+    behind a sleep on each: every output equals the single-stream one."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    K, N, M = 1280, 3840, 1500
+    w = chip_smoke._rand_blocks(device, K, N, "q4_0", seed=60, layers=2)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(61),
+                    device=device).to(torch.bfloat16)
+    want = t8.quant_matmul_int8_stacked(x, w["qs4"], w["scales"], 1, off=8)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(int(1e8))
+    for _ in range(8):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(t8.quant_matmul_int8_stacked(x, w["qs4"], w["scales"], 1, off=8))
+    torch.cuda.synchronize()
+    assert len(outs) == 16 and all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("M,N,tiles", [(1500, 1280, 120), (752, 37888, 1776)])
+def test_int8_tile_counts_below_and_far_above_the_sms(device, M, N, tiles):
+    """120 tiles (the encoder's o and fc2: fewer CTAs than SMs) and 1776
+    (gate_up: 13.5 tiles a CTA), K cut to 512: within tolerance of the plain
+    version, two runs bit-equal."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul as tqm_
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    K = 512
+    w = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=62)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(63),
+                    device=device).to(torch.bfloat16)
+    plan = t8.launch_plan("t", x, w["qs"], w["scales"], tqm_.sm_count(device))
+    assert plan["tiles"][0] * plan["tiles"][1] == tiles
+    assert plan["grid"][0] == min(tiles, tqm_.sm_count(device))
+    got = t8.quant_matmul_int8(x, w["qs"], w["scales"])
+    want = t8.quant_matmul_int8_plain(x, w["qs"], w["scales"])
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(got, t8.quant_matmul_int8(x, w["qs"], w["scales"]))
+
+
 @pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
 def test_k_split_launches_on_two_streams_are_bit_equal(device, fmt):
     """The K-split M = 1 streaming matmul (qkv 3584 -> 4608) launched many

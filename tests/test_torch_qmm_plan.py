@@ -77,6 +77,8 @@ def test_dequantizing_plan_of_panels_reads_the_panel_width():
 
 @pytest.mark.parametrize("M,kernel", [(1, "small"), (9, "wgmma"), (1500, "wgmma")])
 def test_integer_plan_picks_the_kernel_and_buffers(M, kernel):
+    """Above 8 rows, one persistent CTA an SM up to the tile count, over
+    128-row tiles of the width tile_plan picks; xq (int8) and sx transposed."""
     K, N = 1312, 1296
     q, sc = _weight(K, N)
     plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
@@ -84,9 +86,61 @@ def test_integer_plan_picks_the_kernel_and_buffers(M, kernel):
     if kernel == "small":
         assert plan["buffers"] == {"scratch": ((5, 1, N), torch.float32)}
     else:
-        assert plan["grid"] == (-(-M // 128), -(-N // 128))
+        tiles = -(-M // 128) * -(-N // plan["bn"])
+        assert plan["tiles"] == (-(-M // 128), -(-N // plan["bn"]))
+        assert plan["grid"] == (min(tiles, SMS),)
         assert plan["buffers"] == {"xq": ((M, K), torch.int8),
                                    "sx_t": ((K // 32, -(-M // 4) * 4), torch.float32)}
+
+
+# the integer tile's shapes: the decoder's (prefill), the encoder's and the
+# ragged edge case (N a multiple of 16 and not of the tile, K of 32 and not of
+# the stage)
+_INT8_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584),
+                (1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1312, 1296)]
+
+
+@pytest.mark.parametrize("M", [9, 65, 129, 752, 753, 1500])
+@pytest.mark.parametrize("K,N", _INT8_SHAPES)
+def test_integer_tiles_cover_the_output_once(M, K, N):
+    """The CTAs' tile lists (cta_tiles) cover every (m tile, n tile) of the
+    output exactly once, the tiles cover every row and column, and the CTAs
+    at work at once share weight columns (consecutive tiles walk M first)."""
+    q, sc = _weight(K, N)
+    plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
+    mt, nt = plan["tiles"]
+    assert plan["bn"] in (64, 128) and mt * 128 >= M and nt * plan["bn"] >= N
+    assert (mt - 1) * 128 < M and (nt - 1) * plan["bn"] < N
+    seen = [t for b in range(plan["grid"][0]) for t in q8.cta_tiles(plan, b)]
+    assert sorted(seen) == list(range(mt * nt))
+    first_wave = {t // mt for t in range(min(plan["grid"][0], mt * nt))}
+    assert len(first_wave) <= -(-plan["grid"][0] // mt)
+
+
+@pytest.mark.parametrize("M", [9, 752, 1500])
+@pytest.mark.parametrize("K,N", _INT8_SHAPES)
+def test_integer_plan_fits_the_card(M, K, N):
+    """Shared memory within the 232448 bytes a block may use, as many CTAs
+    as fill the card (one an SM) unless there are fewer tiles, and the
+    narrow tile only where it shortens the waves by a fifth or more."""
+    q, sc = _weight(K, N)
+    plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
+    mt, nt = plan["tiles"]
+    assert plan["smem"] == q8.tile_smem(plan["bn"]) <= q8.SMEM_LIMIT
+    assert plan["grid"] == (min(mt * nt, SMS),)
+
+    def span(bn):
+        return -(-(mt * -(-N // bn)) // SMS) * bn
+
+    assert (plan["bn"] == 64) == (span(64) <= 0.8 * span(128))
+
+
+@pytest.mark.parametrize("M,N,bn", [(752, 37888, 128), (752, 3584, 64), (1500, 5120, 128),
+                                     (1500, 1280, 128), (752, 4608, 128)])
+def test_integer_tile_width_of_the_main_shapes(M, N, bn):
+    """gate_up keeps 128 columns (27 narrow waves would save 3.6 %), the int8
+    down and o of the prefill take 64 (168 tiles of 128 are 1.27 waves)."""
+    assert q8.tile_plan(M, N, SMS)["bn"] == bn
 
 
 def _refusals(plan_of):
