@@ -11,10 +11,13 @@ before the result lines are printed):
 1. build every CUDA kernel from qwen2_audio_tpu_torch/csrc with nvcc
    (sm_90a), in parallel, and print the card's name and power limit; the
    SASS of every tensor-core kernel is checked (cuobjdump): the bf16
-   attention tile on wgmma, and each fast-mode instantiation of the M <= 8
-   weight-streaming matmul (qmm_stream_kernel) and of the one-launch SwiGLU
-   (swiglu_coop_kernel) on HMMA or HGMMA; the mel kernel on float32 FMA with
-   no HMMA or HGMMA;
+   attention tile on wgmma, each instantiation of the dequantizing matmul's
+   M > 8 tile (qmm_tile_kernel) on wgmma and not mma.sync, with no ptxas
+   note that it serialized the tile's wgmma (C7518, C7514, C7517; its
+   registers and spills logged), and each fast-mode instantiation of the
+   M <= 8 weight-streaming matmul (qmm_stream_kernel) and of the one-launch
+   SwiGLU (swiglu_coop_kernel) on HMMA or HGMMA; the mel kernel on float32
+   FMA with no HMMA or HGMMA;
 2. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, with stated tolerances (the mel kernel on MEL_CASES,
    each also against the float64 oracle; the decode kernels over a
@@ -26,7 +29,8 @@ before the result lines are printed):
    decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
    and float32 x, q8_0, symmetric q4_0, q4_1 (mins) and q6_K (group 16),
    and at every one of those cases the panel entry of the same weight in
-   contiguous column panels, bit-equal to the strided entry; the edges of the
+   contiguous column panels, bit-equal to the strided entry, each timed
+   case by CUDA-graph replay beside the library call; the edges of the
    large-M wgmma tile: M = 9, 65, 129, 753, a weight of N = 1296 (a multiple
    of 16, not of the tile's 128 columns) and K = 1312 (a multiple of 32, not
    of the 64-deep stage) in q8_0 (float16 and float32 scales), q4_0 and q6_K,
@@ -453,8 +457,8 @@ def build() -> float:
         for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "setmaxnreg", "C75")):
                 log(f"ptxas[{name}]: {line.strip()}")
-    for fn, n in sass_counts(str(_build._target("quant_matmul")), ("HGMMA", "IGMMA")).items():
-        log(f"sass[quant_matmul]: {fn}: {n}")
+    check_tile_ptxas(_build.build_log.get("quant_matmul"))
+    check_tile_sass(sass_counts(str(_build._target("quant_matmul")), TILE_SASS_OPS))
     check_int8_sass(sass_counts(str(_build._target("quant_matmul_int8")), INT8_SASS_OPS))
     check_attention_sass(sass_counts(str(_build._target("attention_single")),
                                      ("HGMMA", "HMMA")))
@@ -462,6 +466,64 @@ def build() -> float:
                        for name in STREAM_KERNELS})
     check_mel_sass(sass_counts(str(_build._target("mel")), ("FFMA", "HMMA", "HGMMA")))
     return secs
+
+
+# the dequantizing matmul's fast M > 8 tile: rows of x a unit (16, 32, 64,
+# 128, 192, 256) x weight form (int8 values, nibbles)
+TILE_KERNELS = 12
+TILE_SASS_OPS = ("HGMMA", "HMMA", "LDSM")
+# ptxas's notes that it serialized a function's wgmma
+WGMMA_SERIAL = ("C7518", "C7514", "C7517")
+
+
+def ptxas_by_function(text: str) -> dict:
+    """{kernel: [ptxas lines]} of a build log (nvcc -Xptxas -v): each line
+    goes to the entry function ptxas was compiling or describing, or to the
+    one it names."""
+    import re
+    out, fn = {}, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) or m.group(2)
+        named = re.search(r"function '([^']+)'", line)
+        out.setdefault(named.group(1) if named and not m else fn, []).append(line.strip())
+    return out
+
+
+def check_tile_ptxas(text) -> None:
+    """The fast M > 8 tile (qmm_tile_kernel): logs each instantiation's
+    registers and spills, and fails on a ptxas note that it serialized the
+    tile's wgmma (WGMMA_SERIAL). Nothing to read where the library was
+    reused from an earlier build."""
+    if text is None:
+        log("ptxas[quant_matmul]: library reused, no build log to check")
+        return
+    tiles = {fn: lines for fn, lines in ptxas_by_function(text).items()
+             if "qmm_tile_kernel" in fn}
+    require(len(tiles) == TILE_KERNELS, f"quant_matmul: ptxas compiled {len(tiles)} "
+            f"instantiations of qmm_tile_kernel, not {TILE_KERNELS}")
+    for fn, lines in tiles.items():
+        for line in lines:
+            if "registers" in line or "spill" in line:
+                log(f"ptxas[quant_matmul]: {fn}: {line}")
+        bad = [line for line in lines if any(c in line for c in WGMMA_SERIAL)]
+        require(not bad, f"quant_matmul: ptxas serialized the wgmma of {fn}: {bad}")
+
+
+def check_tile_sass(counts: dict) -> None:
+    """Every instantiation of the dequantizing matmul's fast M > 8 tile
+    (qmm_tile_kernel) issues wgmma (HGMMA) and no mma.sync; logs the static
+    counts of TILE_SASS_OPS of every kernel of the library; fails where
+    cuobjdump is missing (empty counts)."""
+    for fn, c in counts.items():
+        log(f"sass[quant_matmul]: {fn}: {c}")
+    tiles = {fn: c.split() for fn, c in counts.items() if "qmm_tile_kernel" in fn}
+    require(len(tiles) == TILE_KERNELS,
+            f"quant_matmul: {len(tiles)} instantiations of qmm_tile_kernel in the SASS counts, "
+            f"not {TILE_KERNELS} (cuobjdump missing?)")
+    require(all("HGMMA" in c and "HMMA" not in c for c in tiles.values()),
+            "quant_matmul: an instantiation of qmm_tile_kernel issues no wgmma, or mma.sync")
 
 
 # the integer group matmul's M > 8 tile: x type x weight form x tile width
@@ -1765,14 +1827,15 @@ def check_quant_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_BF16 if fast else PEAK_F32)
         dense = qm.block_weight(ql, scl, packed=packed, off=off).to(dtype)
         big = K * N > 1e8
-        # M <= 8 by graph replay (back-to-back calls are bound by the host's
-        # call rate near 0.1 ms), the events' figure beside it
+        # kernel and library by graph replay (back-to-back calls are bound by
+        # the host's call rate near 0.1 ms), at M <= 8 the events' figure
+        # beside it
         run = lambda: entry(x, q, sc, *li, **kw)   # noqa: E731
-        t = {"ms": graph_ms(run) if M <= 8 else time_ms(run, iters=10),
+        t = {"ms": graph_ms(run),
              "plain_ms": time_ms(lambda: plain(x, ql, scl, **kw), iters=3 if big else 10,
                                  warmup=1),
              "bound_ms": b_ms, "bound_by": b_by,
-             "library_ms": time_ms(lambda: x @ dense, iters=10)}
+             "library_ms": graph_ms(lambda: x @ dense)}
         if M <= 8:
             t["events_ms"] = time_ms(run, iters=50)
             t["bound_share"] = b_ms / t["ms"]
@@ -1874,9 +1937,8 @@ def check_dequant16(device, dims=(3584, 18944, 1280)) -> None:
         if dtype == f32:
             require(moved > atol, f"{what}: dq16 did not change the output")
         if dtype == bf and wname.startswith("gate_up"):
-            t_on = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw),
-                           iters=10 if M > 8 else 50)
-            t_off = time_ms(lambda: entry(x, q, sc, *li, **kw), iters=10 if M > 8 else 50)
+            t_on = graph_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw))
+            t_off = graph_ms(lambda: entry(x, q, sc, *li, **kw))
             log(f"{what}: {t_on:.4f} ms with dq16, {t_off:.4f} ms without")
     del weights
     torch.cuda.empty_cache()

@@ -6,7 +6,8 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
-                      [--decode-weights] [--mel-only] [--int8-only] [--ckpt FILE]
+                      [--decode-weights] [--mel-only] [--int8-only] [--tiles-only]
+                      [--tile-variants] [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -54,7 +55,23 @@ decoder projection as a 28-layer stack taken in turn, the lm_head, the
 one-launch SwiGLU beside the two-launch path over the same weights, and
 mode "int8" (and q4_0 words) on the same bytes. ``--int8-only`` times just
 the exact-integer entries at the encode, prefill and decode shapes (about a
-minute a checkout, the build included). Prints one JSON line and,
+minute a checkout, the build included). ``--tiles-only`` times just the
+dequantizing entries (the M > 8 tile and, at M = 1, the streaming kernel
+whose bits must not move) at the encode, prefill and decode shapes, each
+M > 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
+(``library_ms``), and the lm_head (3584 -> 156032) at M = 64, a speculative
+pool's verify, strided and in panels of 128 (bits compared): path "<fmt>
+lm_head M=64", and then ``whisper_full`` per 30 s clip of the random
+32-layer checkpoint (``--ckpt``) quantized to q8_0 and q4_0 and loaded with
+its block weights kept, host ms and one profiled call's device busy ms
+(about two minutes a checkout, the host's quantizing once a call
+included: the quantized files are kept beside ``--ckpt``). ``--tile-variants`` splits the
+checkout's dequantizing M > 8 tile by scratch variants of its source
+(``TILE_VARIANTS``: the products, the weight's conversion or x's loads
+left out), each built with nvcc and swapped in for the checkout's library,
+timed in turns at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head
+q8_0 M = 64 (their outputs are wrong by design; only "as_is" is held to the
+plain version). Prints one JSON line and,
 with ``--out``, appends it there. Needs a CUDA device.
 """
 
@@ -108,6 +125,10 @@ def main(argv=None) -> int:
                     help="time only the log-mel kernel and whisper_full per 30 s clip")
     ap.add_argument("--int8-only", action="store_true",
                     help="time only the exact-integer group matmul's paths")
+    ap.add_argument("--tiles-only", action="store_true",
+                    help="time only the dequantizing entries and the lm_head at M = 64")
+    ap.add_argument("--tile-variants", action="store_true",
+                    help="time scratch variants of the dequantizing M > 8 tile")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
                     help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
@@ -136,11 +157,13 @@ def main(argv=None) -> int:
                                      .tobytes()).hexdigest()[:16]
         t["max_abs_vs_plain"] = (out.float() - want.float()).abs().max().item()
         shapes[key] = t
-        for k, ms in t.items():
-            if k.endswith("ms") and layers:
-                name = path + (" dq16" if k == "dq16_ms" else "")
-                paths[name] = paths.get(name, 0.0) + layers * ms
+        for k, suffix in (("ms", ""), ("dq16_ms", " dq16"), ("library_ms", " library"),
+                          ("panel_ms", " panels")):
+            if k in t and layers:
+                paths[path + suffix] = paths.get(path + suffix, 0.0) + layers * t[k]
 
+    if args.tile_variants:
+        return emit(args, {"tile_variants": tile_variants(device)})
     if args.mel_only:
         mel_paths(device, record, shapes, args.ckpt)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
@@ -179,8 +202,16 @@ def main(argv=None) -> int:
                     pass
                 else:
                     t["dq16_ms"] = time_ms(lambda: entry(x, q, sc, *li, dq16=True, **kw))
+                if args.tiles_only and M > 8:
+                    dense = qm.block_weight(ql, scl, packed=packed,
+                                            off=8 if packed else 0).to(torch.bfloat16)
+                    t["library_ms"] = time_ms(lambda: x @ dense)
+                    del dense
                 record(key, f"{fmt} {path}", layers, entry(x, q, sc, *li, **kw),
                        plain(x, ql, scl, **kw), t)
+            if args.tiles_only:
+                del w, q, sc, x
+                continue
             # the exact-integer group matmul (mode "int8"): q8_0 int8 values,
             # q4_0 as nibble bytes and as int32 words, a flat weight as a
             # one-layer stack where the flat entry takes int8 values only
@@ -204,6 +235,10 @@ def main(argv=None) -> int:
             del w, q, sc, x, forms
         torch.cuda.empty_cache()
     if args.int8_only:
+        return emit(args, {"paths_ms": paths, "shapes": shapes})
+    if args.tiles_only:
+        lm_head_rows(device, record)
+        quant_encode_paths(shapes, args.ckpt)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
 
     from qwen2_audio_tpu_torch.ops import flash_attention as fa
@@ -232,6 +267,174 @@ def main(argv=None) -> int:
                        "attention edges": edge_shares(device)})
 
 
+# Text edits of csrc/quant_matmul.cu that leave one part of the M > 8 tile
+# out, by the kernel the checkout has: the tile with transform warpgroups
+# (qmm_wgmma_kernel, PR 7) and the transposed tile that dequantizes in the
+# consumers' registers (qmm_tile_kernel). "named" releases the older tile's
+# consumers through named barriers instead of mbarrier spins.
+_OLD_WGMMA = ("      for (int k = 0; k < kWgBK / 16; ++k) wgmma_bf16_n128(acc, a + 2 * k, "
+              "b + 2 * k, 1);", "      ;")
+_OLD_TRANSFORM = ("      dequant_chunk<PACKED, DQ16>(raw_w + slot * kRawW, raw_s + slot * kRawS, "
+                  "s_f16,\n                                          group, zero, c, lane, "
+                  "bs + s * kBBytes);", "      ;")
+_NEW_WGMMA = ("          wgmma_bf16_rs_k<BM>(acc, a[k], xd + 2 * k, kt > t.kt0 || k > 0);",
+              "          pin4(a[k]);")
+_NEW_CONVERT = ("          qt_convert<PACKED>(r, k, qt_scales(sr, k, cl, group, s_f16, dq16), "
+                "zero, a[k]);", "          a[k][0] = r[k]; a[k][1] = r[k + 1]; a[k][2] = r[k] ^ 7u; "
+                "a[k][3] = r[k + 1] ^ 7u;")
+_NEW_X = ("          mbar_expect_tx(&full[s], bytes);\n          tma_load_2d(xs + s * S::kX, "
+          "&xmap, &full[s], kt * kQtK, t.m0);",
+          "          mbar_expect_tx(&full[s], bytes - (kt > t.kt0 ? S::kX : 0));\n"
+          "          if (kt == t.kt0) tma_load_2d(xs + s * S::kX, &xmap, &full[s], kt * kQtK, "
+          "t.m0);")
+TILE_VARIANTS = {
+    "qmm_wgmma_kernel": {
+        "no_wgmma": [_OLD_WGMMA], "no_transform": [_OLD_TRANSFORM],
+        "loads_only": [_OLD_WGMMA, _OLD_TRANSFORM],
+        "named": [("      mbar_arrive(&full_b[s]);\n",
+                   "      mbar_wait(&full_x[s], (kt / kStages) & 1);\n"
+                   "      named_arrive(1 + 2 * s, 384);\n      named_arrive(2 + 2 * s, 384);\n"),
+                  ("      mbar_wait(&full_x[s], par);\n      mbar_wait(&full_b[s], par);\n",
+                   "      (void)par;\n      named_sync(1 + 2 * s + wg, 384);\n")]},
+    "qmm_tile_kernel": {
+        "no_wgmma": [_NEW_WGMMA], "no_conversion": [_NEW_CONVERT],
+        "loads_only": [_NEW_WGMMA, _NEW_CONVERT], "x_once": [_NEW_X]},
+}
+
+
+def tile_variants(device, rounds: int = 2) -> dict:
+    """{variant: {case: [ms per round]}} of the checkout's M > 8 tile and its
+    TILE_VARIANTS, built side by side (one nvcc each, in parallel, with the
+    flags of ops/_build.py) and swapped in for its quant_matmul library in
+    turns, by graph replay; "as_is" also holds its largest distance from
+    the plain version per case, "library" one torch.matmul on the
+    dequantized bf16 weight, and "ptxas" the tile's register, spill and
+    C75xx lines of the unedited build."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from chip_smoke import _rand_blocks
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    src = (_build.CSRC / "quant_matmul.cu").read_text()
+    kernel = next(k for k in TILE_VARIANTS if k in src)
+    texts = {"as_is": src}
+    for name, edits in TILE_VARIANTS[kernel].items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"qmm_ab: variant {name}: {old!r} not in the source")
+            text = text.replace(old, new)
+        texts[name] = text
+    work = tempfile.mkdtemp(prefix="qmm_ab_variants_")
+    jobs = {}
+    for name, text in texts.items():
+        cu = os.path.join(work, f"{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        jobs[name] = subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             os.path.join(work, f"{name}.so"), cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    from chip_smoke import ptxas_by_function
+    libs, notes = {}, {}
+    for name, job in jobs.items():
+        out, _ = job.communicate()
+        if job.returncode != 0:
+            raise RuntimeError(f"qmm_ab: variant {name} failed to build:\n{out[-2000:]}")
+        if name == "as_is":   # the tile's registers, spills and wgmma serialization notes
+            notes = {fn: [ln for ln in lines if "registers" in ln or "spill" in ln or "C75" in ln]
+                     for fn, lines in ptxas_by_function(out).items() if kernel in fn}
+        lib = ctypes.CDLL(os.path.join(work, f"{name}.so"))
+        for fn, argtypes in _build.SIGNATURES["quant_matmul"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    cases = {}
+    for i, (case, K, N, M, stacked) in enumerate((
+            ("gate_up q8_0 M=752", 3584, 37888, 752, True),
+            ("fc1 q8_0 M=1500", 1280, 5120, 1500, False),
+            ("lm_head q8_0 M=64", 3584, 156032, 64, False))):
+        g = torch.Generator(device=device).manual_seed(4000 + i)
+        w = _rand_blocks(device, K, N, "q8_0", 4100 + i, layers=2 if stacked else 0)
+        x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+        ql, sl = (w["qs"][1], w["scales"][1]) if stacked else (w["qs"], w["scales"])
+        run = ((lambda w=w, x=x: qm.quant_matmul_stacked(x, w["qs"], w["scales"], 1, fast=True))
+               if stacked else (lambda w=w, x=x: qm.quant_matmul(x, w["qs"], w["scales"],
+                                                                  fast=True)))
+        cases[case] = (run, x, ql, sl)
+    res = {name: {} for name in libs}
+    for rnd in range(rounds):
+        for name in (list(libs) if rnd % 2 == 0 else list(reversed(list(libs)))):
+            _build._libs["quant_matmul"] = libs[name]
+            for case, (run, x, ql, sl) in cases.items():
+                if rnd == 0 and name == "as_is":
+                    res[name][case + " max_abs_vs_plain"] = (
+                        run().float() - qm.quant_matmul_plain(x, ql, sl, fast=True).float()
+                    ).abs().max().item()
+                res[name].setdefault(case, []).append(time_ms(run))
+    if hasattr(qm, "tile_plan"):   # the unit's rows forced at gate_up
+        _build._libs["quant_matmul"] = libs["as_is"]
+        plan = qm.tile_plan
+        run = cases["gate_up q8_0 M=752"][0]
+        for bm in (128, 192, 256):
+            def forced(M, K, N, sms, bm=bm):
+                p = plan(M, K, N, sms)
+                mt = -(-M // bm)
+                units = mt * p["tiles"][1] * p["ks"]
+                return {**p, "bm": bm, "tiles": (mt, p["tiles"][1]), "units": units,
+                        "ctas": min(units, sms)}
+            qm.tile_plan = forced
+            try:
+                res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
+            finally:
+                qm.tile_plan = plan
+    _build._libs.pop("quant_matmul")
+    res["library"] = {}
+    for case, (run, x, ql, sl) in cases.items():
+        dense = qm.block_weight(ql, sl).to(torch.bfloat16)
+        res["library"][case] = time_ms(lambda: x @ dense)
+        del dense
+    return {"kernel": kernel, "ptxas": notes, **res}
+
+
+def lm_head_rows(device, record, M: int = 64, K: int = 3584, vocab: int = 156032) -> None:
+    """The lm_head at a speculative pool's verify (M = 64 rows) over random
+    q8_0 and symmetric q4_0 blocks, bf16 x, fast mode: the strided entry,
+    the same weight in panels of 128 (its bits compared) and one
+    torch.matmul on the dequantized bf16 weight; paths "<fmt> lm_head
+    M=64"."""
+    import torch
+
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    for fi, fmt in enumerate(("q8_0", "q4_0")):
+        packed = fmt == "q4_0"
+        kw = {"fast": True, **({"off": 8} if packed else {})}
+        g = torch.Generator(device=device).manual_seed(3000 + fi)
+        head = random_quant_linear(g, (K, vocab), fmt)
+        key_q = "qs4" if packed else "qs"
+        q, sc = head[key_q], head["scales"]
+        pw = qm.panelize_weight(head, 128)
+        pq, psc = pw[key_q + "_p"], pw["scales_p"]
+        flat = qm.quant_matmul4 if packed else qm.quant_matmul
+        pflat = qm.quant_matmul_panel4 if packed else qm.quant_matmul_panel
+        plain = qm.quant_matmul4_plain if packed else qm.quant_matmul_plain
+        x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+        got = flat(x, q, sc, **kw)
+        dense = qm.block_weight(q, sc, packed=packed, off=8 if packed else 0).to(torch.bfloat16)
+        record(f"{fmt} lm_head M={M} K={K} N={vocab}", f"{fmt} lm_head M={M}", 1, got,
+               plain(x, q, sc, **kw),
+               {"ms": time_ms(lambda: flat(x, q, sc, **kw)),
+                "panel_ms": time_ms(lambda: pflat(x, pq, psc, **kw)),
+                "panel_equal": bool(torch.equal(pflat(x, pq, psc, **kw), got)),
+                "library_ms": time_ms(lambda: x @ dense)})
+        del head, pw, q, sc, pq, psc, dense
+        torch.cuda.empty_cache()
+
+
 def mel_paths(device, record, shapes: dict, ckpt: str, layers: int = 32,
               calls: int = 8) -> None:
     """The log-mel kernel (TPU row 1) at the encode path's 30 s clip (3002
@@ -240,19 +443,12 @@ def mel_paths(device, record, shapes: dict, ckpt: str, layers: int = 32,
     checkout's capi, host clock (each call ends in a synchronisation), and
     its t_mel_us per call, and the device busy ms of one profiled call, the
     mel kernel's share beside it."""
-    import statistics
-    import time
-
-    import numpy as np
     import torch
 
-    from chip_smoke import noisy_tone, profile_call
+    from chip_smoke import noisy_tone
     from qwen2_audio_tpu_torch import capi
     from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
     from qwen2_audio_tpu_torch.audio.mel import pad_signal
-    from qwen2_audio_tpu_torch.config import WHISPER_PRESETS
-    from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
-    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
     from qwen2_audio_tpu_torch.ops import mel_kernel as mk
     from qwen2_audio_tpu_torch.runtime.context import ContextParams
     for seconds, n_mels in ((30.0, 128), (1.0, 80)):
@@ -263,12 +459,44 @@ def mel_paths(device, record, shapes: dict, ckpt: str, layers: int = 32,
         plain = lambda: mk.mel_frames_plain(x, tables, n)          # noqa: E731
         record(f"mel {seconds:g} s n_mel={n_mels} frames={n}", "", 0, run(), plain(),
                {"ms": time_ms(run), "plain_ms": time_ms(plain), "host_us": host_us(run)})
+    ctx = capi.whisper_init_from_file_with_params(
+        encoder_ckpt(ckpt, layers), ContextParams(compute_dtype=torch.bfloat16))
+    t = whisper_full_ms(ctx, calls, "whisper_full (encode)")
+    prof = t.pop("profile")
+    t["t_mel_us"] = ctx.state.timings.t_mel_us / calls
+    t["device_mel_ms"] = prof and prof["groups"].get("mel_log_frames")
+    shapes[f"whisper_full {layers} layers, 30 s clip"] = t
+    capi.whisper_free(ctx)
+    torch.cuda.empty_cache()
+
+
+def encoder_ckpt(ckpt: str, layers: int = 32) -> str:
+    """The random-weight (seed 0) F16 qwen2-audio checkpoint of ``layers``
+    layers at ``ckpt``, written if missing."""
+    import numpy as np
+
+    from qwen2_audio_tpu_torch.audio.filters import mel_filterbank
+    from qwen2_audio_tpu_torch.config import WHISPER_PRESETS
+    from qwen2_audio_tpu_torch.io.export import write_encoder_checkpoint
+    from qwen2_audio_tpu_torch.models.encoder import random_encoder_params
     hp = dataclasses.replace(WHISPER_PRESETS["qwen2-audio"], n_audio_layer=layers)
     if not os.path.exists(ckpt):
         write_encoder_checkpoint(ckpt, random_encoder_params(np.random.default_rng(0), hp), hp,
                                  mel_filterbank(hp.n_mels), [b"a", b"b", b"ab"])
-    ctx = capi.whisper_init_from_file_with_params(
-        ckpt, ContextParams(compute_dtype=torch.bfloat16))
+    return ckpt
+
+
+def whisper_full_ms(ctx, calls: int, what: str) -> dict:
+    """whisper_full on a 30 s clip ``calls`` times, host clock (each call ends
+    in a synchronisation): the median after the first, every call, and one
+    profiled call's device busy ms."""
+    import statistics
+    import time
+
+    import torch
+
+    from chip_smoke import noisy_tone, profile_call
+    from qwen2_audio_tpu_torch import capi
     clip, params = noisy_tone(30.0, seed=3), capi.whisper_full_default_params()
     per_call = []
     for _ in range(calls):
@@ -277,14 +505,35 @@ def mel_paths(device, record, shapes: dict, ckpt: str, layers: int = 32,
             raise RuntimeError("qmm_ab: whisper_full failed")
         torch.cuda.synchronize()
         per_call.append((time.perf_counter() - t0) * 1e3)
-    t_mel_us = ctx.state.timings.t_mel_us / calls
-    prof = profile_call(lambda: capi.whisper_full(ctx, params, clip), "whisper_full (encode)")
-    shapes[f"whisper_full {layers} layers, 30 s clip"] = {
-        "ms": statistics.median(per_call[1:]), "per_call_ms": per_call, "t_mel_us": t_mel_us,
-        "device_busy_ms": prof and prof["busy_ms"],
-        "device_mel_ms": prof and prof["groups"].get("mel_log_frames")}
-    capi.whisper_free(ctx)
-    torch.cuda.empty_cache()
+    prof = profile_call(lambda: capi.whisper_full(ctx, params, clip), what)
+    return {"ms": statistics.median(per_call[1:]), "per_call_ms": per_call,
+            "device_busy_ms": prof and prof["busy_ms"], "profile": prof}
+
+
+def quant_encode_paths(shapes: dict, ckpt: str, layers: int = 32, calls: int = 6) -> None:
+    """whisper_full per 30 s clip of the random F16 checkpoint quantized to
+    q8_0 and q4_0 by the checkout's quantize_checkpoint (once, kept beside
+    ``ckpt``), loaded with the block weights kept (bf16 activations, the
+    dequantizing entries in fast mode)."""
+    import torch
+
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.config import GGMLFType
+    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+    src = encoder_ckpt(ckpt, layers)
+    for fmt in ("q8_0", "q4_0"):
+        path = src.removesuffix(".bin") + f"_{fmt}.bin"
+        if not os.path.exists(path):
+            quantize_checkpoint(src, path, GGMLFType[f"MOSTLY_{fmt.upper()}"])
+        ctx = capi.whisper_init_from_file_with_params(
+            path, ContextParams(compute_dtype=torch.bfloat16, keep_quantized=True))
+        t = whisper_full_ms(ctx, calls, f"whisper_full (encode, {fmt})")
+        prof = t.pop("profile")
+        t["device_matmul_ms"] = prof and prof["groups"].get("quant_matmul")
+        shapes[f"whisper_full {fmt} {layers} layers, 30 s clip"] = t
+        capi.whisper_free(ctx)
+        torch.cuda.empty_cache()
 
 
 def decode_paths(device, record, shapes: dict, paths: dict) -> None:

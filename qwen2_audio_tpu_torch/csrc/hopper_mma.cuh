@@ -147,6 +147,16 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// four 8 x 8 matrices of 16-bit values, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8, and r[i] holds, of matrix i, rows
+// 2 (lane % 4) and 2 (lane % 4) + 1 of column lane / 4 (low half first)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 // a 4-D box at (c0 inner, c1, c2, c3) into shared memory; completes on bar
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -272,6 +282,109 @@ __device__ __forceinline__ void wgmma_f16_rs_mn(float (&d)[N / 2], const uint32_
         : QA_R32("+f", d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
   }
+}
+
+// d (64 x N, float32) (+)= a (64 x 16 bf16, the register fragment, as for
+// wgmma_bf16_rs_n64) * b (16 x N bf16, K-major in shared memory: no
+// transpose), N 16, 32, 64, 128, 192 or 256; d is added to where
+// accumulate is not 0
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs_k(float (&d)[N / 2], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0), QA_R8("+f", d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<64>(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
+        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<192>(float (&d)[96], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
+        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56),
+        QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_rs_k<256>(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
+        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56),
+        QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88),
+        QA_R8("+f", d, 96), QA_R8("+f", d, 104), QA_R8("+f", d, 112), QA_R8("+f", d, 120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 #undef QA_OPS32

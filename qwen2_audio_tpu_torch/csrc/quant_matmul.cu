@@ -51,41 +51,56 @@
 //   splits added in order by reduce_partials_kernel. Bytes become floats by
 //   the 2^23 trick (byte_perm into the mantissa of 0x4B000000, one
 //   subtract), which is exact and needs no int8 negation.
-// - M > 8 (prefill M = 752, the encoder M = 1500): operations (gate_up of
-//   the 7B tower at M = 752: 204 GFLOP, 0.21 ms at 989 TFLOP/s in bf16).
-//   fast mode: qmm_wgmma_kernel, 128 x 128 output tiles, K in stages of 64.
-//   The tensor cores take shared-memory operands at full rate only through
-//   wgmma, so the kernel is built around keeping wgmma fed, in roles that
-//   run at once (544 threads):
-//   * a producer warp issues every load as TMA boxes (hopper_mma.cuh): x,
-//     bf16, in the 128-byte-swizzled K-major layout wgmma reads (float32 x
-//     is rounded once, round to nearest even, by round_bf16_kernel into
-//     scratch first), the stage's raw weight bytes (64 rows, or 32 nibble
-//     rows, of 128 columns) and its scales; a stacked layer is a base
-//     pointer, a panel weight a 3-D box, and TMA zero-fills past the ragged
-//     M, N and K edges. Where a panel is narrower than the tile and not the
-//     whole N, the producer's lanes copy 16-byte chunks with cp.async
-//     instead (bn % 16 == 0, so no chunk straddles a panel);
-//   * two transform warpgroups turn each raw stage into the bf16 B operand,
-//     w = bf16(float(v) * s) (DQ16: s rounded to bf16 first), K-major and
-//     swizzled, a chunk of 8 values of K at 4 columns a thread; the chunks
-//     rotate over the lanes, so that neither the raw reads nor the swizzled
-//     writes collide on a bank. The dequantize is off the product warps
-//     and is paid once per 128 rows of x;
-//   * two consumer warpgroups run wgmma m64n128k16 (float32 accumulate),
-//     one stage's products in flight while the next is issued.
-//   Rings of 4 x/B stages and 4 raw stages, with mbarrier completion, let
-//   the three run ahead of one another. What bounds it on the H100 is not
-//   the tensor cores (about 512 cycles a stage) but the delivery of x and
-//   the raw stages (26 KB a stage, re-read by every block of the other
-//   dimension): the consumers wait for data about as long as they compute
-//   (PERF.md). Where the tiles fill a second wave of SMs less than half
-//   (the prefill's o and down projections, 168 tiles on 132 SMs), the
-//   wrapper splits K in two over blockIdx.z and reduce_partials_kernel adds
-//   the two float32 partial sums in order. The float32 sums run in the
-//   tensor cores' order: the results are held to a tolerance against the
-//   plain version, and the panel entries, which read the same values in the
-//   same order, give the strided entry's bits.
+// - M > 8 (prefill M = 752, the encoder M = 1500, a speculative pool's
+//   verify M = 64): operations (gate_up of the 7B tower at M = 752: 204
+//   GFLOP, 0.21 ms at 989 TFLOP/s in bf16), and again the weight bytes
+//   below about 128 rows. fast mode: qmm_tile_kernel computes the output's
+//   transpose, out^T = w^T x^T, on wgmma m64nBMk16: the weight is A, 64
+//   columns a consumer warpgroup, dequantized by the consumers themselves
+//   into registers, and x is B, BM of its rows by TMA into shared memory.
+//   * A from registers, without a transform: one ldmatrix.x4.trans over the
+//     raw stage (TMA-swizzled, so the 8 rows of a matrix hit 8 banks) reads
+//     the bytes as 16-bit pairs of neighbouring columns and gives a thread,
+//     for its two columns cl and cl + 1, the values of K its A fragment
+//     needs (2 t4, 2 t4 + 1, + 8): an int8 row holds one value, a nibble
+//     row two (ggml's pairing puts k and k + 16 in one byte, so one load
+//     serves two k16 steps). A's row g is column cl and row g + 8 column
+//     cl + 1; the epilogue writes each such pair with one store. Each value
+//     becomes bf16(float(v) * s) in registers (the 2^23 trick, one multiply,
+//     one rounding), the plain version's numbers. No bf16 weight tile is
+//     written to shared memory and no warps do nothing but convert.
+//   * Shared-memory bytes a 64-deep stage of a 256-row unit (q8_0): TMA
+//     writes 32 KB of x and 8.5 KB of raw weight and scales, ldmatrix reads
+//     the 8 KB once, and each of the two consumer warpgroups reads x's 32 KB
+//     as B: about 113 KB for 4.2 MFLOP, 27 B a kFLOP. The tile this
+//     replaces moved about 97 KB for 2.1 MFLOP (46 B), and a bf16 B tile
+//     written MN-major for 256 rows would move about 38. Each dequantized
+//     value now serves BM rows of x (192 at the prefill's gate_up, 256 at the
+//     encoder's fc1) where it served 128, and is converted once a unit.
+//   * Persistent: one CTA an SM walks units of BM rows x 128 columns over a
+//     range of K (the launch plan, ops/quant_matmul.py tile_plan: up to 128
+//     rows BM is the least of 16, 32, 64 and 128 that holds M, so that a
+//     unit never wastes half its rows; above, 128, 192 or 256, whichever
+//     ends the waves first; K split in whole stages only where the units
+//     would fill fewer than half the SMs, the splits' float32 sums added in
+//     split order by reduce_partials_kernel), M fastest, so that the CTAs
+//     at work at once share weight columns and a weight panel is read from
+//     device memory about once. The producer runs on into the next unit
+//     while the consumers store the last one.
+//   * No serialized wgmma: a consumer never spins on an mbarrier (ptxas
+//     serializes every wgmma of a function where one is in flight across
+//     such a spin, C7518); the release warp waits for each slot and lets
+//     the consumers in through the slot's named barrier. Each consumer keeps
+//     one k16 product in flight while it converts the next step's A.
+//   Rings of up to 15 slots (x, raw weight, scales) fill the 227 KB of
+//   shared memory: 5 at BM = 256, 6 at 192, 8 at 128, 12 at 64 (q8_0). TMA
+//   zero-fills past the ragged M, N and K edges; where a panel is narrower
+//   than the tile and not the whole N, the producer's lanes copy 16-byte
+//   chunks with cp.async instead, into the same swizzled layout. The
+//   float32 sums run in the tensor cores' order: the results are held to a
+//   tolerance against the plain version, and the panel entries, which read
+//   the same values in the same order under the same plan, give the strided
+//   entry's bits.
 //   exact mode: qmm_fma_kernel, 128 x 128 tiles in float32 with an 8 x 8
 //   register tile per thread and FMA only (no TF32): slow, and exact.
 //   Blocks that share a weight panel are neighbours in launch order
@@ -379,241 +394,251 @@ __device__ __forceinline__ void tile_dequant(const TileRegs<XT, PACKED>& r, floa
   }
 }
 
-// fast mode: TMA-fed wgmma, 544 threads in roles that never reconverge:
-//   warpgroups 0, 1   consumers: rows 64 w .. 64 w + 63 of the block's
-//                     128 x 128 tile, wgmma m64n128k16 from the stage's x
-//                     tile and dequantized weight tile, float32 registers
-//   warpgroups 2, 3   transform: the stage's (64, 128) raw weight dequantized
-//                     to bf16 in the K-major swizzled B layout, a chunk of
-//                     8 values of K at 4 columns a thread
-//   warp 16           producer: the x tile, the raw weight bytes and the
-//                     scales by TMA (by cp.async for panels narrower than
-//                     the tile), as far ahead as the rings allow
-// The consumers need about 100 registers, so no setmaxnreg: the kernel's
-// cap at 544 threads leaves them enough.
-// Stages of 64 values of K. Rings: kStages x/B stages (full_x: TMA bytes,
-// full_b: 256 transform arrivals, empty: 256 consumer arrivals) and
-// kRawStages raw stages (raw_full: 32 producer lanes, raw_empty: 256
-// transform arrivals).
-constexpr int kWgBM = 128, kWgBN = 128, kWgBK = 64, kWgThreads = 544;
-constexpr int kStages = 4, kRawStages = 4;
-constexpr int kXBytes = kWgBM * kSwizzleRow;    // (128, 64) bf16
-constexpr int kBBytes = kWgBN * kSwizzleRow;    // (128 n, 64 k) bf16
-constexpr int kRawW = kWgBK * kWgBN;            // 64 byte rows of 128 columns
-constexpr int kRawS = 4 * kWgBN * 4;            // <= 4 scale rows of float32
-constexpr int kWgSmem = kStages * (kXBytes + kBBytes) + kRawStages * (kRawW + kRawS) +
-                        (3 * kStages + 2 * kRawStages) * 8 + 1024;
+// fast mode: persistent tiles that compute the output's transpose on wgmma,
+// 320 threads in roles that never reconverge:
+//   warpgroups 0, 1  consumers: weight columns 64 w .. 64 w + 63 of a unit
+//                    as wgmma's A, dequantized into registers by the
+//                    consumers themselves, times the unit's BM rows of x as
+//                    B from shared memory: out^T, float32 registers
+//   warp 8           producer: each stage's x box, raw weight rows and
+//                    scales by TMA (cp.async for panels narrower than the
+//                    tile) into the ring's next free slot, across units
+//   warp 9           release: waits for each slot's bytes and lets the
+//                    consumers in through the slot's named barrier
+// A unit is BM rows of x by kQtN = 128 weight columns over one K split's
+// stages of kQtK = 64 values; CTA b walks units b, b + gridDim.x, ... (the
+// launch plan: ops/quant_matmul.py tile_plan). Ring slots: full (TMA bytes,
+// and 32 cp.async arrivals on the panel path), empty (lane 0 of each of
+// the 8 consumer warps), and the named barrier 1 + slot (256 consumers +
+// the release warp).
+constexpr int kQtN = 128, kQtK = 64;
+constexpr int kQtScaleBytes = 4 * kQtN * 4;   // a stage's <= 4 scale rows (group 16), float32
+constexpr int kSmemMax = 232448;
+constexpr int kQtThreads = 320, kQtBarThreads = 256 + 32;
 
-// The transform's unit of work: values 8 c .. 8 c + 7 of a stage at columns
-// 4 q .. 4 q + 3, from a raw stage (rw: byte rows of kWgBN columns, rs: the
-// stage's scale rows, float16 or float32) to the K-major swizzled bf16 B
-// tile bd: w = bf16(float(v) * s), DQ16 rounding s to bf16 first.
-template <bool PACKED, bool DQ16>
-__device__ __forceinline__ void dequant_chunk(const uint8_t* rw, const uint8_t* rs, int s_f16,
-                                              int group, float zero, int c, int q,
-                                              uint8_t* bd) {
-  const int sr = 8 * c / group;
-  float sv[4];
-  if (s_f16) {
-    const uint2 h = *reinterpret_cast<const uint2*>(rs + sr * kWgBN * 2 + q * 8);
-    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&h.x));
-    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&h.y));
-    sv[0] = a.x; sv[1] = a.y; sv[2] = b.x; sv[3] = b.y;
+template <int BM, bool PACKED>
+struct QtShape {
+  static constexpr int kX = BM * kSwizzleRow;                    // x: (BM rows, 64 k) bf16
+  static constexpr int kW = (PACKED ? kQtK / 2 : kQtK) * kQtN;   // raw weight rows, swizzled
+  static constexpr int kStage = kX + kW + kQtScaleBytes + 16;    // and its two barriers
+  static constexpr int kFit = (kSmemMax - 1024) / kStage;
+  static constexpr int kStages = kFit < 15 ? kFit : 15;          // named barriers 1 .. 15
+  static constexpr int kSmem = kStages * kStage + 1024;
+};
+
+// unit u of a launch: rows m0.., columns n0.., stages kt0 .. kt1 - 1 of K's
+// `stages`, split `split`; units walk M fastest, then the splits, then N,
+// so that the CTAs at work at once share weight columns
+struct QtUnit {
+  int m0, n0, kt0, kt1, split;
+};
+__device__ __forceinline__ QtUnit qt_unit(int u, int bm, int mt, int ks, int stages) {
+  const int per_n = mt * ks, nt = u / per_n, r = u - nt * per_n, split = r / mt;
+  return {(r - split * mt) * bm, nt * kQtN, (int)((long long)split * stages / ks),
+          (int)((long long)(split + 1) * stages / ks), split};
+}
+
+// k16 step k's scales at columns cl and cl + 1: scale row k, or k / 2 for
+// group 32, of a slot's rows at sr (float16 or float32), dq16 rounding each
+// to bf16
+__device__ __forceinline__ float2 qt_scales(const uint8_t* sr, int k, int cl, int group,
+                                            int s_f16, int dq16) {
+  const int row = group == 16 ? k : k >> 1;
+  float2 v = s_f16 ? __half22float2(*reinterpret_cast<const __half2*>(sr + (row * kQtN + cl) * 2))
+                   : *reinterpret_cast<const float2*>(sr + (row * kQtN + cl) * 4);
+  if (dq16) v = make_float2(round_bf16(v.x), round_bf16(v.y));
+  return v;
+}
+
+// k16 step k's A fragment from the ldmatrix words r (int8: r[2 k], r[2 k +
+// 1]; packed: the low or high nibbles of r[2 (k / 2)], r[2 (k / 2) + 1]):
+// each word holds bytes (row 2 t4, cl), (2 t4, cl + 1), (2 t4 + 1, cl),
+// (2 t4 + 1, cl + 1), the second word rows + 8; each value becomes
+// bf16(float(v) * s)
+template <bool PACKED>
+__device__ __forceinline__ void qt_convert(const uint32_t (&r)[8], int k, float2 sk, float zero,
+                                           uint32_t (&a)[4]) {
+  uint32_t w0, w1;
+  if constexpr (PACKED) {
+    const int sh = 4 * (k & 1);
+    w0 = (r[2 * (k >> 1)] >> sh) & 0x0F0F0F0Fu;
+    w1 = (r[2 * (k >> 1) + 1] >> sh) & 0x0F0F0F0Fu;
   } else {
-    const float4 f = *reinterpret_cast<const float4*>(rs + sr * kWgBN * 4 + q * 16);
-    sv[0] = f.x; sv[1] = f.y; sv[2] = f.z; sv[3] = f.w;
+    w0 = r[2 * k] ^ 0x80808080u;
+    w1 = r[2 * k + 1] ^ 0x80808080u;
   }
-  if (DQ16) {
+  a[0] = pack_bf16((byte_as_float(w0, 0) - zero) * sk.x, (byte_as_float(w0, 2) - zero) * sk.x);
+  a[1] = pack_bf16((byte_as_float(w0, 1) - zero) * sk.y, (byte_as_float(w0, 3) - zero) * sk.y);
+  a[2] = pack_bf16((byte_as_float(w1, 0) - zero) * sk.x, (byte_as_float(w1, 2) - zero) * sk.x);
+  a[3] = pack_bf16((byte_as_float(w1, 1) - zero) * sk.y, (byte_as_float(w1, 3) - zero) * sk.y);
+}
+
+__device__ __forceinline__ void pin4(uint32_t (&a)[4]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) sv[j] = round_bf16(sv[j]);
-  }
-  uint32_t rw8[8];
-  if (PACKED) {   // byte row g * 16 + j: value g * 32 + j low, + 16 high
-    const int g = c >> 2, kk = (c & 3) * 8, sh = kk >= 16 ? 4 : 0;
+  for (int i = 0; i < 4; ++i) pin(a[i]);
+}
+
+// a thread's two neighbouring outputs of rows ra and ra + 1 (wgmma's
+// fragment of out^T: acc[4 j] and acc[4 j + 2] are columns col, col + 1 of
+// row 8 j + 2 t4, acc[4 j + 1] and acc[4 j + 3] of the next row)
+template <int BM, typename T>
+__device__ __forceinline__ void qt_store(const float (&acc)[BM / 2], T* o, int M, int N, int r0,
+                                         int col) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      rw8[r] = (*reinterpret_cast<const uint32_t*>(rw + (g * 16 + (kk & 15) + r) * kWgBN + q * 4) >>
-                sh) &
-               0x0F0F0F0Fu;
-  } else {
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      rw8[r] = *reinterpret_cast<const uint32_t*>(rw + (8 * c + r) * kWgBN + q * 4) ^ 0x80808080u;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float v[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) v[r] = (byte_as_float(rw8[r], j) - zero) * sv[j];
-    *reinterpret_cast<uint4*>(bd + swizzle_chunk(4 * q + j, c)) =
-        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                   pack_bf16(v[6], v[7]));
+  for (int j = 0; j < BM / 8; ++j) {
+    const int ra = r0 + 8 * j;
+    if (ra < M) store2(o + (long long)ra * N + col, acc[4 * j], acc[4 * j + 2]);
+    if (ra + 1 < M) store2(o + (long long)(ra + 1) * N + col, acc[4 * j + 1], acc[4 * j + 3]);
   }
 }
 
-// A consumer warpgroup's (64, 8 NJ) float32 sums (wgmma's fragment: rows
-// r and r + 8, columns 8 j + 2 (lane % 4) + 0, 1) to out in its type, or to
-// the split's float32 partial sums.
-template <int NJ, typename OT>
-__device__ __forceinline__ void store_tile(const float (&acc)[4 * NJ], OT* out, float* partial,
-                                           int M, int N, int r0, int n0) {
-  const int lane = threadIdx.x & 31, wq4 = (threadIdx.x >> 5) & 3;
-  const int ra = r0 + wq4 * 16 + (lane >> 2), rb = ra + 8;
-  float* p = partial != nullptr ? partial + (long long)blockIdx.z * M * N : nullptr;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane & 3);
-    if (col < N) {
-      if (p != nullptr) {
-        if (ra < M) store2(p + (long long)ra * N + col, acc[4 * j], acc[4 * j + 1]);
-        if (rb < M) store2(p + (long long)rb * N + col, acc[4 * j + 2], acc[4 * j + 3]);
-      } else {
-        if (ra < M) store2(out + (long long)ra * N + col, acc[4 * j], acc[4 * j + 1]);
-        if (rb < M) store2(out + (long long)rb * N + col, acc[4 * j + 2], acc[4 * j + 3]);
-      }
-    }
-  }
-}
-
-template <typename OT, bool PACKED, bool DQ16>
-__global__ void __launch_bounds__(kWgThreads, 1)
-qmm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap wmap,
-                 const __grid_constant__ CUtensorMap smap, int tma_w,
-                 const uint8_t* __restrict__ q, const void* __restrict__ sc, int s_f16,
-                 OT* __restrict__ out, float* __restrict__ partial, int ks, int M, int K, int N,
-                 int bn, int group, float zero) {
+template <int BM, bool PACKED>
+__global__ void __launch_bounds__(kQtThreads, 1)
+qmm_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                const __grid_constant__ CUtensorMap wmap,
+                const __grid_constant__ CUtensorMap smap, int tma_w,
+                const uint8_t* __restrict__ q, const void* __restrict__ sc, int s_f16, int dq16,
+                void* __restrict__ out, int out_f32, float* __restrict__ partial, int ks, int M,
+                int K, int N, int bn, int group, float zero) {
+  using S = QtShape<BM, PACKED>;
+  constexpr int ST = S::kStages, RROWS = PACKED ? kQtK / 2 : kQtK;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
-  uint8_t* xs = smem;
-  uint8_t* bs = xs + kStages * kXBytes;
-  uint8_t* raw_w = bs + kStages * kBBytes;
-  uint8_t* raw_s = raw_w + kRawStages * kRawW;
-  uint64_t* full_x = reinterpret_cast<uint64_t*>(raw_s + kRawStages * kRawS);
-  uint64_t* full_b = full_x + kStages;
-  uint64_t* empty = full_b + kStages;
-  uint64_t* raw_full = empty + kStages;
-  uint64_t* raw_empty = raw_full + kRawStages;
+  uint8_t* xs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ws = xs + ST * S::kX;
+  uint8_t* ss = ws + ST * S::kW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ss + ST * kQtScaleBytes);
+  uint64_t* empty = full + ST;
 
-  const int m0 = blockIdx.x * kWgBM, n0 = blockIdx.y * kWgBN;
-  // blockIdx.z takes stages kt0 .. kt0 + steps - 1 of K (the split ks
-  // divides the stage count)
-  const int steps = (K + kWgBK - 1) / kWgBK / ks, kt0 = blockIdx.z * steps;
-  constexpr int RROWS = PACKED ? kWgBK / 2 : kWgBK;   // raw byte rows a stage
+  const int stages = (K + kQtK - 1) / kQtK;
+  const int mt = (M + BM - 1) / BM, units = mt * ((N + kQtN - 1) / kQtN) * ks;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full_x[s], 1);
-      mbar_init(&full_b[s], 256);
-      mbar_init(&empty[s], 256);
-    }
-    for (int s = 0; s < kRawStages; ++s) {
-      mbar_init(&raw_full[s], tma_w ? 1 : 32);
-      mbar_init(&raw_empty[s], 256);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], tma_w ? 1 : 33);
+      mbar_init(&empty[s], 8);
     }
     mbar_fence_init();
   }
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (threadIdx.x >= 512) {
+  if (warp == 8) {
     // ---- producer ----
-    const int lane = threadIdx.x & 31;
     const int Kr = PACKED ? K / 2 : K, G = K / group;
-    const int es = s_f16 ? 2 : 4, SR = kWgBK / group;
-    if (tma_w) {   // the tile lies inside one panel: two boxes a stage
-      if (lane == 0) {
-        const int pc = n0 % bn, pp = n0 / bn;
-        for (int kt = 0; kt < steps; ++kt) {
-          const int slot = kt % kRawStages, s = kt % kStages;
-          mbar_wait(&raw_empty[slot], ((kt / kRawStages) & 1) ^ 1);
-          mbar_expect_tx(&raw_full[slot], (RROWS + SR * es) * kWgBN);
-          tma_load_3d(raw_w + slot * kRawW, &wmap, &raw_full[slot], pc, (kt0 + kt) * RROWS, pp);
-          tma_load_3d(raw_s + slot * kRawS, &smap, &raw_full[slot], pc, (kt0 + kt) * SR, pp);
-          mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
-          mbar_expect_tx(&full_x[s], kXBytes);
-          tma_load_2d(xs + s * kXBytes, &xmap, &full_x[s], (kt0 + kt) * kWgBK, m0);
-        }
-      }
-    } else {   // panels narrower than the tile: 16-byte cp.async chunks
-      const int cpr = 8 * es;
-      // weight chunk i = lane + 32 u: byte row i / 8, 16 columns at (i % 8) * 16
-      const int wcol = n0 + (lane & 7) * 16;
+    const int es = s_f16 ? 2 : 4, SR = kQtK / group, cpr = 8 * es;
+    const uint32_t bytes = S::kX + (tma_w ? (RROWS + SR * es) * kQtN : 0);
+    const uint8_t* scb = static_cast<const uint8_t*>(sc);
+    int f = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const QtUnit t = qt_unit(u, BM, mt, ks, stages);
+      // panel path: this lane's weight chunk (16 columns at (lane % 8) * 16,
+      // byte rows lane / 8 + 4 i) and scale chunk (16 / es columns at
+      // lane % cpr, rows lane / cpr + 32 i / cpr), each inside one panel
+      const int wcol = t.n0 + (lane & 7) * 16, scol = t.n0 + (lane % cpr) * (16 / es);
       const long long wq = wcol < N ? panel_at(wcol, bn, Kr, G).q : 0;
-      // scale chunk i = lane + 32 u: row i / cpr, 16 / es columns at i % cpr
-      const int scol = n0 + (lane % cpr) * (16 / es);
       const long long sq = scol < N ? panel_at(scol, bn, Kr, G).s : 0;
-      const uint8_t* scb = static_cast<const uint8_t*>(sc);
-      for (int kt = 0; kt < steps; ++kt) {
-        const int slot = kt % kRawStages, s = kt % kStages;
-        mbar_wait(&raw_empty[slot], ((kt / kRawStages) & 1) ^ 1);
-        const int r0 = (kt0 + kt) * RROWS;
-#pragma unroll
-        for (int u = 0; u < RROWS * 8 / 32; ++u) {
-          const int i = lane + 32 * u, r = r0 + (i >> 3);
-          cp_async16(raw_w + slot * kRawW + i * 16, q + wq + (long long)r * bn,
-                     wcol < N && r < Kr);
-        }
-        for (int i = lane; i < SR * cpr; i += 32) {
-          const int sr = (kt0 + kt) * SR + i / cpr;
-          cp_async16(raw_s + slot * kRawS + i * 16, scb + (sq + (long long)sr * bn) * es,
-                     scol < N && sr < G);
-        }
-        cp_async_arrive(&raw_full[slot]);
-        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+      for (int kt = t.kt0; kt < t.kt1; ++kt, ++f) {
+        const int s = f % ST;
+        mbar_wait(&empty[s], ((f / ST) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(&full_x[s], kXBytes);
-          tma_load_2d(xs + s * kXBytes, &xmap, &full_x[s], (kt0 + kt) * kWgBK, m0);
+          mbar_expect_tx(&full[s], bytes);
+          tma_load_2d(xs + s * S::kX, &xmap, &full[s], kt * kQtK, t.m0);
+          if (tma_w) {
+            tma_load_3d(ws + s * S::kW, &wmap, &full[s], t.n0 % bn, kt * RROWS, t.n0 / bn);
+            tma_load_3d(ss + s * kQtScaleBytes, &smap, &full[s], t.n0 % bn, kt * SR, t.n0 / bn);
+          }
+        }
+        if (!tma_w) {
+#pragma unroll
+          for (int i = 0; i < RROWS * 8 / 32; ++i) {   // chunk lane % 8 of row r, swizzled
+            const int r = (lane >> 3) + 4 * i, gr = kt * RROWS + r;
+            cp_async16(ws + s * S::kW + r * kSwizzleRow + (((lane & 7) ^ (r & 7)) << 4),
+                       q + wq + (long long)gr * bn, wcol < N && gr < Kr);
+          }
+          for (int i = lane; i < SR * cpr; i += 32) {
+            const int sr = kt * SR + i / cpr;
+            cp_async16(ss + s * kQtScaleBytes + i * 16, scb + (sq + (long long)sr * bn) * es,
+                       scol < N && sr < G);
+          }
+          cp_async_arrive(&full[s]);
         }
       }
-      cp_async_wait_all();   // no copy outlives its thread
     }
-  } else if (threadIdx.x >= 256) {
-    // ---- transform ----
-    const int t = threadIdx.x - 256, lane = t & 31, w = t >> 5;
-    // values 8 c .. 8 c + 7 of the stage at columns 4 lane .. 4 lane + 3;
-    // the c of neighbouring lanes differ, so neither the raw reads nor the
-    // swizzled 16-byte writes collide on a bank
-    const int c = (lane + w) & 7;
-    for (int kt = 0; kt < steps; ++kt) {
-      const int slot = kt % kRawStages, s = kt % kStages;
-      mbar_wait(&raw_full[slot], (kt / kRawStages) & 1);
-      mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
-      dequant_chunk<PACKED, DQ16>(raw_w + slot * kRawW, raw_s + slot * kRawS, s_f16,
-                                          group, zero, c, lane, bs + s * kBBytes);
-      mbar_arrive(&raw_empty[slot]);
-      fence_async_shared();
-      mbar_arrive(&full_b[s]);
-    }
-  } else {
-    // ---- consumers ----
-    const int wg = threadIdx.x >> 7;
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    for (int kt = 0; kt < steps; ++kt) {
-      const int s = kt % kStages;
-      const uint32_t par = (kt / kStages) & 1;
-      mbar_wait(&full_x[s], par);
-      mbar_wait(&full_b[s], par);
-      const uint64_t a = wgmma_desc(xs + s * kXBytes + wg * 64 * kSwizzleRow);
-      const uint64_t b = wgmma_desc(bs + s * kBBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < kWgBK / 16; ++k) wgmma_bf16_n128(acc, a + 2 * k, b + 2 * k, 1);
-      wgmma_commit();
-      if (kt > 0) {   // the previous stage's products are done: free its slot
-        wgmma_wait<1>();
-        mbar_arrive(&empty[(kt - 1) % kStages]);
+    if (!tma_w) cp_async_wait_all();   // no copy outlives its thread
+  } else if (warp == 9) {
+    // ---- release: the consumers wait on no mbarrier (ptxas serializes
+    // every wgmma of a function in which one is in flight across a spin) ----
+    int f = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const QtUnit t = qt_unit(u, BM, mt, ks, stages);
+      for (int kt = t.kt0; kt < t.kt1; ++kt, ++f) {
+        const int s = f % ST;
+        mbar_wait(&full[s], (f / ST) & 1);
+        __syncwarp();
+        named_arrive(1 + s, kQtBarThreads);
       }
     }
-    wgmma_wait<0>();
+  } else if (warp < 8) {
+    // ---- consumers ----
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    // the warp's 16 columns are chunk c16 of a raw row; the thread's A rows
+    // g and g + 8 are columns cl and cl + 1 of the unit (ldmatrix.trans
+    // reads byte pairs, so each register holds two neighbouring columns)
+    const int c16 = 4 * wg + (warp & 3), cl = 16 * c16 + 2 * g;
+    const uint32_t wrow = lane * kSwizzleRow + ((c16 ^ (lane & 7)) << 4);
+    float acc[BM / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) pin(acc[i]);
-    store_tile<16>(acc, out, partial, M, N, m0 + wg * 64, n0);
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    // step k's A registers, kept (pin) until the wait that retires its
+    // product: wgmma reads them after it is issued
+    uint32_t a[4][4] = {};
+    const uint32_t ws0 = smem_u32(ws) + wrow;
+    int s = 0, prev = 0;   // the slot of the CTA's current and last stage
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const QtUnit t = qt_unit(u, BM, mt, ks, stages);
+      for (int kt = t.kt0; kt < t.kt1; ++kt) {
+        named_sync(1 + s, kQtBarThreads);
+        const uint32_t wa = ws0 + s * S::kW;
+        const uint8_t* sr = ss + s * kQtScaleBytes;
+        const uint64_t xd = wgmma_desc(xs + s * S::kX);
+        uint32_t r[8];   // int8: rows 0-31, then 32-63; packed: all 32 rows in r[0..3]
+        ldsm_x4_trans(wa, *reinterpret_cast<uint32_t(*)[4]>(&r[0]));
+        if constexpr (!PACKED)
+          ldsm_x4_trans(wa + 32 * kSwizzleRow, *reinterpret_cast<uint32_t(*)[4]>(&r[4]));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          qt_convert<PACKED>(r, k, qt_scales(sr, k, cl, group, s_f16, dq16), zero, a[k]);
+          wgmma_fence();
+          wgmma_bf16_rs_k<BM>(acc, a[k], xd + 2 * k, kt > t.kt0 || k > 0);
+          wgmma_commit();
+          // one step in flight while the next is converted: this wait
+          // retires the step before (the last stage's last at k = 0, when
+          // its slot is free)
+          wgmma_wait<1>();
+          pin4(a[(k + 3) & 3]);
+          if (k == 0 && kt > t.kt0 && lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = s;
+        s = s + 1 == ST ? 0 : s + 1;
+      }
+      wgmma_wait<0>();
+      pin4(a[3]);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) pin(acc[i]);
+      const int col = t.n0 + cl, r0 = t.m0 + 2 * t4;
+      if (col < N) {
+        if (partial != nullptr)
+          qt_store<BM>(acc, partial + (long long)t.split * M * N, M, N, r0, col);
+        else if (out_f32)
+          qt_store<BM>(acc, static_cast<float*>(out), M, N, r0, col);
+        else
+          qt_store<BM>(acc, static_cast<__nv_bfloat16*>(out), M, N, r0, col);
+      }
+    }
   }
 }
 
-// x rounded once to bf16 (round to nearest even), the wgmma tile's A operand
+// x rounded once to bf16 (round to nearest even), the wgmma tile's B operand
 __global__ void __launch_bounds__(256)
 round_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y, long long n) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
@@ -693,39 +718,64 @@ qmm_fma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
   }
 }
 
-template <typename OT, bool PACKED, bool DQ16>
-cudaError_t launch_wgmma(const void* xb, const uint8_t* q, const void* sc, int s_f16, OT* out,
-                         float* partial, int ks, int M, int K, int N, int bn, int group,
-                         float zero, cudaStream_t st) {
-  const int mt = (M + kWgBM - 1) / kWgBM;
-  const int tma_w = bn >= kWgBN && (bn % kWgBN == 0 || bn == N);
-  // x (M, K) bf16 in swizzled (128, 64) boxes; the weight's raw bytes and
-  // scales as (panels, rows, bn) in boxes of one stage's rows and 128 columns
+template <int BM, bool PACKED>
+cudaError_t launch_tile(const void* xb, const uint8_t* q, const void* sc, int s_f16, int dq16,
+                        void* out, int out_f32, float* partial, int ks, int ctas, int M, int K,
+                        int N, int bn, int group, float zero, cudaStream_t st) {
+  using S = QtShape<BM, PACKED>;
+  const int tma_w = bn >= kQtN && (bn % kQtN == 0 || bn == N);
+  // x (M, K) bf16 in swizzled (BM, 64) boxes; the weight's raw bytes
+  // (swizzled, for ldmatrix without bank conflicts) and scales as (panels,
+  // rows, bn) in boxes of one stage's rows and 128 columns
   CUtensorMap xmap, wmap, smap;
   const long long P = N / bn, Kr = PACKED ? K / 2 : K, G = K / group, es = s_f16 ? 2 : 4;
   const long long wd[3] = {bn, Kr, P}, ws[2] = {bn, Kr * bn};
   const long long sd[3] = {bn, G, P}, ss[2] = {bn * es, G * bn * es};
-  const int wb[3] = {kWgBN, PACKED ? kWgBK / 2 : kWgBK, 1}, sb[3] = {kWgBN, kWgBK / group, 1};
-  if (!make_map_2d(&xmap, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, K, kWgBK, kWgBM, true))
+  const int wb[3] = {kQtN, PACKED ? kQtK / 2 : kQtK, 1}, sb[3] = {kQtN, kQtK / group, 1};
+  if (!make_map_2d(&xmap, xb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, K, kQtK, BM, true))
     return cudaErrorNotSupported;
   wmap = smap = xmap;
-  if (tma_w && (!make_map(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wd, ws, wb, false) ||
+  if (tma_w && (!make_map(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, wd, ws, wb, true) ||
                 !make_map(&smap, sc, s_f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                            : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                           3, sd, ss, sb, false)))
     return cudaErrorNotSupported;
-  const cudaError_t attr = allow_smem<qmm_wgmma_kernel<OT, PACKED, DQ16>>(kWgSmem);
+  const cudaError_t attr = allow_smem<qmm_tile_kernel<BM, PACKED>>(S::kSmem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(mt, (N + kWgBN - 1) / kWgBN, ks);
-  qmm_wgmma_kernel<OT, PACKED, DQ16><<<grid, kWgThreads, kWgSmem, st>>>(
-      xmap, wmap, smap, tma_w, q, sc, s_f16, out, ks > 1 ? partial : nullptr, ks, M, K, N, bn,
-      group, zero);
+  qmm_tile_kernel<BM, PACKED><<<ctas, kQtThreads, S::kSmem, st>>>(
+      xmap, wmap, smap, tma_w, q, sc, s_f16, dq16, out, out_f32, ks > 1 ? partial : nullptr, ks,
+      M, K, N, bn, group, zero);
   if (ks > 1) {   // the splits' sums added in split order
     const long long mn = (long long)M * N;
-    reduce_partials_kernel<OT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(partial, out, ks,
-                                                                              mn);
+    const unsigned blocks = (unsigned)((mn + 255) / 256);
+    if (out_f32)
+      reduce_partials_kernel<float><<<blocks, 256, 0, st>>>(partial, static_cast<float*>(out), ks,
+                                                            mn);
+    else
+      reduce_partials_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+          partial, static_cast<__nv_bfloat16*>(out), ks, mn);
   }
   return cudaGetLastError();
+}
+
+template <bool PACKED>
+cudaError_t launch_tiles(int bm, const void* xb, const uint8_t* q, const void* sc, int s_f16,
+                         int dq16, void* out, int out_f32, float* partial, int ks, int ctas,
+                         int M, int K, int N, int bn, int group, float zero, cudaStream_t st) {
+#define QMM_TILE(BM)                                                                     \
+  case BM:                                                                               \
+    return launch_tile<BM, PACKED>(xb, q, sc, s_f16, dq16, out, out_f32, partial, ks, ctas, \
+                                   M, K, N, bn, group, zero, st)
+  switch (bm) {
+    QMM_TILE(16);
+    QMM_TILE(32);
+    QMM_TILE(64);
+    QMM_TILE(128);
+    QMM_TILE(192);
+    QMM_TILE(256);
+  }
+#undef QMM_TILE
+  return cudaErrorInvalidValue;
 }
 
 // the blocks' shared memory: the 4 warps' rings, then x of the longest
@@ -757,8 +807,8 @@ cudaError_t launch_stream(const XT* x, const uint8_t* q, const void* sc, int s_f
 template <typename XT, bool PACKED>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
                    void* scratch, unsigned int* tickets, int M, int K, int N, int bn,
-                   int group, int s_f16, int off, int fast, int dq16, int ksplit,
-                   cudaStream_t st) {
+                   int group, int s_f16, int off, int fast, int dq16, int ksplit, int bm,
+                   int ctas, cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
@@ -800,10 +850,8 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
       round_bf16_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(xp, xr, n);
       xb = xr;
     }
-    return dq16 ? launch_wgmma<XT, PACKED, true>(xb, qp, sc, s_f16, op, partial, ksplit, M, K,
-                                                 N, bn, group, zero, st)
-                : launch_wgmma<XT, PACKED, false>(xb, qp, sc, s_f16, op, partial, ksplit, M,
-                                                  K, N, bn, group, zero, st);
+    return launch_tiles<PACKED>(bm, xb, qp, sc, s_f16, dq16, op, std::is_same_v<XT, float>,
+                                partial, ksplit, ctas, M, K, N, bn, group, zero, st);
   }
   return cudaGetLastError();
 }
@@ -821,18 +869,22 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out,
 // ksplit splits K: at M <= 8 over groups of 32 rows (fast mode: every
 // split's values of x, M x its K range, at most 16384; more than one split
 // at most 4096 column groups of 256), at M > 8 in fast mode over the
-// 64-deep stages (it divides their count); 1 in exact mode at M > 8.
+// 64-deep stages (at most their count); 1 in exact mode at M > 8. bm and
+// ctas (fast mode, M > 8): the persistent tile's rows of x (16, 32, 64, 128,
+// 192 or 256) and CTAs, from the launch plan.
 // dq16 (fast mode only) rounds each scale to bf16 before the multiply, so
-// that wr = bf16(v * bf16(s)), the TPU kernels' bf16-domain dequant; it runs
-// its own instantiations, and the default ones compile as without it.
+// that wr = bf16(v * bf16(s)), the TPU kernels' bf16-domain dequant; the M
+// <= 8 kernel runs its own instantiations for it, the M > 8 tile a flag.
 extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, void* out,
                                void* scratch, void* tickets, int M, int K, int N, int bn,
                                int group, int x_bf16, int s_f16, int packed, int off, int fast,
-                               int dq16, int ksplit, void* stream) {
+                               int dq16, int ksplit, int bm, int ctas, void* stream) {
+  const bool tile = M > 8 && fast;
   if (M < 1 || K % 32 || N % 16 || bn < 16 || bn % 16 || N % bn || (dq16 && !fast) ||
       (group != 16 && group != 32) || (packed && group != 32) || ksplit < 1 ||
-      (N + kBN - 1) / kBN > 65535 || ksplit > 65535 ||
-      (M > 8 && (!fast ? ksplit != 1 : (K + kWgBK - 1) / kWgBK % ksplit != 0)) ||
+      (N + kBN - 1) / kBN > 65535 || ksplit > 65535 || (M > 8 && !fast && ksplit != 1) ||
+      (tile && (ksplit > (K + kQtK - 1) / kQtK || ctas < 1 ||
+                (bm != 16 && bm != 32 && bm != 64 && bm != 128 && bm != 192 && bm != 256))) ||
       (ksplit > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -841,14 +893,14 @@ extern "C" int qa_quant_matmul(const void* x, const void* q, const void* sc, voi
   cudaError_t rc;
   if (x_bf16) {
     rc = packed ? launch<__nv_bfloat16, true>(x, q, sc, out, scr, tk, M, K, N, bn, group,
-                                              s_f16, off, fast, dq16, ksplit, st)
+                                              s_f16, off, fast, dq16, ksplit, bm, ctas, st)
                 : launch<__nv_bfloat16, false>(x, q, sc, out, scr, tk, M, K, N, bn, group,
-                                               s_f16, off, fast, dq16, ksplit, st);
+                                               s_f16, off, fast, dq16, ksplit, bm, ctas, st);
   } else {
     rc = packed ? launch<float, true>(x, q, sc, out, scr, tk, M, K, N, bn, group, s_f16, off,
-                                      fast, dq16, ksplit, st)
+                                      fast, dq16, ksplit, bm, ctas, st)
                 : launch<float, false>(x, q, sc, out, scr, tk, M, K, N, bn, group, s_f16, off,
-                                       fast, dq16, ksplit, st);
+                                       fast, dq16, ksplit, bm, ctas, st);
   }
   return (int)rc;
 }

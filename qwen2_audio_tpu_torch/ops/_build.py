@@ -56,8 +56,8 @@ SIGNATURES = {
     },
     "quant_matmul": {
         # x, q, scales, out, scratch, tickets, M, K, N, bn, group, x_bf16,
-        # s_f16, packed, off, fast, dq16, ksplit, stream
-        "qa_quant_matmul": [P] * 6 + [I] * 12 + [P],
+        # s_f16, packed, off, fast, dq16, ksplit, bm, ctas, stream
+        "qa_quant_matmul": [P] * 6 + [I] * 14 + [P],
         # stream, out: the id of the graph capture under way on it, or 0
         "qa_stream_capture_id": [P, P],
     },

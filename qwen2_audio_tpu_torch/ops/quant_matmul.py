@@ -45,9 +45,12 @@ in the CUDA source. At M <= 8 in fast mode the weight streams through the
 tensor cores (``stream_plan``: column groups and K splits, from M, K and N
 only), and a K split's partial sums are added in split order in the same
 launch, by the last block of each column group, which a ticket counter
-finds (``ticket_array``: one array per stream and per graph capture);
-elsewhere a second small kernel adds them in a fixed order. Either way
-results do not vary from run to run.
+finds (``ticket_array``: one array per stream and per graph capture).
+Above 8 rows in fast mode a persistent tile computes the output's
+transpose with the weight dequantized in registers (``tile_plan``: rows
+of x a unit, K split, CTAs, from M, K, N and the SM count only); where it
+splits K, and in exact mode at M <= 8, a second small kernel adds the
+splits in a fixed order. Either way results do not vary from run to run.
 
 Each wrapper launches the kernel for CUDA tensors, runs its plain version
 for CPU tensors, raises for anything else, and counts its launches. No
@@ -57,6 +60,7 @@ path on the card dequantizes a weight to a dense tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -73,7 +77,15 @@ _STREAM_SPREAD = 5    # fast mode: K splits aim at this many blocks per SM
 _STREAM_SPLITS = 28   # fast mode: most K splits (each adds a partial-sum pass)
 _STREAM_LEAST = 4     # fast mode: K splits wide weights take all the same
 _MAX_TICKETS = 4096   # fast mode: column groups of a K-split launch
-_TILE = 128           # rows and columns of an M > 8 tile
+_TILE = 128           # exact mode, M > 8: rows and columns of a tile
+_QT_N = 128           # fast mode, M > 8: weight columns of a unit
+_QT_K = 64            # fast mode, M > 8: values of K a stage
+_QT_ROWS = (16, 32, 64, 128)    # rows of x a unit takes at M <= 128: the least that hold M
+_QT_WIDE = (128, 192, 256)      # the rows a unit may take above 128
+_QT_SPLIT = 4         # least stages of K a split takes
+_QT_FIXED = 256       # a unit's cost a stage beyond its rows, in rows of products
+_QT_SUMS = 768        # outputs x splits whose float32 sums cost one row-stage to add
+SMEM_LIMIT = 232448   # shared memory a block may use
 _sm_count: dict[int, int] = {}
 _tickets: dict[tuple[str, int, int, int], torch.Tensor] = {}
 
@@ -239,16 +251,70 @@ def stream_plan(M: int, K: int, N: int, sms: int, packed: bool = False) -> dict:
             "smem": 4 * (4 if packed else 2) * stage + 2 * M * kc}
 
 
-def split_tiles(M: int, K: int, N: int, sm_count: int) -> int:
-    """Splits along K for the fast M > 8 tile: 2 where its 128 x 128 tiles
-    fill a second wave of SMs less than half (the prefill's o and down
-    projections: 168 tiles on 132 SMs), so that the card is busier, and the
-    64-deep stages halve evenly; else 1."""
-    tiles = -(-M // _TILE) * -(-N // _TILE)
-    stages = -(-K // 64)
-    if sm_count < tiles <= sm_count * 3 // 2 and stages % 2 == 0 and stages >= 8:
-        return 2
-    return 1
+def tile_ring(bm: int, packed: bool) -> tuple[int, int]:
+    """Ring slots and shared memory of the fast M > 8 tile with ``bm`` rows,
+    as the kernel's QtShape lays them out: a slot holds the x box (bm rows x
+    64 values of K, bf16), the raw weight rows (64 int8 or 32 nibble rows of
+    128 columns), 4 scale rows of float32 and two barriers; as many slots as
+    fit, at most 15 (the named barriers); 1024 bytes to align."""
+    slot = bm * 128 + (32 if packed else 64) * _QT_N + 4 * _QT_N * 4 + 16
+    slots = min(15, (SMEM_LIMIT - 1024) // slot)
+    return slots, slots * slot + 1024
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(M: int, K: int, N: int, sms: int) -> dict:
+    """The persistent launch of the fast M > 8 tile (qmm_tile_kernel) for an
+    (M, K) x (K, N) product, from M, K, N and the SM count alone, so that
+    row-major and panel storage of one weight get the same plan and the
+    same bits. A unit is ``bm`` rows of x by 128 weight columns over ``ks``
+    ranges of whole 64-deep stages of K; K is split only where the units
+    would fill at most half the SMs, each range at least 4 stages, and a
+    second launch adds the splits' float32 sums in split order. Up to 128
+    rows bm is the least of 16, 32, 64 and 128 that holds M, and K is split
+    into up to one unit an SM. Above, bm is 128, 192 or 256 and ks 1 to 4,
+    whichever costs least: the waves of the SMs x a unit's stages x (bm +
+    256) (each stage's weight load and dequantization cost about 256 rows of
+    products on the H100, whatever bm), plus, for a split, ks M N / 768 for
+    adding the sums; the wider and the fewer splits on a tie. ``ctas``: one
+    an SM, or one a unit where there are fewer; CTA b takes units b, b +
+    ctas, ... (``cta_units``). ``k_ranges``: each split's values of K."""
+    if M <= _SMALL_M or K < 32 or K % 32 or N < 16 or N % 16 or sms < 1:
+        raise ValueError(f"tile_plan: M above {_SMALL_M}, K a multiple of 32 and N of 16, "
+                         f"got M={M}, K={K}, N={N} on {sms} SMs")
+    nt, stages = -(-N // _QT_N), -(-K // _QT_K)
+
+    def splits(r: int) -> range:   # the K splits a unit of r rows may take
+        tiles = -(-M // r) * nt
+        return range(1, (min(stages // _QT_SPLIT, sms // tiles) if 2 * tiles <= sms else 1) + 1)
+
+    if M <= _QT_ROWS[-1]:
+        bm = next(r for r in _QT_ROWS if r >= M)
+        ks = max(splits(bm))
+    else:
+        def cost(r: int, k: int) -> int:
+            units = -(-M // r) * nt * k
+            return (-(-units // sms) * -(-stages // k) * (r + _QT_FIXED)
+                    + (k * M * N // _QT_SUMS if k > 1 else 0))
+        bm, ks = min(((r, k) for r in _QT_WIDE for k in splits(r) if k <= 4),
+                     key=lambda c: (cost(*c), -c[0], c[1]))
+    mt = -(-M // bm)
+    tiles = mt * nt
+    k_ranges = [(i * stages // ks * _QT_K, min(K, (i + 1) * stages // ks * _QT_K))
+                for i in range(ks)]
+    return {"bm": bm, "ks": ks, "tiles": (mt, nt), "units": tiles * ks,
+            "ctas": min(tiles * ks, sms), "k_ranges": k_ranges}
+
+
+def cta_units(plan: dict, b: int) -> list[tuple[int, int, int]]:
+    """The units CTA b of a fast M > 8 plan walks, in order, as (m tile, n
+    tile, split): M fastest, then the splits, then N, as the kernel's
+    qt_unit decodes them, so that the CTAs at work at once share weight
+    columns."""
+    mt, nt = plan["tiles"]
+    ks = plan["ks"]
+    return [(u % (mt * ks) % mt, u // (mt * ks), u % (mt * ks) // mt)
+            for u in range(b, plan["units"], plan["ctas"])]
 
 
 def _check(name: str, x, q, sc, packed: bool) -> int:
@@ -286,9 +352,10 @@ def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
     shapes, types and addresses alone (no device is touched): which kernel
     (``"small"`` at M <= 8: in fast mode the tensor-core streaming kernel,
     see ``stream_plan``, in exact mode the float32 one; above, ``"wgmma"``
-    the fast tile and ``"fma"`` the exact one), its grid, the K split and the bytes of scratch
-    the wrapper allocates (the splits' float32 sums, then a bf16 copy of
-    float32 x for the fast large-M tile; 0 for none). Raises for what the kernel does not take:
+    the fast persistent tile, see ``tile_plan``, and ``"fma"`` the exact
+    one), its grid, the K split and the bytes of scratch the wrapper
+    allocates (the splits' float32 sums, then a bf16 copy of float32 x for
+    the fast large-M tile; 0 for none). Raises for what the kernel does not take:
     x or scales of another type, K not a multiple of 32, N or a panel's
     width not a multiple of 16, an input that is not contiguous or not
     16-byte aligned (the TMA box and the 16-byte loads need both; nothing
@@ -310,17 +377,22 @@ def launch_plan(name: str, x, q, sc, group: int, fast: bool, sms: int) -> dict:
     if M <= _SMALL_M and fast:
         plan = stream_plan(M, K, N, sms, packed=q.dtype == torch.uint8)
         return {**plan, "M": M, "K": K, "N": N, "bn": bn, "group": group}
+    tile = {}
     if M <= _SMALL_M:
         kernel, ksplit = "small", split_k(M, K, N, sms)
         grid = (-(-N // _SMALL_COLS), ksplit)
+    elif fast:
+        tp = tile_plan(M, K, N, sms)
+        kernel, ksplit, grid = "wgmma", tp["ks"], (tp["ctas"],)
+        ring, smem = tile_ring(tp["bm"], q.dtype == torch.uint8)
+        tile = {**tp, "ring": ring, "smem": smem}
     else:
-        kernel = "wgmma" if fast else "fma"
-        ksplit = split_tiles(M, K, N, sms) if fast else 1
-        grid = (-(-M // _TILE), -(-N // _TILE), ksplit)
+        kernel, ksplit = "fma", 1
+        grid = (-(-M // _TILE), -(-N // _TILE))
     # the splits' float32 sums, then (fast, M > 8, float32 x) x in bf16
     scratch = (4 * ksplit * M * N if ksplit > 1 else 0) \
         + (2 * M * K if kernel == "wgmma" and x.dtype == torch.float32 else 0)
-    return {"kernel": kernel, "grid": grid, "M": M, "K": K, "N": N, "bn": bn,
+    return {**tile, "kernel": kernel, "grid": grid, "M": M, "K": K, "N": N, "bn": bn,
             "group": group, "ksplit": ksplit, "scratch": scratch}
 
 
@@ -365,7 +437,8 @@ def _launch(name: str, x, q, sc, group: int, packed: bool, off: int,
             tickets.data_ptr() if tickets is not None else None,
             M, plan["K"], N, plan["bn"], group, int(x.dtype == torch.bfloat16),
             int(sc.dtype == torch.float16), int(packed), off, int(fast),
-            int(dq16 and fast), plan["ksplit"], stream)
+            int(dq16 and fast), plan["ksplit"], plan.get("bm", 0),
+            plan["grid"][0] if plan["kernel"] == "wgmma" else 0, stream)
     _build.check(rc, name)
     return out
 

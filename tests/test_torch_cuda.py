@@ -748,6 +748,143 @@ def test_large_m_tile_edges_match_plain(device, fmt, M, dtype, bn):
     assert torch.equal(pentry(x, pw["qs4_p" if packed else "qs_p"], pw["scales_p"], **kw), got)
 
 
+def _dequant_entry(packed: bool):
+    return ((tqm.quant_matmul4, tqm.quant_matmul_panel4, tqm.quant_matmul4_plain) if packed
+            else (tqm.quant_matmul, tqm.quant_matmul_panel, tqm.quant_matmul_plain))
+
+
+def _dequant_into(device, x, q, sc, packed, off, out):
+    """The dequantizing matmul's C entry into a given output (the wrapper
+    allocates its own), fast mode, with the launch plan's scratch."""
+    from qwen2_audio_tpu_torch.ops import _build
+    group = x.shape[1] // sc.shape[0]
+    plan = tqm.launch_plan("t", x, q, sc, group, True, tqm.sm_count(device))
+    scratch = torch.empty(max(plan["scratch"], 1), dtype=torch.uint8, device=device)
+    M, K = x.shape
+    rc = _build.library("quant_matmul").qa_quant_matmul(
+        x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), scratch.data_ptr(), None,
+        M, K, plan["N"], plan["bn"], group, int(x.dtype == torch.bfloat16),
+        int(sc.dtype == torch.float16), int(packed), off, 1, 0, plan["ksplit"],
+        plan.get("bm", 0), plan["grid"][0], torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return plan
+
+
+@pytest.mark.parametrize("fmt", ["q8_0", "q4_0"])
+@pytest.mark.parametrize("M", [9, 64, 65, 128, 129, 256, 257, 753, 1500])
+def test_dequant_tile_rows_match_plain(device, fmt, M):
+    """The fast M > 8 tile at every row count where its unit changes (16,
+    64, 128 rows, 128 x 2, 192 or 256 wide, K split or not) on the ragged
+    weight (N = 1296, K = 1312): within tolerance of the plain version, in
+    panels of 48 and 432 bit-equal to strided, two runs bit-equal."""
+    K, N = 1312, 1296
+    qw = chip_smoke._rand_blocks(device, K, N, fmt, seed=70)
+    packed = fmt == "q4_0"
+    q, sc = qw["qs4" if packed else "qs"], qw["scales"]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(71 + M),
+                    device=device).to(torch.bfloat16)
+    kw = {"fast": True, **({"off": 8} if packed else {})}
+    entry, pentry, plain = _dequant_entry(packed)
+    got = entry(x, q, sc, **kw)
+    want = plain(x, q, sc, **kw)
+    assert got.shape == (M, N) and bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(entry(x, q, sc, **kw), got)
+    for bn in (48, 432):
+        pw = tqm.panelize_weight(qw, bn)
+        assert torch.equal(pentry(x, pw["qs4_p" if packed else "qs_p"], pw["scales_p"], **kw),
+                           got)
+
+
+@pytest.mark.parametrize("M,fmt,dtype", [(9, "q8_0", torch.bfloat16),
+                                         (65, "q4_0", torch.float32),
+                                         (129, "q8_0", torch.float32),
+                                         (753, "q4_0", torch.bfloat16),
+                                         (1500, "q8_0", torch.bfloat16)])
+def test_dequant_tile_writes_every_output_over_nan(device, M, fmt, dtype):
+    """The M > 8 tile at ragged M and N (1296 = 10 x 128 + 16), with and
+    without a K split: an output filled with NaN first is finite everywhere
+    after the launch and equals the wrapper's result bit for bit."""
+    K, N = 1312, 1296
+    packed = fmt == "q4_0"
+    w = chip_smoke._rand_blocks(device, K, N, fmt, seed=72)
+    q, sc = w["qs4" if packed else "qs"], w["scales"]
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(73),
+                    device=device).to(dtype)
+    out = torch.full((M, N), float("nan"), dtype=dtype, device=device)
+    plan = _dequant_into(device, x, q, sc, packed, 8 if packed else 0, out)
+    torch.cuda.synchronize()
+    assert plan["kernel"] == "wgmma" and bool(torch.isfinite(out).all())
+    entry = _dequant_entry(packed)[0]
+    assert torch.equal(out, entry(x, q, sc, fast=True, **({"off": 8} if packed else {})))
+
+
+def test_dequant_tile_replays_in_a_graph_bit_equal(device):
+    """The persistent tile at M = 752 (gate_up's 37888 columns, K cut to 512,
+    the stacked entry) captured in a CUDA graph: every replay equals the
+    eager call."""
+    K, N, M = 512, 37888, 752
+    w = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=74, layers=2)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(75),
+                    device=device).to(torch.bfloat16)
+    eager = tqm.quant_matmul_stacked(x, w["qs"], w["scales"], 1, fast=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tqm.quant_matmul_stacked(x, w["qs"], w["scales"], 1, fast=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tqm.quant_matmul_stacked(x, w["qs"], w["scales"], 1, fast=True)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("M", [64, 1500])
+def test_dequant_tile_on_two_streams_is_bit_equal(device, M):
+    """Launches of the persistent tile on two streams at once, queued behind
+    a sleep on each (at M = 64 with a K split and its second launch, and at
+    the encoder's M = 1500): every output equals the single-stream one."""
+    K, N = (3584, 3584) if M == 64 else (1280, 3840)
+    w = chip_smoke._rand_blocks(device, K, N, "q4_0", seed=76, layers=2)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(77),
+                    device=device).to(torch.bfloat16)
+    want = tqm.quant_matmul4_stacked(x, w["qs4"], w["scales"], 1, fast=True, off=8)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(int(1e8))
+    for _ in range(8):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(tqm.quant_matmul4_stacked(x, w["qs4"], w["scales"], 1, fast=True,
+                                                      off=8))
+    torch.cuda.synchronize()
+    assert len(outs) == 16 and all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("M,K,N", [(1500, 1280, 1280), (9, 256, 128), (752, 512, 37888)])
+def test_dequant_tile_counts_below_and_far_above_the_sms(device, M, K, N):
+    """120 units (the encoder's out: fewer CTAs than SMs), one tile split
+    over K (M = 9, N = 128) and 1184 units (gate_up: about 9 a CTA): within
+    tolerance of the plain version, two runs bit-equal."""
+    w = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=78)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(79),
+                    device=device).to(torch.bfloat16)
+    group = K // w["scales"].shape[0]
+    plan = tqm.launch_plan("t", x, w["qs"], w["scales"], group, True, tqm.sm_count(device))
+    assert plan["kernel"] == "wgmma"
+    assert plan["grid"][0] == min(plan["units"], tqm.sm_count(device))
+    got = tqm.quant_matmul(x, w["qs"], w["scales"], fast=True)
+    want = tqm.quant_matmul_plain(x, w["qs"], w["scales"], fast=True)
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(got, tqm.quant_matmul(x, w["qs"], w["scales"], fast=True))
+
+
 @pytest.mark.parametrize("M", [9, 129, 753])
 def test_int8_tile_edges_agree_across_forms(device, M):
     """The integer large-M tile at N = 1296 and K = 1312 (a multiple of 32,

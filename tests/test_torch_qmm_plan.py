@@ -22,16 +22,18 @@ def _weight(K, N, packed=False, group=32, scale_dtype=torch.float16):
 @pytest.mark.parametrize("M,fast,dtype,kernel,scratch", [
     (1, True, torch.bfloat16, "small", 4 * 5 * 1 * 1296),
     (8, False, torch.float32, "small", 4 * 5 * 8 * 1296),
-    (9, True, torch.bfloat16, "wgmma", 0),
-    (65, True, torch.float32, "wgmma", 2 * 65 * 1312),
+    (9, True, torch.bfloat16, "wgmma", 4 * 5 * 9 * 1296),
+    (65, True, torch.float32, "wgmma", 4 * 5 * 65 * 1296 + 2 * 65 * 1312),
     (753, False, torch.float32, "fma", 0),
     (1500, True, torch.bfloat16, "wgmma", 0),
 ])
 def test_dequantizing_plan_picks_the_kernel_grid_and_scratch(M, fast, dtype, kernel, scratch):
     """M <= 8 streams the weight (split over K, float32 partial sums in
     scratch): in fast mode on the tensor cores, in exact mode in float32;
-    above, the 128 x 128 tile, whose grid walks M first; float32 x in fast
-    mode gets a bf16 copy, rounded once, for the TMA box."""
+    above, in fast mode the persistent tile (tile_plan: one CTA a unit up to
+    the SM count, K split where the 11 column tiles leave most SMs idle),
+    in exact mode the 128 x 128 float32 tile, whose grid walks M first;
+    float32 x in fast mode gets a bf16 copy, rounded once, for the TMA box."""
     K, N = 1312, 1296
     q, sc = _weight(K, N)
     x = torch.zeros(M, K, dtype=dtype)
@@ -43,36 +45,109 @@ def test_dequantizing_plan_picks_the_kernel_grid_and_scratch(M, fast, dtype, ker
         # 256 (stream_plan); exact mode, about four blocks of 128 per SM
         cols = 256 if fast else 128
         assert plan["grid"] == (-(-N // cols), 5) and plan["ksplit"] == 5
+    elif kernel == "wgmma":
+        tp = qm.tile_plan(M, K, N, SMS)
+        assert plan["grid"] == (tp["ctas"],) and plan["ksplit"] == tp["ks"]
+        assert plan["bm"] == tp["bm"] and plan["smem"] <= qm.SMEM_LIMIT
     else:
-        assert plan["grid"] == (-(-M // 128), -(-N // 128), 1) and plan["ksplit"] == 1
+        assert plan["grid"] == (-(-M // 128), -(-N // 128)) and plan["ksplit"] == 1
 
 
-@pytest.mark.parametrize("M,K,N,dtype,ksplit", [
-    (752, 18944, 3584, torch.bfloat16, 2),   # prefill down: 168 tiles on 132 SMs
-    (752, 3584, 3584, torch.float32, 2),     # prefill o
-    (752, 3584, 4608, torch.bfloat16, 1),    # prefill qkv: 216 tiles
-    (752, 3584, 37888, torch.bfloat16, 1),   # gate_up: 888 tiles
-    (1500, 1280, 1280, torch.bfloat16, 1),   # encoder out: one wave
-    (752, 3520, 3584, torch.bfloat16, 1),    # 55 stages: no even split
+# the fast M > 8 tile's shapes: the prefill's (qkv, o, gate_up, down), the
+# encoder's (qkv, out, fc1, fc2), the lm_head and the ragged edge case (N a
+# multiple of 16 and not of 128, K of 32 and not of the 64-deep stage)
+_TILE_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (1280, 3840),
+                (1280, 1280), (1280, 5120), (5120, 1280), (3584, 156032), (1312, 1296)]
+_TILE_M = [9, 16, 17, 33, 64, 65, 128, 129, 256, 257, 752, 753, 1500]
+
+
+@pytest.mark.parametrize("M", _TILE_M)
+@pytest.mark.parametrize("K,N", _TILE_SHAPES)
+def test_fast_tile_units_cover_the_output_once(M, K, N):
+    """The CTAs' units (cta_units) cover every (m tile, n tile, split) of the
+    product exactly once; the tiles cover every row and column, the splits
+    every stage of K in whole 64-deep stages, at least 4 each where K is
+    split; at most one CTA an SM; the CTAs at work at once share weight
+    columns (units walk M, then the splits, then N)."""
+    plan = qm.tile_plan(M, K, N, SMS)
+    mt, nt = plan["tiles"]
+    bm, ks = plan["bm"], plan["ks"]
+    assert mt * bm >= M > (mt - 1) * bm and nt * 128 >= N > (nt - 1) * 128
+    assert plan["units"] == mt * nt * ks and plan["ctas"] == min(plan["units"], SMS)
+    seen = [u for b in range(plan["ctas"]) for u in qm.cta_units(plan, b)]
+    assert sorted(seen) == sorted((m, n, s) for m in range(mt) for n in range(nt)
+                                  for s in range(ks))
+    assert len(seen) == len(set(seen))
+    ranges = plan["k_ranges"]
+    assert len(ranges) == ks and ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a < b and a % 64 == 0 for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(ks - 1))
+    if ks > 1:
+        assert all(b - a >= 4 * 64 for a, b in ranges[:-1])
+    first = {n for b in range(plan["ctas"]) for m, n, s in qm.cta_units(plan, b)[:1]}
+    assert len(first) <= -(-plan["ctas"] // (mt * ks))
+
+
+@pytest.mark.parametrize("M", _TILE_M)
+@pytest.mark.parametrize("packed", [False, True])
+def test_fast_tile_fits_the_card(M, packed):
+    """A unit's rows hold M without wasting half of them up to 128 rows
+    (16, 32, 64 or 128), and above are 128, 192 or 256; its ring fits the
+    232448 bytes a block may use with at least 5 slots and at most 15 (the
+    named barriers)."""
+    plan = qm.tile_plan(M, 3584, 3584, SMS)
+    bm = plan["bm"]
+    if M <= 128:
+        assert M <= bm < 2 * M
+    else:
+        assert bm in (128, 192, 256)
+    ring, smem = qm.tile_ring(bm, packed)
+    assert 5 <= ring <= 15 and smem <= qm.SMEM_LIMIT
+    x = torch.zeros(M, 3584, dtype=torch.bfloat16)
+    q, sc = _weight(3584, 3584, packed=packed)
+    lp = qm.launch_plan("t", x, q, sc, 32, True, SMS)
+    assert (lp["ring"], lp["smem"]) == (ring, smem)
+
+
+@pytest.mark.parametrize("M,K,N,bm,ks", [
+    (752, 3584, 37888, 256, 1),     # gate_up: 7 waves of 256 rows, not 9 of 192
+    (752, 3584, 4608, 256, 1),      # prefill qkv: one wave of 108 units
+    (752, 3584, 3584, 192, 1),      # prefill o: one wave of 112 units of 192 rows, not 84 of 256
+    (752, 18944, 3584, 192, 1),     # prefill down
+    (1500, 1280, 5120, 256, 1),     # fc1: two waves of 256 rows
+    (1500, 1280, 3840, 192, 1),     # encoder qkv: two waves of 192 rows, as of 256
+    (1500, 1280, 1280, 128, 1),     # encoder out: one wave of 120 units
+    (1500, 5120, 1280, 256, 2),     # fc2: K in 2 for 120 units of 256 rows, not 120 of 128
+    (64, 3584, 156032, 64, 1),      # the verify's lm_head: 1219 units
+    (64, 3584, 37888, 64, 1),       # the verify's gate_up
+    (64, 3584, 3584, 64, 4),        # the verify's o: 28 tiles, K in 4
+    (64, 18944, 3584, 64, 4),       # the verify's down
+    (9, 1312, 1296, 16, 5),         # 11 tiles, K in 5 of at least 4 stages
 ])
-def test_fast_tile_splits_k_where_the_last_wave_is_thin(M, K, N, dtype, ksplit):
-    q, sc = _weight(K, N)
-    plan = qm.launch_plan("t", torch.zeros(M, K, dtype=dtype), q, sc, 32, True, SMS)
-    assert plan["ksplit"] == ksplit == qm.split_tiles(M, K, N, SMS)
-    assert plan["grid"][2] == ksplit
-    want = (4 * ksplit * M * N if ksplit > 1 else 0) + (2 * M * K if dtype == torch.float32 else 0)
-    assert plan["scratch"] == want
-    exact = qm.launch_plan("t", torch.zeros(M, K), q, sc, 32, False, SMS)
-    assert exact["kernel"] == "fma" and exact["ksplit"] == 1 and exact["scratch"] == 0
+def test_fast_tile_width_and_split_of_the_main_shapes(M, K, N, bm, ks):
+    plan = qm.tile_plan(M, K, N, SMS)
+    assert (plan["bm"], plan["ks"]) == (bm, ks)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 256, 128), (64, 48, 128), (64, 256, 120),
+                                   (64, 0, 128), (64, 256, 0)])
+def test_fast_tile_plan_refuses_what_the_kernel_does_not_take(M, K, N):
+    with pytest.raises(ValueError):
+        qm.tile_plan(M, K, N, SMS)
 
 
 def test_dequantizing_plan_of_panels_reads_the_panel_width():
     K, N, bn = 1312, 1296, 48
     q, sc = _weight(K, N)
     pw = qm.panelize_weight({"qs": q, "scales": sc}, bn)
-    plan = qm.launch_plan("t", torch.zeros(752, K, dtype=torch.bfloat16), pw["qs_p"],
-                          pw["scales_p"], 32, True, SMS)
-    assert (plan["N"], plan["bn"], plan["grid"]) == (N, bn, (6, 11, 1))
+    x = torch.zeros(752, K, dtype=torch.bfloat16)
+    plan = qm.launch_plan("t", x, pw["qs_p"], pw["scales_p"], 32, True, SMS)
+    assert (plan["N"], plan["bn"]) == (N, bn)
+    # the plan depends on M, K and N alone: the strided weight's, bar the width
+    strided = qm.launch_plan("t", x, q, sc, 32, True, SMS)
+    assert {k: v for k, v in plan.items() if k != "bn"} == \
+        {k: v for k, v in strided.items() if k != "bn"}
+    assert plan["grid"] == (132,) and plan["ksplit"] == 2
 
 
 @pytest.mark.parametrize("M,kernel", [(1, "small"), (9, "wgmma"), (1500, "wgmma")])
