@@ -42,8 +42,8 @@ before the result lines are printed):
    bit-equal, and the M <= 8
    streaming kernel at M = 1 on that N in panels of 16 and 48; the five
    one-launch SwiGLU entries at the decoder's width (K = D = 3584,
-   I = 18944) at M = 1, 7, 64 in both modes and M = 2, 5, 8, 9, 16, 33 in
-   fast mode (FUSED_ROWS),
+   I = 18944) at M = 1, 7, 64 in both modes and M = 2, 5, 8, 9, 12, 16, 32,
+   33 in fast mode (FUSED_ROWS),
    bf16 and float32 x, over q8_0, q6_K, q5_1 (mins), symmetric q4_0 and q4_1
    blocks, the split schema
    bit-equal to the fused one, two runs bit-equal, M = 65 refused; every
@@ -285,6 +285,7 @@ import time
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
+PEAK_F32_LANES = PEAK_F32 / 2     # float32 instructions a second over all lanes (an fma is 2 flops)
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -459,6 +460,8 @@ def build() -> float:
                 log(f"ptxas[{name}]: {line.strip()}")
     check_tile_ptxas(_build.build_log.get("quant_matmul"))
     check_tile_sass(sass_counts(str(_build._target("quant_matmul")), TILE_SASS_OPS))
+    check_tile_ptxas(_build.build_log.get("quant_matmul_int8"), "quant_matmul_int8",
+                     "qmm8_tile_kernel", INT8_TILE_KERNELS, spills=False)
     check_int8_sass(sass_counts(str(_build._target("quant_matmul_int8")), INT8_SASS_OPS))
     check_attention_sass(sass_counts(str(_build._target("attention_single")),
                                      ("HGMMA", "HMMA")))
@@ -491,24 +494,29 @@ def ptxas_by_function(text: str) -> dict:
     return out
 
 
-def check_tile_ptxas(text) -> None:
-    """The fast M > 8 tile (qmm_tile_kernel): logs each instantiation's
+def check_tile_ptxas(text, lib: str = "quant_matmul", kernel: str = "qmm_tile_kernel",
+                     want: int = TILE_KERNELS, spills: bool = True) -> None:
+    """A large-M tile (the dequantizing qmm_tile_kernel, or the integer
+    qmm8_tile_kernel of quant_matmul_int8): logs each instantiation's
     registers and spills, and fails on a ptxas note that it serialized the
-    tile's wgmma (WGMMA_SERIAL). Nothing to read where the library was
-    reused from an earlier build."""
+    tile's wgmma (WGMMA_SERIAL) and, without ``spills``, on a spill. Nothing
+    to read where the library was reused from an earlier build."""
+    import re
     if text is None:
-        log("ptxas[quant_matmul]: library reused, no build log to check")
+        log(f"ptxas[{lib}]: library reused, no build log to check")
         return
-    tiles = {fn: lines for fn, lines in ptxas_by_function(text).items()
-             if "qmm_tile_kernel" in fn}
-    require(len(tiles) == TILE_KERNELS, f"quant_matmul: ptxas compiled {len(tiles)} "
-            f"instantiations of qmm_tile_kernel, not {TILE_KERNELS}")
+    tiles = {fn: lines for fn, lines in ptxas_by_function(text).items() if kernel in fn}
+    require(len(tiles) == want, f"{lib}: ptxas compiled {len(tiles)} instantiations of "
+            f"{kernel}, not {want}")
     for fn, lines in tiles.items():
         for line in lines:
             if "registers" in line or "spill" in line:
-                log(f"ptxas[quant_matmul]: {fn}: {line}")
+                log(f"ptxas[{lib}]: {fn}: {line}")
         bad = [line for line in lines if any(c in line for c in WGMMA_SERIAL)]
-        require(not bad, f"quant_matmul: ptxas serialized the wgmma of {fn}: {bad}")
+        require(not bad, f"{lib}: ptxas serialized the wgmma of {fn}: {bad}")
+        spilled = [line for line in lines
+                   if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        require(spills or not spilled, f"{lib}: {fn} spills: {spilled}")
 
 
 def check_tile_sass(counts: dict) -> None:
@@ -526,25 +534,27 @@ def check_tile_sass(counts: dict) -> None:
             "quant_matmul: an instantiation of qmm_tile_kernel issues no wgmma, or mma.sync")
 
 
-# the integer group matmul's M > 8 tile: x type x weight form x tile width
+# the integer group matmul's M > 8 tile: rows of x a unit (16, 32, 64, 128)
+# x weight form
 INT8_TILE_KERNELS = 12
-INT8_SASS_OPS = ("HGMMA", "IGMMA", "FFMA", "FMUL", "FADD", "IADD3")
+INT8_SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "FFMA", "FMUL", "FADD", "IADD3", "LDSM")
 
 
 def check_int8_sass(counts: dict) -> None:
     """Every instantiation of the integer matmul's M > 8 tile
-    (qmm8_wgmma_kernel) runs its group dots on wgmma (HGMMA or IGMMA); logs
-    each kernel's static counts of those and of the rescale's instructions
-    (FFMA, FMUL, FADD, IADD3); fails where cuobjdump is missing (empty
-    counts)."""
+    (qmm8_tile_kernel) runs its group dots on wgmma (HGMMA) and none on
+    mma.sync (HMMA); logs each kernel's static counts of those and of the
+    rescale's and the loads' instructions (FFMA, FMUL, FADD, IADD3, LDSM);
+    fails where cuobjdump is missing (empty counts)."""
     for fn, c in counts.items():
         log(f"sass[quant_matmul_int8]: {fn}: {c}")
-    tiles = {fn: c.split() for fn, c in counts.items() if "qmm8_wgmma_kernel" in fn}
+    tiles = {fn: c.split() for fn, c in counts.items() if "qmm8_tile_kernel" in fn}
     require(len(tiles) == INT8_TILE_KERNELS,
-            f"quant_matmul_int8: {len(tiles)} instantiations of qmm8_wgmma_kernel in the SASS "
+            f"quant_matmul_int8: {len(tiles)} instantiations of qmm8_tile_kernel in the SASS "
             f"counts, not {INT8_TILE_KERNELS} (cuobjdump missing?)")
-    require(all("HGMMA" in c or "IGMMA" in c for c in tiles.values()),
-            "quant_matmul_int8: an instantiation of qmm8_wgmma_kernel issues no wgmma")
+    require(all("HGMMA" in c and "HMMA" not in c for c in tiles.values()),
+            "quant_matmul_int8: an instantiation of qmm8_tile_kernel issues no wgmma, or "
+            "mma.sync")
 
 
 def check_mel_sass(counts: dict) -> None:
@@ -1958,7 +1968,9 @@ def _ties_and_zeros(device, M: int, K: int, dtype, seed: int):
 
 def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
     """The q8_1 quantizing kernel against its plain version on the card:
-    xq and sx bit-equal, bf16 and float32 x, M = 1, 7, 752, 1500."""
+    xq and sx bit-equal, bf16 and float32 x, M = 1, 7, 752, 1500, as int8
+    and in the M > 8 tile's f16 layouts (K's order and the words form's,
+    sx transposed in 16-row blocks)."""
     import torch
     from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
     n = 0
@@ -1975,6 +1987,13 @@ def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
                         f"({int((xq != pq).sum())} xq, {int((sx != ps).sum())} sx)")
                 require(float(sx[0, 0]) == 0.0 and xq[-1, 32:39].tolist()
                         == [127, 0, 2, 2, -4, 0, 126], f"{what}: zero group or ties")
+                for form in (q8.STRIDED, q8.WORDS):   # the M > 8 tile's f16 layouts
+                    tq, ts = q8.tile_activations(x, form)
+                    pq, ps = q8.tile_activations_plain(x, form)
+                    torch.cuda.synchronize()
+                    require(torch.equal(tq, pq) and torch.equal(ts, ps),
+                            f"{what}: the tile's layout {form} differs from its plain version "
+                            f"({int((tq != pq).sum())} xq, {int((ts != ps).sum())} sx)")
                 n += 1
     log(f"quantize_activations: {n} cases bit-equal to the plain version (ties, zero groups)")
     return n
@@ -2127,12 +2146,18 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         nbytes = (ql.numel() * ql.element_size() + scl.numel() * scl.element_size()
                   + (x.numel() + M * N) * x.element_size())
         b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8)
+        # what the tile could reach: ggml's float32 rescale of every (output,
+        # group) pair (a multiply and an fma) on the CUDA cores beside the
+        # f16 tensor work and the bytes (M > 8; the M <= 8 kernel's dots are
+        # int32, bound by its bytes)
+        r_ms = max(b_ms, 2.0 * M * K * N / PEAK_BF16 * 1e3,
+                   2.0 * M * N * (K // 32) / PEAK_F32_LANES * 1e3) if M > 8 else b_ms
         vals = q4b.unpack_b32(ql) if form == "qs4b" else ql
         dense = qm.block_weight(vals, scl, packed=form != "qs", off=8 if form == "qs4b" else off
                                 ).to(dtype)
         t = {"ms": graph_ms(lambda: entry(x, q, sc, *li, **kw)),
              "plain_ms": time_ms(lambda: plain(x, ql, scl), iters=2, warmup=1),
-             "bound_ms": b_ms, "bound_by": b_by,
+             "bound_ms": b_ms, "bound_by": b_by, "rescale_bound_ms": r_ms,
              "library_ms": graph_ms(lambda: x @ dense)}
         del dense
         log(f"{what}: " + json.dumps(t))
@@ -2179,8 +2204,8 @@ def _rand_mlp(device, K: int, I: int, D: int, fmt: str, seed: int, layers: int =
 
 # rows the one-launch SwiGLU is checked at (fast mode; the exact mode at 1, 7
 # and 64) and timed at (q8_0 and q4_0, bf16 x), against the two-launch path
-FUSED_ROWS = (1, 2, BEAM, 7, 8, 9, 16, 33, 64)
-FUSED_TIMED_ROWS = (1, 2, BEAM, 8, 9, 16, 64)
+FUSED_ROWS = (1, 2, BEAM, 7, 8, 9, 12, 16, 32, 33, 64)
+FUSED_TIMED_ROWS = (1, 2, BEAM, 8, 9, 12, 16, 32, 64)
 
 
 def check_fused_mlp(device, dims=(3584, 18944)) -> dict:
@@ -2529,6 +2554,7 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                                                             random_decoder_params,
                                                             random_quant_decoder_params)
     from qwen2_audio_tpu_torch.ops.fused_mlp import ENTRIES as FUSED_ENTRIES
+    from qwen2_audio_tpu_torch.ops.fused_mlp import ONE_LAUNCH_MAX_M
     from qwen2_audio_tpu_torch.ops.linear import set_fused_mlp, set_group_matmul_mode
     from qwen2_audio_tpu_torch.quant.qparams import payload_form, quantize_decoder_params
     from qwen2_audio_tpu_torch.runtime.generate import generate_on_device
@@ -2615,8 +2641,9 @@ def check_quant_decoder_parity(device, cfg, T0: int = QDEC_PARITY_PREFILL,
                         f"quantized decoder parity {fmt} ({which}): tokens differ")
                 require(err <= PARITY_ATOL, f"quantized decoder parity {fmt} ({which}): "
                         f"card and CPU logits differ by {err}")
-                # one per layer and decode forward, and at a prefill of <= 64 rows
-                want_fused = L * (steps - 1 + (T0 <= 64)) \
+                # one per layer and decode forward, and at a prefill of at most
+                # ONE_LAUNCH_MAX_M rows
+                want_fused = L * (steps - 1 + (T0 <= ONE_LAUNCH_MAX_M)) \
                     if which == "one-launch SwiGLU" else 0
                 require(n_fused == want_fused, f"quantized decoder parity {fmt} ({which}): "
                         f"{n_fused} fused launches, want {want_fused}")
@@ -3584,11 +3611,12 @@ def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes:
     stacked launch per projection, layer and forward; one fused launch per
     layer and decode forward in place of gate_up's and down's where both are
     strided, the switch is on, the mode is not "int8" and the forward has at
-    most 64 rows; one flat launch per forward for the lm_head (last position
-    only) and four per encoder layer and request. In mode "int8" the
+    most ``ONE_LAUNCH_MAX_M`` rows (a decode forward here has at most 8);
+    one flat launch per forward for the lm_head (last position only) and
+    four per encoder layer and request. In mode "int8" the
     32-group "qs" and "qs4" take the integer kernels (a flat "qs4" the exact
     dequantizing one, as in JAX); "qs4b" takes its kernel in every mode."""
-    from qwen2_audio_tpu_torch.ops.fused_mlp import MAX_M
+    from qwen2_audio_tpu_torch.ops.fused_mlp import ONE_LAUNCH_MAX_M
 
     def entry(e: dict, stacked: bool) -> str:
         if "qs4b" in e:
@@ -3614,7 +3642,8 @@ def expected_quant_launches(ctx, bundle, fused_on: bool, prefills: int, decodes:
     gu, dn = layers["gate_up"], layers["down"]
     strided = all(("qs" in e or "qs4" in e) for e in (gu, dn))
     one_launch = fused_on and mode != "int8" and strided and set(gu) == set(dn)
-    fused_forwards = (decodes + (prefills if prefill_rows <= MAX_M else 0)) if one_launch else 0
+    fused_forwards = (decodes + (prefills if prefill_rows <= ONE_LAUNCH_MAX_M else 0)
+                      if one_launch else 0)
     for e in (gu, dn):
         add(entry(e, True), L * (forwards - fused_forwards))
     if one_launch:
@@ -3800,7 +3829,7 @@ def run_quant_text(ctx, cfg, fmt: str, new_tokens: int, pool_clips=None) -> dict
         if pool_clips is not None:
             t0 = time.perf_counter()
             bundle.decoder = strided
-            out["pool"] = run_pool(ctx, fmt, new_tokens, pool_clips, verify_ab=True)
+            out["pool"] = run_pool(ctx, fmt, new_tokens, pool_clips)
             out["pool"]["seconds"] = time.perf_counter() - t0
         # phase 4g: the blocks in panels with gate_up strided and the
         # one-launch SwiGLU on, so that the two formats' requests launch
@@ -4079,8 +4108,7 @@ def _pick_eos(refs: list) -> int:
     return best
 
 
-def run_pool(ctx, what: str, new_tokens: int, clips, spec_ks=(0, SPEC_K),
-             verify_ab: bool = False) -> dict:
+def run_pool(ctx, what: str, new_tokens: int, clips, spec_ks=(0, SPEC_K)) -> dict:
     """Phase 4h on the decoder attached to ``ctx``: transcribe_many over
     ``clips`` through POOL_SLOTS slots, POOL_CHUNK tokens a chunk, once per
     ``speculative_k`` in ``spec_ks``, every launch counter set to 0 just
@@ -4093,8 +4121,7 @@ def run_pool(ctx, what: str, new_tokens: int, clips, spec_ks=(0, SPEC_K),
     (bit-equal tokens and probabilities), launches derived from its chunks;
     aggregate tokens/s, ms per chunk, refills, peak GiB; one captured pool
     step's device ms (B = POOL_SLOTS) beside one B = 1 step's, and for the
-    speculative pool one verify iteration's (M = POOL_SLOTS x (K + 1)),
-    with ``verify_ab`` also with the one-launch SwiGLU off."""
+    speculative pool one verify iteration's (M = POOL_SLOTS x (K + 1))."""
     import functools
 
     import numpy as np
@@ -4212,12 +4239,6 @@ def run_pool(ctx, what: str, new_tokens: int, clips, spec_ks=(0, SPEC_K),
                 return ms
 
             run["step_device_ms" if k == 0 else "verify_device_ms"] = step_ms()
-            if k and verify_ab:
-                set_fused_mlp(False)
-                try:
-                    run["verify_device_ms_swiglu_off"] = step_ms()
-                finally:
-                    set_fused_mlp(None)
             T0 = prefills[0].shape[1]
             run["b1_step_device_ms"] = step_device_ms(bundle, T0 + new_tokens // 2,
                                                       bundle.max_ctx)
@@ -5412,9 +5433,16 @@ def main(argv=None) -> int:
     try:
         gpu = gpu_line()
         log(f"gpu: {gpu}")
-        log(f"build: {build():.1f} s (nvcc, sm_90a, one process per source)")
+        build_s = build()
+        log(f"build: {build_s:.1f} s (nvcc, sm_90a, one process per source)")
+        # each phase's seconds since the stamp before it, printed at the end
+        phases, last = {"phase 1 (build)": round(build_s, 1)}, [time.perf_counter()]
+
         def stamp(what: str) -> None:
-            log(f"{what} done at {time.perf_counter() - t_start:.1f} s")
+            now = time.perf_counter()
+            phases[what] = round(now - last[0], 1)
+            last[0] = now
+            log(f"{what} done at {now - t_start:.1f} s ({phases[what]:.1f} s)")
 
         full = WHISPER_PRESETS["qwen2-audio"]
         two = dataclasses.replace(Qwen2DecoderConfig(), num_hidden_layers=2)
@@ -5615,11 +5643,15 @@ def main(argv=None) -> int:
                                                    f"q8_0 speculative K = {SPEC_K}"))):
         require(all(k["launches_4h"][r] > 0 for r in runs),
                 f"phase 4h: {k['name']} was not launched on {runs}: {k['launches_4h']}")
+    # the one-launch SwiGLU takes the plain pool's steps (8 rows) and not the
+    # speculative pool's verify (POOL_SLOTS x (K + 1) rows, past
+    # ONE_LAUNCH_MAX_M: the two-launch path)
     fused_4h = {r: sum(n for e, n in pool_runs[r].items() if e.startswith("fused_mlp"))
                 for r in ("q8_0 plain", f"q8_0 speculative K = {SPEC_K}")}
     fused["launches_4h"] = fused_4h
-    require(all(n > 0 for n in fused_4h.values()),
-            f"phase 4h: the one-launch SwiGLU was not launched on the q8_0 pools: {fused_4h}")
+    require(fused_4h["q8_0 plain"] > 0 and fused_4h[f"q8_0 speculative K = {SPEC_K}"] == 0,
+            f"phase 4h: the one-launch SwiGLU's launches on the q8_0 pools: {fused_4h}, want "
+            "some on the plain pool and none on the speculative one")
     # phase 4i: each kernel's launches over its TP runs (the counts of rank 0,
     # every rank launching the same), by world
     for k in kernels:
@@ -5712,7 +5744,7 @@ def main(argv=None) -> int:
                 log(f"summary 4h pool {cfg_name} ({mode}): " + json.dumps(
                     {k: r[k] for k in ("tokens", "tokens_per_s", "wall_tokens_per_s",
                                        "ms_per_chunk", "chunks", "refills", "step_device_ms",
-                                       "verify_device_ms", "verify_device_ms_swiglu_off",
+                                       "verify_device_ms",
                                        "b1_step_device_ms", "iters", "tokens_per_verify",
                                        "near_ties", "peak_gib") if k in r}))
     log("summary 4h w8a8 request: " + json.dumps(
@@ -5738,6 +5770,7 @@ def main(argv=None) -> int:
          for t, w in tp["worlds"].items()}))
     log("summary 4i train: " + json.dumps(train))
     log(f"summary 4i: {t4i:.1f} s in all (one-process references {tp['single_s']:.1f} s)")
+    log("phase seconds: " + json.dumps(phases))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"gpu: {gpu}")
     print(json.dumps({"kernels": kernels}))

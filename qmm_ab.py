@@ -7,7 +7,7 @@ card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
                       [--decode-weights] [--mel-only] [--int8-only] [--tiles-only]
-                      [--tile-variants] [--ckpt FILE]
+                      [--tile-variants [all|bf16|int8]] [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -54,8 +54,9 @@ weight-streaming kernels with cold weights (``decode_weights``): each
 decoder projection as a 28-layer stack taken in turn, the lm_head, the
 one-launch SwiGLU beside the two-launch path over the same weights, and
 mode "int8" (and q4_0 words) on the same bytes. ``--int8-only`` times just
-the exact-integer entries at the encode, prefill and decode shapes (about a
-minute a checkout, the build included). ``--tiles-only`` times just the
+the exact-integer entries at the encode, prefill and decode shapes, each M >
+8 case beside one ``torch.matmul`` on its dequantized bf16 weight
+(``library_ms``; about a minute a checkout, the build included). ``--tiles-only`` times just the
 dequantizing entries (the M > 8 tile and, at M = 1, the streaming kernel
 whose bits must not move) at the encode, prefill and decode shapes, each
 M > 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
@@ -65,14 +66,18 @@ lm_head M=64", and then ``whisper_full`` per 30 s clip of the random
 32-layer checkpoint (``--ckpt``) quantized to q8_0 and q4_0 and loaded with
 its block weights kept, host ms and one profiled call's device busy ms
 (about two minutes a checkout, the host's quantizing once a call
-included: the quantized files are kept beside ``--ckpt``). ``--tile-variants`` splits the
-checkout's dequantizing M > 8 tile by scratch variants of its source
-(``TILE_VARIANTS``: the products, the weight's conversion or x's loads
-left out), each built with nvcc and swapped in for the checkout's library,
-timed in turns at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head
-q8_0 M = 64 (their outputs are wrong by design; only "as_is" is held to the
-plain version). Prints one JSON line and,
-with ``--out``, appends it there. Needs a CUDA device.
+included: the quantized files are kept beside ``--ckpt``).
+``--tile-variants [all|bf16|int8]`` splits the checkout's M > 8 tiles by
+scratch variants of their sources, each built with nvcc and swapped in for
+the checkout's library, timed in turns (their outputs are wrong by design;
+only "as_is" is held to the plain version): "bf16", the dequantizing tile
+(``TILE_VARIANTS``: the products, the weight's conversion or x's loads left
+out) at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head q8_0 M =
+64; "int8", the exact-integer tile (``INT8_VARIANTS``: the products, the
+rescale, the weight's conversion or transform left out, or all three) at
+gate_up q8_0 and as q4_0 int32 words at M = 752 and fc1 q8_0 at M = 1500,
+with the unit's rows forced at gate_up; "all" (the default) both. Prints
+one JSON line and, with ``--out``, appends it there. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -127,8 +132,9 @@ def main(argv=None) -> int:
                     help="time only the exact-integer group matmul's paths")
     ap.add_argument("--tiles-only", action="store_true",
                     help="time only the dequantizing entries and the lm_head at M = 64")
-    ap.add_argument("--tile-variants", action="store_true",
-                    help="time scratch variants of the dequantizing M > 8 tile")
+    ap.add_argument("--tile-variants", nargs="?", const="all", choices=("all", "bf16", "int8"),
+                    help="time scratch variants of the M > 8 tiles: the dequantizing one "
+                         "(bf16), the exact-integer one (int8) or both (all, the default)")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
                     help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
@@ -163,7 +169,7 @@ def main(argv=None) -> int:
                 paths[path + suffix] = paths.get(path + suffix, 0.0) + layers * t[k]
 
     if args.tile_variants:
-        return emit(args, {"tile_variants": tile_variants(device)})
+        return emit(args, {"tile_variants": tile_variants(device, args.tile_variants)})
     if args.mel_only:
         mel_paths(device, record, shapes, args.ckpt)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
@@ -229,9 +235,15 @@ def main(argv=None) -> int:
             else:
                 forms = {"int8": (lambda: q8.quant_matmul_int8(x, q, sc),
                                   lambda: q8.quant_matmul_int8_plain(x, ql, scl))}
+            lib_ms = None
+            if args.int8_only and M > 8:   # one torch.matmul on the dequantized bf16 weight
+                dense = qm.block_weight(ql, scl, packed=packed,
+                                        off=8 if packed else 0).to(torch.bfloat16)
+                lib_ms = time_ms(lambda: x @ dense)
+                del dense
             for form, (run, ref) in forms.items():
                 record(f"{key} {form}", f"{fmt} {path} {form}", layers, run(), ref(),
-                       {"ms": time_ms(run)})
+                       {"ms": time_ms(run), **({"library_ms": lib_ms} if lib_ms else {})})
             del w, q, sc, x, forms
         torch.cuda.empty_cache()
     if args.int8_only:
@@ -302,26 +314,72 @@ TILE_VARIANTS = {
 }
 
 
-def tile_variants(device, rounds: int = 2) -> dict:
-    """{variant: {case: [ms per round]}} of the checkout's M > 8 tile and its
-    TILE_VARIANTS, built side by side (one nvcc each, in parallel, with the
-    flags of ops/_build.py) and swapped in for its quant_matmul library in
-    turns, by graph replay; "as_is" also holds its largest distance from
-    the plain version per case, "library" one torch.matmul on the
-    dequantized bf16 weight, and "ptxas" the tile's register, spill and
-    C75xx lines of the unedited build."""
+# Text edits of csrc/quant_matmul_int8.cu that leave one part of the M > 8
+# tile out, by the kernel the checkout has: the older tile with transform
+# warp pairs and an f16 B tile (qmm8_wgmma_kernel).
+_I8_OLD_WGMMA = ("    wgmma_f16_rs_mn<BN>(p, a0, b, 0);\n    wgmma_f16_rs_mn<BN>(p, a1, b + (2048 >> 4), 1);",
+                 "    for (int i = 0; i < 4; ++i) { pin(a0[i]); pin(a1[i]); }\n    (void)b;")
+_I8_OLD_RESCALE = (
+    "    const uint32_t sxa = sxs + (j * kWgBM + rl) * 4, swa = sws + (j * BN + 4 * t4) * 4;\n"
+    "    const float sx0 = lds_f32(sxa), sx1 = lds_f32(sxa + 32);\n"
+    "#pragma unroll\n"
+    "    for (int jj = 0; jj < BN / 16; ++jj) {",
+    "    if (j) {\n#pragma unroll\n      for (int i = 0; i < BN / 2; ++i) acc[i] = p[i];\n    }\n"
+    "    const uint32_t swa = sws;\n    const float sx0 = 0.f, sx1 = 0.f;\n"
+    "    for (int jj = 0; jj < 0; ++jj) {")
+_I8_OLD_TRANSFORM = ("          transform_stage<FORM, BN>(smem_u32(raw_w + r * kRawW), "
+                     "smem_u32(bs + s * kBBytes),\n"
+                     "                                    smem_u32(raw_s + r * kRawS), s_f16,\n"
+                     "                                    smem_u32(sws + s * kSwBytes), t, lo, hi);",
+                     "          (void)lo; (void)hi;")
+# The transposed tile with the weight as register A (qmm8_tile_kernel):
+# products, rescale (its multiplies and fmas but one a piece; the sx loads
+# stay), the weight's conversion left out, or all three; no TMA loads (the
+# producer only arrives on each slot: shared memory holds no data), alone,
+# with products only or with the rescale only.
+_I8_WGMMA = ("    wgmma_f16_rs_k<N>(p, ag[0], b + 2 * (2 * j), 0);\n"
+             "    wgmma_f16_rs_k<N>(p, ag[1], b + 2 * (2 * j + 1), 1);",
+             "    (void)b;")
+_I8_RESCALE = ("      c[o] = fmaf(p[k], __fmul_rn(x, sw.x), c[o]);\n"
+               "      c[o + 2] = fmaf(p[k + 2], __fmul_rn(x, sw.y), c[o + 2]);",
+               "      if (jj == 0 && b == 0) c[o] = fmaf(p[k], x, c[o]);")
+_I8_CONVERT = ("    a_frag<FORM>(r, 2 * j, lo, hi, ag[0]);\n    a_frag<FORM>(r, 2 * j + 1, lo, hi, ag[1]);",
+               "    for (int i = 0; i < 4; ++i) { ag[0][i] = r[(2 * j + i) & 7] ^ lo; "
+               "ag[1][i] = r[(2 * j + i + 4) & 7] ^ hi; }")
+_I8_NO_TMA = ("          mbar_expect_tx(&full[s], bytes);\n"
+              "          tma_load_2d(xs + s * S::kX, &xmap, &full[s], kt * kTileK, m0);\n"
+              "          tma_load_2d(sxs + s * S::kSx, &sxmap, &full[s], m0, kt * kGS);\n"
+              "          tma_load_2d(ws + s * S::kW, &wmap, &full[s], n0, kt * RROWS);\n"
+              "          tma_load_2d(ss + s * kTileScaleBytes, &smap, &full[s], n0, kt * kGS);",
+              "          (void)bytes; (void)m0; (void)n0;\n          mbar_arrive(&full[s]);")
+INT8_VARIANTS = {
+    "qmm8_tile_kernel": {
+        "no_products": [_I8_WGMMA], "no_rescale": [_I8_RESCALE], "no_conversion": [_I8_CONVERT],
+        "loads_only": [_I8_WGMMA, _I8_RESCALE, _I8_CONVERT],
+        "no_loads": [_I8_NO_TMA], "products_only": [_I8_NO_TMA, _I8_RESCALE],
+        "rescale_only": [_I8_NO_TMA, _I8_WGMMA]},
+    "qmm8_wgmma_kernel": {
+        "no_products": [_I8_OLD_WGMMA], "no_rescale": [_I8_OLD_RESCALE],
+        "no_transform": [_I8_OLD_TRANSFORM],
+        "loads_only": [_I8_OLD_WGMMA, _I8_OLD_RESCALE, _I8_OLD_TRANSFORM]},
+}
+
+
+def _variant_libs(source: str, library: str, variants: dict) -> tuple:
+    """The checkout's ``source`` and its text edits in ``variants`` (by the
+    kernel the source holds), built side by side (one nvcc each, in
+    parallel, with the flags of ops/_build.py) and loaded with ``library``'s
+    signatures: (kernel, {variant: library}, the kernel's register, spill
+    and C75xx ptxas lines of the unedited build)."""
     import ctypes
     import subprocess
 
-    import torch
-
-    from chip_smoke import _rand_blocks
+    from chip_smoke import ptxas_by_function
     from qwen2_audio_tpu_torch.ops import _build
-    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
-    src = (_build.CSRC / "quant_matmul.cu").read_text()
-    kernel = next(k for k in TILE_VARIANTS if k in src)
+    src = (_build.CSRC / source).read_text()
+    kernel = next(k for k in variants if k in src)
     texts = {"as_is": src}
-    for name, edits in TILE_VARIANTS[kernel].items():
+    for name, edits in variants[kernel].items():
         text = src
         for old, new in edits:
             if old not in text:
@@ -338,7 +396,6 @@ def tile_variants(device, rounds: int = 2) -> dict:
             [_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
              os.path.join(work, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    from chip_smoke import ptxas_by_function
     libs, notes = {}, {}
     for name, job in jobs.items():
         out, _ = job.communicate()
@@ -348,11 +405,57 @@ def tile_variants(device, rounds: int = 2) -> dict:
             notes = {fn: [ln for ln in lines if "registers" in ln or "spill" in ln or "C75" in ln]
                      for fn, lines in ptxas_by_function(out).items() if kernel in fn}
         lib = ctypes.CDLL(os.path.join(work, f"{name}.so"))
-        for fn, argtypes in _build.SIGNATURES["quant_matmul"].items():
+        for fn, argtypes in _build.SIGNATURES[library].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
-    cases = {}
+    return kernel, libs, notes
+
+
+def _time_variants(library: str, libs: dict, cases: dict, rounds: int) -> dict:
+    """{variant: {case: [ms per round]}} with each variant's library swapped
+    in for ``library`` in turns, by graph replay; "as_is" also holds each
+    case's largest distance from its plain version (``cases``: {case: (run,
+    plain)})."""
+    from qwen2_audio_tpu_torch.ops import _build
+    res = {name: {} for name in libs}
+    for rnd in range(rounds):
+        for name in (list(libs) if rnd % 2 == 0 else list(reversed(list(libs)))):
+            _build._libs[library] = libs[name]
+            for case, (run, plain) in cases.items():
+                if rnd == 0 and name == "as_is":
+                    res[name][case + " max_abs_vs_plain"] = (
+                        run().float() - plain().float()).abs().max().item()
+                res[name].setdefault(case, []).append(time_ms(run))
+    return res
+
+
+def tile_variants(device, which: str = "all", rounds: int = 2) -> dict:
+    """The split of the checkout's M > 8 tiles by scratch variants of their
+    sources: ``which`` "bf16" (the dequantizing tile, TILE_VARIANTS), "int8"
+    (the exact-integer tile, INT8_VARIANTS) or "all"."""
+    out = {}
+    if which in ("bf16", "all"):
+        out["bf16"] = bf16_tile_variants(device, rounds)
+    if which in ("int8", "all"):
+        out["int8"] = int8_tile_variants(device, rounds)
+    return out
+
+
+def bf16_tile_variants(device, rounds: int = 2) -> dict:
+    """{variant: {case: [ms per round]}} of the checkout's dequantizing M > 8
+    tile and its TILE_VARIANTS, swapped in for its quant_matmul library in
+    turns, by graph replay; "as_is" also holds its largest distance from the
+    plain version per case, "library" one torch.matmul on the dequantized
+    bf16 weight, and "ptxas" the tile's register, spill and C75xx lines of
+    the unedited build."""
+    import torch
+
+    from chip_smoke import _rand_blocks
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    kernel, libs, notes = _variant_libs("quant_matmul.cu", "quant_matmul", TILE_VARIANTS)
+    cases, dense = {}, {}
     for i, (case, K, N, M, stacked) in enumerate((
             ("gate_up q8_0 M=752", 3584, 37888, 752, True),
             ("fc1 q8_0 M=1500", 1280, 5120, 1500, False),
@@ -364,17 +467,10 @@ def tile_variants(device, rounds: int = 2) -> dict:
         run = ((lambda w=w, x=x: qm.quant_matmul_stacked(x, w["qs"], w["scales"], 1, fast=True))
                if stacked else (lambda w=w, x=x: qm.quant_matmul(x, w["qs"], w["scales"],
                                                                   fast=True)))
-        cases[case] = (run, x, ql, sl)
-    res = {name: {} for name in libs}
-    for rnd in range(rounds):
-        for name in (list(libs) if rnd % 2 == 0 else list(reversed(list(libs)))):
-            _build._libs["quant_matmul"] = libs[name]
-            for case, (run, x, ql, sl) in cases.items():
-                if rnd == 0 and name == "as_is":
-                    res[name][case + " max_abs_vs_plain"] = (
-                        run().float() - qm.quant_matmul_plain(x, ql, sl, fast=True).float()
-                    ).abs().max().item()
-                res[name].setdefault(case, []).append(time_ms(run))
+        cases[case] = (run, lambda x=x, ql=ql, sl=sl: qm.quant_matmul_plain(x, ql, sl,
+                                                                            fast=True))
+        dense[case] = (x, ql, sl)
+    res = _time_variants("quant_matmul", libs, cases, rounds)
     if hasattr(qm, "tile_plan"):   # the unit's rows forced at gate_up
         _build._libs["quant_matmul"] = libs["as_is"]
         plan = qm.tile_plan
@@ -393,10 +489,75 @@ def tile_variants(device, rounds: int = 2) -> dict:
                 qm.tile_plan = plan
     _build._libs.pop("quant_matmul")
     res["library"] = {}
-    for case, (run, x, ql, sl) in cases.items():
-        dense = qm.block_weight(ql, sl).to(torch.bfloat16)
-        res["library"][case] = time_ms(lambda: x @ dense)
-        del dense
+    for case, (x, ql, sl) in dense.items():
+        w = qm.block_weight(ql, sl).to(torch.bfloat16)
+        res["library"][case] = time_ms(lambda: x @ w)
+        del w
+    return {"kernel": kernel, "ptxas": notes, **res}
+
+
+def int8_tile_variants(device, rounds: int = 2) -> dict:
+    """{variant: {case: [ms per round]}} of the checkout's exact-integer M >
+    8 tile and its INT8_VARIANTS (products, rescale, the weight's transform
+    or conversion left out, or all three: loads and barriers only), swapped
+    in for its quant_matmul_int8 library in turns, by graph replay, at
+    gate_up q8_0 and gate_up q4_0 as int32 words at M = 752 and fc1 q8_0 at
+    M = 1500 (bf16 x); "as_is" also holds its largest distance from the
+    plain version per case, "library" one torch.matmul on the dequantized
+    bf16 weight, and "ptxas" the tile's register, spill and C75xx lines of
+    the unedited build."""
+    import torch
+
+    from chip_smoke import _rand_blocks
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as q4b
+    kernel, libs, notes = _variant_libs("quant_matmul_int8.cu", "quant_matmul_int8",
+                                        INT8_VARIANTS)
+    cases, dense = {}, {}
+    for i, (case, K, N, M, fmt) in enumerate((
+            ("gate_up q8_0 M=752", 3584, 37888, 752, "q8_0"),
+            ("gate_up q4_0 words M=752", 3584, 37888, 752, "q4_0"),
+            ("fc1 q8_0 M=1500", 1280, 5120, 1500, "q8_0"))):
+        g = torch.Generator(device=device).manual_seed(4200 + i)
+        stacked = case.startswith("gate_up")
+        w = _rand_blocks(device, K, N, fmt, 4300 + i, layers=2 if stacked else 0)
+        x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+        if fmt == "q4_0":
+            words = q4b.pack_b32(w["qs4"])
+            run = lambda x=x, q=words, s=w["scales"]: q4b.quant_matmul_q4b_stacked(x, q, s, 1)
+            plain = lambda x=x, q=words[1], s=w["scales"][1]: q4b.quant_matmul_q4b_plain(x, q, s)
+            dense[case] = (x, qm.block_weight(w["qs4"][1], w["scales"][1], packed=True, off=8))
+        elif stacked:
+            run = lambda x=x, q=w["qs"], s=w["scales"]: q8.quant_matmul_int8_stacked(x, q, s, 1)
+            plain = lambda x=x, q=w["qs"][1], s=w["scales"][1]: q8.quant_matmul_int8_plain(x, q, s)
+            dense[case] = (x, qm.block_weight(w["qs"][1], w["scales"][1]))
+        else:
+            run = lambda x=x, q=w["qs"], s=w["scales"]: q8.quant_matmul_int8(x, q, s)
+            plain = lambda x=x, q=w["qs"], s=w["scales"]: q8.quant_matmul_int8_plain(x, q, s)
+            dense[case] = (x, qm.block_weight(w["qs"], w["scales"]))
+        cases[case] = (run, plain)
+    res = _time_variants("quant_matmul_int8", libs, cases, rounds)
+    if "bm" in q8.tile_plan(752, 37888, 132):   # the unit's rows forced at gate_up
+        _build._libs["quant_matmul_int8"] = libs["as_is"]
+        plan = q8.tile_plan
+        run = cases["gate_up q8_0 M=752"][0]
+        for bm in (64, 128):
+            def forced(M, N, sms, bm=bm):
+                mt, nt = -(-M // bm), plan(M, N, sms)["tiles"][1]
+                return {"bm": bm, "tiles": (mt, nt), "units": mt * nt, "ctas": min(mt * nt, sms)}
+            q8.tile_plan = forced
+            try:
+                res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
+            finally:
+                q8.tile_plan = plan
+    _build._libs.pop("quant_matmul_int8")
+    res["library"] = {}
+    for case, (x, w) in dense.items():
+        wb = w.to(torch.bfloat16)
+        res["library"][case] = time_ms(lambda: x @ wb)
+        del wb
     return {"kernel": kernel, "ptxas": notes, **res}
 
 

@@ -3,9 +3,9 @@
 // attention_single.cu: mbarriers, TMA tile loads and the host-side tensor
 // map, cp.async with zero fill, wgmma descriptors and the wgmma shapes the
 // tiles issue (m64n128k16 bf16 -> f32 from shared memory, m64n64k16 and
-// m64n128k16 bf16 -> f32 with A from registers, m64n64k16 and m64n128k16
-// f16 -> f32 with A from registers and B MN-major), setmaxnreg, and the
-// 128-byte swizzle the operands are stored in.
+// m64n128k16 bf16 -> f32 with A from registers and B MN-major, m64nNk16
+// bf16 and f16 -> f32 with A from registers and B K-major), setmaxnreg, and
+// the 128-byte swizzle the operands are stored in.
 //
 // Operand layout: every shared-memory wgmma operand here has a 128-byte
 // swizzle. A tile of R rows holds 128 bytes per row (64 bf16 or 128 s8
@@ -178,17 +178,14 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
          (1ull << 62);
 }
 
-// descriptor of an MN-major, 128-byte-swizzled tile at shared address addr
-// (1024-byte aligned): rows of 128 bytes (64 values of N) walk K, atoms of 8
-// rows are 1024 bytes apart (the stride byte offset), and the next 64
-// values of N lie lbo bytes on (the leading byte offset; unused where N is
-// 64)
-__device__ __forceinline__ uint64_t wgmma_desc_mn_at(uint32_t addr, uint32_t lbo) {
-  return ((uint64_t)(addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(kSwizzleAtom >> 4) << 32) | (1ull << 62);
-}
+// descriptor of an MN-major, 128-byte-swizzled tile at p (1024-byte
+// aligned): rows of 128 bytes (64 values of N) walk K, atoms of 8 rows are
+// 1024 bytes apart (the stride byte offset), and the next 64 values of N lie
+// lbo bytes on (the leading byte offset; unused where N is 64)
 __device__ __forceinline__ uint64_t wgmma_desc_mn(const void* p, uint32_t lbo) {
-  return wgmma_desc_mn_at(smem_u32(p), lbo);
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(kSwizzleAtom >> 4) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -259,134 +256,110 @@ __device__ __forceinline__ void wgmma_bf16_rs_n128(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d (64 x N, float32) (+)= a (64 x 16 f16, the register fragment: a[0..3]
-// rows g and g + 8 of the warp's 16, values 2 t4, 2 t4 + 1 and + 8) * b
-// (16 x N f16, MN-major in shared memory: the transpose bit), N 64 or 128;
-// d is added to where accumulate is not 0
-template <int N>
-__device__ __forceinline__ void wgmma_f16_rs_mn(float (&d)[N / 2], const uint32_t (&a)[4],
-                                                uint64_t b, int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_f16_rs_mn: N is 64 or 128");
-  if constexpr (N == 128) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " QA_OPS64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : QA_R64("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " QA_OPS32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : QA_R32("+f", d)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+// d (64 x N, float32) (+)= a (64 x 16 bf16 or f16, the register fragment,
+// as for wgmma_bf16_rs_n64) * b (16 x N of the same type, K-major in shared
+// memory: no transpose), N 8, 16, 32, 64, 128, 192 or 256; d is added to where
+// accumulate is not 0. wgmma_bf16_rs_k and wgmma_f16_rs_k, one text.
+#define QA_RS_K_DECL(NAME, N)                                                            \
+  template <>                                                                            \
+  __device__ __forceinline__ void NAME<N>(float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b, \
+                                          int accumulate)
+#define QA_RS_K(NAME, TY)                                                                 \
+  template <int N>                                                                        \
+  __device__ __forceinline__ void NAME(float(&d)[N / 2], const uint32_t(&a)[4], uint64_t b, \
+                                       int accumulate);                                  \
+  QA_RS_K_DECL(NAME, 8) {                                                                 \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"                                      \
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32." TY "." TY " "                        \
+        "{%0, %1, %2, %3}"                                                                \
+        ", {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"                                        \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 16) {                                                                \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                                     \
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " "                       \
+        "{%0, %1, %2, %3, %4, %5, %6, %7}"                                                \
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"                                     \
+        : QA_R8("+f", d, 0)                                                               \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 32) {                                                                \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                                     \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "                       \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"          \
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"                                   \
+        : QA_R8("+f", d, 0), QA_R8("+f", d, 8)                                            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 64) {                                                                \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                     \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "                       \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}" \
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"                                   \
+        : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24)    \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 128) {                                                               \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                                     \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "                      \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}" \
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"                                   \
+        : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),   \
+          QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56)  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 192) {                                                               \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"                                    \
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " "                      \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}" \
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"                                  \
+        : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),   \
+          QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56), \
+          QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88)  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
+  }                                                                                       \
+  QA_RS_K_DECL(NAME, 256) {                                                               \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"                                    \
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "                      \
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "         \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+        "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+        "%124, %125, %126, %127}"                                                         \
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"                              \
+        : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),   \
+          QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56), \
+          QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88), \
+          QA_R8("+f", d, 96), QA_R8("+f", d, 104), QA_R8("+f", d, 112), QA_R8("+f", d, 120) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));           \
   }
-}
 
-// d (64 x N, float32) (+)= a (64 x 16 bf16, the register fragment, as for
-// wgmma_bf16_rs_n64) * b (16 x N bf16, K-major in shared memory: no
-// transpose), N 16, 32, 64, 128, 192 or 256; d is added to where
-// accumulate is not 0
-template <int N>
-__device__ __forceinline__ void wgmma_bf16_rs_k(float (&d)[N / 2], const uint32_t (&a)[4],
-                                                uint64_t b, int accumulate);
+QA_RS_K(wgmma_bf16_rs_k, "bf16")
+QA_RS_K(wgmma_f16_rs_k, "f16")
 
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<16>(float (&d)[8], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}"
-      ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0), QA_R8("+f", d, 8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<64>(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<128>(float (&d)[64], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
-        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<192>(float (&d)[96], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
-      ", {%96, %97, %98, %99}, %100, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
-        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56),
-        QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs_k<256>(float (&d)[128], const uint32_t (&a)[4],
-                                                   uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}"
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : QA_R8("+f", d, 0), QA_R8("+f", d, 8), QA_R8("+f", d, 16), QA_R8("+f", d, 24),
-        QA_R8("+f", d, 32), QA_R8("+f", d, 40), QA_R8("+f", d, 48), QA_R8("+f", d, 56),
-        QA_R8("+f", d, 64), QA_R8("+f", d, 72), QA_R8("+f", d, 80), QA_R8("+f", d, 88),
-        QA_R8("+f", d, 96), QA_R8("+f", d, 104), QA_R8("+f", d, 112), QA_R8("+f", d, 120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
+#undef QA_RS_K
+#undef QA_RS_K_DECL
 #undef QA_OPS32
 #undef QA_OPS64
 #undef QA_R32

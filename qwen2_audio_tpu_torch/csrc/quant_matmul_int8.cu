@@ -42,52 +42,38 @@
 //   products (gate_up at M = 752: 0.206 ms of f16 tensor work at 989
 //   TFLOP/s) and, on the CUDA cores, the rescale of every group's dot: M N K
 //   / 32 (output, group) pairs (gate_up: 3.19 G), c = fmaf(p, sx * sw, c),
-//   which ggml's numerics (the float32 sum in group order) do not let us
-//   skip. quantize_q8_1_kernel first writes xq (M, K) int8 and sx
-//   transposed (K / 32, M rounded up to 4, so that its rows are 16-byte
-//   aligned); then qmm8_wgmma_kernel, one persistent CTA an SM (the launch
-//   plan's grid), walks 128 x BN output tiles (BN 128, or 64 where that
-//   shortens the waves by a fifth) in the order tile = CTA + k * CTAs, m
-//   fastest, so the CTAs at work at once share few weight columns.
+//   a multiply and an fma each (0.19 ms at 128 lanes a clock an SM and
+//   1.98 GHz), which ggml's numerics (the float32 sum in group order) do
+//   not let us skip. quantize_q8_1_kernel first writes xq (M, K) as f16
+//   values and sx transposed (K / 32, M rounded up to 16, each 16 rows in
+//   sx_slot's order); then qmm8_tile_kernel, one persistent CTA an SM (the
+//   launch plan's grid), computes the output's transpose, out^T = v^T xq^T,
+//   over units of BM rows x 128 columns, M fastest.
 //   * The products are exact on f16 tensor cores: xq in [-127, 127], int8
 //     weights in [-128, 127] and nibbles - off in [-8, 15] are exact in f16,
 //     a product is below 2^14 and a group's 32 below 2^19, so every float32
-//     partial sum of a wgmma m64nBNk16 pair (zeroed, then added to) is an
-//     exact integer: p is the integer dot, already a float (the old s32
-//     product cost an integer add and a float subtract an output and group
-//     more). f16 rather than bf16 because its 10-bit mantissa lets a byte
-//     become a value by one byte permute under the exponent of 1024 (0x6400
-//     | u is 1024 + u) and one f16x2 add or fma. The premise is tested on the
-//     CPU (tests/test_torch_int8_f16_premise.py) and on the card (qmm_ab.py's
+//     partial sum of a group's two wgmma k16 steps (zeroed, then added to)
+//     is an exact integer: p is the integer dot, already a float. f16 rather
+//     than bf16 because its 10-bit mantissa lets a byte become a value by one
+//     byte permute under the exponent of 1024 (0x6400 | u is 1024 + u) and
+//     one f16x2 add or fma. The premise is tested on the CPU
+//     (tests/test_torch_int8_f16_premise.py) and on the card (qmm_ab.py's
 //     digests equal the s32 kernel's).
-//   * A (x) from registers: each consumer thread loads its 8 bytes of a
-//     row a group (one 8-byte load; K is ordered inside a group by k_slot so
-//     that they are neighbours) and converts them in registers; int8 x from
-//     device memory, not f16, halves x's L2 and shared-memory bytes.
-//   * B (the weight) MN-major in shared memory: 3 pairs of transform warps
-//     (a pair converts every third stage, a batch of raw words loaded before
-//     any of it is stored) turn each raw stage of any form into f16 without
-//     a byte transpose, rows in k_slot order, and the scales into float32 in
-//     the order the consumers read them (sw_slot).
-//   * Two consumer warpgroups (rows 64 w .. 64 w + 63), per group: the two
-//     products, a wait, then the rescale; one warpgroup's rescale runs under
-//     the other's products. A consumer never spins on an mbarrier: ptxas
-//     serializes every wgmma of a function where one is in flight across a
-//     divergent spin (C7518), so the transform, which waits for x to land,
-//     releases each warpgroup through a named barrier a B slot.
-//   * Loads: one producer warp issues x (and sx) as soon as a slot is free,
-//     another the raw weight (and sw) as far ahead as the raw ring goes.
-//   Shared memory (BN = 128): 6 x stages of 9 KB, 4 B stages of 17 KB (f16
-//   tile and float32 sw) and 8 raw stages of 9 KB, 200 KB. A stage (64 of
-//   K) moves about 100 KB through it: 32 KB of B read by the products, 16 KB
-//   of B written and 8 KB of raw read by the transform, 8 + 8 KB of raw and
-//   x written by TMA, 8 KB of x read by the consumers, about 20 KB of scale
-//   reads (64 of each 128-byte wavefront used), against 512 clocks of
-//   tensor work and about 600 issue slots of rescale a sub-partition: at 128
-//   bytes a clock the pipe is the busiest single resource (about 800
-//   clocks). Measured on the H100 (PERF.md) the transform bounds the tile:
-//   its loads and stores wait behind that traffic, and a pair takes about
-//   5000 clocks a stage.
+//   * A (the weight) from registers, with no transform and no f16 weight
+//     tile: the consumers read each stage's raw bytes (TMA-swizzled) with
+//     ldmatrix.trans, as quant_matmul.cu's qmm_tile_kernel does, or a
+//     column's int32 word with one 8-byte load of two columns, and convert
+//     them in registers (a_frag). Inside a group the products take K in the
+//     words form's own order (words_k), in which the quantizer writes xq.
+//   * B (xq) K-major by TMA, BM rows a unit (16, 32, 64 or 128), so that a
+//     converted weight stage serves up to 128 rows.
+//   * Each group's products in two halves of the unit's rows, the rescale
+//     of one under the products of the other; two consumer warpgroups that
+//     drift apart; sx for a thread's four rows a float4 (sx_slot).
+//   Measured on the H100 (PERF.md, qmm_ab.py --tile-variants int8): the
+//   loads are hidden (the tile without its TMA loads takes as long as with
+//   them), but the products and the rescale do not overlap: gate_up takes
+//   about as long as the products alone plus the rescale alone.
 //   The integer dots are exact and each output's float32 arithmetic (one
 //   FMA per group, in group order) does not depend on the tiling, so any
 //   tiling gives the same bits (qmm_ab.py's digests hold two builds to it).
@@ -105,6 +91,8 @@
 
 #include "hopper_mma.cuh"
 #include "qmm_common.cuh"
+
+#include <type_traits>
 
 
 
@@ -182,22 +170,47 @@ __device__ __forceinline__ void nibble_words(const uint8_t* __restrict__ q, int 
   }
 }
 
+// The order of K inside a group in which the words form's products take it
+// (any order gives the same exact dot; xq is written in it): k16 step s of
+// a group takes, at slot 8 h + 2 t4 + b, value 16 s + 4 t4 + 2 h + b, so
+// that thread t4 of a fragment needs nibbles of its column's word row t4
+// only (the byte holding 4 t4 + e, e = 2 h + b, low for s 0, high for s 1)
+__host__ __device__ __forceinline__ int words_k(int k) {
+  return (k & ~15) | ((k & 2) << 2) | ((k >> 1) & 6) | (k & 1);
+}
+
+// Where sx of row m of a unit lies in its group's row: within each 16 rows,
+// the 4 values thread t4 of a fragment needs (rows 8 j + 2 t4 + 0, 1 for j
+// = 2 i, 2 i + 1) side by side, one 16-byte load
+__host__ __device__ __forceinline__ int sx_slot(int m) {
+  return (m & ~15) | (((m >> 1) & 3) << 2) | (((m >> 3) & 1) << 1) | (m & 1);
+}
+
 // ------------------------------------------------------------------------- //
 // q8_1 of x: one warp per row and group
 // ------------------------------------------------------------------------- //
 
-template <typename XT>
+template <typename T> __device__ __forceinline__ T from_int(int v);
+template <> __device__ __forceinline__ int8_t from_int<int8_t>(int v) {
+  return static_cast<int8_t>(v);
+}
+template <> __device__ __forceinline__ __half from_int<__half>(int v) { return __int2half_rn(v); }
+
+// xq of type QT (int8, or f16 values for the M > 8 tile) at (m, k), or with
+// WORDS at (m, words_k(k)); sx at (m, g) where ldt is 0, else at (g,
+// sx_slot(m)) of rows ldt long
+template <typename XT, typename QT, bool WORDS>
 __global__ void __launch_bounds__(256)
-quantize_q8_1_kernel(const XT* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ sx, int M, int K, int ldt) {
+quantize_q8_1_kernel(const XT* __restrict__ x, QT* __restrict__ xq, float* __restrict__ sx,
+                     int M, int K, int ldt) {
   const int G = K / kGroup;
   const long long w = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
   if (w >= (long long)M * G) return;   // the whole warp
   const int m = (int)(w / G), g = (int)(w % G), lane = threadIdx.x & 31;
-  const long long i = (long long)m * K + g * kGroup + lane;
+  const long long row = (long long)m * K + g * kGroup;
   float s;
-  xq[i] = static_cast<int8_t>(q8_1_lane(to_float(x[i]), s));
-  if (lane == 0) sx[ldt ? (long long)g * ldt + m : (long long)m * G + g] = s;
+  xq[row + (WORDS ? words_k(lane) : lane)] = from_int<QT>(q8_1_lane(to_float(x[row + lane]), s));
+  if (lane == 0) sx[ldt ? (long long)g * ldt + sx_slot(m) : (long long)m * G + g] = s;
 }
 
 // ------------------------------------------------------------------------- //
@@ -302,53 +315,56 @@ qmm8_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------- //
-// M > 8: persistent TMA-fed tiles, each 32-group's integer dot on f16 wgmma,
-// 512 threads in roles that never reconverge:
-//   warpgroups 0, 1   consumers: rows 64 w .. 64 w + 63 of the 128 x BN tile
-//   warp 8            x producer: the x and sx boxes of each stage
-//   warps 9 .. 14     transform: 3 pairs, pair w converting stages w, w + 3, ..
-//   warp 15           raw producer: the raw weight and sw boxes of each stage
-// A stage is 64 values of K (two groups); a ragged last stage runs only its
-// group. Rings: x (full_x: TMA bytes; empty_x: 256 consumer arrivals), B
-// (empty_b: 256 consumer arrivals; ready: a named barrier a slot and
-// warpgroup) and raw (raw_full: TMA bytes; raw_empty: 64 transform
-// arrivals), each walked in one flat order of stages over the CTA's tiles.
-constexpr int kWgBM = 128, kWgBK = 64, kWgThreads = 512, kGS = kWgBK / kGroup;
-constexpr int kXStages = 6, kBStages = 4, kRawStages = 8;
-// named barriers kStageBar + 2 s + w: B slot s ready for consumer warpgroup w;
-// pair w of the kPairs transform pairs converts stages w, w + kPairs, ...
-constexpr int kTransformThreads = 64, kPairs = 3, kStageBar = 2;
-static_assert(kPairs * kTransformThreads + 64 <= kWgThreads - 256, "transform and producers");
-static_assert(kStageBar + 2 * kBStages <= 16, "named barriers");
-// setmaxnreg moves registers within the CTA's own 512 x 128 = 65536
-constexpr int kConsumerRegs = 184, kWg2Regs = 72;      // 256 x 184 + 256 x 72 = 65536
-constexpr int kXBytes = kWgBM * kWgBK;            // (128 m, 64 k) int8, 64-byte swizzle
-constexpr int kSxBytes = kGS * kWgBM * 4;         // sx of the stage's groups, [g][m]
-constexpr int kHalfB = kWgBK * kSwizzleRow;       // (64 k, 64 n) f16: one MN-major block
+// M > 8: persistent tiles of the output's transpose on f16 wgmma, 384
+// threads in roles that never reconverge:
+//   warpgroups 0, 1  consumers: weight columns 64 w .. 64 w + 63 of a unit
+//                    as wgmma's A, read raw and converted exactly into f16
+//                    registers by the consumers themselves, times the unit's
+//                    BM rows of xq (f16) as B from shared memory: per
+//                    32-group p = the group's dots (out^T), then the rescale
+//   warp 8           producer: each stage's xq and sx boxes, raw weight rows
+//                    and scales by TMA into the ring's next free slot,
+//                    across units
+//   warp 9           release: waits for each slot's bytes and lets each
+//                    consumer warpgroup in through its own named barrier of
+//                    the slot (warps 10, 11 only make the third warpgroup
+//                    whole, which setmaxnreg asks for)
+// A unit is BM rows of x by kTileN = 128 weight columns over all of K in
+// stages of kTileK = 64 values (two groups); CTA b walks units b, b +
+// gridDim.x, ... (the launch plan: ops/quant_matmul_int8.py tile_plan), M
+// fastest. Ring slots: full (TMA bytes), empty (lane 0 of each of the 8
+// consumer warps), and the named barriers 1 + 2 slot + w (warpgroup w's 128
+// consumers + the release warp), so that the two warpgroups drift apart.
+constexpr int kTileN = 128, kTileK = 64, kGS = kTileK / kGroup;
+constexpr int kTileThreads = 384, kTileBarThreads = 128 + 32;
+// setmaxnreg moves registers within the CTA's pool of 384 x 168: the
+// consumers take 232 (c, p's two halves and two groups' A fragments at BM =
+// 128), the producer's warpgroup 40: 2 x 128 x 232 + 128 x 40 = 384 x 168
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kTileScaleBytes = kGS * kTileN * 4;   // a stage's sw, float32 at most
+constexpr int kSmemMax = 232448;
 
-// shared memory of a BN-wide tile: x, B, sx, sw rings, the raw ring (the
-// widest form's bytes, float32 scales) and the barriers, aligned to 1024
-__host__ __device__ constexpr int wg_smem(int BN) {
-  return kXStages * (kXBytes + kSxBytes) + kBStages * (BN / 64 * kHalfB + kGS * BN * 4) +
-         kRawStages * (kWgBK * BN + kGS * BN * 4) + (2 * kXStages + kBStages + 2 * kRawStages) * 8 +
-         1024;
-}
+template <int BM, int FORM>
+struct TileShape {
+  static constexpr int kX = BM * kSwizzleRow;   // xq: (BM rows, 64 k) f16, swizzled
+  // the raw weight rows of a stage: 64 int8 or 32 nibble-byte rows of 128
+  // columns (swizzled), or 8 rows of 128 int32 words
+  static constexpr int kW = FORM == kStrided ? kTileK * kTileN : kTileK / 2 * kTileN;
+  static constexpr int kSx = kGS * BM * 4;      // sx of the stage's groups, [g][sx_slot(m)]
+  static constexpr int kStage = kX + kW + kTileScaleBytes + kSx + 16;   // and two barriers
+  static constexpr int kFit = (kSmemMax - 1024) / kStage;
+  static constexpr int kStages = kFit < 7 ? kFit : 7;   // named barriers 1 .. 14, 2 a slot
+  static constexpr int kSmem = kStages * kStage + 1024;
+};
 
-__device__ __forceinline__ uint2 lds64(uint32_t a) {
-  uint2 v;
-  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a));
+__device__ __forceinline__ float2 lds_f32x2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a));
   return v;
 }
-__device__ __forceinline__ uint4 lds128(uint32_t a) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(a));
-  return v;
-}
-__device__ __forceinline__ float lds_f32(uint32_t a) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
   return v;
 }
 __device__ __forceinline__ float4 lds_f32x4(uint32_t a) {
@@ -358,19 +374,18 @@ __device__ __forceinline__ float4 lds_f32x4(uint32_t a) {
                : "r"(a));
   return v;
 }
-__device__ __forceinline__ __half lds_f16(uint32_t a) {
-  unsigned short v;
-  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
-  return __ushort_as_half(v);
+__device__ __forceinline__ uint2 lds64(uint32_t a) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(a));
+  return v;
 }
-__device__ __forceinline__ void sts_f32(uint32_t a, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
-}
-__device__ __forceinline__ void sts128(uint32_t a, uint32_t x, uint32_t y, uint32_t z,
-                                       uint32_t w) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(x), "r"(y), "r"(z),
-               "r"(w)
-               : "memory");
+
+// scales e and e + 1 of a stage's row-major (groups, columns) scales at
+// shared address a, float16 or float32, as float32
+__device__ __forceinline__ float2 ld_scales2(uint32_t a, int e, int s_f16) {
+  if (!s_f16) return lds_f32x2(a + e * 4);
+  const uint32_t h = lds32(a + e * 2);
+  return __half22float2(*reinterpret_cast<const __half2*>(&h));
 }
 
 // two f16 lanes: h + b, and h * m + b (one rounding each, exact here)
@@ -390,409 +405,451 @@ __device__ __forceinline__ uint32_t hfma2(uint32_t h, uint32_t m, uint32_t b) {
 constexpr uint32_t kMagic = 0x64646464u;
 constexpr uint32_t kBias8 = 0xE480E480u;      // -1152: int8 v ^ 0x80 = v + 128
 constexpr uint32_t kSixteenth = 0x2C002C00u;  // 1 / 16: a high nibble in place is 16 n
+constexpr uint32_t kLoNibbles = 0x0F0F0F0Fu, kHiNibbles = 0xF0F0F0F0u;
 
-// bytes 0, 1 (sel 0x4140) or 2, 3 (0x4342) of w as two f16 1024 + byte
+// two bytes of w, chosen by sel (their indices in its nibbles 0 and 2, 4 in
+// 1 and 3), as two f16 1024 + byte
 __device__ __forceinline__ uint32_t magic2(uint32_t w, uint32_t sel) {
   return __byte_perm(w, kMagic, sel);
 }
 
-// The order of K within a 32-group that the products use (any order gives
-// the same exact dot): B row k_slot(k) holds value k, so that the 8 values
-// of x a thread's A fragment needs for the group's two k16 steps are 8
-// neighbouring bytes of its row (k = 8 t4 + 4 s + 2 h + e sits in slot
-// 16 s + 8 h + 2 t4 + e of step s's fragment, registers a0 / a1 for h 0,
-// a2 / a3 for h 1); k is the value's index in the stage, two groups
-__device__ __forceinline__ int k_slot(int k) {
-  return (k & 32) + ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 8 + ((k >> 3) & 3) * 2 + (k & 1);
-}
-
-// The B tile: row k of an MN-major block holds 64 f16 values of N (128
-// bytes, chunk c of 8 values at (c ^ (k % 8)) * 16); block n / 64 lies
-// kHalfB bytes after the last.
-__device__ __forceinline__ uint32_t b_chunk(uint32_t bd, int k, int c8) {
-  return bd + (c8 >> 3) * kHalfB + k * kSwizzleRow + (((c8 & 7) ^ (k & 7)) << 4);
-}
-
-// sw of column n of a group as the consumers read it: within each 16
-// columns, the 4 values a lane needs (8 i + 2 (lane % 4) + 0, 1 for i = 2 j,
-// 2 j + 1) side by side, one 16-byte load
-__host__ __device__ __forceinline__ int sw_slot(int n) {
-  return (n & ~15) + 4 * ((n & 7) >> 1) + 2 * ((n >> 3) & 1) + (n & 1);
-}
-
-// 4 words of 4 int8 values (16 neighbouring columns) as 8 f16x2 values
-__device__ __forceinline__ void int8_to_f16(const uint4& v, uint32_t (&h)[8]) {
-  const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
-                         v.w ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    h[2 * i] = hadd2(magic2(w[i], 0x4140), kBias8);
-    h[2 * i + 1] = hadd2(magic2(w[i], 0x4342), kBias8);
-  }
-}
-
-// The 8 lanes of a store phase take one row and c16 0 .. 7 (16 columns
-// each, B chunks 2 c16 and 2 c16 + 1); lanes with c16 % 8 >= 4 store their
-// second chunk first, so that each store instruction's 8 chunks lie in 8
-// different bank groups. flip16 swaps a lane's two halves (raw words) before
-// conversion, without a branch; store16 then writes h[0..3] to chunk 2 c16 +
-// flip and h[4..7] to the other.
-__device__ __forceinline__ int flip16(int c16) { return (c16 >> 2) & 1; }
-__device__ __forceinline__ uint4 flip_halves(const uint4& v, int flip) {
-  return flip ? make_uint4(v.z, v.w, v.x, v.y) : v;
-}
-__device__ __forceinline__ void store16(uint32_t bd, int k, int c16, const uint32_t (&h)[8]) {
-  const int flip = flip16(c16);
-  sts128(b_chunk(bd, k, 2 * c16 + flip), h[0], h[1], h[2], h[3]);
-  sts128(b_chunk(bd, k, 2 * c16 + 1 - flip), h[4], h[5], h[6], h[7]);
-}
-
-// The transform's work on one stage, shared by a pair's 64 threads (t): the
-// raw weight rows at rw (TMA box, BN columns a row) into the f16 B tile at
-// bd, and the stage's raw scales at rs (float16 or float32) into float32 at
-// sw in the consumers' order; lo, hi the f16x2 biases of a low and a high
-// nibble (-(1024 + off), -(64 + off)). A thread takes NU units (16 columns at
-// an int8 or nibble-byte row, or 8 columns at a word row), NB at a time,
-// each batch's raw words loaded before any is converted and stored: a shared
-// load placed after a shared store waits for it (the compiler cannot tell
-// that they do not alias), and under the products' operand reads that wait
-// is long (2.3 us a stage, measured, when each unit's load followed the last
-// unit's stores). Batches of at most 4 keep the pair within its registers.
-template <int FORM, int BN>
-__device__ __forceinline__ void transform_stage(uint32_t rw, uint32_t bd, uint32_t rs,
-                                                int s_f16, uint32_t sw, int t, uint32_t lo,
-                                                uint32_t hi) {
-  constexpr int T = kTransformThreads, C16 = BN / 16, C8 = BN / 8;
-  constexpr int U = FORM == kStrided ? kWgBK * C16 : FORM == kPacked ? kWgBK / 2 * C16
-                                                                      : kWgBK / 8 * C8;
-  // every thread takes the same number of units and scales: no predicate,
-  // so the arrays stay in registers
-  static_assert(U % T == 0 && kGS * BN % T == 0, "whole units a thread");
-  constexpr int NU = U / T, NB = NU > 4 ? 4 : NU, NV = FORM == kWords ? 2 : 1;
-  constexpr int NS = kGS * BN / T;
-  float sv[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int e = t + T * i;
-    sv[i] = s_f16 ? __half2float(lds_f16(rs + e * 2)) : lds_f32(rs + e * 4);
-  }
-#pragma unroll
-  for (int i0 = 0; i0 < NU; i0 += NB) {
-    uint4 v[NB][NV];
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int q = t + T * (i0 + i);
-      if constexpr (FORM == kWords) {
-        const uint32_t a = rw + ((q / C8) * BN + (q % C8) * 8) * 4;
-        v[i][0] = lds128(a);
-        v[i][NV - 1] = lds128(a + 16);
-      } else {
-        v[i][0] = lds128(rw + (q / C16) * BN + (q % C16) * 16);
-      }
+// k16 step k (0 .. 3) of a stage as the A fragment of a thread's two
+// columns cl (rows g of A) and cl + 1 (rows g + 8), from the raw words r:
+//   strided: r[2 k], r[2 k + 1] from ldmatrix.trans, each with bytes (row
+//            2 t4, cl), (2 t4, cl + 1), (2 t4 + 1, cl), (2 t4 + 1, cl + 1) of
+//            rows 16 k .. 16 k + 7 and + 8 .. 15 (an int8 row holds one value)
+//   packed:  the low (k even) or high nibbles of r[2 (k / 2)], r[2 (k / 2) +
+//            1], byte rows as for strided (a byte row holds values j and j +
+//            16 of its group, ggml's pairing)
+//   words:   the low (k even) or high nibbles of r[2 (k / 2)] (column cl)
+//            and r[2 (k / 2) + 1] (cl + 1), word row t4 of the group: bytes
+//            0, 1 hold values 4 t4 + 0, 1 and bytes 2, 3 values 4 t4 + 2, 3
+//            of the step (words_k's order)
+// lo, hi: the f16x2 biases of a low and a high nibble (-(1024 + off),
+// -(64 + off)). Every value is exact: no scale is folded in.
+template <int FORM>
+__device__ __forceinline__ void a_frag(const uint32_t (&r)[8], int k, uint32_t lo, uint32_t hi,
+                                       uint32_t (&a)[4]) {
+  if constexpr (FORM == kStrided) {
+    const uint32_t w0 = r[2 * k] ^ 0x80808080u, w1 = r[2 * k + 1] ^ 0x80808080u;
+    a[0] = hadd2(magic2(w0, 0x4240), kBias8);
+    a[1] = hadd2(magic2(w0, 0x4341), kBias8);
+    a[2] = hadd2(magic2(w1, 0x4240), kBias8);
+    a[3] = hadd2(magic2(w1, 0x4341), kBias8);
+  } else {
+    // the packed form pairs (row, cl) with (row + 1, cl) in bytes 0, 2; the
+    // words form a column's values 2 h, 2 h + 1 in bytes 2 h, 2 h + 1
+    constexpr uint32_t s0 = FORM == kPacked ? 0x4240 : 0x4140;   // a[0], a[1]
+    constexpr uint32_t s1 = FORM == kPacked ? 0x4341 : 0x4342;   // a[1] packed; a[2] words
+    const uint32_t m = (k & 1) ? kHiNibbles : kLoNibbles;
+    const uint32_t w0 = r[2 * (k >> 1)] & m, w1 = r[2 * (k >> 1) + 1] & m;
+    uint32_t v[4];
+    if constexpr (FORM == kPacked) {
+      v[0] = magic2(w0, s0);   // cl, rows 2 t4, 2 t4 + 1
+      v[1] = magic2(w0, s1);   // cl + 1
+      v[2] = magic2(w1, s0);   // cl, rows + 8
+      v[3] = magic2(w1, s1);
+    } else {
+      v[0] = magic2(w0, s0);   // cl, values 4 t4 + 0, 1
+      v[1] = magic2(w1, s0);   // cl + 1
+      v[2] = magic2(w0, s1);   // cl, values 4 t4 + 2, 3
+      v[3] = magic2(w1, s1);
     }
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int q = t + T * (i0 + i);
-      if constexpr (FORM == kStrided) {   // 64 int8 rows: value k at row k
-        uint32_t h[8];
-        int8_to_f16(flip_halves(v[i][0], flip16(q % C16)), h);
-        store16(bd, k_slot(q / C16), q % C16, h);
-      } else if constexpr (FORM == kPacked) {   // byte row 16 g + j: k = 32 g + j low, + 16 high
-        const int jr = q / C16, c16 = q % C16, k = (jr >> 4) * 32 + (jr & 15);
-        const uint4 vf = flip_halves(v[i][0], flip16(c16));
-        const uint32_t w[4] = {vf.x, vf.y, vf.z, vf.w};
-        uint32_t h[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t l = w[e] & 0x0F0F0F0Fu;
-          h[2 * e] = hadd2(magic2(l, 0x4140), lo);
-          h[2 * e + 1] = hadd2(magic2(l, 0x4342), lo);
-        }
-        store16(bd, k_slot(k), c16, h);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t u = w[e] & 0xF0F0F0F0u;
-          h[2 * e] = hfma2(magic2(u, 0x4140), kSixteenth, hi);
-          h[2 * e + 1] = hfma2(magic2(u, 0x4342), kSixteenth, hi);
-        }
-        store16(bd, k_slot(k + 16), c16, h);
-      } else {   // word row 4 g + r of a column: byte e holds k = 32 g + 4 r + e low, + 16 high
-        const int wr = q / C8, c8 = q % C8, k0 = (wr >> 2) * 32 + (wr & 3) * 4;
-        const uint32_t w[8] = {v[i][0].x, v[i][0].y, v[i][0].z, v[i][0].w,
-                               v[i][NV - 1].x, v[i][NV - 1].y, v[i][NV - 1].z, v[i][NV - 1].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          // byte e of columns 2 p and 2 p + 1 in the two f16 lanes
-          const uint32_t sel = e | (e << 4) | ((4 + e) << 8) | ((4 + e) << 12);
-          uint32_t l[4], h[4];
-#pragma unroll
-          for (int p = 0; p < 4; ++p) {
-            const uint32_t b = __byte_perm(w[2 * p], w[2 * p + 1], sel);
-            l[p] = hadd2((b & 0x000F000Fu) | 0x64006400u, lo);
-            h[p] = hfma2((b & 0x00F000F0u) | 0x64006400u, kSixteenth, hi);
-          }
-          sts128(b_chunk(bd, k_slot(k0 + e), c8), l[0], l[1], l[2], l[3]);
-          sts128(b_chunk(bd, k_slot(k0 + e + 16), c8), h[0], h[1], h[2], h[3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    const int e = t + T * i;
-    sts_f32(sw + (e / BN * BN + sw_slot(e % BN)) * 4, sv[i]);
+    for (int i = 0; i < 4; ++i) a[i] = (k & 1) ? hfma2(v[i], kSixteenth, hi) : hadd2(v[i], lo);
   }
 }
 
-// One consumer warpgroup's share of a tile: per 32-group, the products of
-// its 64 rows and BN columns (two wgmma m64nBNk16 into p, the group's float32
-// dots, zeroed), then acc = fmaf(p, sx * sw, acc). A warpgroup waits for its
-// own products; the other warpgroup's rescale runs under them.
-template <int BN>
-struct Consumer {
-  float acc[BN / 2];
-  float p[BN / 2];
-  uint32_t xs, bs, sxs, sws;   // the current stage's x, B, sx, sw slots (shared addresses)
-  int wg, rl, t4;
-
-  // group j of the current stage: outputs at rows rl (e < 2) and rl + 8,
-  // columns 8 i + 2 t4 + e % 2
-  __device__ __forceinline__ void group(int j) {
-    // A from registers: bytes 32 j + 8 t4 .. + 7 of x's rows rl and rl + 8
-    // (64-byte swizzle: 16-byte chunk c of row r at c ^ (r / 2 % 4)), the
-    // group's values 8 t4 .. 8 t4 + 7 in k_slot's order, as f16 (v ^ 0x80
-    // under the magic exponent is 1152 + v)
-    const uint32_t xa = xs + rl * kWgBK + ((32 * j + 8 * t4) ^ (((rl >> 1) & 3) << 4));
-    const uint2 r0 = lds64(xa), r1 = lds64(xa + 8 * kWgBK);
-    const uint32_t u[4] = {r0.x ^ 0x80808080u, r1.x ^ 0x80808080u, r0.y ^ 0x80808080u,
-                           r1.y ^ 0x80808080u};
-    uint32_t a0[4], a1[4];   // the fragments of k16 steps 0 and 1
+__device__ __forceinline__ void pin4(uint32_t (&a)[4]) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      a0[e] = hadd2(magic2(u[e], 0x4140), kBias8);
-      a0[2 + e] = hadd2(magic2(u[e], 0x4342), kBias8);
-      a1[e] = hadd2(magic2(u[2 + e], 0x4140), kBias8);
-      a1[2 + e] = hadd2(magic2(u[2 + e], 0x4342), kBias8);
+  for (int i = 0; i < 4; ++i) pin(a[i]);
+}
+
+// A group's products are taken in P = 2 pieces of the unit's rows (halves:
+// a wgmma m64n(8 J)k16 each, J blocks of 8 rows), so that one piece's
+// rescale runs under the other's products; F floats of a thread's fragment
+// a piece. (Four pieces of 32 rows at BM = 128 were slower on the H100, the
+// products of the narrower wgmma most: PERF.md.)
+template <int BM>
+struct Pieces {
+  static constexpr int P = 2;
+  static constexpr int J = BM / 8 / P;
+  static constexpr int F = 4 * J;
+};
+
+// sx of piece i of a group for one consumer thread, from the group's slotted
+// row at sxa: rows 16 m + 2 t4 + 0, 1 and 16 m + 8 + 2 t4 + 0, 1 side by side
+// at 16 m + 4 t4, one float4 for each pair of the piece's blocks of 8 rows (a
+// float2 where a piece holds one block)
+template <int BM>
+__device__ __forceinline__ void load_sx(float (&v)[Pieces<BM>::F / 2], uint32_t sxa, int i) {
+  constexpr int J = Pieces<BM>::J;
+  if constexpr (J == 1) {
+    const float2 w = lds_f32x2(sxa + (16 * (i >> 1) + 2 * (i & 1)) * 4);
+    v[0] = w.x;
+    v[1] = w.y;
+  } else {
+#pragma unroll
+    for (int jj = 0; jj < J; jj += 2) {
+      const float4 w = lds_f32x4(sxa + 64 * ((i * J + jj) >> 1));
+      v[2 * jj] = w.x;
+      v[2 * jj + 1] = w.y;
+      v[2 * jj + 2] = w.z;
+      v[2 * jj + 3] = w.w;
     }
-    // B: MN-major, 2048 bytes a k16 step
-    const uint64_t b = wgmma_desc_mn_at(bs, kHalfB) + (2 * j) * (2048 >> 4);
-    wgmma_fence();
-    wgmma_f16_rs_mn<BN>(p, a0, b, 0);
-    wgmma_f16_rs_mn<BN>(p, a1, b + (2048 >> 4), 1);
-    wgmma_commit();
+  }
+}
+
+// One consumer thread's rescale of piece i of a group's products: c =
+// fmaf(p, sx * sw, c) for its outputs (fragment of out^T: c[4 j + b] column
+// cl, c[4 j + 2 + b] column cl + 1, both of unit row 8 j + 2 t4 + b; piece i
+// holds j = i J .. i J + J - 1 as p[4 (j - i J) + ..], its sx from load_sx)
+template <int BM>
+__device__ __forceinline__ void rescale_piece(float (&c)[BM / 2], const float (&p)[Pieces<BM>::F],
+                                              const float (&sx)[Pieces<BM>::F / 2], float2 sw,
+                                              int i) {
+  constexpr int J = Pieces<BM>::J;
+#pragma unroll
+  for (int jj = 0; jj < J; ++jj) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const float x = sx[2 * jj + b];
+      const int k = 4 * jj + b, o = 4 * (i * J + jj) + b;
+      c[o] = fmaf(p[k], __fmul_rn(x, sw.x), c[o]);
+      c[o + 2] = fmaf(p[k + 2], __fmul_rn(x, sw.y), c[o + 2]);
+    }
+  }
+}
+
+// wgmma.wait_group with n (0 or 1) known once the caller's loop is unrolled
+__device__ __forceinline__ void wgmma_wait_n(int n) {
+  if (n == 0)
     wgmma_wait<0>();
+  else
+    wgmma_wait<1>();
+}
+
+// a thread's two neighbouring outputs of rows ra and ra + 1 (wgmma's
+// fragment of out^T: c[4 j] and c[4 j + 2] are columns col, col + 1 of row
+// 8 j + 2 t4, c[4 j + 1] and c[4 j + 3] of the next row)
+template <int BM, typename T>
+__device__ __forceinline__ void tile_store(const float (&c)[BM / 2], T* o, int M, int N, int r0,
+                                           int col) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) pin(p[i]);
-    const uint32_t sxa = sxs + (j * kWgBM + rl) * 4, swa = sws + (j * BN + 4 * t4) * 4;
-    const float sx0 = lds_f32(sxa), sx1 = lds_f32(sxa + 32);
+  for (int j = 0; j < BM / 8; ++j) {
+    const int ra = r0 + 8 * j;
+    if (ra < M) store2(o + (long long)ra * N + col, c[4 * j], c[4 * j + 2]);
+    if (ra + 1 < M) store2(o + (long long)(ra + 1) * N + col, c[4 * j + 1], c[4 * j + 3]);
+  }
+}
+
+// One consumer thread's work on a unit, each group's products in Pieces<BM>
+// pieces of the unit's rows, so that a piece's rescale runs under the other
+// pieces' products. Per stage: issue group 0's pieces; for each piece, wait
+// for it (the oldest of P in flight), rescale it and issue the same piece
+// of group 1; then wait for and rescale group 1's pieces. No product is in
+// flight across the loop over stages: ptxas serializes every wgmma of a
+// function where a consumer reads accumulators with products of a loop's
+// next turn in flight (C7514). A stage's two groups take A registers a0 and
+// a1, each pinned until the wait that retires its last piece (wgmma reads
+// them after issue). Every stage runs both its groups: where K ends a
+// stage's first group, the second reads zeros past K (TMA's fill of x, the
+// weight and both scales), and fma(0, 0, c) leaves c's bits as they are (c
+// is never -0).
+template <int BM, int FORM>
+struct Consumer {
+  using S = TileShape<BM, FORM>;
+  static constexpr int P = Pieces<BM>::P, F = Pieces<BM>::F, N = BM / P;
+  float c[BM / 2], pc[P][F];
+  uint32_t a0[2][4], a1[2][4];   // groups 0 and 1 of a stage: k16 step, registers
+  uint32_t r[8];                 // the stage's raw words
+  uint32_t ws0, ss0, sx0;
+  uint8_t* xs;
+  uint32_t lo, hi;
+  int s_f16, wg, cl, t4;
+
+  // the stage in slot s: wait for its named barrier, then its raw words
+  __device__ __forceinline__ void open(int s) {
+    named_sync(1 + 2 * s + wg, kTileBarThreads);
+    const uint32_t wa = ws0 + s * S::kW;
+    if constexpr (FORM == kWords) {
 #pragma unroll
-    for (int jj = 0; jj < BN / 16; ++jj) {
-      const float4 w = lds_f32x4(swa + 64 * jj);
-      const int i = 8 * jj;
-      acc[i + 0] = fmaf(p[i + 0], __fmul_rn(sx0, w.x), acc[i + 0]);
-      acc[i + 1] = fmaf(p[i + 1], __fmul_rn(sx0, w.y), acc[i + 1]);
-      acc[i + 2] = fmaf(p[i + 2], __fmul_rn(sx1, w.x), acc[i + 2]);
-      acc[i + 3] = fmaf(p[i + 3], __fmul_rn(sx1, w.y), acc[i + 3]);
-      acc[i + 4] = fmaf(p[i + 4], __fmul_rn(sx0, w.z), acc[i + 4]);
-      acc[i + 5] = fmaf(p[i + 5], __fmul_rn(sx0, w.w), acc[i + 5]);
-      acc[i + 6] = fmaf(p[i + 6], __fmul_rn(sx1, w.z), acc[i + 6]);
-      acc[i + 7] = fmaf(p[i + 7], __fmul_rn(sx1, w.w), acc[i + 7]);
+      for (int j = 0; j < kGS; ++j) {   // group j: word row 4 j + t4, columns cl, cl + 1
+        const uint2 v = lds64(wa + 4 * j * kTileN * 4);
+        r[2 * j] = v.x;
+        r[2 * j + 1] = v.y;
+      }
+    } else {
+      ldsm_x4_trans(wa, *reinterpret_cast<uint32_t(*)[4]>(&r[0]));
+      if constexpr (FORM == kStrided)
+        ldsm_x4_trans(wa + 32 * kSwizzleRow, *reinterpret_cast<uint32_t(*)[4]>(&r[4]));
     }
   }
 
-  // a tile of G groups from stage it0 of the CTA's flat order: per stage,
-  // wait for the transform's named barrier, its groups, then free its slots
-  __device__ __forceinline__ void tile(int G, int it0, uint32_t xs0, uint32_t bs0, uint32_t sxs0,
-                                       uint32_t sws0, uint64_t* empty_x, uint64_t* empty_b) {
+  // group j of the open stage as A fragments
+  __device__ __forceinline__ void convert(int j, uint32_t (&ag)[2][4]) {
+    a_frag<FORM>(r, 2 * j, lo, hi, ag[0]);
+    a_frag<FORM>(r, 2 * j + 1, lo, hi, ag[1]);
+  }
+
+  // group j of slot s's stage, rows i N .. i N + N - 1 of the unit, into p
+  // (zeroed): exact integer dots
+  __device__ __forceinline__ void issue(float (&p)[F], const uint32_t (&ag)[2][4], int s, int j,
+                                        int i) {
+    const uint64_t b = wgmma_desc(xs + s * S::kX + i * N * kSwizzleRow);
+    wgmma_fence();
+    wgmma_f16_rs_k<N>(p, ag[0], b + 2 * (2 * j), 0);
+    wgmma_f16_rs_k<N>(p, ag[1], b + 2 * (2 * j + 1), 1);
+    wgmma_commit();
+  }
+
+  __device__ __forceinline__ float2 scales(int s, int j) {
+    return ld_scales2(ss0 + s * kTileScaleBytes, j * kTileN + cl, s_f16);
+  }
+  __device__ __forceinline__ uint32_t sx_at(int s, int j) {
+    return sx0 + s * S::kSx + (j * BM + 4 * t4) * 4;
+  }
+
+  __device__ __forceinline__ void pin_p(float (&p)[F]) {
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-    int fx = it0 % kXStages, fb = it0 % kBStages;
-    for (int g = 0; g < G; g += kGS) {
-      xs = xs0 + fx * kXBytes;
-      bs = bs0 + fb * (BN / 64 * kHalfB);
-      sxs = sxs0 + fx * kSxBytes;
-      sws = sws0 + fb * (kGS * BN * 4);
-      named_sync(kStageBar + 2 * fb + wg, kTransformThreads + 128);
-      group(0);
-      if (g + 1 < G) group(1);
-      mbar_arrive(&empty_x[fx]);
-      mbar_arrive(&empty_b[fb]);
-      fx = fx + 1 == kXStages ? 0 : fx + 1;
-      fb = fb + 1 == kBStages ? 0 : fb + 1;
+    for (int k = 0; k < F; ++k) pin(p[k]);
+  }
+  __device__ __forceinline__ void pin_a(uint32_t (&ag)[2][4]) {
+    pin4(ag[0]);
+    pin4(ag[1]);
+  }
+
+  // a unit of `stages` stages from slot s on, whose first stage is open (its
+  // raw words in r); opens the stage after its last (the release warp lets
+  // the consumers through one slot past the CTA's last stage) and returns
+  // its slot. c holds the unit's outputs after it.
+  __device__ __forceinline__ int unit(int stages, int s, uint64_t* empty, int lane) {
+#pragma unroll
+    for (int k = 0; k < BM / 2; ++k) c[k] = 0.f;
+    for (int kt = 0; kt < stages; ++kt) {
+      const int sn = s + 1 == S::kStages ? 0 : s + 1;
+      float sx[F / 2];
+      convert(0, a0);
+#pragma unroll
+      for (int i = 0; i < P; ++i) issue(pc[i], a0, s, 0, i);
+      convert(1, a1);
+      const float2 sw0 = scales(s, 0), sw1 = scales(s, 1);
+#pragma unroll
+      for (int i = 0; i < P; ++i) {   // group 0's piece i, then group 1's
+        load_sx<BM>(sx, sx_at(s, 0), i);
+        wgmma_wait_n(P - 1);
+        pin_p(pc[i]);
+        if (i == P - 1) pin_a(a0);
+        rescale_piece<BM>(c, pc[i], sx, sw0, i);
+        issue(pc[i], a1, s, 1, i);
+      }
+      open(sn);   // the next stage's raw words while group 1 runs
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        load_sx<BM>(sx, sx_at(s, 1), i);
+        wgmma_wait_n(P - 1 - i);
+        pin_p(pc[i]);
+        if (i == P - 1) {
+          pin_a(a1);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[s]);   // the stage is read to its end
+        }
+        rescale_piece<BM>(c, pc[i], sx, sw1, i);
+      }
+      s = sn;
     }
+    return s;
   }
 };
 
-template <typename XT, int FORM, int BN>
-__global__ void __launch_bounds__(kWgThreads, 1)
-qmm8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                  const __grid_constant__ CUtensorMap wmap,
-                  const __grid_constant__ CUtensorMap smap,
-                  const __grid_constant__ CUtensorMap sxmap, int s_f16, XT* __restrict__ out,
-                  int M, int K, int N, int off) {
+template <int BM, int FORM>
+__global__ void __launch_bounds__(kTileThreads, 1)
+qmm8_tile_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap smap,
+                 const __grid_constant__ CUtensorMap sxmap, int s_f16, void* __restrict__ out,
+                 int out_f32, int M, int K, int N, int off) {
+  using S = TileShape<BM, FORM>;
+  constexpr int ST = S::kStages;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t base = smem_u32(smem_raw);
-  uint8_t* smem = smem_raw + ((1024 - (base & 1023)) & 1023);
-  constexpr int kBBytes = BN / 64 * kHalfB, kSwBytes = kGS * BN * 4;
-  constexpr int kRawW = kWgBK * BN, kRawS = kGS * BN * 4;
-  uint8_t* xs = smem;
-  uint8_t* bs = xs + kXStages * kXBytes;
-  uint8_t* sxs = bs + kBStages * kBBytes;
-  uint8_t* sws = sxs + kXStages * kSxBytes;
-  uint8_t* raw_w = sws + kBStages * kSwBytes;
-  uint8_t* raw_s = raw_w + kRawStages * kRawW;
-  uint64_t* full_x = reinterpret_cast<uint64_t*>(raw_s + kRawStages * kRawS);
-  uint64_t* empty_x = full_x + kXStages;
-  uint64_t* empty_b = empty_x + kXStages;
-  uint64_t* raw_full = empty_b + kBStages;
-  uint64_t* raw_empty = raw_full + kRawStages;
+  uint8_t* xs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ws = xs + ST * S::kX;
+  uint8_t* ss = ws + ST * S::kW;
+  uint8_t* sxs = ss + ST * kTileScaleBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sxs + ST * S::kSx);
+  uint64_t* empty = full + ST;
 
-  const int G = K / kGroup, S = (G + kGS - 1) / kGS;   // groups, stages a tile
-  const int MT = (M + kWgBM - 1) / kWgBM, tiles = MT * ((N + BN - 1) / BN);
-  const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int G = K / kGroup, stages = (G + kGS - 1) / kGS;
+  const int mt = (M + BM - 1) / BM, units = mt * ((N + kTileN - 1) / kTileN);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kXStages; ++s) {
-      mbar_init(&full_x[s], 1);
-      mbar_init(&empty_x[s], 256);
-    }
-    for (int s = 0; s < kBStages; ++s) mbar_init(&empty_b[s], 256);
-    for (int s = 0; s < kRawStages; ++s) {
-      mbar_init(&raw_full[s], 1);
-      mbar_init(&raw_empty[s], kTransformThreads);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
     }
     mbar_fence_init();
   }
   __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if (threadIdx.x >= 256) {
-    setmaxnreg_dec<kWg2Regs>();
-    // raw weight rows a stage: 64 int8 rows, 32 nibble-byte rows or 8 word rows
-    constexpr int RROWS = FORM == kStrided ? kWgBK : FORM == kPacked ? kWgBK / 2 : kWgBK / 8;
-    const int F = mine * S;   // the CTA's stages, flat over its tiles
-    if (threadIdx.x < 256 + 32) {
-      // ---- x producer: lane 0 issues stage f's x as soon as its slot is free ----
-      if (threadIdx.x == 256) {
-        int xt = blockIdx.x, xst = 0, m0 = xt % MT * kWgBM;   // tile, stage, first row
-        for (int f = 0; f < F; ++f) {
-          const int s = f % kXStages;
-          mbar_wait(&empty_x[s], ((f / kXStages) & 1) ^ 1);
-          mbar_expect_tx(&full_x[s], kXBytes + kSxBytes);
-          tma_load_2d(xs + s * kXBytes, &xmap, &full_x[s], xst * kWgBK, m0);
-          tma_load_2d(sxs + s * kSxBytes, &sxmap, &full_x[s], m0, xst * kGS);
-          if (++xst == S) xst = 0, xt += gridDim.x, m0 = xt % MT * kWgBM;
-        }
-      }
-    } else {
-      // ---- transform: pair w of warps converts stages w, w + kPairs, ... ----
-      const int w = (threadIdx.x - 256 - 32) / kTransformThreads;
-      const int t = (threadIdx.x - 256 - 32) % kTransformThreads;
-      if (threadIdx.x == kWgThreads - 32) {
-        // ---- raw producer (the last warp, lane 0): the raw ring as far ahead as it goes ----
-        const uint32_t raw_bytes =
-            RROWS * BN * (FORM == kWords ? 4 : 1) + kGS * BN * (s_f16 ? 2 : 4);
-        int rt = blockIdx.x, rst = 0, n0 = rt / MT * BN;   // tile, stage, first column
-        for (int f = 0; f < F; ++f) {
-          const int r = f % kRawStages;
-          mbar_wait(&raw_empty[r], ((f / kRawStages) & 1) ^ 1);
-          mbar_expect_tx(&raw_full[r], raw_bytes);
-          tma_load_2d(raw_w + r * kRawW, &wmap, &raw_full[r], n0, rst * RROWS);
-          tma_load_2d(raw_s + r * kRawS, &smap, &raw_full[r], n0, rst * kGS);
-          if (++rst == S) rst = 0, rt += gridDim.x, n0 = rt / MT * BN;
-        }
-      }
-      if (w < kPairs) {
-        const uint32_t lo = off ? 0xE408E408u : 0xE400E400u;   // -(1024 + off)
-        const uint32_t hi = off ? 0xD480D480u : 0xD400D400u;   // -(64 + off)
-        for (int f = w; f < F; f += kPairs) {
-          const int r = f % kRawStages, s = f % kBStages;
-          mbar_wait(&raw_full[r], (f / kRawStages) & 1);
-          mbar_wait(&empty_b[s], ((f / kBStages) & 1) ^ 1);
-          transform_stage<FORM, BN>(smem_u32(raw_w + r * kRawW), smem_u32(bs + s * kBBytes),
-                                    smem_u32(raw_s + r * kRawS), s_f16,
-                                    smem_u32(sws + s * kSwBytes), t, lo, hi);
-          mbar_arrive(&raw_empty[r]);
-          // the consumers start on the named barrier of the slot once x has
-          // landed too: they wait on no mbarrier, whose spin ptxas would
-          // treat as a divergent path and serialize their wgmma around
-          mbar_wait(&full_x[f % kXStages], (f / kXStages) & 1);
-          fence_async_shared();
-          named_arrive(kStageBar + 2 * s, kTransformThreads + 128);
-          named_arrive(kStageBar + 2 * s + 1, kTransformThreads + 128);
+  if (warp >= 8) setmaxnreg_dec<kProducerRegs>();   // warps 10 and 11 do nothing else
+  if (warp == 8) {
+    // ---- producer (lane 0) ----
+    if (lane == 0) {
+      // raw weight rows a stage: 64 int8 rows, 32 nibble-byte rows or 8 word rows
+      constexpr int RROWS = FORM == kStrided ? kTileK : FORM == kPacked ? kTileK / 2 : kTileK / 8;
+      const uint32_t bytes = S::kX + S::kSx + S::kW + kGS * kTileN * (s_f16 ? 2 : 4);
+      int f = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = u % mt * BM, n0 = u / mt * kTileN;
+        for (int kt = 0; kt < stages; ++kt, ++f) {
+          const int s = f % ST;
+          mbar_wait(&empty[s], ((f / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], bytes);
+          tma_load_2d(xs + s * S::kX, &xmap, &full[s], kt * kTileK, m0);
+          tma_load_2d(sxs + s * S::kSx, &sxmap, &full[s], m0, kt * kGS);
+          tma_load_2d(ws + s * S::kW, &wmap, &full[s], n0, kt * RROWS);
+          tma_load_2d(ss + s * kTileScaleBytes, &smap, &full[s], n0, kt * kGS);
         }
       }
     }
-  } else {
+  } else if (warp == 9) {
+    // ---- release: the consumers wait on no mbarrier (ptxas serializes
+    // every wgmma of a function in which one is in flight across a spin) ----
+    int f = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      for (int kt = 0; kt < stages; ++kt, ++f) {
+        const int s = f % ST;
+        mbar_wait(&full[s], (f / ST) & 1);
+        __syncwarp();
+        named_arrive(1 + 2 * s, kTileBarThreads);
+        named_arrive(2 + 2 * s, kTileBarThreads);
+      }
+    }
+    // the consumers open one stage past their last (its bytes unused)
+    named_arrive(1 + 2 * (f % ST), kTileBarThreads);
+    named_arrive(2 + 2 * (f % ST), kTileBarThreads);
+  } else if (warp < 8) {
     // ---- consumers ----
     setmaxnreg_inc<kConsumerRegs>();
-    Consumer<BN> c;
-    const int lane = threadIdx.x & 31;
-    c.wg = threadIdx.x >> 7;
-    c.rl = c.wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);   // row in the tile; and + 8
-    c.t4 = lane & 3;
-    for (int k = 0; k < mine; ++k) {
-      const int tile = (int)blockIdx.x + k * (int)gridDim.x;
-      c.tile(G, k * S, smem_u32(xs), smem_u32(bs), smem_u32(sxs), smem_u32(sws), empty_x, empty_b);
-      const int ra = tile % MT * kWgBM + c.rl, rb = ra + 8;
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-        const int col = tile / MT * BN + 8 * i + 2 * c.t4;
-        if (col < N) {
-          if (ra < M) store2(out + (long long)ra * N + col, c.acc[4 * i], c.acc[4 * i + 1]);
-          if (rb < M) store2(out + (long long)rb * N + col, c.acc[4 * i + 2], c.acc[4 * i + 3]);
-        }
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    // the warp's 16 columns are chunk c16 of a raw row; the thread's A rows
+    // g and g + 8 are columns cl and cl + 1 of the unit
+    const int c16 = 4 * wg + (warp & 3), cl = 16 * c16 + 2 * g;
+    // ldmatrix: lane l gives row l of the stage's raw rows (chunk c16,
+    // swizzled); words: word row t4 of each group at column cl
+    const uint32_t wrow = FORM == kWords ? (uint32_t)(t4 * kTileN + cl) * 4
+                                         : (uint32_t)(lane * kSwizzleRow + ((c16 ^ (lane & 7)) << 4));
+    const uint32_t lo = off ? 0xE408E408u : 0xE400E400u;   // -(1024 + off)
+    const uint32_t hi = off ? 0xD480D480u : 0xD400D400u;   // -(64 + off)
+    Consumer<BM, FORM> k;
+    k.ws0 = smem_u32(ws) + wrow;
+    k.ss0 = smem_u32(ss);
+    k.sx0 = smem_u32(sxs);
+    k.xs = xs;
+    k.lo = lo;
+    k.hi = hi;
+    k.s_f16 = s_f16;
+    k.wg = wg;
+    k.cl = cl;
+    k.t4 = t4;
+    int s = 0;   // the slot of the CTA's current stage
+    k.open(s);
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int m0 = u % mt * BM, n0 = u / mt * kTileN;
+      s = k.unit(stages, s, empty, lane);
+      const int col = n0 + cl, r0 = m0 + 2 * t4;
+      if (col < N) {
+        if (out_f32)
+          tile_store<BM>(k.c, static_cast<float*>(out), M, N, r0, col);
+        else
+          tile_store<BM>(k.c, static_cast<__nv_bfloat16*>(out), M, N, r0, col);
       }
     }
   }
 }
 
+// x's q8_1 for the kernels: layout 0, xq int8 (M, K) and sx (M, K / 32), the
+// plain version's; 1 and 2, the M > 8 tile's: xq as f16 values (M, K), in
+// K's order (1) or, within each group, in words_k's (2: the words form),
+// and sx transposed (K / 32, ldt) with each row's 16-row blocks in sx_slot's
+// order
 template <typename XT>
-void quantize(const XT* x, int8_t* xq, float* sx, int M, int K, int ldt, cudaStream_t st) {
+void quantize(const XT* x, void* xq, float* sx, int M, int K, int layout, int ldt,
+              cudaStream_t st) {
   const long long warps = (long long)M * (K / kGroup);
-  quantize_q8_1_kernel<XT><<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(x, xq, sx, M, K, ldt);
+  const unsigned blocks = (unsigned)((warps + 7) / 8);
+  if (layout == 0)
+    quantize_q8_1_kernel<XT, int8_t, false><<<blocks, 256, 0, st>>>(
+        x, static_cast<int8_t*>(xq), sx, M, K, 0);
+  else if (layout == 1)
+    quantize_q8_1_kernel<XT, __half, false><<<blocks, 256, 0, st>>>(
+        x, static_cast<__half*>(xq), sx, M, K, ldt);
+  else
+    quantize_q8_1_kernel<XT, __half, true><<<blocks, 256, 0, st>>>(
+        x, static_cast<__half*>(xq), sx, M, K, ldt);
 }
 
-template <typename XT, int FORM, int BN>
-cudaError_t launch_tiles(const XT* xp, const uint8_t* qp, const void* sc, XT* op, int8_t* xq,
-                         float* sx_t, int M, int K, int N, int s_f16, int off, int ctas,
-                         cudaStream_t st) {
-  const int ldt = (M + 3) / 4 * 4;   // sx_t's rows 16-byte aligned for TMA
-  quantize<XT>(xp, xq, sx_t, M, K, ldt, st);
-  // boxes: xq (64 k, 128 rows) swizzled; the raw weight, one stage's rows of
-  // BN columns; sw and sx, 2 groups of BN columns or 128 rows
+// the M > 8 tile's sx_t row length: M rounded up to whole 16-row blocks
+int tile_ldt(int M) { return (M + 15) / 16 * 16; }
+
+template <int BM, int FORM>
+cudaError_t launch_tile(const __half* xq, const uint8_t* q, const void* sc, int s_f16,
+                        const float* sx_t, void* out, int out_f32, int M, int K, int N, int off,
+                        int ctas, cudaStream_t st) {
+  using S = TileShape<BM, FORM>;
+  // boxes: xq (BM rows, 64 k) f16, 128-byte swizzled (wgmma's K-major B);
+  // the raw weight, one stage's rows of 128 columns (int8 and nibble bytes
+  // swizzled for ldmatrix); sw, 2 groups of 128 columns; sx_t, 2 groups of
+  // BM rows
   CUtensorMap xmap, wmap, smap, sxmap;
   const int G = K / kGroup;
   const long long rows = FORM == kStrided ? K : FORM == kPacked ? K / 2 : K / 8;
-  if (!make_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, M, K, K, kWgBK, kWgBM,
-                   CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !make_map_2d(&wmap, qp,
+  if (!make_map_2d(&xmap, xq, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, M, K, K, kTileK, BM, true) ||
+      !make_map_2d(&wmap, q,
                    FORM == kWords ? CU_TENSOR_MAP_DATA_TYPE_INT32 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                   FORM == kWords ? 4 : 1, rows, N, N, BN, (int)(kWgBK * rows / K), false) ||
+                   FORM == kWords ? 4 : 1, rows, N, N, kTileN, (int)(kTileK * rows / K),
+                   FORM != kWords) ||
       !make_map_2d(&smap, sc,
                    s_f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                   s_f16 ? 2 : 4, G, N, N, BN, kGS, false) ||
-      !make_map_2d(&sxmap, sx_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, G, M, ldt, kWgBM, kGS,
-                   false))
+                   s_f16 ? 2 : 4, G, N, N, kTileN, kGS, false) ||
+      !make_map_2d(&sxmap, sx_t, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, G, tile_ldt(M), tile_ldt(M),
+                   BM, kGS, false))
     return cudaErrorNotSupported;
-  const cudaError_t attr = allow_smem<qmm8_wgmma_kernel<XT, FORM, BN>>(wg_smem(BN));
+  const cudaError_t attr = allow_smem<qmm8_tile_kernel<BM, FORM>>(S::kSmem);
   if (attr != cudaSuccess) return attr;
-  qmm8_wgmma_kernel<XT, FORM, BN><<<ctas, kWgThreads, wg_smem(BN), st>>>(
-      xmap, wmap, smap, sxmap, s_f16, op, M, K, N, off);
+  qmm8_tile_kernel<BM, FORM><<<ctas, kTileThreads, S::kSmem, st>>>(
+      xmap, wmap, smap, sxmap, s_f16, out, out_f32, M, K, N, off);
   return cudaGetLastError();
+}
+
+template <int FORM>
+cudaError_t launch_tiles(int bm, const __half* xq, const uint8_t* q, const void* sc, int s_f16,
+                         const float* sx_t, void* out, int out_f32, int M, int K, int N, int off,
+                         int ctas, cudaStream_t st) {
+#define QMM8_TILE(BM)                                                                      \
+  case BM:                                                                                 \
+    return launch_tile<BM, FORM>(xq, q, sc, s_f16, sx_t, out, out_f32, M, K, N, off, ctas, st)
+  switch (bm) {
+    QMM8_TILE(16);
+    QMM8_TILE(32);
+    QMM8_TILE(64);
+    QMM8_TILE(128);
+  }
+#undef QMM8_TILE
+  return cudaErrorInvalidValue;
 }
 
 template <typename XT, int FORM>
 cudaError_t launch(const void* x, const void* q, const void* sc, void* out, float* scratch,
                    void* xq, float* sx_t, int M, int K, int N, int s_f16, int off, int ksplit,
-                   int bn, int ctas, cudaStream_t st) {
+                   int bm, int ctas, cudaStream_t st) {
   const XT* xp = static_cast<const XT*>(x);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   XT* op = static_cast<XT*>(out);
   if (M > 8) {
-    int8_t* xh = static_cast<int8_t*>(xq);
-    return bn == 64 ? launch_tiles<XT, FORM, 64>(xp, qp, sc, op, xh, sx_t, M, K, N, s_f16, off,
-                                                 ctas, st)
-                    : launch_tiles<XT, FORM, 128>(xp, qp, sc, op, xh, sx_t, M, K, N, s_f16, off,
-                                                  ctas, st);
+    quantize<XT>(xp, xq, sx_t, M, K, FORM == kWords ? 2 : 1, tile_ldt(M), st);
+    return launch_tiles<FORM>(bm, static_cast<const __half*>(xq), qp, sc, s_f16, sx_t, out,
+                              std::is_same_v<XT, float>, M, K, N, off, ctas, st);
   }
   const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
   float* partial = ksplit > 1 ? scratch : nullptr;
@@ -815,32 +872,34 @@ cudaError_t launch(const void* x, const void* q, const void* sc, void* out, floa
 template <typename XT>
 cudaError_t launch_form(int form, const void* x, const void* q, const void* sc, void* out,
                         float* scratch, void* xq, float* sx_t, int M, int K, int N, int s_f16,
-                        int off, int ksplit, int bn, int ctas, cudaStream_t st) {
+                        int off, int ksplit, int bm, int ctas, cudaStream_t st) {
   if (form == kStrided)
-    return launch<XT, kStrided>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, 0, ksplit, bn,
+    return launch<XT, kStrided>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, 0, ksplit, bm,
                                 ctas, st);
   if (form == kPacked)
     return launch<XT, kPacked>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, off, ksplit,
-                               bn, ctas, st);
-  return launch<XT, kWords>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, off, ksplit, bn,
+                               bm, ctas, st);
+  return launch<XT, kWords>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, off, ksplit, bm,
                             ctas, st);
 }
 
 }  // namespace
 
-// x (M, K) float32 or bf16 -> xq (M, K) int8 and sx float32, (M, K / 32) or,
-// transposed, (K / 32, M).
+// x (M, K) float32 or bf16 -> q8_1 in layout 0 (xq (M, K) int8, sx (M, K /
+// 32) float32), or the M > 8 tile's layout 1 or 2 (xq (M, K) float16 values
+// in K's order or, within each group, the words form's; sx (K / 32, M
+// rounded up to 16) float32, each 16 rows in the tile's order)
 extern "C" int qa_quantize_q8_1(const void* x, void* xq, void* sx, int M, int K, int x_bf16,
-                                int transposed, void* stream) {
-  if (M < 1 || K < kGroup || K % kGroup) return (int)cudaErrorInvalidValue;
+                                int layout, void* stream) {
+  if (M < 1 || K < kGroup || K % kGroup || layout < 0 || layout > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int8_t* q = static_cast<int8_t*>(xq);
   float* s = static_cast<float*>(sx);
   if (x_bf16)
-    quantize<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), q, s, M, K,
-                            transposed ? M : 0, st);
+    quantize<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), xq, s, M, K, layout,
+                            tile_ldt(M), st);
   else
-    quantize<float>(static_cast<const float*>(x), q, s, M, K, transposed ? M : 0, st);
+    quantize<float>(static_cast<const float*>(x), xq, s, M, K, layout, tile_ldt(M), st);
   return (int)cudaGetLastError();
 }
 
@@ -848,26 +907,27 @@ extern "C" int qa_quantize_q8_1(const void* x, void* xq, void* sx, int M, int K,
 // 1 (nibble bytes (K / 2, N)) or 2 (int32 words (K / 8, N)); sc (K / 32, N)
 // float16 or float32; out (M, N) in x's type. scratch: float32 (ksplit, M,
 // N), read only when M <= 8 and ksplit > 1; xq (M, K) float16 and sx_t
-// float32 (K / 32, M rounded up to a multiple of 4), read only when M > 8,
-// with the tile width bn (64 or 128) and ctas persistent CTAs. off: 8
-// (symmetric q4_0) or 0.
+// float32 (K / 32, M rounded up to a multiple of 16), written and read only
+// when M > 8, with bm rows of x a unit (16, 32, 64 or 128) and ctas
+// persistent CTAs. off: 8 (symmetric q4_0) or 0.
 extern "C" int qa_quant_matmul_int8(const void* x, const void* q, const void* sc, void* out,
                                     void* scratch, void* xq, void* sx_t, int M, int K, int N,
-                                    int x_bf16, int s_f16, int form, int off, int ksplit, int bn,
+                                    int x_bf16, int s_f16, int form, int off, int ksplit, int bm,
                                     int ctas, void* stream) {
   if (M < 1 || K < kGroup || K % kGroup || N < 16 || N % 16 || form < kStrided ||
       form > kWords || (off != 0 && off != 8) || (form == kStrided && off != 0) ||
       ksplit < 1 || ksplit > 65535 || (N + kSmallCols - 1) / kSmallCols > 65535 ||
       (ksplit > 1 && (M > 8 || scratch == nullptr)) ||
-      (M > 8 && (xq == nullptr || sx_t == nullptr || (bn != 64 && bn != 128) || ctas < 1)))
+      (M > 8 && (xq == nullptr || sx_t == nullptr || ctas < 1 ||
+                 (bm != 16 && bm != 32 && bm != 64 && bm != 128))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* scr = static_cast<float*>(scratch);
   float* sxp = static_cast<float*>(sx_t);
   const cudaError_t rc =
       x_bf16 ? launch_form<__nv_bfloat16>(form, x, q, sc, out, scr, xq, sxp, M, K, N, s_f16,
-                                          off, ksplit, bn, ctas, st)
+                                          off, ksplit, bm, ctas, st)
              : launch_form<float>(form, x, q, sc, out, scr, xq, sxp, M, K, N, s_f16, off,
-                                  ksplit, bn, ctas, st);
+                                  ksplit, bm, ctas, st);
   return (int)rc;
 }

@@ -73,10 +73,10 @@ SIGNATURES = {
         "qa_fused_mlp_rows": [P] * 14 + [I] * 4 + [L, I, P] + [I] * 7 + [P],
     },
     "quant_matmul_int8": {
-        # x, xq, sx, M, K, x_bf16, transposed, stream
+        # x, xq, sx, M, K, x_bf16, layout (0 int8; 1, 2 the M > 8 tile's), stream
         "qa_quantize_q8_1": [P] * 3 + [I] * 4 + [P],
         # x, q, scales, out, scratch, xq, sx_t, M, K, N, x_bf16, s_f16, form,
-        # off, ksplit, bn, ctas, stream
+        # off, ksplit, bm, ctas, stream
         "qa_quant_matmul_int8": [P] * 7 + [I] * 10 + [P],
     },
 }

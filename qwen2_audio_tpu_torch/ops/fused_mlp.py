@@ -56,6 +56,14 @@ from qwen2_audio_tpu_torch.ops.quant_matmul import (GROUP, _layer, block_weight,
                                                     ticket_array)
 
 MAX_M = 64
+# The most rows at which the decoder takes the one-launch kernel by default
+# (ops/linear.py): above, the two-launch path over the dequantizing M > 8
+# tile is faster. chip_smoke.py's SwiGLU phase on an NVIDIA H100 80GB HBM3 at
+# 700 W, graph replay, one-launch against two-launch ms over two runs: q4_0
+# M = 12 0.1323-0.1328 / 0.1407-0.1433, 16 0.1402-0.1409 / 0.1411-0.1415;
+# q8_0 M = 12 0.1489-0.1492 / 0.1471-0.1501 (even), 16 0.1550-0.1576 /
+# 0.1475-0.1481, 64 0.2661-0.2685 / 0.1666-0.1676.
+ONE_LAUNCH_MAX_M = 12
 _TILE = 64                      # exact mode: columns of I a block takes per pass
 _SCRATCH_BYTES = 64 << 20       # exact mode: most the partial sums may take
 _UNIT = 16                      # fast mode: columns of one mma A tile; phase A hands out I in these

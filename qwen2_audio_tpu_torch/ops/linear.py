@@ -271,7 +271,7 @@ def _fused_form(x: torch.Tensor, ws: tuple[dict, ...]) -> tuple[bool, tuple] | N
         return None
     if any(w.keys() != ws[0].keys() for w in ws[1:-1]):
         return None
-    if x.numel() // K > fm.MAX_M:      # prefill: bound by operations
+    if x.numel() // K > fm.ONE_LAUNCH_MAX_M:   # above, the two-launch path is faster
         return None
     if group_matmul_mode() == "int8":
         return None
@@ -284,8 +284,9 @@ def fused_mlp_at(x: torch.Tensor, gu: dict, dn: dict, li: int) -> torch.Tensor |
     columns: strided int8 values ("qs") or packed nibbles ("qs4"), both with
     or both without "mins". Returns None where the one-launch kernel does
     not apply (the switch is off, a bias, a panel or dense form, forms or
-    groups that differ between gate_up and down, more than 64 rows, mode
-    "int8"); the caller then takes two ``linear_at`` calls."""
+    groups that differ between gate_up and down, more than
+    ``fm.ONE_LAUNCH_MAX_M`` rows, mode "int8"); the caller then takes two
+    ``linear_at`` calls."""
     form = _fused_form(x, (gu, dn))
     if form is None:
         return None

@@ -59,9 +59,14 @@ _S_TYPES = (torch.float32, torch.float16)
 STRIDED, PACKED, WORDS = 0, 1, 2
 _FORMS = {STRIDED: (torch.int8, 1), PACKED: (torch.uint8, 2), WORDS: (torch.int32, 8)}
 _PLAIN_CHUNK_BYTES = 1 << 28
-# the M > 8 tile (csrc/quant_matmul_int8.cu): rows, values of K a stage,
-# the x, B and raw rings' depths
-TILE_M, STAGE_K, X_STAGES, B_STAGES, RAW_STAGES = 128, 64, 6, 4, 8
+# the M > 8 tile (csrc/quant_matmul_int8.cu): weight columns a unit, values
+# of K a stage, the rows of x a unit may take, a unit's cost a stage beyond
+# its rows (converting its weight, loads, barriers) in rows, the most ring
+# slots (two named barriers each)
+TILE_N, STAGE_K = 128, 64
+TILE_ROWS = (16, 32, 64, 128)
+TILE_FIXED = 32
+TILE_SLOTS = 7
 SMEM_LIMIT = 232448   # shared memory a block may use on sm_90
 
 
@@ -81,6 +86,37 @@ def quantize_activations_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     inv = torch.where(sx > 0, torch.ones_like(sx) / sx, torch.zeros_like(sx))
     xq = torch.round(g * inv[..., None]).to(torch.int8).reshape(M, K)
     return xq, sx
+
+
+def words_k(k):
+    """The column of the M > 8 tile's xq that holds value k of a row, for
+    the words form (an int or an integer tensor): inside each 16 of a
+    32-group, value 4 t4 + 2 h + b sits at 8 h + 2 t4 + b (the kernel's
+    words_k). The other forms keep K's order."""
+    return (k & ~15) | ((k & 2) << 2) | ((k >> 1) & 6) | (k & 1)
+
+
+def sx_slot(m):
+    """The column of the M > 8 tile's sx_t that holds row m's scale (an int
+    or an integer tensor): inside each 16 rows, rows 2 t4, 2 t4 + 1, 2 t4 +
+    8, 2 t4 + 9 at 4 t4 .. 4 t4 + 3 (the kernel's sx_slot)."""
+    return (m & ~15) | (((m >> 1) & 3) << 2) | (((m >> 3) & 1) << 1) | (m & 1)
+
+
+def tile_activations_plain(x: torch.Tensor, form: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (M, K) -> the M > 8 tile's q8_1 of x: xq (M, K) float16, the values
+    of ``quantize_activations_plain``'s int8 xq, in K's order or, for the
+    words form, at ``words_k``; sx_t (K // 32, M rounded up to 16) float32,
+    row m's scale of group g at (g, ``sx_slot(m)``), 0 in the slots of rows
+    past M."""
+    M, K = x.shape
+    xq8, sx = quantize_activations_plain(x)
+    xq = torch.empty((M, K), dtype=torch.float16, device=x.device)
+    cols = torch.arange(K, device=x.device)
+    xq[:, words_k(cols) if form == WORDS else cols] = xq8.to(torch.float16)
+    sx_t = torch.zeros((K // GROUP, -(-M // 16) * 16), dtype=torch.float32, device=x.device)
+    sx_t[:, sx_slot(torch.arange(M, device=x.device))] = sx.t()
+    return xq, sx_t
 
 
 def group_matmul_plain(x: torch.Tensor, values: torch.Tensor,
@@ -145,6 +181,33 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
+def tile_activations(x: torch.Tensor, form: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``tile_activations_plain`` by the quantizing kernel for CUDA tensors
+    (the launch the M > 8 entries make before their tile, here on its own,
+    into zeroed buffers), the plain version for CPU tensors; the same bits
+    either way."""
+    if x.dim() != 2 or x.shape[1] % GROUP or x.shape[0] < 1 or form not in _FORMS:
+        raise ValueError(f"tile_activations: x must be (M, K) with K a multiple of {GROUP} "
+                         f"and form one of {tuple(_FORMS)}, got {tuple(x.shape)}, {form}")
+    if x.device.type == "cpu":
+        return tile_activations_plain(x, form)
+    if x.device.type != "cuda" or x.dtype not in _X_TYPES:
+        raise ValueError(f"tile_activations: x in {_X_TYPES} on the card, got {x.dtype} on "
+                         f"{x.device}")
+    x = x.contiguous()
+    M, K = x.shape
+    xq = torch.empty((M, K), dtype=torch.float16, device=x.device)
+    sx_t = torch.zeros((K // GROUP, -(-M // 16) * 16), dtype=torch.float32, device=x.device)
+    lib = _build.library("quant_matmul_int8")
+    with torch.cuda.device(x.device):
+        rc = lib.qa_quantize_q8_1(x.data_ptr(), xq.data_ptr(), sx_t.data_ptr(), M, K,
+                                  int(x.dtype == torch.bfloat16), 2 if form == WORDS else 1,
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "tile_activations")
+    tile_activations.launches += 1
+    return xq, sx_t
+
+
 def _check(name: str, x, q, sc, form: int, off: int) -> None:
     """Shapes and types every device takes."""
     if x.dim() != 2 or q.dim() != 2 or sc.dim() != 2:
@@ -162,57 +225,65 @@ def _check(name: str, x, q, sc, form: int, off: int) -> None:
         raise ValueError(f"{name}: off {off}: 0, or 8 for nibbles")
 
 
-def tile_smem(bn: int) -> int:
-    """Shared memory of a bn-wide M > 8 tile, as the kernel's wg_smem lays it
-    out: per x/B stage the f16 x box (128 rows x 64 values of K), the f16 B
-    tile, sx and sw (two groups, float32); per raw stage the widest form's
-    64 rows of bytes and the float32 scales; the barriers; 1024 to align."""
-    groups = STAGE_K // GROUP
-    x_stage = TILE_M * STAGE_K + groups * TILE_M * 4
-    b_stage = STAGE_K * bn * 2 + groups * bn * 4
-    raw_stage = STAGE_K * bn + groups * bn * 4
-    return (X_STAGES * x_stage + B_STAGES * b_stage + RAW_STAGES * raw_stage
-            + (2 * X_STAGES + B_STAGES + 2 * RAW_STAGES) * 8 + 1024)
+def tile_ring(bm: int, form: int) -> tuple[int, int]:
+    """Ring slots and shared memory of the M > 8 tile with ``bm`` rows of x
+    a unit, as the kernel's TileShape lays them out: a slot holds xq's box
+    (bm rows x 64 values of K, f16), the stage's raw weight rows (64 int8
+    rows or 32 nibble-byte rows of 128 columns, or 8 rows of 128 int32
+    words), its scales (2 groups x 128 columns, float32 at most), sx (2
+    groups x bm rows, float32) and two barriers; as many slots as fit, at
+    most TILE_SLOTS (two named barriers a slot, one for each consumer
+    warpgroup); 1024 bytes to align."""
+    raw = STAGE_K * TILE_N if form == STRIDED else STAGE_K // 2 * TILE_N
+    slot = bm * 128 + raw + 2 * TILE_N * 4 + 2 * bm * 4 + 16
+    slots = min(TILE_SLOTS, (SMEM_LIMIT - 1024) // slot)
+    return slots, slots * slot + 1024
 
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(M: int, N: int, sms: int) -> dict:
-    """The persistent M > 8 launch for an (M, N) output: the tile width bn
-    (128, or 64 where that cuts the makespan of the waves, counted in
-    128-column tile times, by at least a fifth, so that the last wave is not
-    thin), the tiles (m tiles, n tiles), one CTA an SM up to the tile count,
-    and shared memory. CTA b takes tiles b, b + ctas, ...; tile t is (m
-    tile t % m tiles, n tile t // m tiles), so the CTAs at work at once
-    share few weight columns and read them from device memory about once."""
-    mt = -(-M // TILE_M)
+    """The persistent M > 8 launch for an (M, N) output: units of ``bm``
+    rows of x by 128 weight columns over all of K (no K split: each output
+    is one float32 sum in group order, as ggml's numerics fix it). Up to 128
+    rows bm is the least of 16, 32, 64 and 128 that holds M; above, 64 or
+    128, whichever ends the waves first, counting a unit's stage as bm +
+    TILE_FIXED rows of work (the wider on a tie). ``ctas``: one an SM, or one
+    a unit where there are fewer; CTA b takes units b, b + ctas, ...; unit u
+    is (m tile u % m tiles, n tile u // m tiles): M fastest, so that the
+    CTAs at work at once share weight columns and read them from device
+    memory about once (``cta_units``)."""
+    if M <= _SMALL_M or N < 16 or N % 16 or sms < 1:
+        raise ValueError(f"tile_plan: M above {_SMALL_M} and N a multiple of 16, got M={M}, "
+                         f"N={N} on {sms} SMs")
+    nt = -(-N // TILE_N)
+    if M <= TILE_ROWS[-1]:
+        bm = next(r for r in TILE_ROWS if r >= M)
+    else:
+        bm = min((128, 64), key=lambda r: -(-(-(-M // r) * nt) // sms) * (r + TILE_FIXED))
+    mt = -(-M // bm)
+    return {"bm": bm, "tiles": (mt, nt), "units": mt * nt, "ctas": min(mt * nt, sms)}
 
-    def span(bn):   # waves x tile time, in 128-column tiles
-        return -(-(mt * -(-N // bn)) // sms) * bn / 128
 
-    bn = 64 if span(64) <= 0.8 * span(128) else 128
-    tiles = mt * -(-N // bn)
-    return {"bn": bn, "tiles": (mt, -(-N // bn)), "ctas": min(tiles, sms),
-            "stages": (X_STAGES, B_STAGES, RAW_STAGES), "smem": tile_smem(bn)}
-
-
-def cta_tiles(plan: dict, b: int) -> range:
-    """The output tiles CTA b of a "wgmma" plan walks, in order."""
-    mt, nt = plan["tiles"]
-    return range(b, mt * nt, plan["grid"][0])
+def cta_units(plan: dict, b: int) -> list[tuple[int, int]]:
+    """The units CTA b of a "wgmma" plan walks, in order, as (m tile, n
+    tile)."""
+    mt = plan["tiles"][0]
+    return [(u % mt, u // mt) for u in range(b, plan["units"], plan["ctas"])]
 
 
 def launch_plan(name: str, x, q, sc, sms: int) -> dict:
     """The kernel's launch for x (M, K) and a weight (K, N) of one form, from
     shapes, types and addresses alone (no device is touched): which kernel
     (``"small"`` at M <= 8, x quantized inside it; ``"wgmma"`` above, after
-    the quantizing launch), its grid, the K split, the buffers the wrapper
-    allocates by name (shape and type): the float32 partial sums of a split,
-    or xq (M, K) as float16 values and sx transposed (K / 32, M rounded up to
-    4, so that its rows are 16-byte aligned); and above 8 rows ``tile_plan``'s
-    tile width, tiles, stages and shared memory (``cta_tiles`` lists a CTA's
-    tiles). Raises for x or scales of another type, N not a multiple of 16,
-    and an input that is not contiguous or not 16-byte aligned (nothing is
-    copied)."""
+    the quantizing launch), its grid, the K split (above 8 rows none), the
+    buffers the wrapper allocates by name (shape and type): the float32
+    partial sums of a split, or xq (M, K) as float16 values and sx
+    transposed (K / 32, M rounded up to 16: whole 16-row blocks, the tile's
+    order inside each, ``tile_activations_plain``); and above 8 rows
+    ``tile_plan``'s rows a unit, tiles, units and CTAs with ``tile_ring``'s
+    slots and shared memory (``cta_units`` lists a CTA's units). Raises for
+    x or scales of another type, N not a multiple of 16, and an input that
+    is not contiguous or not 16-byte aligned (nothing is copied)."""
     M, K = x.shape
     N = q.shape[1]
     if x.dtype not in _X_TYPES or sc.dtype not in _S_TYPES:
@@ -224,16 +295,18 @@ def launch_plan(name: str, x, q, sc, sms: int) -> dict:
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte aligned "
                              f"and on {x.device}")
-    ksplit = split_k(M, K, N, sms)
     if M <= _SMALL_M:
+        ksplit = split_k(M, K, N, sms)
         bufs = {"scratch": ((ksplit, M, N), torch.float32)} if ksplit > 1 else {}
         return {"kernel": "small", "grid": (-(-N // _SMALL_COLS), ksplit), "M": M, "K": K,
                 "N": N, "ksplit": ksplit, "buffers": bufs}
     tp = tile_plan(M, N, sms)
-    return {"kernel": "wgmma", "grid": (tp["ctas"],), "M": M, "K": K, "N": N, "ksplit": ksplit,
-            "bn": tp["bn"], "tiles": tp["tiles"], "stages": tp["stages"], "smem": tp["smem"],
-            "buffers": {"xq": ((M, K), torch.int8),
-                        "sx_t": ((K // GROUP, -(-M // 4) * 4), torch.float32)}}
+    form = next(f for f, (dt, _) in _FORMS.items() if dt == q.dtype)
+    ring, smem = tile_ring(tp["bm"], form)
+    return {**tp, "kernel": "wgmma", "grid": (tp["ctas"],), "M": M, "K": K, "N": N,
+            "ksplit": 1, "ring": ring, "smem": smem,
+            "buffers": {"xq": ((M, K), torch.float16),
+                        "sx_t": ((K // GROUP, -(-M // 16) * 16), torch.float32)}}
 
 
 def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
@@ -252,7 +325,7 @@ def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
         rc = lib.qa_quant_matmul_int8(
             x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("scratch"),
             ptr("xq"), ptr("sx_t"), M, K, N, int(x.dtype == torch.bfloat16),
-            int(sc.dtype == torch.float16), form, off, plan["ksplit"], plan.get("bn", 0),
+            int(sc.dtype == torch.float16), form, off, plan["ksplit"], plan.get("bm", 0),
             plan["grid"][0] if plan["kernel"] == "wgmma" else 0,
             torch.cuda.current_stream().cuda_stream)
     _build.check(rc, name)
@@ -294,6 +367,7 @@ def quant_matmul_int8_stacked(x: torch.Tensor, qs_all: torch.Tensor, sc_all: tor
 
 
 quantize_activations.launches = 0
+tile_activations.launches = 0
 ENTRIES = (quant_matmul_int8, quant_matmul_int8_stacked)
 for _entry in ENTRIES:
     _entry.launches = 0

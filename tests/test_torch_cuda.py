@@ -911,6 +911,52 @@ def test_int8_tile_edges_agree_across_forms(device, M):
                                                        w4["scales"], 1))
 
 
+@pytest.mark.parametrize("M", [16, 17, 32, 33, 64, 65, 128, 129])
+def test_int8_tile_every_unit_height(device, M):
+    """Each of the tile's unit heights (16, 32, 64, 128 rows of x) full and
+    one row past it, at K = 1312 (a last stage of one group: the second
+    reads zeros past K) and N = 1296, bf16 x: int8 values, nibble bytes at
+    off 0 and 8 and int32 words within tolerance of the plain version, the
+    words bit-equal to the bytes, and the plan's rows as tile_plan says."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    K, N = 1312, 1296
+    w8 = chip_smoke._rand_blocks(device, K, N, "q8_0", seed=64, layers=2)
+    w4 = chip_smoke._rand_blocks(device, K, N, "q4_0", seed=65, layers=2)
+    x = torch.randn(M, K, generator=torch.Generator(device=device).manual_seed(66 + M),
+                    device=device).to(torch.bfloat16)
+    plan = t8.launch_plan("t", x, w8["qs"][1], w8["scales"][1], tqm.sm_count(device))
+    assert plan["bm"] == (next(r for r in t8.TILE_ROWS if r >= M) if M <= 128 else
+                          t8.tile_plan(M, N, tqm.sm_count(device))["bm"])
+    got = t8.quant_matmul_int8_stacked(x, w8["qs"], w8["scales"], 1)
+    want = t8.quant_matmul_int8_plain(x, w8["qs"][1], w8["scales"][1])
+    assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, torch.bfloat16)).all())
+    for off in (0, 8):
+        got = t8.quant_matmul_int8_stacked(x, w4["qs4"], w4["scales"], 1, off=off)
+        want = t8.quant_matmul_int8_packed_plain(x, w4["qs4"][1], w4["scales"][1], off=off)
+        assert bool(((got.float() - want.float()).abs()
+                     <= _qmm_tol(want, torch.bfloat16)).all())
+    assert torch.equal(got, tb.quant_matmul_q4b_stacked(x, tb.pack_b32(w4["qs4"]),
+                                                        w4["scales"], 1))
+
+
+@pytest.mark.parametrize("M", [9, 752])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_tile_activations_bit_equal_to_plain(device, M, dtype):
+    """The quantizing kernel's f16 layouts for the M > 8 tile (K's order,
+    the words form's words_k order; sx transposed in 16-row blocks) bit-equal
+    to tile_activations_plain, one launch each."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    x = chip_smoke._ties_and_zeros(device, M, 1312, dtype, seed=67)
+    for form in (t8.STRIDED, t8.PACKED, t8.WORDS):
+        before = t8.tile_activations.launches
+        xq, sx_t = t8.tile_activations(x, form)
+        torch.cuda.synchronize()
+        assert t8.tile_activations.launches == before + 1
+        pq, ps = t8.tile_activations_plain(x, form)
+        assert torch.equal(xq, pq) and torch.equal(sx_t, ps)
+
+
 def _int8_into(device, x, q, sc, form, off, out):
     """The integer matmul's C entry into a given output (the wrapper
     allocates its own), with the launch plan's buffers."""
@@ -924,7 +970,7 @@ def _int8_into(device, x, q, sc, form, off, out):
     rc = _build.library("quant_matmul_int8").qa_quant_matmul_int8(
         x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), None, bufs["xq"].data_ptr(),
         bufs["sx_t"].data_ptr(), M, K, q.shape[1], int(x.dtype == torch.bfloat16),
-        int(sc.dtype == torch.float16), form, off, 1, plan["bn"], plan["grid"][0],
+        int(sc.dtype == torch.float16), form, off, 1, plan["bm"], plan["grid"][0],
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     return plan

@@ -334,3 +334,23 @@ def test_slice_plan():
         assert slices >= 60          # still more blocks than half the card's SMs
     assert tfm.slice_width(64, 18944, 3584) == 320
     assert tfm.slice_width(3, 96, 64) == 64              # a ragged last tile
+
+
+@pytest.mark.parametrize("fmt", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("shape", ["rows", "batch"])
+def test_fused_form_takes_one_launch_up_to_the_cards_crossover(fmt, shape):
+    """In bf16 mode the dispatch takes the one-launch kernel at
+    ``ONE_LAUNCH_MAX_M`` rows of x (however they are batched) and the
+    two-launch path one row above it, where the card measured the two-launch
+    path faster; the kernel itself keeps its range (``MAX_M`` = 64)."""
+    _, (tgu, tdn) = _mlp(fmt, seed=10)
+    n = tfm.ONE_LAUNCH_MAX_M
+    tl.set_group_matmul_mode("bf16")
+    try:
+        for rows, want in ((n, True), (n + 1, False)):
+            x = torch.zeros(rows, K) if shape == "rows" else torch.zeros(1, rows, K)
+            assert (tl._fused_form(x, (tgu, tdn)) is not None) == want
+            assert (tl.fused_mlp_at(x, tgu, tdn, 0) is not None) == want
+    finally:
+        tl.set_group_matmul_mode(None)
+    assert 8 <= n < tfm.MAX_M == 64

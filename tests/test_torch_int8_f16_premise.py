@@ -8,8 +8,8 @@ that of ``group_matmul_plain``'s arithmetic.
 
 Emulated here on the CPU in numpy: float16 values, float32 products (exact:
 11 x 11 significant bits) and float32 partial sums, in the kernel's order
-of K inside a group (``_kernel_order``, the tile's k_slot) and in plain
-order, sequentially and pairwise. The magic-exponent conversions the tile
+of K inside a group (``_kernel_order``, the words form's words_k) and in
+plain order, sequentially and pairwise. The magic-exponent conversions the tile
 uses (0x6400 | u is the f16 1024 + u, then one f16 add or fma removes the
 bias) are emulated in float16 arithmetic. Random blocks of all three weight
 forms go through the emulation and through the JAX package's kernels
@@ -31,12 +31,11 @@ REL = 1e-6          # of max|ref|, float32 x (as test_torch_quant_matmul_int8)
 
 
 def _kernel_order():
-    """K inside a group as the tile's products take it: slot 16 s + 8 h +
-    2 t4 + e of k16 step s holds value k = 8 t4 + 4 s + 2 h + e."""
+    """K inside a group as the tile's products take it for the words form
+    (the other forms keep K's order): slot 16 s + 8 h + 2 t4 + b of k16
+    step s holds value 16 s + 4 t4 + 2 h + b, the kernel's words_k."""
     order = np.empty(GROUP, np.int64)
-    for k in range(GROUP):
-        t4, s, h, e = k >> 3, (k >> 2) & 1, (k >> 1) & 1, k & 1
-        order[16 * s + 8 * h + 2 * t4 + e] = k
+    order[t8.words_k(np.arange(GROUP))] = np.arange(GROUP)
     return order
 
 

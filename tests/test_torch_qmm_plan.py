@@ -152,8 +152,9 @@ def test_dequantizing_plan_of_panels_reads_the_panel_width():
 
 @pytest.mark.parametrize("M,kernel", [(1, "small"), (9, "wgmma"), (1500, "wgmma")])
 def test_integer_plan_picks_the_kernel_and_buffers(M, kernel):
-    """Above 8 rows, one persistent CTA an SM up to the tile count, over
-    128-row tiles of the width tile_plan picks; xq (int8) and sx transposed."""
+    """Above 8 rows, one persistent CTA an SM up to the unit count, over
+    units of tile_plan's rows by 128 weight columns, no K split; xq as f16
+    values and sx transposed in whole 16-row blocks."""
     K, N = 1312, 1296
     q, sc = _weight(K, N)
     plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
@@ -161,15 +162,15 @@ def test_integer_plan_picks_the_kernel_and_buffers(M, kernel):
     if kernel == "small":
         assert plan["buffers"] == {"scratch": ((5, 1, N), torch.float32)}
     else:
-        tiles = -(-M // 128) * -(-N // plan["bn"])
-        assert plan["tiles"] == (-(-M // 128), -(-N // plan["bn"]))
-        assert plan["grid"] == (min(tiles, SMS),)
-        assert plan["buffers"] == {"xq": ((M, K), torch.int8),
-                                   "sx_t": ((K // 32, -(-M // 4) * 4), torch.float32)}
+        bm = plan["bm"]
+        assert plan["tiles"] == (-(-M // bm), -(-N // 128)) and plan["ksplit"] == 1
+        assert plan["grid"] == (min(plan["units"], SMS),)
+        assert plan["buffers"] == {"xq": ((M, K), torch.float16),
+                                   "sx_t": ((K // 32, -(-M // 16) * 16), torch.float32)}
 
 
 # the integer tile's shapes: the decoder's (prefill), the encoder's and the
-# ragged edge case (N a multiple of 16 and not of the tile, K of 32 and not of
+# ragged edge case (N a multiple of 16 and not of the unit, K of 32 and not of
 # the stage)
 _INT8_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584),
                 (1280, 3840), (1280, 1280), (1280, 5120), (5120, 1280), (1312, 1296)]
@@ -178,17 +179,18 @@ _INT8_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584),
 @pytest.mark.parametrize("M", [9, 65, 129, 752, 753, 1500])
 @pytest.mark.parametrize("K,N", _INT8_SHAPES)
 def test_integer_tiles_cover_the_output_once(M, K, N):
-    """The CTAs' tile lists (cta_tiles) cover every (m tile, n tile) of the
-    output exactly once, the tiles cover every row and column, and the CTAs
-    at work at once share weight columns (consecutive tiles walk M first)."""
+    """The CTAs' unit lists (cta_units) cover every (m tile, n tile) of the
+    output exactly once, the units cover every row and column, and the CTAs
+    at work at once share weight columns (consecutive units walk M first)."""
     q, sc = _weight(K, N)
     plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
     mt, nt = plan["tiles"]
-    assert plan["bn"] in (64, 128) and mt * 128 >= M and nt * plan["bn"] >= N
-    assert (mt - 1) * 128 < M and (nt - 1) * plan["bn"] < N
-    seen = [t for b in range(plan["grid"][0]) for t in q8.cta_tiles(plan, b)]
-    assert sorted(seen) == list(range(mt * nt))
-    first_wave = {t // mt for t in range(min(plan["grid"][0], mt * nt))}
+    bm = plan["bm"]
+    assert bm in q8.TILE_ROWS and mt * bm >= M and nt * 128 >= N
+    assert (mt - 1) * bm < M and (nt - 1) * 128 < N and plan["units"] == mt * nt
+    seen = [t for b in range(plan["grid"][0]) for t in q8.cta_units(plan, b)]
+    assert sorted(seen) == sorted((m, n) for m in range(mt) for n in range(nt))
+    first_wave = {u // mt for u in range(min(plan["grid"][0], mt * nt))}
     assert len(first_wave) <= -(-plan["grid"][0] // mt)
 
 
@@ -196,26 +198,68 @@ def test_integer_tiles_cover_the_output_once(M, K, N):
 @pytest.mark.parametrize("K,N", _INT8_SHAPES)
 def test_integer_plan_fits_the_card(M, K, N):
     """Shared memory within the 232448 bytes a block may use, as many CTAs
-    as fill the card (one an SM) unless there are fewer tiles, and the
-    narrow tile only where it shortens the waves by a fifth or more."""
-    q, sc = _weight(K, N)
-    plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
-    mt, nt = plan["tiles"]
-    assert plan["smem"] == q8.tile_smem(plan["bn"]) <= q8.SMEM_LIMIT
-    assert plan["grid"] == (min(mt * nt, SMS),)
+    as fill the card (one an SM) unless there are fewer units, and the unit's
+    rows: up to 128 the least of 16, 32, 64, 128 that holds M, above 64 only
+    where it ends the waves first (a stage costing bm + TILE_FIXED rows)."""
+    for form, dtype in ((q8.STRIDED, torch.int8), (q8.PACKED, torch.uint8),
+                        (q8.WORDS, torch.int32)):
+        q = torch.zeros((K // q8._FORMS[form][1], N), dtype=dtype)
+        sc = torch.ones((K // 32, N), dtype=torch.float16)
+        plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
+        mt, nt = plan["tiles"]
+        assert (plan["ring"], plan["smem"]) == q8.tile_ring(plan["bm"], form)
+        assert plan["smem"] <= q8.SMEM_LIMIT and 2 <= plan["ring"] <= q8.TILE_SLOTS
+        assert plan["grid"] == (min(mt * nt, SMS),)
 
-    def span(bn):
-        return -(-(mt * -(-N // bn)) // SMS) * bn
+    def waves(bm):
+        return -(-(-(-M // bm) * -(-N // 128)) // SMS) * (bm + q8.TILE_FIXED)
 
-    assert (plan["bn"] == 64) == (span(64) <= 0.8 * span(128))
+    if M <= 128:
+        assert plan["bm"] == next(r for r in q8.TILE_ROWS if r >= M)
+    else:
+        assert (plan["bm"] == 64) == (waves(64) < waves(128))
 
 
 @pytest.mark.parametrize("M,N,bn", [(752, 37888, 128), (752, 3584, 64), (1500, 5120, 128),
                                      (1500, 1280, 128), (752, 4608, 128)])
 def test_integer_tile_width_of_the_main_shapes(M, N, bn):
-    """gate_up keeps 128 columns (27 narrow waves would save 3.6 %), the int8
-    down and o of the prefill take 64 (168 tiles of 128 are 1.27 waves)."""
-    assert q8.tile_plan(M, N, SMS)["bn"] == bn
+    """The unit's rows (``bn``: its width along M, the wgmma's N) at the main
+    shapes: gate_up, qkv and the encoder take 128; the prefill's down and o
+    take 64 (336 units of 64 rows are 3 waves against 2 of 168 units of
+    128, cheaper counting a stage's fixed work)."""
+    plan = q8.tile_plan(M, N, SMS)
+    assert plan["bm"] == bn and plan["tiles"][1] == -(-N // 128)
+
+
+@pytest.mark.parametrize("M", [9, 64, 65, 752, 1500])
+@pytest.mark.parametrize("K,N", _INT8_SHAPES[:4])
+def test_integer_plan_takes_no_k_split_above_8_rows(M, K, N):
+    """Each output of the M > 8 tile is one float32 sum in group order
+    (ggml's numerics, the parent's bits): no K split, no scratch for one."""
+    q, sc = _weight(K, N)
+    plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
+    assert plan["kernel"] == "wgmma" and plan["ksplit"] == 1
+    assert set(plan["buffers"]) == {"xq", "sx_t"}
+
+
+@pytest.mark.parametrize("bm", [16, 32, 64, 128])
+def test_integer_tile_ring_of_each_form(bm):
+    """A ring slot holds xq's box, the stage's raw rows (8 KB of int8, 4 KB
+    of nibble bytes or words), 1 KB of scales, sx and two barriers; as many
+    as fit in the block's shared memory, at most TILE_SLOTS (two named
+    barriers each, 14 of the 15 there are)."""
+    for form, raw in ((q8.STRIDED, 8192), (q8.PACKED, 4096), (q8.WORDS, 4096)):
+        slots, smem = q8.tile_ring(bm, form)
+        slot = bm * 128 + raw + 1024 + 8 * bm + 16
+        assert slots == min(q8.TILE_SLOTS, (q8.SMEM_LIMIT - 1024) // slot)
+        assert smem == slots * slot + 1024 <= q8.SMEM_LIMIT
+    assert 2 * q8.TILE_SLOTS <= 15
+
+
+def test_integer_tile_plan_refuses_what_the_kernel_does_not_take():
+    for M, N in ((8, 128), (9, 120), (9, 0)):
+        with pytest.raises(ValueError):
+            q8.tile_plan(M, N, SMS)
 
 
 def _refusals(plan_of):
