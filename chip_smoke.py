@@ -1988,7 +1988,7 @@ def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
                 require(float(sx[0, 0]) == 0.0 and xq[-1, 32:39].tolist()
                         == [127, 0, 2, 2, -4, 0, 126], f"{what}: zero group or ties")
                 for form in (q8.STRIDED, q8.WORDS):   # the M > 8 tile's f16 layouts
-                    tq, ts = q8.tile_activations(x, form)
+                    tq, ts = q8._tile_activations(x, form)
                     pq, ps = q8.tile_activations_plain(x, form)
                     torch.cuda.synchronize()
                     require(torch.equal(tq, pq) and torch.equal(ts, ps),
@@ -2146,21 +2146,20 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         nbytes = (ql.numel() * ql.element_size() + scl.numel() * scl.element_size()
                   + (x.numel() + M * N) * x.element_size())
         b_ms, b_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8)
-        # what the tile could reach: ggml's float32 rescale of every (output,
-        # group) pair (a multiply and an fma) on the CUDA cores beside the
-        # f16 tensor work and the bytes (M > 8; the M <= 8 kernel's dots are
-        # int32, bound by its bytes)
-        r_ms = max(b_ms, 2.0 * M * K * N / PEAK_BF16 * 1e3,
-                   2.0 * M * N * (K // 32) / PEAK_F32_LANES * 1e3) if M > 8 else b_ms
+        # what the tile could reach, logged beside the row and kept out of the
+        # kernels line: ggml's float32 rescale of every (output, group) pair
+        # (a multiply and an fma) on the CUDA cores beside the integer
+        # products at the int8 peak and the bytes (M > 8; the M <= 8
+        # kernel's dots are int32, bound by its bytes)
+        r_ms = max(b_ms, 2.0 * M * N * (K // 32) / PEAK_F32_LANES * 1e3) if M > 8 else b_ms
         vals = q4b.unpack_b32(ql) if form == "qs4b" else ql
         dense = qm.block_weight(vals, scl, packed=form != "qs", off=8 if form == "qs4b" else off
                                 ).to(dtype)
         t = {"ms": graph_ms(lambda: entry(x, q, sc, *li, **kw)),
              "plain_ms": time_ms(lambda: plain(x, ql, scl), iters=2, warmup=1),
-             "bound_ms": b_ms, "bound_by": b_by, "rescale_bound_ms": r_ms,
-             "library_ms": graph_ms(lambda: x @ dense)}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": graph_ms(lambda: x @ dense)}
         del dense
-        log(f"{what}: " + json.dumps(t))
+        log(f"{what}: " + json.dumps(t) + f"; bound with the rescale {r_ms:.4f} ms")
         if line is not None:
             src, row = rows[line]
             main[line] = {"name": line, "route": "cuda",

@@ -6,7 +6,8 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
-                      [--decode-weights] [--mel-only] [--int8-only] [--tiles-only]
+                      [--decode-weights] [--mel-only] [--int8-only] [--int8-requests]
+                      [--tiles-only]
                       [--tile-variants [all|bf16|int8]] [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
@@ -56,7 +57,11 @@ one-launch SwiGLU beside the two-launch path over the same weights, and
 mode "int8" (and q4_0 words) on the same bytes. ``--int8-only`` times just
 the exact-integer entries at the encode, prefill and decode shapes, each M >
 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
-(``library_ms``; about a minute a checkout, the build included). ``--tiles-only`` times just the
+(``library_ms``; about a minute a checkout, the build included).
+``--int8-requests`` times just mode "int8" end to end (``int8_requests``):
+the 32-layer q8_0 encode and a request with an 8-layer q8_0 decoder behind
+it, eight calls each in a row (every call's host ms, the warm median, one
+profiled call's device ms). ``--tiles-only`` times just the
 dequantizing entries (the M > 8 tile and, at M = 1, the streaming kernel
 whose bits must not move) at the encode, prefill and decode shapes, each
 M > 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
@@ -74,7 +79,7 @@ only "as_is" is held to the plain version): "bf16", the dequantizing tile
 (``TILE_VARIANTS``: the products, the weight's conversion or x's loads left
 out) at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head q8_0 M =
 64; "int8", the exact-integer tile (``INT8_VARIANTS``: the products, the
-rescale, the weight's conversion or transform left out, or all three) at
+rescale, the weight's conversion left out, or all three; or x's loads) at
 gate_up q8_0 and as q4_0 int32 words at M = 752 and fc1 q8_0 at M = 1500,
 with the unit's rows forced at gate_up; "all" (the default) both. Prints
 one JSON line and, with ``--out``, appends it there. Needs a CUDA device.
@@ -130,6 +135,8 @@ def main(argv=None) -> int:
                     help="time only the log-mel kernel and whisper_full per 30 s clip")
     ap.add_argument("--int8-only", action="store_true",
                     help="time only the exact-integer group matmul's paths")
+    ap.add_argument("--int8-requests", action="store_true",
+                    help="time only mode int8's q8_0 encode and request, warm")
     ap.add_argument("--tiles-only", action="store_true",
                     help="time only the dequantizing entries and the lm_head at M = 64")
     ap.add_argument("--tile-variants", nargs="?", const="all", choices=("all", "bf16", "int8"),
@@ -170,6 +177,9 @@ def main(argv=None) -> int:
 
     if args.tile_variants:
         return emit(args, {"tile_variants": tile_variants(device, args.tile_variants)})
+    if args.int8_requests:
+        int8_requests(device, shapes, args.ckpt)
+        return emit(args, {"shapes": shapes})
     if args.mel_only:
         mel_paths(device, record, shapes, args.ckpt)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
@@ -280,63 +290,30 @@ def main(argv=None) -> int:
 
 
 # Text edits of csrc/quant_matmul.cu that leave one part of the M > 8 tile
-# out, by the kernel the checkout has: the tile with transform warpgroups
-# (qmm_wgmma_kernel, PR 7) and the transposed tile that dequantizes in the
-# consumers' registers (qmm_tile_kernel). "named" releases the older tile's
-# consumers through named barriers instead of mbarrier spins.
-_OLD_WGMMA = ("      for (int k = 0; k < kWgBK / 16; ++k) wgmma_bf16_n128(acc, a + 2 * k, "
-              "b + 2 * k, 1);", "      ;")
-_OLD_TRANSFORM = ("      dequant_chunk<PACKED, DQ16>(raw_w + slot * kRawW, raw_s + slot * kRawS, "
-                  "s_f16,\n                                          group, zero, c, lane, "
-                  "bs + s * kBBytes);", "      ;")
-_NEW_WGMMA = ("          wgmma_bf16_rs_k<BM>(acc, a[k], xd + 2 * k, kt > t.kt0 || k > 0);",
+# (qmm_tile_kernel, which dequantizes in the consumers' registers) out.
+_BF_WGMMA = ("          wgmma_bf16_rs_k<BM>(acc, a[k], xd + 2 * k, kt > t.kt0 || k > 0);",
               "          pin4(a[k]);")
-_NEW_CONVERT = ("          qt_convert<PACKED>(r, k, qt_scales(sr, k, cl, group, s_f16, dq16), "
+_BF_CONVERT = ("          qt_convert<PACKED>(r, k, qt_scales(sr, k, cl, group, s_f16, dq16), "
                 "zero, a[k]);", "          a[k][0] = r[k]; a[k][1] = r[k + 1]; a[k][2] = r[k] ^ 7u; "
                 "a[k][3] = r[k + 1] ^ 7u;")
-_NEW_X = ("          mbar_expect_tx(&full[s], bytes);\n          tma_load_2d(xs + s * S::kX, "
+_BF_X = ("          mbar_expect_tx(&full[s], bytes);\n          tma_load_2d(xs + s * S::kX, "
           "&xmap, &full[s], kt * kQtK, t.m0);",
           "          mbar_expect_tx(&full[s], bytes - (kt > t.kt0 ? S::kX : 0));\n"
           "          if (kt == t.kt0) tma_load_2d(xs + s * S::kX, &xmap, &full[s], kt * kQtK, "
           "t.m0);")
 TILE_VARIANTS = {
-    "qmm_wgmma_kernel": {
-        "no_wgmma": [_OLD_WGMMA], "no_transform": [_OLD_TRANSFORM],
-        "loads_only": [_OLD_WGMMA, _OLD_TRANSFORM],
-        "named": [("      mbar_arrive(&full_b[s]);\n",
-                   "      mbar_wait(&full_x[s], (kt / kStages) & 1);\n"
-                   "      named_arrive(1 + 2 * s, 384);\n      named_arrive(2 + 2 * s, 384);\n"),
-                  ("      mbar_wait(&full_x[s], par);\n      mbar_wait(&full_b[s], par);\n",
-                   "      (void)par;\n      named_sync(1 + 2 * s + wg, 384);\n")]},
     "qmm_tile_kernel": {
-        "no_wgmma": [_NEW_WGMMA], "no_conversion": [_NEW_CONVERT],
-        "loads_only": [_NEW_WGMMA, _NEW_CONVERT], "x_once": [_NEW_X]},
+        "no_wgmma": [_BF_WGMMA], "no_conversion": [_BF_CONVERT],
+        "loads_only": [_BF_WGMMA, _BF_CONVERT], "x_once": [_BF_X]},
 }
 
 
 # Text edits of csrc/quant_matmul_int8.cu that leave one part of the M > 8
-# tile out, by the kernel the checkout has: the older tile with transform
-# warp pairs and an f16 B tile (qmm8_wgmma_kernel).
-_I8_OLD_WGMMA = ("    wgmma_f16_rs_mn<BN>(p, a0, b, 0);\n    wgmma_f16_rs_mn<BN>(p, a1, b + (2048 >> 4), 1);",
-                 "    for (int i = 0; i < 4; ++i) { pin(a0[i]); pin(a1[i]); }\n    (void)b;")
-_I8_OLD_RESCALE = (
-    "    const uint32_t sxa = sxs + (j * kWgBM + rl) * 4, swa = sws + (j * BN + 4 * t4) * 4;\n"
-    "    const float sx0 = lds_f32(sxa), sx1 = lds_f32(sxa + 32);\n"
-    "#pragma unroll\n"
-    "    for (int jj = 0; jj < BN / 16; ++jj) {",
-    "    if (j) {\n#pragma unroll\n      for (int i = 0; i < BN / 2; ++i) acc[i] = p[i];\n    }\n"
-    "    const uint32_t swa = sws;\n    const float sx0 = 0.f, sx1 = 0.f;\n"
-    "    for (int jj = 0; jj < 0; ++jj) {")
-_I8_OLD_TRANSFORM = ("          transform_stage<FORM, BN>(smem_u32(raw_w + r * kRawW), "
-                     "smem_u32(bs + s * kBBytes),\n"
-                     "                                    smem_u32(raw_s + r * kRawS), s_f16,\n"
-                     "                                    smem_u32(sws + s * kSwBytes), t, lo, hi);",
-                     "          (void)lo; (void)hi;")
-# The transposed tile with the weight as register A (qmm8_tile_kernel):
-# products, rescale (its multiplies and fmas but one a piece; the sx loads
-# stay), the weight's conversion left out, or all three; no TMA loads (the
-# producer only arrives on each slot: shared memory holds no data), alone,
-# with products only or with the rescale only.
+# tile (qmm8_tile_kernel, the weight as register A) out: the products, the
+# rescale (its multiplies and fmas but one a piece; the sx loads stay), the
+# weight's conversion, or all three; no TMA loads (the producer only arrives
+# on each slot: shared memory holds no data), alone, with products only or
+# with the rescale only.
 _I8_WGMMA = ("    wgmma_f16_rs_k<N>(p, ag[0], b + 2 * (2 * j), 0);\n"
              "    wgmma_f16_rs_k<N>(p, ag[1], b + 2 * (2 * j + 1), 1);",
              "    (void)b;")
@@ -358,10 +335,6 @@ INT8_VARIANTS = {
         "loads_only": [_I8_WGMMA, _I8_RESCALE, _I8_CONVERT],
         "no_loads": [_I8_NO_TMA], "products_only": [_I8_NO_TMA, _I8_RESCALE],
         "rescale_only": [_I8_NO_TMA, _I8_WGMMA]},
-    "qmm8_wgmma_kernel": {
-        "no_products": [_I8_OLD_WGMMA], "no_rescale": [_I8_OLD_RESCALE],
-        "no_transform": [_I8_OLD_TRANSFORM],
-        "loads_only": [_I8_OLD_WGMMA, _I8_OLD_RESCALE, _I8_OLD_TRANSFORM]},
 }
 
 
@@ -471,22 +444,21 @@ def bf16_tile_variants(device, rounds: int = 2) -> dict:
                                                                             fast=True))
         dense[case] = (x, ql, sl)
     res = _time_variants("quant_matmul", libs, cases, rounds)
-    if hasattr(qm, "tile_plan"):   # the unit's rows forced at gate_up
-        _build._libs["quant_matmul"] = libs["as_is"]
-        plan = qm.tile_plan
-        run = cases["gate_up q8_0 M=752"][0]
-        for bm in (128, 192, 256):
-            def forced(M, K, N, sms, bm=bm):
-                p = plan(M, K, N, sms)
-                mt = -(-M // bm)
-                units = mt * p["tiles"][1] * p["ks"]
-                return {**p, "bm": bm, "tiles": (mt, p["tiles"][1]), "units": units,
-                        "ctas": min(units, sms)}
-            qm.tile_plan = forced
-            try:
-                res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
-            finally:
-                qm.tile_plan = plan
+    _build._libs["quant_matmul"] = libs["as_is"]   # the unit's rows forced at gate_up
+    plan = qm.tile_plan
+    run = cases["gate_up q8_0 M=752"][0]
+    for bm in (128, 192, 256):
+        def forced(M, K, N, sms, bm=bm):
+            p = plan(M, K, N, sms)
+            mt = -(-M // bm)
+            units = mt * p["tiles"][1] * p["ks"]
+            return {**p, "bm": bm, "tiles": (mt, p["tiles"][1]), "units": units,
+                    "ctas": min(units, sms)}
+        qm.tile_plan = forced
+        try:
+            res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
+        finally:
+            qm.tile_plan = plan
     _build._libs.pop("quant_matmul")
     res["library"] = {}
     for case, (x, ql, sl) in dense.items():
@@ -498,8 +470,8 @@ def bf16_tile_variants(device, rounds: int = 2) -> dict:
 
 def int8_tile_variants(device, rounds: int = 2) -> dict:
     """{variant: {case: [ms per round]}} of the checkout's exact-integer M >
-    8 tile and its INT8_VARIANTS (products, rescale, the weight's transform
-    or conversion left out, or all three: loads and barriers only), swapped
+    8 tile and its INT8_VARIANTS (products, rescale, the weight's conversion
+    left out, or all three: loads and barriers only; no loads), swapped
     in for its quant_matmul_int8 library in turns, by graph replay, at
     gate_up q8_0 and gate_up q4_0 as int32 words at M = 752 and fc1 q8_0 at
     M = 1500 (bf16 x); "as_is" also holds its largest distance from the
@@ -539,19 +511,18 @@ def int8_tile_variants(device, rounds: int = 2) -> dict:
             dense[case] = (x, qm.block_weight(w["qs"], w["scales"]))
         cases[case] = (run, plain)
     res = _time_variants("quant_matmul_int8", libs, cases, rounds)
-    if "bm" in q8.tile_plan(752, 37888, 132):   # the unit's rows forced at gate_up
-        _build._libs["quant_matmul_int8"] = libs["as_is"]
-        plan = q8.tile_plan
-        run = cases["gate_up q8_0 M=752"][0]
-        for bm in (64, 128):
-            def forced(M, N, sms, bm=bm):
-                mt, nt = -(-M // bm), plan(M, N, sms)["tiles"][1]
-                return {"bm": bm, "tiles": (mt, nt), "units": mt * nt, "ctas": min(mt * nt, sms)}
-            q8.tile_plan = forced
-            try:
-                res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
-            finally:
-                q8.tile_plan = plan
+    _build._libs["quant_matmul_int8"] = libs["as_is"]   # the unit's rows forced at gate_up
+    plan = q8.tile_plan
+    run = cases["gate_up q8_0 M=752"][0]
+    for bm in (64, 128):
+        def forced(M, N, sms, bm=bm):
+            mt, nt = -(-M // bm), plan(M, N, sms)["tiles"][1]
+            return {"bm": bm, "tiles": (mt, nt), "units": mt * nt, "ctas": min(mt * nt, sms)}
+        q8.tile_plan = forced
+        try:
+            res["as_is"][f"gate_up q8_0 M=752 bm={bm}"] = [time_ms(run) for _ in range(2)]
+        finally:
+            q8.tile_plan = plan
     _build._libs.pop("quant_matmul_int8")
     res["library"] = {}
     for case, (x, w) in dense.items():
@@ -671,6 +642,73 @@ def whisper_full_ms(ctx, calls: int, what: str) -> dict:
             "device_busy_ms": prof and prof["busy_ms"], "profile": prof}
 
 
+def quant_ckpt(ckpt: str, fmt: str, layers: int = 32) -> str:
+    """``encoder_ckpt`` quantized to ``fmt`` by the checkout's
+    quantize_checkpoint, written beside it if missing."""
+    from qwen2_audio_tpu_torch.config import GGMLFType
+    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint
+    src = encoder_ckpt(ckpt, layers)
+    path = src.removesuffix(".bin") + f"_{fmt}.bin"
+    if not os.path.exists(path):
+        quantize_checkpoint(src, path, GGMLFType[f"MOSTLY_{fmt.upper()}"])
+    return path
+
+
+def int8_requests(device, shapes: dict, ckpt: str, layers: int = 32, calls: int = 8,
+                  new_tokens: int = 4) -> None:
+    """Mode "int8" end to end, each figure over ``calls`` calls in a row so
+    that the first call's costs stand apart from a warm call's: whisper_full
+    on a 30 s clip with the random checkpoint quantized to q8_0 (the encoder
+    alone; host ms of every call, one profiled call's device busy ms and
+    its integer kernels' ms), then with a random full-width q8_0 decoder of
+    chip_smoke's QUANT_DEC_LAYERS layers behind it (made on the card from
+    seed 0, as chip_smoke's phase 4e makes it; ``new_tokens`` tokens): each
+    request's host wall, encode and prefill ms (the state's timings) and
+    one profiled request's integer kernels' device ms."""
+    import statistics
+
+    import torch
+
+    from chip_smoke import QUANT_DEC_LAYERS, _request, _text_params, noisy_tone, profile_call
+    from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
+    from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
+    from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
+    from qwen2_audio_tpu_torch.runtime.context import ContextParams
+    ctx = capi.whisper_init_from_file_with_params(
+        quant_ckpt(ckpt, "q8_0", layers),
+        ContextParams(compute_dtype=torch.bfloat16, keep_quantized=True))
+    clip = noisy_tone(30.0, seed=40, freq=280.0)
+    set_group_matmul_mode("int8")
+    try:
+        for what, params in (("encode", capi.whisper_full_default_params()),
+                             ("request", _text_params(new_tokens))):
+            if what == "request":
+                cfg = dataclasses.replace(Qwen2DecoderConfig(),
+                                          num_hidden_layers=QUANT_DEC_LAYERS)
+                ctx.decoder = random_bundle(
+                    torch.Generator(device=device).manual_seed(0), cfg,
+                    ctx.hparams.n_audio_state, dtype=torch.bfloat16, max_ctx=2048,
+                    cache_dtype=torch.bfloat16, quant="q8_0")
+            runs = [_request(ctx, clip, params)[1] for _ in range(calls)]
+            prof = profile_call(lambda: capi.whisper_full(ctx, params, clip),
+                                f"whisper_full ({what}, q8_0, mode int8)")
+            t = {f"{k}_per_call": [r[k] for r in runs]
+                 for k in ("wall_ms", "encode_ms", "prefill_ms")
+                 if what == "request" or k != "prefill_ms"}
+            t.update({k.removesuffix("_per_call") + "_warm": statistics.median(v[1:])
+                      for k, v in list(t.items())})
+            t["device_busy_ms"] = prof and prof["busy_ms"]
+            t["device_int8_ms"] = prof and prof["groups"].get("quant_matmul_int8")
+            shapes[f"int8 mode q8_0 {what}: {layers}-layer encoder"
+                   + (f", {QUANT_DEC_LAYERS}-layer decoder" if what == "request" else "")] = t
+    finally:
+        set_group_matmul_mode(None)
+        ctx.decoder = None
+        capi.whisper_free(ctx)
+        torch.cuda.empty_cache()
+
+
 def quant_encode_paths(shapes: dict, ckpt: str, layers: int = 32, calls: int = 6) -> None:
     """whisper_full per 30 s clip of the random F16 checkpoint quantized to
     q8_0 and q4_0 by the checkout's quantize_checkpoint (once, kept beside
@@ -679,16 +717,11 @@ def quant_encode_paths(shapes: dict, ckpt: str, layers: int = 32, calls: int = 6
     import torch
 
     from qwen2_audio_tpu_torch import capi
-    from qwen2_audio_tpu_torch.config import GGMLFType
-    from qwen2_audio_tpu_torch.io.export import quantize_checkpoint
     from qwen2_audio_tpu_torch.runtime.context import ContextParams
-    src = encoder_ckpt(ckpt, layers)
     for fmt in ("q8_0", "q4_0"):
-        path = src.removesuffix(".bin") + f"_{fmt}.bin"
-        if not os.path.exists(path):
-            quantize_checkpoint(src, path, GGMLFType[f"MOSTLY_{fmt.upper()}"])
         ctx = capi.whisper_init_from_file_with_params(
-            path, ContextParams(compute_dtype=torch.bfloat16, keep_quantized=True))
+            quant_ckpt(ckpt, fmt, layers),
+            ContextParams(compute_dtype=torch.bfloat16, keep_quantized=True))
         t = whisper_full_ms(ctx, calls, f"whisper_full (encode, {fmt})")
         prof = t.pop("profile")
         t["device_matmul_ms"] = prof and prof["groups"].get("quant_matmul")

@@ -57,13 +57,15 @@ from qwen2_audio_tpu_torch.ops.quant_matmul import (GROUP, _layer, block_weight,
 
 MAX_M = 64
 # The most rows at which the decoder takes the one-launch kernel by default
-# (ops/linear.py): above, the two-launch path over the dequantizing M > 8
-# tile is faster. chip_smoke.py's SwiGLU phase on an NVIDIA H100 80GB HBM3 at
-# 700 W, graph replay, one-launch against two-launch ms over two runs: q4_0
-# M = 12 0.1323-0.1328 / 0.1407-0.1433, 16 0.1402-0.1409 / 0.1411-0.1415;
-# q8_0 M = 12 0.1489-0.1492 / 0.1471-0.1501 (even), 16 0.1550-0.1576 /
-# 0.1475-0.1481, 64 0.2661-0.2685 / 0.1666-0.1676.
-ONE_LAUNCH_MAX_M = 12
+# (ops/linear.py): the largest M at which it is not slower than the two-launch
+# path over the dequantizing M > 8 tile in either format. chip_smoke.py's
+# SwiGLU phase on an NVIDIA H100 80GB HBM3 at 700 W, graph replay, one-launch
+# against two-launch ms over two runs: q8_0 M = 8 0.1113-0.1119 /
+# 0.1248-0.1253, 9 0.1480-0.1481 / 0.1479-0.1488 (even), 12 0.1491-0.1492 /
+# 0.1471-0.1487, 16 0.1550-0.1559 / 0.1475-0.1482, 64 0.2661-0.2664 /
+# 0.1666-0.1696; q4_0 M = 8 0.0756-0.0760 / 0.0863-0.0883, 9 0.1309-0.1313 /
+# 0.1412-0.1424, 16 0.1402 / 0.1400-0.1415.
+ONE_LAUNCH_MAX_M = 8
 _TILE = 64                      # exact mode: columns of I a block takes per pass
 _SCRATCH_BYTES = 64 << 20       # exact mode: most the partial sums may take
 _UNIT = 16                      # fast mode: columns of one mma A tile; phase A hands out I in these

@@ -181,11 +181,12 @@ def quantize_activations(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
-def tile_activations(x: torch.Tensor, form: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``tile_activations_plain`` by the quantizing kernel for CUDA tensors
-    (the launch the M > 8 entries make before their tile, here on its own,
-    into zeroed buffers), the plain version for CPU tensors; the same bits
-    either way."""
+def _tile_activations(x: torch.Tensor, form: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``tile_activations_plain`` by the quantizing kernel for CUDA tensors,
+    the plain version for CPU tensors; the same bits either way (sx_t's
+    padding rows zeroed). A check of the quantizer's tile layouts for tests,
+    not a path of the port: the M > 8 entries make this launch inside their
+    C entry, so it counts no launch."""
     if x.dim() != 2 or x.shape[1] % GROUP or x.shape[0] < 1 or form not in _FORMS:
         raise ValueError(f"tile_activations: x must be (M, K) with K a multiple of {GROUP} "
                          f"and form one of {tuple(_FORMS)}, got {tuple(x.shape)}, {form}")
@@ -204,7 +205,6 @@ def tile_activations(x: torch.Tensor, form: int) -> tuple[torch.Tensor, torch.Te
                                   int(x.dtype == torch.bfloat16), 2 if form == WORDS else 1,
                                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "tile_activations")
-    tile_activations.launches += 1
     return xq, sx_t
 
 
@@ -367,7 +367,6 @@ def quant_matmul_int8_stacked(x: torch.Tensor, qs_all: torch.Tensor, sc_all: tor
 
 
 quantize_activations.launches = 0
-tile_activations.launches = 0
 ENTRIES = (quant_matmul_int8, quant_matmul_int8_stacked)
 for _entry in ENTRIES:
     _entry.launches = 0

@@ -337,7 +337,7 @@ def test_tile_activations_hold_the_int8_values(form, M):
     and each 16 rows."""
     K = 96
     x = torch.from_numpy(np.random.default_rng(M).standard_normal((M, K)).astype(np.float32))
-    xq, sx_t = t8.tile_activations(x, form)
+    xq, sx_t = t8._tile_activations(x, form)
     xq8, sx = t8.quantize_activations_plain(x)
     assert xq.dtype == torch.float16 and xq.shape == (M, K)
     assert sx_t.shape == (K // GROUP, -(-M // 16) * 16)
@@ -356,7 +356,10 @@ def test_tile_activations_hold_the_int8_values(form, M):
 
 def test_tile_activations_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
-        t8.tile_activations(torch.zeros(4, 48), t8.STRIDED)
+        t8._tile_activations(torch.zeros(4, 48), t8.STRIDED)
     with pytest.raises(ValueError):
-        t8.tile_activations(torch.zeros(4, 64), 3)
-    assert t8.tile_activations.launches == 0    # the CPU launches nothing
+        t8._tile_activations(torch.zeros(4, 64), 3)
+    x = torch.ones(4, 64)                       # the CPU takes the plain version
+    for got, want in zip(t8._tile_activations(x, t8.WORDS),
+                         t8.tile_activations_plain(x, t8.WORDS)):
+        assert torch.equal(got, want)
