@@ -22,8 +22,8 @@ before the result lines are printed):
    main path's shapes, with stated tolerances (the mel kernel on MEL_CASES,
    each also against the float64 oracle; the decode kernels over a
    cache filled with NaN past each stream's position, at the split-KV
-   kernel's range edges too, its launch plan held to what the card keeps
-   resident), and time kernel,
+   kernel's range edges too, its merge's ticket counters on two streams at
+   once and in a graph, bit-equal, and back at 0 after), and time kernel,
    plain version and (where one exists) the one-call library equivalent;
    the four dequantizing-matmul entries at M = 1, 7, 752 and 1500 over the
    decoder's, the lm_head's and the encoder's K x N, in both modes, bf16
@@ -1555,40 +1555,59 @@ def decode_p_abs_v(plain, q, cache, posv, scale):
     return plain(q, *absv, posv, sm_scale=scale).float() * few[:, None, None]
 
 
-def check_decode_residency(device) -> None:
-    """The launch plan's split count keeps every cluster resident at once:
-    for each batch of the 7B decoder's 4 KV heads up to 8 streams at a
-    capacity of 2048, the plan's B * Hkv clusters of ``splits`` CTAs against
-    what the card holds (cudaOccupancyMaxActiveClusters of the bf16 kernel at
-    the plan's shared memory); what it holds of clusters of 16 and 8 at one
-    CTA an SM (the most stages) is logged."""
-    import ctypes
-
+def check_decode_tickets(device, rounds: int = 32) -> None:
+    """What the decode kernel's merge assumes: the last CTA of each (stream,
+    KV head) finds itself by a ticket counter in an array per stream and per
+    graph capture (``quant_matmul.ticket_array``, kind "flash_decode"), and
+    leaves it at 0. At the beam step's shape (B = BEAM, capacity 784, every
+    stream at 783) and the pool's (B = POOL_SLOTS, capacity 2048, ragged)
+    over both caches: ``rounds`` launches on each of two streams at once
+    (queued behind a sleep on each) and three launches captured in a CUDA
+    graph and replayed, every output bit-equal to the single-stream one, and
+    after them every ticket array of the kernel back at 0."""
     import torch
-    from qwen2_audio_tpu_torch.ops import _build
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
-    lib = _build.library("flash_decode")
+    from qwen2_audio_tpu_torch.ops import quant_matmul as qm
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-
-    def resident(splits: int, stages: int) -> int:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _build.check(lib.qa_flash_decode_resident_clusters(splits, stages,
-                                                               ctypes.byref(out)),
-                         "qa_flash_decode_resident_clusters")
-        return out.value
-
-    seen = {}
-    for B in (1, 2, 3, 4, BEAM, 8):
-        plan = fd.decode_plan(B, 2048, 4, 7, torch.bfloat16, n_sm)
-        held = resident(plan["splits"], plan["stages"])
-        seen[B] = (plan["splits"], held)
-        require(B * 4 <= held, f"decode plan: B={B} puts {B * 4} clusters of "
-                f"{plan['splits']} CTAs on a card that holds {held} at once")
-    most = fd.decode_plan(1, 8192, 4, 7, torch.bfloat16, n_sm)["stages"]
-    log(f"decode plan residency (B: splits, clusters the card holds): {json.dumps(seen)}; "
-        f"at one CTA an SM {n_sm} SMs hold {resident(16, most)} clusters of 16 and "
-        f"{resident(8, most)} of 8")
+    bad = total = 0
+    for i, (qdt, kvdt, B, S, pos) in enumerate(_beam_decode_cases()[1::2]
+                                                + _pool_decode_cases()):
+        q, cache, posv = _decode_case(device, qdt, kvdt, B, S, pos, seed=90 + i)
+        kern = fd.flash_decode_quant if kvdt == torch.int8 else fd.flash_decode
+        run = lambda: kern(q, *cache, posv, sm_scale=128 ** -0.5)   # noqa: E731
+        require(fd.decode_plan(B, S, 4, 7, kvdt, n_sm, qdt)["splits"] > 1,
+                f"decode tickets: B={B} S={S} no longer splits")
+        ref = run()
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(device) for _ in range(2)]
+        outs = []
+        for st in streams:   # hold both streams until every launch is queued
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(int(5e7))
+        for _ in range(rounds):
+            for st in streams:
+                with torch.cuda.stream(st):
+                    outs.append(run())
+        torch.cuda.synchronize()
+        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+        with torch.cuda.stream(side):
+            run()
+            with torch.cuda.graph(graph):
+                captured = [run() for _ in range(3)]
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            outs += captured
+        bad += sum(not torch.equal(o, ref) for o in outs)
+        total += len(outs)
+        del graph
+    arrays = [t for key, t in qm._tickets.items() if key[0] == "flash_decode"]
+    left = sum(int(t.count_nonzero()) for t in arrays)
+    log(f"decode tickets: {total} launches at B = {BEAM} and {POOL_SLOTS} on two streams and "
+        f"replayed in graphs, {bad} not bit-equal to the single-stream output; "
+        f"{len(arrays)} ticket arrays, {left} counters not back at 0")
+    require(bad == 0, f"decode tickets: {bad} of {total} outputs differ")
+    require(left == 0, f"decode tickets: {left} counters not back at 0 after the runs")
 
 
 def check_decode(device, cases=None) -> tuple[dict, dict]:
@@ -1607,7 +1626,7 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
     main, timed, beam, pool = {}, set(), {}, {}
     edges = _decode_edge_cases() + _beam_decode_cases()
-    check_decode_residency(device)
+    check_decode_tickets(device)
     for i, (qdt, kvdt, B, S, pos) in enumerate(cases or _decode_cases()):
         q, cache, posv = _decode_case(device, qdt, kvdt, B, S, pos, seed=50 + i)
         d = q.shape[-1]
@@ -1620,7 +1639,8 @@ def check_decode(device, cases=None) -> tuple[dict, dict]:
         tname = str(qdt).removeprefix("torch.")
         Hq, Hkv = q.shape[1], cache[0].shape[2]
         plan = fd.decode_plan(B, S, Hkv, Hq // Hkv, kvdt,
-                              torch.cuda.get_device_properties(device).multi_processor_count)
+                              torch.cuda.get_device_properties(device).multi_processor_count,
+                              qdt)
         what = (f"decode q {tname} cache {str(kvdt).removeprefix('torch.')} B={B} S={S} "
                 f"pos={pos} (splits {plan['splits']}, stages {plan['stages']}, "
                 f"{plan['ctas_with_keys'](pos)} of {plan['splits'] * Hkv * B} CTAs hold keys)")
@@ -4079,7 +4099,10 @@ def _against_reference(bundle, windows, refs: list, got: list, width: int,
             j = min(len(r), len(g))
         if j is None:
             continue
-        group = list(range(max(0, w - POOL_SLOTS + 1), w + 1))[-POOL_SLOTS:]
+        # POOL_SLOTS windows holding w, as the live pool's step has them (the
+        # decode kernel's split count, and so its rounding, follows the batch)
+        start = max(0, min(w - POOL_SLOTS + 1, len(windows) - POOL_SLOTS))
+        group = list(range(start, min(len(windows), start + POOL_SLOTS)))
         ref_rows = _forced_rows(bundle, [windows[w][2]], [r[:j + 1]], 1)[0]
         pool_rows = _forced_rows(bundle, [windows[v][2] for v in group],
                                  [refs[v][:j + 1] for v in group], width)[group.index(w)]

@@ -6,7 +6,8 @@ and print a digest of every output. Run it on two checkouts on the same
 card, in alternating order, to compare their times and their bits.
 
     python3 qmm_ab.py [--root DIR] [--label NAME] [--out FILE] [--decode-only]
-                      [--decode-weights] [--mel-only] [--int8-only] [--int8-requests]
+                      [--attention-only] [--decode-weights] [--mel-only] [--int8-only]
+                      [--int8-requests]
                       [--tiles-only]
                       [--tile-variants [all|bf16|int8]] [--ckpt FILE]
 
@@ -25,24 +26,28 @@ events, divided by 20: device time, not the host's call rate. Per path the sum o
 layers x (qkv 1280 -> 3840, out 1280 -> 1280, fc1 1280 -> 5120, fc2 5120 ->
 1280) at M = 1500; prefill 28 layers x (qkv 3584 -> 4608, o 3584 -> 3584,
 gate_up 3584 -> 37888, down 18944 -> 3584) at M = 752; decode the same
-at M = 1. The attention paths: "attention encode", 32 layers x the one-shot
-kernel at (B 1, 20 heads, T 1500, d 64) over views into one fused QKV
-output, and "attention prefill", 28 layers x the causal kernel at (B 1, 28
-query heads on 4 KV heads, T 752, d 128); each attention case also holds
+at M = 1. The attention paths (``attention_paths``): "attention encode", 32
+layers x the one-shot kernel at (B 1, 20 heads, T 1500, d 64) over views
+into one fused QKV output ("attention encode lite" and "... nopad": the
+lite and unpadded entries on the same views), and "attention prefill", 28
+layers x the causal kernel at (B 1, 28 query heads on 4 KV heads, T 752, d
+128); each beside one bf16 SDPA call (``sdpa_ms``); each also holds
 ``host_us``, the host's microseconds to enqueue one wrapper call, and
 ``c_us``, the same for the bare C entry (which encodes the tensor maps where
-the checkout has them). "attention edges" holds, for each of chip_smoke's
-bf16 tile edge cases (``_edge_cases``, its inputs and seeds, NaN past
-kv_valid), the share of ``ATTN_TOL`` alone that the one-shot kernel's
-largest distance from the plain version uses. The decode-step cache
+the checkout has them). ``--attention-only`` runs just these and the edges
+(about a minute a checkout, the build included). "attention edges" holds,
+for each of chip_smoke's bf16 tile edge cases (``_edge_cases``, its inputs
+and seeds, NaN past kv_valid), the share of ``ATTN_TOL`` alone that the
+one-shot kernel's largest distance from the plain version uses. The decode-step cache
 attention (``decode_paths``): "attention decode" and "attention decode
 int8", 28 layers x the bf16- or int8-cache kernel at (B 1, 28 query heads
 on 4 KV heads, d 128, capacity 2048, pos 783) over 28 caches in turn, and
-each cache type at S = 784, 2048 and 8192 alone, with bf16 SDPA over the
-prefix beside the bf16 cache and, where the checkout has ``decode_plan``,
-its splits and CTAs; "decode step, 2 layers": the device kernels (by the
-profiler) and host ms of one step of a full-width 2-layer bf16 decoder over
-each cache. The log-mel kernel (``mel_paths``): ``mel_frames`` at a 30 s
+each cache type at S = 784, 2048 and 8192 alone and at the beam step's (B
+5, capacity 784) and the 8-slot pool's (B 8, capacity 2048, positions
+752-812) shapes, with bf16 SDPA beside the bf16 cache and, where the
+checkout has ``decode_plan``, its splits and CTAs; "decode step, 2
+layers": the device kernels (by the profiler) and host ms of one step of a
+full-width 2-layer bf16 decoder over each cache. The log-mel kernel (``mel_paths``): ``mel_frames`` at a 30 s
 clip (3002 frames, 128 mels) and at 1 s (102 frames, 80 mels) beside its
 plain version, by graph replay, with ``host_us``; then "whisper_full", the
 host ms per 30 s clip (median of the calls after the first), the mel's
@@ -72,11 +77,15 @@ lm_head M=64", and then ``whisper_full`` per 30 s clip of the random
 its block weights kept, host ms and one profiled call's device busy ms
 (about two minutes a checkout, the host's quantizing once a call
 included: the quantized files are kept beside ``--ckpt``).
-``--tile-variants [all|bf16|int8]`` splits the checkout's M > 8 tiles by
-scratch variants of their sources, each built with nvcc and swapped in for
-the checkout's library, timed in turns (their outputs are wrong by design;
-only "as_is" is held to the plain version): "bf16", the dequantizing tile
-(``TILE_VARIANTS``: the products, the weight's conversion or x's loads left
+``--tile-variants [all|bf16|int8|decode|attention]`` splits the checkout's
+M > 8 tiles, decode attention or bf16 attention tile by scratch variants of
+their sources, each built with nvcc and swapped in for the checkout's
+library, timed in turns (their outputs are wrong where a part is left out;
+only "as_is" is held to the plain version): "decode" (``DECODE_VARIANTS``:
+the products or the merge's tail left out) at B = 1, 5 and 8;
+"attention" (``ATTENTION_VARIANTS``: the overlap, stages, ping-pong,
+stagger, an FMA share of the exponentials) at the encode and prefill
+shapes; "bf16", the dequantizing tile (``TILE_VARIANTS``: the products, the weight's conversion or x's loads left
 out) at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head q8_0 M =
 64; "int8", the exact-integer tile (``INT8_VARIANTS``: the products, the
 rescale, the weight's conversion left out, or all three; or x's loads) at
@@ -129,6 +138,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--decode-only", action="store_true",
                     help="time only the decode-step cache attention")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="time only the bf16 attention kernels and their edge shares")
     ap.add_argument("--decode-weights", action="store_true",
                     help="time only the M <= 8 weight-streaming kernels, cold")
     ap.add_argument("--mel-only", action="store_true",
@@ -139,9 +150,11 @@ def main(argv=None) -> int:
                     help="time only mode int8's q8_0 encode and request, warm")
     ap.add_argument("--tiles-only", action="store_true",
                     help="time only the dequantizing entries and the lm_head at M = 64")
-    ap.add_argument("--tile-variants", nargs="?", const="all", choices=("all", "bf16", "int8"),
-                    help="time scratch variants of the M > 8 tiles: the dequantizing one "
-                         "(bf16), the exact-integer one (int8) or both (all, the default)")
+    ap.add_argument("--tile-variants", nargs="?", const="all",
+                    choices=("all", "bf16", "int8", "decode", "attention"),
+                    help="time scratch variants of the M > 8 tiles (the dequantizing one, "
+                         "bf16; the exact-integer one, int8), the decode attention (decode) "
+                         "or the bf16 attention tile (attention); all of them by default")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
                     help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
@@ -186,6 +199,10 @@ def main(argv=None) -> int:
     if args.decode_only:
         decode_paths(device, record, shapes, paths)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
+    if args.attention_only:
+        attention_paths(device, record, 0)
+        return emit(args, {"paths_ms": paths, "shapes": shapes,
+                           "attention edges": edge_shares(device)})
     if args.decode_weights:
         decode_weights(device, record, shapes, paths)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
@@ -263,26 +280,7 @@ def main(argv=None) -> int:
         quant_encode_paths(shapes, args.ckpt)
         return emit(args, {"paths_ms": paths, "shapes": shapes})
 
-    from qwen2_audio_tpu_torch.ops import flash_attention as fa
-    for path, layers, (B, H, Hkv, T, d) in (("attention encode", ENCODER[0], ATT_ENCODE),
-                                            ("attention prefill", DECODER[0], ATT_PREFILL)):
-        seed += 1
-        g = torch.Generator(device=device).manual_seed(seed)
-        if path == "attention encode":   # head views of the fused QKV output
-            qkv = torch.randn(B, T, 3 * H * d, generator=g, device=device).to(torch.bfloat16)
-            q, k, v = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in qkv.chunk(3, -1))
-            run = lambda: fa.attention_single(q, k, v)            # noqa: E731
-            ref = lambda: fa.attention_single_plain(q, k, v)      # noqa: E731
-        else:
-            q = torch.randn(B, T, H, d, generator=g, device=device).to(torch.bfloat16)
-            k, v = (torch.randn(B, T, Hkv, d, generator=g, device=device).to(torch.bfloat16)
-                    for _ in range(2))
-            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-            run = lambda: fa.attention_causal(q, k, v, d ** -0.5)  # noqa: E731
-            ref = lambda: fa.attention_causal_plain(q, k, v, d ** -0.5)  # noqa: E731
-        record(f"{path} B={B} H={H} Hkv={Hkv} T={T} d={d}", path, layers, run(), ref(),
-               {"ms": time_ms(run), "host_us": host_us(run),
-                "c_us": host_us(c_entry(q, k, v, path == "attention prefill"))})
+    attention_paths(device, record, seed)
     decode_paths(device, record, shapes, paths)
     mel_paths(device, record, shapes, args.ckpt)
     return emit(args, {"paths_ms": paths, "shapes": shapes,
@@ -335,6 +333,84 @@ INT8_VARIANTS = {
         "loads_only": [_I8_WGMMA, _I8_RESCALE, _I8_CONVERT],
         "no_loads": [_I8_NO_TMA], "products_only": [_I8_NO_TMA, _I8_RESCALE],
         "rescale_only": [_I8_NO_TMA, _I8_WGMMA]},
+}
+
+
+# Text edits of csrc/flash_decode.cu (the split-KV decode kernel): its
+# tensor-core products left out (the loads they read stay live), or every
+# CTA returning after it writes its partial (no ticket, no merge); the
+# float32 FMA path's dot products and P V left out (the path a bf16 query
+# took before the tensor-core path, and still the float32 query's). Each
+# checkout takes the variants whose edits its source holds.
+_DEC_QK = ("        mma_16816(sc, qf[kp].x, qf[kp].y, bw[0], bw[1]);\n"
+           "        mma_16816(sc, qf[kp].z, qf[kp].w, bw[2], bw[3]);",
+           "        sc[0] += __uint_as_float(bw[0] ^ bw[1] ^ qf[kp].x);\n"
+           "        sc[1] += __uint_as_float(bw[2] ^ bw[3] ^ qf[kp].z);")
+_DEC_PV = ("        mma_1688(acc[mt], alo[mt], ahi[mt], pb);",
+           "        acc[mt][0] += __uint_as_float(alo[mt] ^ ahi[mt] ^ pb);")
+_DEC_TAIL = ("  __syncthreads();\n  if (tid == 0) *last = ticket_acq_rel(&tickets[pair]) == splits - 1;\n"
+             "  __syncthreads();\n  if (!*last) return;", "  return;")
+DECODE_VARIANTS = {
+    "split_decode_kernel": {
+        "no_products": [_DEC_QK, _DEC_PV], "no_tail": [_DEC_TAIL],
+        "no_fma_products": [("for (int jv = 0; jv < 16 / VEC; ++jv) {",
+                             "for (int jv = 0; jv < 0; ++jv) {"),
+                            ("for (int jk = 0; jk < 8; ++jk) {", "for (int jk = 0; jk < 0; ++jk) {")]},
+}
+
+
+# Text edits of csrc/attention_single.cu (the bf16 tile at d = 64): the next
+# chunk's Q K^T no longer beside this chunk's P V; three K/V stages; the two
+# warpgroups' products in turn on named barriers (FA3's ping-pong) in place
+# of the start-up stagger; no stagger; an eighth of the exponentials by an
+# FMA polynomial in place of ex2.
+_ATT_PP = [
+    ("    if (wg == 1) named_sync(1, 256);\n    mbar_wait(full_q, 0);",
+     "    if (wg == 1) named_arrive(2, 256);\n    mbar_wait(full_q, 0);"),
+    ("      mbar_wait(&full_k[0], 0);\n      wgmma_fence();\n      issue_qk<D>(sc, qw, ks);\n"
+     "      wgmma_commit();\n",
+     "      mbar_wait(&full_k[0], 0);\n      named_sync(2 + wg, 256);\n      wgmma_fence();\n"
+     "      issue_qk<D>(sc, qw, ks);\n      wgmma_commit();\n      named_arrive(3 - wg, 256);\n"),
+    ("      if (wg == 0) named_arrive(1, 256);\n", ""),
+    ("        mbar_wait(&full_k[s], (j / kStages) & 1);\n        wgmma_fence();",
+     "        mbar_wait(&full_k[s], (j / kStages) & 1);\n        named_sync(2 + wg, 256);\n"
+     "        wgmma_fence();"),
+    ("        issue_pv<D>(acc, pa, vs + sp * kTile);\n        wgmma_commit();\n",
+     "        issue_pv<D>(acc, pa, vs + sp * kTile);\n        wgmma_commit();\n"
+     "        named_arrive(3 - wg, 256);\n"),
+    ("      mbar_wait(&full_v[sl], ((n_chunks - 1) / kStages) & 1);\n      wgmma_fence();\n"
+     "      issue_pv<D>(acc, pa, vs + sl * kTile);\n      wgmma_commit();\n",
+     "      mbar_wait(&full_v[sl], ((n_chunks - 1) / kStages) & 1);\n      named_sync(2 + wg, 256);\n"
+     "      wgmma_fence();\n      issue_pv<D>(acc, pa, vs + sl * kTile);\n      wgmma_commit();\n"
+     "      named_arrive(3 - wg, 256);\n")]
+_ATT_POLY = [
+    ("constexpr float kLog2e = 1.4426950408889634f;",
+     "constexpr float kLog2e = 1.4426950408889634f;\n\n"
+     "__device__ __forceinline__ float ex2_fma(float x) {\n"
+     "  const float xc = fmaxf(x, -125.f);\n  const float t = xc + 12582912.f;\n"
+     "  const float f = xc - (t - 12582912.f);\n  float p = 1.535336188319500e-4f;\n"
+     "  p = fmaf(p, f, 1.339887440266574e-3f);\n  p = fmaf(p, f, 9.618437357674640e-3f);\n"
+     "  p = fmaf(p, f, 5.550332471162809e-2f);\n  p = fmaf(p, f, 2.402264791363012e-1f);\n"
+     "  p = fmaf(p, f, 6.931472028550421e-1f);\n  p = fmaf(p, f, 1.f);\n"
+     "  const float y = __int_as_float(__float_as_int(p) + ((__float_as_int(t) - 0x4B400000) << 23));\n"
+     "  return x < -125.f ? 0.f : y;\n}"),
+    ("        sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], L, -ml0));\n"
+     "        sc[4 * n + 2 + e] = ex2(fmaf(sc[4 * n + 2 + e], L, -ml1));",
+     "        if ((n & 7) == 0 && e == 0) {\n"
+     "          sc[4 * n + e] = ex2_fma(fmaf(sc[4 * n + e], L, -ml0));\n"
+     "          sc[4 * n + 2 + e] = ex2_fma(fmaf(sc[4 * n + 2 + e], L, -ml1));\n"
+     "        } else {\n"
+     "          sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], L, -ml0));\n"
+     "          sc[4 * n + 2 + e] = ex2(fmaf(sc[4 * n + 2 + e], L, -ml1));\n        }")]
+ATTENTION_VARIANTS = {
+    "attn_wgmma_kernel": {
+        "no_overlap": [("constexpr bool OVL = D == 64 && !OPTS;", "constexpr bool OVL = false;")],
+        "stages3": [("constexpr int kStages = 2;      // bf16: K/V chunks in the ring",
+                     "constexpr int kStages = 3;")],
+        "pingpong": _ATT_PP,
+        "no_stagger": [("    if (wg == 1) named_sync(1, 256);\n    mbar_wait(full_q, 0);",
+                        "    mbar_wait(full_q, 0);"), ("      if (wg == 0) named_arrive(1, 256);\n", "")],
+        "poly_eighth": _ATT_POLY},
 }
 
 
@@ -406,12 +482,18 @@ def _time_variants(library: str, libs: dict, cases: dict, rounds: int) -> dict:
 def tile_variants(device, which: str = "all", rounds: int = 2) -> dict:
     """The split of the checkout's M > 8 tiles by scratch variants of their
     sources: ``which`` "bf16" (the dequantizing tile, TILE_VARIANTS), "int8"
-    (the exact-integer tile, INT8_VARIANTS) or "all"."""
+    (the exact-integer tile, INT8_VARIANTS), "decode" (the decode attention,
+    DECODE_VARIANTS), "attention" (the bf16 attention tile,
+    ATTENTION_VARIANTS) or "all"."""
     out = {}
     if which in ("bf16", "all"):
         out["bf16"] = bf16_tile_variants(device, rounds)
     if which in ("int8", "all"):
         out["int8"] = int8_tile_variants(device, rounds)
+    if which in ("decode", "all"):
+        out["decode"] = decode_variants(device, rounds)
+    if which in ("attention", "all"):
+        out["attention"] = attention_variants(device, rounds)
     return out
 
 
@@ -530,6 +612,65 @@ def int8_tile_variants(device, rounds: int = 2) -> dict:
         res["library"][case] = time_ms(lambda: x @ wb)
         del wb
     return {"kernel": kernel, "ptxas": notes, **res}
+
+
+def decode_variants(device, rounds: int = 2) -> dict:
+    """{variant: {case: [ms per round]}} of the checkout's decode attention
+    and its DECODE_VARIANTS, swapped in for its flash_decode library in
+    turns, by graph replay, over a bf16 cache (NaN past each position) at B
+    = 1 (capacity 2048, pos 783), the beam step's B = 5 (784, every stream at
+    783) and the pool's B = 8 (2048, positions 752-812); "as_is" also holds
+    its largest distance from the plain version per case, "ptxas" the
+    kernel's register and spill lines of the unedited build."""
+    import torch
+
+    from chip_smoke import BEAM, _decode_case, _pool_decode_cases
+    from qwen2_audio_tpu_torch.ops import flash_decode as fd
+    from qwen2_audio_tpu_torch.ops import _build
+    src = (_build.CSRC / "flash_decode.cu").read_text()
+    held = {k: {n: e for n, e in v.items() if all(old in src for old, _ in e)}
+            for k, v in DECODE_VARIANTS.items()}
+    kernel, libs, notes = _variant_libs("flash_decode.cu", "flash_decode", held)
+    pool = _pool_decode_cases()[0][4]
+    cases = {}
+    for i, (B, S, pos) in enumerate(((1, 2048, [783]), (BEAM, 784, [783] * BEAM),
+                                     (len(pool), 2048, pool))):
+        q, cache, posv = _decode_case(device, torch.bfloat16, torch.bfloat16, B, S, pos, 4400 + i)
+        cases[f"B={B} S={S}"] = (
+            lambda q=q, c=cache, p=posv: fd.flash_decode(q, *c, p, sm_scale=128 ** -0.5),
+            lambda q=q, c=cache, p=posv: fd.flash_decode_plain(q, *c, p, sm_scale=128 ** -0.5))
+    return {**_time_variants("flash_decode", libs, cases, rounds), "ptxas": notes}
+
+
+def attention_variants(device, rounds: int = 2) -> dict:
+    """{variant: {case: [ms per round]}} of the checkout's bf16 attention tile
+    and its ATTENTION_VARIANTS, swapped in for its attention_single library
+    in turns, by graph replay: the one-shot kernel at the encoder shape (B 1,
+    20 heads, T 1500, d 64, views into one fused QKV output) and the causal
+    prefill (B 1, 28 query heads on 4 KV heads, T 752, d 128); "as_is" also
+    holds its largest distance from the plain version per case, "sdpa" one
+    bf16 SDPA call at the encoder shape, "ptxas" the tile's register, spill
+    and C75xx lines of the unedited build."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    kernel, libs, notes = _variant_libs("attention_single.cu", "attention_single",
+                                        ATTENTION_VARIANTS)
+    g = torch.Generator(device=device).manual_seed(4500)
+    qkv = torch.randn(1, 1500, 3 * 1280, generator=g, device=device).to(torch.bfloat16)
+    q, k, v = (x.unflatten(-1, (20, 64)).transpose(1, 2) for x in qkv.chunk(3, -1))
+    qp = torch.randn(1, 752, 28, 128, generator=g, device=device).to(torch.bfloat16)
+    kp, vp = (torch.randn(1, 752, 4, 128, generator=g, device=device).to(torch.bfloat16)
+              for _ in range(2))
+    qp, kp, vp = (x.transpose(1, 2) for x in (qp, kp, vp))
+    cases = {"encode": (lambda: fa.attention_single(q, k, v),
+                        lambda: fa.attention_single_plain(q, k, v)),
+             "prefill": (lambda: fa.attention_causal(qp, kp, vp, 128 ** -0.5),
+                         lambda: fa.attention_causal_plain(qp, kp, vp, 128 ** -0.5))}
+    return {**_time_variants("attention_single", libs, cases, rounds),
+            "sdpa": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)),
+            "ptxas": notes}
 
 
 def lm_head_rows(device, record, M: int = 64, K: int = 3584, vocab: int = 156032) -> None:
@@ -730,39 +871,99 @@ def quant_encode_paths(shapes: dict, ckpt: str, layers: int = 32, calls: int = 6
         torch.cuda.empty_cache()
 
 
+def attention_paths(device, record, seed: int) -> None:
+    """The bf16 attention kernels (TPU rows 2, 3, 18, 19) at the encode and
+    prefill shapes: "attention encode", 32 layers x the one-shot kernel at
+    (B 1, 20 heads, T 1500, d 64) over views into one fused QKV output, with
+    the lite entry (row 18, Q pre-scaled in its type, the row sums of p as
+    cast to bf16) and the unpadded entry (row 19) on the same views and one
+    bf16 SDPA call beside them; "attention prefill", 28 layers x the causal
+    kernel at (B 1, 28 query heads on 4 KV heads, T 752, d 128) beside
+    causal GQA SDPA. Each case also holds ``host_us`` and ``c_us``."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen2_audio_tpu_torch.ops import fa_variants as fv
+    from qwen2_audio_tpu_torch.ops import flash_attention as fa
+    for path, layers, (B, H, Hkv, T, d) in (("attention encode", ENCODER[0], ATT_ENCODE),
+                                            ("attention prefill", DECODER[0], ATT_PREFILL)):
+        seed += 1
+        g = torch.Generator(device=device).manual_seed(seed)
+        if path == "attention encode":   # head views of the fused QKV output
+            qkv = torch.randn(B, T, 3 * H * d, generator=g, device=device).to(torch.bfloat16)
+            q, k, v = (x.unflatten(-1, (H, d)).transpose(1, 2) for x in qkv.chunk(3, -1))
+            run = lambda: fa.attention_single(q, k, v)            # noqa: E731
+            ref = lambda: fa.attention_single_plain(q, k, v)      # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)   # noqa: E731
+        else:
+            q = torch.randn(B, T, H, d, generator=g, device=device).to(torch.bfloat16)
+            k, v = (torch.randn(B, T, Hkv, d, generator=g, device=device).to(torch.bfloat16)
+                    for _ in range(2))
+            q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+            run = lambda: fa.attention_causal(q, k, v, d ** -0.5)  # noqa: E731
+            ref = lambda: fa.attention_causal_plain(q, k, v, d ** -0.5)  # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, scale=d ** -0.5, enable_gqa=True)
+        record(f"{path} B={B} H={H} Hkv={Hkv} T={T} d={d}", path, layers, run(), ref(),
+               {"ms": time_ms(run), "host_us": host_us(run), "sdpa_ms": time_ms(sdpa),
+                "c_us": host_us(c_entry(q, k, v, path == "attention prefill"))})
+        if path == "attention encode":
+            for entry, r, p in (
+                    ("lite", lambda: fv.attention_lite(q, k, v, sm_scale=1.0),
+                     lambda: fv.attention_lite_plain(q, k, v, sm_scale=1.0)),
+                    ("nopad", lambda: fv.flash_attention_nopad(q, k, v, sm_scale=1.0),
+                     lambda: fa.attention_single_plain(q, k, v))):
+                record(f"{path} {entry} B={B} H={H} Hkv={Hkv} T={T} d={d}",
+                       f"{path} {entry}", layers, r(), p(), {"ms": time_ms(r)})
+
+
 def decode_paths(device, record, shapes: dict, paths: dict) -> None:
     """The decode-step cache attention (TPU rows 4 and 5) at one step of a
     32-token request: q bf16 (B 1, 28 query heads on 4 KV heads, d 128) over
-    a bf16 or int8 cache of capacity S at pos, NaN past pos. Each shape is
-    timed on one cache (warm in L2, as chip_smoke times it) beside bf16 SDPA
-    over the prefix; the paths "attention decode" and "attention decode
+    a bf16 or int8 cache of capacity S at pos, NaN past pos; and at the beam
+    step's shape (B = chip_smoke.BEAM, capacity 784, every stream at 783)
+    and the 8-slot pool's (B = chip_smoke.POOL_SLOTS, capacity 2048,
+    positions 752-812). Each shape is timed on one cache (warm in L2, as
+    chip_smoke times it) beside bf16 SDPA (over the prefix where every
+    stream is at one position, else over the whole cache with a mask and
+    NaN rows zeroed); the paths "attention decode" and "attention decode
     int8" are 28 layers' caches of capacity 2048 at pos 783 read in turn
     (45 MB of prefixes, about the L2), summed over the layers."""
     import torch
     import torch.nn.functional as F
 
-    from chip_smoke import _decode_case
+    from chip_smoke import BEAM, _decode_case, _pool_decode_cases
     from qwen2_audio_tpu_torch.ops import flash_decode as fd
     layers, d = DECODER[0], 128
-    for seed, (kvdt, S, pos) in enumerate((
-            (torch.bfloat16, 784, 783), (torch.bfloat16, 2048, 783),
-            (torch.bfloat16, 8192, 8191), (torch.int8, 784, 783),
-            (torch.int8, 2048, 783), (torch.int8, 8192, 8191)), start=900):
+    pool = _pool_decode_cases()[0][4]
+    for seed, (kvdt, B, S, pos) in enumerate([
+            (kv, 1, S, [p]) for kv in (torch.bfloat16, torch.int8)
+            for S, p in ((784, 783), (2048, 783), (8192, 8191))] + [
+            (kv, B, S, pos) for kv in (torch.bfloat16, torch.int8)
+            for B, S, pos in ((BEAM, 784, [783] * BEAM), (len(pool), 2048, pool))], start=900):
         quant = kvdt == torch.int8
         kern = fd.flash_decode_quant if quant else fd.flash_decode
         plain = fd.flash_decode_quant_plain if quant else fd.flash_decode_plain
-        q, cache, posv = _decode_case(device, torch.bfloat16, kvdt, 1, S, [pos], seed)
+        q, cache, posv = _decode_case(device, torch.bfloat16, kvdt, B, S, pos, seed)
         run = lambda: kern(q, *cache, posv, sm_scale=d ** -0.5)   # noqa: E731
         t = {"ms": time_ms(run), "host_us": host_us(run)}
-        if not quant:
-            kp, vp = (c[:, :pos + 1].transpose(1, 2) for c in cache)
+        if not quant and len(set(pos)) == 1:
+            kp, vp = (c[:, :pos[0] + 1].transpose(1, 2) for c in cache)
             t["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kp, vp, scale=d ** -0.5, enable_gqa=True))
+        elif not quant:
+            kp, vp = (torch.nan_to_num(c).transpose(1, 2) for c in cache)
+            mask = (torch.arange(S, device=device)[None, :] <= posv[:, None].long())
+            t["sdpa_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kp, vp, attn_mask=mask[:, None, None, :], scale=d ** -0.5,
+                enable_gqa=True))
         if hasattr(fd, "decode_plan"):   # the split-KV kernel's launch
-            plan = fd.decode_plan(1, S, 4, 7, kvdt)
+            plan = fd.decode_plan(B, S, 4, 7, kvdt)
             t["plan"] = {"splits": plan["splits"], "grid": plan["grid"],
                          "ctas_with_keys": plan["ctas_with_keys"](posv.tolist())}
-        key = f"attention decode {str(kvdt).removeprefix('torch.')} S={S} pos={pos}"
+        key = (f"attention decode {str(kvdt).removeprefix('torch.')} S={S} pos={pos[0]}"
+               if B == 1 else f"attention decode {str(kvdt).removeprefix('torch.')} B={B} "
+               f"S={S} pos={min(pos)}-{max(pos)}")
         record(key, "", 0, run(), plain(q, *cache, posv, sm_scale=d ** -0.5), t)   # no path
         del q, cache
     for seed, kvdt in ((1000, torch.bfloat16), (1100, torch.int8)):

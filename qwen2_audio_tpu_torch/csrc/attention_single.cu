@@ -71,17 +71,37 @@
 //   The producer runs up to kStages chunks ahead, so the next chunk's K and
 //   V are in flight while the consumers work. Warpgroup 1 starts once
 //   warpgroup 0's first Q K^T has completed, so that the two stay out of
-//   step and one's softmax runs under the other's products. What limits the
-//   tile is the softmax, not the tensor cores: clock64 stamps of one block
-//   (qmm_ab.py --variants, on an H100) put 47-51 % of a consumer's time in
-//   it, 12-19 % in each product and 12-17 % in waiting for a K stage that
-//   the other warpgroup has not yet released. Half of the softmax's
-//   instructions are the exact expf that the default keeps; the rest are
-//   the max, the shifted scores, the sums, the rescale and the bf16 packing
-//   of P. The registers bind too: 12 warps put 3 on each SM sub-partition,
-//   so ptxas holds a thread to about 168 registers whatever setmaxnreg
-//   allows at run time, and a second set of scores (FA3's overlap of the
-//   next Q K^T with the softmax) serializes the wgmma at d = 128.
+//   step and one's softmax runs under the other's products. What limited
+//   the tile was the softmax: clock64 stamps of one block (on an H100) put
+//   47-51 % of a consumer's time in it, 12-19 % in each product and 12-17 %
+//   in waiting for a K stage that the other warpgroup had not released, and
+//   half of its instructions were an exact expf. So:
+//   * the exponential is one fma and the special-function unit's 2^x (ex2
+//     above); the lite sums read the rounded p back from the packed words
+//     rather than converting each value (a conversion runs on the unit
+//     that computes the exponentials);
+//   * at d = 64, the default softmax, a consumer issues chunk j's Q K^T and
+//     chunk j - 1's P V together and waits for the first only, so the
+//     softmax of chunk j runs while the P V is on the tensor cores; the P V
+//     is waited for before its sums are rescaled and P is packed anew. P
+//     stays live beside the next scores, which fits a consumer's registers
+//     at d = 64 only (12 warps put 3 on each SM sub-partition, so ptxas
+//     holds a thread to about 168 registers whatever setmaxnreg allows at
+//     run time). The first chunk is peeled so that every turn of the loop
+//     waits alike: where ptxas cannot tell which product a wait leaves in
+//     flight, it serializes every wgmma of the tile (C7515). The options'
+//     softmax (a switch on the flags) and d = 128 take the products in turn.
+//   At the encoder shape on an H100 (graph replay; qmm_ab.py
+//   --attention-only and --tile-variants attention): 0.048-0.049 ms before,
+//   0.037 with the exponential, 0.034 with the overlap; bf16 SDPA 0.038.
+//   Tried and not kept, each slower or no faster: a persistent grid of a
+//   block an SM taking the 240 units in turn (the 240 equal units leave 108
+//   SMs two whatever the order, and the causal tile loses the hardware's
+//   load balance); three K/V stages; FA3's ping-pong of the two warpgroups'
+//   products on named barriers (+4 %); no stagger (+20 %); an FMA
+//   polynomial for an eighth of the exponentials (+4 %), so the
+//   special-function unit is not what holds the tile: its consumers' other
+//   instructions (max, sums, rescale, packing) are.
 //   Heads are read by stride: Q, K and V are each a 4-D tensor map (d,
 //   token, head, batch) over the caller's strides, so views into the fused
 //   QKV projection are read in place. d = 128 is two 64-column swizzle
@@ -134,7 +154,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// the softmax's exponential, e^x or (kExp2) 2^x
+// the softmax's exponential, e^x or (kExp2) 2^x: the float32 kernels'
 __device__ __forceinline__ float expo(float x, int flags) {
   return (flags & kExp2) ? exp2f(x) : expf(x);
 }
@@ -145,10 +165,27 @@ __device__ __forceinline__ float prob(float x, int flags) {
   return expo(x, flags);
 }
 
+// 2^x by the special-function unit alone (ex2.approx.ftz: about 2 ulp,
+// results below 2^-126 flushed to 0), the bf16 tile's exponential: the
+// tile takes e^(s - m) as 2^(s log2e - m log2e), one fma and this, where
+// expf took about 8 instructions. Its error (about 1e-6 relative over the
+// softmax's range, the fma's rounding of s log2e included) stays far below
+// p's bf16 rounding (2^-9), which P V takes either way.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
 // Q, then kStages stages of K and of V, each (128 rows, D) in D / 64 boxes;
 // the mbarriers; 1024 bytes to align the boxes to the swizzle atom
@@ -193,31 +230,43 @@ __device__ __forceinline__ void scale_mask_max(float (&sc)[kBK / 2], int k0,
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
 }
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-
-// p = prob(s - m) in place, P packed to bf16 as the A fragments of P V's
-// k16 steps, and the two rows' sums of p (kLite: of p rounded to bf16, read
-// back from the packed words; kPexp16: p is a bf16 value already), for the
-// option bits F known at compile time: no branch inside the loop. Keys 16 kk
-// .. 16 kk + 15 are column groups n = 2 kk and 2 kk + 1: the fragment's
-// values 2 t4 (+ 1) and 2 t4 + 8 (+ 1) of rows g and g + 8. Four partial
-// sums a row shorten the chain of dependent adds.
-template <int F>
+// p = prob(s - m) in place, (PACK) P packed to bf16 as the A fragments of
+// P V's k16 steps (``pack_p``), and the two rows' sums of p (kLite: of p
+// rounded to bf16, read back from the packed words: a conversion a value
+// would load the unit that computes the exponentials; kPexp16: p is a bf16
+// value already), for the option bits F known at compile time: no branch
+// inside the loop. The
+// exponential is 2^(s L - m L), L = log2e (1 under kExp2: the logits are in
+// base 2 already). Keys 16 kk .. 16 kk + 15 are column groups n = 2 kk and
+// 2 kk + 1: the fragment's values 2 t4 (+ 1) and 2 t4 + 8 (+ 1) of rows g
+// and g + 8. Four partial sums a row shorten the chain of dependent adds.
+template <int F, bool PACK>
 __device__ __forceinline__ void chunk_probs(float (&sc)[kBK / 2], float mn0, float mn1,
                                             uint32_t (&pa)[kBK / 16][4], float& ls0,
                                             float& ls1) {
+  static_assert(PACK || F == 0, "only the default softmax leaves P unpacked");
+  constexpr float L = (F & kExp2) ? 1.f : kLog2e;
+  const float ml0 = mn0 * L, ml1 = mn1 * L;
   float ps0[4] = {0.f, 0.f, 0.f, 0.f}, ps1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int n = 0; n < kBK / 8; ++n) {
-    sc[4 * n] = prob(sc[4 * n] - mn0, F);
-    sc[4 * n + 1] = prob(sc[4 * n + 1] - mn0, F);
-    sc[4 * n + 2] = prob(sc[4 * n + 2] - mn1, F);
-    sc[4 * n + 3] = prob(sc[4 * n + 3] - mn1, F);
-    const uint32_t w0 = pack_bf16(sc[4 * n], sc[4 * n + 1]);
-    const uint32_t w1 = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
-    pa[n >> 1][2 * (n & 1)] = w0;
-    pa[n >> 1][2 * (n & 1) + 1] = w1;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (F & kPexp16) {
+        sc[4 * n + e] = round_bf16(ex2(round_bf16(sc[4 * n + e] - mn0) * L));
+        sc[4 * n + 2 + e] = round_bf16(ex2(round_bf16(sc[4 * n + 2 + e] - mn1) * L));
+      } else {
+        sc[4 * n + e] = ex2(fmaf(sc[4 * n + e], L, -ml0));
+        sc[4 * n + 2 + e] = ex2(fmaf(sc[4 * n + 2 + e], L, -ml1));
+      }
+    }
+    uint32_t w0 = 0, w1 = 0;
+    if constexpr (PACK) {
+      w0 = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+      w1 = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+      pa[n >> 1][2 * (n & 1)] = w0;
+      pa[n >> 1][2 * (n & 1) + 1] = w1;
+    }
     if ((F & kLite) && !(F & kPexp16)) {
       ps0[n & 3] += bf16_lo(w0) + bf16_hi(w0);
       ps1[n & 3] += bf16_lo(w1) + bf16_hi(w1);
@@ -230,13 +279,23 @@ __device__ __forceinline__ void chunk_probs(float (&sc)[kBK / 2], float mn0, flo
   ls1 = (ps1[0] + ps1[1]) + (ps1[2] + ps1[3]);
 }
 
-// The online-softmax step of one chunk: the scores become p (and P, in
-// pa), the running maxima and sums move on, and a0 / a1 are the factors
+// P packed to bf16 as the A fragments of P V's k16 steps (as chunk_probs
+// packs it)
+__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < kBK / 8; ++n) {
+    pa[n >> 1][2 * (n & 1)] = pack_bf16(sc[4 * n], sc[4 * n + 1]);
+    pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(sc[4 * n + 2], sc[4 * n + 3]);
+  }
+}
+
+// The online-softmax step of one chunk: the scores become p (and, PACK, P
+// in pa), the running maxima and sums move on, and a0 / a1 are the factors
 // that rescale the rows' earlier sums of P V. Every chunk holds key k0 < kv_valid, and key 0
 // is visible to every row (causal too), so the maxima are finite from the
 // first chunk on and a chunk with no visible key for a row leaves its
 // maximum alone.
-template <bool CAUSAL, bool OPTS>
+template <bool CAUSAL, bool OPTS, bool PACK>
 __device__ __forceinline__ void softmax_chunk(float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 16][4],
                                               bool edge, int k0, int t4, int kv_valid, int qa,
                                               int qc, float sm_scale, int flags, float& m0,
@@ -249,30 +308,31 @@ __device__ __forceinline__ void softmax_chunk(float (&sc)[kBK / 2], uint32_t (&p
   else
     scale_mask_max<CAUSAL, SCALE, false>(sc, k0, t4, kv_valid, qa, qc, sm_scale, mx0, mx1);
   const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  a0 = expo(m0 - mn0, flags);
-  a1 = expo(m1 - mn1, flags);
+  const float L = (flags & kExp2) ? 1.f : kLog2e;
+  a0 = ex2(fmaf(m0, L, -mn0 * L));   // m = -inf (the first chunk): 0
+  a1 = ex2(fmaf(m1, L, -mn1 * L));
   m0 = mn0;
   m1 = mn1;
   float ls0, ls1;
-  if (!OPTS) {
-    chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1);
-  } else if (CAUSAL) {   // the causal entry takes kExp2 only
+  if constexpr (!OPTS) {
+    chunk_probs<0, PACK>(sc, mn0, mn1, pa, ls0, ls1);
+  } else if constexpr (CAUSAL) {   // the causal entry takes kExp2 only
     if (flags & kExp2)
-      chunk_probs<kExp2>(sc, mn0, mn1, pa, ls0, ls1);
+      chunk_probs<kExp2, PACK>(sc, mn0, mn1, pa, ls0, ls1);
     else
-      chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1);
+      chunk_probs<0, PACK>(sc, mn0, mn1, pa, ls0, ls1);
   } else {
     switch (flags) {   // kPexp16 | kLite sums as kPexp16 does (p is bf16)
-      case kExp2: chunk_probs<kExp2>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kExp2: chunk_probs<kExp2, PACK>(sc, mn0, mn1, pa, ls0, ls1); break;
       case kPexp16:
-      case kPexp16 | kLite: chunk_probs<kPexp16>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kPexp16 | kLite: chunk_probs<kPexp16, PACK>(sc, mn0, mn1, pa, ls0, ls1); break;
       case kPexp16 | kExp2:
       case kPexp16 | kLite | kExp2:
-        chunk_probs<kPexp16 | kExp2>(sc, mn0, mn1, pa, ls0, ls1);
+        chunk_probs<kPexp16 | kExp2, PACK>(sc, mn0, mn1, pa, ls0, ls1);
         break;
-      case kLite: chunk_probs<kLite>(sc, mn0, mn1, pa, ls0, ls1); break;
-      case kLite | kExp2: chunk_probs<kLite | kExp2>(sc, mn0, mn1, pa, ls0, ls1); break;
-      default: chunk_probs<0>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kLite: chunk_probs<kLite, PACK>(sc, mn0, mn1, pa, ls0, ls1); break;
+      case kLite | kExp2: chunk_probs<kLite | kExp2, PACK>(sc, mn0, mn1, pa, ls0, ls1); break;
+      default: chunk_probs<0, PACK>(sc, mn0, mn1, pa, ls0, ls1); break;
     }
   }
   l0 = l0 * a0 + ls0;
@@ -328,6 +388,11 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                   int kv_valid, float sm_scale, int opt_flags) {
   constexpr int NB = D / 64;          // 64-value swizzle boxes per row
   constexpr int kTile = NB * kBox;    // Q, or one stage's K or V
+  // d = 64, the default softmax: the next chunk's Q K^T beside this chunk's
+  // P V (P stays live beside the next scores, which fits a consumer's
+  // registers at d = 64 only; the options' softmax, a switch on the flags,
+  // takes the products in turn)
+  constexpr bool OVL = D == 64 && !OPTS;
   const int flags = OPTS ? opt_flags : 0;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
@@ -380,11 +445,10 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   } else {
     // ---- consumers ----
     // Per chunk: S = Q K^T, the softmax, O += P V, each product waited for
-    // before its registers are read. A stage's K is released once its Q K^T
-    // has completed, its V once its P V has, so the producer refills K while
-    // the softmax runs. (Issuing chunk j's Q K^T beside chunk j - 1's P V,
-    // FA3's overlap inside a warpgroup, and FA3's ping-pong of the two
-    // warpgroups measured slower: PERF.md.)
+    // before its registers are read (at d = 64 the next Q K^T beside the P V,
+    // OVL). A stage's K is released once its Q K^T has completed, its V once
+    // its P V has, so the producer refills K while the softmax runs. (FA3's
+    // ping-pong of the two warpgroups measured slower: PERF.md.)
     setmaxnreg_inc<240>();
     const int wg = (threadIdx.x >> 7) - 1;   // rows 64 wg .. 64 wg + 63 of the block
     const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -406,36 +470,96 @@ attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // wait on the tensor cores at once: 9 % slower at the encoder shape)
     if (wg == 1) named_sync(1, 256);
     mbar_wait(full_q, 0);
-    for (int j = 0; j < n_chunks; ++j) {
-      const int s = j % kStages;
-      const uint32_t par = (j / kStages) & 1;
-      mbar_wait(&full_k[s], par);
+    if constexpr (OVL) {
+      // chunk 0's scores and P, then per chunk j: Q K^T of j and P V of j - 1
+      // issued together, the softmax of j under the P V, the P V waited for
+      // before its sums are rescaled and P is packed anew; the first chunk
+      // peeled, so that every turn of the loop waits alike (ptxas serializes
+      // the tile's wgmma where it cannot tell which product a wait leaves
+      // in flight)
+      mbar_wait(&full_k[0], 0);
       wgmma_fence();
-      issue_qk<D>(sc, qw, ks + s * kTile);
+      issue_qk<D>(sc, qw, ks);
       wgmma_commit();
       wgmma_wait<0>();
       pin_all(sc);
-      mbar_arrive(&empty_k[s]);
-      if (wg == 0 && j == 0) named_arrive(1, 256);
-      softmax_chunk<CAUSAL, OPTS>(sc, pa, (j + 1) * kBK > clean_end, j * kBK, t4, kv_valid, qa,
-                                  qc, sm_scale, flags, m0, m1, l0, l1, a0, a1);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        acc[4 * n] *= a0;
-        acc[4 * n + 1] *= a0;
-        acc[4 * n + 2] *= a1;
-        acc[4 * n + 3] *= a1;
-      }
-      pin_all(acc);
+      mbar_arrive(&empty_k[0]);
+      if (wg == 0) named_arrive(1, 256);
+      softmax_chunk<CAUSAL, OPTS, true>(sc, pa, kBK > clean_end, 0, t4, kv_valid, qa, qc,
+                                        sm_scale, flags, m0, m1, l0, l1, a0, a1);
       pin_all(pa);
-      mbar_wait(&full_v[s], par);
+      for (int j = 1; j < n_chunks; ++j) {
+        const int s = j % kStages, sp = (j - 1) % kStages;
+        mbar_wait(&full_k[s], (j / kStages) & 1);
+        wgmma_fence();
+        issue_qk<D>(sc, qw, ks + s * kTile);
+        wgmma_commit();
+        mbar_wait(&full_v[sp], ((j - 1) / kStages) & 1);
+        issue_pv<D>(acc, pa, vs + sp * kTile);
+        wgmma_commit();
+        wgmma_wait<1>();   // chunk j's Q K^T; chunk j - 1's P V runs on
+        pin_all(sc);
+        mbar_arrive(&empty_k[s]);
+        softmax_chunk<CAUSAL, OPTS, false>(sc, pa, (j + 1) * kBK > clean_end, j * kBK, t4,
+                                           kv_valid, qa, qc, sm_scale, flags, m0, m1, l0, l1,
+                                           a0, a1);
+        wgmma_wait<0>();
+        pin_all(acc);
+        pin_all(pa);
+        mbar_arrive(&empty_v[sp]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= a0;
+          acc[4 * n + 1] *= a0;
+          acc[4 * n + 2] *= a1;
+          acc[4 * n + 3] *= a1;
+        }
+        pack_p(sc, pa);
+        pin_all(acc);
+        pin_all(pa);
+      }
+      const int sl = (n_chunks - 1) % kStages;   // the last chunk's P V
+      mbar_wait(&full_v[sl], ((n_chunks - 1) / kStages) & 1);
       wgmma_fence();
-      issue_pv<D>(acc, pa, vs + s * kTile);
+      issue_pv<D>(acc, pa, vs + sl * kTile);
       wgmma_commit();
       wgmma_wait<0>();
       pin_all(acc);
       pin_all(pa);
-      mbar_arrive(&empty_v[s]);
+      mbar_arrive(&empty_v[sl]);
+    } else {
+      for (int j = 0; j < n_chunks; ++j) {
+        const int s = j % kStages;
+        const uint32_t par = (j / kStages) & 1;
+        mbar_wait(&full_k[s], par);
+        wgmma_fence();
+        issue_qk<D>(sc, qw, ks + s * kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_all(sc);
+        mbar_arrive(&empty_k[s]);
+        if (wg == 0 && j == 0) named_arrive(1, 256);
+        softmax_chunk<CAUSAL, OPTS, true>(sc, pa, (j + 1) * kBK > clean_end, j * kBK, t4,
+                                          kv_valid, qa, qc, sm_scale, flags, m0, m1, l0, l1,
+                                          a0, a1);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[4 * n] *= a0;
+          acc[4 * n + 1] *= a0;
+          acc[4 * n + 2] *= a1;
+          acc[4 * n + 3] *= a1;
+        }
+        pin_all(acc);
+        pin_all(pa);
+        mbar_wait(&full_v[s], par);
+        wgmma_fence();
+        issue_pv<D>(acc, pa, vs + s * kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin_all(acc);
+        pin_all(pa);
+        mbar_arrive(&empty_v[s]);
+      }
     }
 
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);

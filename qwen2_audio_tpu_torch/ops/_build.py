@@ -45,11 +45,9 @@ SIGNATURES = {
         "qa_attention_causal": [P, P, P, P] + [L] * 12 + [I] * 7 + [F, I, P],
     },
     "flash_decode": {
-        # q, k, v, k_scale, v_scale, pos, o, B, S, Hkv, G, d, q_type,
-        # kv_type, sm_scale, splits, stages, stream
-        "qa_flash_decode": [P] * 7 + [I] * 7 + [F, I, I, P],
-        # splits, stages, out: resident clusters of the bf16-cache kernel
-        "qa_flash_decode_resident_clusters": [I, I, P],
+        # q, k, v, k_scale, v_scale, pos, o, workspace, tickets, B, S, Hkv,
+        # G, d, q_type, kv_type, sm_scale, splits, stages, stream
+        "qa_flash_decode": [P] * 9 + [I] * 7 + [F, I, I, P],
         # k, v, k_q, k_scale, v_q, v_scale, pos, strides (b, t, h) of k and
         # v, B, T, Hkv, d, S, x_type, stream
         "qa_kv_append_quant": [P] * 7 + [L] * 6 + [I] * 6 + [P],

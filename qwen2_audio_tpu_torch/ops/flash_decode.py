@@ -15,9 +15,11 @@ V scales and cast to q's type before P V, and the output is in q's type.
 The cache is the decoder's own (B, S, Hkv, d) layer buffer, used in place;
 the query heads of KV head h are h * g .. h * g + g - 1. The kernel is bound
 by the bytes of the valid cache prefix; it splits each (stream, KV head)'s
-rows over a cluster of CTAs (``decode_plan``; design notes in the CUDA
-source). ``kv_append_quant`` quantizes a layer's fresh K and V and writes
-them into the int8 cache in one launch.
+rows over CTAs that fill the card (``decode_plan``), and the last CTA of
+each (stream, KV head) merges the splits' partials from a workspace, found
+by a ticket counter (design notes in the CUDA source). ``kv_append_quant``
+quantizes a layer's fresh K and V and writes them into the int8 cache in
+one launch.
 
 Each wrapper launches the kernel for CUDA tensors and runs its plain
 version for CPU tensors, and counts its launches.
@@ -30,6 +32,7 @@ import functools
 import torch
 
 from qwen2_audio_tpu_torch.ops import _build
+from qwen2_audio_tpu_torch.ops.quant_matmul import ticket_array
 
 _Q_TYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -39,18 +42,18 @@ _MAX_GROUP = 8
 # the launch plan's constants, as csrc/flash_decode.cu has them
 _CHUNK = 64             # rows per shared-memory stage
 _GRANULE = _CHUNK       # a split's rows start at a multiple of this
-_MAX_SPLITS = 16        # CTAs per cluster
+_MAX_SPLITS = 16        # CTAs per (stream, KV head)
 _MAX_STAGES = 16
 _THREADS = 256
 _SMEM_MAX = 232448      # a block's shared memory on sm_90
-# mbarriers; q (4 floats of padding every 32), p, the chunks' and the warps'
-# row maxima and sums, and what the cluster's CTAs push: every split's row
-# maxima and sums, and its sums of this CTA's slice of the outputs
+_SMEM_TWO = 115712      # a block's share when two blocks share an SM (228 KB, 1 KB each reserved)
+# mbarriers; q (4 floats of padding every 32), p, the chunks', the warps' and
+# the split's row maxima and sums, the last-CTA flag
 _TAIL_BYTES = _MAX_STAGES * 8 + (_MAX_GROUP * _HEAD_DIM // 32 * 36 + _CHUNK * _MAX_GROUP
-                                 + _MAX_STAGES * _MAX_GROUP + 8 * _MAX_GROUP
-                                 + 2 * _MAX_SPLITS * _MAX_GROUP
-                                 + _MAX_GROUP * _HEAD_DIM + _MAX_SPLITS) * 4
+                                 + _MAX_STAGES * _MAX_GROUP + 8 * _MAX_GROUP + _MAX_GROUP
+                                 + 8) * 4
 _RED_BYTES = 8 * _MAX_GROUP * _HEAD_DIM * 4   # the warps' sums, over the stages
+_PART_BYTES = (2 * _MAX_GROUP + _MAX_GROUP * _HEAD_DIM) * 4   # a split's m, l and P V sums
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -79,57 +82,57 @@ def split_ranges(pos: int, S: int, splits: int) -> list[tuple[int, int]]:
     return [(min(n, j * c), min(n, j * c + c)) for j in range(splits)]
 
 
-def _resident_clusters(size: int, n_sm: int) -> int:
-    """How many clusters of ``size`` CTAs (one an SM) a card of n_sm SMs
-    holds at once. A cluster lies within one GPC, and SMs of a GPC that do
-    not make up a whole cluster stay idle; the card is taken as GPCs of 18
-    SMs (an H100 GPC's most), which never counts more clusters than this
-    card's GPCs hold (132 SMs: 7 clusters of 16, 29 of 4 where the card
-    holds 30; chip_smoke's check_decode_residency holds the plan to the
-    card's own count)."""
-    gpcs, rest = divmod(n_sm, 18)
-    return gpcs * (18 // size) + rest // size
-
-
 def _stage_bytes(kv_type: torch.dtype) -> int:
     """A stage's K and V rows (and, int8, their scales) in shared memory."""
     return 2 * _CHUNK * _HEAD_DIM * kv_type.itemsize + (2 * _CHUNK * 4 if kv_type == torch.int8
                                                         else 0)
 
 
+def tensor_path(q_type: torch.dtype, kv_type: torch.dtype) -> bool:
+    """Whether the kernel takes its tensor-core path (a bf16 query over a
+    bf16 or int8 cache: two CTAs an SM) or its float32 FMA path (one)."""
+    return q_type == torch.bfloat16 and kv_type in (torch.bfloat16, torch.int8)
+
+
 @functools.lru_cache(maxsize=256)
 def decode_plan(B: int, S: int, Hkv: int, g: int, kv_type: torch.dtype,
-                n_sm: int = 132) -> dict:
+                n_sm: int = 132, q_type: torch.dtype = torch.bfloat16) -> dict:
     """How the decode kernel launches for a batch of B streams over a cache
     of capacity S with Hkv KV heads of g query heads each, from the shapes
-    alone (never from the positions): ``splits`` CTAs per (stream, KV head)
-    in one thread-block cluster (``cluster``): the largest power of two, at
-    most 16 and at most the power of two at or above S / 64 (the 64-row
-    stages of a full cache), whose B * Hkv clusters are all resident at
-    once, ``_resident_clusters``; ``grid`` (splits, Hkv, B); ``stages``
-    64-row stages of shared memory, enough for the longest range (at pos =
-    S - 1) where they fit (so the range's copies are all in flight at
-    once), else the most that fit (a ring); ``smem`` bytes; ``ranges(pos)`` the rows each split takes;
-    ``ctas_with_keys(positions)`` how many CTAs of the grid hold at least
-    one row at these per-stream positions. Raises for what the kernel does
-    not take. Cached: the wrapper asks on every call."""
-    if not 1 <= g <= _MAX_GROUP or kv_type not in _KV_TYPES:
+    alone (never from the positions): ``splits`` CTAs per (stream, KV head),
+    as many as one wave of the card's CTA slots gives each of the B * Hkv
+    pairs (``per_sm`` CTAs an SM: 2 on the tensor-core path, 1 on the FMA
+    path), at most 16 and at most the 64-row stages of a full cache;
+    ``grid`` (splits, Hkv, B); ``stages`` 64-row stages of shared memory,
+    enough for the longest range (at pos = S - 1) where they fit in the
+    block's share (the whole of an SM's where the grid fits the SMs one
+    CTA each, else an SM's share) so that the range's copies are all in
+    flight at once, else the most that fit (a ring); ``smem`` bytes;
+    ``workspace`` bytes (each split's partial) and ``tickets`` (a counter per
+    (stream, KV head)), both 0 with one split; ``ranges(pos)`` the rows each
+    split takes; ``ctas_with_keys(positions)`` how many CTAs of the grid hold
+    at least one row at these per-stream positions. Raises for what the
+    kernel does not take. Cached: the wrapper asks on every call."""
+    if not 1 <= g <= _MAX_GROUP or kv_type not in _KV_TYPES or q_type not in _Q_TYPES:
         raise ValueError(f"decode_plan: the kernel takes 1 to {_MAX_GROUP} query heads "
-                         f"per KV head and a cache in {list(_KV_TYPES)}, got g={g}, "
-                         f"{kv_type}")
+                         f"per KV head, q in {list(_Q_TYPES)} and a cache in "
+                         f"{list(_KV_TYPES)}, got g={g}, q {q_type}, cache {kv_type}")
     if min(B, S, Hkv, n_sm) < 1:
         raise ValueError(f"decode_plan: empty shape B={B} S={S} Hkv={Hkv}")
-    splits = min(_MAX_SPLITS, 1 << (-(-S // _GRANULE) - 1).bit_length())
-    while splits > 1 and B * Hkv > _resident_clusters(splits, n_sm):
-        splits //= 2
+    per_sm = 2 if tensor_path(q_type, kv_type) else 1
+    splits = max(1, min(_MAX_SPLITS, -(-S // _GRANULE), n_sm * per_sm // (B * Hkv)))
     lo, hi = split_ranges(S - 1, S, splits)[0]
+    ctas = splits * Hkv * B
     stage = _stage_bytes(kv_type)
-    most = min(_MAX_STAGES, (_SMEM_MAX - _TAIL_BYTES) // stage)
+    share = _SMEM_MAX if per_sm == 1 or ctas <= n_sm else _SMEM_TWO
+    most = min(_MAX_STAGES, (share - _TAIL_BYTES) // stage)
     stages = min(most, max(-(-(hi - lo) // _CHUNK), -(-_RED_BYTES // stage)))
     ranges = functools.partial(split_ranges, S=S, splits=splits)
-    return {"grid": (splits, Hkv, B), "cluster": (splits, 1, 1), "threads": _THREADS,
+    return {"grid": (splits, Hkv, B), "threads": _THREADS, "per_sm": per_sm,
             "splits": splits, "granule": _GRANULE, "chunk": _CHUNK, "stages": stages,
             "smem": _TAIL_BYTES + stages * stage, "ranges": ranges,
+            "workspace": ctas * _PART_BYTES if splits > 1 else 0,
+            "tickets": B * Hkv if splits > 1 else 0,
             "ctas_with_keys": lambda positions: Hkv * sum(
                 hi > lo for p in positions for lo, hi in ranges(int(p)))}
 
@@ -221,17 +224,26 @@ def _launch(name: str, q, k, v, pos, sm_scale, k_s=None, v_s=None) -> torch.Tens
     S, Hkv = k.shape[1], k.shape[2]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device).expand(B).contiguous()
     _refuse(name, q, k, v, pos, k_s, v_s)
-    plan = decode_plan(B, S, Hkv, Hq // Hkv, k.dtype, _sm_count(q.device.index or 0))
+    plan = decode_plan(B, S, Hkv, Hq // Hkv, k.dtype, _sm_count(q.device.index or 0), q.dtype)
     o = torch.empty_like(q)
     lib = _build.library("flash_decode")
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = tickets = None
+        if plan["splits"] > 1:   # the splits' partials, and a counter per (stream, KV head)
+            ws = torch.empty(plan["workspace"] // 4, dtype=torch.float32, device=q.device)
+            tickets = ticket_array(q.device, stream, "flash_decode")
+            if plan["tickets"] > tickets.numel():
+                raise ValueError(f"{name}: {plan['tickets']} (stream, KV head) pairs, more "
+                                 f"than the {tickets.numel()} tickets of an array")
         rc = lib.qa_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             k_s.data_ptr() if k_s is not None else None,
             v_s.data_ptr() if v_s is not None else None,
-            pos.data_ptr(), o.data_ptr(), B, S, Hkv, Hq // Hkv, d, _Q_TYPES[q.dtype],
-            _KV_TYPES[k.dtype], float(sm_scale), plan["splits"], plan["stages"],
-            torch.cuda.current_stream().cuda_stream)
+            pos.data_ptr(), o.data_ptr(), ws.data_ptr() if ws is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            B, S, Hkv, Hq // Hkv, d, _Q_TYPES[q.dtype], _KV_TYPES[k.dtype], float(sm_scale),
+            plan["splits"], plan["stages"], stream)
     _build.check(rc, name)
     return o
 

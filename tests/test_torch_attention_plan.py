@@ -43,6 +43,25 @@ def test_prefill_shape_takes_168_ctas_heaviest_first():
     assert not plan["opts"]          # the causal kernel always scales
 
 
+@pytest.mark.parametrize("causal,B,H,T", [(False, 1, 20, 1500), (True, 1, 28, 752),
+                                           (False, 2, 14, 129), (True, 2, 7, 300)])
+def test_every_unit_taken_once_heaviest_first(causal, B, H, T):
+    """Block (x, y) of the bf16 tile's grid takes batch x head x and the
+    query tile ``tiles[y]``: every (batch x head, query tile) unit exactly
+    once; causal, tile y's key chunks never grow with y, so the blocks the
+    hardware hands out first are the heaviest."""
+    q, k, v = _heads(B, H, H, T, T, 128 if causal else 64)
+    plan = fa.launch_plan("t", q, k, v, T, causal=causal, sm_scale=0.5)
+    gx, gy, gz = plan["grid"]
+    units = [(x, plan["tiles"][y]) for y in range(gy) for x in range(gx)]
+    n_tiles = -(-T // 128)
+    assert gz == 1 and sorted(units) == [(bh, t) for bh in range(B * H) for t in range(n_tiles)]
+    work = [plan["chunks"][y] for y in range(gy)]
+    assert work == sorted(work, reverse=True)
+    if causal:
+        assert work[0] == n_tiles and work[-1] == 1
+
+
 @pytest.mark.parametrize("causal,T,kv_valid,chunks", [
     (False, 1500, 1, (1,) * 12),
     (False, 300, 237, (2, 2, 2)),

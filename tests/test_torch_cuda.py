@@ -237,6 +237,42 @@ def test_decode_kernel_replays_in_a_graph_with_pos_changed(device, kvdt):
         assert bool(((out.float() - want.float()).abs() <= _tol(want, _BF)).all()), new
 
 
+_POOL = [783, 755, 801, 760, 790, 752, 812, 770]   # the 8-slot pool's step
+
+
+@pytest.mark.parametrize("kvdt", [_BF, _I8])
+@pytest.mark.parametrize("B,S,pos", [(5, 784, [783] * 5), (5, 784, [0, 63, 64, 400, 783]),
+                                     (8, 2048, _POOL)])
+def test_decode_batch_shapes_captured_equal_eager(device, kvdt, B, S, pos):
+    """The beam step's (B = 5, capacity 784) and the pool's (B = 8, ragged)
+    shapes over a cache with NaN past each stream's position: the kernel
+    (several splits a (stream, KV head), merged by the last CTA to take its
+    ticket) within tolerance of the plain version, and three launches
+    captured in a CUDA graph and replayed bit-equal to the eager call, with
+    the kernel's ticket counters back at 0 after."""
+    q, cache, posv = chip_smoke._decode_case(device, _BF, kvdt, B, S, pos, seed=10)
+    quant = kvdt == torch.int8
+    kern = tfd.flash_decode_quant if quant else tfd.flash_decode
+    plain = tfd.flash_decode_quant_plain if quant else tfd.flash_decode_plain
+    assert tfd.decode_plan(B, S, 4, 7, kvdt)["splits"] > 1
+    eager = kern(q, *cache, posv, sm_scale=128 ** -0.5)
+    want = plain(q, *cache, posv, sm_scale=128 ** -0.5)
+    p_abs_v = chip_smoke.decode_p_abs_v(plain, q, cache, posv, 128 ** -0.5)
+    assert bool(torch.isfinite(eager).all())
+    assert bool(((eager.float() - want.float()).abs() <= _tol(want, _BF, p_abs_v)).all())
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        kern(q, *cache, posv, sm_scale=128 ** -0.5)
+        with torch.cuda.graph(graph):
+            outs = [kern(q, *cache, posv, sm_scale=128 ** -0.5) for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, eager) for o in outs)
+    arrays = [t for key, t in tqm._tickets.items() if key[0] == "flash_decode"]
+    assert arrays and all(int(t.count_nonzero()) == 0 for t in arrays)
+
+
 def test_decoder_context_on_card_matches_cpu(device):
     """A small audio -> text context in float32: the same tokens on the card
     (kernels) as on the CPU (plain versions)."""

@@ -113,15 +113,19 @@ def test_wrapper_rejects_bad_input():
 
 def _decode_chunked(q, k, v, pos, scale, k_s=None, v_s=None, fault=None, chunk=64):
     """The decode kernel's arithmetic in plain PyTorch: each stream's rows
-    split over CTAs as ``decode_plan`` partitions them; within a split, keys
-    in chunks of 64, running max and sum in float32 against the split's own
-    maximum, the int8 V scales multiplied into p, p cast to q's type for
-    P V; then the splits merged: M = max m_j, L = sum l_j e^(m_j - M),
-    O = sum acc_j e^(m_j - M) / L, a split with no rows weighing 0.
-    ``fault`` plants a bug."""
+    split over CTAs as ``decode_plan`` partitions them for the main path (a
+    bf16 query over a bf16 or int8 cache: the tensor-core path's split
+    counts, whatever the test's types); within a split, keys in chunks of
+    64, running max and sum in float32 against the split's own maximum, the
+    int8 V scales multiplied into p, p cast to q's type for P V; then the
+    last CTA's merge of the splits' partials: M = max m_j, L = sum l_j
+    e^(m_j - M), O = sum acc_j e^(m_j - M) / L, a split with no rows
+    weighing 0. Rows past a split's range are never read, so a poisoned
+    tail stays out. ``fault`` plants a bug."""
     B, Hq, d = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    ranges = tfd.decode_plan(B, S, Hkv, Hq // Hkv, k.dtype)["ranges"]
+    cache = torch.int8 if k_s is not None else torch.bfloat16
+    ranges = tfd.decode_plan(B, S, Hkv, Hq // Hkv, cache)["ranges"]
     out = torch.empty(B, Hq, d)
     for b in range(B):
         qg = q[b].float().unflatten(0, (Hkv, Hq // Hkv))             # (Hkv, g, d)
@@ -169,26 +173,37 @@ def _decode_chunked(q, k, v, pos, scale, k_s=None, v_s=None, fault=None, chunk=6
 
 
 @pytest.mark.parametrize("B,S,Hq,Hkv,pos", [
-    (1, 784, 28, 4, [783]),              # 13 splits of one chunk, 3 empty
-    (4, 384, 8, 2, [3, 127, 128, 383]),  # 16 splits: one, two and six hold rows
+    (1, 784, 28, 4, [783]),              # 13 splits of one chunk
+    (4, 384, 8, 2, [3, 127, 128, 383]),  # 6 splits: one, two and six hold rows
     (1, 8192, 28, 4, [8191]),            # 16 splits of 8 chunks each
+    (5, 784, 28, 4, [783] * 5),          # the beam step: 13 splits of one chunk
+    (5, 784, 28, 4, [0, 63, 64, 400, 783]),
+    (8, 2048, 28, 4, [783, 755, 801, 760, 790, 752, 812, 770]),   # the pool's: 8 splits
 ])
 def test_split_arithmetic_matches_pallas(B, S, Hq, Hkv, pos):
-    """The kernel's split arithmetic in float32 against the JAX package's
-    flash_decode and flash_decode_quant (Pallas interpret mode), inputs from
-    a numpy seed."""
+    """The kernel's split arithmetic and merge in float32 against the JAX
+    package's flash_decode and flash_decode_quant (Pallas interpret mode),
+    inputs from a numpy seed; the emulation's cache holds NaN (K, V, int8
+    scales) and junk int8 values past each stream's position, the JAX
+    kernels' the clean values."""
     rng = np.random.default_rng(5)
     q, k, v = _mk(rng, B, S, Hq, Hkv)
     posv = np.array(pos, np.int32)
+    past = np.arange(S)[None, :] > posv[:, None]          # (B, S)
     want = np.asarray(flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                                    jnp.asarray(posv), sm_scale=128 ** -0.5, block_k=128))
-    got = _decode_chunked(*_t(q, k, v), posv, 128 ** -0.5)
+    kp, vp = k.copy(), v.copy()
+    kp[past], vp[past] = np.nan, np.nan
+    got = _decode_chunked(*_t(q, kp, vp), posv, 128 ** -0.5)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=ATOL)
     k_q, k_s = (np.asarray(a) for a in _quantize_kv(jnp.asarray(k)))
     v_q, v_s = (np.asarray(a) for a in _quantize_kv(jnp.asarray(v)))
     want = np.asarray(flash_decode_quant(
         jnp.asarray(q), jnp.asarray(k_q), jnp.asarray(k_s), jnp.asarray(v_q),
         jnp.asarray(v_s), jnp.asarray(posv), sm_scale=128 ** -0.5, block_k=128))
+    k_q, k_s, v_q, v_s = (a.copy() for a in (k_q, k_s, v_q, v_s))
+    k_q[past], v_q[past] = 127, -128
+    k_s[past], v_s[past] = np.nan, np.nan
     tq, tkq, tks, tvq, tvs = _t(q, k_q, k_s, v_q, v_s)
     got = _decode_chunked(tq, tkq, tvq, posv, 128 ** -0.5, k_s=tks, v_s=tvs)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=ATOL)
