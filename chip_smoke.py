@@ -535,26 +535,33 @@ def check_tile_sass(counts: dict) -> None:
 
 
 # the integer group matmul's M > 8 tile: rows of x a unit (16, 32, 64, 128)
-# x weight form
+# x weight form; its M <= 8 kernel: x type x weight form x (M = 1 or more)
 INT8_TILE_KERNELS = 12
-INT8_SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "FFMA", "FMUL", "FADD", "IADD3", "LDSM")
+INT8_SMALL_KERNELS = 12
+INT8_SASS_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA", "IDP", "FFMA", "FMUL", "FADD", "IADD3",
+                 "LDSM", "PRMT", "LDG")
 
 
 def check_int8_sass(counts: dict) -> None:
     """Every instantiation of the integer matmul's M > 8 tile
     (qmm8_tile_kernel) runs its group dots on wgmma (HGMMA) and none on
-    mma.sync (HMMA); logs each kernel's static counts of those and of the
-    rescale's and the loads' instructions (FFMA, FMUL, FADD, IADD3, LDSM);
-    fails where cuobjdump is missing (empty counts)."""
+    mma.sync (HMMA), and every one of its M <= 8 kernel (qmm8_small_kernel)
+    on int8 mma.sync (IMMA) and none on __dp4a (IDP.4A); logs each kernel's
+    static counts of those and of the rescale's and the loads' instructions
+    (FFMA, FMUL, FADD, IADD3, LDSM, PRMT, LDG); fails where cuobjdump is
+    missing (empty counts)."""
     for fn, c in counts.items():
         log(f"sass[quant_matmul_int8]: {fn}: {c}")
-    tiles = {fn: c.split() for fn, c in counts.items() if "qmm8_tile_kernel" in fn}
-    require(len(tiles) == INT8_TILE_KERNELS,
-            f"quant_matmul_int8: {len(tiles)} instantiations of qmm8_tile_kernel in the SASS "
-            f"counts, not {INT8_TILE_KERNELS} (cuobjdump missing?)")
-    require(all("HGMMA" in c and "HMMA" not in c for c in tiles.values()),
-            "quant_matmul_int8: an instantiation of qmm8_tile_kernel issues no wgmma, or "
-            "mma.sync")
+    for kernel, want, ok, what in (
+            ("qmm8_tile_kernel", INT8_TILE_KERNELS, lambda c: "HGMMA" in c and "HMMA" not in c,
+             "issues no wgmma, or mma.sync"),
+            ("qmm8_small_kernel", INT8_SMALL_KERNELS, lambda c: "IMMA" in c and "IDP" not in c,
+             "issues no int8 mma.sync, or __dp4a")):
+        found = {fn: c.split() for fn, c in counts.items() if kernel in fn}
+        require(len(found) == want, f"quant_matmul_int8: {len(found)} instantiations of "
+                f"{kernel} in the SASS counts, not {want} (cuobjdump missing?)")
+        require(all(ok(c) for c in found.values()),
+                f"quant_matmul_int8: an instantiation of {kernel} {what}")
 
 
 def check_mel_sass(counts: dict) -> None:
@@ -2022,12 +2029,14 @@ def check_quantize_activations(device, Ks=(3584, 18944, 1280)) -> int:
 def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
     """Rows 14, 15 and 16, the exact-integer group matmul, against their
     plain versions at M = 1, 7, 752, 1500 over the decoder's, the lm_head's
-    and the encoder's K x N, the M > 8 tile's ragged edges, and the beam's
-    M = 5 and a verify's M = 8; the equalities the design promises (row 14 =
-    row 15 on the same values, row 16 = row 15 over nibble bytes with off 8
-    on the same bytes, two runs) bit for bit; at M = 1, 5, 8, 752 and 1500
-    times by CUDA-graph replay beside bound, plain and library. Returns the
-    kernels line's three entries."""
+    and the encoder's K x N, the M > 8 tile's ragged edges, the beam's M = 5
+    and a verify's M = 8, and the one-launch M <= 8 kernel's edges (M = 2,
+    3, 5, 6, 8 at N = 1296 and 41 groups of K, split unevenly); the
+    equalities the design promises (row 14 = row 15 on the same values, row
+    16 = row 15 over nibble bytes with off 8 on the same bytes, two runs) bit
+    for bit; the M <= 8 kernel's split tickets back at 0; at M = 1, 5, 8, 752
+    and 1500 times by CUDA-graph replay beside bound, plain and library.
+    Returns the kernels line's three entries."""
     import torch
     from qwen2_audio_tpu_torch.config import GGMLType
     from qwen2_audio_tpu_torch.ops import quant_matmul as qm
@@ -2098,6 +2107,10 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
         ("gate_up q8_0", BEAM, bf, None), ("gate_up q8_0", 8, f32, None),
         ("down q4_0", BEAM, bf, None), ("down q4_0", 8, bf, None),
         ("gate_up q4_0 b32", BEAM, bf, None), ("gate_up q4_0 b32", 8, bf, None),
+        ("lm_head q4_0 b32", 8, bf, None), ("qkv q8_0", BEAM, f32, None),
+        # the M <= 8 kernel's edges: a ragged tile and an uneven K split
+        ("rag q8_0", 2, f32, None), ("rag q4_0", 3, bf, None), ("rag q4_0 b32", 6, bf, None),
+        ("rag q8_0 f32s", 5, bf, None), ("rag q8_0 f32s", 8, f32, None),
     ]
     main, worst = {}, 0.0
     for i, (wname, M, dtype, line) in enumerate(cases):
@@ -2188,6 +2201,11 @@ def check_int8_matmul(device, dims=(3584, 18944, 156032, 1280)) -> dict:
                           "shape": what, "max_abs_err": diff.max().item(), **t}
     log(f"int8 group matmul: {len(cases)} cases, worst {worst:.3f} of the tolerance")
     require(set(main) == set(rows), "int8 group matmul: a kernels-line entry is missing")
+    tickets = qm.ticket_array(device, torch.cuda.current_stream().cuda_stream,
+                              kind="quant_matmul_int8")
+    torch.cuda.synchronize()
+    require(int(tickets.abs().sum()) == 0,
+            "int8 group matmul: the M <= 8 kernel's split tickets were not left at 0")
     del weights
     torch.cuda.empty_cache()
     return main
@@ -3289,7 +3307,7 @@ def block_forced_logits(bundle, st, width: int) -> list:
 
 
 def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool = False,
-                       quantized: bool = False) -> dict:
+                       quantized: bool = False, mode: str = "bf16", greedy=None) -> dict:
     """Phase 4g on the decoder attached to ``ctx``: through capi.whisper_full
     on one clip, every launch counter set to 0 just before each request and
     read just after, a greedy request, a beam-5 request (and with
@@ -3305,7 +3323,12 @@ def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool =
     the greedy tokens in order, each token's time non-decreasing within the
     window. Logged: ms per token of each request, one captured step's
     device ms (beam and speculative, by replays between events), the beam
-    reorder's device ms, iterations and tokens per forward."""
+    reorder's device ms, iterations and tokens per forward.
+
+    With ``greedy``, the state of a greedy request already made on this
+    decoder with ``_text_params(new_tokens)`` (phase 4e in mode "int8"),
+    only the beam and speculative requests run. ``mode``: the group-matmul
+    mode the quantized launch counts are derived in."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch.ops.graphs import Graph
@@ -3335,14 +3358,18 @@ def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool =
                 f"want {L}")
         if quantized and check_quant:
             _check_quant_launches(f"{what} {name}", launches, expected_quant_launches(
-                ctx, bundle, True, 1, st.n_decode_forwards, run["prefill_positions"]),
-                f"1 prefill and {st.n_decode_forwards} decode forwards")
+                ctx, bundle, True, 1, st.n_decode_forwards, run["prefill_positions"],
+                mode=mode), f"1 prefill and {st.n_decode_forwards} decode forwards")
         return st, params, launches
 
     def prefill_of(st):
         return _prefill_embeds(bundle, bundle.project_audio(st.embd_enc), [])
 
-    greedy, gparams, _ = request("greedy")
+    trimmed = greedy is not None
+    if trimmed:
+        gparams = _text_params(new_tokens)
+    else:
+        greedy, gparams, _ = request("greedy")
     masks = dict(suppress_mask=build_suppress_mask(bundle, gparams),
                  suppress_first=build_blank_mask(bundle, gparams))
     caches = [("bf16", bundle.cache_dtype)] + ([("int8", "q8")] if int8_cache else [])
@@ -3450,6 +3477,8 @@ def run_decode_options(ctx, what: str, new_tokens: int, clip, int8_cache: bool =
                     f"top-2 gap of {gap:.4f}, not a near tie")
 
     bundle.cache_dtype = caches[0][1]
+    if trimmed:
+        return out
     name = "token timestamps"
     # the tap's teacher-forced forward adds launches of its own: the quantized
     # entries' counts are logged, not derived
@@ -3879,8 +3908,12 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
     weights; audio -> text with the same q4_0 bytes as int32 words in the
     default mode, teacher-forced against the q4_0 request in mode "int8"
     (the four linears give the same bits, the lm_head differs: the exact
-    dequantizing kernel there against the integer one here). Every count is
-    derived from the prefills and forwards the run reports."""
+    dequantizing kernel there against the integer one here). On the q8_0
+    decoder in mode "int8", a beam-5 and a speculative_k = SPEC_K request
+    (``run_decode_options`` behind the greedy one: the integer kernels at M
+    = 5 and 8), each decoded again captured and eager, bit-equal, with one
+    captured step's device ms. Every count is derived from the prefills and
+    forwards the run reports."""
     import numpy as np
     import torch
     from qwen2_audio_tpu_torch import capi
@@ -3961,6 +3994,10 @@ def run_int8_paths(ctx, cfg, new_tokens: int) -> dict:
             run["profile"] = profile_call(lambda: capi.whisper_full(ctx, params, clip),
                                           f"whisper_full (audio -> text, {name})")
             out[name] = {"launches": launches, "run": run, "forms": forms, "min_cos": min(cos)}
+            if name == "q8_0 int8 mode":   # M = 5 and 8 through rows 14 and 15
+                out[name]["options"] = run_decode_options(
+                    ctx, f"int8 text ({name})", new_tokens, clip, quantized=True, mode="int8",
+                    greedy=st)
             if name == "q4_0 int8 mode":
                 q4 = (bundle, st)
             del bundle
@@ -5749,10 +5786,11 @@ def main(argv=None) -> int:
             f"encode {r['encode_ms']:.3f} ms, ") + f"wall {r['wall_ms']:.1f} ms, device busy "
             f"{100 * prof.get('busy_share', float('nan')):.1f} % of a profiled call, peak "
             f"{r['peak_gib']:.2f} GiB")
-    for cfg_name, runs in (("bf16", opts), ("q8_0", text8["options"]),
-                           ("q4_0", text4["options"])):
+    for cfg_name, runs in (("4g bf16", opts), ("4g q8_0", text8["options"]),
+                           ("4g q4_0", text4["options"]),
+                           ("4e q8_0 int8 mode", int8_runs["q8_0 int8 mode"]["options"])):
         for req, r in runs.items():
-            log(f"summary 4g {cfg_name} ({req}): " + json.dumps(
+            log(f"summary {cfg_name} ({req}): " + json.dumps(
                 {k: r[k] for k in ("prefill_ms", "decode_ms_per_token", "tokens", "forwards",
                                    "replayed_ms_per_token", "eager_ms_per_token",
                                    "step_device_ms", "reorder_device_ms", "reorder_bound_ms",

@@ -9,7 +9,8 @@ card, in alternating order, to compare their times and their bits.
                       [--attention-only] [--decode-weights] [--mel-only] [--int8-only]
                       [--int8-requests]
                       [--tiles-only]
-                      [--tile-variants [all|bf16|int8]] [--ckpt FILE]
+                      [--tile-variants [all|bf16|int8|small|decode|attention]]
+                      [--ckpt FILE]
 
 ``--root`` is the checkout whose ``qwen2_audio_tpu_torch`` is imported and
 built (default: the one holding this script). Weights are random q8_0 and
@@ -59,14 +60,17 @@ the checkpoint included). ``--decode-weights`` times only the M <= 8
 weight-streaming kernels with cold weights (``decode_weights``): each
 decoder projection as a 28-layer stack taken in turn, the lm_head, the
 one-launch SwiGLU beside the two-launch path over the same weights, and
-mode "int8" (and q4_0 words) on the same bytes. ``--int8-only`` times just
+mode "int8" (and q4_0 words) on the same bytes at M = 1, 5, 7 and 8 with
+each case's plan, bound and library time, and the lm_head in mode "int8"
+at M = 1, 5 and 8. ``--int8-only`` times just
 the exact-integer entries at the encode, prefill and decode shapes, each M >
 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
 (``library_ms``; about a minute a checkout, the build included).
 ``--int8-requests`` times just mode "int8" end to end (``int8_requests``):
 the 32-layer q8_0 encode and a request with an 8-layer q8_0 decoder behind
 it, eight calls each in a row (every call's host ms, the warm median, one
-profiled call's device ms). ``--tiles-only`` times just the
+profiled call's device ms), then a beam-5 and a speculative request on that
+decoder with one captured step's device ms each. ``--tiles-only`` times just the
 dequantizing entries (the M > 8 tile and, at M = 1, the streaming kernel
 whose bits must not move) at the encode, prefill and decode shapes, each
 M > 8 case beside one ``torch.matmul`` on its dequantized bf16 weight
@@ -77,8 +81,8 @@ lm_head M=64", and then ``whisper_full`` per 30 s clip of the random
 its block weights kept, host ms and one profiled call's device busy ms
 (about two minutes a checkout, the host's quantizing once a call
 included: the quantized files are kept beside ``--ckpt``).
-``--tile-variants [all|bf16|int8|decode|attention]`` splits the checkout's
-M > 8 tiles, decode attention or bf16 attention tile by scratch variants of
+``--tile-variants [all|bf16|int8|small|decode|attention]`` splits the checkout's
+M > 8 tiles, M <= 8 integer kernel, decode attention or bf16 attention tile by scratch variants of
 their sources, each built with nvcc and swapped in for the checkout's
 library, timed in turns (their outputs are wrong where a part is left out;
 only "as_is" is held to the plain version): "decode" (``DECODE_VARIANTS``:
@@ -90,7 +94,11 @@ out) at gate_up q8_0 M = 752, fc1 q8_0 M = 1500 and the lm_head q8_0 M =
 64; "int8", the exact-integer tile (``INT8_VARIANTS``: the products, the
 rescale, the weight's conversion left out, or all three; or x's loads) at
 gate_up q8_0 and as q4_0 int32 words at M = 752 and fc1 q8_0 at M = 1500,
-with the unit's rows forced at gate_up; "all" (the default) both. Prints
+with the unit's rows forced at gate_up; "small", the exact-integer M <= 8
+kernel (``SMALL_VARIANTS``: the products, x's quantizing or the K split's
+tail left out, or the loads only) at gate_up q8_0 M = 1, 5, 8, as q4_0
+words M = 1, 8 and the lm_head q8_0 M = 8, cold; "all" (the default) every
+one but "small". Prints
 one JSON line and, with ``--out``, appends it there. Needs a CUDA device.
 """
 
@@ -141,7 +149,8 @@ def main(argv=None) -> int:
     ap.add_argument("--attention-only", action="store_true",
                     help="time only the bf16 attention kernels and their edge shares")
     ap.add_argument("--decode-weights", action="store_true",
-                    help="time only the M <= 8 weight-streaming kernels, cold")
+                    help="time only the M <= 8 weight-streaming kernels, cold (mode int8 "
+                         "and q4_0 words also at M = 5 and 8, the lm_head in mode int8)")
     ap.add_argument("--mel-only", action="store_true",
                     help="time only the log-mel kernel and whisper_full per 30 s clip")
     ap.add_argument("--int8-only", action="store_true",
@@ -151,10 +160,11 @@ def main(argv=None) -> int:
     ap.add_argument("--tiles-only", action="store_true",
                     help="time only the dequantizing entries and the lm_head at M = 64")
     ap.add_argument("--tile-variants", nargs="?", const="all",
-                    choices=("all", "bf16", "int8", "decode", "attention"),
+                    choices=("all", "bf16", "int8", "small", "decode", "attention"),
                     help="time scratch variants of the M > 8 tiles (the dequantizing one, "
-                         "bf16; the exact-integer one, int8), the decode attention (decode) "
-                         "or the bf16 attention tile (attention); all of them by default")
+                         "bf16; the exact-integer one, int8), the exact-integer M <= 8 "
+                         "kernel (small), the decode attention (decode) or the bf16 "
+                         "attention tile (attention); all but small by default")
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "qmm_ab_encoder.bin"),
                     help="the whisper_full checkpoint, written if missing")
     args = ap.parse_args(argv)
@@ -336,6 +346,28 @@ INT8_VARIANTS = {
 }
 
 
+# Text edits of csrc/quant_matmul_int8.cu that leave one part of the M <= 8
+# kernel (qmm8_small_kernel, int8 mma.sync) out: the products (the fragments
+# stay live), the quantizing of x, the K split's tail (tickets and the last
+# CTA's adding), or everything but the weight's loads.
+_SM_CALL = ("      consume_unit<FORM, ROWS2>(acc, buf[0], s_f16, off, xs[((long long)slot * M + rb) * 4 + t],\n"
+            "                                *reinterpret_cast<const float2*>(sxs + slot * SX + r2));")
+_SM_LOADS = ("      { uint32_t z = 0; for (int i = 0; i < Unit<FORM>::kW; ++i) z ^= buf[0].w[i]; "
+             "for (int i = 0; i < kLaneCols; ++i) z ^= buf[0].s[i]; "
+             "acc[0][0] += __uint_as_float(z & 0x3fffffu); }")
+_SM_MMA = ("    mma_s8_16832(d, lo[2 * j], lo[2 * j + 1], hi[2 * j], hi[2 * j + 1], b);",
+           "    d[0] = lo[2 * j] ^ b.x; d[1] = lo[2 * j + 1] ^ b.y; d[2] = hi[2 * j]; "
+           "d[3] = hi[2 * j + 1];")
+SMALL_VARIANTS = {
+    "qmm8_small_kernel": {
+        "no_products": [_SM_MMA],
+        "no_quantize": [("for (int base = 0; base < nw * M; base += 8) {",
+                         "for (int base = 0; base < 0; base += 8) {")],
+        "no_merge": [("  if (ks == 1) return;\n", "  return;\n")],
+        "loads_only": [(_SM_CALL, _SM_LOADS)]},
+}
+
+
 # Text edits of csrc/flash_decode.cu (the split-KV decode kernel): its
 # tensor-core products left out (the loads they read stay live), or every
 # CTA returning after it writes its partial (no ticket, no merge); the
@@ -490,6 +522,8 @@ def tile_variants(device, which: str = "all", rounds: int = 2) -> dict:
         out["bf16"] = bf16_tile_variants(device, rounds)
     if which in ("int8", "all"):
         out["int8"] = int8_tile_variants(device, rounds)
+    if which == "small":
+        out["small"] = small_variants(device, rounds)
     if which in ("decode", "all"):
         out["decode"] = decode_variants(device, rounds)
     if which in ("attention", "all"):
@@ -611,6 +645,59 @@ def int8_tile_variants(device, rounds: int = 2) -> dict:
         wb = w.to(torch.bfloat16)
         res["library"][case] = time_ms(lambda: x @ wb)
         del wb
+    return {"kernel": kernel, "ptxas": notes, **res}
+
+
+def small_variants(device, rounds: int = 2, layers: int = 8) -> dict:
+    """{variant: {case: [ms per call, per round]}} of the checkout's M <= 8
+    exact-integer kernel and its SMALL_VARIANTS (the products, the
+    quantizing of x, the K split's tail left out; the weight's loads only),
+    swapped in for its quant_matmul_int8 library in turns, by graph replay
+    of one call per layer over ``layers`` layers in turn (cold weights), at
+    gate_up q8_0 M = 1, 5 and 8, gate_up q4_0 as int32 words M = 1 and 8
+    and the lm_head q8_0 (flat, 559 MB) M = 8, bf16 x; "as_is" also holds
+    its largest distance from the plain version per case, and "ptxas" the
+    kernel's register and spill lines of the unedited build."""
+    import torch
+
+    from qwen2_audio_tpu_torch.models.qwen2_decoder import random_quant_linear
+    from qwen2_audio_tpu_torch.ops import _build
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as q8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as q4b
+    kernel, libs, notes = _variant_libs("quant_matmul_int8.cu", "quant_matmul_int8",
+                                        SMALL_VARIANTS)
+    g = torch.Generator(device=device).manual_seed(4400)
+    K, N, V = DECODER[1][2][0], DECODER[1][2][1], 156032
+    w8 = random_quant_linear(g, (layers, K, N), "q8_0")
+    w4 = random_quant_linear(g, (layers, K, N), "q4_0")
+    words, s4 = q4b.pack_b32(w4["qs4"]), w4["scales"]
+    del w4
+    head = random_quant_linear(g, (K, V), "q8_0")
+    cases = {}
+    for case, M in (("gate_up q8_0", 1), ("gate_up q8_0", 5), ("gate_up q8_0", 8),
+                    ("gate_up q4_0 words", 1), ("gate_up q4_0 words", 8), ("lm_head q8_0", 8)):
+        x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+        if case == "gate_up q8_0":
+            run = lambda li, x=x: q8.quant_matmul_int8_stacked(x, w8["qs"], w8["scales"], li)
+            plain = lambda x=x: q8.quant_matmul_int8_plain(x, w8["qs"][0], w8["scales"][0])
+        elif case == "gate_up q4_0 words":
+            run = lambda li, x=x: q4b.quant_matmul_q4b_stacked(x, words, s4, li)
+            plain = lambda x=x: q4b.quant_matmul_q4b_plain(x, words[0], s4[0])
+        else:
+            run = lambda li, x=x: q8.quant_matmul_int8(x, head["qs"], head["scales"])
+            plain = lambda x=x: q8.quant_matmul_int8_plain(x, head["qs"], head["scales"])
+        cases[f"{case} M={M}"] = (run, plain, layers if case != "lm_head q8_0" else 1)
+    res = {name: {} for name in libs}
+    for rnd in range(rounds):
+        for name in (list(libs) if rnd % 2 == 0 else list(reversed(list(libs)))):
+            _build._libs["quant_matmul_int8"] = libs[name]
+            for case, (run, plain, n) in cases.items():
+                if rnd == 0 and name == "as_is":
+                    res[name][case + " max_abs_vs_plain"] = (
+                        run(0).float() - plain().float()).abs().max().item()
+                res[name].setdefault(case, []).append(
+                    time_ms(lambda: [run(li) for li in range(n)], iters=2) / n)
+    _build._libs.pop("quant_matmul_int8")
     return {"kernel": kernel, "ptxas": notes, **res}
 
 
@@ -805,13 +892,18 @@ def int8_requests(device, shapes: dict, ckpt: str, layers: int = 32, calls: int 
     chip_smoke's QUANT_DEC_LAYERS layers behind it (made on the card from
     seed 0, as chip_smoke's phase 4e makes it; ``new_tokens`` tokens): each
     request's host wall, encode and prefill ms (the state's timings) and
-    one profiled request's integer kernels' device ms."""
+    one profiled request's integer kernels' device ms; then a beam-5 and a
+    speculative_k = 7 request on that decoder, each with its wall ms and
+    the device ms of one replay of its captured step (the integer kernels at
+    M = 5 and 8)."""
     import statistics
 
     import torch
 
-    from chip_smoke import QUANT_DEC_LAYERS, _request, _text_params, noisy_tone, profile_call
+    from chip_smoke import (BEAM, QUANT_DEC_LAYERS, SPEC_K, _request, _text_params,
+                            graph_device_ms, noisy_tone, profile_call)
     from qwen2_audio_tpu_torch import capi
+    from qwen2_audio_tpu_torch.runtime import generate
     from qwen2_audio_tpu_torch.config import Qwen2DecoderConfig
     from qwen2_audio_tpu_torch.models.qwen2_audio import random_bundle
     from qwen2_audio_tpu_torch.ops.linear import set_group_matmul_mode
@@ -841,6 +933,16 @@ def int8_requests(device, shapes: dict, ckpt: str, layers: int = 32, calls: int 
                       for k, v in list(t.items())})
             t["device_busy_ms"] = prof and prof["busy_ms"]
             t["device_int8_ms"] = prof and prof["groups"].get("quant_matmul_int8")
+            if what == "request":   # one captured beam step (M = 5) and verify (M = 8)
+                for opt, kw in (("beam", {"strategy": "beam", "beam_size": BEAM}),
+                                ("speculative", {"speculative_k": SPEC_K})):
+                    p = _text_params(new_tokens)
+                    for k, v in kw.items():
+                        setattr(p, k, v)
+                    run = _request(ctx, clip, p)[1]
+                    t[f"{opt}_wall_ms"] = run["wall_ms"]
+                    t[f"{opt}_step_device_ms"] = graph_device_ms(
+                        list(generate.captured_steps())[-1])
             shapes[f"int8 mode q8_0 {what}: {layers}-layer encoder"
                    + (f", {QUANT_DEC_LAYERS}-layer decoder" if what == "request" else "")] = t
     finally:
@@ -995,7 +1097,7 @@ def decode_paths(device, record, shapes: dict, paths: dict) -> None:
 
 def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECODER[0],
                    dims=DECODER[1], vocab: int = 156032, ms=(1, 7),
-                   mlp_ms=(1, 7, 8, 64)) -> None:
+                   mlp_ms=(1, 7, 8, 64), int8_ms=(1, 5, 7, 8)) -> None:
     """The M <= 8 weight-streaming kernels (TPU rows 6-13 at M <= 8 and row
     17) with cold weights, bf16 x, fast mode. Each projection of ``dims``
     (qkv, o, gate_up, down) is a stack of ``layers`` layers of random q8_0 or
@@ -1005,14 +1107,20 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
     in panels of 128; the one-launch SwiGLU over the gate_up and down stacks
     beside the two-launch path over the same weights (gate_up, SiLU * up,
     down); mode "int8" on the same bytes (q8_0 int8 values, q4_0 nibble
-    bytes, and q4_0 as int32 words). Paths at M = 1, summed over the layers:
-    "<fmt> decode" (the four projections), "<fmt> decode fused" (qkv, o and
-    the SwiGLU), "<fmt> decode two-launch" (qkv, o and the two-launch MLP),
-    "<fmt> decode int8" and "q4_0 decode words". Every case's digest and
-    largest distance are taken on layer 0 against its plain version. Last,
-    the device kernels of one decode step (the profiler's count) of a
-    full-width 2-layer decoder of random q8_0 or q4_0 blocks, with the
-    one-launch SwiGLU and without."""
+    bytes, and q4_0 as int32 words) at each M of ``int8_ms`` (the beam
+    step's 5 and a verify's 8 among them), each with the checkout's M <= 8
+    plan (grid, K splits, tiles a CTA where it has ``small_plan``), the bound
+    (the layer's weight, scales, x and out once at 3.35 TB/s) and, on layer
+    0, one ``torch.matmul`` on its dequantized bf16 weight (``library_ms``);
+    the lm_head in mode "int8" (q8_0 values, the flat entry) at M = 1, 5 and
+    8 the same way. Paths summed over the layers: at M = 1 "<fmt> decode"
+    (the four projections), "<fmt> decode fused" (qkv, o and the SwiGLU),
+    "<fmt> decode two-launch" (qkv, o and the two-launch MLP); at each M of
+    ``int8_ms`` "<fmt> decode int8" and "q4_0 decode words" (" M=<M>" added
+    above 1). Every case's digest and largest distance are taken on layer 0
+    against its plain version. Last, the device kernels of one decode step
+    (the profiler's count) of a full-width 2-layer decoder of random q8_0 or
+    q4_0 blocks, with the one-launch SwiGLU and without."""
     import torch
     import torch.nn.functional as F
 
@@ -1027,6 +1135,17 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
         return graph_ms(lambda: [fn(li) for li in range(layers)], iters=2) / layers
 
     plan_of = getattr(qm, "stream_plan", None)
+    small_of = getattr(q8, "small_plan", None)
+
+    def int8_figures(x, K, N, q, sc, M) -> dict:   # plan and bound of an M <= 8 int8 case
+        nbytes = (q[0].numel() * q.element_size() + sc[0].numel() * sc.element_size()
+                  + (M * K + M * N) * x.element_size())
+        t = {"bound_ms": nbytes / 3.35e12 * 1e3}
+        if small_of is not None:
+            t["plan"] = {k: v for k, v in small_of(M, K, N, qm.sm_count(device)).items()
+                         if k in ("grid", "ksplit", "tiles_per_cta")}
+        return t
+
     for fi, fmt in enumerate(("q8_0", "q4_0")):
         packed = fmt == "q4_0"
         kw = {"fast": True, **({"off": 8} if packed else {})}
@@ -1040,14 +1159,24 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
         for name, (K, N) in zip(w, dims):
             q, sc = w[name][key_q], w[name]["scales"]
             words = q4b.pack_b32(q) if packed else None
-            for M in ms:
+            for M in sorted(set(ms) | set(int8_ms)):
                 x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
-                t = {"ms": per_call(lambda li: stacked(x, q, sc, li, **kw))}
-                if plan_of is not None:
-                    t["plan"] = {k: v for k, v in plan_of(M, K, N, qm.sm_count(device)).items()
-                                 if k in ("grid", "ksplit")}
-                record(f"{fmt} {name} M={M} K={K} N={N} cold", "", 0,
-                       stacked(x, q, sc, 0, **kw), plain(x, q[0], sc[0], **kw), t)
+                if M in ms:
+                    t = {"ms": per_call(lambda li: stacked(x, q, sc, li, **kw))}
+                    if plan_of is not None:
+                        t["plan"] = {k: v for k, v in
+                                     plan_of(M, K, N, qm.sm_count(device)).items()
+                                     if k in ("grid", "ksplit")}
+                    record(f"{fmt} {name} M={M} K={K} N={N} cold", "", 0,
+                           stacked(x, q, sc, 0, **kw), plain(x, q[0], sc[0], **kw), t)
+                    if M == 1:
+                        t1[name] = t["ms"]
+                if M not in int8_ms:
+                    continue
+                dense = qm.block_weight(q[0], sc[0], packed=packed,
+                                        off=8 if packed else 0).to(torch.bfloat16)
+                lib_ms = graph_ms(lambda: x @ dense)
+                del dense
                 forms = {"int8": (lambda li: q8.quant_matmul_int8_stacked(
                     x, q, sc, li, **({"off": 8} if packed else {})),
                     (lambda: q8.quant_matmul_int8_packed_plain(x, q[0], sc[0], off=8))
@@ -1056,14 +1185,12 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
                     forms["words"] = (lambda li: q4b.quant_matmul_q4b_stacked(x, words, sc, li),
                                       lambda: q4b.quant_matmul_q4b_plain(x, words[0], sc[0]))
                 for form, (run, ref) in forms.items():
-                    tf = {"ms": per_call(run)}
+                    tf = {"ms": per_call(run), "library_ms": lib_ms,
+                          **int8_figures(x, K, N, words if form == "words" else q, sc, M)}
                     record(f"{fmt} {name} M={M} K={K} N={N} cold {form}", "", 0, run(0), ref(),
                            tf)
-                    if M == 1:
-                        path = f"{fmt} decode {form}"
-                        paths[path] = paths.get(path, 0.0) + layers * tf["ms"]
-                if M == 1:
-                    t1[name] = t["ms"]
+                    path = f"{fmt} decode {form}" + (f" M={M}" if M > 1 else "")
+                    paths[path] = paths.get(path, 0.0) + layers * tf["ms"]
             del words
         paths[f"{fmt} decode"] = layers * sum(t1.values())
         # the one-launch SwiGLU and the two-launch path over the gate_up and down stacks
@@ -1113,6 +1240,16 @@ def decode_weights(device, record, shapes: dict, paths: dict, layers: int = DECO
                    {"ms": graph_ms(lambda: flat(x, q, sc, **kw)),
                     "panel_ms": graph_ms(lambda: pflat(x, pq, psc, **kw)),
                     "panel_equal": bool(torch.equal(pflat(x, pq, psc, **kw), got))})
+        if not packed:   # mode "int8": the flat integer entry on the same q8_0 values
+            dense = qm.block_weight(q, sc, packed=False).to(torch.bfloat16)
+            for M in (1, 5, 8):
+                x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+                record(f"{fmt} lm_head M={M} K={K} N={vocab} int8", "", 0,
+                       q8.quant_matmul_int8(x, q, sc), q8.quant_matmul_int8_plain(x, q, sc),
+                       {"ms": graph_ms(lambda: q8.quant_matmul_int8(x, q, sc)),
+                        "library_ms": graph_ms(lambda: x @ dense),
+                        **int8_figures(x, K, vocab, q[None], sc[None], M)})
+            del dense
         del head, pw, q, sc, pq, psc
         torch.cuda.empty_cache()
     # the device kernels of one decode step of a full-width 2-layer decoder of

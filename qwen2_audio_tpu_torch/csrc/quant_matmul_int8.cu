@@ -28,16 +28,33 @@
 // 0x80808080) or 0 where the caller adds the mins outside.
 //
 // What bounds it:
-// - M <= 8 (a decode step): the weight bytes (gate_up of the 7B tower, q8_0:
-//   136 MB, 41 us at 3.35 TB/s). qmm8_small_kernel streams the weight once,
-//   as qmm_small_kernel of quant_matmul.cu does: a lane owns 4 neighbouring
-//   columns, a warp owns whole 32-groups of K, K is split over the 4 warps of
-//   a block and over gridDim.y blocks, partial sums meet in shared memory in
-//   a fixed order and, with a split, in reduce_partials_kernel in split
-//   order: no atomics, the same bits from run to run. The warp quantizes its
-//   own group of the <= 8 rows of x (a shuffle max, the same device function
-//   as the standalone kernel, so every block sees the same xq): no extra
-//   launch per linear in the host-bound decode loop. Group dots are __dp4a.
+// - M <= 8 (a decode step, the beam's 5 rows, a verify's 8): the weight
+//   bytes (gate_up of the 7B tower, q8_0: 136 MB, 41 us at 3.35 TB/s).
+//   qmm8_small_kernel, one launch, streams the weight once:
+//   * The group dots on int8 tensor cores, mma.sync m16n8k32 s8 -> s32: k32
+//     is one group and n8 the <= 8 rows; A is the weight's transpose (16
+//     columns an instruction), B the rows' q8_1 values. The s32 dot is the
+//     exact integer __dp4a gives, so ggml's numerics do not change; a group
+//     of 16 columns for all 8 rows is one instruction.
+//   * A lane (g = lane / 4, t = lane % 4) owns kLaneCols (16) neighbouring
+//     columns of the warp's 128-column tile (the CTA's 4 warps take it over
+//     4 quarters of the CTA's K range) and, of each, the 8 values of a
+//     group that its fragments hold (k = 4 t .. 4 t + 3 and + 16), read as
+//     stored with 16-byte loads: a warp reads 128 bytes of each byte row it
+//     touches (8- and 4-byte loads measured slower on the H100), one group
+//     of int8 values or two of nibbles ahead (kDepth).
+//   * x is quantized once a CTA, for the CTA's K range: each warp turns its
+//     quarter of the range into q8_1 (a quad a row and group, the same
+//     device function as quantize_q8_1_kernel, so the same bits) in shared
+//     memory, in B's fragment order (one 8-byte read a group and lane),
+//     before it walks its tiles; a CTA takes several tiles (small_plan).
+//   * The rescale, c = fmaf(p, sx * sw, c) per (row, column), in group
+//     order within a warp's quarter; the 4 warps' sums meet in shared memory
+//     in warp order; with a K split, the splits' float32 sums go to a
+//     buffer and the last CTA of a tile (a ticket per tile, one fence a CTA
+//     after all its tiles) adds them in split order and leaves the ticket at
+//     0. No second launch, no float atomics: the same bits from run to run,
+//     and a plan from M, K, N and the SM count alone.
 // - M > 8 (the 752-position prefill, the encoder's 1500 rows): 2 M K N
 //   products (gate_up at M = 752: 0.206 ms of f16 tensor work at 989
 //   TFLOP/s) and, on the CUDA cores, the rescale of every group's dot: M N K
@@ -78,19 +95,21 @@
 //   FMA per group, in group order) does not depend on the tiling, so any
 //   tiling gives the same bits (qmm_ab.py's digests hold two builds to it).
 //
-// One layout fact carries the three nibble forms of the M <= 8 kernel: the
-// low nibbles of word 4g + r of the words form are k = 32 g + 4 r + 0..3 of
-// its column, its high nibbles the same + 16. The packed form gathers the
-// same 4 values from 4 byte rows with __byte_perm, and the strided form
-// gathers k .. k + 3 of a column from 4 rows the same way, so the three forms
-// feed the same integer products: the packed and the words forms of the same
-// bytes give the same bits, at every M.
+// One layout fact carries the three forms of the M <= 8 kernel: the low
+// nibbles of word 4g + r of the words form are k = 32 g + 4 r + 0..3 of its
+// column, its high nibbles the same + 16: registers a0 / a2 (a1 / a3 for the
+// fragment's second column) of the mma's thread t = r. The packed form
+// gathers the same 4 values from 4 byte rows with __byte_perm, and the
+// strided form gathers k .. k + 3 of a column from 4 rows the same way, so
+// the three forms feed the same integer products: the packed and the words
+// forms of the same bytes give the same bits, at every M.
 //
 // N must be a multiple of 16 and K of 32 (the wrapper checks); the kernels
 // mask their own ragged M and N edges and pad nothing in device memory.
 
 #include "hopper_mma.cuh"
 #include "qmm_common.cuh"
+#include "qmm_stream.cuh"
 
 #include <type_traits>
 
@@ -107,18 +126,23 @@ constexpr int kStrided = 0, kPacked = 1, kWords = 2;
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-__device__ __forceinline__ float warp_max(float v) {
+// q8_1 of one 32-group held by W neighbouring lanes, V = 32 / W values each
+// (W = 32: the warp, a value a lane, as quantize_q8_1_kernel holds it; W =
+// 4: a quad, eight values a lane, as the M <= 8 kernel does): xq in q, sx
+// set in every lane. The group's amax is a max, exact in any order, and every
+// rounding after it is IEEE round-to-nearest-even, so both hold the same
+// bits.
+template <int W, int V>
+__device__ __forceinline__ void q8_1_group(const float (&v)[V], int (&q)[V], float& sx) {
+  float a = fabsf(v[0]);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// q8_1 of one value whose lane holds it: the warp's 32 lanes are the group.
-// Returns xq, sets sx; every rounding is IEEE round-to-nearest-even.
-__device__ __forceinline__ int q8_1_lane(float v, float& sx) {
-  sx = __fdiv_rn(warp_max(fabsf(v)), 127.f);
+  for (int i = 1; i < V; ++i) a = fmaxf(a, fabsf(v[i]));
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+  sx = __fdiv_rn(a, 127.f);
   const float inv = sx > 0.f ? __fdiv_rn(1.f, sx) : 0.f;
-  return static_cast<int>(rintf(__fmul_rn(v, inv)));
+#pragma unroll
+  for (int i = 0; i < V; ++i) q[i] = static_cast<int>(rintf(__fmul_rn(v[i], inv)));
 }
 
 // c[i] holds byte i of r0, r1, r2, r3 in its bytes 0..3: the 4 x 4 transpose
@@ -145,28 +169,6 @@ __device__ __forceinline__ void nibble_quads(uint32_t w, int off, uint32_t& lo,
   if (off) {
     lo = swar_sub8(lo);
     hi = swar_sub8(hi);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The words-form words of 4 neighbouring columns (col .. col + 3) for word
-// rows 4 gi + r, from either nibble form: w[c][r].
-template <int FORM>
-__device__ __forceinline__ void nibble_words(const uint8_t* __restrict__ q, int N, int gi,
-                                             int r, int col, uint32_t (&w)[4]) {
-  if constexpr (FORM == kPacked) {
-    const uint8_t* p = q + ((long long)gi * 16 + 4 * r) * N + col;
-    transpose_bytes(ld32(p), ld32(p + N), ld32(p + 2 * N), ld32(p + 3 * N), w);
-  } else {
-    const uint4 v = *reinterpret_cast<const uint4*>(
-        reinterpret_cast<const uint32_t*>(q) + ((long long)gi * 4 + r) * N + col);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
   }
 }
 
@@ -209,109 +211,395 @@ quantize_q8_1_kernel(const XT* __restrict__ x, QT* __restrict__ xq, float* __res
   const int m = (int)(w / G), g = (int)(w % G), lane = threadIdx.x & 31;
   const long long row = (long long)m * K + g * kGroup;
   float s;
-  xq[row + (WORDS ? words_k(lane) : lane)] = from_int<QT>(q8_1_lane(to_float(x[row + lane]), s));
+  const float v[1] = {to_float(x[row + lane])};
+  int qv[1];
+  q8_1_group<32, 1>(v, qv, s);
+  xq[row + (WORDS ? words_k(lane) : lane)] = from_int<QT>(qv[0]);
   if (lane == 0) sx[ldt ? (long long)g * ldt + sx_slot(m) : (long long)m * G + g] = s;
 }
 
 // ------------------------------------------------------------------------- //
-// M <= 8: stream the weight once, x quantized on the fly
+// M <= 8: stream the weight once, group dots on int8 mma.sync
 // ------------------------------------------------------------------------- //
 
-constexpr int kSmallCols = 128;    // columns per block: 32 lanes x 4
-constexpr int kSmallWarps = 4;
+constexpr int kSmallWarps = 4;                // warps of a CTA: each a quarter of its K range
+constexpr int kSmallThreads = kSmallWarps * 32;
+constexpr int kLaneCols = 16;                 // neighbouring columns a lane owns
+constexpr int kSmallCols = 8 * kLaneCols;     // columns of a tile: 8 lane groups g = lane / 4
+constexpr int kSmallSmem = 48 * 1024;
 
-template <typename XT, int FORM, int MT>
-__global__ void __launch_bounds__(kSmallWarps * 32)
+// d = a (16 x 32 s8, row-major) * b (32 x 8 s8, column-major), exact in s32
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint2 b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y), "r"(0));
+}
+
+// float(p) for |p| < 2^22 (a group's dot is below 2^20): p added to the
+// mantissa of 1.5 * 2^23, which is then taken away; exact, as I2F is, in
+// two full-rate instructions
+__device__ __forceinline__ float exact_float(int p) {
+  return __int_as_float(p + 0x4B400000) - 12582912.f;
+}
+
+// 16 bytes of the weight into d[0 .. 3]: read once, kept out of L1
+__device__ __forceinline__ void ld_stream(const void* p, uint32_t* d) {
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "l"(p));
+}
+
+// four values of x as floats
+__device__ __forceinline__ void load_x4(const float* p, float (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load_x4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// the low bytes of a, b, c, d as one word, a in byte 0
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// four outputs, cast to the output's type
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+
+// One lane's weight and scales of one 32-group: its kLaneCols neighbouring
+// columns (col .. col + kLaneCols - 1) and, of each, the 8 values of K its
+// mma fragments hold, k = 4 t .. 4 t + 3 and 16 + 4 t .. 16 + 4 t + 3 (t =
+// lane % 4), as stored, in 16-byte loads:
+//   strided  byte rows 4 t + i and 16 + 4 t + i (i < 4): w[R * i + c4] and
+//            w[R * (4 + i) + c4], R = kLaneCols / 4 words a row
+//   packed   nibble byte rows 16 gi + 4 t + i: w[R * i + c4]
+//   words    word row 4 gi + t: w[c]
+// the scales kLaneCols float16 (s[0 .. kLaneCols / 2 - 1]) or float32.
+template <int FORM>
+struct Unit {
+  static constexpr int kW = FORM == kStrided ? 2 * kLaneCols : kLaneCols;
+  uint32_t w[kW];
+  uint32_t s[kLaneCols];
+};
+
+// the Unit of group gi at column col; zeros where the lane's columns lie
+// past N (their outputs are never stored)
+template <int FORM>
+__device__ __forceinline__ void load_unit(Unit<FORM>& u, const uint8_t* __restrict__ q,
+                                          const void* __restrict__ sc, int s_f16, int N,
+                                          int gi, int col, int t, bool live) {
+  static_assert(kLaneCols % 16 == 0, "a lane's row is whole 16-byte loads");
+  constexpr int R = kLaneCols / 4;
+  if (!live) {
+#pragma unroll
+    for (int i = 0; i < Unit<FORM>::kW; ++i) u.w[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < kLaneCols; ++i) u.s[i] = 0u;
+    return;
+  }
+  if constexpr (FORM == kWords) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(q) + ((long long)gi * 4 + t) * N + col;
+#pragma unroll
+    for (int c = 0; c < kLaneCols; c += 4) ld_stream(p + c, u.w + c);
+  } else {
+    const uint8_t* p =
+        q + ((long long)gi * (FORM == kStrided ? kGroup : kGroup / 2) + 4 * t) * N + col;
+#pragma unroll
+    for (int i = 0; i < Unit<FORM>::kW / R; ++i) {
+#pragma unroll
+      for (int c = 0; c < kLaneCols; c += 16)
+        ld_stream(p + (long long)((i & 3) + (i >> 2) * 16) * N + c, u.w + R * i + c / 4);
+    }
+  }
+  const long long si = (long long)gi * N + col;
+  if (s_f16) {
+#pragma unroll
+    for (int c = 0; c < kLaneCols / 2; c += 4)
+      ld_stream(static_cast<const __half*>(sc) + si + 2 * c, u.s + c);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kLaneCols; c += 4)
+      ld_stream(static_cast<const float*>(sc) + si + c, u.s + c);
+  }
+}
+
+// One group into the lane's sums: acc[h][c] is output (row 2 t + h, column
+// col + c). A (the weight's transpose) of mma j is the lane group's columns
+// 2 j (rows g) and 2 j + 1 (rows g + 8), B (xq) the group's 32 values of the
+// <= 8 rows, so d[0], d[1] are column 2 j at rows 2 t, 2 t + 1 and d[2],
+// d[3] column 2 j + 1. Then ggml's rescale, c = fmaf(p, sx * sw, c), per
+// (row, column); with ROWS2 false (M = 1) row 2 t + 1's half is left out.
+template <int FORM, bool ROWS2>
+__device__ __forceinline__ void consume_unit(float (&acc)[2][kLaneCols], const Unit<FORM>& u,
+                                             int s_f16, int off, uint2 b, float2 sx) {
+  constexpr int R = kLaneCols / 4;
+  uint32_t lo[kLaneCols], hi[kLaneCols];   // per column: k = 4 t .. 4 t + 3, and + 16
+  if constexpr (FORM == kStrided) {
+    uint32_t c[4];
+#pragma unroll
+    for (int h = 0; h < R; ++h) {   // h: columns 4 h .. 4 h + 3
+      transpose_bytes(u.w[h], u.w[R + h], u.w[2 * R + h], u.w[3 * R + h], c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lo[4 * h + i] = c[i];
+      transpose_bytes(u.w[4 * R + h], u.w[5 * R + h], u.w[6 * R + h], u.w[7 * R + h], c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hi[4 * h + i] = c[i];
+    }
+  } else {
+    uint32_t wd[kLaneCols];   // the words form's word t of each column
+    if constexpr (FORM == kPacked) {
+      uint32_t c[4];
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        transpose_bytes(u.w[h], u.w[R + h], u.w[2 * R + h], u.w[3 * R + h], c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) wd[4 * h + i] = c[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kLaneCols; ++i) wd[i] = u.w[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kLaneCols; ++i) nibble_quads(wd[i], off, lo[i], hi[i]);
+  }
+  float sw[kLaneCols];
+  if (s_f16) {
+#pragma unroll
+    for (int i = 0; i < kLaneCols / 2; ++i) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u.s[i]));
+      sw[2 * i] = f.x;
+      sw[2 * i + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kLaneCols; ++i) sw[i] = __uint_as_float(u.s[i]);
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneCols / 2; ++j) {
+    int d[4];
+    mma_s8_16832(d, lo[2 * j], lo[2 * j + 1], hi[2 * j], hi[2 * j + 1], b);
+    acc[0][2 * j] = fmaf(exact_float(d[0]), __fmul_rn(sx.x, sw[2 * j]), acc[0][2 * j]);
+    acc[0][2 * j + 1] = fmaf(exact_float(d[2]), __fmul_rn(sx.x, sw[2 * j + 1]),
+                             acc[0][2 * j + 1]);
+    if (ROWS2) {
+      acc[1][2 * j] = fmaf(exact_float(d[1]), __fmul_rn(sx.y, sw[2 * j]), acc[1][2 * j]);
+      acc[1][2 * j + 1] = fmaf(exact_float(d[3]), __fmul_rn(sx.y, sw[2 * j + 1]),
+                               acc[1][2 * j + 1]);
+    }
+  }
+}
+
+// weight groups a lane holds in flight
+template <int FORM> constexpr int kDepth = FORM == kStrided ? 1 : 2;
+
+// Grid (ctas, ks). CTA (p, s) takes split s, groups g0 .. g0 + n - 1 of K
+// (g0 = s G / ks, rounded down), and the kSmallCols-column tiles p, p +
+// ctas, ...; warp w of it takes slots w n / 4 .. (w + 1) n / 4 - 1 of that
+// range in every tile, and first quantizes those groups of x (a quad a row
+// and group, q8_1_group) into shared memory in B's fragment order: xs[(slot
+// M + m) * 4 + t] holds values 4 t .. 4 t + 3 and 16 + 4 t .. 16 + 4 t + 3
+// of row m, sxs[slot SX + m] its scale. A tile's sums: each warp's in group
+// order, the 4 warps' added in warp order through shared memory, written
+// out or, with ks > 1, as this split's float32 sums to partial (ks, M, N).
+// After its last tile a split CTA takes a ticket a tile; the last CTA of a
+// tile adds its ks splits in split order and leaves the ticket at 0. At M =
+// 1 (ROWS2 false, no sums of row 2 t + 1) it fits 128 registers, 4 CTAs an
+// SM; above, 3 (small_plan aims at as many).
+template <typename XT, int FORM, bool ROWS2>
+__global__ void __launch_bounds__(kSmallThreads, ROWS2 ? 3 : 4)
 qmm8_small_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ q,
                   const void* __restrict__ sc, int s_f16, float* __restrict__ partial,
-                  XT* __restrict__ out, int M, int K, int N, int off) {
-  __shared__ __align__(16) float red[kSmallWarps][MT][kSmallCols];
-  __shared__ __align__(16) int8_t xqs[kSmallWarps][MT][kGroup];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * kSmallCols + lane * 4;
-  const bool live = col < N;
-  const int n_warps = gridDim.y * kSmallWarps;
+                  unsigned int* __restrict__ tickets, XT* __restrict__ out, int M, int K,
+                  int N, int off, int ks) {
+  constexpr int D = kDepth<FORM>, Q = kSmallCols / 4;   // Q: a row's float4 of a tile
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int G = K / kGroup, split = blockIdx.y;
+  const int g0 = (int)((long long)split * G / ks);
+  const int n = (int)((long long)(split + 1) * G / ks) - g0;
+  const int wa = warp * n / kSmallWarps, nw = (warp + 1) * n / kSmallWarps - wa;
+  const int SX = (M + 1) & ~1;
+  float* red = reinterpret_cast<float*>(smem);   // [warp][M][kSmallCols]
+  uint2* xs = reinterpret_cast<uint2*>(smem + kSmallWarps * M * kSmallCols * 4);
+  float* sxs = reinterpret_cast<float*>(xs + (long long)n * M * 4);
+  const int T = (N + kSmallCols - 1) / kSmallCols, P = gridDim.x;
+  const int tiles = (T - 1 - (int)blockIdx.x) / P + 1;
 
-  float acc[MT][4];
+  // the first D groups' loads, in flight while x is quantized
+  Unit<FORM> buf[D];
+  int li = 0, lj = 0;   // the next load's tile (of this CTA's) and slot (of the warp's)
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
-
-  for (int gi = blockIdx.y * kSmallWarps + warp; gi < K / kGroup; gi += n_warps) {
-    // the lane's weight: wq[c][i] = k 4i .. 4i + 3 of column col + c, int8
-    uint32_t wq[4][8];
-    float sw[4];
-    if (live) {
-      if constexpr (FORM == kStrided) {
-        const uint8_t* p = q + (long long)gi * kGroup * N + col;
-        uint32_t rows[kGroup];
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j) rows[j] = ld32(p + (long long)j * N);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          uint32_t c4[4];
-          transpose_bytes(rows[4 * i], rows[4 * i + 1], rows[4 * i + 2], rows[4 * i + 3], c4);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) wq[c][i] = c4[c];
-        }
-      } else {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          uint32_t w4[4];
-          nibble_words<FORM>(q, N, gi, r, col, w4);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) nibble_quads(w4[c], off, wq[c][r], wq[c][4 + r]);
-        }
-      }
-      load_scales4(sc, s_f16, (long long)gi * N + col, sw);
-    }
-    // this group of the <= 8 rows, quantized by the warp
-    float sxm[MT];
-    __syncwarp();   // the previous group's reads of xqs are done
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M)
-        xqs[warp][m][lane] = static_cast<int8_t>(
-            q8_1_lane(to_float(x[(long long)m * K + gi * kGroup + lane]), sxm[m]));
-    }
-    __syncwarp();
-    if (live) {
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        if (m >= M) continue;
-        const int4* xw = reinterpret_cast<const int4*>(xqs[warp][m]);
-        const int4 x0 = xw[0], x1 = xw[1];
-        const int xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          int p = 0;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) p = __dp4a(static_cast<int>(wq[c][i]), xv[i], p);
-          acc[m][c] = fmaf(static_cast<float>(p), __fmul_rn(sxm[m], sw[c]), acc[m][c]);
-        }
-      }
+  for (int d = 0; d < D; ++d) {
+    if (li < tiles && nw > 0) {
+      const int col = ((int)blockIdx.x + li * P) * kSmallCols + kLaneCols * g;
+      load_unit<FORM>(buf[d], q, sc, s_f16, N, g0 + wa + lj, col, t, col < N);
+      if (++lj == nw) lj = 0, ++li;
     }
   }
 
+  // q8_1 of the warp's groups, rows 0 .. M - 1: quad g takes (slot, row) item
+  // base + g
+  for (int base = 0; base < nw * M; base += 8) {
+    const int item = base + g;
+    const bool on = item < nw * M;
+    const int slot = wa + (on ? item / M : 0), m = on ? item % M : 0;
+    const XT* px = x + (long long)m * K + (long long)(g0 + slot) * kGroup + 4 * t;
+    float v[8] = {};
+    if (on) {
+      float a[4];
+      load_x4(px, a);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-    *reinterpret_cast<float4*>(&red[warp][m][lane * 4]) =
-        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-  __syncthreads();
-  const int cc = blockIdx.x * kSmallCols + threadIdx.x;
-  if (cc < N) {
+      for (int i = 0; i < 4; ++i) v[i] = a[i];
+      load_x4(px + 16, a);
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float v = red[0][m][threadIdx.x];
-#pragma unroll
-        for (int wi = 1; wi < kSmallWarps; ++wi) v += red[wi][m][threadIdx.x];
-        if (partial != nullptr)
-          partial[((long long)blockIdx.y * M + m) * N + cc] = v;
-        else
-          out[(long long)m * N + cc] = from_float<XT>(v);
-      }
+      for (int i = 0; i < 4; ++i) v[4 + i] = a[i];
+    }
+    int qv[8];
+    float s;
+    q8_1_group<4, 8>(v, qv, s);
+    if (on) {
+      xs[((long long)slot * M + m) * 4 + t] =
+          make_uint2(pack_s8(qv[0], qv[1], qv[2], qv[3]), pack_s8(qv[4], qv[5], qv[6], qv[7]));
+      if (t == 0) sxs[slot * SX + m] = s;
     }
   }
+  __syncwarp();
+
+  // B's row for this lane (a row past M repeats row 0: its outputs are
+  // never stored) and the rows of sx its sums take (2 t, 2 t + 1, kept
+  // inside the slot)
+  const int rb = g < M ? g : 0, r2 = min(2 * t, SX - 2);
+  float acc[2][kLaneCols] = {};
+  for (int i = 0; i < tiles; ++i) {
+    const int tile = (int)blockIdx.x + i * P;
+    for (int j = 0; j < nw; ++j) {
+      const int slot = wa + j;
+      consume_unit<FORM, ROWS2>(acc, buf[0], s_f16, off, xs[((long long)slot * M + rb) * 4 + t],
+                                *reinterpret_cast<const float2*>(sxs + slot * SX + r2));
+#pragma unroll
+      for (int d = 0; d + 1 < D; ++d) buf[d] = buf[d + 1];
+      if (li < tiles) {
+        const int col = ((int)blockIdx.x + li * P) * kSmallCols + kLaneCols * g;
+        load_unit<FORM>(buf[D - 1], q, sc, s_f16, N, g0 + wa + lj, col, t, col < N);
+        if (++lj == nw) lj = 0, ++li;
+      }
+    }
+
+    // the tile's sums: this warp's rows into red[warp], then the 4 warps
+    // added in order, a row's 4 neighbouring columns a thread
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if ((h == 0 || ROWS2) && 2 * t + h < M) {
+        float4* r = reinterpret_cast<float4*>(red + ((warp * M + 2 * t + h) * kSmallCols +
+                                                     kLaneCols * g));
+#pragma unroll
+        for (int c = 0; c < kLaneCols; c += 4)
+          r[c / 4] = make_float4(acc[h][c], acc[h][c + 1], acc[h][c + 2], acc[h][c + 3]);
+      }
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) acc[h][c] = 0.f;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < M * Q; e += kSmallThreads) {
+      const int m = e / Q, c = 4 * (e - m * Q), col = tile * kSmallCols + c;
+      if (col >= N) continue;
+      float4 v = *reinterpret_cast<const float4*>(red + m * kSmallCols + c);
+#pragma unroll
+      for (int w = 1; w < kSmallWarps; ++w)
+        add4(v, *reinterpret_cast<const float4*>(red + (w * M + m) * kSmallCols + c));
+      if (ks == 1)
+        store4(out + (long long)m * N + col, v);
+      else
+        *reinterpret_cast<float4*>(partial + ((long long)split * M + m) * N + col) = v;
+    }
+    __syncthreads();   // red is read before the next tile writes it
+  }
+  if (ks == 1) return;
+
+  // K split: one fence for all of this CTA's split sums (a fence in every
+  // tile would wait out the weight loads in flight), then a ticket a tile,
+  // taken by a thread each; the tiles this CTA finished last are listed,
+  // and their splits added in split order, a row's 4 columns a thread
+  __threadfence();
+  int* done = reinterpret_cast<int*>(red);   // [0]: count, then the tiles
+  for (int base = 0; base < tiles; base += kSmallThreads) {
+    __syncthreads();
+    if (threadIdx.x == 0) done[0] = 0;
+    __syncthreads();
+    const int i = base + (int)threadIdx.x;
+    if (i < tiles) {
+      const int tile = (int)blockIdx.x + i * P;
+      if (atomicAdd(&tickets[tile], 1u) == (unsigned)ks - 1) {
+        tickets[tile] = 0;
+        done[1 + atomicAdd(done, 1)] = tile;
+      }
+    }
+    __syncthreads();
+    __threadfence();
+    const int items = done[0] * M * Q;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < items; e += kSmallThreads) {
+      const int k = e / (M * Q), r = e - k * M * Q;
+      const int m = r / Q, col = done[1 + k] * kSmallCols + 4 * (r - m * Q);
+      if (col < N)
+        store4(out + (long long)m * N + col,
+               sum_splits4(partial + (long long)m * N + col, ks, (long long)M * N));
+    }
+  }
+}
+
+// the M <= 8 kernel's shared memory: the warps' tile sums (4 x M x 64
+// float32), then xq (n x M x 32 bytes) and sx (n x SX float32, SX = M
+// rounded up to even) of a split of n groups
+long long small_smem(int M, int n) {
+  return (long long)kSmallWarps * M * kSmallCols * 4 + (long long)n * (M * 32 + ((M + 1) & ~1) * 4);
+}
+
+template <typename XT, int FORM>
+cudaError_t launch_small(const XT* x, const uint8_t* q, const void* sc, int s_f16,
+                         float* partial, unsigned int* tickets, XT* out, int M, int K, int N,
+                         int off, int ks, int ctas, cudaStream_t st) {
+  const int G = K / kGroup;
+  const dim3 grid(ctas, ks);
+  const size_t smem = (size_t)small_smem(M, (G + ks - 1) / ks);
+  if (M == 1)
+    qmm8_small_kernel<XT, FORM, false><<<grid, kSmallThreads, smem, st>>>(
+        x, q, sc, s_f16, partial, tickets, out, M, K, N, off, ks);
+  else
+    qmm8_small_kernel<XT, FORM, true><<<grid, kSmallThreads, smem, st>>>(
+        x, q, sc, s_f16, partial, tickets, out, M, K, N, off, ks);
+  return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t launch_small_form(int form, const void* x, const void* q, const void* sc,
+                              int s_f16, float* partial, unsigned int* tickets, void* out,
+                              int M, int K, int N, int off, int ks, int ctas, cudaStream_t st) {
+  const XT* xp = static_cast<const XT*>(x);
+  const uint8_t* qp = static_cast<const uint8_t*>(q);
+  XT* op = static_cast<XT*>(out);
+  if (form == kStrided)
+    return launch_small<XT, kStrided>(xp, qp, sc, s_f16, partial, tickets, op, M, K, N, 0, ks,
+                                      ctas, st);
+  if (form == kPacked)
+    return launch_small<XT, kPacked>(xp, qp, sc, s_f16, partial, tickets, op, M, K, N, off, ks,
+                                     ctas, st);
+  return launch_small<XT, kWords>(xp, qp, sc, s_f16, partial, tickets, op, M, K, N, off, ks,
+                                  ctas, st);
 }
 
 // ------------------------------------------------------------------------- //
@@ -840,47 +1128,25 @@ cudaError_t launch_tiles(int bm, const __half* xq, const uint8_t* q, const void*
 }
 
 template <typename XT, int FORM>
-cudaError_t launch(const void* x, const void* q, const void* sc, void* out, float* scratch,
-                   void* xq, float* sx_t, int M, int K, int N, int s_f16, int off, int ksplit,
-                   int bm, int ctas, cudaStream_t st) {
-  const XT* xp = static_cast<const XT*>(x);
-  const uint8_t* qp = static_cast<const uint8_t*>(q);
-  XT* op = static_cast<XT*>(out);
-  if (M > 8) {
-    quantize<XT>(xp, xq, sx_t, M, K, FORM == kWords ? 2 : 1, tile_ldt(M), st);
-    return launch_tiles<FORM>(bm, static_cast<const __half*>(xq), qp, sc, s_f16, sx_t, out,
-                              std::is_same_v<XT, float>, M, K, N, off, ctas, st);
-  }
-  const dim3 grid((N + kSmallCols - 1) / kSmallCols, ksplit);
-  float* partial = ksplit > 1 ? scratch : nullptr;
-#define QMM8_SMALL(MT)                                                           \
-  qmm8_small_kernel<XT, FORM, MT><<<grid, kSmallWarps * 32, 0, st>>>(            \
-      xp, qp, sc, s_f16, partial, op, M, K, N, off)
-  if (M == 1) QMM8_SMALL(1);
-  else if (M == 2) QMM8_SMALL(2);
-  else if (M <= 4) QMM8_SMALL(4);
-  else QMM8_SMALL(8);
-#undef QMM8_SMALL
-  if (ksplit > 1) {
-    const long long mn = (long long)M * N;
-    reduce_partials_kernel<XT><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
-        partial, op, ksplit, mn);
-  }
-  return cudaGetLastError();
+cudaError_t launch(const void* x, const void* q, const void* sc, void* out, void* xq,
+                   float* sx_t, int M, int K, int N, int s_f16, int off, int bm, int ctas,
+                   cudaStream_t st) {
+  quantize<XT>(static_cast<const XT*>(x), xq, sx_t, M, K, FORM == kWords ? 2 : 1, tile_ldt(M),
+               st);
+  return launch_tiles<FORM>(bm, static_cast<const __half*>(xq), static_cast<const uint8_t*>(q),
+                            sc, s_f16, sx_t, out, std::is_same_v<XT, float>, M, K, N, off, ctas,
+                            st);
 }
 
 template <typename XT>
 cudaError_t launch_form(int form, const void* x, const void* q, const void* sc, void* out,
-                        float* scratch, void* xq, float* sx_t, int M, int K, int N, int s_f16,
-                        int off, int ksplit, int bm, int ctas, cudaStream_t st) {
+                        void* xq, float* sx_t, int M, int K, int N, int s_f16, int off, int bm,
+                        int ctas, cudaStream_t st) {
   if (form == kStrided)
-    return launch<XT, kStrided>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, 0, ksplit, bm,
-                                ctas, st);
+    return launch<XT, kStrided>(x, q, sc, out, xq, sx_t, M, K, N, s_f16, 0, bm, ctas, st);
   if (form == kPacked)
-    return launch<XT, kPacked>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, off, ksplit,
-                               bm, ctas, st);
-  return launch<XT, kWords>(x, q, sc, out, scratch, xq, sx_t, M, K, N, s_f16, off, ksplit, bm,
-                            ctas, st);
+    return launch<XT, kPacked>(x, q, sc, out, xq, sx_t, M, K, N, s_f16, off, bm, ctas, st);
+  return launch<XT, kWords>(x, q, sc, out, xq, sx_t, M, K, N, s_f16, off, bm, ctas, st);
 }
 
 }  // namespace
@@ -903,31 +1169,55 @@ extern "C" int qa_quantize_q8_1(const void* x, void* xq, void* sx, int M, int K,
   return (int)cudaGetLastError();
 }
 
-// x (M, K) float32 or bf16; q the weight of layer li in form 0 (int8 (K, N)),
-// 1 (nibble bytes (K / 2, N)) or 2 (int32 words (K / 8, N)); sc (K / 32, N)
-// float16 or float32; out (M, N) in x's type. scratch: float32 (ksplit, M,
-// N), read only when M <= 8 and ksplit > 1; xq (M, K) float16 and sx_t
-// float32 (K / 32, M rounded up to a multiple of 16), written and read only
-// when M > 8, with bm rows of x a unit (16, 32, 64 or 128) and ctas
-// persistent CTAs. off: 8 (symmetric q4_0) or 0.
+// M > 8: x (M, K) float32 or bf16; q the weight of layer li in form 0
+// (int8 (K, N)), 1 (nibble bytes (K / 2, N)) or 2 (int32 words (K / 8, N));
+// sc (K / 32, N) float16 or float32; out (M, N) in x's type; xq (M, K)
+// float16 and sx_t float32 (K / 32, M rounded up to a multiple of 16),
+// written by the quantizing launch and read by the tile, with bm rows of x a
+// unit (16, 32, 64 or 128) and ctas persistent CTAs. off: 8 (symmetric
+// q4_0) or 0.
 extern "C" int qa_quant_matmul_int8(const void* x, const void* q, const void* sc, void* out,
-                                    void* scratch, void* xq, void* sx_t, int M, int K, int N,
-                                    int x_bf16, int s_f16, int form, int off, int ksplit, int bm,
-                                    int ctas, void* stream) {
-  if (M < 1 || K < kGroup || K % kGroup || N < 16 || N % 16 || form < kStrided ||
+                                    void* xq, void* sx_t, int M, int K, int N, int x_bf16,
+                                    int s_f16, int form, int off, int bm, int ctas,
+                                    void* stream) {
+  if (M <= 8 || K < kGroup || K % kGroup || N < 16 || N % 16 || form < kStrided ||
       form > kWords || (off != 0 && off != 8) || (form == kStrided && off != 0) ||
-      ksplit < 1 || ksplit > 65535 || (N + kSmallCols - 1) / kSmallCols > 65535 ||
-      (ksplit > 1 && (M > 8 || scratch == nullptr)) ||
-      (M > 8 && (xq == nullptr || sx_t == nullptr || ctas < 1 ||
-                 (bm != 16 && bm != 32 && bm != 64 && bm != 128))))
+      xq == nullptr || sx_t == nullptr || ctas < 1 ||
+      (bm != 16 && bm != 32 && bm != 64 && bm != 128))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* scr = static_cast<float*>(scratch);
   float* sxp = static_cast<float*>(sx_t);
   const cudaError_t rc =
-      x_bf16 ? launch_form<__nv_bfloat16>(form, x, q, sc, out, scr, xq, sxp, M, K, N, s_f16,
-                                          off, ksplit, bm, ctas, st)
-             : launch_form<float>(form, x, q, sc, out, scr, xq, sxp, M, K, N, s_f16, off,
-                                  ksplit, bm, ctas, st);
+      x_bf16 ? launch_form<__nv_bfloat16>(form, x, q, sc, out, xq, sxp, M, K, N, s_f16, off, bm,
+                                          ctas, st)
+             : launch_form<float>(form, x, q, sc, out, xq, sxp, M, K, N, s_f16, off, bm, ctas,
+                                  st);
+  return (int)rc;
+}
+
+// M <= 8, one launch: x, q, sc, out and off as above; grid (ctas, ks): ks
+// splits of K in whole 32-groups, ctas CTAs a split, each over the tiles
+// of kSmallCols columns b, b + ctas, ... (ctas at most the tiles); with ks > 1
+// partial float32 (ks, M, N) and tickets uint32, one per tile (at most 4096),
+// zero at the launch and left at zero.
+extern "C" int qa_quant_matmul_int8_small(const void* x, const void* q, const void* sc,
+                                          void* out, void* partial, void* tickets, int M, int K,
+                                          int N, int x_bf16, int s_f16, int form, int off,
+                                          int ks, int ctas, void* stream) {
+  const int G = K / kGroup, T = (N + kSmallCols - 1) / kSmallCols;
+  if (M < 1 || M > 8 || K < kGroup || K % kGroup || N < 16 || N % 16 || form < kStrided ||
+      form > kWords || (off != 0 && off != 8) || (form == kStrided && off != 0) || ks < 1 ||
+      ks > G || ks > 65535 || ctas < 1 || ctas > T ||
+      (ks > 1 && (partial == nullptr || tickets == nullptr || T > 4096)) ||
+      small_smem(M, (G + ks - 1) / ks) > kSmallSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  unsigned int* tk = static_cast<unsigned int*>(tickets);
+  const cudaError_t rc =
+      x_bf16 ? launch_small_form<__nv_bfloat16>(form, x, q, sc, s_f16, pp, tk, out, M, K, N, off,
+                                                ks, ctas, st)
+             : launch_small_form<float>(form, x, q, sc, s_f16, pp, tk, out, M, K, N, off, ks,
+                                        ctas, st);
   return (int)rc;
 }

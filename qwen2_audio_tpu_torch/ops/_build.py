@@ -73,9 +73,12 @@ SIGNATURES = {
     "quant_matmul_int8": {
         # x, xq, sx, M, K, x_bf16, layout (0 int8; 1, 2 the M > 8 tile's), stream
         "qa_quantize_q8_1": [P] * 3 + [I] * 4 + [P],
-        # x, q, scales, out, scratch, xq, sx_t, M, K, N, x_bf16, s_f16, form,
-        # off, ksplit, bm, ctas, stream
-        "qa_quant_matmul_int8": [P] * 7 + [I] * 10 + [P],
+        # M > 8: x, q, scales, out, xq, sx_t, M, K, N, x_bf16, s_f16, form,
+        # off, bm, ctas, stream
+        "qa_quant_matmul_int8": [P] * 6 + [I] * 9 + [P],
+        # M <= 8: x, q, scales, out, partial, tickets, M, K, N, x_bf16,
+        # s_f16, form, off, ks, ctas, stream
+        "qa_quant_matmul_int8_small": [P] * 6 + [I] * 9 + [P],
     },
 }
 

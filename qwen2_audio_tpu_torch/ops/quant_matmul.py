@@ -403,7 +403,8 @@ def ticket_array(device: torch.device, stream: int, kind: str = "quant_matmul") 
     by a fill the graph replays before its first launch) and left at zero
     by each launch's last blocks. ``kind`` names the kernel that counts on
     it (the fast-mode K-split launches here, "fused_mlp" for the one-launch
-    SwiGLU's grid barrier and tile tickets), so that two kernels never share
+    SwiGLU's grid barrier and tile tickets, "quant_matmul_int8" for the
+    integer M <= 8 kernel's split tickets), so that two kernels never share
     an array. Launches on one stream, or in one graph, run one after
     another, so no two launches in flight at once share an array and no
     launch pays for zeroing one. An array lives as long as the process (16

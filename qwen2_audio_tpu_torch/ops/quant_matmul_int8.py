@@ -29,12 +29,15 @@ q4_0 stored with mins (-8 * d through the float32 group sums) differ by
 design.
 
 On the card the kernel is bound by the weight bytes at M <= 8 (a decode
-step; the quantization of x is fused into it). Above 8 rows a quantizing
+step, the beam's 5 rows, a verify's 8): one launch planned by
+``small_plan``, the group dots on int8 mma.sync, x quantized once a CTA and
+K range inside it, a K split's sums added by the last CTA of each tile
+(tickets from ``quant_matmul.ticket_array``). Above 8 rows a quantizing
 launch is followed by persistent TMA-fed tiles whose group dots run on f16
 wgmma (every operand and partial sum is an exact integer in f16 / float32),
 a launch planned by ``tile_plan``; the design notes are in the CUDA source.
-Its float32 sums run in another order than the plain
-version's, so the two agree to a tolerance, not bit for bit; two runs, a flat
+Both kernels' float32 sums run in another order than the plain version's,
+so the two agree to a tolerance, not bit for bit; two runs, a flat
 and a stacked entry on the same values, and the nibble-byte and int32-word
 forms of the same bytes give the same bits.
 
@@ -49,8 +52,9 @@ import torch
 import functools
 
 from qwen2_audio_tpu_torch.ops import _build
-from qwen2_audio_tpu_torch.ops.quant_matmul import (_SMALL_COLS, _SMALL_M, _layer, _nd,
-                                                    _with_mins, sm_count, split_k, unpack4)
+from qwen2_audio_tpu_torch.ops.quant_matmul import (_MAX_TICKETS, _SMALL_M, _layer, _nd,
+                                                    _with_mins, sm_count, ticket_array,
+                                                    unpack4)
 
 GROUP = 32
 _X_TYPES = (torch.float32, torch.bfloat16)
@@ -68,6 +72,24 @@ TILE_ROWS = (16, 32, 64, 128)
 TILE_FIXED = 32
 TILE_SLOTS = 7
 SMEM_LIMIT = 232448   # shared memory a block may use on sm_90
+# the M <= 8 kernel (qmm8_small_kernel): columns a lane owns (the 4 lanes
+# of a quad share them, 8 values of a group each; 8 quads a warp's tile),
+# warps of a CTA (each a quarter of its K range), CTAs an SM the registers
+# allow at M = 1 and above (the grid aims at as many, and counts on as
+# many keeping enough weight bytes in flight for an SM's share of the
+# bandwidth), the most K splits and 32-groups a split, what a CTA's
+# quantizing of x costs per group of its range and what a split's sums
+# cost per tile (writing them, the last CTA adding them), both in the time
+# of one tile-group of weight, and the most shared memory a CTA takes
+# without raising the limit. 16 columns a lane (a warp reads 128 bytes of a
+# byte row) and one group of int8 values in flight (two of nibbles) beat 8
+# columns two ahead and 4 columns four ahead on the H100.
+SMALL_LANE_COLS, SMALL_WARPS = 16, 4
+SMALL_COLS = 8 * SMALL_LANE_COLS
+SMALL_CTAS = {1: 4, 2: 3}
+SMALL_SPLITS, SMALL_GROUPS = 32, 128
+SMALL_QUANT, SMALL_MERGE = 0.25, 0.25
+SMALL_SMEM = 48 * 1024
 
 
 # --------------------------------------------------------------------------- #
@@ -264,6 +286,70 @@ def tile_plan(M: int, N: int, sms: int) -> dict:
     return {"bm": bm, "tiles": (mt, nt), "units": mt * nt, "ctas": min(mt * nt, sms)}
 
 
+def small_smem(M: int, groups: int) -> int:
+    """Shared memory of an M <= 8 CTA over a split of ``groups`` 32-groups:
+    the 4 warps' tile sums (M x SMALL_COLS float32 each), xq (M x 32 bytes
+    a group) and sx (M rounded up to even float32 a group)."""
+    return SMALL_WARPS * M * SMALL_COLS * 4 + groups * (M * 32 + (M + 1) // 2 * 2 * 4)
+
+
+@functools.lru_cache(maxsize=1024)
+def small_plan(M: int, K: int, N: int, sms: int) -> dict:
+    """The one launch of the M <= 8 kernel (qmm8_small_kernel) for x (M, K)
+    and a weight (K, N), from M, K, N and the SM count alone, so that the
+    flat and stacked entries and the three weight forms of one shape get
+    the same plan and the same bits. Grid (``ctas``, ``ksplit``): split s
+    takes the 32-groups ``k_ranges[s]`` of K (whole groups, in order, each
+    at most SMALL_GROUPS and, where K allows, at least one a warp); CTA (p,
+    s) quantizes its split's x once and then walks the tiles of SMALL_COLS
+    columns p, p + ctas, ... (``tiles_per_cta`` at most, ``small_tiles``).
+    The split count minimises a reckoned time: the busiest CTA's
+    tile-groups, slowed where more CTAs are at work than SMALL_CTAS an SM,
+    plus its quantizing of x and, with splits, the writing and adding of
+    each tile's split sums; ties go to fewer splits.
+    With ``ksplit`` > 1 the wrapper allocates ``partial`` (ks, M, N)
+    float32 and takes ``tickets`` counters (one a tile) from the stream's
+    ticket array. ``smem``: a CTA's shared memory (``small_smem``)."""
+    if not 1 <= M <= _SMALL_M or K < GROUP or K % GROUP or N < 16 or N % 16 or sms < 1:
+        raise ValueError(f"small_plan: M in 1..{_SMALL_M}, K a multiple of {GROUP} and N of "
+                         f"16, got M={M}, K={K}, N={N} on {sms} SMs")
+    G, T = K // GROUP, -(-N // SMALL_COLS)
+    lo = -(-G // SMALL_GROUPS)
+    hi = max(lo, min(SMALL_SPLITS, G // SMALL_WARPS)) if T <= _MAX_TICKETS else lo
+    if lo > 1 and T > _MAX_TICKETS:
+        raise ValueError(f"small_plan: N={N} with K={K} needs {lo} splits of {T} tiles (at "
+                         f"most {_MAX_TICKETS})")
+    best, cps = None, SMALL_CTAS[min(M, 2)]
+    for ks in range(lo, hi + 1):
+        ctas = min(T, max(1, cps * sms // ks))
+        per = -(-T // ctas)
+        ctas = -(-T // per)
+        gs = -(-G // ks)
+        cost = (per * gs * max(1.0, ctas * ks / (cps * sms)) + SMALL_QUANT * gs
+                + (SMALL_MERGE * per * ks if ks > 1 else 0.0))
+        if best is None or cost < best[0]:
+            best = (cost, ks, ctas, per)
+    _, ks, ctas, per = best
+    return {"kernel": "small", "grid": (ctas, ks), "ctas": ctas, "ksplit": ks,
+            "k_ranges": [(s * G // ks * GROUP, (s + 1) * G // ks * GROUP) for s in range(ks)],
+            "tiles": T, "tiles_per_cta": per, "tickets": T if ks > 1 else 0,
+            "smem": small_smem(M, -(-G // ks)),
+            "buffers": {"partial": ((ks, M, N), torch.float32)} if ks > 1 else {}}
+
+
+def small_tiles(plan: dict, p: int) -> list[int]:
+    """The tiles (of SMALL_COLS columns) CTA p of a split walks, in order."""
+    return list(range(p, plan["tiles"], plan["ctas"]))
+
+
+def small_warp_groups(plan: dict, s: int, w: int) -> tuple[int, int]:
+    """The 32-groups [a, b) of K that warp w of a split-s CTA takes in every
+    tile: the w-th quarter of the split's, rounded down at both ends."""
+    a, b = (k // GROUP for k in plan["k_ranges"][s])
+    n = b - a
+    return a + w * n // SMALL_WARPS, a + (w + 1) * n // SMALL_WARPS
+
+
 def cta_units(plan: dict, b: int) -> list[tuple[int, int]]:
     """The units CTA b of a "wgmma" plan walks, in order, as (m tile, n
     tile)."""
@@ -274,10 +360,11 @@ def cta_units(plan: dict, b: int) -> list[tuple[int, int]]:
 def launch_plan(name: str, x, q, sc, sms: int) -> dict:
     """The kernel's launch for x (M, K) and a weight (K, N) of one form, from
     shapes, types and addresses alone (no device is touched): which kernel
-    (``"small"`` at M <= 8, x quantized inside it; ``"wgmma"`` above, after
-    the quantizing launch), its grid, the K split (above 8 rows none), the
-    buffers the wrapper allocates by name (shape and type): the float32
-    partial sums of a split, or xq (M, K) as float16 values and sx
+    (``"small"`` at M <= 8, ``small_plan``'s one launch, x quantized inside
+    it; ``"wgmma"`` above, after the quantizing launch), its grid, the K
+    split (above 8 rows none), the buffers the wrapper allocates by name
+    (shape and type): the float32 partial sums of a split, or xq (M, K) as
+    float16 values and sx
     transposed (K / 32, M rounded up to 16: whole 16-row blocks, the tile's
     order inside each, ``tile_activations_plain``); and above 8 rows
     ``tile_plan``'s rows a unit, tiles, units and CTAs with ``tile_ring``'s
@@ -296,10 +383,7 @@ def launch_plan(name: str, x, q, sc, sms: int) -> dict:
             raise ValueError(f"{name}: every input must be contiguous, 16-byte aligned "
                              f"and on {x.device}")
     if M <= _SMALL_M:
-        ksplit = split_k(M, K, N, sms)
-        bufs = {"scratch": ((ksplit, M, N), torch.float32)} if ksplit > 1 else {}
-        return {"kernel": "small", "grid": (-(-N // _SMALL_COLS), ksplit), "M": M, "K": K,
-                "N": N, "ksplit": ksplit, "buffers": bufs}
+        return {**small_plan(M, K, N, sms), "M": M, "K": K, "N": N}
     tp = tile_plan(M, N, sms)
     form = next(f for f, (dt, _) in _FORMS.items() if dt == q.dtype)
     ring, smem = tile_ring(tp["bm"], form)
@@ -322,12 +406,18 @@ def _launch(name: str, x, q, sc, form: int, off: int) -> torch.Tensor:
 
     lib = _build.library("quant_matmul_int8")
     with torch.cuda.device(dev):
-        rc = lib.qa_quant_matmul_int8(
-            x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("scratch"),
-            ptr("xq"), ptr("sx_t"), M, K, N, int(x.dtype == torch.bfloat16),
-            int(sc.dtype == torch.float16), form, off, plan["ksplit"], plan.get("bm", 0),
-            plan["grid"][0] if plan["kernel"] == "wgmma" else 0,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        types = (int(x.dtype == torch.bfloat16), int(sc.dtype == torch.float16), form, off)
+        if plan["kernel"] == "small":
+            tickets = (ticket_array(dev, stream, kind="quant_matmul_int8").data_ptr()
+                       if plan["ksplit"] > 1 else None)
+            rc = lib.qa_quant_matmul_int8_small(
+                x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("partial"),
+                tickets, M, K, N, *types, plan["ksplit"], plan["ctas"], stream)
+        else:
+            rc = lib.qa_quant_matmul_int8(
+                x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), ptr("xq"),
+                ptr("sx_t"), M, K, N, *types, plan["bm"], plan["ctas"], stream)
     _build.check(rc, name)
     return out
 

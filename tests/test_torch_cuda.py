@@ -1002,9 +1002,9 @@ def _int8_into(device, x, q, sc, form, off, out):
             for k, (shape, dt) in plan["buffers"].items()}
     M, K = x.shape
     rc = _build.library("quant_matmul_int8").qa_quant_matmul_int8(
-        x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), None, bufs["xq"].data_ptr(),
+        x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), bufs["xq"].data_ptr(),
         bufs["sx_t"].data_ptr(), M, K, q.shape[1], int(x.dtype == torch.bfloat16),
-        int(sc.dtype == torch.float16), form, off, 1, plan["bm"], plan["grid"][0],
+        int(sc.dtype == torch.float16), form, off, plan["bm"], plan["grid"][0],
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     return plan
@@ -1692,3 +1692,112 @@ def test_rpc_round_trip_on_card(device, tmp_path):
     assert ref.device.type == "cuda"
     np.testing.assert_array_equal(emb, ref.state.embd_enc.cpu().numpy())
     assert fp == ref.print_emb_enc()
+
+
+# the M <= 8 integer kernel's edges: N a multiple of 16 and not of the
+# 128-column tile (1296 = 10 x 128 + 16), K a multiple of 32 and not of the
+# plan's split (1312 = 41 groups, a prime count)
+_SMALL_K, _SMALL_N = 1312, 1296
+
+
+def _small_inputs(device, M, xdt, sdt, seed):
+    w8 = chip_smoke._rand_blocks(device, _SMALL_K, _SMALL_N, "q8_0", seed=seed, layers=2)
+    w4 = chip_smoke._rand_blocks(device, _SMALL_K, _SMALL_N, "q4_0", seed=seed + 1, layers=2)
+    x = torch.randn(M, _SMALL_K, generator=torch.Generator(device=device).manual_seed(seed + 2),
+                    device=device).to(xdt)
+    return x, w8["qs"], w8["scales"].to(sdt), w4["qs4"], w4["scales"].to(sdt)
+
+
+@pytest.mark.parametrize("sdt", [torch.float16, torch.float32])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", range(1, 9))
+def test_int8_small_every_row_count_form_and_type(device, M, xdt, sdt):
+    """The one-launch M <= 8 kernel at every M from 1 to 8, bf16 and
+    float32 x, float16 and float32 scales, ragged N and K split unevenly:
+    int8 values, nibble bytes with off 8 and 0, and int32 words, each within
+    phase 2's tolerance of its plain version; two runs bit-equal, the flat
+    entry bit-equal to the stacked one, the words bit-equal to the nibble
+    bytes with off 8."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    x, q8, s8, q4, s4 = _small_inputs(device, M, xdt, sdt, 70 + M)
+    plan = t8.launch_plan("t", x, q8[1], s8[1], tqm.sm_count(device))
+    assert plan["kernel"] == "small" and plan["ksplit"] > 1 and 41 % plan["ksplit"]
+    before = t8.quant_matmul_int8_stacked.launches
+    cases = [
+        (lambda: t8.quant_matmul_int8_stacked(x, q8, s8, 1),
+         t8.quant_matmul_int8_plain(x, q8[1], s8[1])),
+        (lambda: t8.quant_matmul_int8_stacked(x, q4, s4, 1, off=8),
+         t8.quant_matmul_int8_packed_plain(x, q4[1], s4[1], off=8)),
+        (lambda: t8.quant_matmul_int8_stacked(x, q4, s4, 1, off=0),
+         t8.quant_matmul_int8_packed_plain(x, q4[1], s4[1], off=0)),
+    ]
+    outs = []
+    for run, want in cases:
+        got = run()
+        assert got.shape == (M, _SMALL_N) and got.dtype == xdt
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got.float() - want.float()).abs() <= _qmm_tol(want, xdt)).all())
+        assert torch.equal(got, run())
+        outs.append(got)
+    assert t8.quant_matmul_int8_stacked.launches == before + 2 * len(cases)
+    assert torch.equal(outs[0], t8.quant_matmul_int8(x, q8[1], s8[1]))
+    words = tb.quant_matmul_q4b_stacked(x, tb.pack_b32(q4), s4, 1)
+    assert torch.equal(words, outs[1])
+
+
+@pytest.mark.parametrize("M", [1, 5, 8])
+def test_int8_small_replays_in_a_graph_bit_equal(device, M):
+    """The three forms of the M <= 8 kernel captured in one CUDA graph (its
+    split's tickets on the capture's own array): every replay bit-equal to
+    the eager calls, and every ticket back at 0 after the launches."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    from qwen2_audio_tpu_torch.ops import quant_matmul_q4b as tb
+    x, q8, s8, q4, s4 = _small_inputs(device, M, torch.bfloat16, torch.float16, 90 + M)
+    words = tb.pack_b32(q4)
+
+    def calls():
+        return (t8.quant_matmul_int8_stacked(x, q8, s8, 1),
+                t8.quant_matmul_int8_stacked(x, q4, s4, 1, off=8),
+                tb.quant_matmul_q4b_stacked(x, words, s4, 1))
+
+    eager = calls()
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    tickets = tqm.ticket_array(device, stream.cuda_stream, kind="quant_matmul_int8")
+    assert int(tickets.abs().sum()) == 0
+    side = torch.cuda.Stream()
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        calls()
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(outs, eager))
+    assert torch.equal(outs[1], outs[2])
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_int8_small_on_two_streams_is_bit_equal(device):
+    """The K-split M = 8 kernel launched many times on two streams at once,
+    queued behind a sleep on each (each stream's launches count on its own
+    ticket array): every output equals the single-stream one."""
+    from qwen2_audio_tpu_torch.ops import quant_matmul_int8 as t8
+    x, q8, s8, _, _ = _small_inputs(device, 8, torch.bfloat16, torch.float16, 99)
+    want = t8.quant_matmul_int8_stacked(x, q8, s8, 1)
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(int(1e8))
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(t8.quant_matmul_int8_stacked(x, q8, s8, 1))
+    torch.cuda.synchronize()
+    assert len(outs) == 32 and all(torch.equal(o, want) for o in outs)

@@ -152,15 +152,18 @@ def test_dequantizing_plan_of_panels_reads_the_panel_width():
 
 @pytest.mark.parametrize("M,kernel", [(1, "small"), (9, "wgmma"), (1500, "wgmma")])
 def test_integer_plan_picks_the_kernel_and_buffers(M, kernel):
-    """Above 8 rows, one persistent CTA an SM up to the unit count, over
-    units of tile_plan's rows by 128 weight columns, no K split; xq as f16
-    values and sx transposed in whole 16-row blocks."""
+    """At M <= 8 the one-launch kernel of small_plan, its split sums in a
+    float32 (ks, M, N) buffer; above 8 rows, one persistent CTA an SM up to
+    the unit count, over units of tile_plan's rows by 128 weight columns, no
+    K split; xq as f16 values and sx transposed in whole 16-row blocks."""
     K, N = 1312, 1296
     q, sc = _weight(K, N)
     plan = q8.launch_plan("t", torch.zeros(M, K, dtype=torch.bfloat16), q, sc, SMS)
     assert plan["kernel"] == kernel
     if kernel == "small":
-        assert plan["buffers"] == {"scratch": ((5, 1, N), torch.float32)}
+        small = q8.small_plan(M, K, N, SMS)
+        assert {k: plan[k] for k in small} == small and small["ksplit"] > 1
+        assert plan["buffers"] == {"partial": ((small["ksplit"], 1, N), torch.float32)}
     else:
         bm = plan["bm"]
         assert plan["tiles"] == (-(-M // bm), -(-N // 128)) and plan["ksplit"] == 1
